@@ -11,11 +11,13 @@ Phases, in order; any failure ends the run with a non-zero exit and
 without the final result line:
 
 1. device — the card's name and power limit; TF32 off.
-2. build  — nvcc builds every CUDA kernel of the serving path.
-3. kernel — each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at edge cases (stated tolerances), then
-   timed with CUDA events beside its plain version, one PyTorch library
-   call as a yardstick (never used by the port) and its roofline bound.
+2. build  — nvcc builds every CUDA kernel of the port (one process per
+   source, all started together).
+3. kernel — each kernel (flash forward, flash backward dK/dV and dQ)
+   against its plain PyTorch version on the card, at the main paths'
+   shapes and at edge cases (stated tolerances), then timed with CUDA
+   events beside its plain version, one PyTorch library call as a
+   yardstick (never used by the port) and its roofline bound.
 4. slice  — GPT-2-small (published widths, seeded random weights in the
    JAX package's layout, loaded through ``interop.params_from_jax``)
    served by ``ServeEngine`` + ``ContinuousBatchingScheduler`` over 16
@@ -24,6 +26,12 @@ without the final result line:
 5. profile — where a prefill step and a decode step spend their time: the
    host clock, the card's busy share and its largest kernels
    (torch.profiler).
+6. train  — GPT-2-small at ``bench.py`` ``bench_gpt``'s width and shape
+   (B 16, S 1024, bf16, flash, recomputation, fused CE, AdamW): the kernel
+   path's loss and every gradient against the plain path's on one batch,
+   then 10 ``Executor.run("train")`` steps on one seeded batch (finite,
+   falling loss; 2·L flash forwards and L of each backward kernel a step),
+   step time, tokens/s, MFU, peak memory and one profiled step.
 
 The last three lines of standard output are the card's name and power
 limit (as nvidia-smi gives them), the kernel report
@@ -36,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -64,6 +73,41 @@ TOL_LSE = 1e-4
 # model: twelve layers of bf16 rounding at different points (the plain
 # composition normalises before rounding the probabilities)
 TOL_LOGITS = 5e-2
+# backward kernels vs the plain backward, dQ/dK/dV, as (ATOL, ATOL_ROW,
+# RTOL): each element passes when |d| <= ATOL * max|ref| + ATOL_ROW *
+# max|ref row| + RTOL * |ref|, where the row is the element's own output
+# row (its query for dQ, its key for dK and dV).  ATOL is a floor for rows
+# that are rounding noise (the first query's dQ is exactly zero in exact
+# arithmetic, since dP_00 = delta_0 there).  A bound in absolute units
+# alone cannot serve: along a causal sequence the gradients shrink (with
+# randn inputs and scale 1/8, p_ij is about 1/i, so the rms of dK_j and
+# dV_j is about sqrt(2.7 (1/j - 1/S)): 0.013 at j = 960 of 1024, while the
+# first rows reach a few units), and a bound that spares the first rows
+# waves through errors in the last tiles of the size of their values.
+# Both versions round p and dS to the input type at the same points
+# and sum in f32, so in f32 only the order of the sums may differ (2^-24
+# per term; 1e-5 is a hundredfold margin).  In bf16 a sum summed in
+# another order may land one ulp away when rounded to bf16 once at the end
+# (one ulp is at most 2^-7 of the value), and a p or dS next to a rounding
+# boundary may flip by one ulp, which moves an element near zero by about
+# 2^-8 of its row's size.  The floors, 2^-16 (bf16) and 1e-6 (f32) of the
+# largest element, stay far below the last tiles' values.
+TOL_D = {torch.bfloat16: (2 ** -16, 2 ** -8, 2 ** -7),
+         torch.float32: (1e-6, 1e-5, 1e-5)}
+# training step, kernel path vs plain path (attention_impl="xla") on one
+# batch of the bf16 model.  The paths round at other points: the flash
+# forward rounds p against the running max, the plain path the normalised
+# probabilities; the plain backward rounds dP (a bf16 product) where the
+# kernels keep it in f32 and round dS.  Sound kernels read a loss gap of
+# 5.2e-5 and gradients within 1.22e-2 of each parameter's largest element
+# on an H100 (seed 0); the limits leave a margin of 20 and of 2.5 over
+# those readings.  The script also prints the gap between the plain bf16
+# path and an f32 model: the size of a difference in bf16 rounding alone.
+TOL_TRAIN_LOSS = 1e-3
+TOL_TRAIN_GRAD = 3e-2  # max |dG| <= TOL_TRAIN_GRAD * max |G_plain|
+
+# the training phase's shape: bench.py bench_gpt
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 16, 1024, 10, 1e-4
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_S = 989e12    # dense bf16 tensor cores, H100 SXM data sheet
@@ -107,17 +151,33 @@ def device_ms(fn, runs: int = 60, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def flash_bound(b, h, s_q, s_k, d, causal, elem_bytes=2):
-    """Least time (ms) an H100 could take for the flash forward on these
+def flash_bound(b, h, s_q, s_k, d, causal, elem_bytes=2, kernel="fwd"):
+    """Least time (ms) an H100 could take for one flash kernel on these
     shapes: each input read once, each output written once, against the
-    operations the causal mask leaves (two products of 2*D per visible
-    (query, key) pair)."""
+    operations the causal mask leaves, per visible (query, key) pair:
+
+    * ``fwd``: two products of 2*D (q.k, p.v); reads q, k, v; writes O
+      and the f32 LSE;
+    * ``dkdv``: four (q.k, dO.v, p^T.dO, dS^T.q), 8*D; reads q, k, v, dO
+      and the f32 LSE and delta; writes dK and dV;
+    * ``dq``: three (q.k, dO.v, dS.k), 6*D; the same reads; writes dQ.
+    """
     if causal:
         pairs = sum(min(max(i + s_k - s_q + 1, 0), s_k) for i in range(s_q))
     else:
         pairs = s_q * s_k
-    flops = 4 * d * pairs * b * h
-    nbytes = (2 * s_q + 2 * s_k) * b * h * d * elem_bytes + b * h * s_q * 4
+    bh = b * h
+    if kernel == "fwd":
+        flops = 4 * d * pairs * bh
+        nbytes = (2 * s_q + 2 * s_k) * bh * d * elem_bytes + bh * s_q * 4
+    else:
+        reads = (2 * s_q + 2 * s_k) * bh * d * elem_bytes + 2 * bh * s_q * 4
+        if kernel == "dkdv":
+            flops, nbytes = 8 * d * pairs * bh, reads + 2 * s_k * bh * d \
+                * elem_bytes
+        else:
+            flops, nbytes = 6 * d * pairs * bh, reads + s_q * bh * d \
+                * elem_bytes
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOP_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -166,6 +226,8 @@ def phase_kernel(card):
         for s in (16, 32, 64, 128, 256, 512):
             cases.append((dtype, (1, NH, s, HEAD_DIM), s, True, "main"))
         cases += [
+            (dtype, (TRAIN_B, NH, TRAIN_S, HEAD_DIM), TRAIN_S, True,
+             "train"),
             (dtype, (2, NH, 128, HEAD_DIM), 128, False, "full"),
             (dtype, (1, NH, 64, HEAD_DIM), 256, True, "cross S_q<S_k"),
             (dtype, (1, NH, 100, HEAD_DIM), 100, True, "ragged"),
@@ -173,7 +235,7 @@ def phase_kernel(card):
             (dtype, (1, NH, 128, HEAD_DIM), 64, True, "S_q>S_k"),
             (dtype, (1, 2, 48, 128), 48, True, "D=128"),
         ]
-    max_err_main = 0.0
+    max_err_train = None  # reported beside the timings at the same shape
     with torch.inference_mode():
         for dtype, shape, s_k, causal, tag in cases:
             q, k, v = _qkv(shape, s_k, dtype, gen)
@@ -199,29 +261,147 @@ def phase_kernel(card):
                   + f" {'ok' if ok else 'FAIL'}")
             check(ok, f"flash_attention disagrees with its plain version "
                       f"({tag}, {dtype}, q{tuple(shape)}, S_k={s_k})")
-            if tag == "main" and dtype == torch.bfloat16:
-                max_err_main = max(max_err_main, err_o)
+            if tag == "train" and dtype == torch.bfloat16:
+                max_err_train = err_o
 
         timings = {}
-        for s in (128, 512):
-            q, k, v = _qkv((1, NH, s, HEAD_DIM), s, torch.bfloat16, gen)
-            ms = device_ms(lambda: flash_attention(q, k, v, causal=True))
+        for b, s in ((1, 128), (1, 512), (TRAIN_B, TRAIN_S)):
+            q, k, v = _qkv((b, NH, s, HEAD_DIM), s, torch.bfloat16, gen)
+            runs = 60 if b == 1 else 20
+            ms = device_ms(lambda: flash_attention(q, k, v, causal=True),
+                           runs)
             plain_ms = device_ms(
-                lambda: flash_attention_plain(q, k, v, causal=True))
+                lambda: flash_attention_plain(q, k, v, causal=True), runs)
             lib_ms = device_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=True))
-            bound_ms, bound_by = flash_bound(1, NH, s, s, HEAD_DIM, True)
-            timings[s] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              bound_ms=bound_ms, bound_by=bound_by)
-            print(f"[kernel] flash_attention bf16 causal q(1,{NH},{s},"
+                    q, k, v, is_causal=True), runs)
+            bound_ms, bound_by = flash_bound(b, NH, s, s, HEAD_DIM, True)
+            timings[(b, s)] = dict(ms=ms, plain_ms=plain_ms,
+                                   library_ms=lib_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by)
+            print(f"[kernel] flash_attention bf16 causal q({b},{NH},{s},"
                   f"{HEAD_DIM}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
                   f"ms, library (SDPA, yardstick only) {lib_ms:.4f} ms, "
                   f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
-    return max_err_main, timings
+    return max_err_train, timings
 
 
-def jax_layout_weights(seed: int) -> dict:
+def grad_tolerance_share(got, ref):
+    """The largest share of its tolerance (``TOL_D``) that any element of
+    ``got`` uses against ``ref`` (both ``[..., rows, D]``): at most 1
+    passes.  Where ``ref`` is all zero, ``got`` must be too."""
+    atol, atol_row, rtol = TOL_D[ref.dtype]
+    r = ref.float().abs()
+    diff = (got.float() - ref.float()).abs()
+    tol = atol * r.max() + atol_row * r.amax(-1, keepdim=True) + rtol * r
+    share = torch.where(tol > 0, diff / tol.clamp_min(torch.finfo(
+        torch.float32).tiny), torch.where(diff > 0, float("inf"), 0.0))
+    return share.max().item()
+
+
+def _bwd_inputs(shape_q, s_k, dtype, causal, gen):
+    """q, k, v, dO, and the LSE and delta the forward pass gives them."""
+    from hetu_tpu_torch.ops.cuda_kernels.flash_attention import (
+        flash_attention_plain,
+    )
+    q, k, v = _qkv(shape_q, s_k, dtype, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda",
+                     dtype=torch.float32).to(dtype)
+    o, lse = flash_attention_plain(q, k, v, causal=causal)
+    b, h, s_q, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).reshape(b * h, s_q, 1)
+    return q, k, v, do, lse, delta
+
+
+def phase_kernel_bwd(card):
+    """The two backward kernels against the plain backward, at the
+    training step's shape and at edge cases, then timed at that shape."""
+    from hetu_tpu_torch.ops.cuda_kernels.flash_attention import (
+        flash_attention_bwd_dkdv, flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    main = (TRAIN_B, NH, TRAIN_S, HEAD_DIM)
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        cases += [
+            (dtype, main, TRAIN_S, True, "main"),
+            (dtype, (2, NH, 128, HEAD_DIM), 128, False, "full"),
+            (dtype, (1, NH, 64, HEAD_DIM), 256, True, "cross S_q<S_k"),
+            (dtype, (1, NH, 128, HEAD_DIM), 64, True, "S_q>S_k"),
+            (dtype, (1, NH, 100, HEAD_DIM), 100, True, "ragged"),
+            (dtype, (1, NH, 100, HEAD_DIM), 100, False, "ragged full"),
+            (dtype, (1, 2, 48, 128), 48, True, "D=128"),
+            (dtype, (1, 2, 40, 32), 72, True, "D=32 ragged"),
+        ]
+    max_err = {}
+    with torch.no_grad():
+        for dtype, shape, s_k, causal, tag in cases:
+            args = _bwd_inputs(shape, s_k, dtype, causal, gen)
+            dk, dv = flash_attention_bwd_dkdv(*args, causal=causal)
+            dq = flash_attention_bwd_dq(*args, causal=causal)
+            want = flash_attention_bwd_plain(*args, causal=causal)
+            torch.cuda.synchronize()
+            ok, errs, shares = True, {}, {}
+            for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                      want):
+                errs[name] = (got.float() - ref.float()).abs().max().item()
+                shares[name] = grad_tolerance_share(got, ref)
+                ok = ok and got.dtype == ref.dtype \
+                    and bool(torch.isfinite(got).all()) \
+                    and shares[name] <= 1.0
+            masked = shape[2] - s_k if causal and shape[2] > s_k else 0
+            if masked:  # rows that see no key give dQ = 0 exactly
+                ok = ok and not dq[:, :, :masked].any() \
+                    and not want[0][:, :, :masked].any()
+            atol, atol_row, rtol = TOL_D[dtype]
+            print(f"[kernel] flash_attention_bwd {str(dtype)[6:]:8s} "
+                  f"{tag:14s} q{tuple(shape)} S_k={s_k} causal={causal}: "
+                  + " ".join(f"max|{n}|={e:.3e}" for n, e in errs.items())
+                  + f" (tol {atol:g}*max|ref| + {atol_row:g}*max|ref row| "
+                  f"+ {rtol:g}*|ref|; share "
+                  f"of tol used " + " ".join(
+                      f"{n} {s:.3g}" for n, s in shares.items()) + ")"
+                  + (f" zero dQ rows={masked}" if masked else "")
+                  + f" {'ok' if ok else 'FAIL'}")
+            check(ok, f"flash backward kernels disagree with the plain "
+                      f"backward ({tag}, {dtype}, q{tuple(shape)}, "
+                      f"S_k={s_k})")
+            if tag == "main" and dtype == torch.bfloat16:
+                max_err = {"dkdv": max(errs["dk"], errs["dv"]),
+                           "dq": errs["dq"]}
+
+        args = _bwd_inputs(main, TRAIN_S, torch.bfloat16, True, gen)
+        timings = {
+            "dkdv": device_ms(lambda: flash_attention_bwd_dkdv(
+                *args, causal=True), 20),
+            "dq": device_ms(lambda: flash_attention_bwd_dq(
+                *args, causal=True), 20)}
+        plain_ms = device_ms(lambda: flash_attention_bwd_plain(
+            *args, causal=True), 20)
+    # the yardstick: SDPA's backward alone, on the same q, k, v and dO
+    q, k, v, do = (t.detach().requires_grad_(i < 3)
+                   for i, t in enumerate(args[:4]))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=True)
+    lib_ms = device_ms(lambda: torch.autograd.grad(
+        out, (q, k, v), do, retain_graph=True), 20)
+    report = {}
+    for name in ("dkdv", "dq"):
+        bound_ms, bound_by = flash_bound(*main[:2], TRAIN_S, TRAIN_S,
+                                         HEAD_DIM, True, kernel=name)
+        report[name] = dict(ms=timings[name], plain_ms=plain_ms,
+                            library_ms=lib_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, max_abs_err=max_err[name])
+        print(f"[kernel] flash_attention_bwd_{name} bf16 causal q{main}: "
+              f"kernel {timings[name]:.4f} ms, plain backward (dQ, dK, dV "
+              f"together) {plain_ms:.4f} ms, library (SDPA backward, "
+              f"yardstick only) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}) [{card}]")
+    return report
+
+
+def jax_layout_weights(seed: int, max_position: int = MAX_LEN) -> dict:
     """GPT-2-small parameters in the JAX package's layout and with its
     initialisers: normal(0.02) embeddings, Xavier-uniform MHA and Linear
     weights (``[in, out]``, stacked ``[L, ...]``), zero biases, unit
@@ -238,7 +418,7 @@ def jax_layout_weights(seed: int) -> dict:
     z = lambda *shape: np.zeros(shape, np.float32)
     o = lambda *shape: np.ones(shape, np.float32)
     return {
-        "tok_emb": normal(V, H), "pos_emb": normal(MAX_LEN, H),
+        "tok_emb": normal(V, H), "pos_emb": normal(max_position, H),
         "blocks": {
             "attn": {"qkv_weight": xavier(L, H, 3 * H),
                      "qkv_bias": z(L, 3 * H),
@@ -261,7 +441,9 @@ def phase_slice(card, seed, device="cuda"):
     from hetu_tpu_torch import interop
     from hetu_tpu_torch.layers import MultiHeadAttention
     from hetu_tpu_torch.models import GPTConfig, GPTModel
-    from hetu_tpu_torch.ops.cuda_kernels import flash_attention
+    from hetu_tpu_torch.ops.cuda_kernels import (
+        flash_attention, flash_attention_bwd_dkdv, flash_attention_bwd_dq,
+    )
     from hetu_tpu_torch.serve import (
         ContinuousBatchingScheduler, Request, ServeEngine, ServeMetrics,
     )
@@ -295,13 +477,16 @@ def phase_slice(card, seed, device="cuda"):
     metrics = ServeMetrics()
     sched = ContinuousBatchingScheduler(engine, metrics=metrics)
     tracer = trace.enable()
-    flash_attention.launches = 0  # count the main path's launches only
+    counters = (flash_attention, flash_attention_bwd_dkdv,
+                flash_attention_bwd_dq)
+    for c in counters:  # count the main path's launches only
+        c.launches = 0
     _sync(device)
     t0 = time.perf_counter()
     sched.run(requests)
     _sync(device)
     wall = time.perf_counter() - t0
-    launches = flash_attention.launches
+    launches, bwd_dkdv, bwd_dq = (c.launches for c in counters)
     trace.disable()
 
     prefills = [e for e in tracer.events if e["name"] == "serve.prefill"]
@@ -318,6 +503,7 @@ def phase_slice(card, seed, device="cuda"):
     check(len(prefills) == N_REQUESTS, "one prefill per request expected")
     check(launches == L * len(prefills) > 0,
           "flash_attention launches != layers x prefills")
+    check(bwd_dkdv == bwd_dq == 0, "serving launched a backward kernel")
 
     n_tok = sum(len(r.tokens) for r in requests)
     snap = metrics.snapshot()
@@ -419,25 +605,192 @@ def phase_profile(engine, card, steps=20):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run(step)
-        iv = _device_intervals(prof)
-        if not iv:
-            print(f"[profile] {name}: device time not measured (the "
-                  f"profiler recorded no kernel) [{card}]")
-            continue
-        busy = _busy_us(iv)
-        print(f"[profile] {name}: {wall_us[name] / steps / 1e3:.3f} ms a "
-              f"step on the host clock, card busy {busy / steps / 1e3:.3f} "
-              f"ms ({100 * busy / wall_us[name]:.1f} %), "
-              f"{len(iv) / steps:.0f} device ops a step [{card}]")
-        by_name = {}
-        for s, e, n in iv:
-            t, c = by_name.get(n, (0.0, 0))
-            by_name[n] = (t + e - s, c + 1)
-        for n, (t, c) in sorted(by_name.items(), key=lambda x: -x[1][0])[:8]:
-            print(f"[profile] {name}:   {100 * t / busy:5.1f} % of busy "
-                  f"{t / steps:8.1f} us a step x{c / steps:<5g} {_short(n)}")
+        _profile_table(prof, name, card, wall_us[name], steps)
     for s in slots:
         engine.release(s)
+
+
+def _profile_table(prof, tag, card, wall_us, steps=1):
+    """Print the card's busy share of ``wall_us`` (host time of ``steps``
+    unprofiled steps) and its 8 largest kernels; returns the busy share."""
+    iv = _device_intervals(prof)
+    if not iv:
+        print(f"[profile] {tag}: device time not measured (the profiler "
+              f"recorded no kernel) [{card}]")
+        return None
+    busy = _busy_us(iv)
+    print(f"[profile] {tag}: {wall_us / steps / 1e3:.3f} ms a step on the "
+          f"host clock, card busy {busy / steps / 1e3:.3f} ms "
+          f"({100 * busy / wall_us:.1f} %), {len(iv) / steps:.0f} device "
+          f"ops a step [{card}]")
+    by_name, by_kind = {}, {}
+    for s, e, n in iv:
+        t, c = by_name.get(n, (0.0, 0))
+        by_name[n] = (t + e - s, c + 1)
+        by_kind[_kind(n)] = by_kind.get(_kind(n), 0.0) + e - s
+    print(f"[profile] {tag}: split " + ", ".join(
+        f"{k} {t / steps / 1e3:.3f} ms ({100 * t / busy:.1f} %)"
+        for k, t in sorted(by_kind.items(), key=lambda x: -x[1])))
+    for n, (t, c) in sorted(by_name.items(), key=lambda x: -x[1][0])[:8]:
+        print(f"[profile] {tag}:   {100 * t / busy:5.1f} % of busy "
+              f"{t / steps:8.1f} us a step x{c / steps:<5g} {_short(n)}")
+    return busy / wall_us
+
+
+def _kind(kernel: str) -> str:
+    """The port's own kernels, cuBLAS's GEMMs, copies and fills, and the
+    rest (PyTorch's elementwise and reduction kernels)."""
+    if _short(kernel).startswith(("flash_fwd_kernel", "flash_bwd_")):
+        return "flash kernels"
+    if any(t in kernel for t in ("nvjet", "gemm", "xmma", "cutlass")):
+        return "GEMMs"
+    if any(t in kernel.lower() for t in ("copy", "memcpy", "memset")):
+        return "copies and fills"
+    return "other"
+
+
+def _gpt_flops_per_token(model, seq):
+    """bench.py's count: 6 x non-embedding params + 6 V H for the tied head
+    + 12 L H S for attention."""
+    c = model.c
+    n_params = sum(p.numel() for p in model.parameters())
+    n_nonemb = n_params - c.vocab_size * c.hidden_size \
+        - c.max_position * c.hidden_size
+    return (6 * n_nonemb + 6 * c.vocab_size * c.hidden_size
+            + 12 * c.num_layers * c.hidden_size * seq), n_params
+
+
+def phase_train(card, seed, device="cuda"):
+    """GPT-2-small training steps at bench_gpt's width and shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hetu_tpu_torch import interop
+    from hetu_tpu_torch.layers import MultiHeadAttention
+    from hetu_tpu_torch.models import GPTConfig, GPTModel
+    from hetu_tpu_torch.ops.cuda_kernels import (
+        flash_attention, flash_attention_bwd_dkdv, flash_attention_bwd_dq,
+    )
+    from hetu_tpu_torch.optim import AdamWOptimizer
+    from hetu_tpu_torch.train import Executor
+
+    cfg = GPTConfig(vocab_size=V, hidden_size=H, num_layers=L, num_heads=NH,
+                    ffn_size=FFN, max_position=TRAIN_S, dropout_rate=0.0,
+                    dtype=torch.bfloat16, attention_impl="flash", remat=True,
+                    fused_ce=True)
+    t0 = time.perf_counter()
+    model = GPTModel(cfg, device=device)
+    model.load_state_dict(interop.params_from_jax(
+        jax_layout_weights(seed, TRAIN_S), cfg))
+    g = np.random.default_rng(seed + 1)
+    batch = (torch.tensor(g.integers(0, V, (TRAIN_B, TRAIN_S)),
+                          device=device),)
+    _sync(device)
+    print(f"[train] GPT-2-small V={V} H={H} L={L} heads={NH} ffn={FFN} "
+          f"B={TRAIN_B} S={TRAIN_S} bf16 flash remat fused-CE AdamW"
+          f"({TRAIN_LR:g}): built in {time.perf_counter() - t0:.1f} s")
+
+    # the kernel path against the plain path, one batch, same weights
+    plain = copy.deepcopy(model)
+    for m in plain.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.attention_impl = "xla"
+
+    def loss_and_grads(m):
+        params = dict(m.named_parameters())
+        loss, _ = m.lm_loss_fn()(params, {}, batch, None, True)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return float(loss.detach()), dict(zip(params, grads))
+
+    loss_k, grads_k = loss_and_grads(model)
+    loss_p, grads_p = loss_and_grads(plain)
+    del plain
+    # the control: the same weights and batch through an f32 model (plain
+    # attention, no recomputation), whose gap to the plain bf16 path is
+    # what bf16 rounding alone moves the loss by
+    ref = GPTModel(dataclasses.replace(cfg, dtype=torch.float32,
+                                       attention_impl="xla", remat=False),
+                   device=device)
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        loss_f32 = float(ref.lm_loss_fn()(dict(ref.named_parameters()), {},
+                                          batch, None, False)[0])
+    del ref
+    check(np.isfinite(loss_k) and np.isfinite(loss_p), "a loss is not finite")
+    print(f"[train] kernel path vs plain path: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f}, |d|={abs(loss_k - loss_p):.3e} "
+          f"(tol {TOL_TRAIN_LOSS:g}); control, plain bf16 path vs f32 "
+          f"model: loss {loss_f32:.6f}, |d|={abs(loss_p - loss_f32):.3e}")
+    check(abs(loss_k - loss_p) <= TOL_TRAIN_LOSS,
+          "kernel path loss disagrees with the plain path")
+    ratios = {}
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        check(bool(torch.isfinite(gk).all()), f"gradient of {name} is not "
+                                              f"finite")
+        scale = gp.abs().max().item()
+        err = (gk - gp).abs().max().item()
+        ratios[name] = err / scale if scale > 0 else (0.0 if err == 0
+                                                      else float("inf"))
+    worst = sorted(ratios.items(), key=lambda x: -x[1])
+    print(f"[train] gradients of {len(ratios)} parameters: max|dG| / "
+          f"max|G_plain| <= {worst[0][1]:.3e} (tol {TOL_TRAIN_GRAD:g}); "
+          f"worst: " + ", ".join(f"{n} {r:.3e}" for n, r in worst[:3]))
+    check(worst[0][1] <= TOL_TRAIN_GRAD,
+          f"kernel path gradient of {worst[0][0]} disagrees with the plain "
+          f"path")
+    del grads_k, grads_p
+
+    ex = Executor(model.lm_loss_fn(), AdamWOptimizer(TRAIN_LR), seed=seed)
+    state = ex.init_state(model)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    counters = (flash_attention, flash_attention_bwd_dkdv,
+                flash_attention_bwd_dq)
+    for c in counters:  # count the main path's launches only
+        c.launches = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        _sync(device)
+        t0 = time.perf_counter()
+        state, met = ex.run("train", state, batch)
+        losses.append(float(met["loss"]))
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    launches = [c.launches for c in counters]
+    print(f"[train] losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    check(all(np.isfinite(losses)), "a training loss is not finite")
+    check(losses[-1] < losses[0], "the loss did not fall")
+    print(f"[train] launches in {TRAIN_STEPS} steps: flash_attention "
+          f"{launches[0]}, bwd_dkdv {launches[1]}, bwd_dq {launches[2]} "
+          f"(a step: {[n / TRAIN_STEPS for n in launches]}, expected "
+          f"[{2 * L}, {L}, {L}])")
+    check(launches == [2 * L * TRAIN_STEPS, L * TRAIN_STEPS,
+                       L * TRAIN_STEPS],
+          "the training step did not launch 2L forward and L of each "
+          "backward kernel a step")
+
+    step_s = statistics.median(times[1:])
+    fpt, n_params = _gpt_flops_per_token(model, TRAIN_S)
+    tokens = TRAIN_B * TRAIN_S
+    mfu = fpt * tokens / step_s / H100_BF16_FLOP_S
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[train] step median {step_s * 1e3:.3f} ms (steps 2-"
+          f"{TRAIN_STEPS}; first {times[0] * 1e3:.3f} ms), "
+          f"{tokens / step_s:.1f} tokens/s, MFU {100 * mfu:.2f} % "
+          f"({fpt * tokens / 1e12:.2f} TFLOP a step by bench.py's count, "
+          f"{n_params / 1e6:.1f} M params, over 989 TFLOP/s), peak "
+          f"{peak_gib:.2f} GiB allocated [{card}]")
+
+    # one profiled step
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, met = ex.run("train", state, batch)
+        float(met["loss"])
+        torch.cuda.synchronize()
+    busy = _profile_table(prof, "train step", card, step_s * 1e6)
+    return dict(launches=launches, step_ms=step_s * 1e3,
+                tokens_per_s=tokens / step_s, mfu=mfu, peak_gib=peak_gib,
+                busy_share=busy, losses=losses)
 
 
 def main(argv=None) -> int:
@@ -460,21 +813,36 @@ def main(argv=None) -> int:
     phase_device(card)
     phase_build()
     max_err, timings = phase_kernel(card)
-    launches, engine = phase_slice(card, args.seed)
+    bwd = phase_kernel_bwd(card)
+    serve_launches, engine = phase_slice(card, args.seed)
     phase_profile(engine, card)
+    del engine
+    torch.cuda.empty_cache()
+    train = phase_train(card, args.seed)
 
-    main_s = 128  # the run's largest prompt bucket (prompts of 4..128)
-    t = timings[main_s]
-    report = {"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "hetu_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "hetu_tpu/ops/pallas_kernels/flash_attention.py:52",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
-        "shape": [1, NH, main_s, HEAD_DIM], "dtype": "bfloat16",
-        "at_s512": timings[512]}]}
+    shape = [TRAIN_B, NH, TRAIN_S, HEAD_DIM]
+    src = "hetu_tpu/ops/pallas_kernels/flash_attention.py"
+    t = timings[(TRAIN_B, TRAIN_S)]
+    report = {"kernels": [
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "hetu_tpu_torch/csrc/flash_attention.cu",
+         "replaces": f"{src}:52", "launches": train["launches"][0],
+         "max_abs_err": max_err,
+         **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
+         "shape": shape, "dtype": "bfloat16",
+         "launches_by_path": {"serve": serve_launches,
+                              "train": train["launches"][0]},
+         # the serving path's largest prompt bucket, and S = 512
+         "serve_s128": timings[(1, 128)], "serve_s512": timings[(1, 512)]},
+        *({"name": f"flash_attention_bwd_{k}", "route": "cuda",
+           "source": "hetu_tpu_torch/csrc/flash_attention_bwd.cu",
+           "replaces": f"{src}:{line}", "launches": train["launches"][i],
+           "max_abs_err": bwd[k]["max_abs_err"],
+           **{f: bwd[k][f] for f in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+           "shape": shape, "dtype": "bfloat16"}
+          for i, k, line in ((1, "dkdv", 198), (2, "dq", 239)))]}
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -5,12 +5,17 @@ paths and names mirror the reference so each counterpart is found at once:
 
     import hetu_tpu_torch as htt
     htt.ops.*         # functional ops on torch tensors
-    htt.ops.cuda_kernels.flash_attention   # hand-written sm_90a kernel
+    htt.ops.cuda_kernels.flash_attention   # hand-written sm_90a kernels,
+                                           # forward and backward
     htt.init.*        # initializers on an explicit torch.Generator
+    htt.rng           # global (seed, seqnum) -> torch.Generators
     htt.layers.*      # nn.Modules: Linear, LayerNorm, MultiHeadAttention,
                       # TransformerBlock
-    htt.models.*      # GPTConfig / GPTModel
-    htt.interop       # hetu_tpu parameter trees <-> state_dicts
+    htt.models.*      # GPTConfig / GPTModel (lm_loss_fn for training)
+    htt.optim.*       # SGD ... AdamW, Lamb (dense path)
+    htt.lr.*          # step -> lr schedulers
+    htt.train.*       # Executor, TrainState, checkpoint
+    htt.interop       # hetu_tpu parameter / optimizer trees <-> state_dicts
     htt.serve.*       # ServeEngine, ContinuousBatchingScheduler, metrics
     htt.telemetry.*   # span tracer + typed metrics registry
 
@@ -22,7 +27,8 @@ import lazily, so ``import hetu_tpu_torch`` stays cheap.
 
 from hetu_tpu_torch.version import __version__
 
-_LAZY = {"ops", "init", "layers", "models", "interop", "serve", "telemetry"}
+_LAZY = {"ops", "init", "rng", "layers", "models", "optim", "lr", "train",
+         "interop", "serve", "telemetry"}
 
 
 def __getattr__(name):

@@ -12,6 +12,10 @@ inverse.  They handle:
   ``blocks.<i>.`` prefix per layer here;
 * the LM head, tied to ``tok_emb`` in both, so no head key exists.
 
+:func:`opt_state_from_jax` and :func:`opt_state_to_jax` do the same for an
+optimizer state ``{"step", "slots": {"m": params-like, "v": ...}}``, whose
+slots mirror the parameters.
+
 No ``jax`` import: leaves are read with ``np.asarray``.
 """
 
@@ -74,3 +78,25 @@ def params_to_jax(state_dict, config) -> dict:
             [w.T if flip else w for w in layers])
     p["blocks"] = blocks
     return p
+
+
+def opt_state_from_jax(tree, config) -> dict:
+    """A ``hetu_tpu`` optimizer state → the port's ``{"step": int,
+    "slots": {name: state_dict}}`` (float32 CPU tensors); ``{}`` stays
+    ``{}``."""
+    if not tree:
+        return {}
+    return {"step": int(np.asarray(tree["step"])),
+            "slots": {name: params_from_jax(slot, config)
+                      for name, slot in tree["slots"].items()}}
+
+
+def opt_state_to_jax(opt_state, config) -> dict:
+    """The port's optimizer state → the ``hetu_tpu`` tree (int32 step,
+    float32 numpy slots stacked like the parameters); ``{}`` stays
+    ``{}``."""
+    if not opt_state:
+        return {}
+    return {"step": np.asarray(opt_state["step"], np.int32),
+            "slots": {name: params_to_jax(slot, config)
+                      for name, slot in opt_state["slots"].items()}}

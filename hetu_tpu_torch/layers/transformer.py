@@ -1,8 +1,8 @@
 """Transformer block (counterpart of ``hetu_tpu/layers/transformer.py``).
 
-The pre-LN causal block the GPT decoder runs, inference only: the
-reference's post-LN (BERT) layout, dropout and recomputation come with the
-slices that use them.
+The pre-LN causal block the GPT decoder runs, with the reference's dropout
+on the attention output and on the MLP output when training; the post-LN
+(BERT) layout comes with the slice that uses it.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import torch
 
 from hetu_tpu_torch import ops
 from hetu_tpu_torch.layers.attention import MultiHeadAttention
-from hetu_tpu_torch.layers.base import Module
+from hetu_tpu_torch.layers.base import Module, child_generator
 from hetu_tpu_torch.layers.linear import Linear
 from hetu_tpu_torch.layers.norm import LayerNorm
 
@@ -20,11 +20,13 @@ class TransformerBlock(Module):
     """Pre-LN block: causal MHA + a GELU MLP, each with a residual."""
 
     def __init__(self, hidden_size: int, num_heads: int, ffn_size: int, *,
-                 generator: torch.Generator, dtype=torch.float32,
-                 attention_impl: str = "xla"):
+                 generator: torch.Generator, dropout_rate: float = 0.0,
+                 dtype=torch.float32, attention_impl: str = "xla"):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.attn = MultiHeadAttention(
-            hidden_size, num_heads, generator=generator, dtype=dtype,
+            hidden_size, num_heads, generator=generator,
+            dropout_rate=dropout_rate, dtype=dtype,
             attention_impl=attention_impl)
         self.ln1 = LayerNorm(hidden_size)
         self.ffn_in = Linear(hidden_size, ffn_size, generator=generator,
@@ -33,11 +35,17 @@ class TransformerBlock(Module):
                               dtype=dtype)
         self.ln2 = LayerNorm(hidden_size)
 
-    def _mlp(self, x):
-        return x + self.ffn_out(ops.gelu(self.ffn_in(self.ln2(x))))
+    def _mlp(self, x, *, train: bool = False, generator=None):
+        h = self.ffn_out(ops.gelu(self.ffn_in(self.ln2(x))))
+        return x + ops.dropout(h, self.dropout_rate, generator, train=train)
 
-    def forward(self, x):
-        return self._mlp(x + self.attn(self.ln1(x)))
+    def forward(self, x, *, train: bool = False, generator=None):
+        """x ``[B, S, H]`` → ``[B, S, H]``; sub-layer 0 (attention) and 1
+        (MLP) draw their dropout masks from children of ``generator``."""
+        x = x + self.attn(self.ln1(x), train=train,
+                          generator=child_generator(generator, 0))
+        return self._mlp(x, train=train,
+                         generator=child_generator(generator, 1))
 
     # ---- serving (hetu_tpu_torch/serve): KV-cache prefill / decode ----
 

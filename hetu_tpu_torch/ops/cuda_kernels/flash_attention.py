@@ -1,27 +1,37 @@
-"""Flash attention forward: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Flash attention, forward and backward: the hand-written CUDA kernels and
+their plain PyTorch versions.
 
-Counterpart of ``hetu_tpu/ops/pallas_kernels/flash_attention.py``
-(``_flash_fwd_kernel`` / ``_flash_fwd``).  The kernel is
-``hetu_tpu_torch/csrc/flash_attention.cu`` (its header says what bounds it
-on an H100 and what the design does about that), built with nvcc on first
-use and bound with ctypes.
+Counterpart of ``hetu_tpu/ops/pallas_kernels/flash_attention.py``:
 
-:func:`flash_attention` computes the plain version for CPU tensors and
-launches the kernel for CUDA tensors — there is no fallback from one to the
-other.  Both compute the same function as the TPU kernel:
+* the forward ``_flash_fwd_kernel`` is ``hetu_tpu_torch/csrc/flash_attention.cu``;
+* the backward ``_flash_bwd_dkdv_kernel`` and ``_flash_bwd_dq_kernel`` are
+  ``hetu_tpu_torch/csrc/flash_attention_bwd.cu``;
+* the ``custom_vjp`` that joins them is :class:`_FlashAttention`, a
+  ``torch.autograd.Function``.
+
+Each source's header says what bounds it on an H100 and what the design
+does about that; they are built with nvcc on first use and bound with
+ctypes.
+
+Every wrapper computes its plain version for CPU tensors and launches its
+kernel for CUDA tensors — there is no fallback from one to the other.  Each
+kernel's wrapper counts its launches (``flash_attention.launches``,
+``flash_attention_bwd_dkdv.launches``, ``flash_attention_bwd_dq.launches``).
+All compute the same function as the TPU kernels:
 
 * O ``[B, H, S_q, D]`` in the input type and an f32 LSE ``[B*H, S_q, 1]``;
+  the backward recomputes p from that LSE;
 * the causal mask is bottom-right aligned (query ``i`` sees keys
   ``<= i + S_k - S_q``);
 * a query row that sees no key (only possible when ``S_q > S_k``) gives
-  O = 0, not the XLA composition's uniform average;
-* scores accumulate in f32 and the scale applies to the f32 scores; the
-  probabilities are rounded to the value type before ``P @ V``.
+  O = 0 and dQ = 0, and adds nothing to dK or dV — not the XLA
+  composition's uniform average;
+* scores accumulate in f32 and the scale applies to the f32 scores; p is
+  rounded to the value type before ``P @ V`` and ``P^T @ dO``, dS to the
+  input type before ``dS^T @ q`` and ``dS @ k``.
 
-Unlike the TPU kernel's ``_fit_block``, any sequence length works: the
-kernel masks ragged tails.  Only the forward pass exists; the backward
-kernels come with the training slice.
+Unlike the TPU kernels' ``_fit_block``, any sequence length works: the
+kernels mask ragged tails.
 """
 
 from __future__ import annotations
@@ -34,7 +44,15 @@ from hetu_tpu_torch.ops.cuda_kernels import build
 
 NEG_INF = -1e30  # the TPU kernel's mask value
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_NAME = "flash_attention"
+_FWD = "flash_attention"
+_BWD = "flash_attention_bwd"
+
+
+# ------------------------------------------------------------ plain versions
+
+def _causal_keep(s_q, s_k, device):
+    return torch.ones(s_q, s_k, dtype=torch.bool, device=device).tril(
+        s_k - s_q)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, scale=None):
@@ -46,8 +64,7 @@ def flash_attention_plain(q, k, v, *, causal: bool, scale=None):
         scale = d ** -0.5
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:
-        keep = torch.ones(s_q, s_k, dtype=torch.bool, device=q.device).tril(
-            s_k - s_q)
+        keep = _causal_keep(s_q, s_k, q.device)
         s = s.masked_fill(~keep, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)  # NEG_INF where a row sees no key
     p = torch.exp(s - m)
@@ -59,12 +76,35 @@ def flash_attention_plain(q, k, v, *, causal: bool, scale=None):
     return o.to(q.dtype), lse
 
 
+def flash_attention_bwd_plain(q, k, v, do, lse, delta, *, causal: bool,
+                              scale=None):
+    """The plain PyTorch version of both backward kernels: ``(dQ, dK, dV)``
+    from q, k, v, dO ``[B, H, S, D]``, the forward's LSE and
+    ``delta = rowsum(dO * O)`` (both ``[B*H, S_q, 1]`` f32), with the whole
+    ``[S_q, S_k]`` matrix in memory and the kernels' rounding points."""
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~_causal_keep(s_q, s_k, q.device), NEG_INF)
+    p = torch.exp(s - lse.reshape(b, h, s_q, 1))
+    if causal:
+        # a masked score gives p = 0, also on rows that see no key, whose
+        # LSE is about NEG_INF and would overflow the exp above
+        p = torch.where(s <= NEG_INF / 2, 0.0, p)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = (p * (dp - delta.reshape(b, h, s_q, 1)) * scale).to(q.dtype).float()
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dq = torch.matmul(ds, k.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ------------------------------------------------------------------- checks
+
 def _check(q, k, v):
-    if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward pass yet: its backward kernels "
-            "and autograd.Function come with the training slice; run "
-            "under torch.inference_mode() or torch.no_grad()")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes q, k, v as [B, H, S, D]")
     if k.shape != v.shape or q.shape[:2] != k.shape[:2] \
@@ -87,60 +127,185 @@ def _check(q, k, v):
                          f"got {q.device}")
 
 
-def _library():
-    lib = build.load(_NAME)
-    fn = lib.hetu_flash_attention_fwd
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i, i, p]
-        fn.restype = ctypes.c_int
-        lib.hetu_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.hetu_cuda_error_string.restype = ctypes.c_char_p
+def _check_bwd(q, k, v, do, lse, delta):
+    _check(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"dO must match q: got {tuple(do.shape)} "
+                         f"{do.dtype} on {do.device}, q {tuple(q.shape)} "
+                         f"{q.dtype} on {q.device}")
+    rows = (q.shape[0] * q.shape[1], q.shape[2], 1)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != rows or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be float32 {rows} on {q.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+# ----------------------------------------------------------------- launches
+
+def _library(name, *functions):
+    """The built library of ``csrc/<name>.cu`` with its launchers typed:
+    each takes ``n_ptr`` pointers, then the ints ``bh, s_q, s_k, d``, the
+    float scale, the ints ``causal, dtype, device`` and the stream."""
+    lib = build.load(name)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn_name, n_ptr in functions:
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = [p] * n_ptr + [i, i, i, i, ctypes.c_float, i, i, i,
+                                         p]
+            fn.restype = ctypes.c_int
+    lib.hetu_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.hetu_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(q, k, v, *, causal: bool, scale: float):
-    lib = _library()
+def _flat(t):
+    b, h, s, d = t.shape
+    return t.reshape(b * h, s, d).contiguous()
+
+
+def _call(lib, fn_name, what, q, k, tensors, causal, scale):
+    """Launch ``fn_name`` on the current stream over ``tensors`` (pointers,
+    in the launcher's order) and raise, naming the cudaError and the shapes,
+    if it refused or failed."""
     b, h, s_q, d = q.shape
-    s_k = k.shape[2]
-    qf = q.reshape(b * h, s_q, d).contiguous()
-    kf = k.reshape(b * h, s_k, d).contiguous()
-    vf = v.reshape(b * h, s_k, d).contiguous()
-    out = torch.empty_like(qf)
-    lse = torch.empty(b * h, s_q, 1, dtype=torch.float32, device=q.device)
     dev = q.device.index if q.device.index is not None \
         else torch.cuda.current_device()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.hetu_flash_attention_fwd(
-        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b * h, s_q, s_k, d, scale, int(causal),
-        _DTYPES[q.dtype], dev, stream)
+    err = getattr(lib, fn_name)(
+        *(t.data_ptr() for t in tensors), b * h, s_q, k.shape[2], d, scale,
+        int(causal), _DTYPES[q.dtype], dev, stream)
     if err != 0:
         raise RuntimeError(
-            f"flash_attention kernel launch failed: cudaError {err} "
+            f"{what} kernel launch failed: cudaError {err} "
             f"({lib.hetu_cuda_error_string(err).decode()}) for q "
-            f"{tuple(q.shape)} {q.dtype}, S_k {s_k}")
+            f"{tuple(q.shape)} {q.dtype}, S_k {k.shape[2]}")
+
+
+def _launch_fwd(q, k, v, *, causal: bool, scale: float):
+    lib = _library(_FWD, ("hetu_flash_attention_fwd", 5))
+    qf, kf, vf = _flat(q), _flat(k), _flat(v)
+    out = torch.empty_like(qf)
+    lse = torch.empty(qf.shape[0], qf.shape[1], 1, dtype=torch.float32,
+                      device=q.device)
+    _call(lib, "hetu_flash_attention_fwd", "flash_attention", q, k,
+          (qf, kf, vf, out, lse), causal, scale)
     flash_attention.launches += 1
-    return out.reshape(b, h, s_q, d), lse
+    return out.reshape(q.shape), lse
+
+
+def _bwd_library():
+    return _library(_BWD, ("hetu_flash_attention_bwd_dkdv", 8),
+                    ("hetu_flash_attention_bwd_dq", 7))
+
+
+def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool,
+                             scale=None):
+    """dK and dV ``[B, H, S_k, D]`` (the ``_flash_bwd_dkdv_kernel``): the
+    plain version for CPU tensors, the kernel for CUDA tensors."""
+    _check_bwd(q, k, v, do, lse, delta)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        _, dk, dv = flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                              causal=causal, scale=scale)
+        return dk, dv
+    kf = _flat(k)
+    dk, dv = torch.empty_like(kf), torch.empty_like(kf)
+    _call(_bwd_library(), "hetu_flash_attention_bwd_dkdv",
+          "flash_attention_bwd_dkdv", q, k,
+          (_flat(q), kf, _flat(v), _flat(do), lse.contiguous(),
+           delta.contiguous(), dk, dv), causal, float(scale))
+    flash_attention_bwd_dkdv.launches += 1
+    return dk.reshape(k.shape), dv.reshape(v.shape)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
+                           scale=None):
+    """dQ ``[B, H, S_q, D]`` (the ``_flash_bwd_dq_kernel``): the plain
+    version for CPU tensors, the kernel for CUDA tensors."""
+    _check_bwd(q, k, v, do, lse, delta)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        dq, _, _ = flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                             causal=causal, scale=scale)
+        return dq
+    qf = _flat(q)
+    dq = torch.empty_like(qf)
+    _call(_bwd_library(), "hetu_flash_attention_bwd_dq",
+          "flash_attention_bwd_dq", q, k,
+          (qf, _flat(k), _flat(v), _flat(do), lse.contiguous(),
+           delta.contiguous(), dq), causal, float(scale))
+    flash_attention_bwd_dq.launches += 1
+    return dq.reshape(q.shape)
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool, scale=None):
+    """The backward pass of :func:`flash_attention`: ``(dQ, dK, dV)``.
+
+    ``delta = rowsum(dO * O)`` is one f32 reduction in plain PyTorch (the
+    JAX package computes it outside Pallas too), laid out like the LSE;
+    then the dK/dV kernel and the dQ kernel (for CPU tensors, their plain
+    version once)."""
+    b, h, s_q, _ = q.shape
+    delta = (do.float() * out.float()).sum(-1).reshape(b * h, s_q, 1)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                         causal=causal, scale=scale)
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                      causal=causal, scale=scale)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal,
+                                scale=scale)
+    return dq, dk, dv
+
+
+# --------------------------------------------------------------- public op
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the forward kernel, saving q, k, v, O and the LSE.
+    Backward: :func:`flash_attention_bwd`.  Under recomputation
+    (``torch.utils.checkpoint``) the forward runs again in the backward
+    pass, and the backward reads the recomputed O and LSE."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, causal=causal,
+                                             scale=scale)
+        else:
+            out, lse = _launch_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_out, d_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, d_out,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool, scale=None,
                     return_lse: bool = False):
     """Fused attention: q ``[B, H, S_q, D]``, k and v ``[B, H, S_k, D]``
     → O ``[B, H, S_q, D]`` (and the f32 LSE ``[B*H, S_q, 1]`` with
-    ``return_lse``).
+    ``return_lse``), differentiable in q, k and v.
 
-    CPU tensors run :func:`flash_attention_plain`; CUDA tensors launch the
-    kernel or raise.  ``flash_attention.launches`` counts kernel launches.
+    CPU tensors run the plain versions; CUDA tensors launch the kernels or
+    raise.  ``flash_attention.launches`` counts forward launches.
     """
     _check(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        out, lse = flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    else:
-        out, lse = _launch(q, k, v, causal=causal, scale=float(scale))
+    out, lse = _FlashAttention.apply(q, k, v, bool(causal), float(scale))
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention_bwd_dkdv.launches = 0
+flash_attention_bwd_dq.launches = 0

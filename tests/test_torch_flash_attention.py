@@ -1,25 +1,30 @@
-"""The flash attention wrapper of hetu_tpu_torch against the Pallas kernel.
+"""The flash attention wrappers of hetu_tpu_torch against the Pallas
+kernels.
 
-On the CPU the wrapper computes its plain PyTorch version, which must be
-the same function as the TPU kernel: O and the f32 LSE, bottom-right causal
-alignment, and O = 0 for a query row that sees no key.  The oracle is the
-Pallas ``_flash_fwd`` in interpret mode (as hetu_tpu's own tests run it),
-not the XLA composition, which averages such rows uniformly.  Inputs are
-numpy arrays from a seed, compared in float32 within 1e-5.  The CUDA
-kernel itself is held against the same plain version on the card by
-``chip_smoke.py``.
+On the CPU the wrappers compute their plain PyTorch versions, which must be
+the same functions as the TPU kernels: O and the f32 LSE, bottom-right
+causal alignment, and O = 0 and dQ = 0 for a query row that sees no key.
+The oracles are the Pallas ``_flash_fwd`` and ``_flash_bwd`` in interpret
+mode (as hetu_tpu's own tests run them), and ``jax.grad`` through the
+Pallas ``flash_attention``; not the XLA composition, which averages such
+rows uniformly.  Inputs are numpy arrays from a seed, compared in float32
+within 1e-5.  The CUDA kernels themselves are held against the same plain
+versions on the card by ``chip_smoke.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from hetu_tpu.ops.pallas_kernels import flash_attention as jax_flash
-from hetu_tpu.ops.pallas_kernels.flash_attention import _flash_fwd
-from hetu_tpu_torch.ops.cuda_kernels import build, flash_attention
-from hetu_tpu_torch.ops.cuda_kernels.flash_attention import (
-    flash_attention_plain,
+from hetu_tpu.ops.pallas_kernels.flash_attention import (
+    _flash_bwd, _flash_fwd,
+)
+from hetu_tpu_torch.ops.cuda_kernels import (
+    build, flash_attention, flash_attention_bwd, flash_attention_bwd_dkdv,
+    flash_attention_bwd_dq, flash_attention_bwd_plain, flash_attention_plain,
 )
 
 torch.set_num_threads(2)
@@ -38,7 +43,7 @@ def _pallas(q, k, v, causal, block=16):
     out, lse = _flash_fwd(*(jnp.asarray(a) for a in (q, k, v)),
                           scale=q.shape[-1] ** -0.5, causal=causal,
                           block_q=block, block_k=block, interpret=True)
-    return np.asarray(out), np.asarray(lse)
+    return np.array(out), np.array(lse)
 
 
 # (b, h, s_q, s_k, d, causal): square, cross-length both ways, full
@@ -101,17 +106,24 @@ def test_explicit_scale():
 
 
 def test_cpu_tensors_never_count_a_launch():
-    before = flash_attention.launches
-    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 8, 8, 8, seed=1))
-    flash_attention(q, k, v, causal=True)
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv(1, 1, 8, 8, 8, seed=1))
+    flash_attention(q, k, v, causal=True).sum().backward()
     flash_attention_plain(q, k, v, causal=True)
-    assert flash_attention.launches == before == 0
+    assert flash_attention.launches == 0
+    assert flash_attention_bwd_dkdv.launches == 0
+    assert flash_attention_bwd_dq.launches == 0
 
 
-def test_requires_grad_raises_naming_the_training_slice():
-    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 8, 8, 8, seed=2))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash_attention(q.requires_grad_(), k, v, causal=True)
+def test_gradients_flow_and_match_the_pallas_backward():
+    """q, k and v that require grad get gradients through the wrapper's
+    autograd.Function: those of ``jax.vjp`` through the Pallas kernel."""
+    q, k, v = _qkv(1, 1, 8, 8, 8, seed=2)
+    g = np.random.default_rng(2).standard_normal(q.shape).astype(np.float32)
+    want = _jax_vjp(q, k, v, g, causal=True)
+    got = _torch_vjp(q, k, v, g, causal=True)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a, b, rtol=TOL, atol=TOL, err_msg=name)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "rank", "shape",
@@ -153,3 +165,125 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build("flash_attention")
     assert not (tmp_path / "_build").exists()
+
+
+# ------------------------------------------------------------- backward
+
+def _jax_vjp(q, k, v, g, causal, block=16):
+    """dq, dk, dv of ``sum(O * g)`` through the Pallas flash_attention."""
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash(
+        q, k, v, causal=causal, block_q=block, block_k=block,
+        interpret=True), *(jnp.asarray(a) for a in (q, k, v)))
+    return [np.asarray(t) for t in vjp(jnp.asarray(g))]
+
+
+def _torch_vjp(q, k, v, g, causal):
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = flash_attention(*ts, causal=causal)
+    return [t.numpy() for t in torch.autograd.grad(
+        out, ts, grad_outputs=torch.from_numpy(g))]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "b{}h{}q{}k{}d{}{}"
+                         .format(*s[:5], "c" if s[5] else "f"))
+def test_backward_plain_matches_pallas(shape):
+    """Given the same q, k, v, O, LSE and dO, the plain backward gives the
+    Pallas ``_flash_bwd``'s dQ, dK and dV; rows that see no key give a dQ
+    of exactly zero in both."""
+    b, h, s_q, s_k, d, causal = shape
+    q, k, v = _qkv(b, h, s_q, s_k, d, seed=sum(shape) + 1)
+    do = np.random.default_rng(sum(shape)).standard_normal(
+        q.shape).astype(np.float32)
+    o, lse = _pallas(q, k, v, causal)
+    want = _flash_bwd(*(jnp.asarray(a) for a in (q, k, v, o, lse, do)),
+                      scale=d ** -0.5, causal=causal, block_q=16,
+                      block_k=16, interpret=True)
+    got = flash_attention_bwd(*(torch.from_numpy(a)
+                                for a in (q, k, v, o, lse, do)),
+                              causal=causal)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=TOL,
+                                   atol=TOL, err_msg=name)
+    if causal and s_q > s_k:
+        dead = s_q - s_k
+        assert not got[0][:, :, :dead].any()
+        assert not np.any(np.asarray(want[0])[:, :, :dead])
+        assert got[0][:, :, dead:].abs().sum(-1).gt(0).all()
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 32, 32, 16, True),
+                                   (1, 2, 32, 32, 16, False),
+                                   (1, 2, 48, 16, 16, True)],
+                         ids=["causal", "full", "cross_zero_rows"])
+def test_autograd_matches_jax_grad(shape):
+    """``torch.autograd.grad`` through the port's ``flash_attention``
+    against ``jax.grad`` of the Pallas ``flash_attention`` (interpret)."""
+    b, h, s_q, s_k, d, causal = shape
+    q, k, v = _qkv(b, h, s_q, s_k, d, seed=s_q + s_k)
+    w = np.random.default_rng(5).standard_normal(q.shape).astype(np.float32)
+
+    def jloss(q, k, v):
+        return jnp.sum(jax_flash(q, k, v, causal=causal, block_q=16,
+                                 block_k=16, interpret=True) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    loss = (flash_attention(*ts, causal=causal) * torch.from_numpy(w)).sum()
+    got = torch.autograd.grad(loss, ts)
+    for name, a, b_ in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b_), rtol=TOL,
+                                   atol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ragged_length_backward_matches_pallas_autofit(causal):
+    """S = 48: the Pallas backward fits its blocks (16, or 48 whole), the
+    port's kernels mask the ragged tile; all give the same gradients."""
+    q, k, v = _qkv(1, 2, 48, 48, 16, seed=49)
+    g = np.random.default_rng(48).standard_normal(q.shape).astype(np.float32)
+    got = _torch_vjp(q, k, v, g, causal)
+    for block in (16, 48):
+        for name, a, b in zip("qkv", got, _jax_vjp(q, k, v, g, causal,
+                                                   block)):
+            np.testing.assert_allclose(a, b, rtol=TOL, atol=TOL,
+                                       err_msg=f"d{name} block {block}")
+
+
+def test_backward_wrappers_are_the_plain_version_on_cpu():
+    """Each kernel's wrapper returns its part of the plain backward, in the
+    input's type (bf16 here), with f32 LSE and delta."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(1, 2, 24, 40, 16, seed=6))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(6)
+                     ).bfloat16()
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1).reshape(2, 24, 1)
+    dq, dk, dv = flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                           causal=True)
+    dk2, dv2 = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=True)
+    dq2 = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    for a, b in ((dq, dq2), (dk, dk2), (dv, dv2)):
+        assert a.dtype == b.dtype == torch.bfloat16
+        assert torch.equal(a, b)
+    assert dk.shape == dv.shape == k.shape and dq.shape == q.shape
+
+
+@pytest.mark.parametrize("bad", ["do_shape", "do_dtype", "lse_dtype",
+                                 "delta_shape"])
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take(bad):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 8, 8, 16, seed=8))
+    do = torch.zeros_like(q)
+    lse = delta = torch.zeros(2, 8, 1)
+    if bad == "do_shape":
+        do = do[:, :, :4]
+    elif bad == "do_dtype":
+        do = do.bfloat16()
+    elif bad == "lse_dtype":
+        lse = lse.double()
+    else:
+        delta = delta[:, :4]
+    for fn in (flash_attention_bwd_dkdv, flash_attention_bwd_dq):
+        with pytest.raises(ValueError):
+            fn(q, k, v, do, lse, delta, causal=True)

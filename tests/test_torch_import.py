@@ -1,7 +1,8 @@
 """hetu_tpu_torch stands alone: it imports neither ``jax`` nor ``hetu_tpu``.
 
-A subprocess imports the package, builds the serving slice's model on the
-CPU and runs one prefill and one decode; ``jax`` and ``hetu_tpu`` must
+Subprocesses import the package and, on the CPU, run the serving slice
+(one prefill and one decode) and the training slice (two AdamW steps of
+the Executor and a checkpoint round trip); ``jax`` and ``hetu_tpu`` must
 stay out of ``sys.modules``.  An AST scan of every module of the package,
 and of ``chip_smoke.py``, finds no import of either.
 """
@@ -65,6 +66,34 @@ def test_serving_slice_runs_without_jax():
     assert "LEAKED []" in out
 
 
+def test_training_slice_runs_without_jax(tmp_path):
+    out = _run(
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from hetu_tpu_torch.models import GPTConfig, GPTModel\n"
+        "from hetu_tpu_torch.optim import AdamWOptimizer\n"
+        "from hetu_tpu_torch.train import Executor, checkpoint\n"
+        "cfg = GPTConfig(vocab_size=97, hidden_size=32, num_layers=2,\n"
+        "                num_heads=4, ffn_size=64, max_position=32,\n"
+        "                dropout_rate=0.1, attention_impl='flash',\n"
+        "                remat=True, ce_row_chunk=16)\n"
+        "m = GPTModel(cfg, device='cpu')\n"
+        "ex = Executor(m.lm_loss_fn(), AdamWOptimizer(1e-2), seed=0)\n"
+        "st = ex.init_state(m)\n"
+        "ids = torch.randint(0, 97, (2, 16))\n"
+        "losses = []\n"
+        "for _ in range(2):\n"
+        "    st, met = ex.run('train', st, (ids,))\n"
+        "    losses.append(float(met['loss']))\n"
+        f"checkpoint.save({str(tmp_path / 'c.npz')!r}, st, cfg)\n"
+        f"st = checkpoint.load({str(tmp_path / 'c.npz')!r}, st, cfg)\n"
+        "assert st.step == 2 and all(l == l for l in losses), losses\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
@@ -88,4 +117,6 @@ def test_source_imports_no_jax(path):
 def test_scan_sees_the_whole_package():
     names = {p.relative_to(PKG).as_posix() for p in SOURCES if PKG in p.parents}
     assert {"__init__.py", "ops/cuda_kernels/flash_attention.py",
-            "serve/engine.py", "models/gpt.py", "interop.py"} <= names
+            "serve/engine.py", "models/gpt.py", "interop.py",
+            "train/executor.py", "train/checkpoint.py",
+            "optim/optimizer.py", "lr/__init__.py", "rng.py"} <= names
