@@ -11,12 +11,13 @@ Phases, in order; any failure ends the run with a non-zero exit and
 without the final result line:
 
 1. device — the card's name and power limit; TF32 off.
-2. build  — nvcc builds every CUDA kernel of the port (one process per
+2. build  — nvcc builds every CUDA source of the port (one process per
    source, all started together).
-3. kernel — each kernel (flash forward, flash backward dK/dV and dQ)
-   against its plain PyTorch version on the card, at the main paths'
-   shapes and at edge cases (stated tolerances), then timed with CUDA
-   events beside its plain version, one PyTorch library call as a
+3. kernel — each kernel (flash forward, flash backward dK/dV and dQ;
+   then, in kernel_moe, the row gather, its scatter-add and the top-k
+   gate) against its plain PyTorch version on the card, at the main
+   paths' shapes and at edge cases (stated tolerances), then timed with
+   CUDA events beside its plain version, one PyTorch library call as a
    yardstick (never used by the port) and its roofline bound.
 4. slice  — GPT-2-small (published widths, seeded random weights in the
    JAX package's layout, loaded through ``interop.params_from_jax``)
@@ -32,10 +33,22 @@ without the final result line:
    then 10 ``Executor.run("train")`` steps on one seeded batch (finite,
    falling loss; 2·L flash forwards and L of each backward kernel a step),
    step time, tokens/s, MFU, peak memory and one profiled step.
+7. train_moe — the MoE transformer at ``MoEConfig``'s widths (V 32000,
+   H 512, 4 layers, 8 heads, ffn 2048, 8 experts, top-2, capacity factor
+   1.25), bf16, B 32 x S 512.  On one batch the kernel path (top-k
+   kernel, gather dispatch and combine) against two paths that launch
+   none of the three kernels: the plain path (the plain gate and the
+   gather's plain version), held to the loss limit, the same routes in
+   every layer and every gradient; and the einsum dispatch, held to the
+   loss limit and the same routes in the first layer.  Then 10 Executor
+   steps (finite, falling loss; L gates, 2·L gathers and 2·L scatter-adds
+   a step), step time, tokens/s, MFU, peak memory and one profiled step.
 
 The last three lines of standard output are the card's name and power
 limit (as nvidia-smi gives them), the kernel report
-``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` (all six kernels: the three flash kernels, the top-k
+gate, the gather and the scatter-add) and ``{"ok": true, "device":
+{...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -45,6 +58,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -108,6 +122,27 @@ TOL_TRAIN_GRAD = 3e-2  # max |dG| <= TOL_TRAIN_GRAD * max |G_plain|
 
 # the training phase's shape: bench.py bench_gpt
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 16, 1024, 10, 1e-4
+
+# the MoE training slice: MoEConfig's widths (hetu_tpu/models/
+# moe_transformer.py:24-35), bf16, at bench.py bench_moe's T (B 32 x S 512)
+MOE_V, MOE_H, MOE_L, MOE_NH, MOE_FFN, MOE_E, MOE_K, MOE_CF = (
+    32000, 512, 4, 8, 2048, 8, 2, 1.25)
+MOE_B, MOE_S, MOE_STEPS, MOE_LR = 32, 512, 10, 1e-4
+MOE_T = MOE_B * MOE_S
+MOE_C = max(1, int(MOE_CF * MOE_T * MOE_K / MOE_E))  # 5120 slots an expert
+MOE_BENCH_D = 768  # bench.py bench_moe's layer width
+# MoE kernels against their plain versions.  The gather copies rows and the
+# scatter-add sums at most two rows in f32 and rounds once (a + b is the
+# same in either order), so both must be bitwise equal to their plain
+# versions at the path's shapes; so must a scatter of small integers
+# (exact sums in any order), however many duplicates.  Under heavy
+# duplicates of random values the plain version's atomics sum in another
+# order: each f32 sum of n terms lies within (n - 1) * 2^-24 * sum|g| of the
+# exact one, so the two within twice that, and a bf16 result may land one
+# ulp (at most 2^-7 of the value) away.  The gate's indices must be equal;
+# its gates differ at most by the rounding of exp and the division (1e-6
+# in f32 for values <= 1) or one bf16 ulp of a value below 1 (2^-8).
+TOL_GATES = {torch.float32: 1e-6, torch.bfloat16: 2 ** -8}
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_S = 989e12    # dense bf16 tensor cores, H100 SXM data sheet
@@ -638,10 +673,13 @@ def _profile_table(prof, tag, card, wall_us, steps=1):
 
 
 def _kind(kernel: str) -> str:
-    """The port's own kernels, cuBLAS's GEMMs, copies and fills, and the
-    rest (PyTorch's elementwise and reduction kernels)."""
+    """The port's own kernels (flash, MoE), cuBLAS's GEMMs, copies and
+    fills, and the rest (PyTorch's elementwise and reduction kernels)."""
     if _short(kernel).startswith(("flash_fwd_kernel", "flash_bwd_")):
         return "flash kernels"
+    if _short(kernel).startswith(("gather_kernel", "scatter_add_kernel",
+                                  "topk_gating_kernel")):
+        return "MoE kernels"
     if any(t in kernel for t in ("nvjet", "gemm", "xmma", "cutlass")):
         return "GEMMs"
     if any(t in kernel.lower() for t in ("copy", "memcpy", "memset")):
@@ -658,6 +696,36 @@ def _gpt_flops_per_token(model, seq):
         - c.max_position * c.hidden_size
     return (6 * n_nonemb + 6 * c.vocab_size * c.hidden_size
             + 12 * c.num_layers * c.hidden_size * seq), n_params
+
+
+def _loss_and_grads(model, batch):
+    """The training loss of ``batch`` and every parameter's gradient."""
+    params = dict(model.named_parameters())
+    loss, _ = model.lm_loss_fn()(params, {}, batch, None, True)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), dict(zip(params, grads))
+
+
+def _check_grads(tag, grads_k, grads_p):
+    """Every kernel-path gradient finite and within ``TOL_TRAIN_GRAD`` of
+    the largest element of the plain path's."""
+    ratios = {}
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        check(bool(torch.isfinite(gk).all()), f"gradient of {name} is not "
+                                              f"finite")
+        scale = gp.abs().max().item()
+        err = (gk - gp).abs().max().item()
+        ratios[name] = err / scale if scale > 0 else (0.0 if err == 0
+                                                      else float("inf"))
+    worst = sorted(ratios.items(), key=lambda x: -x[1])
+    print(f"[{tag}] gradients of {len(ratios)} parameters: max|dG| / "
+          f"max|G_plain| <= {worst[0][1]:.3e} (tol {TOL_TRAIN_GRAD:g}); "
+          f"worst: " + ", ".join(f"{n} {r:.3e}" for n, r in worst[:3]))
+    check(worst[0][1] <= TOL_TRAIN_GRAD,
+          f"kernel path gradient of {worst[0][0]} disagrees with the plain "
+          f"path")
+    return worst[0][1]
 
 
 def phase_train(card, seed, device="cuda"):
@@ -695,14 +763,8 @@ def phase_train(card, seed, device="cuda"):
         if isinstance(m, MultiHeadAttention):
             m.attention_impl = "xla"
 
-    def loss_and_grads(m):
-        params = dict(m.named_parameters())
-        loss, _ = m.lm_loss_fn()(params, {}, batch, None, True)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        return float(loss.detach()), dict(zip(params, grads))
-
-    loss_k, grads_k = loss_and_grads(model)
-    loss_p, grads_p = loss_and_grads(plain)
+    loss_k, grads_k = _loss_and_grads(model, batch)
+    loss_p, grads_p = _loss_and_grads(plain, batch)
     del plain
     # the control: the same weights and batch through an f32 model (plain
     # attention, no recomputation), whose gap to the plain bf16 path is
@@ -722,22 +784,7 @@ def phase_train(card, seed, device="cuda"):
           f"model: loss {loss_f32:.6f}, |d|={abs(loss_p - loss_f32):.3e}")
     check(abs(loss_k - loss_p) <= TOL_TRAIN_LOSS,
           "kernel path loss disagrees with the plain path")
-    ratios = {}
-    for name, gp in grads_p.items():
-        gk = grads_k[name]
-        check(bool(torch.isfinite(gk).all()), f"gradient of {name} is not "
-                                              f"finite")
-        scale = gp.abs().max().item()
-        err = (gk - gp).abs().max().item()
-        ratios[name] = err / scale if scale > 0 else (0.0 if err == 0
-                                                      else float("inf"))
-    worst = sorted(ratios.items(), key=lambda x: -x[1])
-    print(f"[train] gradients of {len(ratios)} parameters: max|dG| / "
-          f"max|G_plain| <= {worst[0][1]:.3e} (tol {TOL_TRAIN_GRAD:g}); "
-          f"worst: " + ", ".join(f"{n} {r:.3e}" for n, r in worst[:3]))
-    check(worst[0][1] <= TOL_TRAIN_GRAD,
-          f"kernel path gradient of {worst[0][0]} disagrees with the plain "
-          f"path")
+    _check_grads("train", grads_k, grads_p)
     del grads_k, grads_p
 
     ex = Executor(model.lm_loss_fn(), AdamWOptimizer(TRAIN_LR), seed=seed)
@@ -793,6 +840,543 @@ def phase_train(card, seed, device="cuda"):
                 busy_share=busy, losses=losses)
 
 
+# ------------------------------------------------------------------ MoE
+
+def _bits(t):
+    """``t``'s bits as integers, so that equality is bitwise (-0.0 is not
+    0.0, a NaN equals itself)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return t.contiguous().view(ints[t.dtype]) if t.dtype in ints else t
+
+
+def tolerance_share(got, ref, tol=None):
+    """The largest share of its tolerance that any element of ``got`` uses
+    against ``ref`` (at most 1 passes): ``tol`` is a bound per element (a
+    tensor or a number); without one the gate is bitwise, and any
+    difference uses an infinite share."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        return float("inf")
+    if tol is None:
+        return 0.0 if torch.equal(_bits(got), _bits(ref)) else float("inf")
+    diff = (got.double() - ref.double()).abs()
+    tol = torch.as_tensor(tol, dtype=torch.float64, device=diff.device)
+    share = torch.where(tol > 0, diff / tol.clamp_min(1e-300),
+                        torch.where(diff > 0, float("inf"), 0.0))
+    return share.max().item() if share.numel() else 0.0
+
+
+def scatter_tolerance(grads, ids, num_rows, ref):
+    """The bound of the note on ``TOL_GATES`` for a scatter-add summed in
+    another order: per row, 2 (n - 1) 2^-24 sum|g| over its n rows, plus
+    one bf16 ulp (2^-7 |ref|) for a bf16 result."""
+    ids = ids.long()
+    valid = (ids >= 0) & (ids < num_rows)
+    n = torch.bincount(ids[valid], minlength=num_rows).double()
+    s = torch.zeros(num_rows, grads.shape[1], dtype=torch.float64,
+                    device=grads.device).index_add_(
+        0, ids[valid], grads[valid].double().abs())
+    tol = 2 * (n - 1).clamp_min(0)[:, None] * 2 ** -24 * s
+    if ref.dtype == torch.bfloat16:
+        tol = tol + 2 ** -7 * ref.double().abs()
+    return tol
+
+
+def moe_routing(t, e, k, capacity, gen, device="cuda"):
+    """The path's row ids from seeded random logits: ``slot_token [E*C]``
+    (-1 for an empty slot) and ``token_slot [T*k]`` (-1 for a dropped
+    route), as ``MoELayer`` makes them."""
+    from hetu_tpu_torch.ops import make_slot_routing
+    from hetu_tpu_torch.ops.cuda_kernels import topk_gating_plain
+    logits = torch.randn(t, e, generator=gen, device=device)
+    gates, idx = topk_gating_plain(logits, k)
+    slot_token, token_slot, _ = make_slot_routing(gates, idx, e, capacity)
+    return slot_token, token_slot.reshape(-1)
+
+
+def _rows(n, d, dtype, gen, integers=False):
+    if integers:  # small integers: every sum exact, in any order
+        return torch.randint(-8, 9, (n, d), generator=gen, device="cuda",
+                             dtype=torch.int32).to(dtype)
+    return torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+
+
+def gather_bound(table, ids):
+    """Least time (ms) for the gather: the ids and each distinct valid row
+    read once, the output written once, over the HBM rate."""
+    valid = ids[(ids >= 0) & (ids < table.shape[0])]
+    row = table.shape[1] * table.element_size()
+    nbytes = ids.numel() * 4 + torch.unique(valid).numel() * row \
+        + ids.numel() * row
+    return nbytes / H100_BYTES_PER_S * 1e3
+
+
+def scatter_bound(grads, ids, num_rows):
+    """Least time (ms) for the scatter-add: the ids and each valid gradient
+    row read once, the ``[num_rows, D]`` result written once.  The adds
+    (one per element of a valid row) are far below the bytes."""
+    row = grads.shape[1] * grads.element_size()
+    n_valid = int(((ids >= 0) & (ids < num_rows)).sum())
+    nbytes = ids.numel() * 4 + n_valid * row + num_rows * row
+    return nbytes / H100_BYTES_PER_S * 1e3
+
+
+def topk_bound(t, e, k, elem_bytes=4):
+    """Least time (ms) for the gate: logits read once, gates and int32
+    indices written once."""
+    return (t * e * elem_bytes + t * k * (elem_bytes + 4)) \
+        / H100_BYTES_PER_S * 1e3
+
+
+def phase_kernel_moe(card):
+    """The gather, scatter-add and top-k kernels against their plain
+    versions at the MoE step's shapes, at bench_moe's width and at edge
+    cases; then timed at the step's shapes."""
+    from hetu_tpu_torch.ops.cuda_kernels import (
+        embedding_gather, embedding_gather_plain, embedding_scatter_add,
+        embedding_scatter_add_plain, topk_gating, topk_gating_plain,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    t, ec = MOE_T, MOE_E * MOE_C
+    slot_token, token_slot = moe_routing(t, MOE_E, MOE_K, MOE_C, gen)
+    heavy = torch.full((4096,), 37, dtype=torch.int32, device="cuda")
+    mixed = torch.cat([heavy, torch.tensor([-1, 5, 37, 10 ** 6], device="cuda",
+                                           dtype=torch.int32)])
+    ragged = torch.randint(-3, 70, (300,), generator=gen, device="cuda")
+    # each id in [-3, 70) twice, in a random order: at most two rows meet
+    # on a destination, so the plain version's atomics cannot reorder a sum
+    twice = torch.cat([torch.randperm(73, generator=gen, device="cuda") - 3
+                       for _ in range(2)])
+    errs = {}
+
+    def report(name, tag, share, err, ok_extra=True):
+        ok = share <= 1.0 and ok_extra
+        print(f"[kernel_moe] {name} {tag}: max|d|={err:.3e} share of "
+              f"tolerance used {share:.3g} {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} disagrees with its plain version ({tag})")
+
+    with torch.no_grad():
+        # gather: (table rows, dtype, ids, tag) -- bitwise
+        gathers = [
+            (t, MOE_H, torch.bfloat16, slot_token, "dispatch"),
+            (ec, MOE_H, torch.float32, token_slot, "combine"),
+            (t, MOE_BENCH_D, torch.bfloat16, slot_token, "dispatch D=768"),
+            (ec, MOE_BENCH_D, torch.float32, token_slot, "combine D=768"),
+            (64, MOE_H, torch.bfloat16, torch.full((500,), -1, device="cuda"),
+             "all invalid"),
+            (64, 100, torch.bfloat16, ragged, "D=100 bf16"),
+            (64, 100, torch.float32, ragged, "D=100 f32"),
+            (64, 33, torch.bfloat16, ragged, "D=33 bf16"),
+            (1, MOE_H, torch.float32, torch.zeros(1, dtype=torch.int32,
+                                                  device="cuda"), "T=1"),
+        ]
+        for rows, d, dtype, ids, tag in gathers:
+            table = _rows(rows, d, dtype, gen)
+            got = embedding_gather(table, ids)
+            ref = embedding_gather_plain(table, ids)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item() \
+                if got.numel() else 0.0
+            report("embedding_gather", f"{tag} {tuple(table.shape)} "
+                   f"{str(dtype)[6:]} ids {ids.numel()}",
+                   tolerance_share(got, ref), err)
+            errs.setdefault("gather", 0.0)
+            errs["gather"] = max(errs["gather"], err)
+
+        # scatter-add: (grads rows, D, dtype, ids, num_rows, tag, integers,
+        # bitwise)
+        scatters = [
+            (ec, MOE_H, torch.bfloat16, slot_token, t, "dispatch bwd", False,
+             True),
+            (t * MOE_K, MOE_H, torch.float32, token_slot, ec, "combine bwd",
+             False, True),
+            (ec, MOE_BENCH_D, torch.bfloat16, slot_token, t,
+             "dispatch bwd D=768", False, True),
+            (t * MOE_K, MOE_BENCH_D, torch.float32, token_slot, ec,
+             "combine bwd D=768", False, True),
+            (500, MOE_H, torch.float32, torch.full((500,), -1, device="cuda"),
+             64, "all invalid", False, True),
+            (146, 100, torch.bfloat16, twice, 64, "D=100 bf16", False, True),
+            (146, 100, torch.float32, twice, 64, "D=100 f32", False, True),
+            (300, 100, torch.float32, ragged, 64, "D=100 f32 x~5", False,
+             False),
+            (4100, MOE_H, torch.float32, mixed, 64, "heavy x4096 integers",
+             True, True),
+            (4100, MOE_H, torch.bfloat16, mixed, 64, "heavy x4096 integers",
+             True, True),
+            (4100, MOE_H, torch.float32, mixed, 64, "heavy x4096 randn",
+             False, False),
+            (4100, MOE_H, torch.bfloat16, mixed, 64, "heavy x4096 randn",
+             False, False),
+        ]
+        for n, d, dtype, ids, num_rows, tag, ints, bitwise in scatters:
+            grads = _rows(n, d, dtype, gen, integers=ints)
+            got = embedding_scatter_add(grads, ids, num_rows)
+            again = embedding_scatter_add(grads, ids, num_rows)
+            ref = embedding_scatter_add_plain(grads, ids, num_rows)
+            torch.cuda.synchronize()
+            tol = None if bitwise else scatter_tolerance(grads, ids,
+                                                         num_rows, ref)
+            err = (got.float() - ref.float()).abs().max().item()
+            report("embedding_scatter_add",
+                   f"{tag} grads {tuple(grads.shape)} {str(dtype)[6:]} -> "
+                   f"{num_rows} rows ({'bitwise' if bitwise else 'order bound'}"
+                   f"; two launches equal)", tolerance_share(got, ref, tol),
+                   err, tolerance_share(got, again) == 0.0)
+            if bitwise:
+                errs["scatter"] = max(errs.get("scatter", 0.0), err)
+
+        # top-k: (T, E, k, dtype, tag, logits kind)
+        topks = [
+            (t, MOE_E, MOE_K, torch.float32, "path", "randn"),
+            (t, MOE_E, MOE_K, torch.bfloat16, "bf16", "randn"),
+            (4096, MOE_E, MOE_K, torch.float32, "all-equal rows", "equal"),
+            (4096, MOE_E, MOE_E, torch.float32, "pairs of ties", "pairs"),
+            (4096, MOE_E, MOE_E, torch.float32, "k = E", "randn"),
+            (4096, 64, MOE_K, torch.float32, "E = 64", "randn"),
+            (4096, 7, 3, torch.float32, "E = 7", "randn"),
+            (512, 256, 4, torch.bfloat16, "E = 256 bf16", "randn"),
+            (1, MOE_E, MOE_K, torch.float32, "T = 1", "randn"),
+        ]
+        for tt, e, k, dtype, tag, kind in topks:
+            if kind == "equal":
+                logits = torch.zeros(tt, e, device="cuda", dtype=dtype)
+            elif kind == "pairs":  # every value twice in each row
+                half = torch.randn(tt, e // 2, generator=gen, device="cuda")
+                logits = half.repeat_interleave(2, dim=1).to(dtype)
+            else:
+                logits = torch.randn(tt, e, generator=gen,
+                                     device="cuda").to(dtype)
+            gates, idx = topk_gating(logits, k)
+            g_ref, i_ref = topk_gating_plain(logits, k)
+            torch.cuda.synchronize()
+            err = (gates.float() - g_ref.float()).abs().max().item()
+            report("topk_gating", f"{tag} logits ({tt}, {e}) "
+                   f"{str(dtype)[6:]} k={k} (idx equal, gates tol "
+                   f"{TOL_GATES[dtype]:g})",
+                   tolerance_share(gates, g_ref, TOL_GATES[dtype]), err,
+                   tolerance_share(idx, i_ref) == 0.0)
+            if tag == "path":
+                errs["topk"] = err
+
+        # timings at the step's shapes: one dispatch and one combine call
+        # for the gather and the scatter, summed (a layer makes both), and
+        # one gate call
+        x_disp = _rows(t, MOE_H, torch.bfloat16, gen)
+        y_comb = _rows(ec, MOE_H, torch.float32, gen)
+        g_disp = _rows(ec, MOE_H, torch.bfloat16, gen)
+        g_comb = _rows(t * MOE_K, MOE_H, torch.float32, gen)
+        logits = torch.randn(t, MOE_E, generator=gen, device="cuda")
+        clamp = lambda ids, n: ids.long().clamp(0, n - 1)
+        s_ids, c_ids = clamp(slot_token, t), clamp(token_slot, ec)
+        calls = {
+            "gather": [
+                (lambda: embedding_gather(x_disp, slot_token),
+                 lambda: embedding_gather_plain(x_disp, slot_token),
+                 lambda: torch.index_select(x_disp, 0, s_ids),
+                 gather_bound(x_disp, slot_token)),
+                (lambda: embedding_gather(y_comb, token_slot),
+                 lambda: embedding_gather_plain(y_comb, token_slot),
+                 lambda: torch.index_select(y_comb, 0, c_ids),
+                 gather_bound(y_comb, token_slot))],
+            "scatter": [
+                (lambda: embedding_scatter_add(g_disp, slot_token, t),
+                 lambda: embedding_scatter_add_plain(g_disp, slot_token, t),
+                 lambda: torch.zeros(t, MOE_H, dtype=g_disp.dtype,
+                                     device="cuda").index_add_(
+                     0, s_ids, g_disp),
+                 scatter_bound(g_disp, slot_token, t)),
+                (lambda: embedding_scatter_add(g_comb, token_slot, ec),
+                 lambda: embedding_scatter_add_plain(g_comb, token_slot, ec),
+                 lambda: torch.zeros(ec, MOE_H, dtype=g_comb.dtype,
+                                     device="cuda").index_add_(
+                     0, c_ids, g_comb),
+                 scatter_bound(g_comb, token_slot, ec))],
+            "topk": [
+                (lambda: topk_gating(logits, MOE_K),
+                 lambda: topk_gating_plain(logits, MOE_K),
+                 lambda: torch.softmax(torch.topk(logits, MOE_K).values, -1),
+                 topk_bound(t, MOE_E, MOE_K))],
+        }
+        report_ms = {}
+        for name, sites in calls.items():
+            per = [dict(ms=device_ms(k_fn, 40), plain_ms=device_ms(p_fn, 20),
+                        library_ms=device_ms(l_fn, 40), bound_ms=bound)
+                   for k_fn, p_fn, l_fn, bound in sites]
+            for site, m in zip(("dispatch", "combine"), per):
+                label = f"{name} {site}" if len(per) > 1 else name
+                print(f"[kernel_moe] {label} at the step's shape: kernel {m['ms']:.4f} ms, plain "
+                      f"{m['plain_ms']:.4f} ms, library (yardstick only) "
+                      f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.5f} "
+                      f"ms (bytes) [{card}]")
+            report_ms[name] = {f: sum(m[f] for m in per)
+                               for f in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms")}
+            report_ms[name]["bound_by"] = "bytes"
+            report_ms[name]["max_abs_err"] = errs[name]
+            if len(per) > 1:
+                report_ms[name]["by_call"] = dict(zip(("dispatch", "combine"),
+                                                      per))
+    return report_ms
+
+
+def moe_jax_layout_weights(seed: int) -> dict:
+    """MoE transformer parameters in the JAX package's layout and with its
+    initialisers: normal(0.02) embeddings, Xavier-uniform attention and
+    gate weights (``[in, out]``), He-normal experts (fan
+    ``int(sqrt(E*D*F))``, the reference's rule for 3-D shapes), zero
+    biases, unit LayerNorm scales."""
+    g = np.random.default_rng(seed)
+    h, e, f = MOE_H, MOE_E, MOE_FFN
+
+    def normal(std, *shape):
+        return np.float32(std) * g.standard_normal(shape, dtype=np.float32)
+
+    def xavier(*shape):
+        lim = np.float32(np.sqrt(6.0 / (shape[0] + shape[1])))
+        return (g.random(shape, dtype=np.float32) * 2 - 1) * lim
+
+    def he(*shape):
+        return normal(np.sqrt(2.0 / int(np.sqrt(np.prod(shape)))), *shape)
+
+    z = lambda *shape: np.zeros(shape, np.float32)
+    o = lambda *shape: np.ones(shape, np.float32)
+    p = {"tok_emb": normal(0.02, MOE_V, h), "pos_emb": normal(0.02, MOE_S, h)}
+    for layer in range(MOE_L):
+        p[f"layer{layer}"] = {
+            "attn": {"qkv_weight": xavier(h, 3 * h), "qkv_bias": z(3 * h),
+                     "out_weight": xavier(h, h), "out_bias": z(h)},
+            "ln1": {"scale": o(h), "bias": z(h)},
+            "ln2": {"scale": o(h), "bias": z(h)},
+            "moe": {"gate": {"gate_w": xavier(h, e)},
+                    "experts": {"w1": he(e, h, f), "b1": z(e, f),
+                                "w2": he(e, f, h), "b2": z(e, h)}}}
+    return p
+
+
+def _moe_flops(routed):
+    """Model FLOPs of one training step (forward and backward, 3x the
+    forward): per token and layer, the attention projections (8 H^2), the
+    scores and the weighted sum over the whole sequence (4 S H, as bench.py
+    counts attention) and the gate (2 H E); per routed (token, choice) and
+    layer, the expert FFN (4 H F); per token, the LM head (2 H V).  Routed
+    routes are bounded by capacity: min(E*C, T*k), as bench.py bench_moe
+    counts them."""
+    per_token = MOE_L * (8 * MOE_H ** 2 + 4 * MOE_S * MOE_H
+                         + 2 * MOE_H * MOE_E) + 2 * MOE_H * MOE_V
+    return 3 * (MOE_T * per_token + MOE_L * routed * 4 * MOE_H * MOE_FFN)
+
+
+def _moe_pass(model, batch):
+    """The training loss of ``batch``, every gradient, and each layer's
+    expert indices ``[T, k]``."""
+    routes = []
+    hooks = [layer.moe.gate.register_forward_hook(
+        lambda mod, inp, out: routes.append(out[1].detach()))
+        for layer in model.layers]
+    try:
+        loss, grads = _loss_and_grads(model, batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    return routes, loss, grads
+
+
+def _plain_gather_moe(moe, x):
+    """``MoELayer.forward``'s gather path written out with the gather's
+    plain version (PyTorch indexing, differentiated by autograd) in place of
+    the ``routed_gather`` kernels: the MoE layer of the plain path."""
+    from hetu_tpu_torch import ops
+    from hetu_tpu_torch.ops.cuda_kernels import embedding_gather_plain
+    tokens = x.reshape(-1, x.shape[-1])
+    t, d = tokens.shape
+    e, k = moe.experts.num_experts, moe.gate.k
+    capacity = max(1, int(moe.capacity_factor * t * k / e))
+    gates, idx, aux = moe.gate(tokens)
+    slot_token, token_slot, _ = ops.make_slot_routing(gates, idx, e, capacity)
+    xe = embedding_gather_plain(tokens, slot_token).reshape(e, capacity, d)
+    ye = moe.experts(xe).reshape(e * capacity, d)
+    picked = embedding_gather_plain(ye, token_slot.reshape(-1))
+    out = (gates[..., None].to(picked.dtype)
+           * picked.reshape(t, k, d)).sum(dim=1)
+    return out.reshape(x.shape), aux
+
+
+def phase_train_moe(card, seed, device="cuda"):
+    """The MoE transformer's training step at MoEConfig's widths, bf16,
+    B 32 x S 512: the kernel path against the plain path and the einsum
+    dispatch on one batch, then 10 Executor steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hetu_tpu_torch import interop
+    from hetu_tpu_torch.models import MoEConfig, MoETransformer
+    from hetu_tpu_torch.ops.cuda_kernels import (
+        embedding_gather, embedding_scatter_add, topk_gating,
+    )
+    from hetu_tpu_torch.optim import AdamWOptimizer
+    from hetu_tpu_torch.train import Executor
+
+    cfg = MoEConfig(vocab_size=MOE_V, hidden_size=MOE_H, num_layers=MOE_L,
+                    num_heads=MOE_NH, ffn_size=MOE_FFN, num_experts=MOE_E,
+                    top_k=MOE_K, capacity_factor=MOE_CF, max_position=MOE_S,
+                    dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = MoETransformer(cfg, device=device)
+    model.load_state_dict(interop.params_from_jax(
+        moe_jax_layout_weights(seed), cfg))
+    g = np.random.default_rng(seed + 2)
+    batch = (torch.tensor(g.integers(0, MOE_V, (MOE_B, MOE_S)),
+                          device=device),)
+    _sync(device)
+    print(f"[train_moe] MoE transformer V={MOE_V} H={MOE_H} L={MOE_L} "
+          f"heads={MOE_NH} ffn={MOE_FFN} experts={MOE_E} top-{MOE_K} "
+          f"cf={MOE_CF} (C={MOE_C}) B={MOE_B} S={MOE_S} bf16, AdamW"
+          f"({MOE_LR:g}): built in {time.perf_counter() - t0:.1f} s")
+    counters = (topk_gating, embedding_gather, embedding_scatter_add)
+
+    # the kernel path against two plain paths, one batch, same weights:
+    # "plain" is the same composition with the plain gate and the gather's
+    # plain version (PyTorch indexing, differentiated by autograd), so the
+    # two round alike up to the MoE outputs and route every token alike;
+    # "einsum" is the dense-mask dispatch and combine, whose f32 GEMM
+    # rounds the combine's sum otherwise: one bf16 ulp in a layer's output
+    # then moves the gate logits of later layers and flips the experts of
+    # the tokens whose top-3 logits nearly tie, a discontinuity of the
+    # function, not a fault.  So the gradients are held against "plain",
+    # and "einsum" is held to the loss limit and to identical routes in the
+    # first layer, with the flips of the later layers printed.
+    variants = {"plain": ("xla", "gather"), "einsum": ("xla", "einsum")}
+    routes_k, loss_k, grads_k = _moe_pass(model, batch)
+    results = {}
+    for name, (impl, dispatch) in variants.items():
+        other = copy.deepcopy(model)
+        for layer in other.layers:
+            layer.moe.gate.impl, layer.moe.dispatch_impl = impl, dispatch
+            if name == "plain":
+                layer.moe.forward = functools.partial(_plain_gather_moe,
+                                                      layer.moe)
+        for c in counters:
+            c.launches = 0
+        routes_p, loss_p, grads_p = _moe_pass(other, batch)
+        check(all(c.launches == 0 for c in counters),
+              f"the {name} MoE path launched a kernel")
+        del other
+        check(np.isfinite(loss_k) and np.isfinite(loss_p),
+              "a loss is not finite")
+        flips = [int((a != b).any(-1).sum()) for a, b in zip(routes_k,
+                                                              routes_p)]
+        print(f"[train_moe] kernel path vs {name} path: loss {loss_k:.6f} vs "
+              f"{loss_p:.6f}, |d|={abs(loss_k - loss_p):.3e} (tol "
+              f"{TOL_TRAIN_LOSS:g}); tokens routed otherwise by layer: "
+              f"{flips}")
+        check(abs(loss_k - loss_p) <= TOL_TRAIN_LOSS,
+              f"kernel path loss disagrees with the {name} path")
+        check(flips[0] == 0, f"the {name} path routes the first layer "
+                             f"otherwise")
+        if name == "plain":
+            check(not any(flips), "the plain path routes a token otherwise")
+            grad_ratio = _check_grads("train_moe", grads_k, grads_p)
+        else:
+            worst = max((grads_k[n] - g).abs().max().item()
+                        / g.abs().max().item() for n, g in grads_p.items())
+            print(f"[train_moe] einsum path gradients (reported, not held): "
+                  f"max|dG| / max|G_einsum| <= {worst:.3e}")
+            if device == "cuda":
+                print(f"[train_moe] peak "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                      f"allocated through the einsum path's [T, E, C] masks")
+        results[name] = dict(loss_gap=abs(loss_k - loss_p), flips=flips)
+        del grads_p
+    del grads_k
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    ex = Executor(model.lm_loss_fn(), AdamWOptimizer(MOE_LR), seed=seed)
+    state = ex.init_state(model)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters:  # count the main path's launches only
+        c.launches = 0
+    losses, times, dropped = [], [], []
+    for _ in range(MOE_STEPS):
+        _sync(device)
+        t0 = time.perf_counter()
+        state, met = ex.run("train", state, batch)
+        losses.append(float(met["loss"]))
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    launches = [c.launches for c in counters]
+    print(f"[train_moe] losses: {' '.join(f'{x:.4f}' for x in losses)} "
+          f"(last: lm {float(met['lm_loss']):.4f}, aux "
+          f"{float(met['aux_loss']):.5f})")
+    check(all(np.isfinite(losses)), "a training loss is not finite")
+    check(losses[-1] < losses[0], "the loss did not fall")
+    print(f"[train_moe] launches in {MOE_STEPS} steps: topk_gating "
+          f"{launches[0]}, embedding_gather {launches[1]}, "
+          f"embedding_scatter_add {launches[2]} (a step: "
+          f"{[n / MOE_STEPS for n in launches]}, expected "
+          f"[{MOE_L}, {2 * MOE_L}, {2 * MOE_L}])")
+    check(launches == [MOE_L * MOE_STEPS, 2 * MOE_L * MOE_STEPS,
+                       2 * MOE_L * MOE_STEPS],
+          "the MoE step did not launch L gates, 2L gathers and 2L scatters "
+          "a step")
+
+    with torch.no_grad():  # the routes each layer keeps, after the steps
+        h = (model.tok_emb[batch[0]] + model.pos_emb[None]).to(cfg.dtype)
+        for layer in model.layers:
+            h = h + layer.attn(layer.ln1(h))
+            m, _, met_l = layer.moe(layer.ln2(h), return_metrics=True)
+            dropped.append(float(met_l["dropped_frac"]))
+            h = h + m.to(h.dtype)
+    routed = sum(round(MOE_T * MOE_K * (1 - d)) for d in dropped) / MOE_L
+    step_s = statistics.median(times[1:])
+    flops = _moe_flops(min(MOE_C * MOE_E, MOE_T * MOE_K))
+    mfu = flops / step_s / H100_BF16_FLOP_S
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if device == "cuda" else 0.0
+    print(f"[train_moe] dropped share of routes by layer: "
+          f"{' '.join(f'{d:.4f}' for d in dropped)} (mean routed "
+          f"{routed:.0f} of {MOE_T * MOE_K})")
+    print(f"[train_moe] step median {step_s * 1e3:.3f} ms (steps 2-"
+          f"{MOE_STEPS}; first {times[0] * 1e3:.3f} ms), "
+          f"{MOE_T / step_s:.1f} tokens/s, MFU {100 * mfu:.2f} % "
+          f"({flops / 1e12:.3f} TFLOP a step, {flops / MOE_T / 1e6:.1f} "
+          f"MFLOP a token, routes bounded by capacity, over 989 TFLOP/s), "
+          f"peak {peak_gib:.2f} GiB allocated [{card}]")
+
+    # the expert FFN alone, forward and backward, at the step's [E, C, D];
+    # and its first product's forward both ways: bf16 tensor cores with an
+    # f32 output (what _F32Bmm runs) and the up-cast f32 product
+    experts = model.layers[0].moe.experts
+    xe = torch.randn(MOE_E, MOE_C, MOE_H, device=device,
+                     dtype=cfg.dtype).requires_grad_()
+    if device == "cuda":
+        def ffn():
+            y = experts(xe)
+            torch.autograd.grad(y, [xe, *experts.parameters()],
+                                torch.ones_like(y))
+        w1 = experts.w1.detach().to(cfg.dtype)
+        x = xe.detach()
+        out_f32 = device_ms(lambda: torch.bmm(x, w1,
+                                              out_dtype=torch.float32), 10)
+        upcast = device_ms(lambda: torch.bmm(x.float(), w1.float()), 10)
+        print(f"[train_moe] expert FFN forward + backward at ({MOE_E}, "
+              f"{MOE_C}, {MOE_H}): {device_ms(ffn, 10):.3f} ms a layer; "
+              f"its first product [{MOE_E}, {MOE_C}, {MOE_H}] x [{MOE_E}, "
+              f"{MOE_H}, {MOE_FFN}]: bf16 with f32 output {out_f32:.4f} ms, "
+              f"up-cast f32 {upcast:.4f} ms [{card}]")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, met = ex.run("train", state, batch)
+        float(met["loss"])
+        _sync(device)
+    busy = _profile_table(prof, "train_moe step", card, step_s * 1e6)
+    return dict(launches=launches, step_ms=step_s * 1e3,
+                tokens_per_s=MOE_T / step_s, mfu=mfu, peak_gib=peak_gib,
+                busy_share=busy, losses=losses, grad_ratio=grad_ratio,
+                paths=results)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -814,11 +1398,14 @@ def main(argv=None) -> int:
     phase_build()
     max_err, timings = phase_kernel(card)
     bwd = phase_kernel_bwd(card)
+    moe_kernels = phase_kernel_moe(card)
     serve_launches, engine = phase_slice(card, args.seed)
     phase_profile(engine, card)
     del engine
     torch.cuda.empty_cache()
     train = phase_train(card, args.seed)
+    torch.cuda.empty_cache()
+    moe = phase_train_moe(card, args.seed)
 
     shape = [TRAIN_B, NH, TRAIN_S, HEAD_DIM]
     src = "hetu_tpu/ops/pallas_kernels/flash_attention.py"
@@ -842,7 +1429,29 @@ def main(argv=None) -> int:
            **{f: bwd[k][f] for f in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
            "shape": shape, "dtype": "bfloat16"}
-          for i, k, line in ((1, "dkdv", 198), (2, "dq", 239)))]}
+          for i, k, line in ((1, "dkdv", 198), (2, "dq", 239))),
+        *({"name": name, "route": "cuda",
+           "source": f"hetu_tpu_torch/csrc/{src_file}",
+           "replaces": f"hetu_tpu/ops/pallas_kernels/embedding.py:{line}",
+           "launches": moe["launches"][i],
+           **{f: moe_kernels[key][f] for f in (
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")},
+           "per": per, **({"by_call": moe_kernels[key]["by_call"]}
+                          if "by_call" in moe_kernels[key] else {})}
+          for name, key, i, src_file, line, per in (
+              ("topk_gating", "topk", 0, "topk_gating.cu", 175,
+               f"one call, logits [{MOE_T}, {MOE_E}] f32, k {MOE_K}"),
+              ("embedding_gather", "gather", 1, "embedding.cu", 35,
+               f"the sum of a layer's two calls: dispatch (table "
+               f"[{MOE_T}, {MOE_H}] bf16, {MOE_E * MOE_C} ids) and "
+               f"combine ([{MOE_E * MOE_C}, {MOE_H}] f32, "
+               f"{MOE_T * MOE_K} ids)"),
+              ("embedding_scatter_add", "scatter", 2, "embedding.cu", 75,
+               f"the sum of a layer's two calls: dispatch backward "
+               f"([{MOE_E * MOE_C}, {MOE_H}] bf16 -> {MOE_T} rows) and "
+               f"combine backward ([{MOE_T * MOE_K}, {MOE_H}] f32 -> "
+               f"{MOE_E * MOE_C} rows)")))]}
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -51,4 +51,20 @@ def xavier_uniform(gain: float = 1.0):
     return init
 
 
-__all__ = ["zeros", "ones", "normal", "xavier_uniform"]
+def he_normal(gain: float = 1.0):
+    """He (Kaiming) normal, std ``gain * sqrt(2 / fan_in)``, with the
+    reference's fans: a 2-D ``[in, out]`` shape's ``in``, and
+    ``int(sqrt(prod(shape)))`` for the 3-D stacked expert weights."""
+    def init(generator, shape, dtype=torch.float32):
+        if len(shape) == 2:
+            fan_in = shape[0]
+        elif len(shape) == 4:
+            raise ValueError("he_normal: convolution weights are not ported")
+        else:
+            fan_in = int(math.sqrt(math.prod(shape)))
+        return _empty(generator, shape, dtype).normal_(
+            0.0, gain * math.sqrt(2.0 / fan_in), generator=generator)
+    return init
+
+
+__all__ = ["zeros", "ones", "normal", "xavier_uniform", "he_normal"]

@@ -1,15 +1,18 @@
 """Parameter interop with the JAX reference (``hetu_tpu``).
 
-:func:`params_from_jax` turns a ``hetu_tpu`` GPT parameter tree — nested
-dicts of arrays, as ``GPTModel.init(key)["params"]`` gives after
-``np.asarray`` on each leaf — into a ``state_dict`` for
-:class:`hetu_tpu_torch.models.GPTModel`; :func:`params_to_jax` is its
-inverse.  They handle:
+:func:`params_from_jax` turns a ``hetu_tpu`` parameter tree — nested dicts
+of arrays, as ``model.init(key)["params"]`` gives after ``np.asarray`` on
+each leaf — into a ``state_dict`` for the port's model of the same config
+(:class:`~hetu_tpu_torch.models.GPTModel` for a ``GPTConfig``,
+:class:`~hetu_tpu_torch.models.MoETransformer` for an ``MoEConfig``);
+:func:`params_to_jax` is its inverse.  They handle:
 
 * the layout of ``Linear`` and MHA weights: the reference stores
-  ``[in, out]``, the port ``nn.Linear``'s ``[out, in]``;
-* the blocks, stacked ``[L, ...]`` by ``vmap`` in the reference, one
-  ``blocks.<i>.`` prefix per layer here;
+  ``[in, out]``, the port ``nn.Linear``'s ``[out, in]`` (the MoE gate's
+  ``gate_w [D, E]`` and the stacked experts keep the reference's layout);
+* GPT's blocks, stacked ``[L, ...]`` by ``vmap`` in the reference, one
+  ``blocks.<i>.`` prefix per layer here; the MoE model's ``layer<l>``
+  subtrees, ``layers.<l>.`` here;
 * the LM head, tied to ``tok_emb`` in both, so no head key exists.
 
 :func:`opt_state_from_jax` and :func:`opt_state_to_jax` do the same for an
@@ -23,6 +26,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from hetu_tpu_torch.models.moe_transformer import MoEConfig
 
 # (reference path under "blocks", port name under "blocks.<i>.", is a
 # matmul weight whose layout flips)
@@ -42,12 +47,49 @@ _BLOCK_PARAMS = (
 )
 _TOP_PARAMS = (("tok_emb", "tok_emb"), ("pos_emb", "pos_emb"),
                ("ln_f_scale", "ln_f.scale"), ("ln_f_bias", "ln_f.bias"))
+# the MoE model: (reference path under "layer<l>", port name under
+# "layers.<l>.", flips)
+_MOE_LAYER_PARAMS = (
+    *(((mod, name), dst, flip) for (mod, name), dst, flip in _BLOCK_PARAMS
+      if mod in ("attn", "ln1", "ln2")),
+    (("moe", "gate", "gate_w"), "moe.gate.gate_w", False),
+    *((("moe", "experts", n), f"moe.experts.{n}", False)
+      for n in ("w1", "b1", "w2", "b2")),
+)
+_MOE_TOP_PARAMS = _TOP_PARAMS[:2]
+
+
+def _moe_from_jax(p, config) -> dict:
+    out = {dst: torch.tensor(np.asarray(p[src], np.float32))
+           for src, dst in _MOE_TOP_PARAMS}
+    for layer in range(config.num_layers):
+        for path, dst, flip in _MOE_LAYER_PARAMS:
+            w = p[f"layer{layer}"]
+            for key in path:
+                w = w[key]
+            w = np.asarray(w, np.float32)
+            out[f"layers.{layer}.{dst}"] = torch.tensor(w.T if flip else w)
+    return out
+
+
+def _moe_to_jax(arr, config) -> dict:
+    p = {src: arr(dst) for src, dst in _MOE_TOP_PARAMS}
+    for layer in range(config.num_layers):
+        for path, dst, flip in _MOE_LAYER_PARAMS:
+            w = arr(f"layers.{layer}.{dst}")
+            node = p.setdefault(f"layer{layer}", {})
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = w.T if flip else w
+    return p
 
 
 def params_from_jax(tree, config) -> dict:
-    """``hetu_tpu`` GPT params (or ``{"params": ...}`` variables) → a
-    float32 CPU ``state_dict`` for ``GPTModel(config)``."""
+    """``hetu_tpu`` params (or ``{"params": ...}`` variables) → a float32
+    CPU ``state_dict`` for the port's model of ``config``."""
     p = tree["params"] if "params" in tree else tree
+    if isinstance(config, MoEConfig):
+        return _moe_from_jax(p, config)
     out = {}
     for src, dst in _TOP_PARAMS:
         out[dst] = torch.tensor(np.asarray(p[src], np.float32))
@@ -65,11 +107,14 @@ def params_from_jax(tree, config) -> dict:
 
 
 def params_to_jax(state_dict, config) -> dict:
-    """A ``GPTModel`` ``state_dict`` → the ``hetu_tpu`` parameter tree as
-    float32 numpy arrays (blocks stacked ``[L, ...]``)."""
+    """A ``state_dict`` of the port's model of ``config`` → the ``hetu_tpu``
+    parameter tree as float32 numpy arrays (GPT blocks stacked
+    ``[L, ...]``)."""
     def arr(name):
         return state_dict[name].detach().float().cpu().numpy()
 
+    if isinstance(config, MoEConfig):
+        return _moe_to_jax(arr, config)
     p = {src: arr(dst) for src, dst in _TOP_PARAMS}
     blocks: dict = {}
     for (mod, name), dst, flip in _BLOCK_PARAMS:

@@ -34,6 +34,18 @@ def child_generator(generator: Optional[torch.Generator],
         derive_seed(generator.initial_seed(), i))
 
 
+def require_own_parameters(own: dict, params: dict) -> None:
+    """Raise unless ``params`` holds exactly the tensors of ``own`` (a
+    model's ``named_parameters()``): a loss function written over a module
+    reads the module's own tensors, so others passed in would be ignored
+    (and a recomputed block would read the module's, not the passed
+    ones).  Load other values with ``load_state_dict``."""
+    if params.keys() != own.keys() or any(
+            params[n] is not p for n, p in own.items()):
+        raise ValueError("lm_loss_fn runs on the model's own parameters; "
+                         "load others with load_state_dict")
+
+
 class Module(nn.Module):
     #: names of the parameters ``forward`` casts to ``self.dtype`` at use
     compute_params: tuple = ()

@@ -24,7 +24,9 @@ from torch.utils.checkpoint import (
 
 from hetu_tpu_torch import init as initializers
 from hetu_tpu_torch import ops
-from hetu_tpu_torch.layers.base import Module, child_generator
+from hetu_tpu_torch.layers.base import (
+    Module, child_generator, require_own_parameters,
+)
 from hetu_tpu_torch.layers.norm import LayerNorm
 from hetu_tpu_torch.layers.transformer import TransformerBlock
 
@@ -167,11 +169,7 @@ class GPTModel(Module):
         own = dict(self.named_parameters())
 
         def fn(params, model_state, batch, generator, train):
-            if params.keys() != own.keys() or any(
-                    params[n] is not p for n, p in own.items()):
-                raise ValueError("lm_loss_fn runs on the model's own "
-                                 "parameters; load others with "
-                                 "load_state_dict")
+            require_own_parameters(own, params)
             ids = batch[0] if isinstance(batch, (tuple, list)) else batch
             c = self.c
             if c.fused_ce:

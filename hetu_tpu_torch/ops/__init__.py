@@ -1,7 +1,7 @@
 """Functional ops on torch tensors (counterpart of ``hetu_tpu/ops``).
 
-What the GPT serving and training slices run.  Hand-written CUDA kernels
-live in :mod:`hetu_tpu_torch.ops.cuda_kernels`.
+What the GPT serving and training slices and the MoE training slice run.
+Hand-written CUDA kernels live in :mod:`hetu_tpu_torch.ops.cuda_kernels`.
 """
 
 from hetu_tpu_torch.ops.activations import gelu
@@ -14,11 +14,17 @@ from hetu_tpu_torch.ops.losses import (
     lm_head_cross_entropy, softmax_cross_entropy_sparse,
 )
 from hetu_tpu_torch.ops.matmul import linear
+from hetu_tpu_torch.ops.moe_ops import (
+    gather_combine, gather_dispatch, layout_transform, make_dispatch_combine,
+    make_slot_routing, reverse_layout_transform, top_k_idx_gate,
+)
 from hetu_tpu_torch.ops.norm import layer_norm
 
 __all__ = [
     "gelu", "attention", "causal_attention", "cache_update",
     "decode_attention", "dropout", "embedding_lookup",
     "lm_head_cross_entropy", "linear", "layer_norm",
-    "softmax_cross_entropy_sparse",
+    "softmax_cross_entropy_sparse", "gather_combine", "gather_dispatch",
+    "layout_transform", "make_dispatch_combine", "make_slot_routing",
+    "reverse_layout_transform", "top_k_idx_gate",
 ]

@@ -12,8 +12,8 @@ order: the parameter tree (dict keys sorted, blocks stacked ``[L, ...]``,
 matmul weights ``[in, out]``), the optimizer state (``slots`` by sorted
 name, then ``step``), the model state, the rng words and the step.  So a
 checkpoint crosses between the two packages in both directions;
-:mod:`hetu_tpu_torch.interop` converts the layouts.  Only GPT states are
-laid out so far (``config`` is the model's ``GPTConfig``).
+:mod:`hetu_tpu_torch.interop` converts the layouts of the models it knows
+(``config`` is the model's ``GPTConfig`` or ``MoEConfig``).
 """
 
 from __future__ import annotations
@@ -68,7 +68,8 @@ def _trees(state, config) -> list:
 
 
 def save(path, state, config, *, extra: Optional[dict] = None) -> None:
-    """Write ``state`` (a port ``TrainState`` of a GPT model) to ``path``."""
+    """Write ``state`` (a port ``TrainState`` of the model of ``config``)
+    to ``path``."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     leaves = [leaf for tree in _trees(state, config)
@@ -146,8 +147,8 @@ def _read(path):
 
 
 def load(path, state, config, *, restore_rng: bool = True):
-    """Load ``path`` into ``state`` (a port ``TrainState`` of a GPT model
-    of ``config``): parameters and slots are copied into the state's own
+    """Load ``path`` into ``state`` (a port ``TrainState`` of the model of
+    ``config``): parameters and slots are copied into the state's own
     tensors, in place.  Returns the state with the saved steps and rng
     words.  Raises :class:`CheckpointCorruptError` for an unreadable file
     and :class:`CheckpointError` for one of another architecture."""

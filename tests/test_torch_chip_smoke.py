@@ -8,6 +8,12 @@ near the end of the sequence, where the gradients are smallest: one
 64-wide tile (the key tile before the diagonal misses the last query tile
 in dK and dV; the last query tile misses that key tile in dQ), or one row
 (every key misses the last query; every query misses its diagonal key).
+
+The MoE kernels' gates (``tolerance_share``, ``scatter_tolerance``,
+``TOL_GATES``) are tried the same way: each passes the plain version and
+refuses a gather that returns the clamped id's row for an invalid id, a
+scatter-add that drops a duplicate or leaves a zero row unwritten, and a
+gate that swaps a tie.
 """
 
 import importlib.util
@@ -121,3 +127,98 @@ def test_gate_floor_on_a_zero_row(dtype):
     zero = torch.zeros(1, 1, 4, 8, dtype=dtype)
     assert chip_smoke.grad_tolerance_share(zero, zero) == 0.0
     assert chip_smoke.grad_tolerance_share(got, zero) == float("inf")
+
+
+# ------------------------------------------------- the MoE kernels' gates
+# chip_smoke.py holds the gather bitwise, the scatter-add bitwise (at most
+# two rows on a destination, or integer values) or to an order bound
+# (scatter_tolerance), and the gate's indices bitwise: each gate must pass
+# the plain version and refuse a real fault.
+
+def test_gather_gate_refuses_the_clamped_row_for_an_invalid_id():
+    from hetu_tpu_torch.ops.cuda_kernels import embedding_gather_plain
+    g = torch.Generator().manual_seed(0)
+    table = torch.randn(16, 40, generator=g).to(torch.bfloat16)
+    ids = torch.tensor([3, -1, 15, 16, 0, 22])
+    ref = embedding_gather_plain(table, ids)
+    assert chip_smoke.tolerance_share(ref.clone(), ref) == 0.0
+    clamped = table[ids.clamp(0, 15)]  # the TPU kernel's DMA, unmasked
+    assert chip_smoke.tolerance_share(clamped, ref) == float("inf")
+
+
+def _pairs_case():
+    g = torch.Generator().manual_seed(1)
+    ids = torch.cat([torch.randperm(20, generator=g) - 2 for _ in range(2)])
+    grads = torch.randn(ids.numel(), 24, generator=g)
+    return ids, grads
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_scatter_gate_refuses_a_dropped_duplicate(dtype):
+    from hetu_tpu_torch.ops.cuda_kernels import embedding_scatter_add_plain
+    ids, grads = _pairs_case()
+    grads = grads.to(dtype)
+    ref = embedding_scatter_add_plain(grads, ids, 16)
+    assert chip_smoke.tolerance_share(ref.clone(), ref) == 0.0
+    # the second row of a destination that takes two is lost
+    row = int(ids[(ids >= 0) & (ids < 16)][0])
+    second = int((ids == row).nonzero()[1])
+    keep = torch.ones(ids.numel(), dtype=torch.bool)
+    keep[second] = False
+    dropped = embedding_scatter_add_plain(grads[keep], ids[keep], 16)
+    assert chip_smoke.tolerance_share(dropped, ref) == float("inf")
+
+
+def test_scatter_gate_refuses_a_missing_zero_row():
+    from hetu_tpu_torch.ops.cuda_kernels import embedding_scatter_add_plain
+    ids, grads = _pairs_case()
+    ids = ids[ids != 5]  # row 5 takes no gradient: it must be zeros
+    grads = grads[:ids.numel()]
+    ref = embedding_scatter_add_plain(grads, ids, 16)
+    assert not ref[5].any()
+    stale = ref.clone()
+    stale[5] = 1e-30  # what an unwritten row of the output still held
+    assert chip_smoke.tolerance_share(stale, ref) == float("inf")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_scatter_order_bound_passes_a_reordered_sum(dtype):
+    """4096 rows on one destination, summed in reverse order: within the
+    order bound; one row dropped: refused by the bound, and by the bitwise
+    gate of the integer-valued case."""
+    from hetu_tpu_torch.ops.cuda_kernels import embedding_scatter_add_plain
+    g = torch.Generator().manual_seed(2)
+    ids = torch.full((4096,), 3)
+    grads = torch.randn(4096, 64, generator=g).to(dtype)
+    ref = embedding_scatter_add_plain(grads, ids, 8)
+    tol = chip_smoke.scatter_tolerance(grads, ids, 8, ref)
+    flipped = embedding_scatter_add_plain(grads.flip(0), ids, 8)
+    assert 0.0 <= chip_smoke.tolerance_share(flipped, ref, tol) <= 1.0
+    short = embedding_scatter_add_plain(grads[1:], ids[1:], 8)
+    assert chip_smoke.tolerance_share(short, ref, tol) > 1.0
+    ints = torch.randint(-8, 9, (4096, 64), generator=g).to(dtype)
+    exact = embedding_scatter_add_plain(ints, ids, 8)
+    assert chip_smoke.tolerance_share(
+        embedding_scatter_add_plain(ints.flip(0), ids, 8), exact) == 0.0
+    assert chip_smoke.tolerance_share(
+        embedding_scatter_add_plain(ints[1:], ids[1:], 8), exact) \
+        == float("inf")
+
+
+def test_topk_gate_refuses_a_swapped_tie():
+    from hetu_tpu_torch.ops.cuda_kernels import topk_gating_plain
+    logits = torch.zeros(8, 8)
+    logits[4:, 2] = logits[4:, 6] = 1.0  # a tie between experts 2 and 6
+    gates, idx = topk_gating_plain(logits, 2)
+    assert idx[:4].tolist() == [[0, 1]] * 4 and idx[4:].tolist() == \
+        [[2, 6]] * 4
+    assert chip_smoke.tolerance_share(idx.clone(), idx) == 0.0
+    assert chip_smoke.tolerance_share(
+        gates, gates, chip_smoke.TOL_GATES[torch.float32]) == 0.0
+    swapped = idx.clone()
+    swapped[4] = torch.tensor([6, 2])
+    assert chip_smoke.tolerance_share(swapped, idx) == float("inf")
+    # a gate off by more than its tolerance is refused too
+    off = gates + 2 * chip_smoke.TOL_GATES[torch.float32]
+    assert chip_smoke.tolerance_share(
+        off, gates, chip_smoke.TOL_GATES[torch.float32]) > 1.0

@@ -1,8 +1,8 @@
 """hetu_tpu_torch stands alone: it imports neither ``jax`` nor ``hetu_tpu``.
 
 Subprocesses import the package and, on the CPU, run the serving slice
-(one prefill and one decode) and the training slice (two AdamW steps of
-the Executor and a checkpoint round trip); ``jax`` and ``hetu_tpu`` must
+(one prefill and one decode) and the GPT and MoE training slices (two
+AdamW steps of the Executor and a checkpoint round trip each); ``jax`` and ``hetu_tpu`` must
 stay out of ``sys.modules``.  An AST scan of every module of the package,
 and of ``chip_smoke.py``, finds no import of either.
 """
@@ -94,6 +94,34 @@ def test_training_slice_runs_without_jax(tmp_path):
     assert "LEAKED []" in out
 
 
+def test_moe_training_slice_runs_without_jax(tmp_path):
+    out = _run(
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from hetu_tpu_torch.models import MoEConfig, MoETransformer\n"
+        "from hetu_tpu_torch.optim import AdamWOptimizer\n"
+        "from hetu_tpu_torch.train import Executor, checkpoint\n"
+        "cfg = MoEConfig(vocab_size=97, hidden_size=32, num_layers=2,\n"
+        "                num_heads=4, ffn_size=64, num_experts=4,\n"
+        "                max_position=32, dtype=torch.bfloat16)\n"
+        "m = MoETransformer(cfg, device='cpu')\n"
+        "ex = Executor(m.lm_loss_fn(), AdamWOptimizer(1e-2), seed=0)\n"
+        "st = ex.init_state(m)\n"
+        "ids = torch.randint(0, 97, (2, 16))\n"
+        "losses = []\n"
+        "for _ in range(2):\n"
+        "    st, met = ex.run('train', st, (ids,))\n"
+        "    losses.append(float(met['loss']))\n"
+        f"checkpoint.save({str(tmp_path / 'c.npz')!r}, st, cfg)\n"
+        f"st = checkpoint.load({str(tmp_path / 'c.npz')!r}, st, cfg)\n"
+        "assert st.step == 2 and all(l == l for l in losses), losses\n"
+        "assert set(met) == {'loss', 'lm_loss', 'aux_loss'}, met\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
@@ -119,4 +147,6 @@ def test_scan_sees_the_whole_package():
     assert {"__init__.py", "ops/cuda_kernels/flash_attention.py",
             "serve/engine.py", "models/gpt.py", "interop.py",
             "train/executor.py", "train/checkpoint.py",
-            "optim/optimizer.py", "lr/__init__.py", "rng.py"} <= names
+            "optim/optimizer.py", "lr/__init__.py", "rng.py",
+            "ops/cuda_kernels/embedding.py", "ops/moe_ops.py",
+            "layers/moe.py", "models/moe_transformer.py"} <= names
