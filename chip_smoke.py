@@ -18,7 +18,11 @@ without the final result line:
    gate) against its plain PyTorch version on the card, at the main
    paths' shapes and at edge cases (stated tolerances), then timed with
    CUDA events beside its plain version, one PyTorch library call as a
-   yardstick (never used by the port) and its roofline bound.
+   yardstick (never used by the port) and its roofline bound.  The
+   tensor-core backward kernels also at edges of their tiles and ring, on
+   strided and unaligned inputs, two launches bitwise equal, with their
+   TFLOP/s and share of the bound, and the whole backward (delta,
+   operands, both kernels) beside SDPA's backward.
 4. slice  — GPT-2-small (published widths, seeded random weights in the
    JAX package's layout, loaded through ``interop.params_from_jax``)
    served by ``ServeEngine`` + ``ContinuousBatchingScheduler`` over 16
@@ -186,33 +190,36 @@ def device_ms(fn, runs: int = 60, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def flash_bound(b, h, s_q, s_k, d, causal, elem_bytes=2, kernel="fwd"):
-    """Least time (ms) an H100 could take for one flash kernel on these
-    shapes: each input read once, each output written once, against the
-    operations the causal mask leaves, per visible (query, key) pair:
-
-    * ``fwd``: two products of 2*D (q.k, p.v); reads q, k, v; writes O
-      and the f32 LSE;
-    * ``dkdv``: four (q.k, dO.v, p^T.dO, dS^T.q), 8*D; reads q, k, v, dO
-      and the f32 LSE and delta; writes dK and dV;
-    * ``dq``: three (q.k, dO.v, dS.k), 6*D; the same reads; writes dQ.
-    """
+def flash_flops(b, h, s_q, s_k, d, causal, kernel="fwd"):
+    """Operations of one flash kernel on these shapes, per (query, key) pair
+    the causal mask leaves visible: ``fwd`` two products of 2*D (q.k, p.v);
+    ``dkdv`` four (q.k, dO.v, p^T.dO, dS^T.q), 8*D; ``dq`` three (q.k,
+    dO.v, dS.k), 6*D."""
     if causal:
         pairs = sum(min(max(i + s_k - s_q + 1, 0), s_k) for i in range(s_q))
     else:
         pairs = s_q * s_k
+    return {"fwd": 4, "dkdv": 8, "dq": 6}[kernel] * d * pairs * b * h
+
+
+def flash_bound(b, h, s_q, s_k, d, causal, elem_bytes=2, kernel="fwd"):
+    """Least time (ms) an H100 could take for one flash kernel on these
+    shapes: each input read once, each output written once, against the
+    operations of :func:`flash_flops`:
+
+    * ``fwd``: reads q, k, v; writes O and the f32 LSE;
+    * ``dkdv``: reads q, k, v, dO and the f32 LSE and delta; writes dK and
+      dV;
+    * ``dq``: the same reads; writes dQ.
+    """
     bh = b * h
+    flops = flash_flops(b, h, s_q, s_k, d, causal, kernel)
     if kernel == "fwd":
-        flops = 4 * d * pairs * bh
         nbytes = (2 * s_q + 2 * s_k) * bh * d * elem_bytes + bh * s_q * 4
     else:
         reads = (2 * s_q + 2 * s_k) * bh * d * elem_bytes + 2 * bh * s_q * 4
-        if kernel == "dkdv":
-            flops, nbytes = 8 * d * pairs * bh, reads + 2 * s_k * bh * d \
-                * elem_bytes
-        else:
-            flops, nbytes = 6 * d * pairs * bh, reads + s_q * bh * d \
-                * elem_bytes
+        outs = (2 * s_k if kernel == "dkdv" else s_q) * bh * d * elem_bytes
+        nbytes = reads + outs
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOP_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -334,24 +341,63 @@ def grad_tolerance_share(got, ref):
     return share.max().item()
 
 
-def _bwd_inputs(shape_q, s_k, dtype, causal, gen):
-    """q, k, v, dO, and the LSE and delta the forward pass gives them."""
+def _relaid(t, layout):
+    """``t``'s values in another memory layout: ``views``, a transposed
+    ``[B, H, S, D]`` view of a ``[B, S, H, D]`` tensor, as the attention
+    layer passes them; ``unaligned``, a contiguous view that starts 2 bytes
+    past a 16-byte boundary (TMA cannot read it in place)."""
+    if layout == "views":
+        b, h, s, d = t.shape
+        return torch.empty(b, s, h, d, dtype=t.dtype,
+                           device=t.device).transpose(1, 2).copy_(t)
+    if layout == "unaligned":
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        return buf[1:].view(t.shape).copy_(t)
+    return t
+
+
+def _bwd_inputs(shape_q, s_k, dtype, causal, gen, layout="contiguous"):
+    """q, k, v, dO (in ``layout``, see :func:`_relaid`), and the LSE and
+    delta the forward pass gives them."""
     from hetu_tpu_torch.ops.cuda_kernels.flash_attention import (
         flash_attention_plain,
     )
     q, k, v = _qkv(shape_q, s_k, dtype, gen)
     do = torch.randn(q.shape, generator=gen, device="cuda",
                      dtype=torch.float32).to(dtype)
+    q, k, v, do = (_relaid(t, layout) for t in (q, k, v, do))
     o, lse = flash_attention_plain(q, k, v, causal=causal)
     b, h, s_q, _ = q.shape
     delta = (do.float() * o.float()).sum(-1).reshape(b * h, s_q, 1)
     return q, k, v, do, lse, delta
 
 
+def _layer_views(shape, dtype, gen):
+    """q, k, v and dO as the attention layer hands them to the backward:
+    transposed ``[B, H, S, D]`` views of the fused QKV projection's
+    ``[B, S, 3, H, D]`` output and of the output projection's gradient
+    ``[B, S, H, D]``; O and the LSE from the forward."""
+    from hetu_tpu_torch.ops.cuda_kernels.flash_attention import (
+        flash_attention_plain,
+    )
+    b, h, s, d = shape
+    qkv = torch.randn(b, s, 3, h, d, generator=gen, device="cuda").to(dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(
+        dtype).transpose(1, 2)
+    o, lse = flash_attention_plain(q, k, v, causal=True)
+    return q, k, v, o, lse, do
+
+
 def phase_kernel_bwd(card):
     """The two backward kernels against the plain backward, at the
-    training step's shape and at edge cases, then timed at that shape."""
+    training step's shape and at edge cases that cross the tensor-core
+    kernels' tile and ring edges; two launches bitwise equal; then timed at
+    that shape, each kernel and the whole ``flash_attention_bwd`` (delta,
+    operand preparation and both kernels, on the attention layer's
+    transposed views) beside SDPA's backward."""
     from hetu_tpu_torch.ops.cuda_kernels.flash_attention import (
+        _bwd_operands, bwd_delta, flash_attention_bwd,
         flash_attention_bwd_dkdv, flash_attention_bwd_dq,
         flash_attention_bwd_plain,
     )
@@ -368,11 +414,26 @@ def phase_kernel_bwd(card):
             (dtype, (1, NH, 100, HEAD_DIM), 100, False, "ragged full"),
             (dtype, (1, 2, 48, 128), 48, True, "D=128"),
             (dtype, (1, 2, 40, 32), 72, True, "D=32 ragged"),
+            # across the tensor-core kernels' 64-row tiles and 3-stage ring
+            (dtype, (1, 2, 1000, HEAD_DIM), 1000, True, "S=1000"),
+            (dtype, (2, 3, 130, HEAD_DIM), 130, True, "S=130"),
+            (dtype, (1, 2, 100, HEAD_DIM), 190, True, "S_q<S_k ragged"),
+            (dtype, (1, 2, 190, HEAD_DIM), 100, True, "S_q>S_k ragged"),
+            (dtype, (1, 3, 200, 128), 200, True, "D=128 S=200"),
+            (dtype, (1, 3, 130, 32), 130, True, "D=32 S=130"),
+            (dtype, (1, 2, 70, 20), 90, True, "D=20 padded"),
+            (dtype, (1, 1, 257, HEAD_DIM), 257, True, "B*H=1"),
+            (dtype, (1, 1, 300, HEAD_DIM), 300, False, "B*H=1 full"),
+            # strided inputs: read in place by TMA (bf16), or copied once
+            (dtype, (2, NH, 256, HEAD_DIM), 256, True, "layer views",
+             "views"),
+            (dtype, (1, 2, 130, HEAD_DIM), 130, True, "unaligned",
+             "unaligned"),
         ]
     max_err = {}
     with torch.no_grad():
-        for dtype, shape, s_k, causal, tag in cases:
-            args = _bwd_inputs(shape, s_k, dtype, causal, gen)
+        for dtype, shape, s_k, causal, tag, *layout in cases:
+            args = _bwd_inputs(shape, s_k, dtype, causal, gen, *layout)
             dk, dv = flash_attention_bwd_dkdv(*args, causal=causal)
             dq = flash_attention_bwd_dq(*args, causal=causal)
             want = flash_attention_bwd_plain(*args, causal=causal)
@@ -383,6 +444,7 @@ def phase_kernel_bwd(card):
                 errs[name] = (got.float() - ref.float()).abs().max().item()
                 shares[name] = grad_tolerance_share(got, ref)
                 ok = ok and got.dtype == ref.dtype \
+                    and got.shape == ref.shape \
                     and bool(torch.isfinite(got).all()) \
                     and shares[name] <= 1.0
             masked = shape[2] - s_k if causal and shape[2] > s_k else 0
@@ -407,6 +469,18 @@ def phase_kernel_bwd(card):
                            "dq": errs["dq"]}
 
         args = _bwd_inputs(main, TRAIN_S, torch.bfloat16, True, gen)
+        # no atomics: each output row is written once, so two launches
+        # give the same bits
+        again = [flash_attention_bwd_dkdv(*args, causal=True)
+                 + (flash_attention_bwd_dq(*args, causal=True),)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(*again))
+        print(f"[kernel] flash_attention_bwd bf16 main q{main}: two launches "
+              f"of each kernel bitwise equal: {same}")
+        check(same, "two launches of the backward kernels differ")
+        del again
         timings = {
             "dkdv": device_ms(lambda: flash_attention_bwd_dkdv(
                 *args, causal=True), 20),
@@ -414,25 +488,40 @@ def phase_kernel_bwd(card):
                 *args, causal=True), 20)}
         plain_ms = device_ms(lambda: flash_attention_bwd_plain(
             *args, causal=True), 20)
-    # the yardstick: SDPA's backward alone, on the same q, k, v and dO
-    q, k, v, do = (t.detach().requires_grad_(i < 3)
-                   for i, t in enumerate(args[:4]))
+        q, k, v, o, lse, do = _layer_views(main, torch.bfloat16, gen)
+        whole_ms = device_ms(lambda: flash_attention_bwd(
+            q, k, v, o, lse, do, causal=True), 20)
+        # its parts outside the kernels
+        delta_ms = device_ms(lambda: bwd_delta(do, o), 20)
+        prep_ms = device_ms(lambda: _bwd_operands(q, k, v, do), 20)
+    # the yardstick: SDPA's backward alone, on the same views
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     out = torch.nn.functional.scaled_dot_product_attention(q, k, v,
                                                            is_causal=True)
     lib_ms = device_ms(lambda: torch.autograd.grad(
         out, (q, k, v), do, retain_graph=True), 20)
+    print(f"[kernel] flash_attention_bwd bf16 causal q{main}, the "
+          f"attention layer's transposed views: whole backward (delta, "
+          f"operands, dK/dV and dQ kernels) {whole_ms:.4f} ms (delta alone "
+          f"{delta_ms:.4f} ms, operand copies alone {prep_ms:.4f} ms), "
+          f"library (SDPA backward, yardstick only) {lib_ms:.4f} ms, "
+          f"{whole_ms / lib_ms:.2f}x [{card}]")
     report = {}
     for name in ("dkdv", "dq"):
         bound_ms, bound_by = flash_bound(*main[:2], TRAIN_S, TRAIN_S,
                                          HEAD_DIM, True, kernel=name)
+        tflops = flash_flops(*main[:2], TRAIN_S, TRAIN_S, HEAD_DIM, True,
+                             kernel=name) / timings[name] / 1e9
         report[name] = dict(ms=timings[name], plain_ms=plain_ms,
                             library_ms=lib_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, max_abs_err=max_err[name])
+                            bound_by=bound_by, max_abs_err=max_err[name],
+                            whole_bwd_ms=whole_ms)
         print(f"[kernel] flash_attention_bwd_{name} bf16 causal q{main}: "
-              f"kernel {timings[name]:.4f} ms, plain backward (dQ, dK, dV "
-              f"together) {plain_ms:.4f} ms, library (SDPA backward, "
-              f"yardstick only) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
-              f"({bound_by}) [{card}]")
+              f"kernel {timings[name]:.4f} ms ({tflops:.1f} TFLOP/s, "
+              f"{100 * bound_ms / timings[name]:.1f} % of the bound), plain "
+              f"backward (dQ, dK, dV together) {plain_ms:.4f} ms, library "
+              f"(SDPA backward, yardstick only) {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}) [{card}]")
     return report
 
 
@@ -1427,7 +1516,8 @@ def main(argv=None) -> int:
            "replaces": f"{src}:{line}", "launches": train["launches"][i],
            "max_abs_err": bwd[k]["max_abs_err"],
            **{f: bwd[k][f] for f in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")},
+                                     "bound_by", "library_ms",
+                                     "whole_bwd_ms")},
            "shape": shape, "dtype": "bfloat16"}
           for i, k, line in ((1, "dkdv", 198), (2, "dq", 239))),
         *({"name": name, "route": "cuda",

@@ -4,7 +4,8 @@ Each ``hetu_tpu_torch/csrc/<name>.cu`` exposes a plain ``extern "C"``
 launcher and compiles on its own, with no PyTorch headers, into
 ``hetu_tpu_torch/_build/lib<name>.so`` (seconds per source, where a build
 against PyTorch's headers takes minutes).  A library is rebuilt when its
-source is newer than it.  A build or load error is raised, never swallowed:
+source, or any header ``csrc/*.cuh`` (which a source may include), is newer
+than it.  A build or load error is raised, never swallowed:
 a CUDA tensor has no other path to take.
 
 Nothing here runs at import time; ``nvcc`` is needed only on the machine
@@ -56,9 +57,13 @@ def log_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or than
+    any header in ``csrc/``."""
     lib = library_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    inputs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build(*names: str) -> list:

@@ -11,7 +11,12 @@ Counterpart of ``hetu_tpu/ops/pallas_kernels/flash_attention.py``:
 
 Each source's header says what bounds it on an H100 and what the design
 does about that; they are built with nvcc on first use and bound with
-ctypes.
+ctypes.  The backward has two routes (:func:`bwd_route`): bf16 runs on
+tensor cores (wgmma on TMA-fed, swizzled bf16 tiles, p and dS kept in
+registers); f32 keeps the scalar f32-FMA kernels, since a tensor-core
+product of f32 inputs runs in TF32.  :func:`flash_attention_bwd` prepares
+q, k, v and dO once for both kernels: bf16 views such as the attention
+layer's transposed ones are read in place (TMA maps take strides).
 
 Every wrapper computes its plain version for CPU tensors and launches its
 kernel for CUDA tensors — there is no fallback from one to the other.  Each
@@ -161,26 +166,29 @@ def _library(name, *functions):
 
 
 def _flat(t):
+    """``[B, H, S, D]`` as a contiguous ``[B*H, S, D]`` tensor (a copy only
+    where the view is not one)."""
     b, h, s, d = t.shape
     return t.reshape(b * h, s, d).contiguous()
 
 
-def _call(lib, fn_name, what, q, k, tensors, causal, scale):
-    """Launch ``fn_name`` on the current stream over ``tensors`` (pointers,
-    in the launcher's order) and raise, naming the cudaError and the shapes,
-    if it refused or failed."""
-    b, h, s_q, d = q.shape
-    dev = q.device.index if q.device.index is not None \
+def _call(lib, fn_name, what, dims, ref, pointers, causal, scale):
+    """Launch ``fn_name`` on the current stream with ``pointers`` (tensors
+    and ctypes arrays, in the launcher's order) and ``dims = (B*H, S_q,
+    S_k, D)``, for inputs of ``ref``'s type and device; raise, naming the
+    cudaError and the dims, if it refused or failed."""
+    dev = ref.device.index if ref.device.index is not None \
         else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = torch.cuda.current_stream(ref.device).cuda_stream
     err = getattr(lib, fn_name)(
-        *(t.data_ptr() for t in tensors), b * h, s_q, k.shape[2], d, scale,
-        int(causal), _DTYPES[q.dtype], dev, stream)
+        *(t.data_ptr() if isinstance(t, torch.Tensor) else ctypes.addressof(t)
+          for t in pointers), *dims, scale, int(causal), _DTYPES[ref.dtype],
+        dev, stream)
     if err != 0:
         raise RuntimeError(
             f"{what} kernel launch failed: cudaError {err} "
-            f"({lib.hetu_cuda_error_string(err).decode()}) for q "
-            f"{tuple(q.shape)} {q.dtype}, S_k {k.shape[2]}")
+            f"({lib.hetu_cuda_error_string(err).decode()}) for (B*H, S_q, "
+            f"S_k, D) {tuple(dims)} {ref.dtype}")
 
 
 def _launch_fwd(q, k, v, *, causal: bool, scale: float):
@@ -189,21 +197,115 @@ def _launch_fwd(q, k, v, *, causal: bool, scale: float):
     out = torch.empty_like(qf)
     lse = torch.empty(qf.shape[0], qf.shape[1], 1, dtype=torch.float32,
                       device=q.device)
-    _call(lib, "hetu_flash_attention_fwd", "flash_attention", q, k,
+    _call(lib, "hetu_flash_attention_fwd", "flash_attention",
+          (*qf.shape[:2], kf.shape[1], qf.shape[2]), q,
           (qf, kf, vf, out, lse), causal, scale)
     flash_attention.launches += 1
     return out.reshape(q.shape), lse
 
 
 def _bwd_library():
-    return _library(_BWD, ("hetu_flash_attention_bwd_dkdv", 8),
-                    ("hetu_flash_attention_bwd_dq", 7))
+    return _library(_BWD, ("hetu_flash_attention_bwd_dkdv", 9),
+                    ("hetu_flash_attention_bwd_dq", 8))
+
+
+def bwd_route(dtype, head_dim: int):
+    """Which backward kernels a CUDA call takes, and the head dim they run
+    at: ``("wgmma", D rounded up to 8)`` for bf16 -- tensor cores on
+    TMA-fed tiles, whose tensor maps need rows of a multiple of 16 bytes,
+    so other head dims are padded with zero columns -- and
+    ``("scalar", D)`` for f32 -- f32 FMAs on CUDA cores, since a
+    tensor-core product of f32 inputs would run in TF32 and break the
+    reference's f32 semantics."""
+    if dtype == torch.bfloat16:
+        return "wgmma", -(-head_dim // 8) * 8
+    return "scalar", head_dim
+
+
+def _outer_strides(t):
+    """The batch, head and row strides of ``[B, H, S, D]`` ``t`` (unit
+    inner stride), with the dense value for a dimension of size 1, whose
+    stride is never used."""
+    out, inner = [], t.shape[3]
+    for i in (2, 1, 0):
+        st = t.stride(i) if t.shape[i] > 1 else inner
+        out.insert(0, st)
+        inner = st * t.shape[i]
+    return out
+
+
+def _tma_ready(t):
+    """True when TMA can read bf16 ``t`` in place: unit inner stride, the
+    other strides multiples of 8 elements (16 bytes), 16-byte aligned."""
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(
+        s % 8 == 0 for s in _outer_strides(t))
+
+
+def _bwd_operands(q, k, v, do):
+    """q, k, v and dO as both backward kernels read them, their layout
+    (the heads, then each operand's batch, head and row strides) and the
+    head dim D of the outputs.  bf16 views are read in place where TMA can
+    (the attention layer's transposed views can); other bf16 inputs become
+    contiguous copies zero-padded to the head dim of :func:`bwd_route`,
+    and f32 inputs contiguous copies.  So each input is copied at most
+    once a backward."""
+    d = q.shape[-1]
+    route, d_run = bwd_route(q.dtype, d)
+    ops = []
+    for t in (q, k, v, do):
+        if d_run != d:
+            t = torch.nn.functional.pad(t, (0, d_run - d))
+        elif route == "scalar":
+            t = t.contiguous()
+        elif not _tma_ready(t):  # a fresh allocation is aligned
+            t = t.clone(memory_format=torch.contiguous_format)
+        ops.append(t)
+    layout = (ctypes.c_longlong * 13)(
+        q.shape[1], *(s for t in ops for s in _outer_strides(t)))
+    return ops, layout, d
+
+
+def _bwd_out(ref, rows, d):
+    """A kernel output, contiguous ``[B, H, rows, D']`` with ``ref``'s
+    batch, heads, head dim and type, and its view without the padding
+    columns, ``[..., :d]``."""
+    t = torch.empty(*ref.shape[:2], rows, ref.shape[3], dtype=ref.dtype,
+                    device=ref.device)
+    return t, t[..., :d]
+
+
+def _bwd_dims(q, k):
+    return q.shape[0] * q.shape[1], q.shape[2], k.shape[2], q.shape[3]
+
+
+def _launch_dkdv(operands, lse, delta, *, causal, scale):
+    (q, k, v, do), layout, d = operands
+    dk, dk_view = _bwd_out(k, k.shape[2], d)
+    dv, dv_view = _bwd_out(k, k.shape[2], d)
+    _call(_bwd_library(), "hetu_flash_attention_bwd_dkdv",
+          "flash_attention_bwd_dkdv", _bwd_dims(q, k), q,
+          (q, k, v, do, lse.contiguous(), delta.contiguous(), dk, dv,
+           layout), causal, float(scale))
+    flash_attention_bwd_dkdv.launches += 1
+    return dk_view, dv_view
+
+
+def _launch_dq(operands, lse, delta, *, causal, scale):
+    (q, k, v, do), layout, d = operands
+    dq, dq_view = _bwd_out(q, q.shape[2], d)
+    _call(_bwd_library(), "hetu_flash_attention_bwd_dq",
+          "flash_attention_bwd_dq", _bwd_dims(q, k), q,
+          (q, k, v, do, lse.contiguous(), delta.contiguous(), dq, layout),
+          causal, float(scale))
+    flash_attention_bwd_dq.launches += 1
+    return dq_view
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool,
                              scale=None):
     """dK and dV ``[B, H, S_k, D]`` (the ``_flash_bwd_dkdv_kernel``): the
-    plain version for CPU tensors, the kernel for CUDA tensors."""
+    plain version for CPU tensors, the kernel of :func:`bwd_route` for
+    CUDA tensors."""
     _check_bwd(q, k, v, do, lse, delta)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -211,20 +313,15 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool,
         _, dk, dv = flash_attention_bwd_plain(q, k, v, do, lse, delta,
                                               causal=causal, scale=scale)
         return dk, dv
-    kf = _flat(k)
-    dk, dv = torch.empty_like(kf), torch.empty_like(kf)
-    _call(_bwd_library(), "hetu_flash_attention_bwd_dkdv",
-          "flash_attention_bwd_dkdv", q, k,
-          (_flat(q), kf, _flat(v), _flat(do), lse.contiguous(),
-           delta.contiguous(), dk, dv), causal, float(scale))
-    flash_attention_bwd_dkdv.launches += 1
-    return dk.reshape(k.shape), dv.reshape(v.shape)
+    return _launch_dkdv(_bwd_operands(q, k, v, do), lse, delta,
+                        causal=causal, scale=scale)
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
                            scale=None):
     """dQ ``[B, H, S_q, D]`` (the ``_flash_bwd_dq_kernel``): the plain
-    version for CPU tensors, the kernel for CUDA tensors."""
+    version for CPU tensors, the kernel of :func:`bwd_route` for CUDA
+    tensors."""
     _check_bwd(q, k, v, do, lse, delta)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -232,14 +329,25 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
         dq, _, _ = flash_attention_bwd_plain(q, k, v, do, lse, delta,
                                              causal=causal, scale=scale)
         return dq
-    qf = _flat(q)
-    dq = torch.empty_like(qf)
-    _call(_bwd_library(), "hetu_flash_attention_bwd_dq",
-          "flash_attention_bwd_dq", q, k,
-          (qf, _flat(k), _flat(v), _flat(do), lse.contiguous(),
-           delta.contiguous(), dq), causal, float(scale))
-    flash_attention_bwd_dq.launches += 1
-    return dq.reshape(q.shape)
+    return _launch_dq(_bwd_operands(q, k, v, do), lse, delta, causal=causal,
+                      scale=scale)
+
+
+def _launch_bwd(q, k, v, do, lse, delta, *, causal, scale):
+    """Both backward kernels over one set of operands: each input is
+    prepared (read in place, or copied) once, not once a kernel."""
+    operands = _bwd_operands(q, k, v, do)
+    dk, dv = _launch_dkdv(operands, lse, delta, causal=causal, scale=scale)
+    dq = _launch_dq(operands, lse, delta, causal=causal, scale=scale)
+    return dq, dk, dv
+
+
+def bwd_delta(do, out):
+    """``delta = rowsum(dO * O)`` in f32, laid out like the LSE
+    ``[B*H, S_q, 1]``: each product of the two up-cast values and the sum
+    in f32, with one f32 temporary (``out`` is up-cast on the fly)."""
+    b, h, s_q, _ = do.shape
+    return (do.float() * out).sum(-1).reshape(b * h, s_q, 1)
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool, scale=None):
@@ -247,18 +355,16 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool, scale=None):
 
     ``delta = rowsum(dO * O)`` is one f32 reduction in plain PyTorch (the
     JAX package computes it outside Pallas too), laid out like the LSE;
-    then the dK/dV kernel and the dQ kernel (for CPU tensors, their plain
-    version once)."""
-    b, h, s_q, _ = q.shape
-    delta = (do.float() * out.float()).sum(-1).reshape(b * h, s_q, 1)
+    then the dK/dV kernel and the dQ kernel over the same operands (for
+    CPU tensors, their plain version once)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    delta = bwd_delta(do, out)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, do, lse, delta,
                                          causal=causal, scale=scale)
-    dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
-                                      causal=causal, scale=scale)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal,
-                                scale=scale)
-    return dq, dk, dv
+    _check_bwd(q, k, v, do, lse, delta)
+    return _launch_bwd(q, k, v, do, lse, delta, causal=causal, scale=scale)
 
 
 # --------------------------------------------------------------- public op

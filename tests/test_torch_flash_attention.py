@@ -12,6 +12,8 @@ within 1e-5.  The CUDA kernels themselves are held against the same plain
 versions on the card by ``chip_smoke.py``.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,10 @@ from hetu_tpu_torch.ops.cuda_kernels import (
 )
 
 torch.set_num_threads(2)
+
+# the module (the package exports its function of the same name)
+fa = importlib.import_module(
+    "hetu_tpu_torch.ops.cuda_kernels.flash_attention")
 
 TOL = 1e-5
 
@@ -287,3 +293,149 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(bad):
     for fn in (flash_attention_bwd_dkdv, flash_attention_bwd_dq):
         with pytest.raises(ValueError):
             fn(q, k, v, do, lse, delta, causal=True)
+
+
+# ------------------------------------------- the backward wrapper's routes
+
+def _layer_views(b, h, s, d, dtype, seed):
+    """q, k, v and dO as the attention layer hands them to the backward:
+    transposed views of ``[B, S, 3, H, D]`` and ``[B, S, H, D]``."""
+    g = np.random.default_rng(seed)
+    qkv = torch.from_numpy(g.standard_normal((b, s, 3, h, d)).astype(
+        np.float32)).to(dtype)
+    do = torch.from_numpy(g.standard_normal((b, s, h, d)).astype(
+        np.float32)).to(dtype).transpose(1, 2)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_backward_on_layer_views_equals_contiguous_copies(dtype):
+    """``flash_attention_bwd`` on the transposed views the attention layer
+    passes gives the same bits as on contiguous copies of them."""
+    q, k, v, do = _layer_views(2, 3, 40, 16, dtype, seed=11)
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    want = flash_attention_bwd(*(t.contiguous() for t in (q, k, v, out)),
+                               lse, do.contiguous(), causal=True)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, ("wgmma", 64)),
+    (torch.bfloat16, 128, ("wgmma", 128)),
+    (torch.bfloat16, 32, ("wgmma", 32)),
+    (torch.bfloat16, 20, ("wgmma", 24)),
+    (torch.float32, 64, ("scalar", 64)),
+    (torch.float32, 20, ("scalar", 20)),
+], ids=["bf16-64", "bf16-128", "bf16-32", "bf16-20-padded", "f32-64",
+        "f32-20"])
+def test_backward_routes_are_the_documented_ones(dtype, d, route):
+    """bf16 runs the tensor-core kernels at a head dim padded to a multiple
+    of 8 (TMA strides); f32 runs the scalar kernels at its own head dim."""
+    assert fa.bwd_route(dtype, d) == route
+
+
+@pytest.mark.parametrize("dtype,d,unaligned,copied", [
+    (torch.bfloat16, 16, False, False),
+    (torch.bfloat16, 20, False, True),
+    (torch.bfloat16, 16, True, True),
+    (torch.float32, 16, False, True),
+], ids=["bf16-in-place", "bf16-d20-padded", "bf16-unaligned",
+        "f32-contiguous"])
+def test_backward_prepares_inputs_once_for_both_kernels(monkeypatch, dtype,
+                                                        d, unaligned,
+                                                        copied):
+    """The CUDA path hands the same operands to both launches: bf16 layer
+    views as they are (TMA reads them in place), a bf16 head dim that is
+    no multiple of 8 as one zero-padded copy, a bf16 view that starts off
+    a 16-byte boundary as one aligned copy, f32 as one contiguous copy;
+    with the layout (heads, then each operand's batch, head and row
+    strides).  Each launch counts once.  The launches are recorded, not
+    run."""
+    calls = []
+
+    def call(lib, fn_name, what, dims, ref, pointers, causal, scale):
+        calls.append((fn_name, dims, pointers, scale))
+
+    monkeypatch.setattr(fa, "_call", call)
+    monkeypatch.setattr(fa, "_bwd_library", lambda: None)
+    monkeypatch.setattr(fa.flash_attention_bwd_dkdv, "launches", 0)
+    monkeypatch.setattr(fa.flash_attention_bwd_dq, "launches", 0)
+    q, k, v, do = _layer_views(1, 2, 24, d, dtype, seed=12)
+    if unaligned:  # 2 bytes past the allocation's start
+        q, k, v, do = (torch.empty(t.numel() + 1, dtype=dtype)[1:]
+                       .view(t.shape).copy_(t) for t in (q, k, v, do))
+    lse = delta = torch.zeros(2, 24, 1)
+    dq, dk, dv = fa._launch_bwd(q, k, v, do, lse, delta, causal=True,
+                                scale=0.25)
+    assert [c[0] for c in calls] == ["hetu_flash_attention_bwd_dkdv",
+                                     "hetu_flash_attention_bwd_dq"]
+    d_run = fa.bwd_route(dtype, d)[1]
+    assert all(c[1] == (2, 24, 24, d_run) and c[3] == 0.25 for c in calls)
+    ops = calls[0][2][:4]
+    assert all(a is b for a, b in zip(ops, calls[1][2][:4]))
+    assert all((a is not b) == copied for a, b in zip(ops, (q, k, v, do)))
+    assert all(t.data_ptr() % 16 == 0 for t in ops)
+    layout = list(calls[0][2][-1])
+    assert layout[0] == 2 and layout == list(calls[1][2][-1])
+    assert layout[1:] == [s for t in ops for s in fa._outer_strides(t)]
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert fa.flash_attention_bwd_dkdv.launches == 1
+    assert fa.flash_attention_bwd_dq.launches == 1
+
+
+def test_a_changed_header_makes_libraries_stale(monkeypatch, tmp_path):
+    """A library is rebuilt when its source or any ``csrc/*.cuh`` header is
+    newer than it (no nvcc needed to decide)."""
+    import os
+    csrc, out = tmp_path / "csrc", tmp_path / "_build"
+    csrc.mkdir()
+    out.mkdir()
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", out)
+    (csrc / "k.cu").write_text('#include "h.cuh"\n')
+    (csrc / "h.cuh").write_text("\n")
+    assert build._stale("k")                      # no library yet
+    build.library_path("k").write_bytes(b"")
+    for p, t in ((csrc / "k.cu", 100), (csrc / "h.cuh", 100),
+                 (build.library_path("k"), 200)):
+        os.utime(p, (t, t))
+    assert not build._stale("k")
+    os.utime(csrc / "h.cuh", (300, 300))          # the header changed
+    assert build._stale("k")
+    os.utime(csrc / "h.cuh", (100, 100))
+    os.utime(csrc / "k.cu", (300, 300))           # the source changed
+    assert build._stale("k")
+
+
+# -------------------------------------------------------- on the card only
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
+
+
+@pytest.mark.cuda
+def test_tensor_core_backward_is_deterministic_on_the_card(cuda):
+    """No atomics: two bf16 launches of each backward kernel give the same
+    bits, and agree with the plain backward within a bf16 ulp of each
+    row's size."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(1, 2, 130, 64, generator=gen, device="cuda")
+                   .bfloat16() for _ in range(4))
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    a = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    b = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    delta = (do.float() * out.float()).sum(-1).reshape(2, 130, 1)
+    want = flash_attention_bwd_plain(q, k, v, do, lse, delta, causal=True)
+    for x, y, w in zip(a, b, want):
+        assert torch.equal(x, y)
+        row = w.float().abs().amax(-1, keepdim=True)
+        assert ((x.float() - w.float()).abs()
+                <= 2 ** -8 * row + 2 ** -7 * w.float().abs()).all()
