@@ -19,10 +19,12 @@ without the final result line:
    paths' shapes and at edge cases (stated tolerances), then timed with
    CUDA events beside its plain version, one PyTorch library call as a
    yardstick (never used by the port) and its roofline bound.  The
-   tensor-core backward kernels also at edges of their tiles and ring, on
-   strided and unaligned inputs, two launches bitwise equal, with their
-   TFLOP/s and share of the bound, and the whole backward (delta,
-   operands, both kernels) beside SDPA's backward.
+   tensor-core flash kernels (bf16; f32 runs the scalar ones) also at
+   edges of their tiles and ring, at head dims 20 to 128, on the attention
+   layer's transposed views and on unaligned inputs, two launches bitwise
+   equal, with each case's route and the kernels' TFLOP/s and share of
+   the bound; and the whole backward (delta, operands, both kernels)
+   beside SDPA's backward.
 4. slice  — GPT-2-small (published widths, seeded random weights in the
    JAX package's layout, loaded through ``interop.params_from_jax``)
    served by ``ServeEngine`` + ``ContinuousBatchingScheduler`` over 16
@@ -247,7 +249,8 @@ def phase_build():
           f"(nvcc {' '.join(build.NVCC_FLAGS)})")
     for n in names:
         for line in build.log_path(n).read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line.lower() for w in ("registers", "spill",
+                                               "warning")):
                 print(f"[build] {n}: {line.strip()}")
 
 
@@ -259,43 +262,74 @@ def _qkv(shape_q, s_k, dtype, gen):
 
 
 def phase_kernel(card):
+    """The forward kernel against its plain version on each route (bf16 on
+    tensor cores, f32 on the scalar kernel), at the main paths' shapes and
+    at edge cases across the tensor-core kernel's tiles and ring, head dims
+    20 (padded to 24), 32, 40 and 128, the attention layer's transposed
+    views and an unaligned view; two launches bitwise equal; then timed at
+    the serving and training shapes beside SDPA and the bound."""
     from hetu_tpu_torch.ops.cuda_kernels.flash_attention import (
-        flash_attention, flash_attention_plain,
+        flash_attention, flash_attention_plain, fwd_design, route,
     )
     gen = torch.Generator(device="cuda").manual_seed(1234)
+    main = (TRAIN_B, NH, TRAIN_S, HEAD_DIM)
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         for s in (16, 32, 64, 128, 256, 512):
             cases.append((dtype, (1, NH, s, HEAD_DIM), s, True, "main"))
         cases += [
-            (dtype, (TRAIN_B, NH, TRAIN_S, HEAD_DIM), TRAIN_S, True,
-             "train"),
+            (dtype, main, TRAIN_S, True, "train"),
             (dtype, (2, NH, 128, HEAD_DIM), 128, False, "full"),
             (dtype, (1, NH, 64, HEAD_DIM), 256, True, "cross S_q<S_k"),
             (dtype, (1, NH, 100, HEAD_DIM), 100, True, "ragged"),
             (dtype, (1, NH, 100, HEAD_DIM), 100, False, "ragged full"),
             (dtype, (1, NH, 128, HEAD_DIM), 64, True, "S_q>S_k"),
             (dtype, (1, 2, 48, 128), 48, True, "D=128"),
+            # across the tensor-core kernel's 64-row tiles and its ring
+            (dtype, (1, 2, 100, HEAD_DIM), 190, True, "S_q<S_k ragged"),
+            (dtype, (1, 2, 190, HEAD_DIM), 100, True, "S_q>S_k ragged"),
+            (dtype, (1, 2, 1000, HEAD_DIM), 1000, True, "S=1000"),
+            (dtype, (2, 3, 130, HEAD_DIM), 130, True, "S=130"),
+            (dtype, (1, 1, 300, HEAD_DIM), 300, False, "B*H=1 full"),
+            (dtype, (1, 3, 130, 32), 130, True, "D=32"),
+            # D = 40 fills a 64-column box (zeros past 40); D = 20 is
+            # padded to 24 by one copy (TMA rows are multiples of 16 bytes)
+            (dtype, (1, 3, 130, 40), 150, True, "D=40"),
+            (dtype, (1, 2, 70, 20), 90, True, "D=20 padded"),
+            (dtype, (1, 3, 200, 128), 200, True, "D=128 S=200"),
+            (dtype, (1, 3, 70, 128), 90, False, "D=128 full"),
+            # strided inputs: read in place by TMA (bf16), or copied once
+            (dtype, (2, NH, 256, HEAD_DIM), 256, True, "layer views",
+             "views"),
+            (dtype, (1, 2, 130, HEAD_DIM), 130, True, "unaligned",
+             "unaligned"),
         ]
     max_err_train = None  # reported beside the timings at the same shape
     with torch.inference_mode():
-        for dtype, shape, s_k, causal, tag in cases:
-            q, k, v = _qkv(shape, s_k, dtype, gen)
+        for dtype, shape, s_k, causal, tag, *layout in cases:
+            if layout == ["views"]:
+                q, k, v = _layer_views(shape, dtype, gen)[:3]
+            else:
+                q, k, v = (_relaid(t, *layout) if layout else t
+                           for t in _qkv(shape, s_k, dtype, gen))
             o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
             o_p, lse_p = flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
             diff = (o.float() - o_p.float()).abs()
             err_o = diff.max().item()
             err_lse = (lse - lse_p).abs().max().item()
-            ok = bool((diff <= TOL_O[dtype]
-                       + RTOL_O[dtype] * o_p.float().abs()).all()) \
+            ok = o.shape == o_p.shape and o.dtype == dtype \
+                and bool((diff <= TOL_O[dtype]
+                          + RTOL_O[dtype] * o_p.float().abs()).all()) \
                 and err_lse <= TOL_LSE and bool(torch.isfinite(o).all())
             masked = shape[2] - s_k if causal and shape[2] > s_k else 0
             if masked:  # rows that see no key are exactly 0
                 ok = ok and not o[:, :, :masked].any() \
                     and not o_p[:, :, :masked].any()
+            kind, d_run = route(dtype, shape[3])
             print(f"[kernel] flash_attention {str(dtype)[6:]:8s} "
-                  f"{tag:14s} q{tuple(shape)} S_k={s_k} causal={causal}: "
+                  f"{tag:14s} q{tuple(shape)} S_k={s_k} causal={causal} "
+                  f"route {kind} D={d_run}: "
                   f"max|dO|={err_o:.3e} (tol {TOL_O[dtype]:g} + "
                   f"{RTOL_O[dtype]:g}*|O|) "
                   f"max|dLSE|={err_lse:.3e} (tol {TOL_LSE:g})"
@@ -306,6 +340,24 @@ def phase_kernel(card):
             if tag == "train" and dtype == torch.bfloat16:
                 max_err_train = err_o
 
+        # no atomics: each output row is written once by one CTA
+        q, k, v = _layer_views(main, torch.bfloat16, gen)[:3]
+        again = [flash_attention(q, k, v, causal=True, return_lse=True)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(*again))
+        print(f"[kernel] flash_attention bf16 q{main} on the layer's views: "
+              f"two launches bitwise equal: {same}")
+        check(same, "two launches of the forward kernel differ")
+        del again
+        views_ms = device_ms(lambda: flash_attention(q, k, v, causal=True),
+                             20)
+
+        design = fwd_design()
+        print(f"[kernel] flash_attention bf16 kernel as built: "
+              f"{design['warpgroups']} warpgroup(s) on {design['queries']} "
+              f"queries a CTA, a {design['stages']}-stage K/V ring")
         timings = {}
         for b, s in ((1, 128), (1, 512), (TRAIN_B, TRAIN_S)):
             q, k, v = _qkv((b, NH, s, HEAD_DIM), s, torch.bfloat16, gen)
@@ -318,14 +370,21 @@ def phase_kernel(card):
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, is_causal=True), runs)
             bound_ms, bound_by = flash_bound(b, NH, s, s, HEAD_DIM, True)
+            tflops = flash_flops(b, NH, s, s, HEAD_DIM, True) / ms / 1e9
             timings[(b, s)] = dict(ms=ms, plain_ms=plain_ms,
                                    library_ms=lib_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by)
+                                   bound_by=bound_by, tflops=tflops)
             print(f"[kernel] flash_attention bf16 causal q({b},{NH},{s},"
-                  f"{HEAD_DIM}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms, library (SDPA, yardstick only) {lib_ms:.4f} ms, "
-                  f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
-    return max_err_train, timings
+                  f"{HEAD_DIM}): kernel {ms:.4f} ms "
+                  f"({tflops:.1f} TFLOP/s, {100 * bound_ms / ms:.1f} % of "
+                  f"the bound), plain {plain_ms:.4f} ms, library (SDPA, "
+                  f"yardstick only) {lib_ms:.4f} ms, {ms / lib_ms:.2f}x "
+                  f"SDPA, bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
+        print(f"[kernel] flash_attention bf16 causal q{main} on the layer's "
+              f"transposed views: {views_ms:.4f} ms (read in place; "
+              f"contiguous inputs {timings[(TRAIN_B, TRAIN_S)]['ms']:.4f} "
+              f"ms) [{card}]")
+    return max_err_train, timings, design
 
 
 def grad_tolerance_share(got, ref):
@@ -397,7 +456,7 @@ def phase_kernel_bwd(card):
     operand preparation and both kernels, on the attention layer's
     transposed views) beside SDPA's backward."""
     from hetu_tpu_torch.ops.cuda_kernels.flash_attention import (
-        _bwd_operands, bwd_delta, flash_attention_bwd,
+        _operands, bwd_delta, flash_attention_bwd,
         flash_attention_bwd_dkdv, flash_attention_bwd_dq,
         flash_attention_bwd_plain,
     )
@@ -493,7 +552,7 @@ def phase_kernel_bwd(card):
             q, k, v, o, lse, do, causal=True), 20)
         # its parts outside the kernels
         delta_ms = device_ms(lambda: bwd_delta(do, o), 20)
-        prep_ms = device_ms(lambda: _bwd_operands(q, k, v, do), 20)
+        prep_ms = device_ms(lambda: _operands(q, k, v, do), 20)
     # the yardstick: SDPA's backward alone, on the same views
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     out = torch.nn.functional.scaled_dot_product_attention(q, k, v,
@@ -764,7 +823,7 @@ def _profile_table(prof, tag, card, wall_us, steps=1):
 def _kind(kernel: str) -> str:
     """The port's own kernels (flash, MoE), cuBLAS's GEMMs, copies and
     fills, and the rest (PyTorch's elementwise and reduction kernels)."""
-    if _short(kernel).startswith(("flash_fwd_kernel", "flash_bwd_")):
+    if _short(kernel).startswith(("flash_fwd_", "flash_bwd_")):
         return "flash kernels"
     if _short(kernel).startswith(("gather_kernel", "scatter_add_kernel",
                                   "topk_gating_kernel")):
@@ -1485,7 +1544,7 @@ def main(argv=None) -> int:
     card = card_line()
     phase_device(card)
     phase_build()
-    max_err, timings = phase_kernel(card)
+    max_err, timings, design = phase_kernel(card)
     bwd = phase_kernel_bwd(card)
     moe_kernels = phase_kernel_moe(card)
     serve_launches, engine = phase_slice(card, args.seed)
@@ -1505,7 +1564,8 @@ def main(argv=None) -> int:
          "replaces": f"{src}:52", "launches": train["launches"][0],
          "max_abs_err": max_err,
          **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms")},
+                              "library_ms", "tflops")},
+         "design": design,
          "shape": shape, "dtype": "bfloat16",
          "launches_by_path": {"serve": serve_launches,
                               "train": train["launches"][0]},

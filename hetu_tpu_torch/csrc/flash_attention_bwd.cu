@@ -401,11 +401,6 @@ __device__ __forceinline__ void load_resident(uint32_t base,
   }
 }
 
-__device__ __forceinline__ uint32_t aligned_smem_base() {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  return (hopper::smem_u32(smem_raw) + 1023u) & ~1023u;
-}
-
 // barrier set-up and the first loads, by thread 0
 template <int DP>
 __device__ __forceinline__ void tc_prologue(uint32_t base, int n_tiles,
@@ -444,7 +439,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      int d, float scale, int causal) {
   using L = TcSmem<DP>;
   constexpr int BQ = L::BS;
-  const uint32_t base = aligned_smem_base();
+  const uint32_t base = hopper::aligned_smem_base();
   const uint32_t sK = base, sV = base + L::RES;
   const int bh = blockIdx.x, hh = bh % heads, bb = bh / heads;
   const int k0 = blockIdx.y * TC_ROWS;
@@ -588,7 +583,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    int causal) {
   using L = TcSmem<DP>;
   constexpr int BK = L::BS;
-  const uint32_t base = aligned_smem_base();
+  const uint32_t base = hopper::aligned_smem_base();
   const uint32_t sQ = base, sdO = base + L::RES;
   const int bh = blockIdx.x, hh = bh % heads, bb = bh / heads;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;

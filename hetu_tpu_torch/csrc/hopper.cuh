@@ -45,6 +45,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// the dynamic shared memory's first 1024-byte boundary (the 128-byte
+// swizzle repeats every 1024 bytes); a kernel asks for 1024 bytes of slack
+__device__ __forceinline__ uint32_t aligned_smem_base() {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  return (smem_u32(smem_raw) + 1023u) & ~1023u;
+}
+
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
                "r"(count)

@@ -11,12 +11,13 @@ Counterpart of ``hetu_tpu/ops/pallas_kernels/flash_attention.py``:
 
 Each source's header says what bounds it on an H100 and what the design
 does about that; they are built with nvcc on first use and bound with
-ctypes.  The backward has two routes (:func:`bwd_route`): bf16 runs on
-tensor cores (wgmma on TMA-fed, swizzled bf16 tiles, p and dS kept in
-registers); f32 keeps the scalar f32-FMA kernels, since a tensor-core
-product of f32 inputs runs in TF32.  :func:`flash_attention_bwd` prepares
-q, k, v and dO once for both kernels: bf16 views such as the attention
-layer's transposed ones are read in place (TMA maps take strides).
+ctypes.  Forward and backward take the same two routes (:func:`route`):
+bf16 runs on tensor cores (wgmma on TMA-fed, swizzled
+bf16 tiles, p and dS kept in registers); f32 keeps the scalar f32-FMA
+kernels, since a tensor-core product of f32 inputs runs in TF32.  Both
+read bf16 views such as the attention layer's transposed ones in place
+(TMA maps take strides), and :func:`flash_attention_bwd` prepares q, k, v
+and dO once for both backward kernels (:func:`_operands`).
 
 Every wrapper computes its plain version for CPU tensors and launches its
 kernel for CUDA tensors — there is no fallback from one to the other.  Each
@@ -165,13 +166,6 @@ def _library(name, *functions):
     return lib
 
 
-def _flat(t):
-    """``[B, H, S, D]`` as a contiguous ``[B*H, S, D]`` tensor (a copy only
-    where the view is not one)."""
-    b, h, s, d = t.shape
-    return t.reshape(b * h, s, d).contiguous()
-
-
 def _call(lib, fn_name, what, dims, ref, pointers, causal, scale):
     """Launch ``fn_name`` on the current stream with ``pointers`` (tensors
     and ctypes arrays, in the launcher's order) and ``dims = (B*H, S_q,
@@ -191,17 +185,17 @@ def _call(lib, fn_name, what, dims, ref, pointers, causal, scale):
             f"S_k, D) {tuple(dims)} {ref.dtype}")
 
 
-def _launch_fwd(q, k, v, *, causal: bool, scale: float):
-    lib = _library(_FWD, ("hetu_flash_attention_fwd", 5))
-    qf, kf, vf = _flat(q), _flat(k), _flat(v)
-    out = torch.empty_like(qf)
-    lse = torch.empty(qf.shape[0], qf.shape[1], 1, dtype=torch.float32,
-                      device=q.device)
-    _call(lib, "hetu_flash_attention_fwd", "flash_attention",
-          (*qf.shape[:2], kf.shape[1], qf.shape[2]), q,
-          (qf, kf, vf, out, lse), causal, scale)
-    flash_attention.launches += 1
-    return out.reshape(q.shape), lse
+def _fwd_library():
+    return _library(_FWD, ("hetu_flash_attention_fwd", 6))
+
+
+def fwd_design():
+    """The bf16 forward kernel's CTA as built (builds the library on first
+    use): its warpgroups, the queries it owns and the depth of its K/V
+    ring."""
+    out = (ctypes.c_int * 3)()
+    _fwd_library().hetu_flash_attention_fwd_design(out)
+    return dict(zip(("warpgroups", "queries", "stages"), out))
 
 
 def _bwd_library():
@@ -209,17 +203,18 @@ def _bwd_library():
                     ("hetu_flash_attention_bwd_dq", 8))
 
 
-def bwd_route(dtype, head_dim: int):
-    """Which backward kernels a CUDA call takes, and the head dim they run
-    at: ``("wgmma", D rounded up to 8)`` for bf16 -- tensor cores on
-    TMA-fed tiles, whose tensor maps need rows of a multiple of 16 bytes,
-    so other head dims are padded with zero columns -- and
-    ``("scalar", D)`` for f32 -- f32 FMAs on CUDA cores, since a
+def route(dtype, head_dim: int):
+    """Which kernels a CUDA call takes, forward and backward alike, and the
+    head dim they run at: ``("wgmma", D rounded up to 8)`` for bf16 --
+    tensor cores on TMA-fed tiles, whose tensor maps need rows of a
+    multiple of 16 bytes, so other head dims are padded with zero columns
+    -- and ``("scalar", D)`` for f32 -- f32 FMAs on CUDA cores, since a
     tensor-core product of f32 inputs would run in TF32 and break the
     reference's f32 semantics."""
     if dtype == torch.bfloat16:
         return "wgmma", -(-head_dim // 8) * 8
     return "scalar", head_dim
+
 
 
 def _outer_strides(t):
@@ -241,31 +236,36 @@ def _tma_ready(t):
         s % 8 == 0 for s in _outer_strides(t))
 
 
-def _bwd_operands(q, k, v, do):
-    """q, k, v and dO as both backward kernels read them, their layout
-    (the heads, then each operand's batch, head and row strides) and the
-    head dim D of the outputs.  bf16 views are read in place where TMA can
-    (the attention layer's transposed views can); other bf16 inputs become
-    contiguous copies zero-padded to the head dim of :func:`bwd_route`,
-    and f32 inputs contiguous copies.  So each input is copied at most
-    once a backward."""
-    d = q.shape[-1]
-    route, d_run = bwd_route(q.dtype, d)
+def _operands(*tensors):
+    """The ``[B, H, S, D]`` inputs as the kernels of :func:`route` read
+    them, and the head dim D of the outputs.  bf16 views are read in place
+    where TMA can (the attention layer's transposed views can); other bf16
+    inputs become contiguous copies zero-padded to the route's head dim,
+    and f32 inputs contiguous copies.  So each input is copied at most once
+    a call."""
+    d = tensors[0].shape[-1]
+    kind, d_run = route(tensors[0].dtype, d)
     ops = []
-    for t in (q, k, v, do):
+    for t in tensors:
         if d_run != d:
             t = torch.nn.functional.pad(t, (0, d_run - d))
-        elif route == "scalar":
+        elif kind == "scalar":
             t = t.contiguous()
         elif not _tma_ready(t):  # a fresh allocation is aligned
             t = t.clone(memory_format=torch.contiguous_format)
         ops.append(t)
-    layout = (ctypes.c_longlong * 13)(
-        q.shape[1], *(s for t in ops for s in _outer_strides(t)))
-    return ops, layout, d
+    return ops, d
 
 
-def _bwd_out(ref, rows, d):
+def _layout(*tensors):
+    """The launchers' ``layout``: the heads, then each tensor's batch, head
+    and row strides (:func:`_outer_strides`), as a ctypes array."""
+    strides = [s for t in tensors for s in _outer_strides(t)]
+    return (ctypes.c_longlong * (1 + len(strides)))(tensors[0].shape[1],
+                                                   *strides)
+
+
+def _out(ref, rows, d):
     """A kernel output, contiguous ``[B, H, rows, D']`` with ``ref``'s
     batch, heads, head dim and type, and its view without the padding
     columns, ``[..., :d]``."""
@@ -274,29 +274,43 @@ def _bwd_out(ref, rows, d):
     return t, t[..., :d]
 
 
-def _bwd_dims(q, k):
+def _dims(q, k):
     return q.shape[0] * q.shape[1], q.shape[2], k.shape[2], q.shape[3]
 
 
+def _launch_fwd(q, k, v, *, causal: bool, scale: float):
+    """O (a view without the padding columns where the route pads D) and
+    the LSE from one launch of the forward kernel of :func:`route`."""
+    (q, k, v), d = _operands(q, k, v)
+    out, out_view = _out(q, q.shape[2], d)
+    lse = torch.empty(q.shape[0] * q.shape[1], q.shape[2], 1,
+                      dtype=torch.float32, device=q.device)
+    _call(_fwd_library(), "hetu_flash_attention_fwd", "flash_attention",
+          _dims(q, k), q, (q, k, v, out, lse, _layout(q, k, v, out)),
+          causal, scale)
+    flash_attention.launches += 1
+    return out_view, lse
+
+
 def _launch_dkdv(operands, lse, delta, *, causal, scale):
-    (q, k, v, do), layout, d = operands
-    dk, dk_view = _bwd_out(k, k.shape[2], d)
-    dv, dv_view = _bwd_out(k, k.shape[2], d)
+    (q, k, v, do), d = operands
+    dk, dk_view = _out(k, k.shape[2], d)
+    dv, dv_view = _out(k, k.shape[2], d)
     _call(_bwd_library(), "hetu_flash_attention_bwd_dkdv",
-          "flash_attention_bwd_dkdv", _bwd_dims(q, k), q,
+          "flash_attention_bwd_dkdv", _dims(q, k), q,
           (q, k, v, do, lse.contiguous(), delta.contiguous(), dk, dv,
-           layout), causal, float(scale))
+           _layout(q, k, v, do)), causal, float(scale))
     flash_attention_bwd_dkdv.launches += 1
     return dk_view, dv_view
 
 
 def _launch_dq(operands, lse, delta, *, causal, scale):
-    (q, k, v, do), layout, d = operands
-    dq, dq_view = _bwd_out(q, q.shape[2], d)
+    (q, k, v, do), d = operands
+    dq, dq_view = _out(q, q.shape[2], d)
     _call(_bwd_library(), "hetu_flash_attention_bwd_dq",
-          "flash_attention_bwd_dq", _bwd_dims(q, k), q,
-          (q, k, v, do, lse.contiguous(), delta.contiguous(), dq, layout),
-          causal, float(scale))
+          "flash_attention_bwd_dq", _dims(q, k), q,
+          (q, k, v, do, lse.contiguous(), delta.contiguous(), dq,
+           _layout(q, k, v, do)), causal, float(scale))
     flash_attention_bwd_dq.launches += 1
     return dq_view
 
@@ -304,7 +318,7 @@ def _launch_dq(operands, lse, delta, *, causal, scale):
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool,
                              scale=None):
     """dK and dV ``[B, H, S_k, D]`` (the ``_flash_bwd_dkdv_kernel``): the
-    plain version for CPU tensors, the kernel of :func:`bwd_route` for
+    plain version for CPU tensors, the kernel of :func:`route` for
     CUDA tensors."""
     _check_bwd(q, k, v, do, lse, delta)
     if scale is None:
@@ -313,14 +327,14 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool,
         _, dk, dv = flash_attention_bwd_plain(q, k, v, do, lse, delta,
                                               causal=causal, scale=scale)
         return dk, dv
-    return _launch_dkdv(_bwd_operands(q, k, v, do), lse, delta,
+    return _launch_dkdv(_operands(q, k, v, do), lse, delta,
                         causal=causal, scale=scale)
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
                            scale=None):
     """dQ ``[B, H, S_q, D]`` (the ``_flash_bwd_dq_kernel``): the plain
-    version for CPU tensors, the kernel of :func:`bwd_route` for CUDA
+    version for CPU tensors, the kernel of :func:`route` for CUDA
     tensors."""
     _check_bwd(q, k, v, do, lse, delta)
     if scale is None:
@@ -329,14 +343,14 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
         dq, _, _ = flash_attention_bwd_plain(q, k, v, do, lse, delta,
                                              causal=causal, scale=scale)
         return dq
-    return _launch_dq(_bwd_operands(q, k, v, do), lse, delta, causal=causal,
+    return _launch_dq(_operands(q, k, v, do), lse, delta, causal=causal,
                       scale=scale)
 
 
 def _launch_bwd(q, k, v, do, lse, delta, *, causal, scale):
     """Both backward kernels over one set of operands: each input is
     prepared (read in place, or copied) once, not once a kernel."""
-    operands = _bwd_operands(q, k, v, do)
+    operands = _operands(q, k, v, do)
     dk, dv = _launch_dkdv(operands, lse, delta, causal=causal, scale=scale)
     dq = _launch_dq(operands, lse, delta, causal=causal, scale=scale)
     return dq, dk, dv

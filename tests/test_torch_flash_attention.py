@@ -295,7 +295,7 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(bad):
             fn(q, k, v, do, lse, delta, causal=True)
 
 
-# ------------------------------------------- the backward wrapper's routes
+# ------------------------------------------- the wrappers' routes and operands
 
 def _layer_views(b, h, s, d, dtype, seed):
     """q, k, v and dO as the attention layer hands them to the backward:
@@ -325,19 +325,70 @@ def test_backward_on_layer_views_equals_contiguous_copies(dtype):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dtype,d,route", [
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 20, ("wgmma", 24)),
+    (torch.bfloat16, 32, ("wgmma", 32)),
+    (torch.bfloat16, 40, ("wgmma", 40)),
     (torch.bfloat16, 64, ("wgmma", 64)),
     (torch.bfloat16, 128, ("wgmma", 128)),
-    (torch.bfloat16, 32, ("wgmma", 32)),
-    (torch.bfloat16, 20, ("wgmma", 24)),
-    (torch.float32, 64, ("scalar", 64)),
     (torch.float32, 20, ("scalar", 20)),
-], ids=["bf16-64", "bf16-128", "bf16-32", "bf16-20-padded", "f32-64",
-        "f32-20"])
-def test_backward_routes_are_the_documented_ones(dtype, d, route):
-    """bf16 runs the tensor-core kernels at a head dim padded to a multiple
-    of 8 (TMA strides); f32 runs the scalar kernels at its own head dim."""
-    assert fa.bwd_route(dtype, d) == route
+    (torch.float32, 32, ("scalar", 32)),
+    (torch.float32, 40, ("scalar", 40)),
+    (torch.float32, 64, ("scalar", 64)),
+    (torch.float32, 128, ("scalar", 128)),
+], ids=["bf16-20-padded", "bf16-32", "bf16-40", "bf16-64", "bf16-128",
+        "f32-20", "f32-32", "f32-40", "f32-64", "f32-128"])
+def test_routes_are_the_documented_ones(dtype, d, want):
+    """Forward and backward alike: bf16 runs the tensor-core kernels at a
+    head dim padded to a multiple of 8 (TMA strides); f32 runs the scalar
+    kernels at its own head dim."""
+    assert fa.route(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype,d,unaligned,copied", [
+    (torch.bfloat16, 16, False, False),
+    (torch.bfloat16, 20, False, True),
+    (torch.bfloat16, 16, True, True),
+    (torch.float32, 16, False, True),
+], ids=["bf16-in-place", "bf16-d20-padded", "bf16-unaligned",
+        "f32-contiguous"])
+def test_forward_prepares_inputs_once(monkeypatch, dtype, d, unaligned,
+                                      copied):
+    """The CUDA path hands the layer's bf16 views to the kernel as they are
+    (TMA reads them in place); a bf16 head dim that is no multiple of 8 as
+    one zero-padded copy, a view off a 16-byte boundary as one aligned
+    copy, f32 as one contiguous copy; with the layout (heads, then the
+    batch, head and row strides of q, k, v and O).  O comes back without
+    its padding columns and the launch counts once.  The launch is
+    recorded, not run."""
+    calls = []
+
+    def call(lib, fn_name, what, dims, ref, pointers, causal, scale):
+        calls.append((fn_name, dims, pointers, causal, scale))
+
+    monkeypatch.setattr(fa, "_call", call)
+    monkeypatch.setattr(fa, "_fwd_library", lambda: None)
+    monkeypatch.setattr(fa.flash_attention, "launches", 0)
+    q, k, v, _ = _layer_views(1, 2, 24, d, dtype, seed=13)
+    if unaligned:  # 2 bytes past the allocation's start
+        q, k, v = (torch.empty(t.numel() + 1, dtype=dtype)[1:]
+                   .view(t.shape).copy_(t) for t in (q, k, v))
+    out, lse = fa._launch_fwd(q, k, v, causal=True, scale=0.25)
+    (fn_name, dims, pointers, causal, scale), = calls
+    d_run = fa.route(dtype, d)[1]
+    assert fn_name == "hetu_flash_attention_fwd" and causal and scale == 0.25
+    assert dims == (2, 24, 24, d_run)
+    ops, o, lse_arg, layout = pointers[:3], pointers[3], pointers[4], \
+        pointers[5]
+    assert all((a is not b) == copied for a, b in zip(ops, (q, k, v)))
+    assert all(t.data_ptr() % 16 == 0 and t.shape[-1] == d_run
+               for t in ops)
+    assert list(layout) == [2] + [s for t in (*ops, o)
+                                  for s in fa._outer_strides(t)]
+    assert o.shape == (1, 2, 24, d_run) and o.dtype == dtype
+    assert out.shape == q.shape and out.data_ptr() == o.data_ptr()
+    assert lse is lse_arg and lse.shape == (2, 24, 1)
+    assert fa.flash_attention.launches == 1
 
 
 @pytest.mark.parametrize("dtype,d,unaligned,copied", [
@@ -375,7 +426,7 @@ def test_backward_prepares_inputs_once_for_both_kernels(monkeypatch, dtype,
                                 scale=0.25)
     assert [c[0] for c in calls] == ["hetu_flash_attention_bwd_dkdv",
                                      "hetu_flash_attention_bwd_dq"]
-    d_run = fa.bwd_route(dtype, d)[1]
+    d_run = fa.route(dtype, d)[1]
     assert all(c[1] == (2, 24, 24, d_run) and c[3] == 0.25 for c in calls)
     ops = calls[0][2][:4]
     assert all(a is b for a, b in zip(ops, calls[1][2][:4]))
@@ -422,10 +473,33 @@ def cuda():
 
 
 @pytest.mark.cuda
+def test_tensor_core_forward_is_deterministic_on_the_card(cuda):
+    """No atomics: two bf16 launches of the forward on the attention
+    layer's transposed views give the same bits, and agree with the plain
+    forward within one bf16 ulp of O (2e-2, as chip_smoke.py's TOL_O)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(2, 130, 3, 2, 64, generator=gen,
+                      device="cuda").bfloat16()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    a = flash_attention(q, k, v, causal=True, return_lse=True)
+    b = flash_attention(q, k, v, causal=True, return_lse=True)
+    want, want_lse = flash_attention_plain(q, k, v, causal=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert ((a[0].float() - want.float()).abs()
+            <= 2e-2 + 1e-2 * want.float().abs()).all()
+    assert (a[1] - want_lse).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
 def test_tensor_core_backward_is_deterministic_on_the_card(cuda):
     """No atomics: two bf16 launches of each backward kernel give the same
     bits, and agree with the plain backward within a bf16 ulp of each
-    row's size."""
+    row's size.  The first query's dQ row is zero in exact arithmetic: it
+    sees only the first key, so p_00 = 1, O_0 = v_0 and dS_00 = dO_0.v_0 -
+    dO_0.O_0 = 0.  So it is held to that zero within the rounding of the
+    two f32 sums of D products (each within D * 2^-24 * sum|dO_0 v_0| of
+    the exact one), times scale * |k_0| and two bf16 roundings."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, do = (torch.randn(1, 2, 130, 64, generator=gen, device="cuda")
                    .bfloat16() for _ in range(4))
@@ -434,8 +508,14 @@ def test_tensor_core_backward_is_deterministic_on_the_card(cuda):
     b = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
     delta = (do.float() * out.float()).sum(-1).reshape(2, 130, 1)
     want = flash_attention_bwd_plain(q, k, v, do, lse, delta, causal=True)
-    for x, y, w in zip(a, b, want):
+    first = (2 * 64 * 2 ** -24 * 64 ** -0.5 * (1 + 2 ** -7)
+             * (do[..., :1, :].float() * v[..., :1, :].float()).abs()
+             .sum(-1, keepdim=True) * k[..., :1, :].float().abs())
+    assert (a[0][..., :1, :].float().abs() <= first).all()
+    for i, (x, y, w) in enumerate(zip(a, b, want)):
         assert torch.equal(x, y)
+        if i == 0:  # dQ: the first row is held above
+            x, w = x[..., 1:, :], w[..., 1:, :]
         row = w.float().abs().amax(-1, keepdim=True)
         assert ((x.float() - w.float()).abs()
                 <= 2 ** -8 * row + 2 ** -7 * w.float().abs()).all()

@@ -17,14 +17,19 @@ cannot match ``jax.random`` bit for bit):
 
 Tolerances: loss 1e-5 relative; gradients 1e-4 relative plus 1e-6
 absolute (two layers of f32 sums in another order, and the Pallas
-kernels' blocked sums); after 5 Adam steps, parameters and slots 1e-4
-relative plus 1e-6 absolute (Adam divides by sqrt(v), which passes the
-gradients' relative error on).  The executor runs AdamW with eps 1e-3: the
-key bias's gradient is zero but for rounding (softmax ignores a constant
-added to a row's scores), about 1e-8 here and different in each package,
-and with the default eps 1e-7 Adam scales that noise up to a full step of
-lr; eps 1e-3 keeps its effect under 1e-6 over 5 steps, while every other
-gradient here is above 5e-5.
+kernels' blocked sums); after 5 AdamW steps, parameters and slots 1e-4
+relative plus the gap that AdamW can make of gradients that far apart
+(``tests/adamw_bound.py``), as ``tests/test_torch_moe.py`` derives it:
+with delta_t the gradient bound of an element at step t and G_t the size
+of its gradient, the parameter within lr / eps * sum_t delta_t, m within
+max_t delta_t and v within (1 - b2) sum_t (2 G_t + delta_t) delta_t (an
+update moves by at most delta / eps, most where the gradient is of the
+size of eps).  The test
+checks the premise at every step, at the reference's parameters.  The
+executor runs AdamW with eps 1e-3: the key bias's gradient is zero but for
+rounding (softmax ignores a constant added to a row's scores), about 1e-8
+here and different in each package, and with the default eps 1e-7 Adam
+scales that noise up to a full step of lr.
 """
 
 import importlib
@@ -35,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 
+from adamw_bound import adamw_atol, flat, get
 from hetu_tpu import rng as jax_rng
 from hetu_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from hetu_tpu.models.gpt import GPTModel as JaxGPTModel
@@ -109,11 +115,14 @@ def _jax_model(impl, fused):
     return JaxGPTModel(JaxGPTConfig(**_cfg_kw(impl, fused)))
 
 
-def _torch_model(impl, fused, remat="off", seed=0):
+def _torch_model(impl, fused, remat="off", seed=0, params=None):
+    """The port's model with ``params`` (the reference's layout), or
+    :func:`jax_params` of ``seed``."""
     cfg = GPTConfig(**_cfg_kw(impl, fused), remat=remat != "off",
                     remat_policy="full" if remat == "off" else remat)
     m = GPTModel(cfg, device="cpu")
-    m.load_state_dict(interop.params_from_jax(jax_params(seed), cfg))
+    m.load_state_dict(interop.params_from_jax(
+        jax_params(seed) if params is None else params, cfg))
     return m
 
 
@@ -132,7 +141,19 @@ def _assert_tree_close(got, want, rtol, atol, path=""):
                                    rtol=rtol, atol=atol, err_msg=path)
 
 
-_JAX_REF = {}
+_JAX_FN, _JAX_REF = {}, {}
+
+
+def _jax_value_and_grad_fn(impl, fused):
+    """The reference's jitted loss and gradient on :func:`_ids`, at any
+    parameters; compiled once per (impl, fused)."""
+    key = (impl, fused)
+    if key not in _JAX_FN:
+        fn = _jax_model(impl, fused).lm_loss_fn()
+        ids = jnp.asarray(_ids())
+        _JAX_FN[key] = jax.jit(jax.value_and_grad(
+            lambda p: fn(p, {}, (ids,), None, False)[0]))
+    return _JAX_FN[key]
 
 
 def _jax_value_and_grad(impl, fused):
@@ -141,14 +162,20 @@ def _jax_value_and_grad(impl, fused):
     setting of the port is held against the same reference."""
     key = (impl, fused)
     if key not in _JAX_REF:
-        model = _jax_model(impl, fused)
-        fn = model.lm_loss_fn()
-        ids = jnp.asarray(_ids())
-        loss, grads = jax.jit(jax.value_and_grad(
-            lambda p: fn(p, {}, (ids,), None, False)[0]))(
-                _tree(jnp.asarray, jax_params()))
+        loss, grads = _jax_value_and_grad_fn(impl, fused)(
+            _tree(jnp.asarray, jax_params()))
         _JAX_REF[key] = (float(loss), _tree(np.asarray, grads))
     return _JAX_REF[key]
+
+
+def _port_grads(model, ids):
+    """The port's gradients of ``model``'s LM loss on ``ids``, in the
+    reference's layout."""
+    params = dict(model.named_parameters())
+    loss, _ = model.lm_loss_fn()(params, {}, (torch.from_numpy(ids),), None,
+                                 True)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return interop.params_to_jax(dict(zip(params, grads)), model.c)
 
 
 @pytest.mark.parametrize("remat", ["off", "full", "dots"])
@@ -260,10 +287,10 @@ def test_dropout_when_training_only():
 
 # ---------------------------------------------------------------- executor
 
-EPS = 1e-3  # see the module docstring
+EPS, LR = 1e-3, 1e-2  # see the module docstring
 
 
-def _jax_executor(impl="flash", lr=1e-2):
+def _jax_executor(impl="flash", lr=LR):
     model = _jax_model(impl, True)
     ex = JaxExecutor(model.lm_loss_fn(), JaxAdamW(lr, eps=EPS), seed=0)
     state = ex.init_state({"params": _tree(jnp.asarray, jax_params()),
@@ -271,17 +298,29 @@ def _jax_executor(impl="flash", lr=1e-2):
     return ex, state
 
 
-def _torch_executor(impl="flash", lr=1e-2):
+def _torch_executor(impl="flash", lr=LR):
     model = _torch_model(impl, True, "full")
     ex = Executor(model.lm_loss_fn(), AdamWOptimizer(lr, eps=EPS), seed=0)
     return model, ex, ex.init_state(model)
 
 
 def test_five_adamw_steps_match_the_jax_executor():
+    """The loss of every step; at the reference's parameters before each
+    step, the port's gradient within the gradient tolerance of the
+    reference's; after 5 steps, parameters and slots within AdamW's bound
+    of those gradient gaps (module docstring)."""
     ids = _ids()
     jex, js = _jax_executor()
     model, tex, ts = _torch_executor()
+    deltas, g_abs = [], []  # per step: {leaf: bound}, {leaf: |G|}
     for step in range(5):
+        ref = _tree(np.asarray, js.params)
+        want = _jax_value_and_grad_fn("flash", True)(js.params)[1]
+        got = _port_grads(_torch_model("flash", True, "full", params=ref),
+                          ids)
+        _assert_tree_close(got, _tree(np.asarray, want), TOL_G, ATOL_G)
+        g_abs.append({p: np.abs(w) for p, w in flat(want)})
+        deltas.append({p: TOL_G * g + ATOL_G for p, g in g_abs[-1].items()})
         js, jm = jex.run("train", js, (jnp.asarray(ids),))
         ts, tm = tex.run("train", ts, (ids,))
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
@@ -289,11 +328,20 @@ def test_five_adamw_steps_match_the_jax_executor():
     assert ts.step == int(js.step) == 5
     assert ts.opt_state["step"] == int(js.opt_state["step"]) == 5
     assert ts.params["tok_emb"] is model.tok_emb  # updated in place
-    _assert_tree_close(interop.params_to_jax(ts.params, model.c),
-                       _tree(np.asarray, js.params), TOL_G, ATOL_G)
-    _assert_tree_close(
-        interop.opt_state_to_jax(ts.opt_state, model.c)["slots"],
-        _tree(np.asarray, js.opt_state["slots"]), TOL_G, ATOL_G)
+    got = {"params": interop.params_to_jax(ts.params, model.c),
+           **interop.opt_state_to_jax(ts.opt_state, model.c)["slots"]}
+    want = {"params": _tree(np.asarray, js.params),
+            **_tree(np.asarray, js.opt_state["slots"])}
+    assert set(got) == set(want) == {"params", "m", "v"}
+    for path in deltas[0]:
+        atol = adamw_atol([d[path] for d in deltas],
+                          [g[path] for g in g_abs], LR, EPS)
+        for kind in want:
+            w = get(want[kind], path)
+            share = np.abs(get(got[kind], path) - w) / (
+                TOL_G * np.abs(w) + atol[kind])
+            assert share.max() <= 1, (kind, path, share.max())
+    assert sorted(p for p, _ in flat(got["params"])) == sorted(deltas[0])
     # the loss fell, and validate reports the new loss without a step
     metrics = tex.run("validate", ts, (ids,))
     assert float(metrics["loss"]) < float(jm["loss"]) + 1e-6

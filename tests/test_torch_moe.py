@@ -10,16 +10,37 @@ Tolerances, f32: routing tables, dispatched rows and expert indices equal;
 outputs, losses and gradients 1e-5 relative plus 1e-6 times the larger of
 1 and the tensor's largest element (sums in another order: the expert
 products, the combine's and the gate's softmax); the model's gradients
-within 1e-5 of each parameter's largest element; after 5 Adam steps,
-parameters and slots 1e-4 relative plus 1e-6 absolute (Adam divides by
-sqrt(v), passing the gradients' relative error on).  bf16: the model's
-forward is bitwise the reference's up to the gate (the same routes), but
-gradients rounded to bf16 in sums with cancellation land a few percent of
-their largest element from the f32 gradients in both packages, so the
-port's bf16 loss and gradients are held to the reference's own bf16
-error against its f32 run (see the test).  The executor runs AdamW with
-eps 1e-3, as the GPT parity test does: the key bias's gradient is
-rounding noise that Adam would scale to full steps.
+within 1e-5 of each parameter's largest element (``GRAD_TOL``); after 5
+AdamW steps, parameters and slots 1e-4 relative plus the gap that AdamW can
+make of gradients that far apart (below).  bf16: the model's forward is
+bitwise the reference's up to the gate (the same routes), but gradients
+rounded to bf16 in sums with cancellation land a few percent of their
+largest element from the f32 gradients in both packages, so the port's
+bf16 loss and gradients are held to the reference's own bf16 error
+against its f32 run (see the test).  The executor runs AdamW with eps
+1e-3, as the GPT parity test does: the key bias's gradient is rounding
+noise that Adam would scale to full steps.
+
+AdamW's bound.  An element's update is u = mhat / (s + eps) + wd * p with
+s = sqrt(vhat).  After the bias corrections, mhat is a weighted mean and s
+a weighted root-mean-square of the gradients so far (weights summing to
+1), so gradients that differ by at most delta move each by at most delta,
+and since |mhat| <= s (to 1 % over 5 steps at betas 0.9 and 0.999), u moves
+by at most delta * (2 s + eps) / (s + eps)^2 <= delta / eps.  The bound is
+reached where the gradient is of the size of eps or below: there Adam
+turns a rounding gap into a step (a relative error of the gradient does
+not pass through unchanged).  So after T steps of lr a parameter lies
+within lr / eps * sum_t delta_t of the reference's, with delta_t the
+gradient bound at step t: GRAD_TOL times the leaf's largest gradient G_t
+(the weight decay's lr * wd share of a gap is inside the relative term).
+The slots: m = sum_t (1 - b1) b1^(T-t) g_t moves by at most max_t delta_t,
+v = sum_t (1 - b2) b2^(T-t) g_t^2 by at most (1 - b2) sum_t (2 G_t +
+delta_t) delta_t.  The test checks the premise at every step: at the
+reference's parameters the port's gradient lies within delta_t of the
+reference's.  Along the two runs the parameters drift apart within those
+bounds, which moves later gradients further apart than delta_t; measured
+here, the drift leaves the final gaps at most 0.035 (parameters), 0.18
+(m) and 0.16 (v) of their bounds.
 """
 
 import jax
@@ -28,6 +49,7 @@ import numpy as np
 import pytest
 import torch
 
+from adamw_bound import adamw_atol, flat, get
 from hetu_tpu import rng as jax_rng
 from hetu_tpu.layers import moe as jmoe_layers
 from hetu_tpu.models.moe_transformer import MoEConfig as JaxMoEConfig
@@ -50,6 +72,7 @@ torch.set_num_threads(2)
 
 V, H, L, NH, FFN, E, K, P, B, S = 97, 32, 2, 4, 64, 4, 2, 32, 2, 16
 RTOL, ATOL = 1e-5, 1e-6
+GRAD_TOL = 1e-5  # the model's gradients, relative to each leaf's largest
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
@@ -363,31 +386,42 @@ def _cfg_kw(dtype):
                 dtype=dtype)
 
 
-def _torch_model(dtype=torch.float32, seed=0):
+def _torch_model(dtype=torch.float32, seed=0, params=None):
+    """The port's model with ``params`` (the reference's layout), or
+    :func:`model_params` of ``seed``."""
     cfg = MoEConfig(**_cfg_kw(dtype))
     m = MoETransformer(cfg, device="cpu")
-    m.load_state_dict(interop.params_from_jax(model_params(seed), cfg))
+    m.load_state_dict(interop.params_from_jax(
+        model_params(seed) if params is None else params, cfg))
     return m
 
 
-_JAX_REF = {}
+_JAX_FN, _JAX_REF = {}, {}
+
+
+def _jax_value_and_grad_fn(dtype):
+    """The reference's jitted value and gradient of the LM loss on
+    :func:`_ids`, at any parameters; compiled once per type."""
+    if dtype not in _JAX_FN:
+        model = JaxMoE(JaxMoEConfig(**_cfg_kw(JDT[dtype])))
+        fn = model.lm_loss_fn()
+        ids = jnp.asarray(_ids())
+        _JAX_FN[dtype] = jax.jit(jax.value_and_grad(
+            lambda p: fn(p, {}, (ids,), None, False), has_aux=True))
+    return _JAX_FN[dtype]
 
 
 def _jax_value_and_grad(dtype):
     if dtype not in _JAX_REF:
-        model = JaxMoE(JaxMoEConfig(**_cfg_kw(JDT[dtype])))
-        fn = model.lm_loss_fn()
-        ids = jnp.asarray(_ids())
-        (loss, (metrics, _)), grads = jax.jit(jax.value_and_grad(
-            lambda p: fn(p, {}, (ids,), None, False), has_aux=True))(
-                _tree(jnp.asarray, model_params()))
+        (loss, (metrics, _)), grads = _jax_value_and_grad_fn(dtype)(
+            _tree(jnp.asarray, model_params()))
         _JAX_REF[dtype] = (float(loss), _tree(float, metrics),
                            _tree(np.asarray, grads))
     return _JAX_REF[dtype]
 
 
-def _port_value_and_grad(dtype):
-    model = _torch_model(dtype)
+def _port_value_and_grad(dtype, params=None):
+    model = _torch_model(dtype, params=params)
     params = dict(model.named_parameters())
     loss, (metrics, _) = model.lm_loss_fn()(
         params, {}, (torch.from_numpy(_ids()),), None, True)
@@ -406,9 +440,9 @@ def test_loss_and_every_gradient_match_jax_f32():
     np.testing.assert_allclose(loss, want_loss, rtol=RTOL)
     for k in ("lm_loss", "aux_loss"):
         np.testing.assert_allclose(metrics[k], want_metrics[k], rtol=RTOL)
-    for path, g in _flat(grads):
-        w = _get(want_grads, path)
-        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max(), path
+    for path, g in flat(grads):
+        w = get(want_grads, path)
+        assert np.abs(g - w).max() <= GRAD_TOL * np.abs(w).max(), path
 
 
 def test_loss_and_every_gradient_in_bf16_as_close_as_jax():
@@ -421,25 +455,11 @@ def test_loss_and_every_gradient_in_bf16_as_close_as_jax():
     loss, _, grads = _port_value_and_grad(torch.bfloat16)
     np.testing.assert_allclose(loss, jax_loss, rtol=1e-3)
     assert abs(loss - ref_loss) <= 1.5 * abs(jax_loss - ref_loss) + 1e-4
-    for path, g in _flat(grads):
-        ref = _get(ref_grads, path)
+    for path, g in flat(grads):
+        ref = get(ref_grads, path)
         scale = np.abs(ref).max()
-        jax_err = np.abs(_get(jax_grads, path) - ref).max()
+        jax_err = np.abs(get(jax_grads, path) - ref).max()
         assert np.abs(g - ref).max() <= 1.5 * jax_err + 1e-3 * scale, path
-
-
-def _flat(t, path=()):
-    if isinstance(t, dict):
-        for k, v in t.items():
-            yield from _flat(v, path + (k,))
-    else:
-        yield path, t
-
-
-def _get(t, path):
-    for k in path:
-        t = t[k]
-    return np.asarray(t, np.float32)
 
 
 def test_lm_loss_fn_refuses_foreign_parameters():
@@ -488,10 +508,24 @@ def _torch_executor(lr=LR):
 
 
 def test_five_adamw_steps_match_the_jax_executor():
+    """The loss, lm_loss and aux_loss of every step; at the reference's
+    parameters before each step, the port's gradient within GRAD_TOL of
+    the reference's; after 5 steps, parameters and slots within AdamW's
+    bound of those gradient gaps (module docstring)."""
     ids = _ids()
     jex, js = _jax_executor()
     model, tex, ts = _torch_executor()
+    deltas, g_max = [], []  # per step: {leaf: bound}, {leaf: max |G|}
     for step in range(5):
+        ref = _tree(np.asarray, js.params)
+        want = _tree(np.asarray, _jax_value_and_grad_fn(torch.float32)(
+            js.params)[1])
+        got = _port_value_and_grad(torch.float32, ref)[2]
+        g_max.append({p: np.abs(w).max() for p, w in flat(want)})
+        deltas.append({p: GRAD_TOL * g for p, g in g_max[-1].items()})
+        for path, g in flat(got):
+            assert np.abs(g - get(want, path)).max() <= deltas[-1][path], \
+                (step, path)
         js, jm = jex.run("train", js, (jnp.asarray(ids),))
         ts, tm = tex.run("train", ts, (ids,))
         for k in ("loss", "lm_loss", "aux_loss"):
@@ -502,11 +536,19 @@ def test_five_adamw_steps_match_the_jax_executor():
                 err_msg=f"step {step} {k}")
     assert ts.step == int(js.step) == 5
     assert float(tm["loss"]) < float(_jax_value_and_grad(torch.float32)[0])
-    _assert_tree_close(interop.params_to_jax(ts.params, model.c),
-                       _tree(np.asarray, js.params), 1e-4, ATOL)
-    _assert_tree_close(
-        interop.opt_state_to_jax(ts.opt_state, model.c)["slots"],
-        _tree(np.asarray, js.opt_state["slots"]), 1e-4, ATOL)
+    got = {"params": interop.params_to_jax(ts.params, model.c),
+           **interop.opt_state_to_jax(ts.opt_state, model.c)["slots"]}
+    want = {"params": _tree(np.asarray, js.params),
+            **_tree(np.asarray, js.opt_state["slots"])}
+    assert set(got) == set(want) == {"params", "m", "v"}
+    for path in deltas[0]:
+        atol = adamw_atol([d[path] for d in deltas],
+                          [g[path] for g in g_max], LR, EPS)
+        for kind in want:
+            np.testing.assert_allclose(
+                get(got[kind], path), get(want[kind], path), rtol=1e-4,
+                atol=atol[kind], err_msg=f"{kind} {'/'.join(path)}")
+    assert sorted(p for p, _ in flat(got["params"])) == sorted(deltas[0])
 
 
 def test_jax_checkpoint_loads_into_the_port(tmp_path):
