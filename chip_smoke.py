@@ -14,8 +14,11 @@ without the final result line:
 2. build  — nvcc builds every CUDA source of the port (one process per
    source, all started together).
 3. kernel — each kernel (flash forward, flash backward dK/dV and dQ;
-   then, in kernel_moe, the row gather, its scatter-add and the top-k
-   gate) against its plain PyTorch version on the card, at the main
+   then, in kernel_moe, the row gather, its scatter-add by both routes
+   (through the MoE routing's inverse maps, the route the MoE step runs,
+   bitwise against the sorted route too; and on sorted ids, timed with its
+   split into sort, segments and kernel) and the top-k gate from E 7 to
+   65536) against its plain PyTorch version on the card, at the main
    paths' shapes and at edge cases (stated tolerances), then timed with
    CUDA events beside its plain version, one PyTorch library call as a
    yardstick (never used by the port) and its roofline bound.  The
@@ -826,7 +829,8 @@ def _kind(kernel: str) -> str:
     if _short(kernel).startswith(("flash_fwd_", "flash_bwd_")):
         return "flash kernels"
     if _short(kernel).startswith(("gather_kernel", "scatter_add_kernel",
-                                  "topk_gating_kernel")):
+                                  "topk_small_kernel", "topk_group_kernel",
+                                  "topk_wide_kernel")):
         return "MoE kernels"
     if any(t in kernel for t in ("nvjet", "gemm", "xmma", "cutlass")):
         return "GEMMs"
@@ -1000,16 +1004,21 @@ def _bits(t):
 def tolerance_share(got, ref, tol=None):
     """The largest share of its tolerance that any element of ``got`` uses
     against ``ref`` (at most 1 passes): ``tol`` is a bound per element (a
-    tensor or a number); without one the gate is bitwise, and any
-    difference uses an infinite share."""
+    tensor or a number), and NaNs must sit where the reference has them;
+    without one the gate is bitwise, and any difference uses an infinite
+    share."""
     if got.shape != ref.shape or got.dtype != ref.dtype:
         return float("inf")
     if tol is None:
         return 0.0 if torch.equal(_bits(got), _bits(ref)) else float("inf")
     diff = (got.double() - ref.double()).abs()
+    # a NaN where the reference has one agrees (the softmax of a row of
+    # -inf); a NaN anywhere else uses an infinite share
+    diff = torch.where(got.isnan() & ref.isnan(), 0.0, diff)
     tol = torch.as_tensor(tol, dtype=torch.float64, device=diff.device)
     share = torch.where(tol > 0, diff / tol.clamp_min(1e-300),
                         torch.where(diff > 0, float("inf"), 0.0))
+    share = share.nan_to_num(nan=float("inf"))
     return share.max().item() if share.numel() else 0.0
 
 
@@ -1030,15 +1039,37 @@ def scatter_tolerance(grads, ids, num_rows, ref):
 
 
 def moe_routing(t, e, k, capacity, gen, device="cuda"):
-    """The path's row ids from seeded random logits: ``slot_token [E*C]``
-    (-1 for an empty slot) and ``token_slot [T*k]`` (-1 for a dropped
-    route), as ``MoELayer`` makes them."""
-    from hetu_tpu_torch.ops import make_slot_routing
+    """The path's row ids from seeded random logits, as ``MoELayer`` makes
+    them: ``slot_token [E*C]`` (-1 for an empty slot) and ``token_slot
+    [T*k]`` (-1 for a dropped route), the dispatch's and the combine's
+    gather ids; and their inverse maps, ``token_slot [T, k]`` and
+    ``slot_route [E*C, 1]``, which the gradients of those gathers read."""
+    from hetu_tpu_torch.ops import make_slot_routes
     from hetu_tpu_torch.ops.cuda_kernels import topk_gating_plain
     logits = torch.randn(t, e, generator=gen, device=device)
     gates, idx = topk_gating_plain(logits, k)
-    slot_token, token_slot, _ = make_slot_routing(gates, idx, e, capacity)
-    return slot_token, token_slot.reshape(-1)
+    slot_route, token_slot, _ = make_slot_routes(gates, idx, e, capacity)
+    return (slot_route // k, token_slot.reshape(-1), token_slot,
+            slot_route[:, None])
+
+
+def inverse_of(ids, num_rows):
+    """The inverse map of any ids: ``[num_rows, m]`` int32, row r listing
+    the positions i with ``ids[i] == r`` in descending order, then -1 (m
+    the largest count), so that the kernel has to sort them."""
+    ids = ids.long()
+    valid = (ids >= 0) & (ids < num_rows)
+    rows = ids[valid]
+    pos = torch.arange(ids.numel(), device=ids.device)[valid]
+    order = torch.argsort(rows, stable=True)
+    rows, pos = rows[order], pos[order]
+    counts = torch.bincount(rows, minlength=num_rows)
+    col = torch.arange(rows.numel(), device=ids.device) \
+        - (counts.cumsum(0) - counts)[rows]
+    inv = torch.full((num_rows, max(1, int(counts.max()))), -1,
+                     dtype=torch.int32, device=ids.device)
+    inv[rows, col] = pos.to(torch.int32)
+    return inv.sort(dim=1, descending=True).values
 
 
 def _rows(n, d, dtype, gen, integers=False):
@@ -1081,11 +1112,13 @@ def phase_kernel_moe(card):
     cases; then timed at the step's shapes."""
     from hetu_tpu_torch.ops.cuda_kernels import (
         embedding_gather, embedding_gather_plain, embedding_scatter_add,
-        embedding_scatter_add_plain, topk_gating, topk_gating_plain,
+        embedding_scatter_add_inverse_plain, embedding_scatter_add_plain,
+        topk_gating, topk_gating_plain,
     )
     gen = torch.Generator(device="cuda").manual_seed(2468)
     t, ec = MOE_T, MOE_E * MOE_C
-    slot_token, token_slot = moe_routing(t, MOE_E, MOE_K, MOE_C, gen)
+    slot_token, token_slot, inv_disp, inv_comb = moe_routing(
+        t, MOE_E, MOE_K, MOE_C, gen)
     heavy = torch.full((4096,), 37, dtype=torch.int32, device="cuda")
     mixed = torch.cat([heavy, torch.tensor([-1, 5, 37, 10 ** 6], device="cuda",
                                            dtype=torch.int32)])
@@ -1173,6 +1206,67 @@ def phase_kernel_moe(card):
             if bitwise:
                 errs["scatter"] = max(errs.get("scatter", 0.0), err)
 
+        # the scatter-add's inverse route (the MoE step's): bitwise against
+        # its plain version, against the sorted route on the same ids and
+        # against a second launch.  (tag, grads rows, D, dtype, ids,
+        # inverse); new cases draw from a generator of their own
+        gen_inv = torch.Generator(device="cuda").manual_seed(1357)
+        drops = moe_routing(4096, MOE_E, MOE_K, int(0.5 * 4096 * MOE_K
+                                                    / MOE_E), gen_inv)
+        k4 = moe_routing(4096, MOE_E, 4, int(MOE_CF * 4096 * 4 / MOE_E),
+                         gen_inv)
+        small = moe_routing(512, MOE_E, MOE_K, int(MOE_CF * 512 * MOE_K
+                                                   / MOE_E), gen_inv)
+
+        def both(tag, r, d, dtypes=(torch.bfloat16, torch.float32)):
+            """The dispatch's and the combine's gradient on routing r."""
+            s_tok, t_slot, i_disp, i_comb = r
+            return [(f"{tag} dispatch bwd", s_tok.numel(), d, dt, s_tok,
+                     i_disp) for dt in dtypes] + \
+                   [(f"{tag} combine bwd", t_slot.numel(), d, dt, t_slot,
+                     i_comb) for dt in dtypes]
+
+        inverses = [
+            ("dispatch bwd", ec, MOE_H, torch.bfloat16, slot_token, inv_disp),
+            ("combine bwd", t * MOE_K, MOE_H, torch.float32, token_slot,
+             inv_comb),
+            ("dispatch bwd D=768", ec, MOE_BENCH_D, torch.bfloat16,
+             slot_token, inv_disp),
+            ("combine bwd D=768", t * MOE_K, MOE_BENCH_D, torch.float32,
+             token_slot, inv_comb),
+            *both("cf 0.5 (heavy drops)", drops, MOE_H),
+            *both("k=4 (m=4)", k4, MOE_H),
+            *both("D=100", small, 100),
+            *both("D=33", small, 33, (torch.bfloat16,)),
+            ("all-empty inverse", 500, MOE_H, torch.float32,
+             torch.full((500,), -1, device="cuda"),
+             torch.full((64, 2), -1, dtype=torch.int32, device="cuda")),
+            # any ids, up to 32 sources a row, listed in descending order
+            *((f"ragged ids x~{n // 73}", n, 100, dt, ids,
+               inverse_of(ids, 64))
+              for n in (300, 600)
+              for ids in [torch.randint(-3, 70, (n,), generator=gen_inv,
+                                        device="cuda")]
+              for dt in (torch.bfloat16, torch.float32)),
+        ]
+        for tag, n, d, dtype, ids, inv in inverses:
+            grads = _rows(n, d, dtype, gen_inv)
+            num_rows = inv.shape[0]
+            got = embedding_scatter_add(grads, ids, num_rows, inverse=inv)
+            again = embedding_scatter_add(grads, ids, num_rows, inverse=inv)
+            ref = embedding_scatter_add_inverse_plain(grads, inv)
+            sorted_route = embedding_scatter_add(grads, ids, num_rows)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            report("embedding_scatter_add inverse",
+                   f"{tag} grads {tuple(grads.shape)} {str(dtype)[6:]} -> "
+                   f"inverse {tuple(inv.shape)} (bitwise: plain, sorted "
+                   f"route, two launches)", tolerance_share(got, ref), err,
+                   tolerance_share(got, sorted_route) == 0.0
+                   and tolerance_share(got, again) == 0.0)
+            errs["scatter_inverse"] = max(errs.get("scatter_inverse", 0.0),
+                                          err)
+
         # top-k: (T, E, k, dtype, tag, logits kind)
         topks = [
             (t, MOE_E, MOE_K, torch.float32, "path", "randn"),
@@ -1184,6 +1278,17 @@ def phase_kernel_moe(card):
             (4096, 7, 3, torch.float32, "E = 7", "randn"),
             (512, 256, 4, torch.bfloat16, "E = 256 bf16", "randn"),
             (1, MOE_E, MOE_K, torch.float32, "T = 1", "randn"),
+            # any E: one thread a token up to 32, G lanes up to 1024, a
+            # warp over shared memory above, a scratch row past its size
+            *((tt, e, k, dtype, f"E = {e} {str(dtype)[6:]}", "randn")
+              for tt, e, k in ((4096, 32, 2), (4096, 33, 3), (1024, 300, 4),
+                               (512, 1024, 2), (256, 2048, 2))
+              for dtype in (torch.float32, torch.bfloat16)),
+            (256, 64, 64, torch.float32, "k = E = 64", "randn"),
+            (64, 20000, 2, torch.float32, "E = 20000", "randn"),
+            (16, 65536, 4, torch.float32, "E = 65536 (scratch row)", "randn"),
+            *((512, e, 3, torch.float32, f"rows of -inf E = {e}", "-inf")
+              for e in (MOE_E, 300, 2048)),
         ]
         for tt, e, k, dtype, tag, kind in topks:
             if kind == "equal":
@@ -1191,6 +1296,19 @@ def phase_kernel_moe(card):
             elif kind == "pairs":  # every value twice in each row
                 half = torch.randn(tt, e // 2, generator=gen, device="cuda")
                 logits = half.repeat_interleave(2, dim=1).to(dtype)
+            elif kind == "-inf":
+                # every fourth row all -inf (index 0 first); every other
+                # row -inf but for one value, so that later passes pick
+                # among -inf again
+                logits = torch.randn(tt, e, generator=gen_inv,
+                                     device="cuda").to(dtype)
+                logits[0::4] = float("-inf")
+                keep = torch.randint(0, e, (tt,), generator=gen_inv,
+                                     device="cuda")
+                lone = torch.full_like(logits, float("-inf"))
+                lone.scatter_(1, keep[:, None], logits.gather(1,
+                                                              keep[:, None]))
+                logits[1::2] = lone[1::2]
             else:
                 logits = torch.randn(tt, e, generator=gen,
                                      device="cuda").to(dtype)
@@ -1239,6 +1357,23 @@ def phase_kernel_moe(card):
                                      device="cuda").index_add_(
                      0, c_ids, g_comb),
                  scatter_bound(g_comb, token_slot, ec))],
+            "scatter_inverse": [
+                (lambda: embedding_scatter_add(g_disp, slot_token, t,
+                                               inverse=inv_disp),
+                 lambda: embedding_scatter_add_inverse_plain(g_disp,
+                                                             inv_disp),
+                 lambda: torch.zeros(t, MOE_H, dtype=g_disp.dtype,
+                                     device="cuda").index_add_(
+                     0, s_ids, g_disp),
+                 scatter_bound(g_disp, slot_token, t)),
+                (lambda: embedding_scatter_add(g_comb, token_slot, ec,
+                                               inverse=inv_comb),
+                 lambda: embedding_scatter_add_inverse_plain(g_comb,
+                                                             inv_comb),
+                 lambda: torch.zeros(ec, MOE_H, dtype=g_comb.dtype,
+                                     device="cuda").index_add_(
+                     0, c_ids, g_comb),
+                 scatter_bound(g_comb, token_slot, ec))],
             "topk": [
                 (lambda: topk_gating(logits, MOE_K),
                  lambda: topk_gating_plain(logits, MOE_K),
@@ -1264,7 +1399,102 @@ def phase_kernel_moe(card):
             if len(per) > 1:
                 report_ms[name]["by_call"] = dict(zip(("dispatch", "combine"),
                                                       per))
+        # the scatter-add by route.  The sorted route's time holds the sort;
+        # the inverse route's headline adds the price of its design, the
+        # build of slot_route (the forward's index_put of the route ids and
+        # the division that gives slot_token)
+        from hetu_tpu_torch.ops.moe_ops import slot_route_of
+        ts_long, within = inv_disp.long(), inv_disp >= 0
+        build_ms = device_ms(
+            lambda: slot_route_of(ts_long, within, ec) // MOE_K, 40)
+
+        def slot_token_only():  # what the step built before: token ids
+            st = torch.full((ec + 1,), -1, dtype=torch.int32, device="cuda")
+            st[torch.where(within, ts_long, ec)] = torch.arange(
+                t, dtype=torch.int32, device="cuda")[:, None].expand(t,
+                                                                     MOE_K)
+            return st[:ec]
+        token_only_ms = device_ms(slot_token_only, 40)
+        print(f"[kernel_moe] slot_route build at the step's shape "
+              f"(token_slot [{t}, {MOE_K}] -> [{ec}], then // {MOE_K}): "
+              f"{build_ms:.4f} ms; the slot_token build it replaces "
+              f"{token_only_ms:.4f} ms [{card}]")
+        sorted_route = report_ms.pop("scatter")
+        sorted_route["split"] = _scatter_split(
+            card, {"dispatch": (g_disp, slot_token, t),
+                   "combine": (g_comb, token_slot, ec)})
+        inverse = report_ms.pop("scatter_inverse")
+        inverse.update(kernel_ms=inverse["ms"], slot_route_build_ms=build_ms,
+                       slot_token_build_ms=token_only_ms,
+                       ms=inverse["ms"] + build_ms)
+        report_ms["scatter"] = dict(
+            inverse, max_abs_err=max(inverse["max_abs_err"],
+                                     sorted_route["max_abs_err"]),
+            by_route={"inverse": dict(inverse), "sorted": sorted_route})
+        print(f"[kernel_moe] scatter-add, a layer's two calls: inverse route "
+              f"{inverse['kernel_ms']:.4f} ms + slot_route build "
+              f"{build_ms:.4f} ms = {inverse['ms']:.4f} ms; sorted route "
+              f"{sorted_route['ms']:.4f} ms; bound "
+              f"{inverse['bound_ms']:.5f} ms [{card}]")
+        report_ms["topk"]["by_shape"] = _topk_by_shape(card, gen)
     return report_ms
+
+
+def _scatter_split(card, sites):
+    """The sorted route's time split, at each call's shape: the stable sort
+    of the ids, the rest of ``scatter_segments`` (the searchsorted and the
+    casts) and the kernel alone on precomputed segments."""
+    from hetu_tpu_torch.ops.cuda_kernels.embedding import (
+        _scatter_sorted, scatter_segments,
+    )
+    split = {}
+    for site, (grads, ids, num_rows) in sites.items():
+        perm, offsets = scatter_segments(ids, num_rows)
+        out = torch.empty(num_rows, grads.shape[1], dtype=grads.dtype,
+                          device="cuda")
+        sort_ms = device_ms(lambda: torch.sort(ids.to(torch.int32),
+                                               stable=True), 40)
+        segments_ms = device_ms(lambda: scatter_segments(ids, num_rows), 40)
+        kernel_ms = device_ms(
+            lambda: _scatter_sorted(grads, perm, offsets, out), 40)
+        split[site] = dict(sort_ms=sort_ms,
+                           searchsorted_and_casts_ms=segments_ms - sort_ms,
+                           kernel_alone_ms=kernel_ms,
+                           bound_ms=scatter_bound(grads, ids, num_rows))
+        print(f"[kernel_moe] scatter-add {site}, sorted route split: sort "
+              f"{sort_ms:.4f} ms, searchsorted and casts "
+              f"{segments_ms - sort_ms:.4f} ms, kernel alone "
+              f"{kernel_ms:.4f} ms (bound {split[site]['bound_ms']:.5f} "
+              f"ms) [{card}]")
+    return split
+
+
+# the gate's timed shapes: (T, E, k, dtype); the first is the MoE step's
+TOPK_SHAPES = ((MOE_T, MOE_E, MOE_K, torch.float32),
+               (MOE_T, 64, MOE_K, torch.float32),
+               (MOE_T, 256, MOE_K, torch.bfloat16),
+               (4096, 1024, MOE_K, torch.float32))
+
+
+def _topk_by_shape(card, gen):
+    """The gate kernel's time at each of ``TOPK_SHAPES`` beside its plain
+    version, the library call and the bound."""
+    from hetu_tpu_torch.ops.cuda_kernels import topk_gating, topk_gating_plain
+    out = {}
+    for tt, e, k, dtype in TOPK_SHAPES:
+        logits = torch.randn(tt, e, generator=gen, device="cuda").to(dtype)
+        m = dict(ms=device_ms(lambda: topk_gating(logits, k), 40),
+                 plain_ms=device_ms(lambda: topk_gating_plain(logits, k), 10),
+                 library_ms=device_ms(lambda: torch.softmax(
+                     torch.topk(logits.float(), k).values, -1).to(dtype), 40),
+                 bound_ms=topk_bound(tt, e, k, logits.element_size()),
+                 bound_by="bytes")
+        key = f"[{tt}, {e}] {str(dtype)[6:]} k {k}"
+        out[key] = m
+        print(f"[kernel_moe] topk_gating {key}: kernel {m['ms']:.4f} ms, "
+              f"plain {m['plain_ms']:.4f} ms, library {m['library_ms']:.4f} "
+              f"ms, bound {m['bound_ms']:.5f} ms [{card}]")
+    return out
 
 
 def moe_jax_layout_weights(seed: int) -> dict:
@@ -1587,8 +1817,9 @@ def main(argv=None) -> int:
            **{f: moe_kernels[key][f] for f in (
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")},
-           "per": per, **({"by_call": moe_kernels[key]["by_call"]}
-                          if "by_call" in moe_kernels[key] else {})}
+           "per": per, **{f: moe_kernels[key][f]
+                          for f in ("by_call", "by_route", "by_shape")
+                          if f in moe_kernels[key]}}
           for name, key, i, src_file, line, per in (
               ("topk_gating", "topk", 0, "topk_gating.cu", 175,
                f"one call, logits [{MOE_T}, {MOE_E}] f32, k {MOE_K}"),
@@ -1598,10 +1829,12 @@ def main(argv=None) -> int:
                f"combine ([{MOE_E * MOE_C}, {MOE_H}] f32, "
                f"{MOE_T * MOE_K} ids)"),
               ("embedding_scatter_add", "scatter", 2, "embedding.cu", 75,
-               f"the sum of a layer's two calls: dispatch backward "
-               f"([{MOE_E * MOE_C}, {MOE_H}] bf16 -> {MOE_T} rows) and "
+               f"the inverse route the MoE step runs: the sum of a layer's "
+               f"two calls, dispatch backward ([{MOE_E * MOE_C}, {MOE_H}] "
+               f"bf16 -> {MOE_T} rows, inverse [{MOE_T}, {MOE_K}]) and "
                f"combine backward ([{MOE_T * MOE_K}, {MOE_H}] f32 -> "
-               f"{MOE_E * MOE_C} rows)")))]}
+               f"{MOE_E * MOE_C} rows, inverse [{MOE_E * MOE_C}, 1]), plus "
+               f"the slot_route build; by_route has both routes")))]}
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -168,16 +168,20 @@ class MoELayer(Module):
         capacity = max(1, int(self.capacity_factor * t * k / e))
         gates, idx, aux = self.gate(tokens)
         if self.dispatch_impl == "gather":
-            slot_token, token_slot, n_dropped = ops.make_slot_routing(
+            # each gather gets its ids' inverse map, so that its gradient
+            # (the scatter-add) reads every row's sources with no sort
+            slot_route, token_slot, n_dropped = ops.make_slot_routes(
                 gates, idx, e, capacity)
-            xe = ops.gather_dispatch(tokens, slot_token, e, capacity)
+            xe = ops.gather_dispatch(tokens, slot_route // k, e, capacity,
+                                     inverse=token_slot)
         else:
             disp, comb = ops.make_dispatch_combine(gates, idx, e, capacity)
             n_dropped = t * k - disp.sum().long()
             xe = ops.layout_transform(tokens, disp)
         ye = self.experts(xe)
         if self.dispatch_impl == "gather":
-            out = ops.gather_combine(ye, token_slot, gates)
+            out = ops.gather_combine(ye, token_slot, gates,
+                                     inverse=slot_route[:, None])
         else:
             out = ops.reverse_layout_transform(ye, comb)
         out = out.reshape(x.shape)

@@ -16,7 +16,8 @@ from hetu_tpu_torch.ops.losses import (
 from hetu_tpu_torch.ops.matmul import linear
 from hetu_tpu_torch.ops.moe_ops import (
     gather_combine, gather_dispatch, layout_transform, make_dispatch_combine,
-    make_slot_routing, reverse_layout_transform, top_k_idx_gate,
+    make_slot_routes, make_slot_routing, reverse_layout_transform,
+    top_k_idx_gate,
 )
 from hetu_tpu_torch.ops.norm import layer_norm
 
@@ -25,6 +26,7 @@ __all__ = [
     "decode_attention", "dropout", "embedding_lookup",
     "lm_head_cross_entropy", "linear", "layer_norm",
     "softmax_cross_entropy_sparse", "gather_combine", "gather_dispatch",
-    "layout_transform", "make_dispatch_combine", "make_slot_routing",
+    "layout_transform", "make_dispatch_combine", "make_slot_routes",
+    "make_slot_routing",
     "reverse_layout_transform", "top_k_idx_gate",
 ]

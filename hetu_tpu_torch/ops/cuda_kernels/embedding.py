@@ -23,9 +23,13 @@ functions are the TPU kernels':
 * the gather copies ``table[ids]``; an id < 0 or >= V gives a zero row;
 * the scatter-add sums, into a zeroed ``[num_rows, D]``, each gradient row
   onto the row its id names, dropping invalid ids.  Duplicates are summed
-  in f32 in the order of a stable sort of the ids (the order they come
-  in) and rounded once to the gradient's type, with no atomics, so the
-  result does not change from run to run;
+  in f32 in ascending order of position (the order of a stable sort of the
+  ids) and rounded once to the gradient's type, with no atomics, so the
+  result does not change from run to run.  A caller that holds the
+  routing's inverse map (``inverse [num_rows, m]``: row r's positions,
+  padded with -1, as the MoE routing builds it) passes it, and the kernel
+  reads each row's sources from it; without it the wrapper sorts the ids
+  first;
 * the gate takes k passes of max, lowest index among equal values, mask;
   then the softmax over the k values in f32, cast to the logits' type;
   the indices are int32.
@@ -43,7 +47,9 @@ from hetu_tpu_torch.ops.embedding import embedding_lookup
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EMBEDDING = "embedding"
 _TOPK = "topk_gating"
-TOPK_MAX_EXPERTS = 256  # the gate kernel holds 8 experts a lane in registers
+# the most sources a row of an inverse map may list: the kernel sorts them
+# in registers
+INVERSE_MAX_WIDTH = 32
 
 
 # ------------------------------------------------------------ plain versions
@@ -67,17 +73,47 @@ def embedding_scatter_add_plain(grads, ids, num_rows: int):
     return out.to(grads.dtype)
 
 
-def topk_select(logits, k: int):
-    """The k indices ``[T, k]`` (int64) of ``logits`` ``[T, E]`` by k passes
-    of max and mask, ties to the lowest index (``torch.argmax`` returns the
-    first maximum; ``torch.topk`` promises no order among equal values)."""
+def embedding_scatter_add_inverse_plain(grads, inverse):
+    """The same gradient ``[num_rows, D]`` read through the inverse map
+    ``inverse [num_rows, m]`` (row r's positions in ``grads``, padded with
+    -1; entries outside ``[0, N)`` are skipped): each row the f32 sum of its
+    source rows in ascending order of position, rounded once to ``grads``'
+    type, as the inverse route's kernel computes it."""
+    n, d = grads.shape
+    pos = inverse.long()
+    pos = torch.where((pos >= 0) & (pos < n), pos, n).sort(dim=1).values
+    # row n is the padding's: zeros, which leave a sum's bits as they are
+    src = torch.cat([grads.float(), grads.new_zeros(1, d,
+                                                    dtype=torch.float32)])
+    out = torch.zeros(pos.shape[0], d, dtype=torch.float32,
+                      device=grads.device)
+    for j in range(pos.shape[1]):
+        out += src[pos[:, j]]
+    return out.to(grads.dtype)
+
+
+def _topk_passes(logits, k: int):
+    """``(values [T, k]`` f32, ``indices [T, k]`` int64) of k passes of max
+    and mask over ``logits [T, E]``: each pass's maximum, where a masked
+    entry counts as -inf, and the lowest index attaining it
+    (``torch.argmax`` returns the first maximum; ``torch.topk`` promises no
+    order among equal values).  Once every value left is -inf, a pass picks
+    the lowest index again, masked or not, as the reference's kernel
+    does."""
     x = logits.detach().float().clone()
-    picked = []
+    vals, picked = [], []
     for _ in range(k):
         pos = x.argmax(dim=-1, keepdim=True)
         picked.append(pos)
+        vals.append(x.gather(-1, pos))
         x.scatter_(-1, pos, float("-inf"))
-    return torch.cat(picked, dim=-1)
+    return torch.cat(vals, dim=-1), torch.cat(picked, dim=-1)
+
+
+def topk_select(logits, k: int):
+    """The k indices ``[T, k]`` (int64) of ``logits`` ``[T, E]`` by k passes
+    of max and mask, ties to the lowest index."""
+    return _topk_passes(logits, k)[1]
 
 
 def _softmax_f32(vals):
@@ -89,8 +125,7 @@ def _softmax_f32(vals):
 def topk_gating_plain(logits, k: int):
     """``(gates [T, k] in the logits' type, idx [T, k] int32)``, as the
     kernel computes them."""
-    idx = topk_select(logits, k)
-    vals = logits.float().gather(-1, idx)
+    vals, idx = _topk_passes(logits, k)
     return _softmax_f32(vals).to(logits.dtype), idx.to(torch.int32)
 
 
@@ -117,6 +152,20 @@ def _check_rows(what, rows, ids):
     _check_device(what, rows, ids)
 
 
+def _check_inverse(what, inverse, num_rows, rows):
+    if inverse.dim() != 2 or inverse.shape[0] != num_rows:
+        raise ValueError(f"{what} takes an inverse map [{num_rows}, m], got "
+                         f"{tuple(inverse.shape)}")
+    if inverse.is_floating_point() or inverse.is_complex():
+        raise TypeError(f"{what} takes an integer inverse map, got "
+                        f"{inverse.dtype}")
+    if inverse.shape[1] > INVERSE_MAX_WIDTH:
+        raise ValueError(f"{what}: an inverse map of {inverse.shape[1]} "
+                         f"columns; the kernel takes at most "
+                         f"{INVERSE_MAX_WIDTH} (call without it to sort)")
+    _check_device(what, rows, inverse)
+
+
 # ----------------------------------------------------------------- launches
 
 def _library(name, functions):
@@ -139,7 +188,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _embedding_library():
     return _library(_EMBEDDING, {
         "hetu_embedding_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "hetu_embedding_scatter_add": [_P, _P, _P, _P, _I, _I, _I, _I, _P]})
+        "hetu_embedding_scatter_add": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "hetu_embedding_scatter_add_inverse": [_P, _P, _P, _I, _I, _I, _I,
+                                               _I, _I, _P]})
+
+
+def _topk_library():
+    lib = _library(_TOPK, {"hetu_topk_gating": [_P, _P, _P, _P, _I, _I, _I,
+                                                _I, _I, _P]})
+    work = lib.hetu_topk_gating_work  # scratch floats a token; not an error
+    if work.argtypes is None:
+        work.argtypes = [_I, _I, _I]
+        work.restype = ctypes.c_longlong
+    return lib
 
 
 def _launch(lib, fn_name, what, device, *args):
@@ -190,29 +251,58 @@ def scatter_segments(ids, num_rows: int):
     return perm.to(torch.int32), offsets
 
 
-def embedding_scatter_add(grads, ids, num_rows: int):
+def embedding_scatter_add(grads, ids, num_rows: int, *, inverse=None):
     """``grads [N, D]``, ``ids [N]`` → ``[num_rows, D]`` in ``grads``' type:
-    the gradient of :func:`embedding_gather`.  The plain version for CPU
-    tensors, the kernel for CUDA tensors (after the stable sort and the
-    row segments, :func:`scatter_segments`, in PyTorch);
-    ``embedding_scatter_add.launches`` counts kernel launches."""
+    the gradient of :func:`embedding_gather`.  ``inverse [num_rows, m]``
+    int32, where the caller has it, lists row r's positions (the i with
+    ``ids[i] == r``), padded with -1, and no sort runs; without it the
+    stable sort and the row segments (:func:`scatter_segments`) come first,
+    in PyTorch.  The plain versions for CPU tensors, the kernel for CUDA
+    tensors; ``embedding_scatter_add.launches`` counts kernel launches."""
     _check_rows("embedding_scatter_add", grads, ids)
     if grads.shape[0] != ids.shape[0]:
         raise ValueError(f"embedding_scatter_add: {grads.shape[0]} gradient "
                          f"rows for {ids.shape[0]} ids")
+    if inverse is not None:
+        _check_inverse("embedding_scatter_add", inverse, num_rows, grads)
     if grads.device.type == "cpu":
+        if inverse is not None:
+            return embedding_scatter_add_inverse_plain(grads, inverse)
         return embedding_scatter_add_plain(grads, ids, num_rows)
     grads = grads.contiguous()
     out = torch.empty(num_rows, grads.shape[1], dtype=grads.dtype,
                       device=grads.device)
     if out.numel() == 0:
         return out
+    if inverse is not None:
+        return _scatter_inverse(grads, inverse.to(torch.int32).contiguous(),
+                                out)
     perm, offsets = scatter_segments(ids, num_rows)
+    return _scatter_sorted(grads, perm, offsets, out)
+
+
+def _scatter_sorted(grads, perm, offsets, out):
+    """Launch the scatter-add kernel's sorted route on precomputed
+    segments."""
+    num_rows = out.shape[0]
     _launch(_embedding_library(), "hetu_embedding_scatter_add",
             f"embedding_scatter_add (grads {tuple(grads.shape)} "
             f"{grads.dtype}, {num_rows} rows)", grads.device,
             grads.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
             out.data_ptr(), num_rows, grads.shape[1], _DTYPES[grads.dtype])
+    embedding_scatter_add.launches += 1
+    return out
+
+
+def _scatter_inverse(grads, inverse, out):
+    """Launch the scatter-add kernel's inverse route (``inverse`` int32,
+    contiguous)."""
+    num_rows, m = inverse.shape
+    _launch(_embedding_library(), "hetu_embedding_scatter_add_inverse",
+            f"embedding_scatter_add (grads {tuple(grads.shape)} "
+            f"{grads.dtype}, inverse {tuple(inverse.shape)})", grads.device,
+            grads.data_ptr(), inverse.data_ptr(), out.data_ptr(), num_rows,
+            m, grads.shape[0], grads.shape[1], _DTYPES[grads.dtype])
     embedding_scatter_add.launches += 1
     return out
 
@@ -224,12 +314,18 @@ def _launch_topk(logits, k: int):
     idx = torch.empty(t, k, dtype=torch.int32, device=logits.device)
     if t == 0:
         return gates, idx
-    lib = _library(_TOPK, {"hetu_topk_gating": [_P, _P, _P, _I, _I, _I, _I,
-                                                _I, _P]})
+    lib = _topk_library()
+    dev = logits.device.index if logits.device.index is not None \
+        else torch.cuda.current_device()
+    # a row too long for one block's shared memory lives in a scratch row
+    per_token = lib.hetu_topk_gating_work(e, k, dev)
+    work = torch.empty(t * per_token, dtype=torch.float32,
+                       device=logits.device) if per_token else None
     _launch(lib, "hetu_topk_gating",
             f"topk_gating (logits {tuple(logits.shape)} {logits.dtype}, "
             f"k {k})", logits.device, logits.data_ptr(), gates.data_ptr(),
-            idx.data_ptr(), t, e, k, _DTYPES[logits.dtype])
+            idx.data_ptr(), None if work is None else work.data_ptr(), t, e,
+            k, _DTYPES[logits.dtype])
     topk_gating.launches += 1
     return gates, idx
 
@@ -242,24 +338,29 @@ class _RoutedGather(torch.autograd.Function):
     accumulate, invalid ids drop)."""
 
     @staticmethod
-    def forward(ctx, table, ids):
-        ctx.save_for_backward(ids)
+    def forward(ctx, table, ids, inverse):
+        ctx.save_for_backward(ids, inverse)
         ctx.num_rows = table.shape[0]
         return embedding_gather(table, ids)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        (ids,) = ctx.saved_tensors
-        return embedding_scatter_add(g, ids, ctx.num_rows), None
+        ids, inverse = ctx.saved_tensors
+        return embedding_scatter_add(g, ids, ctx.num_rows,
+                                     inverse=inverse), None, None
 
 
-def routed_gather(table, ids):
+def routed_gather(table, ids, *, inverse=None):
     """Differentiable row gather: ``table [V, D]``, ``ids [N]`` → ``[N, D]``
     with zero rows for invalid ids, whose gradient is the scatter-add.
+    ``inverse [V, m]``, where the caller has it (row v's positions i with
+    ``ids[i] == v``, padded with -1), lets the gradient skip the sort.
     The building block of the MoE gather dispatch and combine."""
     _check_rows("routed_gather", table, ids)
-    return _RoutedGather.apply(table, ids)
+    if inverse is not None:
+        _check_inverse("routed_gather", inverse, table.shape[0], table)
+    return _RoutedGather.apply(table, ids, inverse)
 
 
 class _TopKGating(torch.autograd.Function):
@@ -293,7 +394,7 @@ def topk_gating(logits, k: int):
     """``logits [T, E]`` → ``(gates [T, k]`` softmaxed over the k in f32 and
     cast to the logits' type, ``idx [T, k]`` int32), ties to the lowest
     index, differentiable in the logits.  CPU tensors run the plain version;
-    CUDA tensors launch the kernel (E <= 256) or raise.
+    CUDA tensors launch the kernel (any E) or raise.
     ``topk_gating.launches`` counts kernel launches."""
     if logits.dim() != 2:
         raise ValueError(f"topk_gating takes logits [T, E], got "
@@ -306,9 +407,6 @@ def topk_gating(logits, k: int):
     k = int(k)
     if not 1 <= k <= e:
         raise ValueError(f"top-{k} of only {e} experts")
-    if logits.device.type == "cuda" and e > TOPK_MAX_EXPERTS:
-        raise ValueError(f"the topk_gating kernel takes at most "
-                         f"{TOPK_MAX_EXPERTS} experts, got {e}")
     return _TopKGating.apply(logits, k)
 
 

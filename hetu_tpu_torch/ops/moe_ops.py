@@ -6,7 +6,10 @@ function:
 * the index routing (:func:`make_slot_routing`, :func:`gather_dispatch`,
   :func:`gather_combine`): O(T·k) indices and row gathers through the
   ``routed_gather`` kernels, the path ``MoELayer(dispatch_impl="gather")``
-  takes;
+  takes.  The layer builds the routing with :func:`make_slot_routes`, whose
+  ``slot_route`` and ``token_slot`` are inverse maps of each other, and
+  hands each gather the inverse of its ids, so that the gradients (the
+  scatter-adds) need no sort;
 * the dense ``[T, E, C]`` masks (:func:`make_dispatch_combine`,
   :func:`layout_transform`, :func:`reverse_layout_transform`): two
   einsums (O(T·E·C·D) work), kept, as in the reference, for
@@ -65,6 +68,37 @@ def make_dispatch_combine(gates, expert_idx, num_experts: int,
     return disp, comb
 
 
+def make_slot_routes(gates, expert_idx, num_experts: int, capacity: int):
+    """The index routing as two maps inverse to each other (a port-internal
+    form of :func:`make_slot_routing`):
+
+    * ``slot_route [E·C]`` int32: the flat route ``t·k + j`` in each expert
+      slot, -1 if empty (``slot_route // k`` is ``slot_token``);
+    * ``token_slot [T, k]`` int32: each route's flat slot, -1 if dropped;
+    * ``n_dropped``: how many routes overflowed their expert's capacity.
+    """
+    t, k = gates.shape
+    _, pos, within = _capacity_positions(expert_idx, num_experts, capacity)
+    token_slot = torch.where(within, expert_idx.long() * capacity + pos, -1)
+    return (slot_route_of(token_slot, within, num_experts * capacity),
+            token_slot.to(torch.int32), t * k - within.sum())
+
+
+def slot_route_of(token_slot, within, slots: int):
+    """``slot_route [slots]`` int32 from ``token_slot [T, k]`` (int64) and
+    its ``within`` mask: the route ``t·k + j`` whose slot each is, -1 for a
+    slot no route fills.  The same ``index_put`` that built the reference's
+    ``slot_token``, with route ids in place of token ids."""
+    t, k = token_slot.shape
+    routes = torch.arange(t * k, dtype=torch.int32,
+                          device=token_slot.device).reshape(t, k)
+    # a dropped route writes to the extra slot E·C, cut off after
+    slot_route = torch.full((slots + 1,), -1, dtype=torch.int32,
+                            device=token_slot.device)
+    slot_route[torch.where(within, token_slot, slots)] = routes
+    return slot_route[:slots]
+
+
 def make_slot_routing(gates, expert_idx, num_experts: int, capacity: int):
     """The index routing (O(T·k), where the masks are O(T·E·C)):
 
@@ -72,34 +106,31 @@ def make_slot_routing(gates, expert_idx, num_experts: int, capacity: int):
     * ``token_slot [T, k]`` int32: each route's flat slot, -1 if dropped;
     * ``n_dropped``: how many routes overflowed their expert's capacity.
     """
-    t, k = gates.shape
-    _, pos, within = _capacity_positions(expert_idx, num_experts, capacity)
-    slots = num_experts * capacity
-    token_slot = torch.where(within, expert_idx.long() * capacity + pos, -1)
-    tok_ids = torch.arange(t, dtype=torch.int32,
-                           device=gates.device)[:, None].expand(t, k)
-    # a dropped route writes to the extra slot E·C, cut off after
-    slot_token = torch.full((slots + 1,), -1, dtype=torch.int32,
-                            device=gates.device)
-    slot_token[torch.where(within, token_slot, slots)] = tok_ids
-    n_dropped = t * k - within.sum()
-    return slot_token[:slots], token_slot.to(torch.int32), n_dropped
+    slot_route, token_slot, n_dropped = make_slot_routes(
+        gates, expert_idx, num_experts, capacity)
+    return slot_route // gates.shape[1], token_slot, n_dropped
 
 
-def gather_dispatch(tokens, slot_token, num_experts: int, capacity: int):
+def gather_dispatch(tokens, slot_token, num_experts: int, capacity: int, *,
+                    inverse=None):
     """tokens ``[T, D]`` → expert-major ``[E, C, D]`` by row gather (empty
-    slots zero), through the ``routed_gather`` kernels."""
-    rows = routed_gather(tokens, slot_token)
+    slots zero), through the ``routed_gather`` kernels.  ``inverse``:
+    ``token_slot [T, k]``, each token's slots, for a gradient with no
+    sort."""
+    rows = routed_gather(tokens, slot_token, inverse=inverse)
     return rows.reshape(num_experts, capacity, tokens.shape[-1])
 
 
-def gather_combine(expert_out, token_slot, gates):
+def gather_combine(expert_out, token_slot, gates, *, inverse=None):
     """Expert outputs ``[E, C, D]`` → token outputs ``[T, D]``, weighted by
-    the gates; a dropped route contributes zero."""
+    the gates; a dropped route contributes zero.  ``inverse``:
+    ``slot_route [E·C, 1]``, each slot's route, for a gradient with no
+    sort."""
     e, c, d = expert_out.shape
     t, k = token_slot.shape
     picked = routed_gather(expert_out.reshape(e * c, d),
-                           token_slot.reshape(-1)).reshape(t, k, d)
+                           token_slot.reshape(-1),
+                           inverse=inverse).reshape(t, k, d)
     return (gates[..., None].to(picked.dtype) * picked).sum(dim=1)
 
 

@@ -13,7 +13,11 @@ The MoE kernels' gates (``tolerance_share``, ``scatter_tolerance``,
 ``TOL_GATES``) are tried the same way: each passes the plain version and
 refuses a gather that returns the clamped id's row for an invalid id, a
 scatter-add that drops a duplicate or leaves a zero row unwritten, and a
-gate that swaps a tie.
+gate that swaps a tie.  The scatter-add's inverse route is held bitwise to
+its plain version: the gate must refuse a sum taken out of order (four
+rows a destination), a dropped route read through its -1 padding, and a
+row with no source left unwritten; the top-k gate a swapped tie at E = 300
+(the kernel's G-lane route).
 """
 
 import importlib.util
@@ -222,3 +226,80 @@ def test_topk_gate_refuses_a_swapped_tie():
     off = gates + 2 * chip_smoke.TOL_GATES[torch.float32]
     assert chip_smoke.tolerance_share(
         off, gates, chip_smoke.TOL_GATES[torch.float32]) > 1.0
+
+
+# ----------------------------------------- the scatter-add's inverse route
+
+def _inverse_case(k=4, capacity=24):
+    """The dispatch gradient of a top-k MoE routing (T 64, E 8): grads
+    [E·C, 16] f32, the inverse ``token_slot [T, k]`` and the plain
+    inverse route's result."""
+    from hetu_tpu_torch.ops import make_slot_routes
+    from hetu_tpu_torch.ops.cuda_kernels import (
+        embedding_scatter_add_inverse_plain, topk_gating_plain,
+    )
+    g = torch.Generator().manual_seed(3)
+    gates, idx = topk_gating_plain(torch.randn(64, 8, generator=g), k)
+    slot_route, token_slot, _ = make_slot_routes(gates, idx, 8, capacity)
+    grads = torch.randn(slot_route.numel(), 16, generator=g)
+    return grads, token_slot, embedding_scatter_add_inverse_plain(
+        grads, token_slot)
+
+
+def test_inverse_gate_refuses_a_sum_out_of_order():
+    """Four sources a row, summed in the order the map lists them (a
+    token's choices) instead of ascending position: some rows round
+    otherwise, and the bitwise gate sees it."""
+    grads, inverse, ref = _inverse_case()
+    assert chip_smoke.tolerance_share(ref.clone(), ref) == 0.0
+    pos = inverse.long()
+    assert bool((pos.sort(dim=1).values != pos).any())
+    rows = torch.cat([grads, torch.zeros(1, grads.shape[1])])
+    listed = torch.zeros_like(ref)
+    for j in range(pos.shape[1]):
+        listed += rows[torch.where(pos[:, j] >= 0, pos[:, j], grads.shape[0])]
+    assert chip_smoke.tolerance_share(listed, ref) == float("inf")
+
+
+def test_inverse_gate_refuses_a_dropped_route_read_through_its_padding():
+    """A token whose route was dropped has -1 in its row of the map; a
+    kernel that read grads[-1] (the last row) there leaves the row
+    non-zero where the reference leaves the dropped route out."""
+    grads, inverse, ref = _inverse_case(k=2, capacity=8)  # heavy drops
+    dropped = (inverse < 0).any(dim=1).nonzero().reshape(-1)
+    assert dropped.numel() > 0
+    wrapped = ref.clone()
+    wrapped[dropped] += grads[-1]
+    assert chip_smoke.tolerance_share(wrapped, ref) == float("inf")
+
+
+def test_inverse_gate_refuses_a_missing_zero_row():
+    grads, inverse, ref = _inverse_case(k=2, capacity=8)
+    empty = (inverse < 0).all(dim=1).nonzero().reshape(-1)
+    assert empty.numel() > 0 and not ref[empty].any()
+    stale = ref.clone()
+    stale[empty[0]] = 1e-30  # what an unwritten row of the output held
+    assert chip_smoke.tolerance_share(stale, ref) == float("inf")
+
+
+def test_topk_gate_refuses_a_swapped_tie_at_300_experts():
+    from hetu_tpu_torch.ops.cuda_kernels import topk_gating_plain
+    logits = torch.randn(16, 300, generator=torch.Generator().manual_seed(4))
+    logits[:, 17] = logits[:, 250] = 9.0  # a tie across two lanes' slices
+    gates, idx = topk_gating_plain(logits, 2)
+    assert idx[:, :2].tolist() == [[17, 250]] * 16
+    swapped = idx.clone()
+    swapped[3] = torch.tensor([250, 17], dtype=idx.dtype)
+    assert chip_smoke.tolerance_share(idx.clone(), idx) == 0.0
+    assert chip_smoke.tolerance_share(swapped, idx) == float("inf")
+
+
+def test_gate_tolerance_takes_a_nan_only_where_the_reference_has_one():
+    """The softmax of a row of -inf is NaN in both versions: the tolerance
+    gate accepts a NaN there and refuses one anywhere else."""
+    ref = torch.tensor([[float("nan"), float("nan")], [0.75, 0.25]])
+    assert chip_smoke.tolerance_share(ref.clone(), ref, 1e-6) == 0.0
+    bad = ref.clone()
+    bad[1, 0] = float("nan")
+    assert chip_smoke.tolerance_share(bad, ref, 1e-6) == float("inf")
+    assert chip_smoke.tolerance_share(ref, bad, 1e-6) == float("inf")

@@ -171,6 +171,29 @@ def test_slot_routing_matches_jax(capacity):
     assert int(got[2]) == int(want[2])
 
 
+@pytest.mark.parametrize("capacity", [4, 16, 40])  # heavy, some, no drops
+def test_slot_route_and_token_slot_are_inverse_maps(capacity):
+    """``make_slot_routes``: each kept route's slot names that route, each
+    filled slot's route names that slot, and ``slot_route // k`` is bitwise
+    the reference's ``slot_token``."""
+    gates, idx = _routing_inputs()
+    slot_route, token_slot, n_dropped = ops.make_slot_routes(
+        torch.from_numpy(gates), torch.from_numpy(idx), E, capacity)
+    assert slot_route.dtype == token_slot.dtype == torch.int32
+    assert slot_route.shape == (E * capacity,)
+    flat = token_slot.reshape(-1).long()
+    kept = (flat >= 0).nonzero().reshape(-1)
+    assert torch.equal(slot_route[flat[kept]].long(), kept)
+    filled = (slot_route >= 0).nonzero().reshape(-1)
+    assert torch.equal(flat[slot_route[filled].long()], filled)
+    assert filled.numel() == kept.numel() == flat.numel() - int(n_dropped)
+    want, _, j_dropped = jmoe.make_slot_routing(
+        jnp.asarray(gates), jnp.asarray(idx), E, capacity)
+    np.testing.assert_array_equal((slot_route // K).numpy(),
+                                  np.asarray(want))
+    assert int(n_dropped) == int(j_dropped)
+
+
 def test_gather_dispatch_and_combine_match_jax():
     capacity = 16
     g = np.random.default_rng(3)
