@@ -52,6 +52,29 @@ without the final result line:
    loss limit and the same routes in the first layer.  Then 10 Executor
    steps (finite, falling loss; L gates, 2·L gathers and 2·L scatter-adds
    a step), step time, tokens/s, MFU, peak memory and one profiled step.
+8. llama_serve — Llama-2-7B at full width and depth (LlamaConfig's
+   defaults), bf16, flash, weights drawn on the card from ``--seed``;
+   ``ServeEngine`` + ``ContinuousBatchingScheduler`` with 8 slots x 1024
+   (cut from max_position 4096) over 16 seeded requests (prompts of 4-512
+   tokens, 8-64 generated); 32 flash forwards a prefill; the kernel path's
+   last-position prefill logits against the plain path's on the same
+   weights; a profiled prefill and decode step.
+9. train_llama — Llama-2-7B's widths at 4 layers (cut from 32), bf16,
+   flash, recomputation, fused CE, AdamW, B 4 x S 4096: the kernel-vs-plain
+   gate, then 10 Executor steps (2·L forwards and L of each backward kernel
+   a step), step time, tokens/s, MFU, peak memory, one profiled step.
+10. train_bert — BERT-base (BASELINE.json's config #3), bf16, flash,
+   dropout 0.1, B 16 x S 512 from ``examples/bert_pretrain.py``'s
+   synthetic stream, no attention mask (the non-causal kernels): a masked
+   forward takes the plain path and launches no kernel; the kernel-vs-plain
+   gate with both paths drawing dropout from the same generators; 10
+   Executor steps (L of each kernel a step), step time, samples/s, MFU,
+   peak memory, one profiled step.
+11. kernel_shapes — the three flash kernels at the new paths' shapes:
+   (1, 32, S, 128) causal for S = 128, 512 and 1024 (the forward), (4, 32,
+   4096, 128) causal and (16, 12, 512, 64) non-causal (forward and
+   backward), each held against its plain version, timed beside it, SDPA
+   and the bound.
 
 The last three lines of standard output are the card's name and power
 limit (as nvidia-smi gives them), the kernel report
@@ -117,6 +140,19 @@ TOL_LOGITS = 5e-2
 # largest element, stay far below the last tiles' values.
 TOL_D = {torch.bfloat16: (2 ** -16, 2 ** -8, 2 ** -7),
          torch.float32: (1e-6, 1e-5, 1e-5)}
+# the bf16 forward at the Llama and BERT shapes, held per output row as
+# the backward is (an absolute bound is blind in the last rows of a long
+# causal sequence), in TOL_D's form.  The kernel rounds each p to bf16
+# against its running max, the plain version against the final one: each
+# p may land one bf16 ulp apart, and the sum moves an output element by
+# up to 2^-8 of sum_j p_j |v_j|, which exceeds the row's largest |O| where
+# the row's terms cancel.  Over 6-13 M elements the tail of that reaches
+# 2^-8 of the row max: TOL_D read 0.988 of its limit on an H100 at (1, 32,
+# 1024, 128), and an emulation of the kernel's per-tile rounding on the
+# CPU 1.13 at (16, 12, 512, 64).  A row term of 2^-7 keeps a margin of
+# about two (0.49-0.61 in that emulation over three seeds) and refuses
+# outputs 10 % off in the last query tile at S 4096.
+TOL_F = {torch.bfloat16: (2 ** -16, 2 ** -7, 2 ** -7)}
 # training step, kernel path vs plain path (attention_impl="xla") on one
 # batch of the bf16 model.  The paths round at other points: the flash
 # forward rounds p against the running max, the plain path the normalised
@@ -152,6 +188,34 @@ MOE_BENCH_D = 768  # bench.py bench_moe's layer width
 # its gates differ at most by the rounding of exp and the division (1e-6
 # in f32 for values <= 1) or one bf16 ulp of a value below 1 (2^-8).
 TOL_GATES = {torch.float32: 1e-6, torch.bfloat16: 2 ** -8}
+
+# Llama-2-7B (LlamaConfig's defaults; hetu_tpu/models/llama.py:31-45)
+LLAMA_V, LLAMA_H, LLAMA_L, LLAMA_NH, LLAMA_FFN, LLAMA_P = (
+    32000, 4096, 32, 32, 11008, 4096)
+LLAMA_HEAD_DIM = LLAMA_H // LLAMA_NH  # 128
+# serving: 8 slots x 1024 (cut from max_position 4096: a 4.3 GB cache),
+# one closed burst of 16 requests
+LLAMA_SLOTS, LLAMA_MAX_LEN, LLAMA_REQUESTS = 8, 1024, 16
+LLAMA_PROMPT, LLAMA_GEN = (4, 512), (8, 64)
+LLAMA_FWD_S = (128, 512, 1024)  # the forward timed at (1, 32, S, 128)
+# kernel path vs plain path, last-position prefill logits of the bf16
+# Llama-2-7B, as a share of the largest |logit|: the two paths round p at
+# other points, about one bf16 ulp (2^-8 relative) of each layer's
+# attention output; added up in quadrature over 32 layers that is about
+# 2.2e-2 of the residual stream, which the final RMSNorm and the head
+# carry into the logits.  5e-2 leaves a margin of two over that estimate.
+TOL_LLAMA_LOGITS = 5e-2
+# training: Llama-2-7B's widths, depth cut to 4 layers (f32 weights,
+# gradients and AdamW's two slots: 17 GB; at 32 layers 108 GB), at the
+# config's max_position and bench_gpt's 16384 tokens a step
+LLAMA_TRAIN_L, LLAMA_TRAIN_B, LLAMA_TRAIN_S = 4, 4, 4096
+LLAMA_STEPS, LLAMA_LR = 10, 1e-4
+
+# BERT-base (BertConfig's defaults; BASELINE.json's config #3), B 16 x S 512
+BERT_V, BERT_H, BERT_L, BERT_NH, BERT_FFN, BERT_P = (
+    30522, 768, 12, 12, 3072, 512)
+BERT_B, BERT_S, BERT_STEPS, BERT_LR, BERT_WD, BERT_DROPOUT = (
+    16, 512, 10, 1e-4, 0.01, 0.1)
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_S = 989e12    # dense bf16 tensor cores, H100 SXM data sheet
@@ -390,15 +454,16 @@ def phase_kernel(card):
     return max_err_train, timings, design
 
 
-def grad_tolerance_share(got, ref):
-    """The largest share of its tolerance (``TOL_D``) that any element of
+def grad_tolerance_share(got, ref, tol=TOL_D):
+    """The largest share of its tolerance (``tol``: ``TOL_D`` for the
+    gradients, ``TOL_F`` for the forward's output) that any element of
     ``got`` uses against ``ref`` (both ``[..., rows, D]``): at most 1
     passes.  Where ``ref`` is all zero, ``got`` must be too."""
-    atol, atol_row, rtol = TOL_D[ref.dtype]
+    atol, atol_row, rtol = tol[ref.dtype]
     r = ref.float().abs()
     diff = (got.float() - ref.float()).abs()
-    tol = atol * r.max() + atol_row * r.amax(-1, keepdim=True) + rtol * r
-    share = torch.where(tol > 0, diff / tol.clamp_min(torch.finfo(
+    limit = atol * r.max() + atol_row * r.amax(-1, keepdim=True) + rtol * r
+    share = torch.where(limit > 0, diff / limit.clamp_min(torch.finfo(
         torch.float32).tiny), torch.where(diff > 0, float("inf"), 0.0))
     return share.max().item()
 
@@ -759,18 +824,19 @@ def _short(kernel: str) -> str:
     return kernel[:110]
 
 
-def phase_profile(engine, card, steps=20):
+def phase_profile(engine, card, steps=20, vocab=V, tag=""):
     """Where the time of one serving step goes: the host clock around
     ``steps`` prefills (bucket 128) and ``steps`` decode steps (all slots
     active), then the same windows again under torch.profiler for the
     card's busy time and the kernels that take it.  The busy share divides
     the profiled busy time by the unprofiled wall time (the profiler slows
     the host, not the kernels); both unprofiled windows run before the
-    profiler first starts."""
+    profiler first starts.  Prompts draw from ``vocab``; ``tag`` prefixes
+    the windows' names."""
     from torch.profiler import ProfilerActivity, profile
     g = np.random.default_rng(1)
-    prompt = [int(t) for t in g.integers(0, V, 100)]
-    slots = [engine.alloc_slot() for _ in range(SLOTS)]
+    prompt = [int(t) for t in g.integers(0, vocab, 100)]
+    slots = [engine.alloc_slot() for _ in range(engine.cache.num_slots)]
     for s in slots:
         engine.prefill(s, prompt)
     windows = {"prefill": lambda: engine.prefill(slots[0], prompt),
@@ -791,7 +857,7 @@ def phase_profile(engine, card, steps=20):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run(step)
-        _profile_table(prof, name, card, wall_us[name], steps)
+        _profile_table(prof, tag + name, card, wall_us[name], steps)
     for s in slots:
         engine.release(s)
 
@@ -850,10 +916,13 @@ def _gpt_flops_per_token(model, seq):
             + 12 * c.num_layers * c.hidden_size * seq), n_params
 
 
-def _loss_and_grads(model, batch):
-    """The training loss of ``batch`` and every parameter's gradient."""
+def _loss_and_grads(model, batch, fn=None, gen=None):
+    """The training loss of ``batch`` under ``fn`` (default: the model's
+    ``lm_loss_fn()``), dropout drawn from ``gen``, and every parameter's
+    gradient."""
     params = dict(model.named_parameters())
-    loss, _ = model.lm_loss_fn()(params, {}, batch, None, True)
+    fn = model.lm_loss_fn() if fn is None else fn
+    loss, _ = fn(params, {}, batch, gen, True)
     grads = torch.autograd.grad(loss, list(params.values()))
     return float(loss.detach()), dict(zip(params, grads))
 
@@ -1755,6 +1824,571 @@ def phase_train_moe(card, seed, device="cuda"):
                 paths=results)
 
 
+# ------------------------------------------------------ Llama and BERT
+
+def _set_attention_impl(model, impl):
+    """Point every attention layer of ``model`` at ``impl`` ("flash" or
+    the plain "xla"): the same weights through the other path."""
+    for m in model.modules():
+        if hasattr(m, "attention_impl"):
+            m.attention_impl = impl
+
+
+def _flash_counters():
+    from hetu_tpu_torch.ops.cuda_kernels import (
+        flash_attention, flash_attention_bwd_dkdv, flash_attention_bwd_dq,
+    )
+    return flash_attention, flash_attention_bwd_dkdv, flash_attention_bwd_dq
+
+
+def _step_stats(times):
+    """Median and spread (min, max) of steps 2 onwards, in ms."""
+    rest = [t * 1e3 for t in times[1:]]
+    return statistics.median(rest), min(rest), max(rest)
+
+
+def _llama_flops_per_token(model, seq):
+    """bench.py's count adapted to the untied head: 6 x the parameters
+    that multiply (all but the ``tok_emb`` gather; ``lm_head`` is one) + 12
+    L H S for attention."""
+    c = model.c
+    n_params = sum(p.numel() for p in model.parameters())
+    return (6 * (n_params - c.vocab_size * c.hidden_size)
+            + 12 * c.num_layers * c.hidden_size * seq), n_params
+
+
+def _bert_flops_per_token(model, seq):
+    """bench.py's count for the encoder: 6 x the non-embedding parameters
+    + 6 V H for the MLM head tied to ``tok_emb`` (logits at every
+    position, as the reference forms them) + 12 L H S for attention."""
+    c = model.c
+    n_params = sum(p.numel() for p in model.parameters())
+    n_emb = (c.vocab_size + c.max_position + c.type_vocab_size) \
+        * c.hidden_size
+    return (6 * (n_params - n_emb) + 6 * c.vocab_size * c.hidden_size
+            + 12 * c.num_layers * c.hidden_size * seq), n_params
+
+
+def _peak_gib(device):
+    return torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if device == "cuda" else 0.0
+
+
+def phase_llama_serve(card, seed, device="cuda"):
+    """Llama-2-7B served through ServeEngine + ContinuousBatchingScheduler:
+    one closed burst, the launches of the path, the kernel path against
+    the plain path on the same weights."""
+    from hetu_tpu_torch.models import LlamaConfig, LlamaModel
+    from hetu_tpu_torch.serve import (
+        ContinuousBatchingScheduler, Request, ServeEngine, ServeMetrics,
+    )
+    from hetu_tpu_torch.telemetry import trace
+
+    cfg = LlamaConfig(vocab_size=LLAMA_V, hidden_size=LLAMA_H,
+                      num_layers=LLAMA_L, num_heads=LLAMA_NH,
+                      ffn_size=LLAMA_FFN, max_position=LLAMA_P,
+                      dtype=torch.bfloat16, attention_impl="flash")
+    t0 = time.perf_counter()
+    # drawn on the card: 6.7 B f32 parameters would take 27 GB of host RAM
+    model = LlamaModel(cfg, generator=torch.Generator(
+        device=device).manual_seed(seed), device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    engine = ServeEngine(model, num_slots=LLAMA_SLOTS,
+                         max_len=LLAMA_MAX_LEN, device=device)
+    del model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    _sync(device)
+    serving_gib = sum(p.numel() * p.element_size()
+                      for p in engine.model.parameters()) / 2 ** 30
+    print(f"[llama_serve] Llama-2-7B V={LLAMA_V} H={LLAMA_H} L={LLAMA_L} "
+          f"heads={LLAMA_NH} head_dim={LLAMA_HEAD_DIM} ffn={LLAMA_FFN} "
+          f"({n_params / 1e9:.3f} B params) bf16 flash, {LLAMA_SLOTS} slots "
+          f"x {LLAMA_MAX_LEN}: built in {time.perf_counter() - t0:.1f} s, "
+          f"serving copy {serving_gib:.2f} GiB"
+          + (f", {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the "
+             f"card" if device == "cuda" else ""))
+
+    # warm the prompt buckets the burst reaches and the decode step
+    ContinuousBatchingScheduler(engine).run(
+        [Request(prompt=[1] * n, max_tokens=2)
+         for n in (10, 20, 40, 100, 200, 400)])
+
+    g = np.random.default_rng(seed + 3)
+    requests = [Request(
+        prompt=[int(t) for t in g.integers(
+            0, LLAMA_V, int(g.integers(LLAMA_PROMPT[0],
+                                       LLAMA_PROMPT[1] + 1)))],
+        max_tokens=int(g.integers(LLAMA_GEN[0], LLAMA_GEN[1] + 1)))
+        for _ in range(LLAMA_REQUESTS)]
+    metrics = ServeMetrics()
+    sched = ContinuousBatchingScheduler(engine, metrics=metrics)
+    tracer = trace.enable()
+    counters = _flash_counters()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters:  # count this path's launches only
+        c.launches = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    sched.run(requests)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches, bwd_dkdv, bwd_dq = (c.launches for c in counters)
+    trace.disable()
+
+    prefills = [e for e in tracer.events if e["name"] == "serve.prefill"]
+    decodes = [e for e in tracer.events if e["name"] == "serve.decode"]
+    statuses = [r.status for r in requests]
+    print(f"[llama_serve] statuses: {statuses}")
+    check(all(s == "ok" for s in statuses), "a request did not finish ok")
+    check(all(len(r.tokens) == r.max_tokens for r in requests),
+          "a request generated the wrong number of tokens")
+    check(all(0 <= t < LLAMA_V for r in requests for t in r.tokens),
+          "a generated token is outside the vocabulary")
+    print(f"[llama_serve] flash_attention.launches = {launches}, prefills "
+          f"= {len(prefills)}, layers = {LLAMA_L}")
+    check(len(prefills) == LLAMA_REQUESTS, "one prefill per request "
+                                           "expected")
+    check(launches == LLAMA_L * len(prefills) > 0,
+          "flash_attention launches != layers x prefills")
+    check(bwd_dkdv == bwd_dq == 0, "serving launched a backward kernel")
+
+    n_tok = sum(len(r.tokens) for r in requests)
+    snap = metrics.snapshot()
+    step_ms = statistics.median(e["dur"] for e in decodes) / 1e3
+    print(f"[llama_serve] generated {n_tok} tokens in {wall:.3f} s: "
+          f"{n_tok / wall:.1f} tokens/s; prompts "
+          f"{sum(len(r.prompt) for r in requests)} tokens [{card}]")
+    print(f"[llama_serve] TTFT p50 {snap['ttft_p50_s'] * 1e3:.2f} ms, p90 "
+          f"{snap['ttft_p90_s'] * 1e3:.2f} ms [{card}]")
+    print(f"[llama_serve] decode step median {step_ms:.3f} ms over "
+          f"{len(decodes)} steps ({LLAMA_SLOTS} slots); peak "
+          f"{_peak_gib(device):.2f} GiB allocated [{card}]")
+    per_bucket = {}
+    for e in prefills:
+        per_bucket.setdefault(e["args"]["bucket"], []).append(e["dur"] / 1e3)
+    for b in sorted(per_bucket):
+        print(f"[llama_serve] prefill bucket {b}: median "
+              f"{statistics.median(per_bucket[b]):.3f} ms over "
+              f"{len(per_bucket[b])} prompts [{card}]")
+
+    # the kernel path against the plain path: the same serving copy with
+    # its attention layers flipped to "xla" (no second 7B model)
+    worst = 0.0
+    with torch.inference_mode():
+        for n in (7, 100, 300, LLAMA_PROMPT[1]):
+            ids = torch.tensor(g.integers(0, LLAMA_V, (1, n)), device=device)
+            lk, _, _ = engine.model.prefill_with_cache(ids, last_index=n - 1)
+            _set_attention_impl(engine.model, "xla")
+            lp, _, _ = engine.model.prefill_with_cache(ids, last_index=n - 1)
+            _set_attention_impl(engine.model, "flash")
+            lk, lp = lk.float(), lp.float()
+            check(lk.shape == (1, LLAMA_V) and bool(torch.isfinite(lk).all()),
+                  "prefill logits are not finite [1, V]")
+            share = ((lk - lp).abs().max() / lp.abs().max()).item()
+            worst = max(worst, share)
+            top2 = lp[0].topk(2).values
+            same = int(lk[0].argmax()) == int(lp[0].argmax())
+            print(f"[llama_serve] prompt {n}: kernel vs plain path logits "
+                  f"max|d| / max|logit| = {share:.3e} (tol "
+                  f"{TOL_LLAMA_LOGITS:g}; max|logit| "
+                  f"{lp.abs().max().item():.3f}), top-2 margin "
+                  f"{(top2[0] - top2[1]).item():.3e}, first token equal: "
+                  f"{same}")
+            check(share <= TOL_LLAMA_LOGITS, "kernel path logits disagree "
+                                             "with the plain path")
+    phase_profile(engine, card, steps=10, vocab=LLAMA_V, tag="llama_serve ")
+    return dict(launches=launches, ttft_p50_ms=snap["ttft_p50_s"] * 1e3,
+                ttft_p90_ms=snap["ttft_p90_s"] * 1e3, decode_ms=step_ms,
+                tokens_per_s=n_tok / wall, logits_share=worst,
+                peak_gib=_peak_gib(device))
+
+
+def phase_train_llama(card, seed, device="cuda"):
+    """Llama-2-7B's widths at 4 layers: the kernel-vs-plain gate, then 10
+    Executor steps at B 4 x S 4096."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hetu_tpu_torch.models import LlamaConfig, LlamaModel
+    from hetu_tpu_torch.optim import AdamWOptimizer
+    from hetu_tpu_torch.train import Executor
+
+    cfg = LlamaConfig(vocab_size=LLAMA_V, hidden_size=LLAMA_H,
+                      num_layers=LLAMA_TRAIN_L, num_heads=LLAMA_NH,
+                      ffn_size=LLAMA_FFN, max_position=LLAMA_P,
+                      dtype=torch.bfloat16, attention_impl="flash",
+                      remat=True, fused_ce=True, ce_row_chunk=2048)
+    t0 = time.perf_counter()
+    model = LlamaModel(cfg, generator=torch.Generator(
+        device=device).manual_seed(seed + 1), device=device)
+    g = np.random.default_rng(seed + 5)
+    batch = (torch.tensor(g.integers(0, LLAMA_V, (LLAMA_TRAIN_B,
+                                                  LLAMA_TRAIN_S)),
+                          device=device),)
+    _sync(device)
+    print(f"[train_llama] Llama-2-7B widths, {LLAMA_TRAIN_L} layers (cut "
+          f"from {LLAMA_L}) B={LLAMA_TRAIN_B} S={LLAMA_TRAIN_S} bf16 flash "
+          f"remat fused-CE AdamW({LLAMA_LR:g}): built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # the kernel path against the plain path, one batch, same weights:
+    # the attention layers flipped to "xla" in place
+    loss_k, grads_k = _loss_and_grads(model, batch)
+    _set_attention_impl(model, "xla")
+    loss_p, grads_p = _loss_and_grads(model, batch)
+    _set_attention_impl(model, "flash")
+    check(np.isfinite(loss_k) and np.isfinite(loss_p), "a loss is not finite")
+    print(f"[train_llama] kernel path vs plain path: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f}, |d|={abs(loss_k - loss_p):.3e} (tol "
+          f"{TOL_TRAIN_LOSS:g}); peak "
+          f"{_peak_gib(device):.2f} GiB allocated through the plain "
+          f"path's [{LLAMA_TRAIN_B}, {LLAMA_NH}, {LLAMA_TRAIN_S}, "
+          f"{LLAMA_TRAIN_S}] f32 scores")
+    check(abs(loss_k - loss_p) <= TOL_TRAIN_LOSS,
+          "kernel path loss disagrees with the plain path")
+    grad_ratio = _check_grads("train_llama", grads_k, grads_p)
+    del grads_k, grads_p
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    ex = Executor(model.lm_loss_fn(), AdamWOptimizer(LLAMA_LR), seed=seed)
+    state = ex.init_state(model)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    counters = _flash_counters()
+    for c in counters:  # count this path's launches only
+        c.launches = 0
+    losses, times = [], []
+    for _ in range(LLAMA_STEPS):
+        _sync(device)
+        t0 = time.perf_counter()
+        state, met = ex.run("train", state, batch)
+        losses.append(float(met["loss"]))
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    launches = [c.launches for c in counters]
+    n = LLAMA_TRAIN_L
+    print(f"[train_llama] losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    check(all(np.isfinite(losses)), "a training loss is not finite")
+    check(losses[-1] < losses[0], "the loss did not fall")
+    print(f"[train_llama] launches in {LLAMA_STEPS} steps: flash_attention "
+          f"{launches[0]}, bwd_dkdv {launches[1]}, bwd_dq {launches[2]} "
+          f"(a step: {[k / LLAMA_STEPS for k in launches]}, expected "
+          f"[{2 * n}, {n}, {n}])")
+    check(launches == [2 * n * LLAMA_STEPS, n * LLAMA_STEPS,
+                       n * LLAMA_STEPS],
+          "the Llama step did not launch 2L forward and L of each backward "
+          "kernel a step")
+
+    med, lo, hi = _step_stats(times)
+    fpt, n_params = _llama_flops_per_token(model, LLAMA_TRAIN_S)
+    tokens = LLAMA_TRAIN_B * LLAMA_TRAIN_S
+    mfu = fpt * tokens / (med / 1e3) / H100_BF16_FLOP_S
+    peak = _peak_gib(device)
+    print(f"[train_llama] step median {med:.3f} ms (steps 2-{LLAMA_STEPS}: "
+          f"{lo:.3f}-{hi:.3f}; first {times[0] * 1e3:.3f} ms), "
+          f"{tokens / med * 1e3:.1f} tokens/s, MFU {100 * mfu:.2f} % "
+          f"({fpt * tokens / 1e12:.2f} TFLOP a step: 6 (N - V H) + 12 L H S "
+          f"a token, {n_params / 1e6:.1f} M params, over 989 TFLOP/s), "
+          f"peak {peak:.2f} GiB allocated [{card}]")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, met = ex.run("train", state, batch)
+        float(met["loss"])
+        _sync(device)
+    busy = _profile_table(prof, "train_llama step", card, med * 1e3)
+    return dict(launches=launches, step_ms=med, step_spread_ms=(lo, hi),
+                tokens_per_s=tokens / med * 1e3, mfu=mfu, peak_gib=peak,
+                busy_share=busy, losses=losses, grad_ratio=grad_ratio)
+
+
+def bert_synthetic_batch(g, b, s, vocab):
+    """``examples/bert_pretrain.py``'s ``synthetic_batch`` (its lines
+    31-67): a sticky-Markov stream over per-sequence 16-token topic
+    vocabularies, NSP negatives switching topic at the segment boundary,
+    15 % of positions masked (id 4) for MLM.  Returns (ids, token types,
+    attention mask of ones, MLM labels with -1 unmasked, NSP labels)."""
+    half = s // 2
+    topic_a = g.integers(5, vocab, (b, 16))
+    topic_b = g.integers(5, vocab, (b, 16))
+    nsp = g.integers(0, 2, (b,)).astype(np.int32)
+    pick = g.integers(0, 16, (b, s))
+    stay = g.random((b, s)) < 0.9
+    redraw = ~stay
+    redraw[:, 0] = True
+    redraw[nsp == 0, half] = True
+    seg_vocab = np.where((np.arange(s)[None, :] < half)
+                         | (nsp[:, None] == 1),
+                         np.take_along_axis(topic_a, pick, 1),
+                         np.take_along_axis(topic_b, pick, 1))
+    last_redraw = np.maximum.accumulate(
+        np.where(redraw, np.arange(s)[None, :], 0), axis=1)
+    ids = np.take_along_axis(seg_vocab, last_redraw, 1).astype(np.int32)
+    tok_type = (np.arange(s)[None] >= half).astype(np.int32) * np.ones(
+        (b, 1), np.int32)
+    attn = np.ones((b, s), np.int32)
+    mlm = np.where(g.random((b, s)) < 0.15, ids, -1).astype(np.int32)
+    masked_ids = np.where(mlm != -1, 4, ids)
+    return masked_ids, tok_type, attn, mlm, nsp
+
+
+def phase_train_bert(card, seed, device="cuda"):
+    """BERT-base pretraining at B 16 x S 512 without a mask: the masked
+    forward's plain path, the kernel-vs-plain gate, then 10 Executor
+    steps."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hetu_tpu_torch.models import BertConfig, BertModel
+    from hetu_tpu_torch.optim import AdamWOptimizer
+    from hetu_tpu_torch.train import Executor
+
+    cfg = BertConfig(vocab_size=BERT_V, hidden_size=BERT_H,
+                     num_layers=BERT_L, num_heads=BERT_NH, ffn_size=BERT_FFN,
+                     max_position=BERT_P, dropout_rate=BERT_DROPOUT,
+                     dtype=torch.bfloat16, attention_impl="flash")
+    t0 = time.perf_counter()
+    model = BertModel(cfg, generator=torch.Generator(
+        device=device).manual_seed(seed + 2), device=device)
+    ids, tok, attn, mlm, nsp = (
+        torch.tensor(a, device=device) for a in bert_synthetic_batch(
+            np.random.default_rng(seed + 6), BERT_B, BERT_S, BERT_V))
+    batch = (ids, tok, None, mlm, nsp)  # no mask: the non-causal kernels
+    _sync(device)
+    print(f"[train_bert] BERT-base V={BERT_V} H={BERT_H} L={BERT_L} "
+          f"heads={BERT_NH} ffn={BERT_FFN} B={BERT_B} S={BERT_S} bf16 flash "
+          f"dropout {BERT_DROPOUT:g} AdamW({BERT_LR:g}, wd {BERT_WD:g}), "
+          f"{int((mlm != -1).sum())} MLM targets: built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    counters = _flash_counters()
+
+    # a masked forward (the example's all-ones mask) takes the plain path
+    # in every block, as the reference does: it warns, launches nothing,
+    # and equals the plain layers' output bit for bit
+    for c in counters:
+        c.launches = 0
+    with torch.no_grad(), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        seq_k = model.encode(ids, tok, attn)
+        _set_attention_impl(model, "xla")
+        seq_p = model.encode(ids, tok, attn)
+        _set_attention_impl(model, "flash")
+    masked_launches = sum(c.launches for c in counters)
+    warned = sum("ignores explicit masks" in str(w.message) for w in caught)
+    same = torch.equal(seq_k, seq_p)
+    print(f"[train_bert] masked forward: {masked_launches} flash launches, "
+          f"{warned} warnings (one a block), equal to the plain path: "
+          f"{same}")
+    check(masked_launches == 0, "a masked forward launched a flash kernel")
+    check(warned == BERT_L, "a masked flash block did not warn")
+    check(same, "the masked forward differs from the plain path")
+    del seq_k, seq_p
+
+    # the kernel path against the plain path, one batch, same weights,
+    # both drawing dropout from generators of one seed
+    def dropout_gen():
+        return torch.Generator(device=device).manual_seed(seed + 7)
+
+    loss_k, grads_k = _loss_and_grads(model, batch, model.pretrain_loss_fn(),
+                                      dropout_gen())
+    _set_attention_impl(model, "xla")
+    loss_p, grads_p = _loss_and_grads(model, batch, model.pretrain_loss_fn(),
+                                      dropout_gen())
+    _set_attention_impl(model, "flash")
+    check(np.isfinite(loss_k) and np.isfinite(loss_p), "a loss is not finite")
+    print(f"[train_bert] kernel path vs plain path: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f}, |d|={abs(loss_k - loss_p):.3e} (tol "
+          f"{TOL_TRAIN_LOSS:g})")
+    check(abs(loss_k - loss_p) <= TOL_TRAIN_LOSS,
+          "kernel path loss disagrees with the plain path")
+    grad_ratio = _check_grads("train_bert", grads_k, grads_p)
+    del grads_k, grads_p
+
+    ex = Executor(model.pretrain_loss_fn(),
+                  AdamWOptimizer(BERT_LR, weight_decay=BERT_WD), seed=seed)
+    state = ex.init_state(model)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters:  # count this path's launches only
+        c.launches = 0
+    losses, times = [], []
+    for _ in range(BERT_STEPS):
+        _sync(device)
+        t0 = time.perf_counter()
+        state, met = ex.run("train", state, batch)
+        losses.append(float(met["loss"]))
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    launches = [c.launches for c in counters]
+    print(f"[train_bert] losses: {' '.join(f'{x:.4f}' for x in losses)} "
+          f"(last: mlm {float(met['mlm_loss']):.4f}, nsp "
+          f"{float(met['nsp_loss']):.4f})")
+    check(all(np.isfinite(losses)), "a training loss is not finite")
+    check(losses[-1] < losses[0], "the loss did not fall")
+    print(f"[train_bert] launches in {BERT_STEPS} steps: flash_attention "
+          f"{launches[0]}, bwd_dkdv {launches[1]}, bwd_dq {launches[2]} "
+          f"(a step: {[k / BERT_STEPS for k in launches]}, expected "
+          f"[{BERT_L}, {BERT_L}, {BERT_L}])")
+    check(launches == [BERT_L * BERT_STEPS] * 3,
+          "the BERT step did not launch L of each flash kernel a step")
+
+    med, lo, hi = _step_stats(times)
+    fpt, n_params = _bert_flops_per_token(model, BERT_S)
+    tokens = BERT_B * BERT_S
+    mfu = fpt * tokens / (med / 1e3) / H100_BF16_FLOP_S
+    peak = _peak_gib(device)
+    print(f"[train_bert] step median {med:.3f} ms (steps 2-{BERT_STEPS}: "
+          f"{lo:.3f}-{hi:.3f}; first {times[0] * 1e3:.3f} ms), "
+          f"{BERT_B / med * 1e3:.1f} samples/s, {tokens / med * 1e3:.1f} "
+          f"tokens/s, MFU {100 * mfu:.2f} % ({fpt * tokens / 1e12:.2f} TFLOP "
+          f"a step: 6 N_nonemb + 6 V H + 12 L H S a token, "
+          f"{n_params / 1e6:.1f} M params, over 989 TFLOP/s), peak "
+          f"{peak:.2f} GiB allocated [{card}]")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, met = ex.run("train", state, batch)
+        float(met["loss"])
+        _sync(device)
+    busy = _profile_table(prof, "train_bert step", card, med * 1e3)
+    return dict(launches=launches, step_ms=med, step_spread_ms=(lo, hi),
+                samples_per_s=BERT_B / med * 1e3, mfu=mfu, peak_gib=peak,
+                busy_share=busy, losses=losses, grad_ratio=grad_ratio)
+
+
+def _fwd_case(card, shape, causal, gen, runs, tag):
+    """The forward kernel at ``shape`` (bf16, contiguous): held against
+    its plain version with the row-scaled ``TOL_F``, then timed beside it,
+    SDPA and the bound.  ``TOL_O`` is absolute and was set for S <= 1024:
+    along a causal sequence of 4096 the rms of output row i falls to about
+    sqrt(e / i) (0.026 at the last row), so it would wave through errors
+    of a tenth of the last rows' values."""
+    from hetu_tpu_torch.ops.cuda_kernels.flash_attention import (
+        flash_attention, flash_attention_plain,
+    )
+    b, h, s, d = shape
+    q, k, v = _qkv(shape, s, torch.bfloat16, gen)
+    with torch.inference_mode():
+        o = flash_attention(q, k, v, causal=causal)
+        o_p, _ = flash_attention_plain(q, k, v, causal=causal)
+        err = (o.float() - o_p.float()).abs().max().item()
+        share = grad_tolerance_share(o, o_p, TOL_F)
+        ok = share <= 1.0 and bool(torch.isfinite(o).all())
+        del o, o_p
+        ms = device_ms(lambda: flash_attention(q, k, v, causal=causal), runs)
+        plain_ms = device_ms(lambda: flash_attention_plain(
+            q, k, v, causal=causal), max(3, runs // 10), 1)
+        lib_ms = device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal), runs)
+    bound_ms, bound_by = flash_bound(b, h, s, s, d, causal)
+    tflops = flash_flops(b, h, s, s, d, causal) / ms / 1e9
+    print(f"[kernel_shapes] flash_attention bf16 {tag} q{tuple(shape)} "
+          f"causal={causal}: max|dO|={err:.3e} (share of TOL_F used "
+          f"{share:.3g}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms ({tflops:.1f} "
+          f"TFLOP/s, {100 * bound_ms / ms:.1f} % of the bound), plain "
+          f"{plain_ms:.4f} ms, library (SDPA, yardstick only) {lib_ms:.4f} "
+          f"ms, {ms / lib_ms:.2f}x SDPA, bound {bound_ms:.5f} ms "
+          f"({bound_by}) [{card}]")
+    check(ok, f"flash_attention disagrees with its plain version ({tag})")
+    return dict(shape=list(shape), causal=causal, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                tflops=tflops, max_abs_err=err, tol_share=share)
+
+
+def _bwd_case(card, shape, causal, gen, tag):
+    """Both backward kernels at ``shape`` (bf16, contiguous): held against
+    the plain backward with ``TOL_D``, then timed beside it, the whole
+    ``flash_attention_bwd``, SDPA's backward and the bounds."""
+    from hetu_tpu_torch.ops.cuda_kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_dkdv,
+        flash_attention_bwd_dq, flash_attention_bwd_plain,
+    )
+    b, h, s, d = shape
+    args = _bwd_inputs(shape, s, torch.bfloat16, causal, gen)
+    with torch.no_grad():
+        dk, dv = flash_attention_bwd_dkdv(*args, causal=causal)
+        dq = flash_attention_bwd_dq(*args, causal=causal)
+        want = flash_attention_bwd_plain(*args, causal=causal)
+        errs, shares = {}, {}
+        for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            errs[name] = (got.float() - ref.float()).abs().max().item()
+            shares[name] = grad_tolerance_share(got, ref)
+        ok = all(x <= 1.0 for x in shares.values())
+        del dk, dv, dq, want
+        ms = {"dkdv": device_ms(lambda: flash_attention_bwd_dkdv(
+            *args, causal=causal), 20),
+              "dq": device_ms(lambda: flash_attention_bwd_dq(
+                  *args, causal=causal), 20)}
+        plain_ms = device_ms(lambda: flash_attention_bwd_plain(
+            *args, causal=causal), 3, 1)
+        q, k, v, do = args[:4]
+        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        whole_ms = device_ms(lambda: flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal), 20)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg, is_causal=causal)
+    lib_ms = device_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), 20)
+    print(f"[kernel_shapes] flash_attention_bwd bf16 {tag} q{tuple(shape)} "
+          f"causal={causal}: " + " ".join(
+              f"max|{n}|={e:.3e}" for n, e in errs.items())
+          + " (share of TOL_D used " + " ".join(
+              f"{n} {x:.3g}" for n, x in shares.items())
+          + f") {'ok' if ok else 'FAIL'}; whole backward {whole_ms:.4f} ms, "
+          f"plain backward {plain_ms:.4f} ms, library (SDPA backward, "
+          f"yardstick only) {lib_ms:.4f} ms, {whole_ms / lib_ms:.2f}x "
+          f"[{card}]")
+    check(ok, f"flash backward kernels disagree with the plain backward "
+              f"({tag})")
+    report = {}
+    for name in ("dkdv", "dq"):
+        bound_ms, bound_by = flash_bound(b, h, s, s, d, causal, kernel=name)
+        tflops = flash_flops(b, h, s, s, d, causal, kernel=name) \
+            / ms[name] / 1e9
+        report[name] = dict(
+            shape=list(shape), causal=causal, ms=ms[name], plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+            tflops=tflops, whole_bwd_ms=whole_ms,
+            max_abs_err=(max(errs["dk"], errs["dv"]) if name == "dkdv"
+                         else errs["dq"]))
+        print(f"[kernel_shapes] flash_attention_bwd_{name} bf16 {tag} "
+              f"q{tuple(shape)}: kernel {ms[name]:.4f} ms ({tflops:.1f} "
+              f"TFLOP/s, {100 * bound_ms / ms[name]:.1f} % of the bound), "
+              f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
+    return report
+
+
+def phase_kernel_shapes(card):
+    """The flash kernels at the Llama and BERT paths' shapes: the
+    serving forward at (1, 32, S, 128), the Llama training step's (4, 32,
+    4096, 128) causal and BERT's (16, 12, 512, 64) non-causal, forward and
+    backward.  Run after the model phases, with the card's memory free:
+    the plain versions at (4, 32, 4096, 128) hold [4, 32, 4096, 4096] f32
+    scores (8.6 GB each)."""
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    fwd = {}
+    for s in LLAMA_FWD_S:
+        fwd[f"llama_serve_s{s}"] = _fwd_case(
+            card, (1, LLAMA_NH, s, LLAMA_HEAD_DIM), True, gen, 60,
+            f"llama_serve S={s}")
+    train = (LLAMA_TRAIN_B, LLAMA_NH, LLAMA_TRAIN_S, LLAMA_HEAD_DIM)
+    bert = (BERT_B, BERT_NH, BERT_S, BERT_H // BERT_NH)
+    fwd["llama_train"] = _fwd_case(card, train, True, gen, 20,
+                                   "llama_train")
+    torch.cuda.empty_cache()
+    fwd["bert_train"] = _fwd_case(card, bert, False, gen, 20, "bert_train")
+    bwd = {"llama_train": _bwd_case(card, train, True, gen, "llama_train")}
+    torch.cuda.empty_cache()
+    bwd["bert_train"] = _bwd_case(card, bert, False, gen, "bert_train")
+    return fwd, {k: {tag: r[k] for tag, r in bwd.items()}
+                 for k in ("dkdv", "dq")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1784,6 +2418,14 @@ def main(argv=None) -> int:
     train = phase_train(card, args.seed)
     torch.cuda.empty_cache()
     moe = phase_train_moe(card, args.seed)
+    torch.cuda.empty_cache()
+    llama_serve = phase_llama_serve(card, args.seed)
+    torch.cuda.empty_cache()
+    llama_train = phase_train_llama(card, args.seed)
+    torch.cuda.empty_cache()
+    bert = phase_train_bert(card, args.seed)
+    torch.cuda.empty_cache()
+    shapes_fwd, shapes_bwd = phase_kernel_shapes(card)
 
     shape = [TRAIN_B, NH, TRAIN_S, HEAD_DIM]
     src = "hetu_tpu/ops/pallas_kernels/flash_attention.py"
@@ -1798,9 +2440,14 @@ def main(argv=None) -> int:
          "design": design,
          "shape": shape, "dtype": "bfloat16",
          "launches_by_path": {"serve": serve_launches,
-                              "train": train["launches"][0]},
+                              "train": train["launches"][0],
+                              "llama_serve": llama_serve["launches"],
+                              "llama_train": llama_train["launches"][0],
+                              "bert_train": bert["launches"][0]},
          # the serving path's largest prompt bucket, and S = 512
-         "serve_s128": timings[(1, 128)], "serve_s512": timings[(1, 512)]},
+         "serve_s128": timings[(1, 128)], "serve_s512": timings[(1, 512)],
+         # the Llama (head dim 128) and BERT (non-causal) paths' shapes
+         "by_shape": shapes_fwd},
         *({"name": f"flash_attention_bwd_{k}", "route": "cuda",
            "source": "hetu_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": f"{src}:{line}", "launches": train["launches"][i],
@@ -1808,7 +2455,11 @@ def main(argv=None) -> int:
            **{f: bwd[k][f] for f in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms",
                                      "whole_bwd_ms")},
-           "shape": shape, "dtype": "bfloat16"}
+           "shape": shape, "dtype": "bfloat16",
+           "launches_by_path": {"train": train["launches"][i],
+                                "llama_train": llama_train["launches"][i],
+                                "bert_train": bert["launches"][i]},
+           "by_shape": shapes_bwd[k]}
           for i, k, line in ((1, "dkdv", 198), (2, "dq", 239))),
         *({"name": name, "route": "cuda",
            "source": f"hetu_tpu_torch/csrc/{src_file}",

@@ -11,7 +11,8 @@ paths and names mirror the reference so each counterpart is found at once:
     htt.rng           # global (seed, seqnum) -> torch.Generators
     htt.layers.*      # nn.Modules: Linear, LayerNorm, MultiHeadAttention,
                       # TransformerBlock
-    htt.models.*      # GPTConfig / GPTModel (lm_loss_fn for training)
+    htt.models.*      # GPT, MoE transformer, Llama (lm_loss_fn for
+                      # training), BERT (pretrain_loss_fn)
     htt.optim.*       # SGD ... AdamW, Lamb (dense path)
     htt.lr.*          # step -> lr schedulers
     htt.train.*       # Executor, TrainState, checkpoint

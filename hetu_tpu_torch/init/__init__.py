@@ -38,6 +38,17 @@ def normal(mean=0.0, stddev=0.05):
     return init
 
 
+def truncated_normal(mean=0.0, stddev=0.05):
+    """Normal(mean, stddev) redrawn into ``mean ± 2 stddev``, as the
+    reference's ``truncated_normal`` (``jax.random.truncated_normal`` on
+    [-2, 2], scaled and shifted)."""
+    def init(generator, shape, dtype=torch.float32):
+        return torch.nn.init.trunc_normal_(
+            _empty(generator, shape, dtype), mean, stddev,
+            mean - 2.0 * stddev, mean + 2.0 * stddev, generator=generator)
+    return init
+
+
 def xavier_uniform(gain: float = 1.0):
     """Glorot uniform for a 2-D weight.  The limit depends on
     ``fan_in + fan_out`` only, so it is the same for the port's
@@ -67,4 +78,5 @@ def he_normal(gain: float = 1.0):
     return init
 
 
-__all__ = ["zeros", "ones", "normal", "xavier_uniform", "he_normal"]
+__all__ = ["zeros", "ones", "normal", "truncated_normal", "xavier_uniform",
+           "he_normal"]

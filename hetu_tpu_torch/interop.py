@@ -3,17 +3,20 @@
 :func:`params_from_jax` turns a ``hetu_tpu`` parameter tree — nested dicts
 of arrays, as ``model.init(key)["params"]`` gives after ``np.asarray`` on
 each leaf — into a ``state_dict`` for the port's model of the same config
-(:class:`~hetu_tpu_torch.models.GPTModel` for a ``GPTConfig``,
-:class:`~hetu_tpu_torch.models.MoETransformer` for an ``MoEConfig``);
-:func:`params_to_jax` is its inverse.  They handle:
+(``GPTModel`` for a ``GPTConfig``, ``LlamaModel`` for a ``LlamaConfig``,
+``BertModel`` for a ``BertConfig``, ``MoETransformer`` for an
+``MoEConfig``); :func:`params_to_jax` is its inverse.  They handle:
 
-* the layout of ``Linear`` and MHA weights: the reference stores
-  ``[in, out]``, the port ``nn.Linear``'s ``[out, in]`` (the MoE gate's
+* the layout of matmul weights: the reference stores ``[in, out]``, the
+  port ``nn.Linear``'s ``[out, in]`` (Llama's fused QKV, output and SwiGLU
+  weights, BERT's pooler, MLM dense and NSP weights alike; the MoE gate's
   ``gate_w [D, E]`` and the stacked experts keep the reference's layout);
-* GPT's blocks, stacked ``[L, ...]`` by ``vmap`` in the reference, one
-  ``blocks.<i>.`` prefix per layer here; the MoE model's ``layer<l>``
-  subtrees, ``layers.<l>.`` here;
-* the LM head, tied to ``tok_emb`` in both, so no head key exists.
+* the blocks of GPT, Llama and BERT, stacked ``[L, ...]`` by ``vmap`` in
+  the reference, one ``blocks.<i>.`` prefix per layer here; the MoE
+  model's ``layer<l>`` subtrees, ``layers.<l>.`` here;
+* the LM heads: GPT's and BERT's MLM head are tied to ``tok_emb`` in both
+  packages, so no head key exists; Llama's untied ``lm_head [V, H]`` has
+  its own key in both.
 
 :func:`opt_state_from_jax` and :func:`opt_state_to_jax` do the same for an
 optimizer state ``{"step", "slots": {"m": params-like, "v": ...}}``, whose
@@ -27,6 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hetu_tpu_torch.models.bert import BertConfig
+from hetu_tpu_torch.models.llama import LlamaConfig
 from hetu_tpu_torch.models.moe_transformer import MoEConfig
 
 # (reference path under "blocks", port name under "blocks.<i>.", is a
@@ -45,8 +50,34 @@ _BLOCK_PARAMS = (
     (("ln2", "scale"), "ln2.scale", False),
     (("ln2", "bias"), "ln2.bias", False),
 )
-_TOP_PARAMS = (("tok_emb", "tok_emb"), ("pos_emb", "pos_emb"),
-               ("ln_f_scale", "ln_f.scale"), ("ln_f_bias", "ln_f.bias"))
+# (reference key, port name, flips) of the parameters outside the blocks
+_TOP_PARAMS = (("tok_emb", "tok_emb", False), ("pos_emb", "pos_emb", False),
+               ("ln_f_scale", "ln_f.scale", False),
+               ("ln_f_bias", "ln_f.bias", False))
+_LLAMA_BLOCK_PARAMS = (
+    (("attn", "qkv_weight"), "attn.qkv_weight", True),
+    (("attn", "out_weight"), "attn.out_weight", True),
+    (("rms1_scale",), "rms1_scale", False),
+    (("rms2_scale",), "rms2_scale", False),
+    (("ffn_gate",), "ffn_gate", True),
+    (("ffn_up",), "ffn_up", True),
+    (("ffn_down",), "ffn_down", True),
+)
+_LLAMA_TOP_PARAMS = (("tok_emb", "tok_emb", False),
+                     ("lm_head", "lm_head", False),
+                     ("rms_f_scale", "rms_f_scale", False))
+_BERT_TOP_PARAMS = (
+    *_TOP_PARAMS[:2], ("seg_emb", "seg_emb", False),
+    ("emb_ln_scale", "emb_ln.scale", False),
+    ("emb_ln_bias", "emb_ln.bias", False),
+    ("pooler_w", "pooler.weight", True), ("pooler_b", "pooler.bias", False),
+    ("mlm_dense_w", "mlm_dense.weight", True),
+    ("mlm_dense_b", "mlm_dense.bias", False),
+    ("mlm_ln_scale", "mlm_ln.scale", False),
+    ("mlm_ln_bias", "mlm_ln.bias", False),
+    ("mlm_bias", "mlm_bias", False),
+    ("nsp_w", "nsp.weight", True), ("nsp_b", "nsp.bias", False),
+)
 # the MoE model: (reference path under "layer<l>", port name under
 # "layers.<l>.", flips)
 _MOE_LAYER_PARAMS = (
@@ -59,21 +90,34 @@ _MOE_LAYER_PARAMS = (
 _MOE_TOP_PARAMS = _TOP_PARAMS[:2]
 
 
+def _layout(config):
+    """(top-level, per-block) parameter tables of the stacked-block model
+    of ``config``: GPT, Llama or BERT."""
+    if isinstance(config, LlamaConfig):
+        return _LLAMA_TOP_PARAMS, _LLAMA_BLOCK_PARAMS
+    if isinstance(config, BertConfig):
+        return _BERT_TOP_PARAMS, _BLOCK_PARAMS
+    return _TOP_PARAMS, _BLOCK_PARAMS
+
+
+def _tensor(w, flip):
+    w = np.asarray(w, np.float32)
+    return torch.tensor(w.T if flip else w)
+
+
 def _moe_from_jax(p, config) -> dict:
-    out = {dst: torch.tensor(np.asarray(p[src], np.float32))
-           for src, dst in _MOE_TOP_PARAMS}
+    out = {dst: _tensor(p[src], flip) for src, dst, flip in _MOE_TOP_PARAMS}
     for layer in range(config.num_layers):
         for path, dst, flip in _MOE_LAYER_PARAMS:
             w = p[f"layer{layer}"]
             for key in path:
                 w = w[key]
-            w = np.asarray(w, np.float32)
-            out[f"layers.{layer}.{dst}"] = torch.tensor(w.T if flip else w)
+            out[f"layers.{layer}.{dst}"] = _tensor(w, flip)
     return out
 
 
 def _moe_to_jax(arr, config) -> dict:
-    p = {src: arr(dst) for src, dst in _MOE_TOP_PARAMS}
+    p = {src: arr(dst) for src, dst, _ in _MOE_TOP_PARAMS}
     for layer in range(config.num_layers):
         for path, dst, flip in _MOE_LAYER_PARAMS:
             w = arr(f"layers.{layer}.{dst}")
@@ -90,37 +134,39 @@ def params_from_jax(tree, config) -> dict:
     p = tree["params"] if "params" in tree else tree
     if isinstance(config, MoEConfig):
         return _moe_from_jax(p, config)
-    out = {}
-    for src, dst in _TOP_PARAMS:
-        out[dst] = torch.tensor(np.asarray(p[src], np.float32))
-    blocks = p["blocks"]
-    for (mod, name), dst, flip in _BLOCK_PARAMS:
-        stacked = np.asarray(blocks[mod][name], np.float32)
+    top, block = _layout(config)
+    out = {dst: _tensor(p[src], flip) for src, dst, flip in top}
+    for path, dst, flip in block:
+        stacked = p["blocks"]
+        for key in path:
+            stacked = stacked[key]
+        stacked = np.asarray(stacked, np.float32)
         if stacked.shape[0] != config.num_layers:
             raise ValueError(
-                f"blocks/{mod}/{name} stacks {stacked.shape[0]} layers, "
+                f"blocks/{'/'.join(path)} stacks {stacked.shape[0]} layers, "
                 f"config has {config.num_layers}")
         for i in range(config.num_layers):
-            w = stacked[i].T if flip else stacked[i]
-            out[f"blocks.{i}.{dst}"] = torch.tensor(w)
+            out[f"blocks.{i}.{dst}"] = _tensor(stacked[i], flip)
     return out
 
 
 def params_to_jax(state_dict, config) -> dict:
     """A ``state_dict`` of the port's model of ``config`` → the ``hetu_tpu``
-    parameter tree as float32 numpy arrays (GPT blocks stacked
-    ``[L, ...]``)."""
+    parameter tree as float32 numpy arrays (blocks stacked ``[L, ...]``)."""
     def arr(name):
         return state_dict[name].detach().float().cpu().numpy()
 
     if isinstance(config, MoEConfig):
         return _moe_to_jax(arr, config)
-    p = {src: arr(dst) for src, dst in _TOP_PARAMS}
+    top, block = _layout(config)
+    p = {src: arr(dst).T if flip else arr(dst) for src, dst, flip in top}
     blocks: dict = {}
-    for (mod, name), dst, flip in _BLOCK_PARAMS:
+    for path, dst, flip in block:
         layers = [arr(f"blocks.{i}.{dst}") for i in range(config.num_layers)]
-        blocks.setdefault(mod, {})[name] = np.stack(
-            [w.T if flip else w for w in layers])
+        node = blocks
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack([w.T if flip else w for w in layers])
     p["blocks"] = blocks
     return p
 

@@ -1,17 +1,29 @@
 """Multi-head attention layer (counterpart of
 ``hetu_tpu/layers/attention.py``).
 
-One fused QKV projection, the attention core, the output projection.
-Causal self-attention only, the form the GPT decoder runs; the reference's
-explicit masks and bidirectional form come with the slices that use them.
-``attention_impl="flash"`` routes the causal core through the hand-written
-CUDA kernels, forward and backward (:mod:`hetu_tpu_torch.ops.cuda_kernels`);
-``"xla"`` keeps the reference's name for the plain composition
-(:func:`ops.causal_attention`).  When training, the attention output is
+One fused QKV projection, the attention core, the output projection, with
+the reference's choice of core:
+
+* no mask, causal: the causal core (:meth:`MultiHeadAttention._causal_core`,
+  shared with the serving prefill);
+* no mask, bidirectional: the flash kernels with ``causal=False``, or the
+  plain :func:`ops.attention`;
+* an explicit mask (``1`` = keep, broadcastable to ``[B, heads, S, S]``):
+  the plain :func:`ops.attention`, ANDed with the causal mask when the
+  layer is causal.  The reference's flash path covers only the unmasked
+  cases, so ``attention_impl="flash"`` with a mask warns and takes the
+  plain path for that call, as the reference does.
+
+``attention_impl="flash"`` routes the unmasked cores through the
+hand-written CUDA kernels, forward and backward
+(:mod:`hetu_tpu_torch.ops.cuda_kernels`); ``"xla"`` keeps the reference's
+name for the plain composition.  When training, the attention output is
 dropped out before the output projection, as in the reference.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -24,7 +36,8 @@ from hetu_tpu_torch.ops.cuda_kernels import flash_attention
 class MultiHeadAttention(Module):
     def __init__(self, hidden_size: int, num_heads: int, *,
                  generator: torch.Generator, dropout_rate: float = 0.0,
-                 dtype=torch.float32, attention_impl: str = "xla"):
+                 causal: bool = False, dtype=torch.float32,
+                 attention_impl: str = "xla"):
         super().__init__()
         if attention_impl not in ("xla", "flash"):
             raise ValueError(f"attention_impl must be 'xla' or 'flash', "
@@ -36,6 +49,7 @@ class MultiHeadAttention(Module):
         self.num_heads = num_heads
         self.head_dim = hidden_size // num_heads
         self.dropout_rate = dropout_rate
+        self.causal = causal
         self.dtype = dtype
         self.attention_impl = attention_impl
         self.qkv = Linear(hidden_size, 3 * hidden_size, generator=generator,
@@ -55,30 +69,57 @@ class MultiHeadAttention(Module):
         return self.out(out.transpose(1, 2).reshape(b, s, self.hidden_size))
 
     def _causal_core(self, q, k, v):
-        """The causal core, honouring ``attention_impl``."""
+        """The unmasked causal core, honouring ``attention_impl``."""
         if self.attention_impl == "flash":
             return flash_attention(q, k, v, causal=True)
         return ops.causal_attention(q, k, v)
 
-    def _attend(self, x, *, train: bool = False, generator=None):
+    def _core(self, q, k, v, mask):
+        """The attention core for ``q, k, v [B, nh, S, hd]`` and an
+        optional keep-mask, chosen as the reference chooses it."""
+        if mask is None:
+            if self.causal:
+                return self._causal_core(q, k, v)
+            if self.attention_impl == "flash":
+                return flash_attention(q, k, v, causal=False)
+            return ops.attention(q, k, v)
+        if self.attention_impl == "flash":
+            warnings.warn(
+                "attention_impl='flash' ignores explicit masks; falling "
+                "back to the xla path for this call (flash covers the "
+                "causal/unmasked cases)", stacklevel=2)
+        if self.causal:
+            s_q, s_k = q.shape[-2], k.shape[-2]
+            mask = mask.bool() & torch.ones(
+                s_q, s_k, dtype=torch.bool, device=q.device).tril()
+        return ops.attention(q, k, v, mask=mask)
+
+    def _attend(self, x, *, mask=None, train: bool = False, generator=None):
         """The one body of :meth:`forward` and :meth:`prefill_step`, so
         serving cannot drift from the full forward: (y, k, v)."""
         b, s, _ = x.shape
         q, k, v = self._qkv(x)
-        out = self._causal_core(*(t.transpose(1, 2) for t in (q, k, v)))
+        out = self._core(*(t.transpose(1, 2) for t in (q, k, v)), mask)
         out = ops.dropout(out, self.dropout_rate, generator, train=train)
         return self._out(out, b, s), k, v
 
-    def forward(self, x, *, train: bool = False, generator=None):
-        """x ``[B, S, H]`` → ``[B, S, H]``; ``generator`` draws the dropout
-        mask when training."""
-        return self._attend(x, train=train, generator=generator)[0]
+    def forward(self, x, *, mask=None, train: bool = False, generator=None):
+        """x ``[B, S, H]`` → ``[B, S, H]``; ``mask`` (1 = keep) broadcasts
+        to ``[B, heads, S, S]``; ``generator`` draws the dropout mask when
+        training."""
+        return self._attend(x, mask=mask, train=train,
+                            generator=generator)[0]
 
     # ---- serving (hetu_tpu_torch/serve): KV-cache prefill / decode ----
+
+    def _require_causal(self):
+        if not self.causal:
+            raise NotImplementedError("KV-cache decode is causal-LM only")
 
     def prefill_step(self, x):
         """Causal prefill that also returns the chunk's K/V for a cache:
         x ``[B, S, H]`` → (y ``[B, S, H]``, k, v ``[B, S, nh, hd]``)."""
+        self._require_causal()
         return self._attend(x)
 
     def decode_step(self, x, k_cache, v_cache, lengths):
@@ -88,6 +129,7 @@ class MultiHeadAttention(Module):
         PLACE at ``lengths`` (the reference returns new arrays); lengths
         ``[B]`` = tokens already cached.  Returns (y, k_cache, v_cache).
         """
+        self._require_causal()
         q, k, v = self._qkv(x)
         ops.cache_update(k_cache, v_cache, k, v, lengths)
         out = ops.decode_attention(q.transpose(1, 2), k_cache, v_cache,

@@ -7,12 +7,13 @@ The reference's modules are pure functions over parameter pytrees
 
 Parameters are float32 master weights; a layer's ``dtype`` is its COMPUTE
 type, applied at each use as in the reference.  Serving does not want that
-cast on every step, so :meth:`Module.cast_compute_params_` stores the
-parameters a layer would cast, once, in its compute type.
+cast on every step, so :meth:`Module.cast_copy` makes a copy whose
+parameters a layer would cast are stored, once, in its compute type.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import torch
@@ -50,11 +51,21 @@ class Module(nn.Module):
     #: names of the parameters ``forward`` casts to ``self.dtype`` at use
     compute_params: tuple = ()
 
-    def cast_compute_params_(self) -> "Module":
-        """Store every (sub)layer's compute parameters in its compute type,
-        in place.  Bitwise the same results as casting at every use."""
+    def cast_copy(self) -> "Module":
+        """A copy without gradients whose (sub)layers' compute parameters
+        are stored in their compute type; the other parameters are copied
+        as they are.  Bitwise the same results as casting at every use.
+        Each parameter is cast straight from this module's tensor, so the
+        copy never holds a second float32 set of the weights, and every
+        parameter gets storage of its own (also where the compute type is
+        the parameter's), so a later update of this module leaves the copy
+        as it was."""
+        memo = {}
         for m in self.modules():
-            for name in getattr(m, "compute_params", ()):
-                p = getattr(m, name)
-                p.data = p.data.to(m.dtype)
-        return self
+            cast = getattr(m, "compute_params", ())
+            for name, p in m.named_parameters(recurse=False):
+                data = p.detach()
+                data = data.to(m.dtype, copy=True) if name in cast \
+                    else data.clone()
+                memo[id(p)] = nn.Parameter(data, requires_grad=False)
+        return copy.deepcopy(self, memo)

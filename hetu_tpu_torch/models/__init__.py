@@ -1,7 +1,13 @@
-"""Models (counterpart of ``hetu_tpu/models``): the GPT decoder LM and the
-MoE transformer LM."""
+"""Models (counterpart of ``hetu_tpu/models``): the GPT decoder LM, the MoE
+transformer LM, the Llama decoder LM and the BERT encoder."""
 
+from hetu_tpu_torch.models.bert import (
+    BertConfig, BertModel, bert_base, bert_large,
+)
 from hetu_tpu_torch.models.gpt import GPTConfig, GPTModel
+from hetu_tpu_torch.models.llama import LlamaConfig, LlamaModel, llama2_7b
 from hetu_tpu_torch.models.moe_transformer import MoEConfig, MoETransformer
 
-__all__ = ["GPTConfig", "GPTModel", "MoEConfig", "MoETransformer"]
+__all__ = ["GPTConfig", "GPTModel", "MoEConfig", "MoETransformer",
+           "LlamaConfig", "LlamaModel", "llama2_7b", "BertConfig",
+           "BertModel", "bert_base", "bert_large"]

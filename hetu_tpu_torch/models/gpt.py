@@ -12,7 +12,6 @@ the KV-cache methods on an :meth:`GPTModel.inference_copy`.
 
 from __future__ import annotations
 
-import copy
 from dataclasses import dataclass
 from typing import Optional
 
@@ -89,7 +88,8 @@ class GPTModel(Module):
         self.blocks = nn.ModuleList(
             TransformerBlock(c.hidden_size, c.num_heads, c.ffn_size,
                              generator=g, dropout_rate=c.dropout_rate,
-                             dtype=c.dtype, attention_impl=c.attention_impl)
+                             causal=True, pre_norm=True, dtype=c.dtype,
+                             attention_impl=c.attention_impl)
             for _ in range(c.num_layers))
         self.ln_f = LayerNorm(c.hidden_size)
         # the tied head in the compute type, set by inference_copy(); None
@@ -103,8 +103,7 @@ class GPTModel(Module):
         step.  The results are bitwise those of casting at each use (the
         reference casts the same f32 values every time).  Embedding tables
         and LayerNorm parameters stay f32, as in the reference."""
-        m = copy.deepcopy(self).requires_grad_(False)
-        m.cast_compute_params_()
+        m = self.cast_copy()
         if self.dtype != self.tok_emb.dtype:
             m.head_weight = m.tok_emb.detach().to(self.dtype)
         return m

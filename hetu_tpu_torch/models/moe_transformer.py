@@ -44,7 +44,8 @@ class MoELayerBlock(Module):
     def __init__(self, c: MoEConfig, generator: torch.Generator):
         super().__init__()
         self.attn = MultiHeadAttention(c.hidden_size, c.num_heads,
-                                       generator=generator, dtype=c.dtype)
+                                       generator=generator, causal=True,
+                                       dtype=c.dtype)
         self.ln1 = LayerNorm(c.hidden_size)
         self.ln2 = LayerNorm(c.hidden_size)
         self.moe = MoELayer(

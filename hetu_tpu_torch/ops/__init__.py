@@ -1,10 +1,11 @@
 """Functional ops on torch tensors (counterpart of ``hetu_tpu/ops``).
 
-What the GPT serving and training slices and the MoE training slice run.
+What the ported slices run: GPT serving and training, MoE training, Llama
+serving and training, BERT pretraining.
 Hand-written CUDA kernels live in :mod:`hetu_tpu_torch.ops.cuda_kernels`.
 """
 
-from hetu_tpu_torch.ops.activations import gelu
+from hetu_tpu_torch.ops.activations import gelu, silu
 from hetu_tpu_torch.ops.attention import (
     attention, cache_update, causal_attention, decode_attention,
 )
@@ -19,12 +20,14 @@ from hetu_tpu_torch.ops.moe_ops import (
     make_slot_routes, make_slot_routing, reverse_layout_transform,
     top_k_idx_gate,
 )
-from hetu_tpu_torch.ops.norm import layer_norm
+from hetu_tpu_torch.ops.norm import layer_norm, rms_norm
+from hetu_tpu_torch.ops.rope import apply_rope, apply_rope_at, rope_tables
 
 __all__ = [
-    "gelu", "attention", "causal_attention", "cache_update",
+    "gelu", "silu", "attention", "causal_attention", "cache_update",
     "decode_attention", "dropout", "embedding_lookup",
-    "lm_head_cross_entropy", "linear", "layer_norm",
+    "lm_head_cross_entropy", "linear", "layer_norm", "rms_norm",
+    "rope_tables", "apply_rope", "apply_rope_at",
     "softmax_cross_entropy_sparse", "gather_combine", "gather_dispatch",
     "layout_transform", "make_dispatch_combine", "make_slot_routes",
     "make_slot_routing",

@@ -1,10 +1,12 @@
 """Activations (counterpart of ``hetu_tpu/ops/activations.py``).
 
-Only what the serving slice runs: the GPT MLP's GELU.
+What the ported models run: the GPT and BERT MLPs' GELU and Llama's
+SwiGLU gate (``silu``).
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 
@@ -13,3 +15,9 @@ def gelu(x):
     ``jax.nn.gelu`` use the tanh form).  ``F.gelu``'s own default is the
     exact erf form, which is NOT the reference's function."""
     return F.gelu(x, approximate="tanh")
+
+
+def silu(x):
+    """``x * sigmoid(x)`` in ``x``'s type, the composition
+    ``jax.nn.silu`` computes."""
+    return x * torch.sigmoid(x)

@@ -18,3 +18,13 @@ def layer_norm(x, scale, bias, *, eps: float = 1e-5):
     var = x32.var(dim=-1, keepdim=True, correction=0)
     y = (x32 - mean) * torch.reciprocal(torch.sqrt(var + eps))
     return (y * scale + bias).to(x.dtype)
+
+
+def rms_norm(x, scale, *, eps: float = 1e-6):
+    """RMSNorm over the trailing axis: ``x / rms(x) * scale``, no mean and
+    no bias (the Llama norm).  The reference's order and rounding points:
+    the mean square in float32, ``xf * rsqrt(ms + eps) * scale_f32``, then
+    one cast back to ``x.dtype``."""
+    xf = x.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)

@@ -207,7 +207,10 @@ def _restore(state: TrainState, snapshot: list) -> None:
 
 def _device_batch(batch, device):
     """Tensors and numpy arrays of a (nested) tuple, list or dict batch,
-    moved to ``device``."""
+    moved to ``device``; ``None`` (an absent part, such as BERT's mask)
+    stays ``None``, as an empty leaf of a JAX batch does."""
+    if batch is None:
+        return None
     if isinstance(batch, (tuple, list)):
         return type(batch)(_device_batch(b, device) for b in batch)
     if isinstance(batch, dict):

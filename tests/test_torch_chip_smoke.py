@@ -9,6 +9,12 @@ near the end of the sequence, where the gradients are smallest: one
 in dK and dV; the last query tile misses that key tile in dQ), or one row
 (every key misses the last query; every query misses its diagonal key).
 
+The forward at the Llama and BERT shapes is held to a row-scaled gate of
+the same form (``TOL_F``): at S 4096 (head dim 128) it passes the plain
+forward, one ulp and an emulation of the kernel's per-tile rounding (also
+at BERT's non-causal S 512), and refuses outputs 10 % off in the last
+query tile, which the absolute ``TOL_O`` would pass.
+
 The MoE kernels' gates (``tolerance_share``, ``scatter_tolerance``,
 ``TOL_GATES``) are tried the same way: each passes the plain version and
 refuses a gather that returns the clamped id's row for an invalid id, a
@@ -303,3 +309,163 @@ def test_gate_tolerance_takes_a_nan_only_where_the_reference_has_one():
     bad[1, 0] = float("nan")
     assert chip_smoke.tolerance_share(bad, ref, 1e-6) == float("inf")
     assert chip_smoke.tolerance_share(ref, bad, 1e-6) == float("inf")
+
+
+# ------------------------- the Llama and BERT phases, rehearsed on the CPU
+# Each new phase runs here at a tiny size through its real entry points up
+# to its launch-count check, which fails because CPU tensors launch no
+# kernel: every gate before it (statuses, vocabulary, the kernel path
+# against the plain path, finite and falling loss, the masked forward's
+# plain path) has passed by then.
+
+TINY = dict(
+    LLAMA_V=97, LLAMA_H=64, LLAMA_L=2, LLAMA_NH=4, LLAMA_FFN=96,
+    LLAMA_P=128, LLAMA_HEAD_DIM=16, LLAMA_SLOTS=3, LLAMA_MAX_LEN=64,
+    LLAMA_REQUESTS=5, LLAMA_PROMPT=(4, 40), LLAMA_GEN=(3, 8),
+    LLAMA_TRAIN_L=2, LLAMA_TRAIN_B=2, LLAMA_TRAIN_S=64, LLAMA_STEPS=3,
+    BERT_V=97, BERT_H=64, BERT_L=2, BERT_NH=4, BERT_FFN=96, BERT_P=64,
+    BERT_B=4, BERT_S=32, BERT_STEPS=3)
+
+
+@pytest.mark.parametrize("phase,reached", [
+    ("phase_llama_serve", "flash_attention launches != layers x prefills"),
+    ("phase_train_llama", "did not launch 2L forward"),
+    ("phase_train_bert", "did not launch L of each flash kernel"),
+])
+def test_new_phase_rehearses_up_to_its_launch_count(monkeypatch, capsys,
+                                                    phase, reached):
+    for name, value in TINY.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    with pytest.raises(chip_smoke.SmokeFailure, match=reached):
+        getattr(chip_smoke, phase)("cpu", 0, device="cpu")
+    out = capsys.readouterr().out
+    if phase == "phase_llama_serve":
+        assert "'ok', 'ok', 'ok', 'ok', 'ok'" in out
+    else:
+        assert "kernel path vs plain path" in out and "losses:" in out
+    if phase == "phase_train_bert":
+        assert "masked forward: 0 flash launches, 2 warnings" in out
+
+
+def test_bert_batch_is_the_examples_synthetic_batch():
+    """``bert_synthetic_batch`` is ``examples/bert_pretrain.py``'s
+    ``synthetic_batch``, read from the example's source (importing the
+    example would set up JAX's devices): the same arrays from the same
+    seed."""
+    import ast
+    src = (Path(__file__).resolve().parents[1] / "examples"
+           / "bert_pretrain.py").read_text()
+    fn = next(n for n in ast.parse(src).body
+              if isinstance(n, ast.FunctionDef)
+              and n.name == "synthetic_batch")
+    ns = {"np": np}
+    exec(compile(ast.Module([fn], []), "bert_pretrain.py", "exec"), ns)
+    want = ns["synthetic_batch"](np.random.default_rng(7), 6, 64, 500)
+    got = chip_smoke.bert_synthetic_batch(np.random.default_rng(7), 6, 64,
+                                          500)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    ids, tok, attn, mlm, nsp = got
+    assert attn.all() and (mlm != -1).any() and set(np.unique(nsp)) <= {0, 1}
+
+
+def test_flops_counts():
+    """The MFU counts: Llama's 6 (N - V H) + 12 L H S a token (the untied
+    head multiplies, the embedding gathers) and BERT's 6 N_nonemb + 6 V H
+    + 12 L H S, at Llama-2-7B's and BERT-base's parameter counts."""
+    class Stub:
+        def __init__(self, c, n):
+            self.c, self._n = c, n
+
+        def parameters(self):
+            return [torch.empty(self._n, device="meta")]
+
+    from hetu_tpu_torch.models import BertConfig, LlamaConfig
+    llama = Stub(LlamaConfig(num_layers=4), 1_071_681_536)
+    fpt, n = chip_smoke._llama_flops_per_token(llama, 4096)
+    assert fpt == 6 * (n - 32000 * 4096) + 12 * 4 * 4096 * 4096
+    bert = Stub(BertConfig(), 110_106_428)
+    fpt, _ = chip_smoke._bert_flops_per_token(bert, 512)
+    n_emb = (30522 + 512 + 2) * 768
+    assert fpt == 6 * (110_106_428 - n_emb) + 6 * 30522 * 768 \
+        + 12 * 12 * 768 * 512
+
+
+def _tiled_forward(q, k, v, causal, tile=64):
+    """The forward kernel's rounding, emulated: keys in tiles of 64, each
+    tile's p rounded to bf16 against the running row max, the O
+    accumulator and l rescaled in f32 as the max grows, O / l rounded once
+    at the end."""
+    b, h, s, d = q.shape
+    q, k, v = q.float(), k.float(), v.float()
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros(b, h, s, 1)
+    o = torch.zeros(b, h, s, d)
+    rows = torch.arange(s)[:, None]
+    for j in range(0, s, tile):
+        st = q @ k[:, :, j:j + tile].transpose(-1, -2) * d ** -0.5
+        hide = (torch.arange(j, j + tile)[None, :] > rows) if causal \
+            else torch.zeros(1, tile, dtype=torch.bool)
+        st = st.masked_fill(hide, -1e30)
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(st - m_new).masked_fill(hide, 0.0)
+        o = o * corr + p.to(torch.bfloat16).float() @ v[:, :, j:j + tile]
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+    return (o / l).to(torch.bfloat16)
+
+
+def _bf16_inputs(shape, seed):
+    g = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(g.standard_normal(
+        shape, dtype=np.float32)).to(torch.bfloat16) for _ in range(3))
+
+
+@pytest.fixture(scope="module")
+def llama_forward():
+    """The plain causal forward at the Llama training shape's sequence
+    (S 4096, head dim 128, bf16) and the kernel's rounding emulated, from
+    seeded inputs of shape (1, 2, 4096, 128)."""
+    q, k, v = _bf16_inputs((1, 2, 4096, 128), 1)
+    return (flash_attention_plain(q, k, v, causal=True)[0],
+            _tiled_forward(q, k, v, True))
+
+
+def test_forward_gate_passes_the_plain_forward_and_one_ulp(llama_forward):
+    """The forward at the new shapes is held per output row (``TOL_F``):
+    the plain forward itself and the same moved by one bf16 ulp in every
+    element pass."""
+    o, _ = llama_forward
+    tol = chip_smoke.TOL_F
+    assert chip_smoke.grad_tolerance_share(o, o, tol) == 0.0
+    moved = (o.view(torch.int16) + 1).view(torch.bfloat16)
+    assert chip_smoke.grad_tolerance_share(moved, o, tol) <= 1.0
+
+
+def test_forward_gate_passes_the_kernels_rounding(llama_forward):
+    """p rounded against each tile's running max, not the final one: at
+    S 4096 causal and at BERT's non-causal S 512, within TOL_F (at the
+    whole BERT batch of 16 this emulation used 1.13 of TOL_D)."""
+    o, tiled = llama_forward
+    assert chip_smoke.grad_tolerance_share(tiled, o, chip_smoke.TOL_F) \
+        <= 1.0
+    q, k, v = _bf16_inputs((2, 12, 512, 64), 2)
+    assert chip_smoke.grad_tolerance_share(
+        _tiled_forward(q, k, v, False),
+        flash_attention_plain(q, k, v, causal=False)[0],
+        chip_smoke.TOL_F) <= 1.0
+
+
+def test_forward_gate_refuses_a_wrong_last_tile(llama_forward):
+    """Outputs 10 % off in the last 64-row query tile: the absolute
+    ``TOL_O`` (set for S <= 1024) waves them through, since the last rows'
+    values are of its size; the row-scaled gate refuses them."""
+    o, _ = llama_forward
+    bad = o.clone()
+    bad[..., -64:, :] = (bad[..., -64:, :].float() * 0.9).to(torch.bfloat16)
+    diff = (bad.float() - o.float()).abs()
+    bf = torch.bfloat16
+    assert bool((diff <= chip_smoke.TOL_O[bf]
+                 + chip_smoke.RTOL_O[bf] * o.float().abs()).all())
+    assert chip_smoke.grad_tolerance_share(bad, o, chip_smoke.TOL_F) > 1.0

@@ -1,8 +1,9 @@
 """hetu_tpu_torch stands alone: it imports neither ``jax`` nor ``hetu_tpu``.
 
 Subprocesses import the package and, on the CPU, run the serving slice
-(one prefill and one decode) and the GPT and MoE training slices (two
-AdamW steps of the Executor and a checkpoint round trip each); ``jax`` and ``hetu_tpu`` must
+(one prefill and one decode), the GPT and MoE training slices (two
+AdamW steps of the Executor and a checkpoint round trip each), GQA Llama
+serving and a BERT pretraining step; ``jax`` and ``hetu_tpu`` must
 stay out of ``sys.modules``.  An AST scan of every module of the package,
 and of ``chip_smoke.py``, finds no import of either.
 """
@@ -122,6 +123,39 @@ def test_moe_training_slice_runs_without_jax(tmp_path):
     assert "LEAKED []" in out
 
 
+def test_llama_serving_and_bert_training_run_without_jax():
+    out = _run(
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from hetu_tpu_torch.models import BertConfig, BertModel\n"
+        "from hetu_tpu_torch.models import LlamaConfig, LlamaModel\n"
+        "from hetu_tpu_torch.optim import AdamWOptimizer\n"
+        "from hetu_tpu_torch.serve import ServeEngine\n"
+        "from hetu_tpu_torch.train import Executor\n"
+        "cfg = LlamaConfig(vocab_size=97, hidden_size=32, num_layers=2,\n"
+        "                  num_heads=4, num_kv_heads=2, ffn_size=48,\n"
+        "                  max_position=32, attention_impl='flash')\n"
+        "e = ServeEngine(LlamaModel(cfg, device='cpu'), num_slots=2,\n"
+        "                max_len=32, min_bucket=8, device='cpu')\n"
+        "s = e.alloc_slot()\n"
+        "toks = [e.prefill(s, [1, 2, 3]), e.decode()[s]]\n"
+        "assert all(0 <= t < 97 for t in toks), toks\n"
+        "bc = BertConfig(vocab_size=97, hidden_size=32, num_layers=2,\n"
+        "                num_heads=4, ffn_size=48, max_position=16,\n"
+        "                attention_impl='flash')\n"
+        "m = BertModel(bc, device='cpu')\n"
+        "ex = Executor(m.pretrain_loss_fn(), AdamWOptimizer(1e-2), seed=0)\n"
+        "st = ex.init_state(m)\n"
+        "ids = torch.randint(0, 97, (2, 16))\n"
+        "b = (ids, torch.zeros_like(ids), None, ids, torch.tensor([0, 1]))\n"
+        "st, met = ex.run('train', st, b)\n"
+        "assert set(met) == {'loss', 'mlm_loss', 'nsp_loss'}, met\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
@@ -149,4 +183,5 @@ def test_scan_sees_the_whole_package():
             "train/executor.py", "train/checkpoint.py",
             "optim/optimizer.py", "lr/__init__.py", "rng.py",
             "ops/cuda_kernels/embedding.py", "ops/moe_ops.py",
-            "layers/moe.py", "models/moe_transformer.py"} <= names
+            "layers/moe.py", "models/moe_transformer.py",
+            "models/llama.py", "models/bert.py", "ops/rope.py"} <= names
