@@ -70,7 +70,26 @@ without the final result line:
    gate with both paths drawing dropout from the same generators; 10
    Executor steps (L of each kernel a step), step time, samples/s, MFU,
    peak memory, one profiled step.
-11. kernel_shapes — the three flash kernels at the new paths' shapes:
+11. train_ctr — device-resident Wide & Deep at ``bench.py`` bench_ctr's
+   widths, uncut (a [33 000 000, 16] f32 table drawn on the card, 26
+   sparse and 13 dense fields, hidden (256, 256), B 2048, SGD(0.01)): the
+   kernel path against the plain path (``emb_impl="xla"`` and the
+   deduplicate sum by ``index_add_``), one step from the same state on a
+   uniform and a Zipf-skewed batch (loss and dense parameters bitwise,
+   touched rows within the bound of a sequential f32 sum carried through
+   the update, 10^5 untouched rows unchanged); 10 sparse steps on one batch
+   (finite, falling loss; 1 gather and 1 scatter-add a step; peak memory
+   under the table plus 1 GB), step time, samples/s, bench_ctr's roofline,
+   one profiled step; the masked step over BucketedLoader's buckets; the
+   gather (cold rows) and the deduplicate sum at the step's shapes against
+   their plain versions, timed beside them, ``index_select`` /
+   ``index_add_`` and the bound.
+12. ps_ctr — ``WideDeep`` (Adam) on 1M-row ``PSEmbedding`` rows through
+   ``examples/ctr_wdl.py``'s pipeline (prefetch, pull, step, push), B 2048,
+   20 steps: bench_ctr's PS leg (sgd, no cache), then an adagrad table
+   behind the HET cache (131072 rows, lfuopt); falling loss, a hit rate
+   above 0; pull, step and push times and samples/s.
+13. kernel_shapes — the three flash kernels at the new paths' shapes:
    (1, 32, S, 128) causal for S = 128, 512 and 1024 (the forward), (4, 32,
    4096, 128) causal and (16, 12, 512, 64) non-causal (forward and
    backward), each held against its plain version, timed beside it, SDPA
@@ -79,8 +98,8 @@ without the final result line:
 The last three lines of standard output are the card's name and power
 limit (as nvidia-smi gives them), the kernel report
 ``{"kernels": [...]}`` (all six kernels: the three flash kernels, the top-k
-gate, the gather and the scatter-add) and ``{"ok": true, "device":
-{...}}``.
+gate, the gather and the scatter-add, the last two with their CTR
+launches and times) and ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -91,6 +110,7 @@ import argparse
 import copy
 import dataclasses
 import functools
+import itertools
 import json
 import statistics
 import subprocess
@@ -216,6 +236,22 @@ BERT_V, BERT_H, BERT_L, BERT_NH, BERT_FFN, BERT_P = (
     30522, 768, 12, 12, 3072, 512)
 BERT_B, BERT_S, BERT_STEPS, BERT_LR, BERT_WD, BERT_DROPOUT = (
     16, 512, 10, 1e-4, 0.01, 0.1)
+
+# CTR: bench.py bench_ctr's Wide & Deep at the scale of Criteo-Kaggle's
+# hashed vocabulary (BASELINE.json's config #4), uncut: a [33M, 16] f32
+# table on the card (2.11 GB), 26 sparse fields, 13 dense, hidden (256,
+# 256), B 2048, SGD(0.01); the masked step over BucketedLoader's buckets of
+# CTR_MASKED_SIZES; one batch of Zipf-skewed ids (a = 1.2, clipped to V)
+# for long duplicate runs.  The PS leg: WideDeep with Adam(1e-3) on a
+# 1M-row PSEmbedding (bench_ctr's PS leg: sgd, lr 0.01; then the example's
+# adagrad table, lr 0.05, behind a 131072-row lfuopt HET cache)
+CTR_V, CTR_F, CTR_DIM, CTR_DENSE, CTR_HIDDEN = (
+    33_000_000, 26, 16, 13, (256, 256))
+CTR_B, CTR_STEPS, CTR_LR, CTR_ZIPF_A = 2048, 10, 0.01, 1.2
+CTR_MASKED_SIZES = (2048, 1500, 700, 37)
+CTR_UNTOUCHED_SAMPLE = 100_000
+CTR_PS_V, CTR_PS_CACHE, CTR_PS_STEPS, CTR_PS_LR = 1_000_000, 131072, 20, 1e-3
+CTR_GATHER_SETS = 32  # id sets the gather's timing cycles through
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_S = 989e12    # dense bf16 tensor cores, H100 SXM data sheet
@@ -890,14 +926,15 @@ def _profile_table(prof, tag, card, wall_us, steps=1):
 
 
 def _kind(kernel: str) -> str:
-    """The port's own kernels (flash, MoE), cuBLAS's GEMMs, copies and
-    fills, and the rest (PyTorch's elementwise and reduction kernels)."""
+    """The port's own kernels (flash; gather, scatter-add and gate),
+    cuBLAS's GEMMs, copies and fills, and the rest (PyTorch's elementwise
+    and reduction kernels)."""
     if _short(kernel).startswith(("flash_fwd_", "flash_bwd_")):
         return "flash kernels"
     if _short(kernel).startswith(("gather_kernel", "scatter_add_kernel",
                                   "topk_small_kernel", "topk_group_kernel",
                                   "topk_wide_kernel")):
-        return "MoE kernels"
+        return "gather, scatter-add and gate kernels"
     if any(t in kernel for t in ("nvjet", "gemm", "xmma", "cutlass")):
         return "GEMMs"
     if any(t in kernel.lower() for t in ("copy", "memcpy", "memset")):
@@ -1509,7 +1546,7 @@ def phase_kernel_moe(card):
     return report_ms
 
 
-def _scatter_split(card, sites):
+def _scatter_split(card, sites, phase="kernel_moe"):
     """The sorted route's time split, at each call's shape: the stable sort
     of the ids, the rest of ``scatter_segments`` (the searchsorted and the
     casts) and the kernel alone on precomputed segments."""
@@ -1530,7 +1567,7 @@ def _scatter_split(card, sites):
                            searchsorted_and_casts_ms=segments_ms - sort_ms,
                            kernel_alone_ms=kernel_ms,
                            bound_ms=scatter_bound(grads, ids, num_rows))
-        print(f"[kernel_moe] scatter-add {site}, sorted route split: sort "
+        print(f"[{phase}] scatter-add {site}, sorted route split: sort "
               f"{sort_ms:.4f} ms, searchsorted and casts "
               f"{segments_ms - sort_ms:.4f} ms, kernel alone "
               f"{kernel_ms:.4f} ms (bound {split[site]['bound_ms']:.5f} "
@@ -2259,6 +2296,458 @@ def phase_train_bert(card, seed, device="cuda"):
                 busy_share=busy, losses=losses, grad_ratio=grad_ratio)
 
 
+# ------------------------------------------------------------------- CTR
+
+def ctr_batch(g, b, vocab):
+    """``(dense_x [b, 13] f32, ids [b, 26] int32, labels [b] f32)`` drawn as
+    bench.py bench_ctr draws them: ids, then dense features, then labels."""
+    ids = g.integers(0, vocab, (b, CTR_F)).astype(np.int32)
+    dx = g.standard_normal((b, CTR_DENSE)).astype(np.float32)
+    y = g.integers(0, 2, b).astype(np.float32)
+    return dx, ids, y
+
+
+def zipf_ids(g, shape, vocab, a=CTR_ZIPF_A):
+    """Zipf-skewed ids in [0, vocab): numpy's Zipf(a) draws, clipped to
+    vocab, minus one, so id 0 is the most frequent."""
+    return (np.minimum(g.zipf(a, shape), vocab) - 1).astype(np.int32)
+
+
+def sgd_row_tolerance(grads, ids, touched, rows, lr):
+    """The bound the kernel-vs-plain gate holds the touched table rows to
+    after one sparse SGD step, ``[len(touched), D]`` f64, computed over the
+    touched rows only (never ``[V, D]``).
+
+    ``touched`` (ascending) are the distinct ids of ``ids``; ``grads [N,
+    D]`` the step's row gradients; ``rows`` the touched rows before the
+    step.  A row with at most two sources sums bitwise alike on both paths
+    (a + b is the same in either order), so its bound is 0.  A row of n > 2
+    sources with magnitudes S = sum |g| sums within (n - 1) 2^-24 S of the
+    exact sum on each path, 2 (n - 1) 2^-24 S apart (the bound of a
+    sequential f32 sum, as ``TOL_GATES``' note states); the update ``p +
+    ((p - lr g) - p)`` carries lr times that into the row and adds four
+    roundings of at most 2^-24 of |p| + 2 lr S each."""
+    flat = ids.reshape(-1).to(touched.dtype)
+    pos = torch.searchsorted(touched, flat)
+    u, d = touched.numel(), grads.shape[-1]
+    n = torch.bincount(pos, minlength=u).double()[:, None]
+    s = torch.zeros(u, d, dtype=torch.float64, device=grads.device) \
+        .index_add_(0, pos, grads.reshape(-1, d).double().abs())
+    tol = lr * 2 * (n - 1) * 2 ** -24 * s \
+        + 2 ** -22 * (rows.double().abs() + 2 * lr * s)
+    return torch.where(n > 2, tol, 0.0)
+
+
+def ctr_roofline(b):
+    """bench.py bench_ctr's roofline (bench.py:391-395) with H100 figures:
+    (bytes, flops, seconds) of three row passes of B · 26 · 16 f32 (gather
+    read, sparse update read and write) over the HBM rate, plus the MLP's
+    forward and backward FLOPs over the dense bf16 peak, as bench_ctr
+    counts them."""
+    row_bytes = 3.0 * b * CTR_F * CTR_DIM * 4
+    in_dim = CTR_F * CTR_DIM + CTR_DENSE
+    mlp_flops = 2.0 * b * (in_dim * CTR_HIDDEN[0] + CTR_HIDDEN[0]
+                           * CTR_HIDDEN[1] + CTR_HIDDEN[1]) * 3
+    return row_bytes, mlp_flops, \
+        row_bytes / H100_BYTES_PER_S + mlp_flops / H100_BF16_FLOP_S
+
+
+def _recording_sgd(lr):
+    """SGD(lr) whose sparse path keeps the last IndexedSlices it was given
+    (the step's row gradients, before deduplication)."""
+    from hetu_tpu_torch.optim import SGDOptimizer
+
+    class RecordingSGD(SGDOptimizer):
+        slices = None
+
+        def apply_indexed(self, p, slices, slots, lr, step):
+            self.slices = slices
+            return super().apply_indexed(p, slices, slots, lr, step)
+    return RecordingSGD(lr)
+
+
+def _ctr_step_once(model, batch, plain):
+    """One sparse SGD step from the model's state: the kernel path, or the
+    plain path (``emb_impl="xla"`` and deduplicate's segment sum by the
+    scatter-add's plain version, ``index_add_``).  Returns ``(loss tensor,
+    row gradients, their ids)``."""
+    import hetu_tpu_torch.ops.cuda_kernels as ck
+    opt = _recording_sgd(CTR_LR)
+    step = model.sparse_step_fn(opt)
+    if not plain:
+        loss, _ = step(*batch)
+    else:
+        saved = model.emb.impl, ck.embedding_scatter_add
+        model.emb.impl = "xla"
+        ck.embedding_scatter_add = ck.embedding_scatter_add_plain
+        try:
+            loss, _ = step(*batch)
+        finally:
+            model.emb.impl, ck.embedding_scatter_add = saved
+    return loss, opt.slices.values, opt.slices.indices
+
+
+def _ctr_kernel_vs_plain(model, batch, tag, gen):
+    """The kernel path against the plain path, one step each from the same
+    state, restored after each (only the touched rows and the dense
+    parameters are kept: never a second table).  Returns the gate's
+    readings."""
+    from hetu_tpu_torch.ops.cuda_kernels import (
+        embedding_gather, embedding_scatter_add,
+    )
+    table = model.emb.weight
+    dev = table.device
+    ids = batch[1]
+    touched = torch.unique(ids.reshape(-1))
+    net = dict(model.net.named_parameters())
+    cand = torch.randint(0, table.shape[0], (2 * CTR_UNTOUCHED_SAMPLE,),
+                         generator=gen, device=dev)
+    touched_rows = touched.long()
+    untouched = cand[~torch.isin(cand, touched_rows)][:CTR_UNTOUCHED_SAMPLE]
+    with torch.no_grad():
+        rows0, others0 = table[touched_rows].clone(), table[untouched].clone()
+        net0 = {n: p.detach().clone() for n, p in net.items()}
+
+    def restore():
+        with torch.no_grad():
+            table[touched_rows] = rows0
+            for n, p in net.items():
+                p.copy_(net0[n])
+
+    out, launches = {}, {}
+    for path in ("kernel", "plain"):
+        embedding_gather.launches = embedding_scatter_add.launches = 0
+        loss, grads, gids = _ctr_step_once(model, batch, path == "plain")
+        _sync(dev.type)
+        launches[path] = (embedding_gather.launches,
+                          embedding_scatter_add.launches)
+        with torch.no_grad():
+            out[path] = (loss, table[touched_rows].clone(),
+                         {n: p.detach().clone() for n, p in net.items()})
+            if path == "kernel":
+                kept = tolerance_share(table[untouched], others0)
+                tol = sgd_row_tolerance(grads, gids, touched, rows0, CTR_LR)
+        restore()
+    (loss_k, rows_k, net_k), (loss_p, rows_p, net_p) = out["kernel"], \
+        out["plain"]
+    runs = torch.bincount(torch.searchsorted(touched, ids.reshape(-1)))
+    loss_share = tolerance_share(loss_k, loss_p)
+    net_share = max(tolerance_share(net_k[n], net_p[n]) for n in net)
+    row_share = tolerance_share(rows_k, rows_p, tol)
+    bitwise_rows = tolerance_share(rows_k, rows_p) == 0.0
+    print(f"[train_ctr] kernel path vs plain path, one step ({tag}: "
+          f"{ids.numel()} ids, {touched.numel()} distinct, longest run "
+          f"{int(runs.max())}, {int((runs > 2).sum())} rows of more than two "
+          f"sources): loss {float(loss_k):.7f} vs {float(loss_p):.7f} "
+          f"({'bitwise' if loss_share == 0 else 'DIFFERS'}); dense "
+          f"parameters {'bitwise' if net_share == 0 else 'DIFFER'}; touched "
+          f"rows share of the sum bound used {row_share:.3g} "
+          f"({'bitwise' if bitwise_rows else 'not bitwise'}); "
+          f"{untouched.numel()} untouched rows "
+          f"{'unchanged' if kept == 0 else 'CHANGED'}; launches (gather, "
+          f"scatter-add) kernel path {launches['kernel']}, plain path "
+          f"{launches['plain']}")
+    check(np.isfinite(float(loss_k)), f"the CTR loss is not finite ({tag})")
+    check(loss_share == 0.0, f"kernel path loss differs from the plain "
+                             f"path's ({tag})")
+    check(net_share == 0.0, f"kernel path dense parameters differ from the "
+                            f"plain path's ({tag})")
+    check(row_share <= 1.0, f"kernel path table rows outside the bound of "
+                            f"a sequential f32 sum ({tag})")
+    check(kept == 0.0, f"the kernel path changed an untouched row ({tag})")
+    check(launches["plain"] == (0, 0), "the plain CTR path launched a kernel")
+    check(launches["kernel"] == (1, 1),
+          f"the CTR step did not launch 1 gather and 1 scatter-add "
+          f"({tag}: {launches['kernel']})")
+    return dict(row_share=row_share, bitwise_rows=bitwise_rows,
+                longest_run=int(runs.max()), distinct=touched.numel())
+
+
+def _ctr_kernel_timings(card, table, grads, ids, zipf, gen):
+    """The gather and the deduplicate sum at the CTR step's shapes: each
+    kernel against its plain version (the deduplicate sum bitwise against
+    the CPU's sequential sum, which adds in the kernel's order), then timed
+    beside its plain version, the PyTorch call and the bound.  The gather
+    cycles through CTR_GATHER_SETS batches of ids, so that its rows come
+    cold from HBM, as a new batch finds them (its hot reading, the same ids
+    every call, is printed too)."""
+    from hetu_tpu_torch.ops.cuda_kernels import (
+        embedding_gather, embedding_gather_plain, embedding_scatter_add,
+        embedding_scatter_add_plain,
+    )
+    from hetu_tpu_torch.ops.embedding import IndexedSlices
+    v, d = table.shape
+    n = ids.numel()
+    flat = ids.reshape(-1)
+    for tag, id_set in (("uniform", flat), ("zipf", zipf.reshape(-1))):
+        got = embedding_gather(table, id_set)
+        check(tolerance_share(got, embedding_gather_plain(table, id_set))
+              == 0.0, f"embedding_gather disagrees with its plain version "
+                      f"at the CTR shape ({tag})")
+        sl = IndexedSlices(id_set, grads, (v, d))
+        dd = sl.deduplicate()
+        ref = IndexedSlices(id_set.cpu(), grads.cpu(), (v, d)).deduplicate()
+        ok = tolerance_share(dd.values.cpu(), ref.values) == 0.0 \
+            and tolerance_share(dd.indices.cpu(), ref.indices) == 0.0
+        print(f"[train_ctr] at the CTR shape ({tag} ids): gather bitwise its "
+              f"plain version; deduplicate {'bitwise' if ok else 'DIFFERS'} "
+              f"against the CPU's sequential sum")
+        check(ok, f"deduplicate's scatter-add disagrees with the sequential "
+                  f"sum at the CTR shape ({tag})")
+    sets = [flat] + [torch.randint(0, v, (n,), generator=gen,
+                                   device=table.device, dtype=torch.int32)
+                     for _ in range(CTR_GATHER_SETS - 1)]
+    cycle = itertools.cycle(sets)
+    gather = dict(
+        ms=device_ms(lambda: embedding_gather(table, next(cycle)), 64),
+        plain_ms=device_ms(lambda: embedding_gather_plain(table,
+                                                          next(cycle)), 32),
+        library_ms=device_ms(lambda: torch.index_select(table, 0,
+                                                        next(cycle)), 64),
+        hot_ms=device_ms(lambda: embedding_gather(table, flat), 64),
+        hot_library_ms=device_ms(lambda: torch.index_select(table, 0, flat),
+                                 64),
+        bound_ms=gather_bound(table, flat), bound_by="bytes",
+        max_abs_err=0.0)
+    print(f"[train_ctr] embedding_gather table [{v}, {d}] f32, {n} ids "
+          f"(cold rows): kernel {gather['ms']:.4f} ms, plain "
+          f"{gather['plain_ms']:.4f} ms, index_select (yardstick only) "
+          f"{gather['library_ms']:.4f} ms, bound {gather['bound_ms']:.5f} ms "
+          f"(bytes); the same ids every call: kernel {gather['hot_ms']:.4f} "
+          f"ms, index_select {gather['hot_library_ms']:.4f} ms [{card}]")
+    scatter = {}
+    for tag, id_set in (("uniform", flat), ("zipf", zipf.reshape(-1))):
+        sidx, order = torch.sort(id_set, stable=True)
+        svals = grads[order]
+        first = torch.ones(n, dtype=torch.bool, device=table.device)
+        first[1:] = sidx[1:] != sidx[:-1]
+        seg = torch.cumsum(first, 0, dtype=torch.int32) - 1
+        sl = IndexedSlices(id_set, grads, (v, d))
+        m = dict(
+            ms=device_ms(lambda: embedding_scatter_add(svals, seg, n), 40),
+            plain_ms=device_ms(lambda: embedding_scatter_add_plain(
+                svals, seg, n), 40),
+            library_ms=device_ms(lambda: torch.zeros(
+                n, d, device=table.device).index_add_(0, seg, svals), 40),
+            bound_ms=scatter_bound(svals, seg, n), bound_by="bytes",
+            deduplicate_ms=device_ms(sl.deduplicate, 20),
+            longest_run=int(torch.bincount(seg).max()), max_abs_err=0.0)
+        m["split"] = _scatter_split(card, {f"deduplicate ({tag} ids)":
+                                           (svals, seg, n)}, "train_ctr")
+        scatter[tag] = m
+        print(f"[train_ctr] deduplicate's scatter-add ({tag} ids, {n} rows "
+              f"of {d} f32, longest run {m['longest_run']}): kernel "
+              f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, index_add_ "
+              f"(yardstick only) {m['library_ms']:.4f} ms, bound "
+              f"{m['bound_ms']:.5f} ms (bytes); the whole deduplicate "
+              f"{m['deduplicate_ms']:.4f} ms [{card}]")
+    return gather, scatter
+
+
+def phase_train_ctr(card, seed, device="cuda"):
+    """Device-resident Wide & Deep at bench_ctr's widths (a [33M, 16] f32
+    table on the card, B 2048, SGD): the kernel path against the plain path
+    on a uniform and a Zipf batch, 10 sparse steps on one batch, the masked
+    step over BucketedLoader's buckets, the kernels at the step's shapes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hetu_tpu_torch.data.bucketing import BucketedLoader
+    from hetu_tpu_torch.models import WideDeepDevice
+    from hetu_tpu_torch.ops.cuda_kernels import (
+        embedding_gather, embedding_scatter_add,
+    )
+    from hetu_tpu_torch.optim import SGDOptimizer
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = WideDeepDevice(CTR_V, CTR_F, CTR_DIM, CTR_DENSE, CTR_HIDDEN,
+                           emb_impl="auto", generator=gen, device=device)
+    g = np.random.default_rng(seed)
+    batch = tuple(torch.tensor(a, device=device)
+                  for a in ctr_batch(g, CTR_B, CTR_V))
+    zipf = torch.tensor(zipf_ids(g, (CTR_B, CTR_F), CTR_V), device=device)
+    _sync(device)
+    table_gb = model.emb.weight.numel() * 4 / 1e9
+    print(f"[train_ctr] WideDeepDevice V={CTR_V} fields={CTR_F} "
+          f"dim={CTR_DIM} dense={CTR_DENSE} hidden={CTR_HIDDEN} f32, table "
+          f"{table_gb:.3f} GB drawn on the {device}, B={CTR_B}, "
+          f"SGD({CTR_LR:g}): built in {time.perf_counter() - t0:.1f} s")
+
+    gates = {"uniform": _ctr_kernel_vs_plain(model, batch, "uniform ids",
+                                             gen),
+             "zipf": _ctr_kernel_vs_plain(model, (batch[0], zipf, batch[2]),
+                                          f"Zipf a={CTR_ZIPF_A} ids", gen)}
+
+    step = model.sparse_step_fn(SGDOptimizer(CTR_LR))
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    embedding_gather.launches = embedding_scatter_add.launches = 0
+    losses, times = [], []
+    for _ in range(CTR_STEPS):
+        _sync(device)
+        t1 = time.perf_counter()
+        loss, _ = step(*batch)
+        losses.append(float(loss))
+        _sync(device)
+        times.append(time.perf_counter() - t1)
+    launches = [embedding_gather.launches, embedding_scatter_add.launches]
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    print(f"[train_ctr] losses: {' '.join(f'{x:.5f}' for x in losses)}")
+    check(all(np.isfinite(losses)), "a CTR training loss is not finite")
+    check(losses[-1] < losses[0], "the CTR loss did not fall")
+    print(f"[train_ctr] launches in {CTR_STEPS} steps: embedding_gather "
+          f"{launches[0]}, embedding_scatter_add {launches[1]} (expected "
+          f"{CTR_STEPS} each)")
+    check(launches == [CTR_STEPS, CTR_STEPS], "the CTR step did not launch "
+                                              "1 gather and 1 scatter-add")
+    limit = model.emb.weight.numel() * 4 + 1e9
+    print(f"[train_ctr] peak allocated over the timed steps "
+          f"{peak / 1e9:.3f} GB (table {table_gb:.3f} GB; limit "
+          f"{limit / 1e9:.3f} GB) [{card}]")
+    check(peak < limit, "the CTR step allocated a table-sized tensor")
+    med, lo, hi = _step_stats(times)
+    row_bytes, mlp_flops, roof_s = ctr_roofline(CTR_B)
+    print(f"[train_ctr] step median {med:.3f} ms (steps 2-{CTR_STEPS}: "
+          f"{lo:.3f}-{hi:.3f} ms; first {times[0] * 1e3:.3f} ms), "
+          f"{CTR_B / med * 1e3:.1f} samples/s; bench_ctr's roofline "
+          f"({row_bytes / 1e6:.2f} MB of rows at 3.35 TB/s + "
+          f"{mlp_flops / 1e9:.3f} GFLOP at 989 TFLOP/s = "
+          f"{roof_s * 1e3:.5f} ms, {CTR_B / roof_s:.4g} samples/s): "
+          f"{100 * roof_s * 1e3 / med:.3f} % reached [{card}]")
+
+    masked = model.masked_step_fn(SGDOptimizer(CTR_LR))
+    loader = BucketedLoader((ctr_batch(g, n, CTR_V)
+                             for n in CTR_MASKED_SIZES), CTR_B)
+    embedding_gather.launches = embedding_scatter_add.launches = 0
+    masked_losses, buckets = [], []
+    for dx, ids, y, n_valid in loader:
+        loss, _ = masked(dx, ids, y, n_valid)
+        masked_losses.append(float(loss))
+        buckets.append((n_valid, dx.shape[0]))
+    masked_launches = (embedding_gather.launches,
+                       embedding_scatter_add.launches)
+    print(f"[train_ctr] masked steps (n_valid, bucket) {buckets}: losses "
+          f"{' '.join(f'{x:.5f}' for x in masked_losses)}; launches "
+          f"{masked_launches}")
+    check(all(np.isfinite(masked_losses)), "a masked CTR loss is not finite")
+    check(masked_launches == (len(buckets),) * 2,
+          "the masked CTR step did not launch 1 gather and 1 scatter-add")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss, _ = step(*batch)
+        float(loss)
+        _sync(device)
+    busy = _profile_table(prof, "train_ctr step", card, med * 1e3)
+
+    opt = _recording_sgd(CTR_LR)
+    model.sparse_step_fn(opt)(*batch)
+    gather, scatter = _ctr_kernel_timings(
+        card, model.emb.weight.detach(), opt.slices.values,
+        batch[1], zipf, gen)
+    return dict(launches=launches, step_ms=med, step_spread_ms=(lo, hi),
+                samples_per_s=CTR_B / med * 1e3, peak_gb=peak / 1e9,
+                busy_share=busy, losses=losses, gates=gates,
+                roofline_share=roof_s * 1e3 / med, gather=gather,
+                scatter=scatter)
+
+
+def synthetic_ctr(n, fields, dense, vocab, seed):
+    """examples/ctr_wdl.py's Criteo-shaped synthetic clickstream: clicks
+    correlate with a few hidden field weights and the dense features."""
+    g = np.random.default_rng(seed)
+    sparse = g.integers(0, vocab, (n, fields)).astype(np.int64)
+    dense_x = g.standard_normal((n, dense)).astype(np.float32)
+    w_hidden = g.standard_normal(fields)
+    logit = (sparse % 7 - 3) @ w_hidden * 0.2 + dense_x[:, :3].sum(-1) * 0.5
+    y = (logit + g.standard_normal(n) > 0).astype(np.float32)
+    return sparse, dense_x, y
+
+
+def phase_ps_ctr(card, seed, device="cuda"):
+    """Wide & Deep on PSEmbedding rows through examples/ctr_wdl.py's
+    pipeline (prefetch, pull, step, push) at B 2048: once on bench_ctr's
+    PS leg (1M rows, sgd, no cache), once behind the HET cache (adagrad,
+    lfuopt, 131072 rows)."""
+    from hetu_tpu_torch.models import WideDeep
+    from hetu_tpu_torch.optim import AdamOptimizer
+    from hetu_tpu_torch.ps import PSEmbedding
+
+    sparse, dense_x, y = synthetic_ctr(CTR_B * 64, CTR_F, CTR_DENSE,
+                                       CTR_PS_V, seed)
+    n = sparse.shape[0]
+
+    def batch_at(it):
+        lo = (it * CTR_B) % (n - CTR_B)
+        return sparse[lo:lo + CTR_B], dense_x[lo:lo + CTR_B], \
+            y[lo:lo + CTR_B]
+
+    runs = {"no cache": dict(optimizer="sgd", lr=0.01),
+            "HET cache": dict(optimizer="adagrad", lr=0.05,
+                              cache_capacity=CTR_PS_CACHE,
+                              cache_policy="lfuopt", pull_bound=0)}
+    out = {}
+    for name, kw in runs.items():
+        t0 = time.perf_counter()
+        emb = PSEmbedding(CTR_PS_V, CTR_DIM, seed=seed,
+                          pin_memory=device == "cuda", **kw)
+        model = WideDeep(CTR_F, CTR_DIM, CTR_DENSE, CTR_HIDDEN,
+                         generator=torch.Generator(device=device).manual_seed(
+                             seed), device=device)
+        step = model.hybrid_step_fn(AdamOptimizer(CTR_PS_LR))
+        built = time.perf_counter() - t0
+        losses, pulls, steps, pushes = [], [], [], []
+        emb.prefetch(batch_at(0)[0])
+        for it in range(CTR_PS_STEPS):
+            ids, dx, yy = batch_at(it)
+            t1 = time.perf_counter()
+            rows = emb.pull_prefetched()
+            t2 = time.perf_counter()
+            loss, _, g_rows = step(dx, rows, yy)
+            losses.append(float(loss))
+            t3 = time.perf_counter()
+            emb.push(ids, g_rows)
+            t4 = time.perf_counter()
+            if it + 1 < CTR_PS_STEPS:
+                emb.prefetch(batch_at(it + 1)[0])
+            pulls.append(t2 - t1)
+            steps.append(t3 - t2)
+            pushes.append(t4 - t3)
+        emb.flush()
+        t5 = time.perf_counter()
+        emb.pull(batch_at(0)[0])
+        raw_pull = time.perf_counter() - t5
+        hit = emb.cache.hit_rate if emb.cache is not None else None
+        emb.close()
+        ms = {k: statistics.median(v[1:]) * 1e3 for k, v in
+              (("pull", pulls), ("step", steps), ("push", pushes))}
+        total = ms["pull"] + ms["step"] + ms["push"]
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        cache = f", cache {CTR_PS_CACHE} lfuopt" if hit is not None else ""
+        print(f"[ps_ctr] {name}: PSEmbedding({CTR_PS_V}, {CTR_DIM}, "
+              f"{kw['optimizer']}, lr {kw['lr']:g}{cache}) + WideDeep hidden {CTR_HIDDEN} Adam({CTR_PS_LR:g}), B "
+              f"{CTR_B}, built in {built:.1f} s; losses "
+              f"{' '.join(f'{x:.4f}' for x in losses)}")
+        print(f"[ps_ctr] {name}: medians of steps 2-{CTR_PS_STEPS}: pull "
+              f"(waited on the prefetch) {ms['pull']:.3f} ms, step (copy in, "
+              f"forward, backward, Adam) {ms['step']:.3f} ms, push "
+              f"{ms['push']:.3f} ms; {CTR_B / total * 1e3:.1f} samples/s; a "
+              f"pull not overlapped {raw_pull * 1e3:.3f} ms"
+              f"{'; hit rate %.4f' % hit if hit is not None else ''} "
+              f"[{card}]")
+        check(all(np.isfinite(losses)), f"a ps_ctr loss is not finite "
+                                        f"({name})")
+        check(last < first, f"the ps_ctr loss did not fall ({name}: mean of "
+                            f"the first five {first:.4f}, of the last five "
+                            f"{last:.4f})")
+        if hit is not None:
+            check(hit > 0, "the HET cache never hit")
+        out[name] = dict(ms, samples_per_s=CTR_B / total * 1e3,
+                         raw_pull_ms=raw_pull * 1e3, hit_rate=hit,
+                         losses=losses)
+    return out
+
+
 def _fwd_case(card, shape, causal, gen, runs, tag):
     """The forward kernel at ``shape`` (bf16, contiguous): held against
     its plain version with the row-scaled ``TOL_F``, then timed beside it,
@@ -2389,6 +2878,25 @@ def phase_kernel_shapes(card):
                  for k in ("dkdv", "dq")}
 
 
+def _ctr_entry(key, moe_launches, ctr):
+    """The CTR path's part of a kernel's entry in the kernels line: the
+    launches by path, and the times at the CTR step's shapes."""
+    if key == "gather":
+        shape = (f"ctr: table [{CTR_V}, {CTR_DIM}] f32, {CTR_B * CTR_F} ids "
+                 f"(cold rows, {CTR_GATHER_SETS} batches in turn)")
+        return {"launches_by_path": {"train_moe": moe_launches,
+                                     "ctr": ctr["launches"][0]},
+                "by_shape": {shape: ctr["gather"]}}
+    if key == "scatter":
+        return {"launches_by_path": {"train_moe": moe_launches,
+                                     "ctr": ctr["launches"][1]},
+                "by_shape": {
+                    f"ctr deduplicate: {CTR_B * CTR_F} rows of {CTR_DIM} f32 "
+                    f"-> {CTR_B * CTR_F} segments, sorted route ({tag} ids)":
+                        m for tag, m in ctr["scatter"].items()}}
+    return {}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2425,6 +2933,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     bert = phase_train_bert(card, args.seed)
     torch.cuda.empty_cache()
+    ctr = phase_train_ctr(card, args.seed)
+    torch.cuda.empty_cache()
+    phase_ps_ctr(card, args.seed)
     shapes_fwd, shapes_bwd = phase_kernel_shapes(card)
 
     shape = [TRAIN_B, NH, TRAIN_S, HEAD_DIM]
@@ -2470,7 +2981,8 @@ def main(argv=None) -> int:
                "library_ms")},
            "per": per, **{f: moe_kernels[key][f]
                           for f in ("by_call", "by_route", "by_shape")
-                          if f in moe_kernels[key]}}
+                          if f in moe_kernels[key]},
+           **_ctr_entry(key, moe["launches"][i], ctr)}
           for name, key, i, src_file, line, per in (
               ("topk_gating", "topk", 0, "topk_gating.cu", 175,
                f"one call, logits [{MOE_T}, {MOE_E}] f32, k {MOE_K}"),

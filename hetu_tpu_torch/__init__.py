@@ -12,13 +12,17 @@ paths and names mirror the reference so each counterpart is found at once:
     htt.layers.*      # nn.Modules: Linear, LayerNorm, MultiHeadAttention,
                       # TransformerBlock
     htt.models.*      # GPT, MoE transformer, Llama (lm_loss_fn for
-                      # training), BERT (pretrain_loss_fn)
-    htt.optim.*       # SGD ... AdamW, Lamb (dense path)
+                      # training), BERT (pretrain_loss_fn), the CTR models
+    htt.optim.*       # SGD ... AdamW, Lamb (dense and sparse paths)
     htt.lr.*          # step -> lr schedulers
     htt.train.*       # Executor, TrainState, checkpoint
     htt.interop       # hetu_tpu parameter / optimizer trees <-> state_dicts
     htt.serve.*       # ServeEngine, ContinuousBatchingScheduler, metrics
     htt.telemetry.*   # span tracer + typed metrics registry
+    htt.data.*        # bucketed padding of CTR batches
+    htt.utils.metrics # AUC, accuracy, F1 on host arrays
+    htt.ps.*          # the parameter server's in-process tier (C++, built
+                      # with g++ on first use) and PSEmbedding
 
 The package never imports ``jax`` or ``hetu_tpu``.  Entry points run on the
 card (``device="cuda"``) unless the caller asks for the CPU, where every
@@ -29,7 +33,7 @@ import lazily, so ``import hetu_tpu_torch`` stays cheap.
 from hetu_tpu_torch.version import __version__
 
 _LAZY = {"ops", "init", "rng", "layers", "models", "optim", "lr", "train",
-         "interop", "serve", "telemetry"}
+         "interop", "serve", "telemetry", "data", "utils", "ps"}
 
 
 def __getattr__(name):

@@ -16,7 +16,15 @@ each leaf — into a ``state_dict`` for the port's model of the same config
   model's ``layer<l>`` subtrees, ``layers.<l>.`` here;
 * the LM heads: GPT's and BERT's MLM head are tied to ``tok_emb`` in both
   packages, so no head key exists; Llama's untied ``lm_head [V, H]`` has
-  its own key in both.
+  its own key in both;
+* the CTR models (``WideDeep``, ``WideDeepDevice``, ``DeepFM``,
+  ``DeepCrossing``, ``DCN``), which have no config: the port's model
+  itself takes the config's place.  Their ``state_dict`` names are the
+  reference's tree paths joined by dots (``deep.0.weight`` is
+  ``["deep"]["0"]["weight"]``); a ``Linear``'s weight is transposed, every
+  other leaf (the embedding table, the residual units' ``w1``/``w2``, the
+  cross net's ``w``) is copied as it is.  Parameterless children (the
+  towers' ``Relu``s) are empty dicts in the reference's tree.
 
 :func:`opt_state_from_jax` and :func:`opt_state_to_jax` do the same for an
 optimizer state ``{"step", "slots": {"m": params-like, "v": ...}}``, whose
@@ -30,9 +38,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hetu_tpu_torch.layers.linear import Linear
 from hetu_tpu_torch.models.bert import BertConfig
+from hetu_tpu_torch.models.ctr_zoo import DCN, DeepCrossing, DeepFM
 from hetu_tpu_torch.models.llama import LlamaConfig
 from hetu_tpu_torch.models.moe_transformer import MoEConfig
+from hetu_tpu_torch.models.wdl import WideDeep, WideDeepDevice
 
 # (reference path under "blocks", port name under "blocks.<i>.", is a
 # matmul weight whose layout flips)
@@ -128,10 +139,49 @@ def _moe_to_jax(arr, config) -> dict:
     return p
 
 
+_CTR_MODELS = (WideDeep, WideDeepDevice, DeepFM, DeepCrossing, DCN)
+
+
+def _ctr_flips(model, name: str) -> bool:
+    """Whether ``state_dict`` entry ``name`` of a CTR model is a
+    ``Linear``'s weight (stored transposed in the reference)."""
+    owner, _, leaf = name.rpartition(".")
+    return leaf == "weight" and isinstance(model.get_submodule(owner), Linear)
+
+
+def _ctr_from_jax(p, model) -> dict:
+    out = {}
+    for name in model.state_dict():
+        w = p
+        for key in name.split("."):
+            w = w[key]
+        out[name] = _tensor(w, _ctr_flips(model, name))
+    return out
+
+
+def _ctr_to_jax(arr, model) -> dict:
+    p: dict = {}
+    for name, _ in model.named_modules():  # every child has a subtree
+        node = p
+        for key in name.split(".") if name else ():
+            node = node.setdefault(key, {})
+    for name in model.state_dict():
+        *path, leaf = name.split(".")
+        node = p
+        for key in path:
+            node = node[key]
+        w = arr(name)
+        node[leaf] = w.T if _ctr_flips(model, name) else w
+    return p
+
+
 def params_from_jax(tree, config) -> dict:
     """``hetu_tpu`` params (or ``{"params": ...}`` variables) → a float32
-    CPU ``state_dict`` for the port's model of ``config``."""
+    CPU ``state_dict`` for the port's model of ``config`` (for a CTR
+    model: the port's model itself)."""
     p = tree["params"] if "params" in tree else tree
+    if isinstance(config, _CTR_MODELS):
+        return _ctr_from_jax(p, config)
     if isinstance(config, MoEConfig):
         return _moe_from_jax(p, config)
     top, block = _layout(config)
@@ -151,11 +201,14 @@ def params_from_jax(tree, config) -> dict:
 
 
 def params_to_jax(state_dict, config) -> dict:
-    """A ``state_dict`` of the port's model of ``config`` → the ``hetu_tpu``
-    parameter tree as float32 numpy arrays (blocks stacked ``[L, ...]``)."""
+    """A ``state_dict`` of the port's model of ``config`` (for a CTR model:
+    the model itself) → the ``hetu_tpu`` parameter tree as float32 numpy
+    arrays (blocks stacked ``[L, ...]``)."""
     def arr(name):
         return state_dict[name].detach().float().cpu().numpy()
 
+    if isinstance(config, _CTR_MODELS):
+        return _ctr_to_jax(arr, config)
     if isinstance(config, MoEConfig):
         return _moe_to_jax(arr, config)
     top, block = _layout(config)

@@ -69,3 +69,22 @@ class Module(nn.Module):
                     else data.clone()
                 memo[id(p)] = nn.Parameter(data, requires_grad=False)
         return copy.deepcopy(self, memo)
+
+
+class Sequential(Module):
+    """A chain of modules, children named ``"0"``, ``"1"``, ... as the
+    reference's parameter tree keys them.  Each child is called on the
+    previous one's output alone: the ported layers a chain holds (Linear,
+    Relu) take no ``train`` or generator."""
+
+    def __init__(self, *modules: nn.Module):
+        super().__init__()
+        if len(modules) == 1 and isinstance(modules[0], (list, tuple)):
+            modules = tuple(modules[0])
+        for i, m in enumerate(modules):
+            self.add_module(str(i), m)
+
+    def forward(self, x):
+        for m in self.children():
+            x = m(x)
+        return x

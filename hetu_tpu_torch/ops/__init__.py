@@ -1,17 +1,21 @@
 """Functional ops on torch tensors (counterpart of ``hetu_tpu/ops``).
 
 What the ported slices run: GPT serving and training, MoE training, Llama
-serving and training, BERT pretraining.
+serving and training, BERT pretraining, CTR training.
 Hand-written CUDA kernels live in :mod:`hetu_tpu_torch.ops.cuda_kernels`.
 """
 
-from hetu_tpu_torch.ops.activations import gelu, silu
+from hetu_tpu_torch.ops.activations import gelu, relu, silu
 from hetu_tpu_torch.ops.attention import (
     attention, cache_update, causal_attention, decode_attention,
 )
 from hetu_tpu_torch.ops.dropout import dropout
-from hetu_tpu_torch.ops.embedding import embedding_lookup
+from hetu_tpu_torch.ops.embedding import (
+    IndexedSlices, assign_with_indexed_slices, embedding_lookup,
+    sparse_embedding_lookup, sum_sparse_gradient, take_grad_indexed,
+)
 from hetu_tpu_torch.ops.losses import (
+    binary_cross_entropy, binary_cross_entropy_with_logits,
     lm_head_cross_entropy, softmax_cross_entropy_sparse,
 )
 from hetu_tpu_torch.ops.matmul import linear
@@ -24,9 +28,12 @@ from hetu_tpu_torch.ops.norm import layer_norm, rms_norm
 from hetu_tpu_torch.ops.rope import apply_rope, apply_rope_at, rope_tables
 
 __all__ = [
-    "gelu", "silu", "attention", "causal_attention", "cache_update",
-    "decode_attention", "dropout", "embedding_lookup",
-    "lm_head_cross_entropy", "linear", "layer_norm", "rms_norm",
+    "gelu", "relu", "silu", "attention", "causal_attention", "cache_update",
+    "decode_attention", "dropout", "embedding_lookup", "IndexedSlices",
+    "sparse_embedding_lookup", "take_grad_indexed", "sum_sparse_gradient",
+    "assign_with_indexed_slices", "binary_cross_entropy",
+    "binary_cross_entropy_with_logits", "lm_head_cross_entropy", "linear",
+    "layer_norm", "rms_norm",
     "rope_tables", "apply_rope", "apply_rope_at",
     "softmax_cross_entropy_sparse", "gather_combine", "gather_dispatch",
     "layout_transform", "make_dispatch_combine", "make_slot_routes",

@@ -16,6 +16,8 @@ ctypes.
 
 Every wrapper computes its plain version for CPU tensors and launches its
 kernel for CUDA tensors — there is no fallback from one to the other.
+The kernels take int32 ids; an int64 id outside int32's range raises
+rather than wrap onto another row.
 Each kernel's wrapper counts its launches (``embedding_gather.launches``,
 ``embedding_scatter_add.launches``, ``topk_gating.launches``).  The
 functions are the TPU kernels':
@@ -42,7 +44,7 @@ import ctypes
 import torch
 
 from hetu_tpu_torch.ops.cuda_kernels import build
-from hetu_tpu_torch.ops.embedding import embedding_lookup
+from hetu_tpu_torch.ops.embedding import embedding_lookup, int32_ids
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _EMBEDDING = "embedding"
@@ -222,10 +224,11 @@ def embedding_gather(table, ids):
     the kernel for CUDA tensors; ``embedding_gather.launches`` counts
     kernel launches."""
     _check_rows("embedding_gather", table, ids)
+    ids = int32_ids(ids, "embedding_gather")
     if table.device.type == "cpu":
         return embedding_gather_plain(table, ids)
     table = table.contiguous()
-    ids = ids.to(torch.int32).contiguous()
+    ids = ids.contiguous()
     out = torch.empty(ids.shape[0], table.shape[1], dtype=table.dtype,
                       device=table.device)
     if out.numel() == 0:
@@ -245,7 +248,8 @@ def scatter_segments(ids, num_rows: int):
     ``perm[offsets[r]:offsets[r + 1]]`` (``offsets`` [num_rows + 1] int32).
     Invalid ids fall outside every segment: negatives sort before
     ``offsets[0]``, ids >= num_rows after ``offsets[num_rows]``."""
-    sids, perm = torch.sort(ids.to(torch.int32), stable=True)
+    sids, perm = torch.sort(int32_ids(ids, "embedding_scatter_add"),
+                            stable=True)
     bounds = torch.arange(num_rows + 1, dtype=torch.int32, device=ids.device)
     offsets = torch.searchsorted(sids, bounds, out_int32=True)
     return perm.to(torch.int32), offsets
@@ -265,6 +269,7 @@ def embedding_scatter_add(grads, ids, num_rows: int, *, inverse=None):
                          f"rows for {ids.shape[0]} ids")
     if inverse is not None:
         _check_inverse("embedding_scatter_add", inverse, num_rows, grads)
+    ids = int32_ids(ids, "embedding_scatter_add")
     if grads.device.type == "cpu":
         if inverse is not None:
             return embedding_scatter_add_inverse_plain(grads, inverse)
@@ -275,8 +280,8 @@ def embedding_scatter_add(grads, ids, num_rows: int, *, inverse=None):
     if out.numel() == 0:
         return out
     if inverse is not None:
-        return _scatter_inverse(grads, inverse.to(torch.int32).contiguous(),
-                                out)
+        inverse = int32_ids(inverse, "embedding_scatter_add").contiguous()
+        return _scatter_inverse(grads, inverse, out)
     perm, offsets = scatter_segments(ids, num_rows)
     return _scatter_sorted(grads, perm, offsets, out)
 

@@ -1,5 +1,5 @@
-"""Losses (counterpart of ``hetu_tpu/ops/losses.py``): what the GPT
-training step runs.
+"""Losses (counterpart of ``hetu_tpu/ops/losses.py``): what the GPT and
+CTR training steps run.
 
 Per-row losses unless reduced, with the reduction in float32 whatever the
 logits' type, as in the reference.
@@ -9,6 +9,24 @@ from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+
+def binary_cross_entropy(pred, label, eps: float = 1e-12):
+    """``-(y log p + (1 - y) log(1 - p))`` per element, ``p`` clipped into
+    ``[eps, 1 - eps]``."""
+    pred = pred.clamp(eps, 1 - eps)
+    return -(label * torch.log(pred) + (1 - label) * torch.log(1 - pred))
+
+
+def binary_cross_entropy_with_logits(logits, label):
+    """Per-element BCE on logits by the reference's formula,
+    ``max(x, 0) - x y + log1p(exp(-|x|))``, which rounds differently from
+    ``F.binary_cross_entropy_with_logits``.  At x = 0 the derivatives are
+    the reference's: 1/2 for the tie of ``max`` (``torch.maximum``), 1 for
+    ``|x|`` (``torch.abs``'s is 0)."""
+    abs_x = torch.where(logits >= 0, logits, -logits)
+    return torch.maximum(logits, logits.new_zeros(())) - logits * label \
+        + torch.log1p(torch.exp(-abs_x))
 
 
 def softmax_cross_entropy_sparse(logits, label, ignored_index: int = -1):

@@ -11,7 +11,12 @@ the reference's formulas in its order of float32 operations.
 Step-dependent scalars (the learning rate of a schedule, Adam's bias
 corrections) are computed in float32, as the reference traces them, and
 enter the elementwise kernels as Python floats holding those float32
-values.  The sparse ``apply_indexed`` path waits for the embedding slice.
+values.
+
+A gradient given as :class:`~hetu_tpu_torch.ops.embedding.IndexedSlices`
+takes the sparse path, :meth:`Optimizer.apply_indexed`, for every
+optimizer: only the rows it names change, in place, and no ``[V, D]``
+tensor is built.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from __future__ import annotations
 from typing import Callable, Union
 
 import torch
+
+from hetu_tpu_torch.ops.embedding import IndexedSlices
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -55,6 +62,9 @@ class Optimizer:
         for name, p in params.items():
             g = grads[name]
             s_in = tuple(slots[n][name] for n in self.slot_names)
+            if isinstance(g, IndexedSlices):
+                self.apply_indexed(p, g, s_in, lr, step)
+                continue
             if self.l2reg > 0.0:
                 g = g + self.l2reg * p
             p_new, s_out = self.apply_dense(p, g, s_in, lr, step)
@@ -66,6 +76,30 @@ class Optimizer:
     def apply_dense(self, p, g, slots, lr, step):
         """One leaf: ``(new_p, new_slots)``."""
         raise NotImplementedError
+
+    def apply_indexed(self, p, slices: IndexedSlices, slots, lr, step):
+        """The sparse update of ``p`` and its ``slots``, in place, by the
+        reference's rule: deduplicate the slices; gather the named rows and
+        their slot rows; add ``l2reg`` times the rows to the gradient; run
+        :meth:`apply_dense` on the rows; then ADD ``p_new - p`` back onto
+        each row, and ``new - old`` onto each slot row (``p + (p_new - p)``
+        is not always ``p_new`` in floating point, and the reference adds).
+        A slot whose index is < 0 or >= V touches nothing: it adds -0.0,
+        which leaves every value's bits as they are."""
+        sl = slices.deduplicate()
+        idx = sl.indices.long()
+        valid = ((idx >= 0) & (idx < p.shape[0]))[:, None]
+        safe = torch.where(valid[:, 0], idx, 0)
+        g_rows = torch.where(valid, sl.values, 0)
+        p_rows = p[safe]
+        s_rows = tuple(s[safe] for s in slots)
+        if self.l2reg > 0.0:
+            g_rows = g_rows + self.l2reg * p_rows
+        p_new, s_new = self.apply_dense(p_rows, g_rows, s_rows, lr, step)
+        p.index_add_(0, safe, torch.where(valid, p_new - p_rows,
+                                          -0.0).to(p.dtype))
+        for s, ns, os in zip(slots, s_new, s_rows):
+            s.index_add_(0, safe, torch.where(valid, ns - os, -0.0))
 
 
 class SGDOptimizer(Optimizer):

@@ -469,3 +469,120 @@ def test_forward_gate_refuses_a_wrong_last_tile(llama_forward):
     assert bool((diff <= chip_smoke.TOL_O[bf]
                  + chip_smoke.RTOL_O[bf] * o.float().abs()).all())
     assert chip_smoke.grad_tolerance_share(bad, o, chip_smoke.TOL_F) > 1.0
+
+
+# ------------------------------------------------- the CTR phases' helpers
+# train_ctr runs here at a tiny size up to its first launch-count check
+# (the kernel-vs-plain gate on the uniform batch, which has passed by
+# then); ps_ctr launches no kernel of the port and runs to its end.
+
+TINY_CTR = dict(CTR_V=20000, CTR_B=128, CTR_HIDDEN=(16, 16),
+                CTR_UNTOUCHED_SAMPLE=500, CTR_MASKED_SIZES=(128, 37))
+
+
+def test_ctr_phase_rehearses_up_to_its_launch_count(monkeypatch, capsys):
+    for name, value in TINY_CTR.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match=r"did not launch 1 gather and 1 scatter-add "
+                             r"\(uniform ids"):
+        chip_smoke.phase_train_ctr("cpu", 0, device="cpu")
+    out = capsys.readouterr().out
+    assert "kernel path vs plain path, one step (uniform ids" in out
+    assert "(bitwise); dense parameters bitwise" in out
+    assert "500 untouched rows unchanged" in out
+
+
+def test_ps_ctr_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """At the phase's batch and widths, on a table of 20000 rows."""
+    monkeypatch.setattr(chip_smoke, "CTR_PS_V", 20000)
+    monkeypatch.setattr(chip_smoke, "CTR_PS_CACHE", 4096)
+    out = chip_smoke.phase_ps_ctr("cpu", 0, device="cpu")
+    assert set(out) == {"no cache", "HET cache"}
+    assert out["no cache"]["hit_rate"] is None
+    assert out["HET cache"]["hit_rate"] > 0
+    for run in out.values():
+        assert len(run["losses"]) == chip_smoke.CTR_PS_STEPS
+        assert run["samples_per_s"] > 0
+    assert "hit rate" in capsys.readouterr().out
+
+
+def test_ctr_batches_are_drawn_as_bench_ctr_and_the_example_draw_them():
+    g, ref = np.random.default_rng(3), np.random.default_rng(3)
+    dx, ids, y = chip_smoke.ctr_batch(g, 64, 1000)
+    np.testing.assert_array_equal(ids, ref.integers(0, 1000, (64, 26)))
+    np.testing.assert_array_equal(dx, ref.standard_normal((64, 13)).astype(
+        np.float32))
+    np.testing.assert_array_equal(y, ref.integers(0, 2, 64))
+    assert ids.dtype == np.int32 and dx.dtype == y.dtype == np.float32
+    spec = importlib.util.spec_from_file_location(
+        "ctr_wdl", Path(__file__).resolve().parents[1] / "examples"
+        / "ctr_wdl.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    for got, want in zip(chip_smoke.synthetic_ctr(300, 26, 13, 5000, 4),
+                         example.synthetic_ctr(300, 26, 13, 5000, 4)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_zipf_ids_are_skewed_and_in_range():
+    """At the CTR vocabulary: id 0 takes about 1/zeta(1.2) = 18 % of the
+    draws, and the clipped tail lands on the last row."""
+    v = chip_smoke.CTR_V
+    ids = chip_smoke.zipf_ids(np.random.default_rng(0), (2048, 26), v)
+    assert ids.dtype == np.int32 and ids.min() == 0 and ids.max() == v - 1
+    uniq, counts = np.unique(ids, return_counts=True)
+    assert uniq[counts.argmax()] == 0 and counts.max() > 0.15 * ids.size
+    assert counts[1] > counts[2] > counts[3]
+    assert uniq.size < 0.2 * ids.size  # long duplicate runs
+
+
+def test_ctr_roofline_is_bench_ctrs_formula():
+    row_bytes, flops, seconds = chip_smoke.ctr_roofline(2048)
+    assert row_bytes == 3 * 2048 * 26 * 16 * 4
+    assert flops == 2 * 2048 * (429 * 256 + 256 * 256 + 256) * 3
+    assert seconds == pytest.approx(row_bytes / 3.35e12 + flops / 989e12)
+
+
+def _sgd_rows(grads, ids, touched, rows, lr, order):
+    """One SGD step's touched rows, each row's gradients summed in f32 in
+    ``order`` (positions), as p + ((p - lr g) - p)."""
+    pos = torch.searchsorted(touched, ids)
+    g = torch.zeros(touched.numel(), grads.shape[1])
+    for i in order:
+        g[pos[i]] += grads[i]
+    return rows + ((rows - lr * g) - rows)
+
+
+def test_sgd_row_tolerance_passes_a_reordered_sum_and_refuses_a_lost_one():
+    """The kernel-vs-plain gate on the touched rows: rows of at most two
+    sources must match bitwise; a row of many sources summed in another
+    order passes; a dropped duplicate does not."""
+    g = np.random.default_rng(5)
+    ids = torch.tensor(np.concatenate([np.full(200, 7), [3, 3, 11],
+                                       g.integers(20, 60, 40)]),
+                       dtype=torch.int32)
+    grads = torch.tensor(g.standard_normal((ids.numel(), 16)),
+                         dtype=torch.float32)
+    touched = torch.unique(ids)
+    rows = torch.tensor(g.standard_normal((touched.numel(), 16)) * 0.01,
+                        dtype=torch.float32)
+    lr = 0.01
+    n = ids.numel()
+    ref = _sgd_rows(grads, ids, touched, rows, lr, range(n))
+    tol = chip_smoke.sgd_row_tolerance(grads, ids, touched, rows, lr)
+    assert tol.shape == rows.shape and tol.dtype == torch.float64
+    runs = torch.bincount(torch.searchsorted(touched, ids))
+    assert (tol[runs <= 2] == 0).all() and (tol[runs > 2] > 0).all()
+    assert chip_smoke.tolerance_share(ref.clone(), ref, tol) == 0.0
+    backwards = _sgd_rows(grads, ids, touched, rows, lr, reversed(range(n)))
+    assert not torch.equal(backwards, ref)  # the long run rounds otherwise
+    assert 0.0 < chip_smoke.tolerance_share(backwards, ref, tol) <= 1.0
+    lost = _sgd_rows(grads, ids, touched, rows, lr, range(1, n))
+    assert chip_smoke.tolerance_share(lost, ref, tol) > 1.0
+    # a row of two sources in the other order is still bitwise
+    pair = [i for i in range(n) if int(ids[i]) == 3]
+    swapped = list(range(n))
+    swapped[pair[0]], swapped[pair[1]] = pair[1], pair[0]
+    assert chip_smoke.tolerance_share(
+        _sgd_rows(grads, ids, touched, rows, lr, swapped), ref, tol) == 0.0
