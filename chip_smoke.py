@@ -59,18 +59,29 @@ without the final result line:
    tokens, 8-64 generated); 32 flash forwards a prefill; the kernel path's
    last-position prefill logits against the plain path's on the same
    weights; a profiled prefill and decode step.
-9. train_llama — Llama-2-7B's widths at 4 layers (cut from 32), bf16,
+9. paged_serve — ``PagedServeEngine`` (16-token pages, 64-token chunks)
+   under the scheduler against the slot engine: (a) GPT-2-small in f32,
+   the slice phase's burst; (b) Llama-2-7B in bf16, llama_serve's burst
+   on llama_serve's serving copy against its plain path, and the chunked
+   prefill's last logits (chunks of 64 and 256) against the one-pass
+   prefill's; (c) a 384-token system prompt before 16 distinct turns,
+   prefix sharing on against off (16 hits of 384 tokens, a lower peak of
+   pages).  Every request's tokens held to the near-tie rule
+   (``near_tie_divergence``), no flash launch, every page freed once a
+   burst drains; TTFT, decode, chunk times, pages, hits, COW copies and
+   a profiled paged prefill and decode step.
+10. train_llama — Llama-2-7B's widths at 4 layers (cut from 32), bf16,
    flash, recomputation, fused CE, AdamW, B 4 x S 4096: the kernel-vs-plain
    gate, then 10 Executor steps (2·L forwards and L of each backward kernel
    a step), step time, tokens/s, MFU, peak memory, one profiled step.
-10. train_bert — BERT-base (BASELINE.json's config #3), bf16, flash,
+11. train_bert — BERT-base (BASELINE.json's config #3), bf16, flash,
    dropout 0.1, B 16 x S 512 from ``examples/bert_pretrain.py``'s
    synthetic stream, no attention mask (the non-causal kernels): a masked
    forward takes the plain path and launches no kernel; the kernel-vs-plain
    gate with both paths drawing dropout from the same generators; 10
    Executor steps (L of each kernel a step), step time, samples/s, MFU,
    peak memory, one profiled step.
-11. train_ctr — device-resident Wide & Deep at ``bench.py`` bench_ctr's
+12. train_ctr — device-resident Wide & Deep at ``bench.py`` bench_ctr's
    widths, uncut (a [33 000 000, 16] f32 table drawn on the card, 26
    sparse and 13 dense fields, hidden (256, 256), B 2048, SGD(0.01)): the
    kernel path against the plain path (``emb_impl="xla"`` and the
@@ -84,12 +95,12 @@ without the final result line:
    gather (cold rows) and the deduplicate sum at the step's shapes against
    their plain versions, timed beside them, ``index_select`` /
    ``index_add_`` and the bound.
-12. ps_ctr — ``WideDeep`` (Adam) on 1M-row ``PSEmbedding`` rows through
+13. ps_ctr — ``WideDeep`` (Adam) on 1M-row ``PSEmbedding`` rows through
    ``examples/ctr_wdl.py``'s pipeline (prefetch, pull, step, push), B 2048,
    20 steps: bench_ctr's PS leg (sgd, no cache), then an adagrad table
    behind the HET cache (131072 rows, lfuopt); falling loss, a hit rate
    above 0; pull, step and push times and samples/s.
-13. kernel_shapes — the three flash kernels at the new paths' shapes:
+14. kernel_shapes — the three flash kernels at the new paths' shapes:
    (1, 32, S, 128) causal for S = 128, 512 and 1024 (the forward), (4, 32,
    4096, 128) causal and (16, 12, 512, 64) non-causal (forward and
    backward), each held against its plain version, timed beside it, SDPA
@@ -120,9 +131,11 @@ import time
 import numpy as np
 import torch
 
-# GPT-2-small at the serving bench's widths (bench.py bench_serve)
+# GPT-2-small at the serving bench's widths (bench.py bench_serve); the
+# serving burst's prompt lengths and generation counts
 V, H, L, NH, FFN, MAX_LEN, SLOTS, N_REQUESTS = (
     50304, 768, 12, 12, 3072, 512, 8, 16)
+GPT_PROMPT, GPT_GEN = (4, 128), (8, 64)
 HEAD_DIM = H // NH
 
 # kernel-vs-plain tolerances on the card.  bf16: the kernel rounds the
@@ -225,6 +238,18 @@ LLAMA_FWD_S = (128, 512, 1024)  # the forward timed at (1, 32, S, 128)
 # 2.2e-2 of the residual stream, which the final RMSNorm and the head
 # carry into the logits.  5e-2 leaves a margin of two over that estimate.
 TOL_LLAMA_LOGITS = 5e-2
+# paged serving: the pool's page of 16 tokens, the default chunk (4 pages).
+# The near-tie rule's bound for f32 GPT-2-small: f32's unit roundoff 2^-24,
+# times sqrt(768) products in each sum, times 12 layers (about 2e-5), with
+# a margin of five; it is also TOL_O[float32].  bf16 Llama-2-7B is held to
+# TOL_LLAMA_LOGITS.  The shared system prompt: 384 tokens (24 whole
+# pages), a distinct user turn of 16-128 tokens for each of 16 requests,
+# 8-64 generated each.  The chunked prefill is held at the model level at
+# these prompt lengths and chunk sizes.
+PAGE_SIZE = 16
+TOL_F32_LOGITS = 1e-4
+SYS_PROMPT, SYS_SUFFIX, SYS_GEN, SYS_REQUESTS = 384, (16, 128), (8, 64), 16
+CHUNK_CHECK_PROMPTS, CHUNK_CHECK_SIZES = (7, 100, 300, 512), (64, 256)
 # training: Llama-2-7B's widths, depth cut to 4 layers (f32 weights,
 # gradients and AdamW's two slots: 17 GB; at 32 layers 108 GB), at the
 # config's max_position and bench_gpt's 16384 tokens a step
@@ -719,6 +744,18 @@ def jax_layout_weights(seed: int, max_position: int = MAX_LEN) -> dict:
     }
 
 
+def burst(g, vocab, n, prompt_len, gen):
+    """``n`` requests' (prompt, max_tokens), drawn from ``g``: a prompt
+    length in the inclusive range ``prompt_len``, that many tokens of
+    ``vocab``, then a generation count in the inclusive range ``gen``."""
+    out = []
+    for _ in range(n):
+        prompt = [int(t) for t in g.integers(
+            0, vocab, int(g.integers(prompt_len[0], prompt_len[1] + 1)))]
+        out.append((prompt, int(g.integers(gen[0], gen[1] + 1))))
+    return out
+
+
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -758,9 +795,8 @@ def phase_slice(card, seed, device="cuda"):
         [Request(prompt=[1] * n, max_tokens=2) for n in (10, 20, 40, 100)])
 
     g = np.random.default_rng(seed)
-    requests = [Request(
-        prompt=[int(t) for t in g.integers(0, V, int(g.integers(4, 129)))],
-        max_tokens=int(g.integers(8, 65))) for _ in range(N_REQUESTS)]
+    requests = [Request(prompt=p, max_tokens=m) for p, m in burst(
+        g, V, N_REQUESTS, GPT_PROMPT, GPT_GEN)]
     metrics = ServeMetrics()
     sched = ContinuousBatchingScheduler(engine, metrics=metrics)
     tracer = trace.enable()
@@ -1952,12 +1988,8 @@ def phase_llama_serve(card, seed, device="cuda"):
          for n in (10, 20, 40, 100, 200, 400)])
 
     g = np.random.default_rng(seed + 3)
-    requests = [Request(
-        prompt=[int(t) for t in g.integers(
-            0, LLAMA_V, int(g.integers(LLAMA_PROMPT[0],
-                                       LLAMA_PROMPT[1] + 1)))],
-        max_tokens=int(g.integers(LLAMA_GEN[0], LLAMA_GEN[1] + 1)))
-        for _ in range(LLAMA_REQUESTS)]
+    requests = [Request(prompt=p, max_tokens=m) for p, m in burst(
+        g, LLAMA_V, LLAMA_REQUESTS, LLAMA_PROMPT, LLAMA_GEN)]
     metrics = ServeMetrics()
     sched = ContinuousBatchingScheduler(engine, metrics=metrics)
     tracer = trace.enable()
@@ -2039,7 +2071,378 @@ def phase_llama_serve(card, seed, device="cuda"):
     return dict(launches=launches, ttft_p50_ms=snap["ttft_p50_s"] * 1e3,
                 ttft_p90_ms=snap["ttft_p90_s"] * 1e3, decode_ms=step_ms,
                 tokens_per_s=n_tok / wall, logits_share=worst,
-                peak_gib=_peak_gib(device))
+                peak_gib=_peak_gib(device)), engine
+
+
+# ------------------------------------------------------------ paged serving
+
+def near_tie_divergence(ref, got, logits_after, tau):
+    """The near-tie rule for the two greedy streams of one request: ``ref``
+    the reference path's tokens (the slot engine's, or a paged engine's
+    without prefix sharing), ``got`` those of the path under test.
+
+    While the tokens agree, go on.  At the first position ``i`` where
+    ``ref`` chose s and ``got`` chose p, the plain path's logits z after
+    the prompt and the agreed tokens (``logits_after(ref[:i])``, 1-D) must
+    give z[s] - z[p] <= 4 tau M, M = max|z|: each engine's logits lie
+    within tau M of the plain ones, so s won on one path and p on the
+    other only if the slot path's gap is at most 2 tau M, and the
+    recomputed z adds tau M at each of its two entries.  Later tokens are
+    not compared (the histories differ).  Returns None for streams equal
+    to the end, else ``(i, s, p, (z[s] - z[p]) / M)``; raises past the
+    bound."""
+    check(len(ref) == len(got),
+          f"streams of {len(ref)} and {len(got)} tokens")
+    for i, (s, p) in enumerate(zip(ref, got)):
+        if s == p:
+            continue
+        z = torch.as_tensor(logits_after(list(ref[:i]))).double()
+        share = ((z[s] - z[p]) / z.abs().max()).item()
+        check(share <= 4 * tau,
+              f"token {i} differs ({s} -> {p}) away from a near tie: "
+              f"z[s] - z[p] = {share:.3e} of max|z|, above 4 tau = "
+              f"{4 * tau:g}")
+        return i, int(s), int(p), share
+    return None
+
+
+def shared_prompt_requests(seed, vocab):
+    """A chat service's traffic: one system prompt of ``SYS_PROMPT``
+    tokens, then a distinct user turn of ``SYS_SUFFIX`` tokens for each of
+    ``SYS_REQUESTS`` requests, ``SYS_GEN`` generated each.  Returns the
+    warm request (the system prompt and a turn of its own) and the
+    burst, as (prompt, max_tokens) pairs."""
+    g = np.random.default_rng(seed + 5)
+    system = [int(t) for t in g.integers(0, vocab, SYS_PROMPT)]
+    turns = burst(g, vocab, SYS_REQUESTS + 1, SYS_SUFFIX, SYS_GEN)
+    pairs = [(system + turn, m) for turn, m in turns]
+    return pairs[0], pairs[1:]
+
+
+class _Served:
+    """A serving copy handed to a further engine as it is: the engine's
+    ``inference_copy()`` returns it, so two engines share one copy of the
+    weights."""
+
+    def __init__(self, model):
+        self.c = model.c
+        self._model = model
+
+    def inference_copy(self):
+        return self._model
+
+
+def _serve_burst(engine, pairs, device):
+    """Run (prompt, max_tokens) pairs through a fresh scheduler (and fresh
+    metrics) on ``engine``.  Hard: every request ok, with max_tokens
+    tokens, all in the vocabulary.  Returns the requests, wall seconds,
+    trace events, the peak of pages in use (paged engines) and the
+    metrics snapshot."""
+    from hetu_tpu_torch.serve import (
+        ContinuousBatchingScheduler, Request, ServeMetrics,
+    )
+    from hetu_tpu_torch.telemetry import trace
+
+    engine.metrics = ServeMetrics()
+    sched = ContinuousBatchingScheduler(engine)
+    reqs = [Request(prompt=list(p), max_tokens=m) for p, m in pairs]
+    paged = hasattr(engine, "begin_prefill")
+    peak = 0
+    tracer = trace.enable()
+    _sync(device)
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    while sched.has_work():
+        sched.step()
+        if paged:
+            peak = max(peak, engine.cache.pages_in_use)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    trace.disable()
+    vocab = engine.model.c.vocab_size
+    check(all(r.status == "ok" for r in reqs),
+          f"a request did not finish ok: {[r.status for r in reqs]}")
+    check(all(len(r.tokens) == r.max_tokens for r in reqs),
+          "a request generated the wrong number of tokens")
+    check(all(0 <= t < vocab for r in reqs for t in r.tokens),
+          "a generated token is outside the vocabulary")
+    return dict(requests=reqs, wall=wall, events=tracer.events,
+                peak_pages=peak, snap=engine.metrics.snapshot())
+
+
+def _burst_line(tag, name, run, card):
+    """Print a burst's throughput, TTFT, decode step and (paged) chunk
+    times by bucket, pages and prefix counts; returns the numbers."""
+    snap, ev = run["snap"], run["events"]
+    n_tok = sum(len(r.tokens) for r in run["requests"])
+    decodes = [e["dur"] / 1e3 for e in ev if e["name"] == "serve.decode"]
+    out = dict(tokens_per_s=n_tok / run["wall"],
+               ttft_p50_ms=snap["ttft_p50_s"] * 1e3,
+               ttft_p90_ms=snap["ttft_p90_s"] * 1e3,
+               decode_ms=statistics.median(decodes),
+               peak_pages=run["peak_pages"],
+               prefix_hit_tokens=snap.get("prefix_hit_tokens", 0),
+               cow_copies=snap.get("cow_copies", 0))
+    print(f"[paged_serve] {tag} {name}: {n_tok} tokens in "
+          f"{run['wall']:.3f} s, {out['tokens_per_s']:.1f} tokens/s; TTFT "
+          f"p50 {out['ttft_p50_ms']:.2f} ms, p90 {out['ttft_p90_ms']:.2f} "
+          f"ms; decode step median {out['decode_ms']:.3f} ms over "
+          f"{len(decodes)} steps [{card}]")
+    chunks = {}
+    for e in ev:
+        if e["name"] == "serve.prefill_chunk":
+            chunks.setdefault(e["args"]["bucket"], []).append(e["dur"] / 1e3)
+    for b in sorted(chunks):
+        print(f"[paged_serve] {tag} {name}: serve.prefill_chunk bucket {b}: "
+              f"median {statistics.median(chunks[b]):.3f} ms over "
+              f"{len(chunks[b])} chunks [{card}]")
+    if chunks:
+        print(f"[paged_serve] {tag} {name}: peak pages in use "
+              f"{out['peak_pages']}, prefix hits "
+              f"{snap.get('prefix_hits', 0)} ({out['prefix_hit_tokens']} "
+              f"tokens), COW copies {out['cow_copies']} [{card}]")
+    out["chunks"] = sum(len(v) for v in chunks.values())
+    out["prefills"] = sum(e["name"] == "serve.prefill" for e in ev)
+    return out
+
+
+def _hold_streams(tag, ref_run, got_run, logits_after, tau):
+    """The near-tie rule over every request of two runs of one burst;
+    prints the counts.  Returns the diverged requests' shares."""
+    shares = []
+    for i, (r, q) in enumerate(zip(ref_run["requests"],
+                                   got_run["requests"])):
+        d = near_tie_divergence(r.tokens, q.tokens,
+                                lambda agreed, r=r: logits_after(
+                                    r.prompt + agreed), tau)
+        if d is not None:
+            print(f"[paged_serve] {tag}: request {i} diverged at a near "
+                  f"tie: token {d[0]} {d[1]} -> {d[2]}, (z[s] - z[p]) / M "
+                  f"= {d[3]:.3e} (bound 4 tau = {4 * tau:g})")
+            shares.append(d[3])
+    n = len(ref_run["requests"])
+    print(f"[paged_serve] {tag}: {n - len(shares)} of {n} requests "
+          f"token-exact to the end, {len(shares)} diverged at a near tie")
+    return shares
+
+
+def _warm_pairs(lengths, max_len):
+    """Prompts of 1s that reach each prefill bucket a burst will, two
+    tokens each (the lengths that fit ``max_len``)."""
+    return [([1] * n, 2) for n in lengths if n + 2 < max_len]
+
+
+def _drained(cache, tag):
+    """Hard, once a burst drains: no slot holds a page, and evicting the
+    prefix index returns every page to the free list with both refcounts
+    at 0."""
+    check(cache.num_free == cache.num_slots, f"{tag}: a slot is still held")
+    check(not cache.ref_table.any(), f"{tag}: a page table ref is left")
+    check(cache.pages_in_use == cache.reclaimable_pages,
+          f"{tag}: a page is held by something other than the index")
+    while cache._evict_one_entry():
+        pass
+    check(not cache.ref_index.any()
+          and sorted(cache._free_pages) == list(range(1, cache.num_pages)),
+          f"{tag}: the free list is not whole after the index is evicted")
+
+
+def _no_flash(tag, counters):
+    launches = [c.launches for c in counters]
+    check(launches == [0, 0, 0],
+          f"{tag}: the paged path launched flash kernels {launches}")
+
+
+def _plain_logits(model, device):
+    """The plain path's last-position logits after a token list."""
+    def logits_after(tokens):
+        ids = torch.tensor([tokens], device=device)
+        with torch.inference_mode():
+            lg, _, _ = model.prefill_with_cache(ids,
+                                                last_index=len(tokens) - 1)
+        return lg[0].float().cpu()
+    return logits_after
+
+
+def phase_paged_serve(card, seed, llama_engine, device="cuda"):
+    """Paged serving (PagedServeEngine + the scheduler's page-budget
+    admission and chunked prefill) against the slot engine: (a) GPT-2-small
+    in f32, (b) Llama-2-7B in bf16 on ``llama_engine``'s serving copy, with
+    a model-level check of the chunked prefill, (c) a shared system prompt
+    on the same copy.  Every request ok with its tokens; streams held to
+    the near-tie rule; no flash launch on the paged path; every page back
+    on the free list once a burst drains."""
+    from hetu_tpu_torch import interop
+    from hetu_tpu_torch.models import GPTConfig, GPTModel
+    from hetu_tpu_torch.serve import PagedServeEngine, ServeEngine
+
+    counters = _flash_counters()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {}
+
+    # (a) GPT-2-small, f32, the plain attention path
+    cfg = GPTConfig(vocab_size=V, hidden_size=H, num_layers=L, num_heads=NH,
+                    ffn_size=FFN, max_position=MAX_LEN)
+    model = GPTModel(cfg, device=device)
+    model.load_state_dict(interop.params_from_jax(
+        jax_layout_weights(seed, MAX_LEN), cfg))
+    slot = ServeEngine(model, num_slots=SLOTS, max_len=MAX_LEN,
+                       device=device)
+    paged = PagedServeEngine(_Served(slot.model), num_slots=SLOTS,
+                             max_len=MAX_LEN, page_size=PAGE_SIZE,
+                             device=device)
+    del model
+    print(f"[paged_serve] gpt: GPT-2-small f32 xla, {SLOTS} slots x "
+          f"{MAX_LEN}, page {PAGE_SIZE}, chunk {paged.prefill_chunk}, "
+          f"{paged.cache.num_pages} pages")
+    warm = _warm_pairs((10, 20, 40, 100), MAX_LEN)
+    pairs = burst(np.random.default_rng(seed), V, N_REQUESTS, GPT_PROMPT,
+                  GPT_GEN)
+    for e in (slot, paged):
+        _serve_burst(e, warm, device)
+    ref = _serve_burst(slot, pairs, device)
+    for c in counters:
+        c.launches = 0
+    got = _serve_burst(paged, pairs, device)
+    _no_flash("gpt", counters)
+    _drained(paged.cache, "gpt")
+    out["gpt"] = {"slot": _burst_line("gpt", "slot", ref, card),
+                  "paged": _burst_line("gpt", "paged", got, card),
+                  "near_ties": _hold_streams(
+                      "gpt", ref, got, _plain_logits(slot.model, device),
+                      TOL_F32_LOGITS)}
+    del slot, paged
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) Llama-2-7B, bf16: the slot engine's plain path against the paged
+    # engine on the same serving copy
+    model = llama_engine.model
+    paged = PagedServeEngine(_Served(model), num_slots=LLAMA_SLOTS,
+                             max_len=LLAMA_MAX_LEN, page_size=PAGE_SIZE,
+                             device=device)
+    pool_gib = 2 * paged.cache.k.numel() * paged.cache.k.element_size() \
+        / 2 ** 30
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for n, p in model.named_parameters() if n != "tok_emb")
+    print(f"[paged_serve] llama: Llama-2-7B bf16, one serving copy for "
+          f"both engines, {LLAMA_SLOTS} slots x {LLAMA_MAX_LEN}, page "
+          f"{PAGE_SIZE}, chunk {paged.prefill_chunk}, "
+          f"{paged.cache.num_pages} pages ({pool_gib:.2f} GiB of K and V)")
+    warm = _warm_pairs((10, 20, 40, 100, 200, 400), LLAMA_MAX_LEN)
+    pairs = burst(np.random.default_rng(seed + 3), LLAMA_V, LLAMA_REQUESTS,
+                  LLAMA_PROMPT, LLAMA_GEN)
+    _set_attention_impl(model, "xla")
+    _serve_burst(llama_engine, warm, device)
+    ref = _serve_burst(llama_engine, pairs, device)
+    _set_attention_impl(model, "flash")
+    _serve_burst(paged, warm, device)
+    for c in counters:
+        c.launches = 0
+    got = _serve_burst(paged, pairs, device)
+    _no_flash("llama", counters)
+    _drained(paged.cache, "llama")
+    plain = _plain_logits(model, device)
+    _set_attention_impl(model, "xla")
+    llama = {"slot": _burst_line("llama", "slot (xla)", ref, card),
+             "paged": _burst_line("llama", "paged", got, card),
+             "near_ties": _hold_streams("llama", ref, got, plain,
+                                        TOL_LLAMA_LOGITS)}
+    ms = weight_bytes / H100_BYTES_PER_S * 1e3
+    print(f"[paged_serve] llama: reckoning: each chunk reads the "
+          f"{weight_bytes / 1e9:.2f} GB of matmul weights, at least "
+          f"{ms:.2f} ms at 3.35 TB/s; the burst's {llama['paged']['chunks']}"
+          f" chunks at least {ms * llama['paged']['chunks']:.1f} ms against "
+          f"the slot engine's {llama['slot']['prefills']} prefills at least "
+          f"{ms * llama['slot']['prefills']:.1f} ms: paged TTFT is "
+          f"expected above the slot engine's")
+
+    # the chunked prefill against the one-pass prefill, model level
+    g = np.random.default_rng(seed + 4)
+    worst = 0.0
+    with torch.inference_mode():
+        for n in CHUNK_CHECK_PROMPTS:
+            ids = torch.tensor(g.integers(0, LLAMA_V, (1, n)), device=device)
+            want, _, _ = model.prefill_with_cache(ids, last_index=n - 1)
+            want = want.float()
+            m = want.abs().max()
+            for chunk in CHUNK_CHECK_SIZES:
+                t = -(-n // chunk) * chunk
+                spec = paged.cache.spec
+                kc = torch.zeros(spec.num_layers, 1, t, spec.num_kv_heads,
+                                 spec.head_dim, dtype=spec.dtype,
+                                 device=device)
+                vc = torch.zeros_like(kc)
+                padded = torch.zeros(1, t, dtype=ids.dtype, device=device)
+                padded[:, :n] = ids
+                for start in range(0, n, chunk):
+                    lg, _, _ = model.prefill_chunk_with_cache(
+                        padded[:, start:start + chunk], kc, vc, start,
+                        last_index=min(chunk, n - start) - 1)
+                lg = lg.float()
+                check(bool(torch.isfinite(lg).all()),
+                      "chunked prefill logits are not finite")
+                share = ((lg - want).abs().max() / m).item()
+                worst = max(worst, share)
+                print(f"[paged_serve] llama: prompt {n}, chunks of {chunk}: "
+                      f"chunked vs one-pass prefill logits max|d| / "
+                      f"max|logit| = {share:.3e} (tol {TOL_LLAMA_LOGITS:g})")
+                check(share <= TOL_LLAMA_LOGITS, "chunked prefill logits "
+                                                 "disagree with the prefill")
+    llama["chunk_logits_share"] = worst
+    out["llama"] = llama
+    del paged
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) the shared system prompt: prefix sharing on against off, both
+    # on the same serving copy
+    warm, pairs = shared_prompt_requests(seed, LLAMA_V)
+    _set_attention_impl(model, "flash")
+    runs = {}
+    for sharing in (False, True):
+        e = PagedServeEngine(_Served(model), num_slots=LLAMA_SLOTS,
+                             max_len=LLAMA_MAX_LEN, page_size=PAGE_SIZE,
+                             prefix_sharing=sharing, device=device)
+        _serve_burst(e, [warm], device)
+        for c in counters:
+            c.launches = 0
+        runs[sharing] = _serve_burst(e, pairs, device)
+        _no_flash("shared prompt", counters)
+        _drained(e.cache, "shared prompt")
+        if sharing:
+            shared_engine = e
+        else:
+            del e
+    _set_attention_impl(model, "xla")
+    snap = runs[True]["snap"]
+    print(f"[paged_serve] shared prompt: {SYS_PROMPT}-token system prompt, "
+          f"{SYS_REQUESTS} requests: prefix hits "
+          f"{snap.get('prefix_hits', 0)}, hit tokens "
+          f"{snap.get('prefix_hit_tokens', 0)} (want {SYS_REQUESTS} and "
+          f"{SYS_REQUESTS * SYS_PROMPT})")
+    check(snap.get("prefix_hits", 0) == SYS_REQUESTS
+          and snap.get("prefix_hit_tokens", 0) == SYS_REQUESTS * SYS_PROMPT,
+          "the shared system prompt was not hit by every request")
+    shared = {"unshared": _burst_line("shared prompt", "sharing off",
+                                      runs[False], card),
+              "shared": _burst_line("shared prompt", "sharing on",
+                                    runs[True], card),
+              "near_ties": _hold_streams("shared prompt", runs[False],
+                                         runs[True], plain,
+                                         TOL_LLAMA_LOGITS)}
+    check(runs[True]["peak_pages"] < runs[False]["peak_pages"],
+          "prefix sharing did not lower the peak of pages in use")
+    _set_attention_impl(model, "flash")
+    out["shared"] = shared
+    out["peak_gib"] = _peak_gib(device)
+    print(f"[paged_serve] peak {out['peak_gib']:.2f} GiB allocated [{card}]")
+    if device == "cuda":
+        phase_profile(shared_engine, card, steps=5, vocab=LLAMA_V,
+                      tag="paged_serve ")
+    return out
 
 
 def phase_train_llama(card, seed, device="cuda"):
@@ -2927,7 +3330,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     moe = phase_train_moe(card, args.seed)
     torch.cuda.empty_cache()
-    llama_serve = phase_llama_serve(card, args.seed)
+    llama_serve, llama_engine = phase_llama_serve(card, args.seed)
+    phase_paged_serve(card, args.seed, llama_engine)
+    del llama_engine
     torch.cuda.empty_cache()
     llama_train = phase_train_llama(card, args.seed)
     torch.cuda.empty_cache()
@@ -2953,6 +3358,7 @@ def main(argv=None) -> int:
          "launches_by_path": {"serve": serve_launches,
                               "train": train["launches"][0],
                               "llama_serve": llama_serve["launches"],
+                              "paged_serve": 0,
                               "llama_train": llama_train["launches"][0],
                               "bert_train": bert["launches"][0]},
          # the serving path's largest prompt bucket, and S = 512

@@ -122,6 +122,26 @@ class MultiHeadAttention(Module):
         self._require_causal()
         return self._attend(x)
 
+    def _cached_step(self, core, x, k_cache, v_cache, starts):
+        self._require_causal()
+        q, k, v = self._qkv(x)
+        ops.cache_update(k_cache, v_cache, k, v, starts)
+        out = core(q.transpose(1, 2), k_cache, v_cache, starts)
+        return self._out(out, *x.shape[:2]), k_cache, v_cache
+
+    def prefill_chunk_step(self, x, k_cache, v_cache, starts):
+        """Chunked prefill against a cache (the paged engine's prefill).
+
+        x ``[B, S_c, H]`` — a chunk whose token ``i`` sits at absolute
+        position ``starts[b] + i``; k_cache/v_cache ``[B, T, nh, hd]``
+        holding the tokens before the chunk, the chunk's K/V written IN
+        PLACE at ``starts`` (a start past ``T - S_c`` clamps, as in the
+        reference).  Attends over the history and the chunk's causal
+        triangle.  Returns (y, k_cache, v_cache); with ``starts == 0`` and
+        ``S_c == T`` the numbers are :meth:`prefill_step`'s."""
+        return self._cached_step(ops.chunk_attention, x, k_cache, v_cache,
+                                 starts)
+
     def decode_step(self, x, k_cache, v_cache, lengths):
         """One-token decode against a slot cache.
 
@@ -129,9 +149,5 @@ class MultiHeadAttention(Module):
         PLACE at ``lengths`` (the reference returns new arrays); lengths
         ``[B]`` = tokens already cached.  Returns (y, k_cache, v_cache).
         """
-        self._require_causal()
-        q, k, v = self._qkv(x)
-        ops.cache_update(k_cache, v_cache, k, v, lengths)
-        out = ops.decode_attention(q.transpose(1, 2), k_cache, v_cache,
-                                   lengths)
-        return self._out(out, x.shape[0], 1), k_cache, v_cache
+        return self._cached_step(ops.decode_attention, x, k_cache, v_cache,
+                                 lengths)

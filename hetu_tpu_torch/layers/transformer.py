@@ -74,6 +74,15 @@ class TransformerBlock(Module):
         a, k, v = self.attn.prefill_step(self.ln1(x))
         return self._mlp(x + a), k, v
 
+    def prefill_chunk_step(self, x, k_cache, v_cache, starts):
+        """A chunk x ``[B, S_c, H]`` at absolute positions ``starts[b] +
+        i``, caches ``[B, T, nh, hd]`` holding everything before it and
+        written in place → (out, k_cache, v_cache)."""
+        self._require_pre_norm()
+        a, k_cache, v_cache = self.attn.prefill_chunk_step(
+            self.ln1(x), k_cache, v_cache, starts)
+        return self._mlp(x + a), k_cache, v_cache
+
     def decode_step(self, x, k_cache, v_cache, lengths):
         """x ``[B, 1, H]``, caches ``[B, T, nh, hd]`` updated in place →
         (out, k_cache, v_cache)."""

@@ -209,6 +209,37 @@ class GPTModel(Module):
             h = h[:, last_index]
         return self._head(h), torch.stack(ks), torch.stack(vs)
 
+    def prefill_chunk_with_cache(self, input_ids, k_cache, v_cache, start,
+                                 *, last_index=None):
+        """Chunked prefill: ONE chunk of the prompt against a cache already
+        holding everything before it (earlier chunks, or a shared prefix
+        adopted from the prefix cache).
+
+        input_ids ``[B, S_c]`` at absolute positions ``start ..
+        start + S_c - 1`` (right-padded within the chunk bucket; pad
+        positions produce junk K/V that decode masks or overwrites);
+        k_cache/v_cache ``[L, B, T, nh, hd]`` with positions ``< start``
+        written, the chunk's rows written IN PLACE.  Returns (logits
+        ``[B, V]`` at chunk-relative ``last_index``, default ``S_c - 1``,
+        k_cache, v_cache).  With ``start == 0`` and one chunk covering the
+        prompt the numbers are :meth:`prefill_with_cache`'s.
+        """
+        b, s = input_ids.shape
+        # a per-index gather clamped to the table, not a slice: a final
+        # chunk's pad tail may run past max_position, and clamping a
+        # slice's start would shift the real tokens' positions
+        pos = torch.arange(start, start + s, device=input_ids.device)
+        pos = self.pos_emb[pos.clamp(0, self.c.max_position - 1)]
+        h = self._embed(input_ids, pos[None])
+        starts = torch.full((b,), start, dtype=torch.long,
+                            device=input_ids.device)
+        for layer, blk in enumerate(self.blocks):
+            h, _, _ = blk.prefill_chunk_step(h, k_cache[layer],
+                                             v_cache[layer], starts)
+        h = self.ln_f(h)
+        idx = s - 1 if last_index is None else last_index
+        return self._head(h[:, idx]), k_cache, v_cache
+
     def decode_with_cache(self, input_ids, k_cache, v_cache, lengths):
         """One decode step for a batch of cached sequences.
 

@@ -15,8 +15,7 @@ the KV-cache methods on a :meth:`LlamaModel.inference_copy`.  The cache
 holds the ROTATED keys and the ``num_kv_heads`` un-repeated heads;
 ``ops.decode_attention`` repeats them at read time.
 
-Still to port: ``prefill_chunk_with_cache`` (with the paged serving
-slice) and ``HeteroLlama`` (with the multi-GPU slice).
+Still to port: ``HeteroLlama`` (with the multi-GPU slice).
 """
 
 from __future__ import annotations
@@ -165,16 +164,29 @@ class LlamaBlock(Module):
         a, k, v = self.attn(self._norm1(x), cos, sin)
         return self._mlp(x + a), k, v
 
+    def _cached_step(self, core, x, k_cache, v_cache, starts, cos, sin):
+        q, k, v = self.attn.qkv(self._norm1(x))
+        q = ops.apply_rope_at(q.transpose(1, 2), cos, sin, starts)
+        k = ops.apply_rope_at(k.transpose(1, 2), cos, sin, starts)
+        ops.cache_update(k_cache, v_cache, k.transpose(1, 2), v, starts)
+        o = core(q, k_cache, v_cache, starts)
+        return self._mlp(x + self.attn.out(o)), k_cache, v_cache
+
+    def prefill_chunk_step(self, x, k_cache, v_cache, starts, cos, sin):
+        """A chunk x ``[B, S_c, H]`` whose token ``i`` sits at ``starts[b]
+        + i``; caches ``[B, T, nkv, hd]`` holding everything before it,
+        the chunk's rotated K and V written IN PLACE at ``starts``;
+        cos/sin the FULL tables ``[T_max, hd/2]``, gathered at each
+        token's absolute position."""
+        return self._cached_step(ops.chunk_attention, x, k_cache, v_cache,
+                                 starts, cos, sin)
+
     def decode_step(self, x, k_cache, v_cache, lengths, cos, sin):
         """One token a sequence: x ``[B, 1, H]``; caches ``[B, T, nkv,
         hd]``, written IN PLACE at ``lengths`` (the new token's position);
         cos/sin the FULL tables ``[T_max, hd/2]``."""
-        q, k, v = self.attn.qkv(self._norm1(x))
-        q = ops.apply_rope_at(q.transpose(1, 2), cos, sin, lengths)
-        k = ops.apply_rope_at(k.transpose(1, 2), cos, sin, lengths)
-        ops.cache_update(k_cache, v_cache, k.transpose(1, 2), v, lengths)
-        o = ops.decode_attention(q, k_cache, v_cache, lengths)
-        return self._mlp(x + self.attn.out(o)), k_cache, v_cache
+        return self._cached_step(ops.decode_attention, x, k_cache, v_cache,
+                                 lengths, cos, sin)
 
 
 class LlamaModel(Module):
@@ -302,6 +314,28 @@ class LlamaModel(Module):
         if last_index is not None:
             h = h[:, last_index]
         return self._head(h), torch.stack(ks), torch.stack(vs)
+
+    def prefill_chunk_with_cache(self, input_ids, k_cache, v_cache, start,
+                                 *, last_index=None):
+        """Chunked prefill (see :meth:`GPTModel.prefill_chunk_with_cache`):
+        input_ids ``[B, S_c]`` at absolute positions ``start ..
+        start + S_c - 1``, caches ``[L, B, T, nkv, hd]`` with positions
+        ``< start`` written, the chunk's rows written IN PLACE.  The RoPE
+        tables cover ``max_position`` and are gathered at each token's
+        position; a pad tail past them clamps to the last row.  Returns
+        (logits ``[B, V]`` at chunk-relative ``last_index``, k_cache,
+        v_cache)."""
+        b, s = input_ids.shape
+        h = self._embed(input_ids)
+        cos, sin = self._tables(self.c.max_position)
+        starts = torch.full((b,), start, dtype=torch.long,
+                            device=input_ids.device)
+        for layer, blk in enumerate(self.blocks):
+            h, _, _ = blk.prefill_chunk_step(h, k_cache[layer],
+                                             v_cache[layer], starts, cos, sin)
+        h = self._final(h)
+        idx = s - 1 if last_index is None else last_index
+        return self._head(h[:, idx]), k_cache, v_cache
 
     def decode_with_cache(self, input_ids, k_cache, v_cache, lengths):
         """One decode step: input_ids ``[B]``, caches ``[L, B, T, nkv,

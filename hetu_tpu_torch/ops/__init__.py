@@ -7,7 +7,8 @@ Hand-written CUDA kernels live in :mod:`hetu_tpu_torch.ops.cuda_kernels`.
 
 from hetu_tpu_torch.ops.activations import gelu, relu, silu
 from hetu_tpu_torch.ops.attention import (
-    attention, cache_update, causal_attention, decode_attention,
+    attention, cache_update, causal_attention, chunk_attention,
+    decode_attention,
 )
 from hetu_tpu_torch.ops.dropout import dropout
 from hetu_tpu_torch.ops.embedding import (
@@ -29,7 +30,8 @@ from hetu_tpu_torch.ops.rope import apply_rope, apply_rope_at, rope_tables
 
 __all__ = [
     "gelu", "relu", "silu", "attention", "causal_attention", "cache_update",
-    "decode_attention", "dropout", "embedding_lookup", "IndexedSlices",
+    "chunk_attention", "decode_attention", "dropout", "embedding_lookup",
+    "IndexedSlices",
     "sparse_embedding_lookup", "take_grad_indexed", "sum_sparse_gradient",
     "assign_with_indexed_slices", "binary_cross_entropy",
     "binary_cross_entropy_with_logits", "lm_head_cross_entropy", "linear",

@@ -87,6 +87,33 @@ def _head_major(cache, num_heads):
     return x
 
 
+def chunk_attention(q, k_cache, v_cache, starts, *, scale=None):
+    """A chunk of queries against a cache (the chunked-prefill and
+    prefix-sharing core, GQA-aware).
+
+    q: ``[B, heads, S_c, D]`` — query ``i`` sits at absolute position
+    ``starts[b] + i``, its K/V already written into the cache
+    (:func:`cache_update` writes several rows).  k_cache/v_cache:
+    ``[B, T, kv_heads, D]`` holding the tokens before the chunk (a shared
+    prefix, earlier chunks) and the chunk itself.  Query ``i`` attends to
+    cache positions ``<= starts[b] + i``: the history and the chunk's own
+    causal triangle in one mask; later positions (unwritten, or stale from
+    a page's previous occupant) are masked out.
+
+    With ``starts == 0`` and ``S_c == T`` this is :func:`causal_attention`.
+    """
+    nh = q.shape[1]
+    scores = _scores(q, _head_major(k_cache, nh), scale)
+    t, s_c = k_cache.shape[1], q.shape[-2]
+    pos = starts.to(q.device).long()[:, None] + torch.arange(
+        s_c, device=q.device)                                  # [B, S_c]
+    valid = torch.arange(t, device=q.device)[None, None, :] <= \
+        pos[:, :, None]                                        # [B, S_c, T]
+    scores = scores.masked_fill(~valid[:, None],
+                                torch.finfo(scores.dtype).min)
+    return _softmax_pv(scores, _head_major(v_cache, nh))
+
+
 def decode_attention(q, k_cache, v_cache, lengths, *, scale=None):
     """Single-token attention against a slot cache (GQA-aware).
 

@@ -15,11 +15,14 @@ concurrently with the engine loop calling ``step()``.
 
 A copy of ``hetu_tpu/serve/scheduler.py`` (pure Python, no framework
 code), kept as it is apart from these imports so the two packages admit,
-evict and order requests identically.  The paged-engine branches
-(``begin_prefill``/``prefill_step``) and the migration surface
-(``export_inflight``/``adopt_inflight``) are carried along but not yet
-backed by this package's engine: the slot :class:`ServeEngine` drives
-only ``alloc_slot``/``prefill``/``decode``/``release``.
+evict and order requests identically.  Both engines of this package back
+it: the slot :class:`ServeEngine` (``alloc_slot``/``prefill``/``decode``/
+``release``) and the :class:`PagedServeEngine`, which adds the paged
+branches (page-budget admission through ``admission_ok``, chunked prefill
+through ``begin_prefill``/``prefill_step`` interleaved with decode, and
+the ``PagePoolExhausted`` preemption).  The migration surface
+(``export_inflight``/``adopt_inflight``) is carried along but not yet
+backed: slot export and import wait for the server-and-migration slice.
 """
 
 from __future__ import annotations

@@ -586,3 +586,156 @@ def test_sgd_row_tolerance_passes_a_reordered_sum_and_refuses_a_lost_one():
     swapped[pair[0]], swapped[pair[1]] = pair[1], pair[0]
     assert chip_smoke.tolerance_share(
         _sgd_rows(grads, ids, touched, rows, lr, swapped), ref, tol) == 0.0
+
+
+# ------------------------------------------------- paged serving's gates
+# The near-tie rule (``near_tie_divergence``) holds each request's paged
+# stream against its reference stream: equal streams pass; at the first
+# difference the plain logits' gap between the reference's token s and
+# the paged token p must be at most 4 tau of max|z|; later tokens are not
+# compared.
+
+TAU = 5e-2
+
+
+def _logits(gaps, m=10.0, n=8):
+    """Plain logits with max |z| = m: token 0 leads, token i trails it by
+    gaps[i - 1] (shares of m)."""
+    z = torch.zeros(n, dtype=torch.float64)
+    z[0] = m
+    for i, gap in enumerate(gaps, 1):
+        z[i] = m - gap * m
+    z[-1] = -m / 2
+    return z
+
+
+class _Calls:
+    def __init__(self, z):
+        self.z, self.seen = z, []
+
+    def __call__(self, agreed):
+        self.seen.append(list(agreed))
+        return self.z
+
+
+def test_near_tie_gate_passes_identical_streams():
+    calls = _Calls(_logits([0.5]))
+    assert chip_smoke.near_tie_divergence([0, 3, 5], [0, 3, 5], calls,
+                                          TAU) is None
+    assert calls.seen == []
+
+
+def test_near_tie_gate_passes_a_divergence_within_four_tau():
+    calls = _Calls(_logits([4 * TAU - 1e-3]))
+    i, s, p, share = chip_smoke.near_tie_divergence([4, 0, 2], [4, 1, 2],
+                                                    calls, TAU)
+    assert (i, s, p) == (1, 0, 1) and share == pytest.approx(4 * TAU - 1e-3)
+    assert calls.seen == [[4]]        # the prompt's agreed tokens only
+
+
+def test_near_tie_gate_refuses_a_divergence_just_outside_four_tau():
+    with pytest.raises(chip_smoke.SmokeFailure, match="away from a near tie"):
+        chip_smoke.near_tie_divergence([0], [1], _Calls(
+            _logits([4 * TAU + 1e-3])), TAU)
+
+
+def test_near_tie_gate_refuses_a_token_that_was_not_the_runner_up():
+    """Token 1 trails by a near tie, token 2 by far more: the paged path
+    choosing token 2 fails though the reference's top two were close."""
+    z = _logits([TAU, 0.9])
+    chip_smoke.near_tie_divergence([0], [1], _Calls(z), TAU)
+    with pytest.raises(chip_smoke.SmokeFailure, match="away from a near tie"):
+        chip_smoke.near_tie_divergence([0], [2], _Calls(z), TAU)
+
+
+def test_near_tie_gate_stops_comparing_after_the_first_divergence():
+    calls = _Calls(_logits([TAU]))
+    out = chip_smoke.near_tie_divergence([0, 0, 5, 6, 7], [0, 1, 9, 9, 9],
+                                         calls, TAU)
+    assert out[:3] == (1, 0, 1) and calls.seen == [[0]]
+    with pytest.raises(chip_smoke.SmokeFailure, match="streams of"):
+        chip_smoke.near_tie_divergence([0, 1], [0], calls, TAU)
+
+
+def _replay(cache, warm, pairs):
+    """The cache operations of the paged engine for the requests run one
+    after another (match on the first chunk, adopt, write the rest of the
+    prompt, register it, decode, free); returns the burst's prefix hits."""
+    hits = 0
+    for i, (prompt, gen) in enumerate([warm] + pairs):
+        slot = cache.alloc()
+        n_shared, pages = cache.match_prefix(prompt)
+        if n_shared:
+            cache.adopt_prefix(slot, n_shared, pages)
+            hits += i > 0
+        cache.prepare_write(slot, n_shared, len(prompt) - n_shared)
+        cache.lengths[slot] = len(prompt)
+        cache.register_prefix(slot, prompt)
+        for t in range(gen - 1):
+            cache.prepare_write(slot, len(prompt) + t, 1)
+        cache.free(slot)
+    return hits
+
+
+def test_shared_prompt_hits_by_the_reference_rule():
+    """The chip run's shared system prompt traffic (Llama-2-7B's
+    vocabulary, 8 slots x 1024, page 16) through hetu_tpu's PagedKVCache
+    and the port's: every burst request hits the 384-token prompt and
+    nothing more, so the gate's 16 hits and 6144 tokens are the
+    reference's."""
+    from hetu_tpu.serve.kv_cache import KVCacheSpec as JaxSpec
+    from hetu_tpu.serve.kv_cache import PagedKVCache as JaxPagedKVCache
+    from hetu_tpu_torch.serve import KVCacheSpec, PagedKVCache
+
+    warm, pairs = chip_smoke.shared_prompt_requests(0, chip_smoke.LLAMA_V)
+    assert len(pairs) == chip_smoke.SYS_REQUESTS == 16
+    assert all(p[:384] == warm[0][:384] for p, _ in pairs)
+    kw = dict(page_size=chip_smoke.PAGE_SIZE)
+    ref = JaxPagedKVCache(JaxSpec(1, 1, 1), chip_smoke.LLAMA_SLOTS,
+                          chip_smoke.LLAMA_MAX_LEN, **kw)
+    port = PagedKVCache(KVCacheSpec(1, 1, 1), chip_smoke.LLAMA_SLOTS,
+                        chip_smoke.LLAMA_MAX_LEN, device="cpu", **kw)
+    for cache in (ref, port):
+        assert _replay(cache, warm, pairs) == 16
+        assert cache.prefix_hit_tokens == 16 * chip_smoke.SYS_PROMPT == 6144
+    assert port.cow_copies == ref.cow_copies
+    assert list(port._prefix) == list(ref._prefix)
+
+
+# The paged_serve phase at a size scaled down by page units (page 4 for 16,
+# so a prompt spans as many pages and chunks as on the card; generation
+# counts kept, since a decode step makes one token whatever the page):
+# every gate of the phase runs, and CPU tensors launch no flash kernel, so
+# it runs to its end.
+TINY_PAGED = dict(
+    V=97, H=64, L=2, NH=4, FFN=128, MAX_LEN=192, SLOTS=8, N_REQUESTS=16,
+    GPT_PROMPT=(1, 32), LLAMA_V=97, LLAMA_H=64, LLAMA_L=2, LLAMA_NH=4,
+    LLAMA_FFN=96, LLAMA_P=256, LLAMA_MAX_LEN=256, LLAMA_PROMPT=(1, 128),
+    PAGE_SIZE=4, SYS_PROMPT=96, SYS_SUFFIX=(4, 32),
+    CHUNK_CHECK_PROMPTS=(7, 25, 75, 128), CHUNK_CHECK_SIZES=(16, 64))
+
+
+def test_paged_serve_phase_runs_on_the_cpu(monkeypatch, capsys):
+    from hetu_tpu_torch.models import LlamaConfig, LlamaModel
+    from hetu_tpu_torch.serve import ServeEngine
+
+    for name, value in TINY_PAGED.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    c = chip_smoke
+    cfg = LlamaConfig(vocab_size=c.LLAMA_V, hidden_size=c.LLAMA_H,
+                      num_layers=c.LLAMA_L, num_heads=c.LLAMA_NH,
+                      num_kv_heads=2, ffn_size=c.LLAMA_FFN,
+                      max_position=c.LLAMA_P, attention_impl="flash")
+    engine = ServeEngine(LlamaModel(cfg, device="cpu"),
+                         num_slots=c.LLAMA_SLOTS, max_len=c.LLAMA_MAX_LEN,
+                         device="cpu")
+    out = c.phase_paged_serve("cpu", 0, engine, device="cpu")
+    text = capsys.readouterr().out
+    for part in ("gpt", "llama", "shared prompt"):
+        assert f"[paged_serve] {part}: " in text
+    assert "prefix hits 16, hit tokens 1536 (want 16 and 1536)" in text
+    assert out["shared"]["shared"]["peak_pages"] < \
+        out["shared"]["unshared"]["peak_pages"]
+    assert out["llama"]["chunk_logits_share"] < c.TOL_LLAMA_LOGITS
+    assert {m.attention_impl for m in engine.model.modules()
+            if hasattr(m, "attention_impl")} == {"flash"}

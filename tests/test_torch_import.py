@@ -1,7 +1,8 @@
 """hetu_tpu_torch stands alone: it imports neither ``jax`` nor ``hetu_tpu``.
 
 Subprocesses import the package and, on the CPU, run the serving slice
-(one prefill and one decode), the GPT and MoE training slices (two
+(one prefill and one decode), GQA Llama through the paged engine and the
+scheduler (prefix sharing included), the GPT and MoE training slices (two
 AdamW steps of the Executor and a checkpoint round trip each), GQA Llama
 serving and a BERT pretraining step; ``jax`` and ``hetu_tpu`` must
 stay out of ``sys.modules``.  An AST scan of every module of the package,
@@ -61,6 +62,29 @@ def test_serving_slice_runs_without_jax():
         "s = e.alloc_slot()\n"
         "toks = [e.prefill(s, [1, 2, 3]), e.decode()[s]]\n"
         "assert all(0 <= t < 97 for t in toks), toks\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out
+
+
+def test_paged_serving_runs_without_jax():
+    out = _run(
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from hetu_tpu_torch.models import LlamaConfig, LlamaModel\n"
+        "from hetu_tpu_torch.serve import (\n"
+        "    ContinuousBatchingScheduler, PagedServeEngine, Request)\n"
+        "cfg = LlamaConfig(vocab_size=97, hidden_size=32, num_layers=2,\n"
+        "                  num_heads=4, num_kv_heads=2, ffn_size=48,\n"
+        "                  max_position=64)\n"
+        "e = PagedServeEngine(LlamaModel(cfg, device='cpu'), num_slots=2,\n"
+        "                     max_len=64, page_size=8, device='cpu')\n"
+        "reqs = [Request(prompt=[1, 2, 3] * 7, max_tokens=3)\n"
+        "        for _ in range(3)]\n"
+        "ContinuousBatchingScheduler(e).run(reqs)\n"
+        "assert [r.status for r in reqs] == ['ok'] * 3\n"
+        "assert e.cache.prefix_hit_tokens > 0\n"
         "mods = sorted(m for m in sys.modules\n"
         "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
         "print('LEAKED', mods)\n")
