@@ -70,18 +70,34 @@ without the final result line:
    (``near_tie_divergence``), no flash launch, every page freed once a
    burst drains; TTFT, decode, chunk times, pages, hits, COW copies and
    a profiled paged prefill and decode step.
-10. train_llama — Llama-2-7B's widths at 4 layers (cut from 32), bf16,
+10. migrate — live KV-slot migration in this process
+   (``serve/migrate.py``): ``migrate_inflight`` moves a burst whose 8
+   admitted requests are mid-decode (the rest queued) from one engine to
+   another on three routes, slot -> slot, slot -> paged and paged ->
+   paged: (a) GPT-2-small in f32, the slice phase's burst, every stream
+   token-exact against the unmigrated burst; (b) Llama-2-7B in bf16 on
+   llama_serve's serving copy, its burst held to llama_serve's streams by
+   the near-tie rule.  The adopter adopts one slot per mid-decode request
+   and prefills only the queued prompts (its flash forwards: one a layer
+   for each, on a slot engine); every slot and page is freed once the
+   burst drains.  Then llama_serve's burst drained slot -> slot through
+   one payload (``export_payload`` -> ``adopt_payload``) with each codec:
+   the imported rows bitwise the exported ones (none, bf16) or within
+   blockmax / 254 (int8, at least 1.9x fewer bytes on the wire); payload
+   bytes, export, pack, unpack and import ms (and per GB), the re-prefill
+   of the same contexts on the adopter and the crossover between the two.
+11. train_llama — Llama-2-7B's widths at 4 layers (cut from 32), bf16,
    flash, recomputation, fused CE, AdamW, B 4 x S 4096: the kernel-vs-plain
    gate, then 10 Executor steps (2·L forwards and L of each backward kernel
    a step), step time, tokens/s, MFU, peak memory, one profiled step.
-11. train_bert — BERT-base (BASELINE.json's config #3), bf16, flash,
+12. train_bert — BERT-base (BASELINE.json's config #3), bf16, flash,
    dropout 0.1, B 16 x S 512 from ``examples/bert_pretrain.py``'s
    synthetic stream, no attention mask (the non-causal kernels): a masked
    forward takes the plain path and launches no kernel; the kernel-vs-plain
    gate with both paths drawing dropout from the same generators; 10
    Executor steps (L of each kernel a step), step time, samples/s, MFU,
    peak memory, one profiled step.
-12. train_ctr — device-resident Wide & Deep at ``bench.py`` bench_ctr's
+13. train_ctr — device-resident Wide & Deep at ``bench.py`` bench_ctr's
    widths, uncut (a [33 000 000, 16] f32 table drawn on the card, 26
    sparse and 13 dense fields, hidden (256, 256), B 2048, SGD(0.01)): the
    kernel path against the plain path (``emb_impl="xla"`` and the
@@ -95,12 +111,12 @@ without the final result line:
    gather (cold rows) and the deduplicate sum at the step's shapes against
    their plain versions, timed beside them, ``index_select`` /
    ``index_add_`` and the bound.
-13. ps_ctr — ``WideDeep`` (Adam) on 1M-row ``PSEmbedding`` rows through
+14. ps_ctr — ``WideDeep`` (Adam) on 1M-row ``PSEmbedding`` rows through
    ``examples/ctr_wdl.py``'s pipeline (prefetch, pull, step, push), B 2048,
    20 steps: bench_ctr's PS leg (sgd, no cache), then an adagrad table
    behind the HET cache (131072 rows, lfuopt); falling loss, a hit rate
    above 0; pull, step and push times and samples/s.
-14. kernel_shapes — the three flash kernels at the new paths' shapes:
+15. kernel_shapes — the three flash kernels at the new paths' shapes:
    (1, 32, S, 128) causal for S = 128, 512 and 1024 (the forward), (4, 32,
    4096, 128) causal and (16, 12, 512, 64) non-causal (forward and
    backward), each held against its plain version, timed beside it, SDPA
@@ -250,6 +266,14 @@ PAGE_SIZE = 16
 TOL_F32_LOGITS = 1e-4
 SYS_PROMPT, SYS_SUFFIX, SYS_GEN, SYS_REQUESTS = 384, (16, 128), (8, 64), 16
 CHUNK_CHECK_PROMPTS, CHUNK_CHECK_SIZES = (7, 100, 300, 512), (64, 256)
+# migration: the source's scheduler steps before every in-flight request
+# moves (a slot engine's 8 admitted requests then hold 5 tokens each, none
+# finished: 8 generated at least; a paged source steps on until its
+# chunked prefills are done, at most 8 chunks of 64); a paged source's
+# chunk budget a step, so that every prefill in flight advances a chunk
+# each step; the drain's codecs
+MIGRATE_STEPS, MIGRATE_CHUNKS = 4, 64
+MIGRATE_CODECS = ("none", "bf16", "int8")
 # training: Llama-2-7B's widths, depth cut to 4 layers (f32 weights,
 # gradients and AdamW's two slots: 17 GB; at 32 layers 108 GB), at the
 # config's max_position and bench_gpt's 16384 tokens a step
@@ -2071,7 +2095,8 @@ def phase_llama_serve(card, seed, device="cuda"):
     return dict(launches=launches, ttft_p50_ms=snap["ttft_p50_s"] * 1e3,
                 ttft_p90_ms=snap["ttft_p90_s"] * 1e3, decode_ms=step_ms,
                 tokens_per_s=n_tok / wall, logits_share=worst,
-                peak_gib=_peak_gib(device)), engine
+                peak_gib=_peak_gib(device),
+                tokens=[r.tokens for r in requests]), engine
 
 
 # ------------------------------------------------------------ paged serving
@@ -2207,7 +2232,8 @@ def _burst_line(tag, name, run, card):
     return out
 
 
-def _hold_streams(tag, ref_run, got_run, logits_after, tau):
+def _hold_streams(tag, ref_run, got_run, logits_after, tau,
+                  phase="paged_serve"):
     """The near-tie rule over every request of two runs of one burst;
     prints the counts.  Returns the diverged requests' shares."""
     shares = []
@@ -2217,12 +2243,12 @@ def _hold_streams(tag, ref_run, got_run, logits_after, tau):
                                 lambda agreed, r=r: logits_after(
                                     r.prompt + agreed), tau)
         if d is not None:
-            print(f"[paged_serve] {tag}: request {i} diverged at a near "
+            print(f"[{phase}] {tag}: request {i} diverged at a near "
                   f"tie: token {d[0]} {d[1]} -> {d[2]}, (z[s] - z[p]) / M "
                   f"= {d[3]:.3e} (bound 4 tau = {4 * tau:g})")
             shares.append(d[3])
     n = len(ref_run["requests"])
-    print(f"[paged_serve] {tag}: {n - len(shares)} of {n} requests "
+    print(f"[{phase}] {tag}: {n - len(shares)} of {n} requests "
           f"token-exact to the end, {len(shares)} diverged at a near tie")
     return shares
 
@@ -2442,6 +2468,427 @@ def phase_paged_serve(card, seed, llama_engine, device="cuda"):
     if device == "cuda":
         phase_profile(shared_engine, card, steps=5, vocab=LLAMA_V,
                       tag="paged_serve ")
+    return out
+
+
+# ----------------------------------------------------------------- migration
+
+def _span_ms(events, name):
+    """Total duration (ms) and bytes of the trace spans called ``name``."""
+    spans = [e for e in events if e["name"] == name]
+    return (sum(e["dur"] for e in spans) / 1e3,
+            sum(e.get("args", {}).get("bytes", 0) for e in spans))
+
+
+def _released(engine, tag):
+    """Hard, once a burst has left ``engine``: every slot free (and, on a
+    paged engine, every page back on the free list once the prefix index
+    is evicted, so the next route starts on an empty index)."""
+    if hasattr(engine, "begin_prefill"):
+        _drained(engine.cache, tag)
+    check(engine.cache.num_free == engine.cache.num_slots,
+          f"{tag}: a slot is still held")
+
+
+def _mid_decode(sched, reqs, tag):
+    """Step ``sched`` MIGRATE_STEPS times, and on until no chunked prefill
+    is in flight: then every slot must hold a request mid-decode and none
+    may have finished.  Returns the mid-decode requests and the queued
+    ones."""
+    for r in reqs:
+        sched.submit(r)
+    for _ in range(MIGRATE_STEPS):
+        sched.step()
+    while sched._prefilling and not any(r.done.is_set() for r in reqs):
+        sched.step()
+    running = list(sched._running.values())
+    queued = [r for r in reqs if r not in running]
+    check(len(running) == sched.engine.cache.num_slots
+          and all(r.tokens for r in running)
+          and not any(r.done.is_set() for r in reqs),
+          f"{tag}: {len(running)} of {len(reqs)} requests are mid-decode "
+          f"({sum(r.done.is_set() for r in reqs)} finished) once no "
+          f"prefill is in flight")
+    return running, queued
+
+
+def _expected_adopter_launches(engine, queued, device):
+    """Flash forwards the adopter launches: one a layer for each queued
+    prompt it prefills, on a slot engine whose attention is flash and on
+    the card; the paged prefill launches none."""
+    flash = any(getattr(m, "attention_impl", None) == "flash"
+                for m in engine.model.modules())
+    if device != "cuda" or not flash or hasattr(engine, "begin_prefill"):
+        return 0
+    return engine.model.c.num_layers * len(queued)
+
+
+def _finish_route(tag, dst, s2, reqs, queued, slot_map, n_running, device,
+                  counters):
+    """Drain the adopter and hold what it did: every request ok, one
+    adopted slot for each mid-decode request, no prefill but the queued
+    prompts', their flash forwards only, every slot and page freed.
+    Returns the adopter's flash launches."""
+    while s2.has_work():
+        s2.step()
+    _sync(device)
+    launches = counters[0].launches
+    vocab = dst.model.c.vocab_size
+    check(all(r.status == "ok" and len(r.tokens) == r.max_tokens
+              for r in reqs), f"{tag}: a request did not finish ok: "
+                              f"{[r.status for r in reqs]}")
+    check(all(0 <= t < vocab for r in reqs for t in r.tokens),
+          f"{tag}: a generated token is outside the vocabulary")
+    adopted = dst.metrics.count("slots_adopted")
+    prefilled = dst.metrics.count("prefill_tokens")
+    want = sum(len(r.prompt) for r in queued)
+    check(len(slot_map) == adopted == n_running,
+          f"{tag}: {adopted} slots adopted for {n_running} mid-decode "
+          f"requests")
+    check(prefilled == want,
+          f"{tag}: the adopter prefilled {prefilled} tokens; the queued "
+          f"prompts hold {want} (a migrated request was prefilled again)")
+    expect = _expected_adopter_launches(dst, queued, device)
+    check(launches == expect, f"{tag}: the adopter launched {launches} "
+                              f"flash forwards, not {expect}")
+    _released(dst, tag)
+    return launches
+
+
+def _migrate_route(tag, route, src, dst, pairs, card, device, hold):
+    """One burst on a scheduler over ``src``, stepped until every slot is
+    mid-decode, then moved whole to a scheduler over ``dst`` by
+    ``migrate_inflight`` and drained there.  ``hold(requests)`` holds the
+    streams to the unmigrated burst's and returns (token-exact count,
+    note); returns the route's numbers."""
+    from hetu_tpu_torch.serve import (
+        ContinuousBatchingScheduler, Request, ServeMetrics, migrate,
+    )
+    from hetu_tpu_torch.telemetry import trace
+
+    counters = _flash_counters()
+    src.metrics, dst.metrics = ServeMetrics(), ServeMetrics()
+    s1 = ContinuousBatchingScheduler(src,
+                                     prefill_chunks_per_step=MIGRATE_CHUNKS)
+    s2 = ContinuousBatchingScheduler(dst)
+    reqs = [Request(prompt=list(p), max_tokens=m) for p, m in pairs]
+    for c in counters:
+        c.launches = 0
+    running, queued = _mid_decode(s1, reqs, f"{tag} {route}")
+    src_launches = counters[0].launches
+    for c in counters:
+        c.launches = 0
+    tracer = trace.enable()
+    _sync(device)
+    t0 = time.perf_counter()
+    slot_map = migrate.migrate_inflight(s1, s2)
+    _sync(device)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    trace.disable()
+    check(not s1.has_work(), f"{tag} {route}: the source kept work")
+    _released(src, f"{tag} {route} source")
+    launches = _finish_route(f"{tag} {route}", dst, s2, reqs, queued,
+                             slot_map, len(running), device, counters)
+    export_ms, nbytes = _span_ms(tracer.events, "serve.export_slots")
+    import_ms, _ = _span_ms(tracer.events, "serve.adopt_slots")
+    exact, near = hold(reqs)
+    gb = nbytes / 1e9
+    print(f"[migrate] {tag} {route}: {exact} of {len(reqs)} streams "
+          f"token-exact{near}; {len(running)} mid-decode slots adopted "
+          f"({nbytes / 1e6:.3f} MB of K/V: export {export_ms:.3f} ms "
+          f"({export_ms / gb:.1f} ms/GB), import {import_ms:.3f} ms "
+          f"({import_ms / gb:.1f} ms/GB), migrate_inflight "
+          f"{total_ms:.3f} ms), {len(queued)} queued re-prefilled "
+          f"({sum(len(r.prompt) for r in queued)} prompt tokens), adopter "
+          f"flash launches {launches} [{card}]")
+    return dict(exact=exact, bytes=nbytes, export_ms=export_ms,
+                import_ms=import_ms, migrate_ms=total_ms,
+                tokens=sum(len(r.prompt) + len(r.tokens) - 1
+                           for r in running),
+                launches=src_launches + launches)
+
+
+def _int8_rows_ok(got, rows):
+    """The int8 codec's gate on one slot's imported rows ``got`` against
+    the exported ``rows`` (the same device): its f32 decode within the
+    reference's bound, blockmax / 254 (+1e-7) an element, for each
+    (layer, head) block, and the imported rows bitwise that decode
+    rounded to the cache's type.  Returns the largest error as a share of
+    the bound."""
+    from hetu_tpu_torch.quantwire import q8_decode_axes, q8_encode_axes
+
+    a = rows.float()
+    dec = q8_decode_axes(*q8_encode_axes(rows, (1, 3)))
+    bound = a.abs().amax(dim=(1, 3), keepdim=True) / 254 + 1e-7
+    err = (dec - a).abs()
+    check(bool((err <= bound).all()),
+          "int8 codec: an element is off by more than blockmax / 254")
+    check(torch.equal(dec.to(rows.dtype), got),
+          "int8 codec: the imported rows are not the decode rounded to "
+          "the cache's type")
+    return (err / bound).max().item()
+
+
+def _drain_codec(codec, src, dst, pairs, card, device):
+    """llama_serve's burst drained from the slot engine ``src`` to the
+    slot engine ``dst`` through one payload (export_payload ->
+    adopt_payload -> release_exported) with ``codec``; the imported rows
+    held to the exported ones before the source lets them go."""
+    from hetu_tpu_torch.serve import (
+        ContinuousBatchingScheduler, Request, ServeMetrics, migrate,
+    )
+    from hetu_tpu_torch.telemetry import trace
+
+    tag = f"llama drain {codec}"
+    counters = _flash_counters()
+    src.metrics, dst.metrics = ServeMetrics(), ServeMetrics()
+    s1 = ContinuousBatchingScheduler(src)
+    s2 = ContinuousBatchingScheduler(dst)
+    reqs = [Request(prompt=list(p), max_tokens=m) for p, m in pairs]
+    for c in counters:
+        c.launches = 0
+    running, queued = _mid_decode(s1, reqs, tag)
+    src_launches = counters[0].launches
+    contexts = [list(r.prompt) + list(r.tokens) for r in running]
+    for c in counters:
+        c.launches = 0
+    tracer = trace.enable()
+    _sync(device)
+    t0 = time.perf_counter()
+    payload, exported = migrate.export_payload(s1, codec=codec)
+    _sync(device)
+    t1 = time.perf_counter()
+    adopted, slot_map = migrate.adopt_payload(s2, payload)
+    _sync(device)
+    t2 = time.perf_counter()
+    trace.disable()
+    worst = 0.0
+    for s_slot, d_slot in slot_map.items():
+        n = int(dst.cache.lengths[d_slot])
+        for got, rows in ((dst.cache.k[:, d_slot, :n],
+                           src.cache.k[:, s_slot, :n]),
+                          (dst.cache.v[:, d_slot, :n],
+                           src.cache.v[:, s_slot, :n])):
+            if codec == "int8":
+                worst = max(worst, _int8_rows_ok(got, rows))
+            else:
+                check(torch.equal(got, rows), f"{tag}: the imported rows "
+                                              f"are not the exported rows")
+    migrate.release_exported(s1, exported)
+    _released(src, f"{tag} source")
+    by_rid = {r.rid: i for i, r in enumerate(reqs)}
+    order = [by_rid[r.rid] for r in adopted]
+    queued_rids = {r.rid for r in queued}
+    launches = _finish_route(
+        tag, dst, s2, adopted, [r for r in adopted if r.rid in queued_rids],
+        slot_map, len(running), device, counters)
+    # the streams in submission order; tokens only, since a request
+    # keeps its scheduler (and so the engine) alive through ``owner``
+    streams = [None] * len(reqs)
+    for i, r in zip(order, adopted):
+        streams[i] = r.tokens
+    reg = s1.metrics.registry.metrics()
+    out = dict(payload=len(payload),
+               logical=reg["serve.migrate.bytes_logical"].value,
+               wire=reg["serve.migrate.bytes_wire"].value,
+               export_ms=_span_ms(tracer.events, "serve.export_slots")[0],
+               pack_ms=_span_ms(tracer.events, "serve.migrate.pack")[0],
+               unpack_ms=_span_ms(tracer.events, "serve.migrate.unpack")[0],
+               import_ms=_span_ms(tracer.events, "serve.adopt_slots")[0],
+               export_payload_ms=(t1 - t0) * 1e3,
+               adopt_payload_ms=(t2 - t1) * 1e3, int8_share=worst,
+               mid_decode=len(running), contexts=contexts,
+               launches=src_launches + launches, tokens=streams)
+    gb, n = out["logical"] / 1e9, len(running)
+    print(f"[migrate] {tag}: payload {out['payload'] / 1e6:.3f} MB "
+          f"({out['logical'] / 1e6:.3f} MB of K/V logical, "
+          f"{out['wire'] / 1e6:.3f} MB on the wire) for {n} mid-decode "
+          f"slots and {len(queued)} queued records [{card}]")
+    print(f"[migrate] {tag}: "
+          + ", ".join(f"{stage} {out[stage + '_ms']:.3f} ms "
+                      f"({out[stage + '_ms'] / gb:.1f} ms/GB, "
+                      f"{out[stage + '_ms'] / n:.3f} ms a request)"
+                      for stage in ("export", "pack", "unpack", "import"))
+          + f"; export_payload {out['export_payload_ms']:.3f} ms, "
+          f"adopt_payload {out['adopt_payload_ms']:.3f} ms"
+          + (f"; int8 error up to {worst:.3f} of blockmax / 254"
+             if codec == "int8" else "; imported rows bitwise the exported")
+          + f" [{card}]")
+    return out
+
+
+def _reprefill_ms(engine, contexts, device):
+    """The other arm of bench_migrate: each migrated context prefilled
+    again on ``engine`` (the second of two runs), in ms."""
+    out = []
+    for ctx in contexts:
+        slot = engine.alloc_slot()
+        for _ in range(2):
+            _sync(device)
+            t0 = time.perf_counter()
+            engine.prefill(slot, ctx)
+            _sync(device)
+            dt = (time.perf_counter() - t0) * 1e3
+        engine.release(slot)
+        out.append((len(ctx), dt))
+    return out
+
+
+def phase_migrate(card, seed, llama_engine, llama_ref, device="cuda"):
+    """Live KV-slot migration (serve/migrate.py) between engines in this
+    process, through ``migrate_inflight`` on three routes (slot -> slot,
+    slot -> paged, paged -> paged): (a) GPT-2-small in f32, every stream
+    token-exact against the unmigrated burst; (b) Llama-2-7B in bf16 on
+    ``llama_engine``'s serving copy, streams held to ``llama_ref``
+    (llama_serve's burst) by the near-tie rule; then llama_serve's burst
+    drained slot -> slot through one payload with each codec, the
+    imported rows bitwise (none, bf16) or within the int8 bound, and the
+    re-prefill of the same contexts timed beside it.  The adopter prefills
+    only the queued prompts."""
+    from types import SimpleNamespace
+
+    from hetu_tpu_torch import interop
+    from hetu_tpu_torch.models import GPTConfig, GPTModel
+    from hetu_tpu_torch.serve import PagedServeEngine, ServeEngine
+
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"launches": 0}
+
+    def engines(model, slots, max_len):
+        a = ServeEngine(model, num_slots=slots, max_len=max_len,
+                        device=device)
+        served = _Served(a.model)
+        return (a, ServeEngine(served, num_slots=slots, max_len=max_len,
+                               device=device),
+                *(PagedServeEngine(served, num_slots=slots, max_len=max_len,
+                                   page_size=PAGE_SIZE, device=device)
+                  for _ in range(2)))
+
+    # (a) GPT-2-small, f32, the plain attention path
+    cfg = GPTConfig(vocab_size=V, hidden_size=H, num_layers=L, num_heads=NH,
+                    ffn_size=FFN, max_position=MAX_LEN)
+    model = GPTModel(cfg, device=device)
+    model.load_state_dict(interop.params_from_jax(
+        jax_layout_weights(seed, MAX_LEN), cfg))
+    slot_a, slot_b, paged_a, paged_b = engines(model, SLOTS, MAX_LEN)
+    del model
+    pairs = burst(np.random.default_rng(seed), V, N_REQUESTS, GPT_PROMPT,
+                  GPT_GEN)
+    ref = [r.tokens for r in _serve_burst(slot_a, pairs, device)["requests"]]
+
+    def exact(reqs):
+        got = [r.tokens for r in reqs]
+        check(got == ref, "gpt: a migrated stream differs from the "
+                          "unmigrated burst")
+        return len(got), ""
+
+    out["gpt"] = {}
+    for route, src, dst in (("slot->slot", slot_a, slot_b),
+                            ("slot->paged", slot_a, paged_a),
+                            ("paged->paged", paged_a, paged_b)):
+        r = _migrate_route("gpt", route, src, dst, pairs, card, device,
+                           exact)
+        out["gpt"][route] = r
+        out["launches"] += r["launches"]
+    del slot_a, slot_b, paged_a, paged_b
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) Llama-2-7B, bf16, on llama_serve's serving copy
+    model = llama_engine.model
+    served = _Served(model)
+    slot_b = ServeEngine(served, num_slots=LLAMA_SLOTS,
+                         max_len=LLAMA_MAX_LEN, device=device)
+    paged_a, paged_b = (PagedServeEngine(
+        served, num_slots=LLAMA_SLOTS, max_len=LLAMA_MAX_LEN,
+        page_size=PAGE_SIZE, device=device) for _ in range(2))
+    pairs = burst(np.random.default_rng(seed + 3), LLAMA_V, LLAMA_REQUESTS,
+                  LLAMA_PROMPT, LLAMA_GEN)
+    ref_run = {"requests": [SimpleNamespace(prompt=list(p), tokens=t)
+                            for (p, _), t in zip(pairs, llama_ref)]}
+    plain = _plain_logits(model, device)
+
+    def near_tie(tag):
+        def hold(reqs):
+            _set_attention_impl(model, "xla")
+            try:
+                shares = _hold_streams(tag, ref_run, {"requests": reqs},
+                                       plain, TOL_LLAMA_LOGITS,
+                                       phase="migrate")
+            finally:
+                _set_attention_impl(model, "flash")
+            return len(reqs) - len(shares), \
+                f" ({len(shares)} parted at a near tie)"
+        return hold
+
+    llama = out["llama"] = {}
+    for route, src, dst in (("slot->slot", llama_engine, slot_b),
+                            ("slot->paged", llama_engine, paged_a),
+                            ("paged->paged", paged_a, paged_b)):
+        r = _migrate_route("llama", route, src, dst, pairs, card, device,
+                           near_tie(f"llama {route}"))
+        llama[route] = r
+        out["launches"] += r["launches"]
+    del paged_a, paged_b
+
+    drains = llama["drain"] = {}
+    for codec in MIGRATE_CODECS:
+        d = drains[codec] = _drain_codec(codec, llama_engine, slot_b, pairs,
+                                         card, device)
+        out["launches"] += d["launches"]
+        if codec == "int8":
+            n_exact = sum(a == b for a, b in zip(d["tokens"], llama_ref))
+            print(f"[migrate] llama drain int8: {n_exact} of "
+                  f"{len(llama_ref)} streams token-exact (no gate: the "
+                  f"codec is lossy)")
+        else:
+            near_tie(f"llama drain {codec}")(
+                [SimpleNamespace(tokens=t) for t in d["tokens"]])
+    for codec in MIGRATE_CODECS:
+        d = drains[codec]
+        d["ratio"] = drains["none"]["wire"] / d["wire"]
+        print(f"[migrate] llama drain {codec}: {d['ratio']:.3f}x fewer bytes "
+              f"on the wire than none")
+    check(drains["int8"]["ratio"] >= 1.9,
+          "int8 codec: the payload is not 1.9x smaller than none on the "
+          "bf16 cache")
+
+    # the other arm: the migrated contexts prefilled again on the adopter
+    re = _reprefill_ms(slot_b, drains["none"]["contexts"], device)
+    n_tok = np.array([n for n, _ in re], float)
+    ms = np.array([t for _, t in re])
+    slope, icpt = np.polyfit(n_tok, ms, 1)
+    llama["reprefill"] = dict(tokens=n_tok.tolist(), ms=ms.tolist(),
+                              ms_per_token=slope, fixed_ms=icpt)
+    print(f"[migrate] llama re-prefill of the {len(re)} migrated contexts "
+          f"({int(n_tok.min())}-{int(n_tok.max())} tokens) on the adopter: "
+          f"{ms.sum():.3f} ms in all, fit {icpt:.3f} ms + {slope:.5f} ms a "
+          f"token [{card}]")
+    tok = sum(len(c) - 1 for c in drains["none"]["contexts"])
+    for name, mig in (
+            ("in-process (export + import)",
+             llama["slot->slot"]["export_ms"]
+             + llama["slot->slot"]["import_ms"]),
+            *((f"payload {c} (export + pack + unpack + import)",
+               drains[c]["export_ms"] + drains[c]["pack_ms"]
+               + drains[c]["unpack_ms"] + drains[c]["import_ms"])
+              for c in MIGRATE_CODECS)):
+        per_tok = mig / tok
+        cross = icpt / (per_tok - slope) if per_tok > slope else None
+        print(f"[migrate] llama migration {name}: {mig:.3f} ms for {tok} "
+              f"cached tokens, {per_tok:.5f} ms a token against "
+              f"re-prefill's {slope:.5f} + {icpt:.3f} ms fixed: "
+              + (f"migration wins below {cross:.0f} tokens of context"
+                 if cross is not None else
+                 "migration wins at every context length")
+              + f" [{card}]")
+    out["peak_gib"] = _peak_gib(device)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[migrate] peak {out['peak_gib']:.2f} GiB allocated; phase "
+          f"{out['seconds']:.1f} s; flash forwards launched on the routes "
+          f"and drains {out['launches']} [{card}]")
     return out
 
 
@@ -3332,6 +3779,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     llama_serve, llama_engine = phase_llama_serve(card, args.seed)
     phase_paged_serve(card, args.seed, llama_engine)
+    migrate = phase_migrate(card, args.seed, llama_engine,
+                            llama_serve["tokens"])
     del llama_engine
     torch.cuda.empty_cache()
     llama_train = phase_train_llama(card, args.seed)
@@ -3359,6 +3808,7 @@ def main(argv=None) -> int:
                               "train": train["launches"][0],
                               "llama_serve": llama_serve["launches"],
                               "paged_serve": 0,
+                              "migrate": migrate["launches"],
                               "llama_train": llama_train["launches"][0],
                               "bert_train": bert["launches"][0]},
          # the serving path's largest prompt bucket, and S = 512

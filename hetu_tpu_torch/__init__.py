@@ -17,7 +17,9 @@ paths and names mirror the reference so each counterpart is found at once:
     htt.lr.*          # step -> lr schedulers
     htt.train.*       # Executor, TrainState, checkpoint
     htt.interop       # hetu_tpu parameter / optimizer trees <-> state_dicts
-    htt.serve.*       # ServeEngine, ContinuousBatchingScheduler, metrics
+    htt.serve.*       # ServeEngine, ContinuousBatchingScheduler, metrics,
+                      # migrate (live KV-slot migration)
+    htt.quantwire     # int8 block codec of migration payloads
     htt.telemetry.*   # span tracer + typed metrics registry
     htt.data.*        # bucketed padding of CTR batches
     htt.utils.metrics # AUC, accuracy, F1 on host arrays
@@ -33,7 +35,8 @@ import lazily, so ``import hetu_tpu_torch`` stays cheap.
 from hetu_tpu_torch.version import __version__
 
 _LAZY = {"ops", "init", "rng", "layers", "models", "optim", "lr", "train",
-         "interop", "serve", "telemetry", "data", "utils", "ps"}
+         "interop", "serve", "telemetry", "data", "utils", "ps",
+         "quantwire"}
 
 
 def __getattr__(name):

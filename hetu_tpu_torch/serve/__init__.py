@@ -13,19 +13,26 @@
     or page-budget (paged) backpressure, chunked prefill interleaved with
     decode;
   * :mod:`metrics` — TTFT / tokens-per-sec / queue depth / occupancy /
-    prefix hits.
+    prefix hits;
+  * :mod:`migrate` — live KV-slot migration in one process: slot export
+    and import (:class:`KVSlotSnapshot`), the self-describing payload and
+    its codecs (byte-compatible with the reference's), and
+    ``migrate_inflight`` between two schedulers, slot or paged.
 
-Slot export and import for migration, the van front-end server and the
-serving pools wait for later slices.
+The van wire of migration, the front-end server and the serving pools
+wait for later slices.
 """
 
+from hetu_tpu_torch.serve import migrate
 from hetu_tpu_torch.serve.engine import PagedServeEngine, ServeEngine
 from hetu_tpu_torch.serve.kv_cache import (
-    KVCache, KVCacheSpec, PagedKVCache, PagePoolExhausted,
+    KVCache, KVCacheSpec, KVSlotSnapshot, PagedKVCache, PagePoolExhausted,
 )
 from hetu_tpu_torch.serve.metrics import ServeMetrics
+from hetu_tpu_torch.serve.migrate import MigrationError
 from hetu_tpu_torch.serve.scheduler import ContinuousBatchingScheduler, Request
 
 __all__ = ["ServeEngine", "PagedServeEngine", "KVCache", "KVCacheSpec",
-           "PagedKVCache", "PagePoolExhausted", "ServeMetrics",
+           "KVSlotSnapshot", "PagedKVCache", "PagePoolExhausted",
+           "ServeMetrics", "MigrationError", "migrate",
            "ContinuousBatchingScheduler", "Request"]

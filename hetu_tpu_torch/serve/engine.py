@@ -22,9 +22,10 @@ ride along masked.
 
 Both engines run under ``torch.inference_mode()`` on a copy of the model
 whose matmul weights were cast to the compute type ONCE, when the engine
-was built (:meth:`GPTModel.inference_copy`).  The reference's tensor
-parallel ``mesh`` waits for the multi-GPU slice, and slot export, import
-and adoption for migration for the server-and-migration slice.
+was built (:meth:`GPTModel.inference_copy`).  Both export, resume and
+adopt live slots for migration (serve/migrate.py): an adopted slot decodes
+on where its source stopped, with no prefill.  The reference's tensor
+parallel ``mesh`` waits for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -161,6 +162,34 @@ class ServeEngine:
         self.metrics.observe_decode(len(out))
         return out
 
+    # ---- live-slot migration ----
+    def export_slots(self, slot_ids) -> list:
+        """Snapshot mid-decode slots for hand-off to a peer engine: the
+        cache's truncated rows plus this engine's per-slot decode state
+        in ``meta`` (the last emitted token, which is NOT in the cache
+        yet): all a peer needs to decode on with zero prefill.
+
+        The exported slots are SUSPENDED (allocated, but skipped by
+        :meth:`decode`) until the caller releases them (the migration
+        committed) or :meth:`resume_slots` them (rollback); a decode step
+        in between would advance them past their requests' recorded
+        tokens.  Suspension comes last, after every snapshot was taken,
+        so a failed export leaves every slot decoding."""
+        return _export_slots(self, slot_ids)
+
+    def resume_slots(self, slot_ids) -> None:
+        """Re-activate slots suspended by :meth:`export_slots`, the
+        rollback of a failed migration: they decode on exactly where they
+        stopped (``last_tokens`` was kept).  All or nothing."""
+        _resume_slots(self, slot_ids)
+
+    def adopt_slots(self, snapshots) -> dict:
+        """Adopt peer-exported slots; returns ``{source_slot: slot}``.
+        The next :meth:`decode` continues each adopted sequence where the
+        source left off: no prefill runs for it (``prefill_tokens`` stays
+        flat)."""
+        return _adopt_slots(self, snapshots)
+
     # ---- slot lifecycle (delegates; engine keeps its masks in sync) ----
     def alloc_slot(self) -> int:
         slot = self.cache.alloc()
@@ -171,6 +200,50 @@ class ServeEngine:
         self.active[slot] = False
         self.last_tokens[slot] = 0
         self.cache.free(slot)
+
+
+def _export_slots(engine, slot_ids) -> list:
+    for slot in slot_ids:
+        if not engine.active[int(slot)]:
+            raise ValueError(f"slot {int(slot)} is not mid-decode; nothing "
+                             f"to migrate")
+    # the fetch to the host ends the span: it covers the device copies
+    with trace.span("serve.export_slots") as sp:
+        snaps = engine.cache.export_slots(slot_ids)
+        sp.set("slots", len(snaps))
+        sp.set("bytes", sum(x.nbytes for x in snaps))
+    for s in snaps:
+        s.meta["last_token"] = int(engine.last_tokens[s.slot])
+    for slot in slot_ids:  # suspend LAST: a failure above leaves every
+        engine.active[int(slot)] = False  # slot decoding
+    return snaps
+
+
+def _resume_slots(engine, slot_ids) -> None:
+    slots = [int(s) for s in slot_ids]
+    for slot in slots:  # validate first: resume is all-or-nothing
+        if engine.cache.lengths[slot] < 1:
+            raise ValueError(f"slot {slot} has no cached tokens to resume")
+    for slot in slots:
+        engine.active[slot] = True
+
+
+def _adopt_slots(engine, snapshots) -> dict:
+    snaps = list(snapshots)
+    for s in snaps:
+        if "last_token" not in s.meta:
+            raise ValueError(f"slot snapshot {s.slot} has no last_token "
+                             f"meta: exported from a cache, not an engine?")
+    with trace.span("serve.adopt_slots") as sp:
+        slot_map = engine.cache.import_slots(snaps)
+        sp.set("slots", len(snaps))
+        sp.set("bytes", sum(x.nbytes for x in snaps))
+    for s in snaps:
+        slot = slot_map[s.slot]
+        engine.last_tokens[slot] = int(s.meta["last_token"])
+        engine.active[slot] = True
+    engine.metrics.inc("slots_adopted", len(slot_map))
+    return slot_map
 
 
 class _PrefillCursor:
@@ -505,6 +578,39 @@ class PagedServeEngine:
         self.metrics.set_gauge("pages_in_use", cache.pages_in_use)
         self.metrics.set_gauge("prefix_entries", cache.prefix_entries)
         return out
+
+    # ---- live-slot migration (the slot engine's contract) ----
+    def export_slots(self, slot_ids) -> list:
+        """As :meth:`ServeEngine.export_slots`; a slot whose chunked
+        prefill is still running is not mid-decode (the scheduler
+        exports its request as queued)."""
+        return _export_slots(self, slot_ids)
+
+    def resume_slots(self, slot_ids) -> None:
+        _resume_slots(self, slot_ids)
+
+    def adopt_slots(self, snapshots) -> dict:
+        """As :meth:`ServeEngine.adopt_slots`: the rows land in fresh
+        pages of this pool."""
+        return _adopt_slots(self, snapshots)
+
+    def reindex_prefix(self, slot: int, tokens) -> None:
+        """Re-dedup an ADOPTED slot into this engine's prefix index:
+        register the page-boundary hashes of ``tokens`` (the slot's token
+        stream, which the scheduler knows; the cache holds only rows)
+        against the imported pages, so later traffic that shares the
+        migrated prompts hits them.  Page-aligned entries only: the tail
+        page is mid-decode."""
+        n = int(self.cache.lengths[slot])
+        toks = list(tokens)[:n]
+        if len(toks) < n or n < self.cache.page_size:
+            return  # a stream shorter than the cached rows, or no whole
+            # page to index
+        before = self.cache.prefix_entries
+        self.cache.register_prefix(slot, toks, aligned_only=True)
+        added = self.cache.prefix_entries - before
+        if added > 0:
+            self.metrics.inc("prefix_reindexed", added)
 
     # ---- slot lifecycle ----
     def alloc_slot(self) -> int:

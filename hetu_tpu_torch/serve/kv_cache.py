@@ -24,15 +24,20 @@ GQA-aware: the caches store the model's ``num_kv_heads`` heads
 un-repeated; ``ops.decode_attention`` and ``ops.chunk_attention`` repeat
 them at read time.
 
-Slot export and import for migration (``export_slots``/``import_slots``
-and ``KVSlotSnapshot``) wait for the server-and-migration slice.
+Live-slot migration (serve/migrate.py) rides on ``export_slots`` /
+``import_slots``: both caches lift a slot's LIVE rows into a
+:class:`KVSlotSnapshot` (host tensors, one copy from the card a slot) and
+write an adopted one in place, so a slot engine and a paged engine speak
+one wire form.  The reference pads an import to a power-of-two row count
+to bound its XLA executables; here the rows ``[:length]`` go straight into
+the new slot (or its fresh pages) and nothing else moves.
 """
 
 from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -57,6 +62,80 @@ class KVCacheSpec:
         return KVCacheSpec(
             num_layers=c.num_layers, num_kv_heads=nkv,
             head_dim=c.hidden_size // c.num_heads, dtype=c.dtype)
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype as numpy spells it (``"float32"``, ``"bfloat16"``):
+    the name migration payloads carry."""
+    return str(dtype).removeprefix("torch.")
+
+
+@dataclass
+class KVSlotSnapshot:
+    """One live cache slot lifted onto the host for migration.
+
+    ``k``/``v`` are CPU tensors ``[num_layers, length, kv_heads,
+    head_dim]`` in the source cache's dtype, truncated to the slot's live
+    ``length`` (never ``max_len``: migration cost scales with what is
+    cached).  Torch tensors rather than numpy arrays: numpy holds no
+    bfloat16 without ``ml_dtypes``.  ``slot`` is the SOURCE slot id
+    (import returns a map from it to the adopting cache's slot); ``meta``
+    carries the engine's per-slot state (the last emitted token), opaque
+    to the cache.
+    """
+
+    slot: int
+    length: int
+    k: torch.Tensor
+    v: torch.Tensor
+    meta: dict = field(default_factory=dict)
+
+    @property
+    def nbytes(self) -> int:
+        return (self.k.numel() * self.k.element_size()
+                + self.v.numel() * self.v.element_size())
+
+
+def _check_snapshots(spec: KVCacheSpec, snaps, max_len: int) -> None:
+    """Every snapshot must leave room to decode within ``max_len`` and
+    match ``spec`` exactly (layers, kv heads, head dim, dtype): the
+    validate-first half of an all-or-nothing import."""
+    for s in snaps:
+        if s.length < 1 or s.length >= max_len:
+            raise ValueError(
+                f"slot snapshot of {s.length} tokens does not leave room "
+                f"to decode within max_len {max_len}")
+        want = (spec.num_layers, s.length, spec.num_kv_heads, spec.head_dim)
+        for name, t in (("k", s.k), ("v", s.v)):
+            if tuple(t.shape) != want:
+                raise ValueError(
+                    f"{name} geometry mismatch: snapshot {tuple(t.shape)} "
+                    f"vs cache spec {want} (layers/kv_heads/head_dim must "
+                    f"match exactly)")
+            if t.dtype != spec.dtype:
+                raise ValueError(
+                    f"{name} dtype mismatch: snapshot {dtype_name(t.dtype)} "
+                    f"vs cache {dtype_name(spec.dtype)}")
+
+
+def _live_length(cache, slot: int, free) -> int:
+    """The cached length of an occupied ``slot``; raises for a slot out of
+    range, free (in ``free``) or empty: nothing to export."""
+    if not 0 <= slot < cache.num_slots:
+        raise ValueError(f"slot {slot} out of range")
+    if slot in free:
+        raise ValueError(f"slot {slot} is free; nothing to export")
+    n = int(cache.lengths[slot])
+    if n < 1:
+        raise ValueError(f"slot {slot} has no cached tokens")
+    return n
+
+
+def _to_host(k_rows, v_rows, slot: int, n: int) -> KVSlotSnapshot:
+    """K and V rows of one slot, stacked on the card and fetched in ONE
+    copy; the snapshot's tensors are views of that host block."""
+    rows = torch.stack((k_rows, v_rows)).cpu()
+    return KVSlotSnapshot(slot=slot, length=n, k=rows[0], v=rows[1])
 
 
 class KVCache:
@@ -116,6 +195,48 @@ class KVCache:
             raise ValueError(f"slot {slot} out of range")
         self.lengths[slot] = 0
         self._free.append(slot)
+
+    # ---- live-slot migration (serve/migrate.py rides on these) ----
+    def export_slots(self, slot_ids) -> list:
+        """Snapshot occupied slots for migration to a peer cache: each
+        slot's rows ``[:lengths[slot]]`` fetched to the host.  The slot
+        stays allocated and untouched, so a failed transfer rolls back
+        by NOT freeing it."""
+        snaps = []
+        for slot in slot_ids:
+            slot = int(slot)
+            n = _live_length(self, slot, self._free)
+            snaps.append(_to_host(self.k[:, slot, :n], self.v[:, slot, :n],
+                                  slot, n))
+        return snaps
+
+    def import_slots(self, snapshots) -> dict:
+        """Adopt peer-exported snapshots; returns ``{source_slot: slot}``.
+
+        Validates EVERY snapshot before allocating anything, and frees
+        every slot it allocated if a write fails: a mismatched migration
+        errors loudly and adopts nothing.  Each snapshot's rows land in
+        place in its new slot; no other slot's rows change."""
+        snaps = list(snapshots)
+        if len(snaps) > self.num_free:
+            raise RuntimeError(f"cannot adopt {len(snaps)} slots: only "
+                               f"{self.num_free} free")
+        _check_snapshots(self.spec, snaps, self.max_len)
+        slot_map: dict = {}
+        allocated: list = []
+        try:
+            for s in snaps:
+                slot = self.alloc()
+                allocated.append(slot)
+                self.k[:, slot, :s.length] = s.k
+                self.v[:, slot, :s.length] = s.v
+                self.lengths[slot] = s.length
+                slot_map[s.slot] = slot
+        except Exception:
+            for slot in allocated:
+                self.free(slot)
+            raise
+        return slot_map
 
 
 def pow2_ceil(n: int, cap: int) -> int:
@@ -416,16 +537,24 @@ class PagedKVCache:
         self.lengths[slot] = int(n_shared)
         self.prefix_hit_tokens += int(n_shared)
 
-    def register_prefix(self, slot: int, tokens) -> None:
+    def register_prefix(self, slot: int, tokens, *,
+                        aligned_only: bool = False) -> None:
         """Index ``slot``'s freshly prefilled prompt for later arrivals:
         one entry per page-aligned prefix plus the partial tail.
         Registered pages become IMMUTABLE (their index refs make a write
         copy them), for ``slot`` too: its first decode into a registered
-        partial page copies it, leaving the indexed K/V as it was."""
+        partial page copies it, leaving the indexed K/V as it was.
+
+        ``aligned_only`` skips the partial tail: the re-index of an
+        ADOPTED slot, whose tail page is still being decoded into
+        (indexing it would copy that page at the next token and leave an
+        entry that never matches)."""
         if not self.max_prefix_entries:
             return
         table = self.tables[slot]
         for n_tok, digest in self._digests(tokens, self.page_size).items():
+            if aligned_only and n_tok % self.page_size:
+                continue
             if digest in self._prefix:
                 self._prefix.move_to_end(digest)
                 continue
@@ -440,3 +569,72 @@ class PagedKVCache:
     @property
     def prefix_entries(self) -> int:
         return len(self._prefix)
+
+    # ---- live-slot migration (serve/migrate.py rides on these) ----
+    def _rows_index(self, table, n: int) -> torch.Tensor:
+        """Flat row ids (``page * page_size + offset``) of a slot's first
+        ``n`` positions in the pool viewed as ``[L, pages * page_size,
+        kv_heads, head_dim]``."""
+        pos = np.arange(n)
+        ps = self.page_size
+        rows = np.asarray(table, np.int64)[pos // ps] * ps + pos % ps
+        return torch.from_numpy(rows).to(self.k.device)
+
+    def _flat(self, pool):
+        return pool.view(pool.shape[0], self.num_pages * self.page_size,
+                         *pool.shape[3:])
+
+    def export_slots(self, slot_ids) -> list:
+        """Snapshot occupied slots as CONTIGUOUS truncated rows, the same
+        :class:`KVSlotSnapshot` wire form as the slot cache: each slot's
+        LIVE pages are gathered (a shared page is read, not moved) and
+        fetched to the host in one copy.  Page ids stay local; the
+        adopter builds its own tables."""
+        snaps = []
+        for slot in slot_ids:
+            slot = int(slot)
+            n = _live_length(self, slot, self._free_slots)
+            idx = self._rows_index(self.tables[slot], n)
+            snaps.append(_to_host(self._flat(self.k)[:, idx],
+                                  self._flat(self.v)[:, idx], slot, n))
+        return snaps
+
+    def import_slots(self, snapshots) -> dict:
+        """Adopt peer-exported snapshots into fresh pages; returns
+        ``{source_slot: slot}``.  Validates EVERYTHING (geometry, dtype,
+        slot and page headroom net of every outstanding reservation)
+        before allocating anything; a failed write frees every slot and
+        page this call took.  The adopted slot reserves nothing: pages it
+        decodes into later come from the pool (``PagePoolExhausted``
+        preempts a victim when there are none)."""
+        snaps = list(snapshots)
+        if len(snaps) > self.num_free:
+            raise RuntimeError(f"cannot adopt {len(snaps)} slots: only "
+                               f"{self.num_free} free")
+        _check_snapshots(self.spec, snaps, self.max_len)
+        need = sum(self.pages_for_tokens(s.length) for s in snaps)
+        # net of reservations: an adoption must not take the headroom a
+        # running chunked prefill's admission was promised
+        if need > self.available_pages():
+            raise RuntimeError(
+                f"cannot adopt {need} pages: only {self.available_pages()} "
+                f"available (free + reclaimable - reserved)")
+        slot_map: dict = {}
+        allocated: list = []
+        try:
+            for s in snaps:
+                slot = self.alloc()
+                allocated.append(slot)
+                table = self.tables[slot]  # free() unrefs what lands here
+                for _ in range(self.pages_for_tokens(s.length)):
+                    table.append(self._alloc_page(slot))
+                idx = self._rows_index(table, s.length)
+                self._flat(self.k)[:, idx] = s.k.to(self.k.device)
+                self._flat(self.v)[:, idx] = s.v.to(self.v.device)
+                self.lengths[slot] = s.length
+                slot_map[s.slot] = slot
+        except Exception:
+            for slot in allocated:
+                self.free(slot)
+            raise
+        return slot_map

@@ -20,9 +20,11 @@ it: the slot :class:`ServeEngine` (``alloc_slot``/``prefill``/``decode``/
 ``release``) and the :class:`PagedServeEngine`, which adds the paged
 branches (page-budget admission through ``admission_ok``, chunked prefill
 through ``begin_prefill``/``prefill_step`` interleaved with decode, and
-the ``PagePoolExhausted`` preemption).  The migration surface
-(``export_inflight``/``adopt_inflight``) is carried along but not yet
-backed: slot export and import wait for the server-and-migration slice.
+the ``PagePoolExhausted`` preemption).  Both engines also back the
+migration surface (``export_inflight``/``export_inflight_with_slots``/
+``adopt_inflight``, used by serve/migrate.py) with ``export_slots``,
+``resume_slots`` and ``adopt_slots``, and the paged engine re-indexes
+adopted pages through ``reindex_prefix``.
 """
 
 from __future__ import annotations

@@ -284,3 +284,31 @@ def test_engine_counts_buckets_and_decode_steps():
     snap = engine.metrics.snapshot()
     assert snap["prefill_compiles"] == 2 and snap["decode_steps"] == 6
     assert flash_attention.launches == 0     # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_eos_stops_at_its_token_and_frees_the_slot(impl):
+    """The scheduler's EOS stop against the reference's stream: the eos is
+    a token whose FIRST appearance in the greedy stream is at its own
+    index (a token seen earlier would stop the stream there), so both
+    packages' schedulers must emit the stream up to and including it, and
+    the slot is free again."""
+    jm, jv = _jax_model(impl)
+    tm = _torch_model(impl)
+    prompt = [3, 14, 15]
+    ref = _greedy(JaxServeEngine(jm, jv, num_slots=1, max_len=32,
+                                 min_bucket=8), prompt, 10)
+    firsts = [i for i in range(1, 9) if ref.index(ref[i]) == i]
+    assert firsts, f"no token first appears after index 0 in {ref}"
+    stop = firsts[-1]
+    eos = ref[stop]
+    want = JaxRequest(prompt=prompt, max_tokens=10, eos_id=eos)
+    JaxScheduler(JaxServeEngine(jm, jv, num_slots=1, max_len=32,
+                                min_bucket=8)).run([want])
+    engine = ServeEngine(tm, num_slots=1, max_len=32, min_bucket=8,
+                         device="cpu")
+    got = Request(prompt=prompt, max_tokens=10, eos_id=eos)
+    out = ContinuousBatchingScheduler(engine).run([got])
+    assert out[got.rid] == got.tokens == ref[:stop + 1] == want.tokens
+    assert got.status == want.status == "ok"
+    assert engine.cache.num_free == 1

@@ -2,7 +2,9 @@
 
 Subprocesses import the package and, on the CPU, run the serving slice
 (one prefill and one decode), GQA Llama through the paged engine and the
-scheduler (prefix sharing included), the GPT and MoE training slices (two
+scheduler (prefix sharing included), a migration between a slot and a
+paged engine (an int8 payload, then ``migrate_inflight``), the GPT and
+MoE training slices (two
 AdamW steps of the Executor and a checkpoint round trip each), GQA Llama
 serving and a BERT pretraining step; ``jax`` and ``hetu_tpu`` must
 stay out of ``sys.modules``.  An AST scan of every module of the package,
@@ -85,6 +87,43 @@ def test_paged_serving_runs_without_jax():
         "ContinuousBatchingScheduler(e).run(reqs)\n"
         "assert [r.status for r in reqs] == ['ok'] * 3\n"
         "assert e.cache.prefix_hit_tokens > 0\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out
+
+
+def test_migration_runs_without_jax():
+    """A bf16 Llama's burst drained from a slot engine to a paged one
+    through an int8 payload, then moved back by migrate_inflight."""
+    out = _run(
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from hetu_tpu_torch.models import LlamaConfig, LlamaModel\n"
+        "from hetu_tpu_torch.serve import (\n"
+        "    ContinuousBatchingScheduler, PagedServeEngine, Request,\n"
+        "    ServeEngine, migrate)\n"
+        "cfg = LlamaConfig(vocab_size=97, hidden_size=32, num_layers=2,\n"
+        "                  num_heads=4, num_kv_heads=2, ffn_size=48,\n"
+        "                  max_position=64, dtype=torch.bfloat16)\n"
+        "m = LlamaModel(cfg, device='cpu')\n"
+        "a = ContinuousBatchingScheduler(ServeEngine(\n"
+        "    m, num_slots=2, max_len=64, device='cpu'))\n"
+        "b = ContinuousBatchingScheduler(PagedServeEngine(\n"
+        "    m, num_slots=2, max_len=64, page_size=8, device='cpu'))\n"
+        "reqs = [Request(prompt=[1, 2, 3, 4, 5], max_tokens=6)\n"
+        "        for _ in range(3)]\n"
+        "for r in reqs:\n"
+        "    a.submit(r)\n"
+        "a.step()\n"
+        "payload, pairs = migrate.export_payload(a, codec='int8')\n"
+        "got, _ = migrate.adopt_payload(b, payload)\n"
+        "migrate.release_exported(a, pairs)\n"
+        "b.step()\n"
+        "migrate.migrate_inflight(b, a)\n"
+        "a.run([])\n"
+        "assert [r.status for r in got] == ['ok'] * 3\n"
+        "assert b.engine.metrics.count('slots_adopted') == 2\n"
         "mods = sorted(m for m in sys.modules\n"
         "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
         "print('LEAKED', mods)\n")
