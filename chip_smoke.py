@@ -86,18 +86,35 @@ without the final result line:
    blockmax / 254 (int8, at least 1.9x fewer bytes on the wire); payload
    bytes, export, pack, unpack and import ms (and per GB), the re-prefill
    of the same contexts on the adopter and the crossover between the two.
-11. train_llama — Llama-2-7B's widths at 4 layers (cut from 32), bf16,
+11. server — the front end over the van (``serve/server.py`` over
+   ``ps/van.py``, loopback; one ``InferenceClient`` thread a request, all
+   released at once): (a) GPT-2-small at the slice's configuration, its
+   burst straight through the scheduler and then through
+   ``InferenceServer``; (b) Llama-2-7B's burst on llama_serve's serving
+   copy; each response ok, the streams held to the straight run by the
+   near-tie rule, one flash forward a layer a prefill; client latency,
+   TTFT and tokens/s against the straight run; (c) a GPT-2-small engine
+   that crashes after a fixed count of decode rounds, ``restart_engine``
+   with a fresh engine on the same weights: every request ok, at least
+   one requeued, one restart, healthy again, streams by the near-tie
+   rule, the time from the crash to the first token after it; (d)
+   ``migrate_inflight`` over two ``BlobChannel`` s in 1 MiB chunks:
+   GPT-2-small f32 token-exact, and llama_serve's burst slot -> slot with
+   each codec (the migrate phase's row and byte gates), send and receive
+   ms, the wire's rate and the crossover against re-prefill beside the
+   in-process hand-off.
+12. train_llama — Llama-2-7B's widths at 4 layers (cut from 32), bf16,
    flash, recomputation, fused CE, AdamW, B 4 x S 4096: the kernel-vs-plain
    gate, then 10 Executor steps (2·L forwards and L of each backward kernel
    a step), step time, tokens/s, MFU, peak memory, one profiled step.
-12. train_bert — BERT-base (BASELINE.json's config #3), bf16, flash,
+13. train_bert — BERT-base (BASELINE.json's config #3), bf16, flash,
    dropout 0.1, B 16 x S 512 from ``examples/bert_pretrain.py``'s
    synthetic stream, no attention mask (the non-causal kernels): a masked
    forward takes the plain path and launches no kernel; the kernel-vs-plain
    gate with both paths drawing dropout from the same generators; 10
    Executor steps (L of each kernel a step), step time, samples/s, MFU,
    peak memory, one profiled step.
-13. train_ctr — device-resident Wide & Deep at ``bench.py`` bench_ctr's
+14. train_ctr — device-resident Wide & Deep at ``bench.py`` bench_ctr's
    widths, uncut (a [33 000 000, 16] f32 table drawn on the card, 26
    sparse and 13 dense fields, hidden (256, 256), B 2048, SGD(0.01)): the
    kernel path against the plain path (``emb_impl="xla"`` and the
@@ -111,12 +128,12 @@ without the final result line:
    gather (cold rows) and the deduplicate sum at the step's shapes against
    their plain versions, timed beside them, ``index_select`` /
    ``index_add_`` and the bound.
-14. ps_ctr — ``WideDeep`` (Adam) on 1M-row ``PSEmbedding`` rows through
+15. ps_ctr — ``WideDeep`` (Adam) on 1M-row ``PSEmbedding`` rows through
    ``examples/ctr_wdl.py``'s pipeline (prefetch, pull, step, push), B 2048,
    20 steps: bench_ctr's PS leg (sgd, no cache), then an adagrad table
    behind the HET cache (131072 rows, lfuopt); falling loss, a hit rate
    above 0; pull, step and push times and samples/s.
-15. kernel_shapes — the three flash kernels at the new paths' shapes:
+16. kernel_shapes — the three flash kernels at the new paths' shapes:
    (1, 32, S, 128) causal for S = 128, 512 and 1024 (the forward), (4, 32,
    4096, 128) causal and (16, 12, 512, 64) non-causal (forward and
    backward), each held against its plain version, timed beside it, SDPA
@@ -274,6 +291,14 @@ CHUNK_CHECK_PROMPTS, CHUNK_CHECK_SIZES = (7, 100, 300, 512), (64, 256)
 # each step; the drain's codecs
 MIGRATE_STEPS, MIGRATE_CHUNKS = 4, 64
 MIGRATE_CODECS = ("none", "bf16", "int8")
+# the front end: one InferenceClient thread (and one listener) a request
+# of a burst, the van on loopback, a server-side deadline far above a
+# burst's wall time; the failover engine crashes once it has run 4
+# decode rounds (every admitted request then holds 5 of its 8 or more
+# tokens) and is restarted inside the grace window; the wire moves 1 MiB
+# chunks
+SERVER_TIMEOUT_S, FAILOVER_CRASH_AT, FAILOVER_GRACE_S = 300.0, 4, 60.0
+WIRE_CHUNK = 1 << 20
 # training: Llama-2-7B's widths, depth cut to 4 layers (f32 weights,
 # gradients and AdamW's two slots: 17 GB; at 32 layers 108 GB), at the
 # config's max_position and bench_gpt's 16384 tokens a step
@@ -2892,6 +2917,471 @@ def phase_migrate(card, seed, llama_engine, llama_ref, device="cuda"):
     return out
 
 
+# ------------------------------------------------------------- front end
+
+class _CrashingEngine:
+    """A slot engine that crashes once it has run ``crash_at`` decode
+    rounds and stays dead, every call raising (``tests/test_serve_server.py``'s
+    ``_FlakyEngine``, triggered by a count instead of a timer).  The crash
+    is marked by a ``serve.engine_crash`` trace instant."""
+
+    def __init__(self, inner, crash_at):
+        self.inner, self.crash_at = inner, crash_at
+        self.rounds, self.dead = 0, False
+        self.cache, self.metrics, self.model = (inner.cache, inner.metrics,
+                                                inner.model)
+
+    def _check(self):
+        if self.dead:
+            raise RuntimeError("engine crashed (injected)")
+
+    def alloc_slot(self):
+        self._check()
+        return self.inner.alloc_slot()
+
+    def release(self, slot):
+        self._check()
+        self.inner.release(slot)
+
+    def prefill(self, slot, prompt):
+        self._check()
+        return self.inner.prefill(slot, prompt)
+
+    def decode(self):
+        from hetu_tpu_torch.telemetry import trace
+        self._check()
+        if self.rounds == self.crash_at:
+            self.dead = True
+            trace.instant("serve.engine_crash")
+            self._check()
+        out = self.inner.decode()
+        self.rounds += 1
+        return out
+
+
+def _serve_over_van(tag, engine, pairs, device, restart=None):
+    """``pairs`` sent by one ``InferenceClient`` thread each, released
+    together, to an ``InferenceServer`` over ``engine`` on this process's
+    van (loopback).  With ``restart`` (a callable making a fresh engine),
+    the server's engine loop is expected to die (``engine`` crashes) and
+    ``restart_engine(restart())`` runs as soon as it has.  Hard: every
+    response ok with its tokens, all in the vocabulary; one prefill a
+    request and one more for each requeued one; the flash forwards one a
+    layer for each prefill (on the card, flash attention).  Returns the
+    streams (prompt, tokens), wall seconds, client latencies, server TTFTs,
+    the server's counters, launches and the trace events."""
+    import threading
+    from types import SimpleNamespace
+
+    from hetu_tpu_torch.serve import (
+        ContinuousBatchingScheduler, InferenceClient, InferenceServer,
+        ServeMetrics,
+    )
+    from hetu_tpu_torch.telemetry import trace
+
+    n = len(pairs)
+    counters = _flash_counters()
+    sched = ContinuousBatchingScheduler(engine, metrics=ServeMetrics())
+    srv = InferenceServer(sched, max_clients=n,
+                          request_timeout_s=SERVER_TIMEOUT_S,
+                          max_loop_errors=2,
+                          failover_grace_s=FAILOVER_GRACE_S)
+    clients = [InferenceClient("127.0.0.1", srv.port, i) for i in range(n)]
+    start = threading.Barrier(n + 1)
+    resps, lat, errors = [None] * n, [None] * n, []
+
+    def client(i):
+        try:
+            start.wait(60)
+            t0 = time.perf_counter()
+            resps[i] = clients[i].generate(pairs[i][0],
+                                           max_tokens=pairs[i][1],
+                                           timeout_s=SERVER_TIMEOUT_S)
+            lat[i] = time.perf_counter() - t0
+        except Exception as e:  # reported after the join
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(n)]
+    restarted = None
+    try:
+        for t in threads:
+            t.start()
+        for c in counters:  # count this run's launches only
+            c.launches = 0
+        tracer = trace.enable()
+        start.wait(60)
+        t0 = time.perf_counter()
+        if restart is not None:
+            srv._loop.join(120)
+            check(not srv.healthy, f"{tag}: the engine loop did not die "
+                                   f"at the injected crash")
+            srv.restart_engine(restart())
+            restarted = srv.healthy
+        for t in threads:
+            t.join(SERVER_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        _sync(device)
+        launches = counters[0].launches
+        check(not any(t.is_alive() for t in threads),
+              f"{tag}: a client did not get its response")
+    finally:
+        trace.disable()
+        for c in clients:
+            c.close()
+        srv.close()
+    check(not errors, f"{tag}: client errors {errors}")
+    vocab = engine.model.c.vocab_size
+    check(all(r["status"] == "ok" for r in resps),
+          f"{tag}: a response is not ok: {[r['status'] for r in resps]}")
+    check(all(len(r["tokens"]) == m for r, (_, m) in zip(resps, pairs)),
+          f"{tag}: a response has the wrong number of tokens")
+    check(all(0 <= t < vocab for r in resps for t in r["tokens"]),
+          f"{tag}: a generated token is outside the vocabulary")
+    counts = {k: sched.metrics.count(k) for k in (
+        "requests_requeued", "engine_restarts", "engine_loop_errors")}
+    prefills = sum(e["name"] == "serve.prefill" for e in tracer.events)
+    check(prefills == n + counts["requests_requeued"],
+          f"{tag}: {prefills} prefills for {n} requests and "
+          f"{counts['requests_requeued']} requeued")
+    flash = any(getattr(m, "attention_impl", None) == "flash"
+                for m in engine.model.modules())
+    expect = engine.model.c.num_layers * prefills \
+        if device == "cuda" and flash else 0
+    check(launches == expect, f"{tag}: {launches} flash forwards, not "
+                              f"{expect} (one a layer a prefill)")
+    return dict(requests=[SimpleNamespace(prompt=list(p), tokens=r["tokens"])
+                          for (p, _), r in zip(pairs, resps)],
+                wall=wall, latency=lat, ttft=[r["ttft_s"] for r in resps],
+                counts=counts, launches=launches, prefills=prefills,
+                restarted=restarted, events=tracer.events)
+
+
+def _front_end_line(tag, served, direct_wall, direct_ttft_p50_ms,
+                    direct_tps, card):
+    """Print what the server's wire and threads cost against the same
+    burst run straight through the scheduler; returns the numbers."""
+    n_tok = sum(len(r.tokens) for r in served["requests"])
+    lat = sorted(served["latency"])
+    ttft = sorted(served["ttft"])
+    out = dict(tokens_per_s=n_tok / served["wall"],
+               latency_p50_ms=lat[len(lat) // 2] * 1e3,
+               latency_max_ms=lat[-1] * 1e3,
+               ttft_p50_ms=ttft[len(ttft) // 2] * 1e3,
+               direct_ttft_p50_ms=direct_ttft_p50_ms,
+               direct_tokens_per_s=direct_tps, wall_s=served["wall"],
+               direct_wall_s=direct_wall, launches=served["launches"])
+    print(f"[server] {tag}: {len(lat)} clients, {n_tok} tokens in "
+          f"{served['wall']:.3f} s through InferenceServer: "
+          f"{out['tokens_per_s']:.1f} tokens/s against {direct_tps:.1f} "
+          f"direct ({direct_wall:.3f} s); client latency p50 "
+          f"{out['latency_p50_ms']:.2f} ms, max {out['latency_max_ms']:.2f} "
+          f"ms; TTFT p50 {out['ttft_p50_ms']:.2f} ms (server side) against "
+          f"{direct_ttft_p50_ms:.2f} ms direct; flash forwards "
+          f"{served['launches']} for {served['prefills']} prefills [{card}]")
+    return out
+
+
+def _wire_drain(tag, codec, src, dst, pairs, port, channel, card, device,
+                hold):
+    """One burst on a scheduler over ``src``, stepped until every slot is
+    mid-decode, moved whole to a scheduler over ``dst`` by
+    ``migrate_inflight`` over two ``BlobChannel`` s of this process's van
+    (``channel``) with ``codec``, in ``WIRE_CHUNK`` chunks, then drained
+    there.  Hard: the imported rows bitwise the exported ones (none,
+    bf16) or within blockmax / 254 (int8); one slot adopted a mid-decode
+    request, the queued prompts the only prefill, every slot freed.
+    ``hold(requests)`` holds the streams.  Returns the numbers."""
+    from hetu_tpu_torch.ps import van
+    from hetu_tpu_torch.serve import (
+        ContinuousBatchingScheduler, Request, ServeMetrics, migrate,
+    )
+    from hetu_tpu_torch.telemetry import default_registry, trace
+
+    counters = _flash_counters()
+    src.metrics, dst.metrics = ServeMetrics(), ServeMetrics()
+    s1 = ContinuousBatchingScheduler(src)
+    s2 = ContinuousBatchingScheduler(dst)
+    reqs = [Request(prompt=list(p), max_tokens=m) for p, m in pairs]
+    for c in counters:
+        c.launches = 0
+    running, queued = _mid_decode(s1, reqs, tag)
+    src_launches = counters[0].launches
+    cached = sum(len(r.prompt) + len(r.tokens) - 1 for r in running)
+    put_bytes = default_registry.counter("van.blob_put.bytes")
+    put_calls = default_registry.counter("van.blob_put.calls")
+    tx = van.BlobChannel("127.0.0.1", port, channel)
+    rx = van.BlobChannel("127.0.0.1", port, channel)
+    b0, c0 = put_bytes.value, put_calls.value
+    for c in counters:
+        c.launches = 0
+    tracer = trace.enable()
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        slot_map = migrate.migrate_inflight(s1, s2, wire=(tx, rx),
+                                            codec=codec,
+                                            chunk_bytes=WIRE_CHUNK,
+                                            timeout_s=SERVER_TIMEOUT_S)
+        _sync(device)
+        total_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        trace.disable()
+        tx.close()
+        rx.close()
+    wire, chunks = put_bytes.value - b0, put_calls.value - c0
+    worst = 0.0
+    for s_slot, d_slot in slot_map.items():
+        n = int(dst.cache.lengths[d_slot])
+        for got, rows in ((dst.cache.k[:, d_slot, :n],
+                           src.cache.k[:, s_slot, :n]),
+                          (dst.cache.v[:, d_slot, :n],
+                           src.cache.v[:, s_slot, :n])):
+            if codec == "int8":
+                worst = max(worst, _int8_rows_ok(got, rows))
+            else:
+                check(torch.equal(got, rows), f"{tag}: the imported rows "
+                                              f"are not the exported rows")
+    check(not s1.has_work(), f"{tag}: the source kept work")
+    _released(src, f"{tag} source")
+    launches = _finish_route(tag, dst, s2, reqs, queued, slot_map,
+                             len(running), device, counters)
+    exact, near = hold(reqs)
+    ev = tracer.events
+    out = dict(wire_bytes=wire, chunks=chunks, cached_tokens=cached,
+               migrate_ms=total_ms, exact=exact, int8_share=worst,
+               mbps_last=default_registry.gauge(
+                   "migrate.wire.mbps_last").value,
+               launches=src_launches + launches,
+               tokens=[r.tokens for r in reqs],
+               **{f"{k}_ms": _span_ms(ev, f"serve.{k}")[0] for k in (
+                   "migrate.send", "migrate.recv", "export_slots",
+                   "migrate.pack", "migrate.unpack", "adopt_slots")})
+    gb = wire / 1e9
+    print(f"[server] {tag}: {len(running)} mid-decode slots "
+          f"({cached} cached tokens) over the van, {wire / 1e6:.3f} MB in "
+          f"{chunks} chunks of {WIRE_CHUNK} B: send "
+          f"{out['migrate.send_ms']:.3f} ms "
+          f"({out['migrate.send_ms'] / gb:.1f} ms/GB), receive "
+          f"{out['migrate.recv_ms']:.3f} ms "
+          f"({out['migrate.recv_ms'] / gb:.1f} ms/GB); export "
+          f"{out['export_slots_ms']:.3f}, pack {out['migrate.pack_ms']:.3f}, "
+          f"unpack {out['migrate.unpack_ms']:.3f}, import "
+          f"{out['adopt_slots_ms']:.3f} ms; migrate_inflight "
+          f"{total_ms:.3f} ms; migrate.wire.mbps_last "
+          f"{out['mbps_last']:.1f}; {exact} of {len(reqs)} streams "
+          f"token-exact{near}; {len(queued)} queued re-prefilled"
+          + (f"; int8 error up to {worst:.3f} of blockmax / 254"
+             if codec == "int8" else "; imported rows bitwise the exported")
+          + f" [{card}]")
+    return out
+
+
+def phase_server(card, seed, llama_engine, llama_run, migrated,
+                 device="cuda"):
+    """The front end over the van (serve/server.py, ps/van.py) and the
+    chunked migration wire (serve/migrate.py) on the card: (a)
+    GPT-2-small at the slice's configuration and (b) Llama-2-7B on
+    ``llama_engine``'s serving copy, each burst sent by one client thread
+    a request to ``InferenceServer`` and held to the burst run straight
+    through the scheduler (``llama_run``: llama_serve's) by the near-tie
+    rule; (c) a GPT-2-small engine that crashes mid-decode, restarted by
+    ``restart_engine`` with zero loss; (d) llama_serve's burst drained
+    slot -> slot by ``migrate_inflight`` over two blob channels with each
+    codec, and GPT-2-small f32 token-exact over the wire, beside the
+    in-process hand-off and the re-prefill of ``migrated`` (the migrate
+    phase's numbers)."""
+    from types import SimpleNamespace
+
+    from hetu_tpu_torch import interop
+    from hetu_tpu_torch.models import GPTConfig, GPTModel
+    from hetu_tpu_torch.ps import van
+    from hetu_tpu_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"launches": 0}
+
+    def near_tie(model, tag, ref_run, tau):
+        plain = _plain_logits(model, device)
+
+        def hold(reqs):
+            _set_attention_impl(model, "xla")
+            try:
+                shares = _hold_streams(tag, ref_run, {"requests": reqs},
+                                       plain, tau, phase="server")
+            finally:
+                _set_attention_impl(model, "flash")
+            return len(reqs) - len(shares), \
+                f" ({len(shares)} parted at a near tie)"
+        return hold
+
+    # (a) GPT-2-small, the slice's configuration, straight and served
+    cfg = GPTConfig(vocab_size=V, hidden_size=H, num_layers=L, num_heads=NH,
+                    ffn_size=FFN, max_position=MAX_LEN, dtype=torch.bfloat16,
+                    attention_impl="flash")
+    model = GPTModel(cfg, device=device)
+    model.load_state_dict(interop.params_from_jax(
+        jax_layout_weights(seed, MAX_LEN), cfg))
+    gpt = ServeEngine(model, num_slots=SLOTS, max_len=MAX_LEN, device=device)
+    del model
+    _serve_burst(gpt, _warm_pairs((10, 20, 40, 100), MAX_LEN), device)
+    pairs = burst(np.random.default_rng(seed), V, N_REQUESTS, GPT_PROMPT,
+                  GPT_GEN)
+    direct = _serve_burst(gpt, pairs, device)
+    served = _serve_over_van("gpt", gpt, pairs, device)
+    out["launches"] += served["launches"]
+    exact, _ = near_tie(gpt.model, "gpt served", direct,
+                        TOL_LOGITS)(served["requests"])
+    out["gpt"] = _front_end_line(
+        "gpt", served, direct["wall"], direct["snap"]["ttft_p50_s"] * 1e3,
+        sum(len(r.tokens) for r in direct["requests"]) / direct["wall"], card)
+    out["gpt"]["exact"] = exact
+
+    # (c) failover: the engine crashes mid-decode, a fresh one on the same
+    # weights takes the queue inside the grace window
+    shared = _Served(gpt.model)
+
+    def fresh():
+        return ServeEngine(shared, num_slots=SLOTS, max_len=MAX_LEN,
+                           device=device)
+
+    crashing = _CrashingEngine(fresh(), FAILOVER_CRASH_AT)
+    failed = _serve_over_van("failover", crashing, pairs, device,
+                             restart=fresh)
+    out["launches"] += failed["launches"]
+    counts = failed["counts"]
+    check(failed["restarted"], "failover: healthy is not true again after "
+                               "restart_engine")
+    check(counts["requests_requeued"] >= 1 and
+          counts["engine_restarts"] == 1,
+          f"failover: {counts} (at least one requeued, one restart)")
+    crash_us = [e["ts"] for e in failed["events"]
+                if e["name"] == "serve.engine_crash"]
+    check(len(crash_us) == 1, "failover: the engine crashed "
+                              f"{len(crash_us)} times")
+    after = [e["ts"] + e["dur"] for e in failed["events"]
+             if e["name"] == "serve.prefill" and e["ts"] > crash_us[0]]
+    recovery_ms = (min(after) - crash_us[0]) / 1e3
+    f_exact, _ = near_tie(gpt.model, "failover", served,
+                          TOL_LOGITS)(failed["requests"])
+    print(f"[server] failover: the engine crashed after decode round "
+          f"{FAILOVER_CRASH_AT}; {counts['engine_loop_errors']} loop errors, "
+          f"{counts['requests_requeued']} requests requeued, "
+          f"{counts['engine_restarts']} restart; every response ok, "
+          f"{f_exact} of {len(pairs)} streams token-exact to the served "
+          f"burst; crash to the first token after the restart "
+          f"{recovery_ms:.3f} ms; wall {failed['wall']:.3f} s [{card}]")
+    out["failover"] = dict(recovery_ms=recovery_ms, exact=f_exact, **counts)
+    del gpt, shared, crashing, direct, served, failed
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) Llama-2-7B, served, against llama_serve's straight run
+    lpairs = burst(np.random.default_rng(seed + 3), LLAMA_V, LLAMA_REQUESTS,
+                   LLAMA_PROMPT, LLAMA_GEN)
+    ref_run = {"requests": [SimpleNamespace(prompt=list(p), tokens=t)
+                            for (p, _), t in zip(lpairs,
+                                                 llama_run["tokens"])]}
+    served = _serve_over_van("llama", llama_engine, lpairs, device)
+    out["launches"] += served["launches"]
+    exact, _ = near_tie(llama_engine.model, "llama served", ref_run,
+                        TOL_LLAMA_LOGITS)(served["requests"])
+    n_tok = sum(len(t) for t in llama_run["tokens"])
+    out["llama"] = _front_end_line(
+        "llama", served, n_tok / llama_run["tokens_per_s"],
+        llama_run["ttft_p50_ms"], llama_run["tokens_per_s"], card)
+    out["llama"]["exact"] = exact
+    del served
+
+    # (d) migration over the wire: two blob channels on this process's van
+    port = van.serve(0)
+    try:
+        # GPT-2-small f32, plain attention: token-exact over the wire
+        cfg = GPTConfig(vocab_size=V, hidden_size=H, num_layers=L,
+                        num_heads=NH, ffn_size=FFN, max_position=MAX_LEN)
+        model = GPTModel(cfg, device=device)
+        model.load_state_dict(interop.params_from_jax(
+            jax_layout_weights(seed, MAX_LEN), cfg))
+        a = ServeEngine(model, num_slots=SLOTS, max_len=MAX_LEN,
+                        device=device)
+        b = ServeEngine(_Served(a.model), num_slots=SLOTS, max_len=MAX_LEN,
+                        device=device)
+        del model
+        ref = [r.tokens for r in _serve_burst(a, pairs, device)["requests"]]
+
+        def exact_hold(reqs):
+            check([r.tokens for r in reqs] == ref,
+                  "gpt f32 wire: a migrated stream differs from the "
+                  "unmigrated burst")
+            return len(reqs), ""
+
+        out["gpt_wire"] = _wire_drain("gpt f32 wire none", "none", a, b,
+                                      pairs, port, 0x57495245, card,
+                                      device, exact_hold)
+        out["launches"] += out["gpt_wire"]["launches"]
+        del a, b
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # Llama-2-7B, bf16: llama_serve's burst, each codec
+        dst = ServeEngine(_Served(llama_engine.model), num_slots=LLAMA_SLOTS,
+                          max_len=LLAMA_MAX_LEN, device=device)
+        wires = out["llama_wire"] = {}
+        for i, codec in enumerate(MIGRATE_CODECS):
+            tag = f"llama wire {codec}"
+            if codec == "int8":
+                def hold(reqs):
+                    n = sum(r.tokens == t for r, t in
+                            zip(reqs, llama_run["tokens"]))
+                    return n, " (no gate: the codec is lossy)"
+            else:
+                hold = near_tie(llama_engine.model, tag, ref_run,
+                                TOL_LLAMA_LOGITS)
+            w = wires[codec] = _wire_drain(tag, codec, llama_engine, dst,
+                                           lpairs, port, 0x57495246 + i,
+                                           card, device, hold)
+            out["launches"] += w["launches"]
+        del dst
+    finally:
+        van.stop()
+    for codec in MIGRATE_CODECS:
+        wires[codec]["ratio"] = wires["none"]["wire_bytes"] \
+            / wires[codec]["wire_bytes"]
+    check(wires["int8"]["ratio"] >= 1.9,
+          "int8 codec: the wire bytes are not 1.9x fewer than none on the "
+          "bf16 cache")
+    re = migrated["llama"]["reprefill"]
+    slope, icpt = re["ms_per_token"], re["fixed_ms"]
+    # the migrate phase's slot -> slot hand-off moved the same burst after
+    # the same steps: the same cached tokens
+    inproc = migrated["llama"]["slot->slot"]
+    rows = [("in process (export + import, the migrate phase)",
+             inproc["export_ms"] + inproc["import_ms"],
+             wires["none"]["cached_tokens"], "")]
+    rows += [(f"over the wire, {c} (migrate_inflight)",
+              wires[c]["migrate_ms"], wires[c]["cached_tokens"],
+              f"; {wires[c]['ratio']:.3f}x fewer wire bytes than none")
+             for c in MIGRATE_CODECS]
+    for name, ms, tok, note in rows:
+        per_tok = ms / tok
+        cross = icpt / (per_tok - slope) if per_tok > slope else None
+        print(f"[server] llama migration {name}: {ms:.3f} ms for {tok} "
+              f"cached tokens, {per_tok:.5f} ms a token against "
+              f"re-prefill's {slope:.5f} + {icpt:.3f} ms fixed: "
+              + (f"migration wins below {cross:.0f} tokens of context"
+                 if cross is not None else
+                 "migration wins at every context length")
+              + f"{note} [{card}]")
+    out["peak_gib"] = _peak_gib(device)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[server] peak {out['peak_gib']:.2f} GiB allocated; phase "
+          f"{out['seconds']:.1f} s; flash forwards launched "
+          f"{out['launches']} [{card}]")
+    return out
+
+
 def phase_train_llama(card, seed, device="cuda"):
     """Llama-2-7B's widths at 4 layers: the kernel-vs-plain gate, then 10
     Executor steps at B 4 x S 4096."""
@@ -3781,6 +4271,8 @@ def main(argv=None) -> int:
     phase_paged_serve(card, args.seed, llama_engine)
     migrate = phase_migrate(card, args.seed, llama_engine,
                             llama_serve["tokens"])
+    server = phase_server(card, args.seed, llama_engine, llama_serve,
+                          migrate)
     del llama_engine
     torch.cuda.empty_cache()
     llama_train = phase_train_llama(card, args.seed)
@@ -3809,6 +4301,7 @@ def main(argv=None) -> int:
                               "llama_serve": llama_serve["launches"],
                               "paged_serve": 0,
                               "migrate": migrate["launches"],
+                              "server": server["launches"],
                               "llama_train": llama_train["launches"][0],
                               "bert_train": bert["launches"][0]},
          # the serving path's largest prompt bucket, and S = 512

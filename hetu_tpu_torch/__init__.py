@@ -18,13 +18,15 @@ paths and names mirror the reference so each counterpart is found at once:
     htt.train.*       # Executor, TrainState, checkpoint
     htt.interop       # hetu_tpu parameter / optimizer trees <-> state_dicts
     htt.serve.*       # ServeEngine, ContinuousBatchingScheduler, metrics,
-                      # migrate (live KV-slot migration)
+                      # migrate (live KV-slot migration, its van wire),
+                      # InferenceServer / InferenceClient over the van
     htt.quantwire     # int8 block codec of migration payloads
     htt.telemetry.*   # span tracer + typed metrics registry
     htt.data.*        # bucketed padding of CTR batches
     htt.utils.metrics # AUC, accuracy, F1 on host arrays
-    htt.ps.*          # the parameter server's in-process tier (C++, built
-                      # with g++ on first use) and PSEmbedding
+    htt.ps.*          # the parameter server's in-process tier and its
+                      # TCP van (C++, built with g++ on first use),
+                      # PSEmbedding, van (blob channel, barrier)
 
 The package never imports ``jax`` or ``hetu_tpu``.  Entry points run on the
 card (``device="cuda"``) unless the caller asks for the CPU, where every

@@ -1,15 +1,20 @@
-"""ctypes binding of the parameter server's C++ core, built on first use
-(counterpart of ``hetu_tpu/ps/binding.py``).
+"""ctypes binding of the parameter server's C++ core and its TCP van,
+built on first use (counterpart of ``hetu_tpu/ps/binding.py``).
 
-``csrc/hetu_ps.cpp`` at the repository root (the JAX package's own
-source, unchanged) holds the in-process tier: tables with server-side
-optimizers and the HET cache.  g++ compiles it alone, in a few seconds,
-into ``hetu_tpu_torch/_build/libhetu_ps.so``, rebuilt when the source or
-``csrc/hetu_ps_dtype.h`` is newer.  The remote tiers (the van, the
-partitioned group, the scheduler) live in the other ``csrc/hetu_ps_*.cpp``
-and come with the fleet slice; only what the in-process tier calls is
-bound.  A failed build raises with g++'s output: a caller of the PS has no
-other path to take.
+``csrc/hetu_ps.cpp`` and ``csrc/hetu_ps_van.cpp`` at the repository root
+(the JAX package's own sources, unchanged) hold the in-process tier
+(tables with server-side optimizers, the HET cache) and the van (the
+thread-per-connection TCP server and its client calls: the blob channel,
+the barrier, the transport counters).  g++ compiles the two together, in
+a few seconds, into ``hetu_tpu_torch/_build/libhetu_ps.so``.  The library
+is rebuilt when a source or ``csrc/hetu_ps_dtype.h`` is newer, or when it
+was built from another list of sources (the list is kept beside it in
+``libhetu_ps.so.srcs``): a library built from ``hetu_ps.cpp`` alone is
+newer than every source and has no ``ps_van_*`` symbol.  The partitioned
+group and the remote cache (``hetu_ps_group.cpp``, ``hetu_ps_rcache.cpp``)
+come with the remote tiers; only what the port calls is bound.  A failed
+build raises with g++'s output: a caller of the PS has no other path to
+take.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG.parent / "csrc"
 _SRC = _CSRC / "hetu_ps.cpp"
+_VAN_SRC = _CSRC / "hetu_ps_van.cpp"
 _HDRS = (_CSRC / "hetu_ps_dtype.h",)  # staleness only (not passed to g++)
 _BUILD = _PKG / "_build"
 _SO = _BUILD / "libhetu_ps.so"
@@ -33,7 +39,7 @@ _lib = None
 _c = ctypes
 _i64p, _f32p = _c.POINTER(_c.c_int64), _c.POINTER(_c.c_float)
 _u64p, _u32p = _c.POINTER(_c.c_uint64), _c.POINTER(_c.c_uint32)
-# name -> (argtypes, restype) of every function the in-process tier calls
+# name -> (argtypes, restype) of every function the port calls
 _SIGNATURES = {
     "ps_table_create_ex": ([_c.c_int, _c.c_int64, _c.c_int64, _c.c_int,
                             _c.c_double, _c.c_double, _c.c_uint64,
@@ -63,21 +69,43 @@ _SIGNATURES = {
     "ps_cache_update": ([_c.c_int, _i64p, _f32p, _c.c_int64], _c.c_int),
     "ps_cache_flush": ([_c.c_int], _c.c_int),
     "ps_cache_size": ([_c.c_int], _c.c_int64),
+    # the TCP van (csrc/hetu_ps_van.cpp): server, connections, the blob
+    # channel, the barrier and the transport counters
+    "ps_van_start": ([_c.c_int], _c.c_int),
+    "ps_van_stop": ([], None),
+    "ps_van_connect": ([_c.c_char_p, _c.c_int], _c.c_int),
+    "ps_van_close": ([_c.c_int], None),
+    "ps_van_ping": ([_c.c_int], _c.c_int),
+    "ps_van_blob_put": ([_c.c_int, _c.c_int64, _c.c_uint64, _c.c_void_p,
+                         _c.c_int64, _c.c_int], _c.c_int),
+    "ps_van_blob_get": ([_c.c_int, _c.c_int64, _c.c_uint64, _c.c_void_p,
+                         _c.c_int64, _c.c_int, _i64p], _c.c_int64),
+    "ps_van_blob_ack": ([_c.c_int, _c.c_int64, _c.c_uint64], _c.c_int),
+    "ps_van_barrier": ([_c.c_int, _c.c_int64, _c.c_int, _c.c_int],
+                       _c.c_int),
+    "ps_van_stats": ([_c.c_int, _u64p, _u64p, _u64p], _c.c_int),
+    "ps_van_stats_frames": ([_c.c_int], _c.c_int64),
 }
 
 
 def build() -> Path:
-    """Compile ``csrc/hetu_ps.cpp`` if the library is missing or older
-    than its source; return the library's path.  Builds to a private name
-    and renames, so a concurrent process never loads a half-written file.
-    Raises ``RuntimeError`` with g++'s output if the build fails."""
-    newest = max(p.stat().st_mtime for p in (_SRC, *_HDRS))
-    if _SO.exists() and _SO.stat().st_mtime >= newest:
+    """Compile the sources if the library is missing, older than a source
+    or header, or built from another list of sources; return its path.
+    Builds to private names and renames (the library first, then its
+    list), so a concurrent process never loads a half-written file and a
+    list on disk never vouches for an older library.  Raises
+    ``RuntimeError`` with g++'s output if the build fails."""
+    srcs = (_SRC, _VAN_SRC)
+    key = "\n".join(s.name for s in srcs) + "\n"
+    newest = max(p.stat().st_mtime for p in (*srcs, *_HDRS))
+    stamp = _SO.with_name(_SO.name + ".srcs")
+    if (_SO.exists() and _SO.stat().st_mtime >= newest and stamp.exists()
+            and stamp.read_text() == key):
         return _SO
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = _BUILD / f"libhetu_ps.{os.getpid()}.tmp"
     cmd = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread",
-           str(_SRC), "-o", str(tmp)]
+           *map(str, srcs), "-o", str(tmp)]
     try:
         out = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
@@ -88,6 +116,9 @@ def build() -> Path:
         raise RuntimeError(f"hetu_ps: g++ failed (exit {out.returncode}):\n"
                            f"{out.stderr}")
     os.replace(tmp, _SO)
+    tmp_stamp = _BUILD / f"libhetu_ps.{os.getpid()}.srcs.tmp"
+    tmp_stamp.write_text(key)
+    os.replace(tmp_stamp, stamp)
     return _SO
 
 

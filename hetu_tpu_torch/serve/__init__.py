@@ -14,12 +14,17 @@
     decode;
   * :mod:`metrics` — TTFT / tokens-per-sec / queue depth / occupancy /
     prefix hits;
-  * :mod:`migrate` — live KV-slot migration in one process: slot export
-    and import (:class:`KVSlotSnapshot`), the self-describing payload and
-    its codecs (byte-compatible with the reference's), and
-    ``migrate_inflight`` between two schedulers, slot or paged.
+  * :mod:`migrate` — live KV-slot migration: slot export and import
+    (:class:`KVSlotSnapshot`), the self-describing payload and its codecs
+    (byte-compatible with the reference's), the chunked wire over a van
+    blob channel, and ``migrate_inflight`` between two schedulers, slot or
+    paged, in one process or over a wire;
+  * :mod:`server` — the front end over the van: :class:`InferenceServer`
+    (engine loop, one listener per client channel pair, crash requeue and
+    failover grace, dedup of a retried submit) and
+    :class:`InferenceClient`.
 
-The van wire of migration, the front-end server and the serving pools
+The serving pools (in-process and across hosts) and the CTR front end
 wait for later slices.
 """
 
@@ -31,8 +36,12 @@ from hetu_tpu_torch.serve.kv_cache import (
 from hetu_tpu_torch.serve.metrics import ServeMetrics
 from hetu_tpu_torch.serve.migrate import MigrationError
 from hetu_tpu_torch.serve.scheduler import ContinuousBatchingScheduler, Request
+from hetu_tpu_torch.serve.server import (
+    InferenceClient, InferenceServer, request_channel, response_channel,
+)
 
 __all__ = ["ServeEngine", "PagedServeEngine", "KVCache", "KVCacheSpec",
            "KVSlotSnapshot", "PagedKVCache", "PagePoolExhausted",
            "ServeMetrics", "MigrationError", "migrate",
-           "ContinuousBatchingScheduler", "Request"]
+           "ContinuousBatchingScheduler", "Request", "InferenceServer",
+           "InferenceClient", "request_channel", "response_channel"]

@@ -1,9 +1,9 @@
-"""Live KV-cache slot migration between serving engines, in one process
-(counterpart of ``hetu_tpu/serve/migrate.py`` without its van wire).
+"""Live KV-cache slot migration between serving engines (counterpart of
+``hetu_tpu/serve/migrate.py``).
 
 A request moved mid-decode carries its live K/V slot to the peer engine,
 which decodes on token for token with zero prefill; a queued request
-re-queues there.  Two layers:
+re-queues there.  Three layers:
 
 * **slot payloads** — :func:`pack` / :func:`unpack` serialize
   :class:`~hetu_tpu_torch.serve.kv_cache.KVSlotSnapshot` lists (and
@@ -18,10 +18,22 @@ re-queues there.  Two layers:
   other.  :func:`export_payload` / :func:`adopt_payload` /
   :func:`release_exported` are the scheduler halves of a drain whose two
   sides share no objects.
+* **chunked wire** — :func:`send_payload` / :func:`recv_payload` move a
+  payload over a van :class:`~hetu_tpu_torch.ps.van.BlobChannel` as
+  CRC-framed chunks at consecutive seqs, frame for frame the reference's
+  (a stream sent by one package is received by the other).  Every frame
+  is a single-slot acked blob put, idempotent under a same-seq resend, so
+  a transport drop mid-transfer reconnects and resumes at the unacked
+  chunk.  A completed bulk send sets the link-rate gauge
+  (``migrate.wire.mbps_last`` in ``telemetry.default_registry``) that the
+  ``auto`` codec reads (:func:`measured_link_mbps`, :func:`known_link_mbps`).
 * **orchestration** — :func:`migrate_inflight` moves every in-flight
   request from one scheduler to another, handing the host snapshots over
-  directly; ANY failure re-adopts everything at the source and re-raises,
-  so a migration either completes or leaves the source serving.
+  directly or, with ``wire=(tx, rx)``, through a payload that crosses the
+  two channels (the sender in a helper thread); ANY failure re-adopts
+  everything at the source and re-raises, so a migration either completes
+  or leaves the source serving.  A wire is never replaced by the
+  in-process hand-off.
 
 The K/V rows cross the host: an export is one copy from the card a slot,
 an import one copy back (kv_cache.py).  The int8 codec runs where the
@@ -32,18 +44,13 @@ LIVE pages into the same contiguous rows (page ids are local), so slot and
 paged engines drain into each other, and a paged adopter re-indexes the
 imported pages in its prefix index (scheduler ``adopt_inflight`` → engine
 ``reindex_prefix``).
-
-The chunked van wire (``send_payload`` / ``recv_payload``), the link-rate
-readings the ``auto`` codec consults (``known_link_mbps``,
-``measured_link_mbps``) and ``migrate_inflight(wire=...)`` wait for the
-van slice: here ``resolve_codec`` takes the rate from its caller, and a
-wire raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import json
 import struct
+import threading
 import time
 import warnings
 import zlib
@@ -58,7 +65,11 @@ from hetu_tpu_torch.telemetry import trace
 
 MAGIC = b"HTMG"
 VERSION = 1
+DEFAULT_CHUNK_BYTES = 1 << 20
 
+# per-chunk frame header: magic, version, chunk index, total chunks,
+# crc32 of this chunk's payload
+_CHUNK_HDR = struct.Struct("<4sIIII")
 # payload prefix: magic, version, JSON header length
 _PAYLOAD_HDR = struct.Struct("<4sII")
 
@@ -156,6 +167,42 @@ def check_codec(codec: str, *, allow_auto: bool = True) -> str:
     return codec
 
 
+# a link-rate sample must come from a transfer big enough that the
+# payload, not the per-frame ack pacing, set the wall time
+MIN_RATE_SAMPLE_BYTES = 1 << 16
+
+
+def measured_link_mbps(registry=None) -> float | None:
+    """The observed bulk-transfer rate in Mbit/s: the last completed
+    payload send of at least ``MIN_RATE_SAMPLE_BYTES``
+    (``migrate.wire.mbps_last``, set by :func:`send_payload`), from
+    ``registry`` (default ``telemetry.default_registry``).  The van's
+    generic ``blob_put`` aggregate is no measure: tiny ack-paced control
+    frames read orders of magnitude below the wire.  None until a bulk
+    transfer has been seen (no evidence, no compression)."""
+    if registry is None:
+        from hetu_tpu_torch.telemetry import default_registry as registry
+    g = registry.metrics().get("migrate.wire.mbps_last")
+    if g is None:
+        return None
+    rate = float(g.value)
+    return rate if rate > 0 else None
+
+
+def known_link_mbps() -> float | None:
+    """The best link-rate signal in this process: an installed netem
+    bandwidth cap (a van netem hook bound to an object with
+    ``current_rate_mbps()``) wins, else the last measured bulk-transfer
+    rate, else None."""
+    from hetu_tpu_torch.ps import van as _van
+    em = getattr(getattr(_van, "_netem_hook", None), "__self__", None)
+    if em is not None and hasattr(em, "current_rate_mbps"):
+        rate = em.current_rate_mbps()
+        if rate is not None:
+            return rate
+    return measured_link_mbps()
+
+
 def estimate_payload_bytes(engine) -> int:
     """Uncompressed (codec "none") payload size of the engine's LIVE
     slots, from the cache's lengths and geometry: no export needed to
@@ -190,10 +237,13 @@ def pick_codec(rate_mbps: float | None, payload_bytes: int,
 def resolve_codec(codec: str, engine, *,
                   rate_mbps: float | None = None) -> str:
     """A concrete codec passes through; ``"auto"`` goes through
-    :func:`pick_codec` with the caller's ``rate_mbps`` (no rate: no
-    evidence, so no compression) and the engine's live payload size."""
+    :func:`pick_codec` with the engine's live payload size and the link
+    rate: the caller's ``rate_mbps`` (a configured share of a link), else
+    :func:`known_link_mbps` (no rate: no evidence, so no compression)."""
     if codec != "auto":
         return check_codec(codec, allow_auto=False)
+    if rate_mbps is None:
+        rate_mbps = known_link_mbps()
     return pick_codec(rate_mbps, estimate_payload_bytes(engine),
                       dtype_name(engine.cache.spec.dtype))
 
@@ -499,37 +549,135 @@ def release_exported(scheduler, pairs) -> None:
 
 
 # ---------------------------------------------------------------------------
+# chunked wire over a van blob channel
+# ---------------------------------------------------------------------------
+
+def send_payload(channel, payload, *, seq0: int = 1,
+                 chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                 timeout_s: float = 60.0, stop=None) -> int:
+    """Send ``payload`` over a van blob channel as CRC-framed chunks at
+    seqs ``[seq0, seq0 + n)``; returns the next free seq.  Each frame is
+    a single-slot acked put, idempotent under a same-seq resend: a
+    connection drop mid-transfer reconnects and resends the chunk in
+    flight, never the payload.
+
+    ``stop`` (a ``threading.Event``): a cooperative abort, checked
+    between put slices of 0.5 s instead of one ``timeout_s`` ack wait.  A
+    receiver that died mid-stream never acks, and the caller cannot close
+    the channel under a blocked native put: without the slices an aborted
+    transfer wedges the sender, and whoever joins it, for the whole ack
+    window.  Raises :class:`MigrationError` once set.
+
+    A completed send of at least ``MIN_RATE_SAMPLE_BYTES`` sets the link
+    rate it reached (``migrate.wire.mbps_last``) in
+    ``telemetry.default_registry``."""
+    chunk_bytes = max(int(chunk_bytes), 1)
+    n = max((len(payload) + chunk_bytes - 1) // chunk_bytes, 1)
+    slice_s = 0.5 if stop is not None else timeout_s
+    with trace.span("serve.migrate.send",
+                    {"bytes": len(payload), "chunks": n}):
+        t0 = time.perf_counter()
+        for i in range(n):
+            part = payload[i * chunk_bytes:(i + 1) * chunk_bytes]
+            frame = _CHUNK_HDR.pack(MAGIC, VERSION, i, n,
+                                    zlib.crc32(part)) + part
+            deadline = time.monotonic() + timeout_s
+            while True:
+                if stop is not None and stop.is_set():
+                    raise MigrationError(
+                        f"send aborted at chunk {i}/{n}: receiver gone")
+                remaining = deadline - time.monotonic()
+                try:
+                    channel.put(frame, seq0 + i,
+                                timeout_s=max(min(slice_s, remaining),
+                                              0.001))
+                    break
+                except TimeoutError:
+                    # the ack window is still blocked: a same-seq resend
+                    # is idempotent
+                    if time.monotonic() >= deadline:
+                        raise
+        dt = time.perf_counter() - t0
+    if len(payload) >= MIN_RATE_SAMPLE_BYTES and dt > 0:
+        # a completed BULK transfer is the one honest link-rate sample
+        # (control frames are tiny and ack-paced)
+        from hetu_tpu_torch.telemetry import default_registry as reg
+        reg.gauge("migrate.wire.mbps_last").set(
+            len(payload) * 8.0 / (dt * 1e6))
+        reg.counter("migrate.wire.rate_samples").inc()
+    return seq0 + n
+
+
+def recv_payload(channel, *, seq0: int = 1,
+                 timeout_s: float = 60.0) -> bytes:
+    """Receive a :func:`send_payload` stream.  Each chunk's framing and
+    CRC are checked as it lands; the first mismatch raises
+    :class:`MigrationError`, so the caller adopts nothing from a bad
+    stream."""
+    parts = []
+    i, n = 0, 1
+    with trace.span("serve.migrate.recv") as sp:
+        while i < n:
+            frame = channel.get(seq0 + i, timeout_s=timeout_s)
+            if len(frame) < _CHUNK_HDR.size:
+                raise MigrationError(f"chunk {i}: frame shorter than "
+                                     f"header")
+            magic, ver, idx, total, crc = _CHUNK_HDR.unpack_from(frame)
+            if magic != MAGIC or ver != VERSION:
+                raise MigrationError(f"chunk {i}: bad magic/version")
+            if idx != i or total < 1 or (i > 0 and total != n):
+                raise MigrationError(
+                    f"chunk sequence corrupt: got idx {idx}/{total} at "
+                    f"position {i}/{n}")
+            part = frame[_CHUNK_HDR.size:]
+            if zlib.crc32(part) != crc:
+                raise MigrationError(f"chunk {i} CRC mismatch")
+            n = total
+            parts.append(part)
+            i += 1
+        out = b"".join(parts)
+        sp.set("bytes", len(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # orchestration
 # ---------------------------------------------------------------------------
 
-def migrate_inflight(src, dst, *, wire=None) -> dict:
+def migrate_inflight(src, dst, *, wire=None, codec: str = "none",
+                     chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                     timeout_s: float = 60.0) -> dict:
     """Move EVERY in-flight request from scheduler ``src`` to scheduler
     ``dst``: mid-decode requests carry their live slots (the peer decodes
     on with zero prefill), queued ones re-queue on the peer with their
-    deadlines.  Returns ``{source_slot: dest_slot}``.  The host snapshots
-    pass to ``dst`` directly.
+    deadlines.  Returns ``{source_slot: dest_slot}``.
 
-    ``wire`` (the reference's van channels) raises
-    ``NotImplementedError`` before anything moves: the chunked wire
-    waits for the van slice, and a wire is never silently replaced by
-    the in-process hand-off.
+    ``wire``: a ``(tx, rx)`` pair of van blob channels that the K/V
+    payload crosses as CRC-checked chunks of ``chunk_bytes`` (the sender
+    runs in a helper thread: a blob put blocks on the single-slot ack
+    window; a failed receive stops it and joins it).  ``None`` hands the
+    host snapshots to ``dst`` directly.  ``codec`` (``bf16``/``int8``,
+    wire transfers only) compresses the K/V body, see :func:`pack`; the
+    payload's logical and wire bytes go to the source scheduler's metrics
+    registry.
 
     Failure atomicity: any error re-adopts the requests AND their slots
     at the source (the slots were never released) and re-raises; if the
     source is gone too, every request is resolved.  On ``dst`` the import
     and the attachment happen under its scheduler lock
     (``adopt_inflight``)."""
-    if wire is not None:
-        raise NotImplementedError(
-            "migrate_inflight over a van wire waits for the van slice "
-            "(ROADMAP.md Queue 1 item 2b); pass wire=None to hand the "
-            "slots over in this process")
     # the export and the snapshots under the source's scheduler lock: a
     # decode step between them would advance the exported slots past the
     # requests' recorded tokens
     pairs, snaps = src.export_inflight_with_slots()
     slots = [slot for _, slot in pairs if slot is not None]
     try:
+        if wire is not None and snaps:
+            spec_d, snaps, _ = _over_wire(
+                pack(src.engine.cache.spec, snaps, codec=codec,
+                     registry=src.metrics.registry),
+                wire, chunk_bytes, timeout_s)
+            check_spec(dst.engine.cache.spec, spec_d)
         try:
             slot_map, n_adopted = dst.adopt_inflight(
                 pairs, snapshots=snaps or None, return_count=True)
@@ -560,3 +708,36 @@ def migrate_inflight(src, dst, *, wire=None) -> dict:
     for slot in slots:
         release_slot_best_effort(src.engine, slot)
     return slot_map
+
+
+def _over_wire(payload, wire, chunk_bytes, timeout_s):
+    """``payload`` sent over ``tx`` (in a helper thread) and received on
+    ``rx``; returns ``unpack`` of what arrived.  A failed receive stops
+    the sender (a peer that will never ack would hold it for its whole
+    ack window) and joins it before raising: the exported requests are
+    off both schedulers, burning their deadlines, until the rollback
+    runs."""
+    tx, rx = wire
+    send_exc: list = []
+    send_stop = threading.Event()
+
+    def _send():
+        try:
+            send_payload(tx, payload, chunk_bytes=chunk_bytes,
+                         timeout_s=timeout_s, stop=send_stop)
+        except Exception as e:  # raised after the join
+            send_exc.append(e)
+
+    t = threading.Thread(target=_send, daemon=True,
+                         name="migrate-send")
+    t.start()
+    try:
+        got = recv_payload(rx, timeout_s=timeout_s)
+    except BaseException:
+        send_stop.set()
+        t.join(timeout_s)
+        raise
+    t.join(timeout_s)
+    if send_exc:
+        raise send_exc[0]
+    return unpack(got)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import threading
 from bisect import bisect_left
+from typing import Optional
 
 # Default latency buckets (seconds): 100 µs .. 60 s, roughly x2.5 steps —
 # wide enough for a van RPC and a full elastic reshard in one schema.
@@ -82,7 +83,7 @@ class Histogram:
     (``le``), ascending; an implicit +inf bucket catches the overflow."""
 
     __slots__ = ("name", "help", "buckets", "_lock", "_counts", "_sum",
-                 "_count")
+                 "_count", "_min", "_max")
 
     def __init__(self, name: str, buckets=DEFAULT_LATENCY_BUCKETS,
                  help: str = ""):
@@ -95,6 +96,8 @@ class Histogram:
         self._counts = [0] * (len(self.buckets) + 1)  # +1: the +inf bucket
         self._sum = 0.0
         self._count = 0
+        self._min = None
+        self._max = None
 
     def observe(self, value) -> None:
         v = float(value)
@@ -103,6 +106,41 @@ class Histogram:
             self._counts[i] += 1
             self._sum += v
             self._count += 1
+            if self._min is None or v < self._min:
+                self._min = v
+            if self._max is None or v > self._max:
+                self._max = v
+
+    def _percentile_locked(self, q: float) -> Optional[float]:
+        """Caller holds self._lock."""
+        if self._count == 0:
+            return None
+        rank = q * self._count
+        cum = 0
+        for i, c in enumerate(self._counts):
+            if c == 0:
+                continue
+            if cum + c >= rank:
+                lo = self.buckets[i - 1] if i > 0 else 0.0
+                hi = self.buckets[i] if i < len(self.buckets) \
+                    else self._max
+                # position inside the bucket, linearly interpolated
+                est = lo + (hi - lo) * (rank - cum) / c
+                return min(max(est, self._min), self._max)
+            cum += c
+        return self._max
+
+    def snapshot(self) -> dict:
+        """count, sum, min, max and p50/p90/p99, all under one lock
+        acquisition (one set of observations)."""
+        with self._lock:
+            if self._count == 0:
+                return {"count": 0, "sum": 0.0}
+            return {"count": self._count, "sum": self._sum,
+                    "min": self._min, "max": self._max,
+                    "p50": self._percentile_locked(0.50),
+                    "p90": self._percentile_locked(0.90),
+                    "p99": self._percentile_locked(0.99)}
 
 
 class MetricsRegistry:

@@ -1,9 +1,11 @@
 """Span tracer: nestable spans and instant events.
 
-A copy of the part of ``hetu_tpu/telemetry/trace.py`` that serving uses
-(pure Python): the engine records ``serve.prefill`` / ``serve.decode``
-spans and ``serve.recompile`` instants, the scheduler ``serve.step`` spans
-and ``serve.shed`` / ``serve.preempt`` instants.  The per-process JSONL
+A copy of the part of ``hetu_tpu/telemetry/trace.py`` that serving and
+the van use (pure Python): the engine records ``serve.prefill`` /
+``serve.decode`` spans and ``serve.recompile`` instants, the scheduler
+``serve.step`` spans and ``serve.shed`` / ``serve.preempt`` instants, the
+van's client ``van.<op>`` spans (through :func:`now_us` and
+:func:`complete`).  The per-process JSONL
 streams, clock anchors and signal hardening wait for the fleet planes.
 
 Events are recorded on a monotonic clock (``time.perf_counter_ns``),
@@ -76,6 +78,27 @@ def instant(name: str, attrs: Optional[dict] = None, cat: str = "hetu") -> None:
     if t is None:
         return
     t.instant(name, attrs, cat)
+
+
+def now_us() -> float:
+    """The tracer's clock, for a span recorded afterwards by
+    :func:`complete`; 0.0 when tracing is off (``complete`` then records
+    nothing)."""
+    t = _tracer
+    if t is None:
+        return 0.0
+    return t._now_us()
+
+
+def complete(name: str, start_us: float, attrs: Optional[dict] = None,
+             cat: str = "hetu") -> None:
+    """Record a span that started at ``start_us`` (from :func:`now_us`)
+    and ends now: for a phase worth recording only once its outcome is
+    known (a van call that did not fail)."""
+    t = _tracer
+    if t is None:
+        return
+    t.complete(name, start_us, attrs, cat)
 
 
 class _Span:

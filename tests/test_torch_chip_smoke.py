@@ -739,3 +739,73 @@ def test_paged_serve_phase_runs_on_the_cpu(monkeypatch, capsys):
     assert out["llama"]["chunk_logits_share"] < c.TOL_LLAMA_LOGITS
     assert {m.attention_impl for m in engine.model.modules()
             if hasattr(m, "attention_impl")} == {"flash"}
+
+
+# ---- the server phase, rehearsed on the CPU ----
+
+# the phase at the sizes of tests/test_torch_migrate.py's migrate
+# rehearsal: the bursts keep their 16 requests over 8 slots, so the
+# server's 16 listeners, the admission queue and the mid-decode drains are
+# the card's; CPU tensors launch no flash kernel, so every launch gate
+# expects none
+TINY_SERVER = dict(
+    V=97, H=64, L=2, NH=4, FFN=128, MAX_LEN=192, SLOTS=8, N_REQUESTS=16,
+    GPT_PROMPT=(1, 32), LLAMA_V=97, LLAMA_H=64, LLAMA_L=2, LLAMA_NH=4,
+    LLAMA_FFN=96, LLAMA_P=256, LLAMA_MAX_LEN=256, LLAMA_PROMPT=(1, 128),
+    WIRE_CHUNK=4096)
+
+
+def test_server_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """Every gate of the phase runs: responses, the near-tie holds, the
+    launch counts (none off the card), the failover's counters, the wire
+    drains' rows and bytes.  llama_serve's run is the same burst straight
+    through the scheduler; the migrate phase's re-prefill fit and
+    in-process figures are stand-ins (only the crossover lines read
+    them)."""
+    from hetu_tpu_torch.models import LlamaConfig, LlamaModel
+    from hetu_tpu_torch.serve import ServeEngine
+
+    for name, value in TINY_SERVER.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    c = chip_smoke
+    cfg = LlamaConfig(vocab_size=c.LLAMA_V, hidden_size=c.LLAMA_H,
+                      num_layers=c.LLAMA_L, num_heads=c.LLAMA_NH,
+                      num_kv_heads=2, ffn_size=c.LLAMA_FFN,
+                      max_position=c.LLAMA_P, dtype=torch.bfloat16,
+                      attention_impl="flash")
+    engine = ServeEngine(LlamaModel(cfg, device="cpu"),
+                         num_slots=c.LLAMA_SLOTS, max_len=c.LLAMA_MAX_LEN,
+                         device="cpu")
+    pairs = c.burst(np.random.default_rng(3), c.LLAMA_V, c.LLAMA_REQUESTS,
+                    c.LLAMA_PROMPT, c.LLAMA_GEN)
+    run = c._serve_burst(engine, pairs, "cpu")
+    n_tok = sum(len(r.tokens) for r in run["requests"])
+    llama_run = dict(tokens=[r.tokens for r in run["requests"]],
+                     ttft_p50_ms=run["snap"]["ttft_p50_s"] * 1e3,
+                     tokens_per_s=n_tok / run["wall"])
+    migrated = {"llama": {
+        "reprefill": {"ms_per_token": 0.01, "fixed_ms": 5.0},
+        "slot->slot": {"export_ms": 1.0, "import_ms": 1.0}}}
+    out = c.phase_server("cpu", 0, engine, llama_run, migrated,
+                         device="cpu")
+    text = capsys.readouterr().out
+    for tag in ("gpt", "llama"):
+        assert f"[server] {tag}: 16 clients," in text
+        assert f"[server] {tag} served: " in text  # the near-tie counts
+        assert out[tag]["launches"] == 0
+    assert "[server] failover: the engine crashed after decode round 4" \
+        in text
+    assert out["failover"]["engine_restarts"] == 1
+    # the requests in flight at the crash: as many as had arrived
+    assert out["failover"]["requests_requeued"] >= 1
+    assert "[server] gpt f32 wire none: 8 mid-decode slots" in text
+    assert out["gpt_wire"]["exact"] == 16
+    for codec in ("none", "bf16", "int8"):
+        assert f"[server] llama wire {codec}: 8 mid-decode slots" in text
+        assert f"[server] llama migration over the wire, {codec}" in text
+        w = out["llama_wire"][codec]
+        assert w["chunks"] == -(-w["wire_bytes"] // (4096 + 20)) > 1
+    assert out["llama_wire"]["int8"]["ratio"] >= 1.9
+    assert out["launches"] == 0
+    assert {m.attention_impl for m in engine.model.modules()
+            if hasattr(m, "attention_impl")} == {"flash"}

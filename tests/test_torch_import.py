@@ -3,8 +3,10 @@
 Subprocesses import the package and, on the CPU, run the serving slice
 (one prefill and one decode), GQA Llama through the paged engine and the
 scheduler (prefix sharing included), a migration between a slot and a
-paged engine (an int8 payload, then ``migrate_inflight``), the GPT and
-MoE training slices (two
+paged engine (an int8 payload, then ``migrate_inflight``), the front
+end over the van (``InferenceServer`` answering an ``InferenceClient``,
+then ``migrate_inflight`` over two blob channels), the GPT and MoE
+training slices (two
 AdamW steps of the Executor and a checkpoint round trip each), GQA Llama
 serving and a BERT pretraining step; ``jax`` and ``hetu_tpu`` must
 stay out of ``sys.modules``.  An AST scan of every module of the package,
@@ -130,6 +132,49 @@ def test_migration_runs_without_jax():
     assert "LEAKED []" in out
 
 
+def test_server_and_wire_run_without_jax():
+    """A GPT behind InferenceServer answers an InferenceClient over the
+    port's van; then a burst moves between two schedulers over two blob
+    channels with the int8 codec."""
+    out = _run(
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from hetu_tpu_torch.models import GPTConfig, GPTModel\n"
+        "from hetu_tpu_torch.ps import van\n"
+        "from hetu_tpu_torch.serve import (\n"
+        "    ContinuousBatchingScheduler, InferenceClient, InferenceServer,\n"
+        "    Request, ServeEngine, migrate)\n"
+        "cfg = GPTConfig(vocab_size=97, hidden_size=32, num_layers=2,\n"
+        "                num_heads=4, ffn_size=64, max_position=64)\n"
+        "m = GPTModel(cfg, device='cpu')\n"
+        "eng = lambda: ServeEngine(m, num_slots=2, max_len=48,\n"
+        "                          min_bucket=8, device='cpu')\n"
+        "srv = InferenceServer(ContinuousBatchingScheduler(eng()),\n"
+        "                      max_clients=1, poll_s=0.05)\n"
+        "c = InferenceClient('127.0.0.1', srv.port, 0)\n"
+        "r = c.generate([1, 2, 3], max_tokens=4, timeout_s=30.0)\n"
+        "assert r['status'] == 'ok' and len(r['tokens']) == 4, r\n"
+        "tx = van.BlobChannel('127.0.0.1', srv.port, 99)\n"
+        "rx = van.BlobChannel('127.0.0.1', srv.port, 99)\n"
+        "a, b = (ContinuousBatchingScheduler(eng()) for _ in range(2))\n"
+        "reqs = [Request(prompt=[5, 6, 7], max_tokens=6) for _ in range(2)]\n"
+        "for q in reqs:\n"
+        "    a.submit(q)\n"
+        "a.step()\n"
+        "migrate.migrate_inflight(a, b, wire=(tx, rx), codec='int8',\n"
+        "                         chunk_bytes=1024, timeout_s=30.0)\n"
+        "b.run([])\n"
+        "assert [q.status for q in reqs] == ['ok'] * 2\n"
+        "assert b.engine.metrics.count('slots_adopted') == 2\n"
+        "for ch in (c, tx, rx):\n"
+        "    ch.close()\n"
+        "srv.close()\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out
+
+
 def test_training_slice_runs_without_jax(tmp_path):
     out = _run(
         "import sys, torch\n"
@@ -247,4 +292,5 @@ def test_scan_sees_the_whole_package():
             "optim/optimizer.py", "lr/__init__.py", "rng.py",
             "ops/cuda_kernels/embedding.py", "ops/moe_ops.py",
             "layers/moe.py", "models/moe_transformer.py",
-            "models/llama.py", "models/bert.py", "ops/rope.py"} <= names
+            "models/llama.py", "models/bert.py", "ops/rope.py",
+            "ps/van.py", "serve/server.py", "serve/migrate.py"} <= names

@@ -500,16 +500,28 @@ def test_export_fold_charges_requeue_and_frees_slots(gpt):
     assert s1.engine.cache.num_free == s1.engine.cache.num_slots
 
 
+class _DeadWire:
+    def put(self, data, seq, *, timeout_s=None):
+        raise ConnectionError("wire died mid-transfer")
+
+    def get(self, seq, *, timeout_s=None):
+        raise ConnectionError("wire died mid-transfer")
+
+
 def test_migrate_with_a_wire_raises_and_moves_nothing(gpt):
+    """A wire that dies moves nothing and is never replaced by the
+    in-process hand-off: the transport's error surfaces and the request
+    stays on the source, mid-decode."""
     s1 = ContinuousBatchingScheduler(_engine(gpt[2]))
     s2 = ContinuousBatchingScheduler(_engine(gpt[2]))
     req = Request(prompt=[3, 1, 4], max_tokens=6)
     s1.submit(req)
     s1.step()
-    with pytest.raises(NotImplementedError, match="2b"):
-        mg.migrate_inflight(s1, s2, wire=(object(), object()))
+    with pytest.raises(ConnectionError, match="wire died"):
+        mg.migrate_inflight(s1, s2, wire=(_DeadWire(), _DeadWire()))
     assert s1.owns(req) and s1.engine.active.any()
     assert not s2.has_work()
+    assert s2.engine.metrics.count("slots_adopted") == 0
     s1.run([])
     assert req.status == "ok"
 
@@ -1006,7 +1018,7 @@ def test_record_wire_bytes_counts_into_the_callers_registry():
             m["serve.migrate.bytes_saved"].value) == (1010, 280, 740)
 
 
-def test_codec_policy_is_the_references(gpt):
+def test_codec_policy_is_the_references(gpt, monkeypatch):
     for rate in (None, 0.0, 1.0, 100.0, 1e4, 1e6):
         for size in (0, 1 << 10, 1 << 20, 1 << 30):
             for dt in ("float32", "bfloat16"):
@@ -1022,7 +1034,14 @@ def test_codec_policy_is_the_references(gpt):
         e.prefill(e.alloc_slot(), [1, 2, 3, 4, 5])
     assert mg.estimate_payload_bytes(eng) == \
         jax_mg.estimate_payload_bytes(jeng) == 5 * 2 * 2 * 4 * 16 * 4
-    assert mg.resolve_codec("auto", eng) == "none"  # no rate: no evidence
+    # "auto" without a rate reads the process's link signal
+    # (known_link_mbps): none, no evidence; a slow link, int8
+    for rate, want in ((None, "none"), (1e-3, "int8")):
+        for module in (mg, jax_mg):
+            monkeypatch.setattr(module, "known_link_mbps",
+                                lambda rate=rate: rate)
+        assert mg.resolve_codec("auto", eng) == \
+            jax_mg.resolve_codec("auto", jeng) == want
     assert mg.resolve_codec("auto", eng, rate_mbps=1e-3) == "int8"
     assert mg.resolve_codec("bf16", eng) == "bf16"
 
