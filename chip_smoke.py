@@ -52,6 +52,19 @@ without the final result line:
    loss limit and the same routes in the first layer.  Then 10 Executor
    steps (finite, falling loss; L gates, 2·L gathers and 2·L scatter-adds
    a step), step time, tokens/s, MFU, peak memory and one profiled step.
+7b. train_moe_gates — examples/moe_gates_train.py's loop at MoEConfig's
+   widths (one MoELayer, D 512, E 8, FFN 2048, capacity factor 1.25,
+   experts in bf16, a fixed head over 10 classes, CE plus aux,
+   Adam(3e-3), T 16384 tokens) for the gates the top-k gate never
+   produces: hash (by Zipf-skewed vocabulary ids), k-top-1 (k 2),
+   balanced assignment (Sinkhorn) and SAM.  For each, on one batch the
+   kernel path (the gather dispatch and combine, their scatter-adds
+   through the routing's inverse maps) against the plain path: loss,
+   identical routes (the balanced assignment's only at near ties of its
+   Sinkhorn iterate, ``balance_near_ties``) and every gradient, the
+   layer input's included; then 10 Adam steps (finite, falling loss; 2
+   gathers, 2 scatter-adds and no top-k gate a step), step time,
+   tokens/s, dropped_frac and peak memory.
 8. llama_serve — Llama-2-7B at full width and depth (LlamaConfig's
    defaults), bf16, flash, weights drawn on the card from ``--seed``;
    ``ServeEngine`` + ``ContinuousBatchingScheduler`` with 8 slots x 1024
@@ -131,8 +144,14 @@ without the final result line:
 15. ps_ctr — ``WideDeep`` (Adam) on 1M-row ``PSEmbedding`` rows through
    ``examples/ctr_wdl.py``'s pipeline (prefetch, pull, step, push), B 2048,
    20 steps: bench_ctr's PS leg (sgd, no cache), then an adagrad table
-   behind the HET cache (131072 rows, lfuopt); falling loss, a hit rate
-   above 0; pull, step and push times and samples/s.
+   behind the HET cache (131072 rows, lfuopt); then both again on the
+   table key-range-partitioned over two van servers, each in a process
+   of its own on loopback (``PSEmbedding(endpoints=...)``, the remote HET
+   cache); falling loss, a hit rate above 0; pull, step and push times,
+   samples/s and the van bytes a step; and the replay gate: the
+   in-process sgd arm's initial rows and pushes replayed on the
+   partitioned table leave it equal to the in-process table (rtol 1e-6,
+   the count of bitwise rows printed).
 16. kernel_shapes — the three flash kernels at the new paths' shapes:
    (1, 32, S, 128) causal for S = 128, 512 and 1024 (the forward), (4, 32,
    4096, 128) causal and (16, 12, 512, 64) non-causal (forward and
@@ -151,11 +170,14 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import functools
 import itertools
 import json
+import os
+import select
 import statistics
 import subprocess
 import sys
@@ -255,6 +277,26 @@ MOE_BENCH_D = 768  # bench.py bench_moe's layer width
 # in f32 for values <= 1) or one bf16 ulp of a value below 1 (2^-8).
 TOL_GATES = {torch.float32: 1e-6, torch.bfloat16: 2 ** -8}
 
+# the MoE gates: examples/moe_gates_train.py's loop at MoEConfig's widths
+# (one MoELayer, D 512, E 8, FFN 4 D, capacity factor 1.25, experts in
+# bf16, a fixed linear head over 10 classes, CE plus aux, Adam(3e-3)) over
+# the MoE slice's T = 16384 tokens, for each gate the top-k gate never
+# produces: hash (k 1, routed by Zipf-skewed vocabulary ids, so that load
+# depends on the ids), ktop1 (k 2: capacity 5120), balance (Sinkhorn, 20
+# rounds) and sam (k 1: capacity 2560)
+GATES = ("hash", "ktop1", "balance", "sam")
+GATES_FFN, GATES_CLASSES, GATES_STEPS, GATES_LR = 4 * MOE_H, 10, 10, 3e-3
+GATES_KTOP1_K, GATES_ITERS = 2, 20
+# Sinkhorn near ties: each of the 2 x iters normalisations subtracts a
+# logsumexp whose rounding moves an entry by a few ulps of the largest
+# magnitude in its row (XLA's and torch's sums, the card's and the
+# CPU's, run in other orders); at 4 ulps a normalisation on each of two
+# computations, two runs part by at most 16 x iters x eps x max_j |lp[t, j]|
+# (measured between the packages on the CPU at [16384, 8]: 8.6e-6, a fifth
+# of the bound at the smallest row max, log 8).  A route may differ only
+# where the top two lp of a row lie that close.
+BALANCE_TIE_ULPS = 16  # a Sinkhorn round
+
 # Llama-2-7B (LlamaConfig's defaults; hetu_tpu/models/llama.py:31-45)
 LLAMA_V, LLAMA_H, LLAMA_L, LLAMA_NH, LLAMA_FFN, LLAMA_P = (
     32000, 4096, 32, 32, 11008, 4096)
@@ -325,6 +367,16 @@ CTR_B, CTR_STEPS, CTR_LR, CTR_ZIPF_A = 2048, 10, 0.01, 1.2
 CTR_MASKED_SIZES = (2048, 1500, 700, 37)
 CTR_UNTOUCHED_SAMPLE = 100_000
 CTR_PS_V, CTR_PS_CACHE, CTR_PS_STEPS, CTR_PS_LR = 1_000_000, 131072, 20, 1e-3
+CTR_PS_SGD_LR = 0.01
+# the remote arms: the same table key-range-partitioned over two van
+# servers, each in a process of its own on loopback, ready within a minute
+VAN_SERVERS, VAN_READY_S = 2, 60.0
+_VAN_SERVER_SRC = (
+    "import sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "from hetu_tpu_torch.ps import van\n"
+    "print('READY', van.serve(0), flush=True)\n"
+    "sys.stdin.read()\n")  # serves until the parent closes the pipe
 CTR_GATHER_SETS = 32  # id sets the gather's timing cycles through
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
@@ -1750,7 +1802,7 @@ def _moe_pass(model, batch):
     return routes, loss, grads
 
 
-def _plain_gather_moe(moe, x):
+def _plain_gather_moe(moe, x, *, gate_input=None):
     """``MoELayer.forward``'s gather path written out with the gather's
     plain version (PyTorch indexing, differentiated by autograd) in place of
     the ``routed_gather`` kernels: the MoE layer of the plain path."""
@@ -1758,9 +1810,10 @@ def _plain_gather_moe(moe, x):
     from hetu_tpu_torch.ops.cuda_kernels import embedding_gather_plain
     tokens = x.reshape(-1, x.shape[-1])
     t, d = tokens.shape
-    e, k = moe.experts.num_experts, moe.gate.k
+    e, k = moe.experts.num_experts, getattr(moe.gate, "k", 1)
     capacity = max(1, int(moe.capacity_factor * t * k / e))
-    gates, idx, aux = moe.gate(tokens)
+    gates, idx, aux = moe.gate(
+        tokens if gate_input is None else gate_input.reshape(-1))
     slot_token, token_slot, _ = ops.make_slot_routing(gates, idx, e, capacity)
     xe = embedding_gather_plain(tokens, slot_token).reshape(e, capacity, d)
     ye = moe.experts(xe).reshape(e * capacity, d)
@@ -1944,6 +1997,249 @@ def phase_train_moe(card, seed, device="cuda"):
                 tokens_per_s=MOE_T / step_s, mfu=mfu, peak_gib=peak_gib,
                 busy_share=busy, losses=losses, grad_ratio=grad_ratio,
                 paths=results)
+
+
+# ------------------------------------------------------------ MoE gates
+
+def gates_capacity(kind):
+    """An expert's slots: ``int(cf * T * k / E)``, k 2 for ktop1, else 1."""
+    k = GATES_KTOP1_K if kind == "ktop1" else 1
+    return max(1, int(MOE_CF * MOE_T * k / MOE_E))
+
+
+def gates_jax_layout_weights(kind, seed):
+    """One ``MoELayer``'s parameters in the JAX package's tree and with its
+    initialisers: ``{"gate": {...}, "experts": {w1, b1, w2, b2}}``, the
+    gate Xavier-uniform (``gate_w [D, E]``, SAM's ``centroids [E, D]``,
+    hash none), the experts He-normal with zero biases."""
+    g = np.random.default_rng(seed)
+    d, e, f = MOE_H, MOE_E, GATES_FFN
+
+    def xavier(*shape):
+        lim = np.float32(np.sqrt(6.0 / (shape[0] + shape[1])))
+        return (g.random(shape, dtype=np.float32) * 2 - 1) * lim
+
+    def he(*shape):
+        std = np.sqrt(2.0 / int(np.sqrt(np.prod(shape))))
+        return np.float32(std) * g.standard_normal(shape, dtype=np.float32)
+
+    gate = {"hash": {}, "sam": {"centroids": xavier(e, d)}}.get(
+        kind, {"gate_w": xavier(d, e)})
+    return {"gate": gate,
+            "experts": {"w1": he(e, d, f), "b1": np.zeros((e, f), np.float32),
+                        "w2": he(e, f, d), "b2": np.zeros((e, d), np.float32)}}
+
+
+def gates_task(seed, device):
+    """examples/moe_gates_train.py's task at T tokens of width D: features
+    x [T, D], labels y = argmax(x w + 0.1 noise) over 10 classes, the fixed
+    head [D, 10] (normal, 0.1); and the hash gate's ids, vocabulary ids
+    drawn Zipf-skewed over MOE_V (the example routes by a label-independent
+    id; a real model by the vocabulary id)."""
+    g = np.random.default_rng(seed + 5)
+    x = g.standard_normal((MOE_T, MOE_H), dtype=np.float32)
+    w = g.standard_normal((MOE_H, GATES_CLASSES))
+    y = (x @ w + 0.1 * g.standard_normal((MOE_T, GATES_CLASSES))).argmax(-1)
+    head = np.float32(0.1) * g.standard_normal((MOE_H, GATES_CLASSES),
+                                               dtype=np.float32)
+    ids = zipf_ids(g, (MOE_T,), MOE_V)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in dict(x=x, y=y, head=head, ids=ids).items()}
+
+
+def gates_layer(kind, seed, device):
+    """The port's ``MoELayer`` with gate ``kind`` at the phase's widths,
+    its weights from :func:`gates_jax_layout_weights` through interop."""
+    from hetu_tpu_torch import interop
+    from hetu_tpu_torch.layers import (
+        BalanceAssignmentGate, Expert, HashGate, KTop1Gate, MoELayer, SAMGate,
+    )
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, e = MOE_H, MOE_E
+    gate = {"hash": lambda: HashGate(e),
+            "ktop1": lambda: KTop1Gate(d, e, GATES_KTOP1_K, generator=gen),
+            "balance": lambda: BalanceAssignmentGate(d, e, GATES_ITERS,
+                                                     generator=gen),
+            "sam": lambda: SAMGate(d, e, generator=gen)}[kind]()
+    layer = MoELayer(gate, Expert(e, d, GATES_FFN, generator=gen,
+                                  dtype=torch.bfloat16),
+                     capacity_factor=MOE_CF).to(device)
+    layer.load_state_dict(interop.params_from_jax(
+        gates_jax_layout_weights(kind, seed), layer))
+    return layer
+
+
+def _gates_flops(kind, routed):
+    """Model FLOPs of one training step (3x the forward): per token the
+    gate (2 D E for a scoring gate, nothing for hash; SAM adds the group
+    sum and its score, D + 2 D E / T a token) and the head (2 D C); per
+    routed route the expert FFN (4 D F)."""
+    d, e = MOE_H, MOE_E
+    gate = {"hash": 0, "sam": 2 * d * e + d}.get(kind, 2 * d * e)
+    per_token = gate + 2 * d * GATES_CLASSES
+    extra = 2 * e * d if kind == "sam" else 0
+    return 3 * (MOE_T * per_token + extra + routed * 4 * d * GATES_FFN)
+
+
+def balance_near_ties(lp, iters=GATES_ITERS):
+    """Rows of a Sinkhorn iterate ``lp [T, E]`` whose top two entries lie
+    within the rounding of ``iters`` rounds (``BALANCE_TIE_ULPS``): the
+    rows whose argmax two sound computations may read otherwise."""
+    lp = lp.double()
+    top2 = lp.topk(2, dim=-1).values
+    eps = torch.finfo(torch.float32).eps
+    return (top2[:, 0] - top2[:, 1]) <= \
+        BALANCE_TIE_ULPS * iters * eps * lp.abs().amax(dim=-1)
+
+
+def route_flips(kind, idx_ref, idx_got, lp=None):
+    """``(flips, near_ties)``: the tokens routed otherwise, and the rows of
+    the reference's Sinkhorn iterate ``lp`` at a near tie (balance only;
+    0 otherwise).  Raises if a token is routed otherwise away from a near
+    tie: for every other gate the routes must be identical."""
+    differ = (idx_ref != idx_got).any(dim=-1)
+    flips = int(differ.sum())
+    near = balance_near_ties(lp) if kind == "balance" else \
+        torch.zeros_like(differ)
+    away = int((differ & ~near.to(differ.device)).sum())
+    check(away == 0, f"[{kind}] {away} token(s) routed otherwise away from "
+                     f"a near tie")
+    return flips, int(near.sum())
+
+
+def _gates_loss(layer, task, x, kind, plain=False):
+    """CE of the head over the layer's output plus aux; the routes."""
+    gi = task["ids"] if kind == "hash" else None
+    if plain:
+        out, aux = _plain_gather_moe(layer, x, gate_input=gi)
+    else:
+        out, aux = layer(x, gate_input=gi)
+    logits = out.float() @ task["head"]
+    return torch.nn.functional.cross_entropy(logits, task["y"]) + aux
+
+
+def _gates_pass(layer, task, kind, plain=False):
+    """The loss, the routes, the Sinkhorn iterate (balance) and the
+    gradients of every parameter and of the input (the layer's input
+    needs its gradient inside a model, so both scatter-adds run)."""
+    from hetu_tpu_torch import ops
+    x = task["x"].clone().requires_grad_()
+    seen = []
+    hook = layer.gate.register_forward_hook(
+        lambda mod, inp, out: seen.append((inp[0].detach(), out[1].detach())))
+    try:
+        loss = _gates_loss(layer, task, x, kind, plain)
+    finally:
+        hook.remove()
+    params = dict(layer.named_parameters())
+    grads = torch.autograd.grad(loss, [*params.values(), x])
+    lp = None
+    if kind == "balance":
+        lp = ops.balance_log_plan(ops.linear(seen[0][0].float(),
+                                             layer.gate.gate_w),
+                                  iters=GATES_ITERS)
+    return (float(loss.detach()), seen[0][1], lp,
+            dict(zip([*params, "x"], grads)))
+
+
+def phase_train_moe_gates(card, seed, device="cuda"):
+    """examples/moe_gates_train.py's loop at MoEConfig's widths for the
+    hash, ktop1, balance and sam gates: on one batch the kernel path (the
+    gather dispatch and combine, their scatter-adds) against the plain
+    path (the gather's plain version), then 10 Adam steps with 2 gathers,
+    2 scatter-adds and no top-k gate a step."""
+    from hetu_tpu_torch.ops.cuda_kernels import (
+        embedding_gather, embedding_scatter_add, topk_gating,
+    )
+    from hetu_tpu_torch.optim import AdamOptimizer
+
+    counters = (topk_gating, embedding_gather, embedding_scatter_add)
+    task = gates_task(seed, device)
+    out = {}
+    for kind in GATES:
+        t0 = time.perf_counter()
+        layer = gates_layer(kind, seed, device)
+        cap = gates_capacity(kind)
+        print(f"[train_moe_gates] {kind}: MoELayer D={MOE_H} E={MOE_E} "
+              f"ffn={GATES_FFN} cf={MOE_CF} (C={cap}) experts bf16, T="
+              f"{MOE_T}, head {GATES_CLASSES} classes, Adam({GATES_LR:g}): "
+              f"built in {time.perf_counter() - t0:.1f} s")
+        loss_k, idx_k, lp_k, grads_k = _gates_pass(layer, task, kind)
+        for c in counters:
+            c.launches = 0
+        loss_p, idx_p, lp_p, grads_p = _gates_pass(layer, task, kind,
+                                                   plain=True)
+        check(all(c.launches == 0 for c in counters),
+              f"[{kind}] the plain path launched a kernel")
+        check(np.isfinite(loss_k) and np.isfinite(loss_p),
+              f"[{kind}] a loss is not finite")
+        flips, near = route_flips(kind, idx_p, idx_k, lp_p)
+        print(f"[train_moe_gates] {kind}: kernel path vs plain path: loss "
+              f"{loss_k:.6f} vs {loss_p:.6f}, |d|={abs(loss_k - loss_p):.3e} "
+              f"(tol {TOL_TRAIN_LOSS:g}); tokens routed otherwise {flips} "
+              f"(rows at a near tie: {near})")
+        check(abs(loss_k - loss_p) <= TOL_TRAIN_LOSS,
+              f"[{kind}] kernel path loss disagrees with the plain path")
+        grad_ratio = _check_grads(f"train_moe_gates] [{kind}", grads_k,
+                                  grads_p) if flips == 0 else None
+        del grads_k, grads_p
+
+        opt = AdamOptimizer(GATES_LR)
+        params = dict(layer.named_parameters())
+        state = opt.init_state(params)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for c in counters:  # count the main path's launches only
+            c.launches = 0
+        losses, times = [], []
+        for _ in range(GATES_STEPS):
+            _sync(device)
+            t1 = time.perf_counter()
+            x = task["x"].clone().requires_grad_()
+            loss = _gates_loss(layer, task, x, kind)
+            grads = torch.autograd.grad(loss, [*params.values(), x])
+            params, state = opt.update(dict(zip(params, grads)), state,
+                                       params)
+            losses.append(float(loss.detach()))
+            _sync(device)
+            times.append(time.perf_counter() - t1)
+        launches = [c.launches for c in counters]
+        with torch.no_grad():
+            _, _, met = layer(task["x"], gate_input=task["ids"]
+                              if kind == "hash" else None,
+                              return_metrics=True)
+        dropped = float(met["dropped_frac"])
+        k = GATES_KTOP1_K if kind == "ktop1" else 1
+        routed = min(round(MOE_T * k * (1 - dropped)), cap * MOE_E)
+        step_s = statistics.median(times[1:])
+        flops = _gates_flops(kind, routed)
+        peak = _peak_gib(device)
+        print(f"[train_moe_gates] {kind}: losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}; launches in "
+              f"{GATES_STEPS} steps: topk_gating {launches[0]}, "
+              f"embedding_gather {launches[1]}, embedding_scatter_add "
+              f"{launches[2]} (expected 0, {2 * GATES_STEPS}, "
+              f"{2 * GATES_STEPS})")
+        check(all(np.isfinite(losses)), f"[{kind}] a loss is not finite")
+        check(losses[-1] < losses[0], f"[{kind}] the loss did not fall")
+        check(launches == [0, 2 * GATES_STEPS, 2 * GATES_STEPS],
+              f"[{kind}] the step did not launch 2 gathers, 2 scatter-adds "
+              f"and no top-k gate a step")
+        print(f"[train_moe_gates] {kind}: step median {step_s * 1e3:.3f} ms "
+              f"(steps 2-{GATES_STEPS}; first {times[0] * 1e3:.3f} ms), "
+              f"{MOE_T / step_s:.1f} tokens/s, {flops / step_s / 1e12:.2f} "
+              f"TFLOP/s ({flops / 1e9:.3f} GFLOP a step), dropped_frac "
+              f"{dropped:.4f} ({routed} of {MOE_T * k} routes kept), peak "
+              f"{peak:.2f} GiB allocated [{card}]")
+        out[kind] = dict(launches=launches, step_ms=step_s * 1e3,
+                         tokens_per_s=MOE_T / step_s, dropped_frac=dropped,
+                         peak_gib=peak, losses=losses, flips=flips,
+                         near_ties=near, grad_ratio=grad_ratio,
+                         loss_gap=abs(loss_k - loss_p))
+        del layer, state, params
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------ Llama and BERT
@@ -4004,13 +4300,170 @@ def synthetic_ctr(n, fields, dense, vocab, seed):
     return sparse, dense_x, y
 
 
-def phase_ps_ctr(card, seed, device="cuda"):
-    """Wide & Deep on PSEmbedding rows through examples/ctr_wdl.py's
-    pipeline (prefetch, pull, step, push) at B 2048: once on bench_ctr's
-    PS leg (1M rows, sgd, no cache), once behind the HET cache (adagrad,
-    lfuopt, 131072 rows)."""
+@contextlib.contextmanager
+def van_servers(n, ready_s=VAN_READY_S):
+    """``n`` van servers, each in a process of its own (a process runs one
+    van server), importing the port's ``ps.van`` and nothing of JAX; yields
+    their ``[(host, port), ...]`` once each has printed READY, within
+    ``ready_s`` in all.  A server lives until its standard input closes:
+    killed on the way out, and gone with this process if it dies."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    try:
+        for _ in range(n):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _VAN_SERVER_SRC, root],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True))
+        deadline = time.monotonic() + ready_s
+        ports = []
+        for proc in procs:
+            left = deadline - time.monotonic()
+            ready = select.select([proc.stdout], [], [], max(left, 0))[0]
+            check(bool(ready), f"a van server did not start within "
+                               f"{ready_s:g} s")
+            line = proc.stdout.readline()
+            check(line.startswith("READY"), f"a van server failed to start "
+                                            f"(exit {proc.poll()}): {line!r}")
+            ports.append(int(line.split()[1]))
+        yield [("127.0.0.1", port) for port in ports]
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def _server_bytes(eps):
+    """Bytes the van servers at ``eps`` received and sent so far."""
+    from hetu_tpu_torch.ps import van
+    stats = [van.stats(host, port) for host, port in eps]
+    return (sum(st["bytes_rx"] for st in stats),
+            sum(st["bytes_tx"] for st in stats))
+
+
+def _client_van_bytes():
+    """``{op: bytes}`` of the van client ops recorded so far."""
+    from hetu_tpu_torch.ps import van
+    return {op: d.get("bytes", 0) for op, d in van.op_stats().items()
+            if "bytes" in d}
+
+
+def _ps_ctr_arm(name, emb, kw, batch_at, card, device, seed, record=None,
+                probe=None):
+    """``examples/ctr_wdl.py``'s pipeline (prefetch, pull, step, push) for
+    CTR_PS_STEPS steps on ``emb``; with ``record`` (a list), each push's
+    (ids, row gradients) is appended to it; ``probe()`` is read just
+    before the steps and just after them (``probes`` in the result)."""
     from hetu_tpu_torch.models import WideDeep
     from hetu_tpu_torch.optim import AdamOptimizer
+
+    t0 = time.perf_counter()
+    model = WideDeep(CTR_F, CTR_DIM, CTR_DENSE, CTR_HIDDEN,
+                     generator=torch.Generator(device=device).manual_seed(
+                         seed), device=device)
+    step = model.hybrid_step_fn(AdamOptimizer(CTR_PS_LR))
+    built = time.perf_counter() - t0
+    losses, pulls, steps, pushes = [], [], [], []
+    probes = [probe()] if probe else []
+    emb.prefetch(batch_at(0)[0])
+    for it in range(CTR_PS_STEPS):
+        ids, dx, yy = batch_at(it)
+        t1 = time.perf_counter()
+        rows = emb.pull_prefetched()
+        t2 = time.perf_counter()
+        loss, _, g_rows = step(dx, rows, yy)
+        losses.append(float(loss))
+        t3 = time.perf_counter()
+        emb.push(ids, g_rows)
+        t4 = time.perf_counter()
+        if record is not None:
+            record.append((ids.copy(),
+                           g_rows.detach().float().cpu().numpy()))
+        if it + 1 < CTR_PS_STEPS:
+            emb.prefetch(batch_at(it + 1)[0])
+        pulls.append(t2 - t1)
+        steps.append(t3 - t2)
+        pushes.append(t4 - t3)
+    probes += [probe()] if probe else []
+    emb.flush()
+    t5 = time.perf_counter()
+    emb.pull(batch_at(0)[0])
+    raw_pull = time.perf_counter() - t5
+    hit = emb.cache.hit_rate if emb.cache is not None else None
+    ms = {k: statistics.median(v[1:]) * 1e3 for k, v in
+          (("pull", pulls), ("step", steps), ("push", pushes))}
+    total = ms["pull"] + ms["step"] + ms["push"]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    cache = (f", cache {kw['cache_capacity']} {kw['cache_policy']}"
+             if hit is not None else "")
+    print(f"[ps_ctr] {name}: PSEmbedding({CTR_PS_V}, {CTR_DIM}, "
+          f"{kw['optimizer']}, lr {kw['lr']:g}{cache}) + WideDeep hidden "
+          f"{CTR_HIDDEN} Adam({CTR_PS_LR:g}), B {CTR_B}, built in "
+          f"{built:.1f} s; losses {' '.join(f'{x:.4f}' for x in losses)}")
+    print(f"[ps_ctr] {name}: medians of steps 2-{CTR_PS_STEPS}: pull "
+          f"(waited on the prefetch) {ms['pull']:.3f} ms, step (copy in, "
+          f"forward, backward, Adam) {ms['step']:.3f} ms, push "
+          f"{ms['push']:.3f} ms; {CTR_B / total * 1e3:.1f} samples/s; a "
+          f"pull not overlapped {raw_pull * 1e3:.3f} ms"
+          f"{'; hit rate %.4f' % hit if hit is not None else ''} [{card}]")
+    check(all(np.isfinite(losses)), f"a ps_ctr loss is not finite ({name})")
+    check(last < first, f"the ps_ctr loss did not fall ({name}: mean of "
+                        f"the first five {first:.4f}, of the last five "
+                        f"{last:.4f})")
+    if hit is not None:
+        check(hit > 0, f"the HET cache never hit ({name})")
+    run = dict(ms, samples_per_s=CTR_B / total * 1e3,
+               raw_pull_ms=raw_pull * 1e3, hit_rate=hit, losses=losses)
+    if probe:
+        run["probes"] = probes
+    return run
+
+
+def _ps_replay(eps, initial, pushes, final):
+    """The replay gate of the remote tier: a table partitioned over the
+    servers at ``eps`` takes the in-process arm's initial rows
+    (``sparse_set``) and its recorded pushes (sgd, the arm's lr), and must
+    then equal the in-process table within rtol 1e-6
+    (``tests/test_ps_multiserver.py``'s bound)."""
+    from hetu_tpu_torch.ps import PartitionedPSTable
+    t0 = time.perf_counter()
+    table = PartitionedPSTable(eps, CTR_PS_V, CTR_DIM, init="zeros",
+                               optimizer="sgd", lr=CTR_PS_SGD_LR)
+    try:
+        chunk = 1 << 17
+        for lo in range(0, CTR_PS_V, chunk):
+            ids = np.arange(lo, min(lo + chunk, CTR_PS_V))
+            table.sparse_set(ids, initial[ids])
+        for ids, grads in pushes:
+            table.sparse_push(ids, grads)
+        got = np.concatenate([
+            table.sparse_pull(np.arange(lo, min(lo + chunk, CTR_PS_V)))
+            for lo in range(0, CTR_PS_V, chunk)])
+        starts = table.shard_starts
+    finally:
+        table.close()
+    bitwise = int((got.view(np.int32) == final.view(np.int32)).all(-1).sum())
+    err = np.abs(got - final) / np.maximum(np.abs(final), 1e-30)
+    worst = float(err.max())
+    print(f"[ps_ctr] replay: {len(pushes)} pushes of the in-process sgd arm "
+          f"replayed on a table partitioned over {len(eps)} servers (shards "
+          f"start at {starts}) after sparse_set of its initial rows: "
+          f"{bitwise} of {CTR_PS_V} rows bitwise equal to the in-process "
+          f"table, max relative difference {worst:.3e} (rtol 1e-6); "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(bool(np.all(np.abs(got - final) <= 1e-6 * np.abs(final))),
+          "the partitioned table's replay disagrees with the in-process "
+          "table")
+    return dict(bitwise_rows=bitwise, max_rel=worst)
+
+
+def phase_ps_ctr(card, seed, device="cuda"):
+    """Wide & Deep on PSEmbedding rows through examples/ctr_wdl.py's
+    pipeline (prefetch, pull, step, push) at B 2048: in process, once on
+    bench_ctr's PS leg (1M rows, sgd, no cache) and once behind the HET
+    cache (adagrad, lfuopt, 131072 rows); then on a table key-range-
+    partitioned over two van servers in two other processes, without and
+    with the remote HET cache; and the in-process sgd arm's pushes
+    replayed on the partitioned table, which must then equal it."""
     from hetu_tpu_torch.ps import PSEmbedding
 
     sparse, dense_x, y = synthetic_ctr(CTR_B * 64, CTR_F, CTR_DENSE,
@@ -4022,69 +4475,59 @@ def phase_ps_ctr(card, seed, device="cuda"):
         return sparse[lo:lo + CTR_B], dense_x[lo:lo + CTR_B], \
             y[lo:lo + CTR_B]
 
-    runs = {"no cache": dict(optimizer="sgd", lr=0.01),
-            "HET cache": dict(optimizer="adagrad", lr=0.05,
-                              cache_capacity=CTR_PS_CACHE,
-                              cache_policy="lfuopt", pull_bound=0)}
+    sgd = dict(optimizer="sgd", lr=CTR_PS_SGD_LR)
+    het = dict(optimizer="adagrad", lr=0.05, cache_capacity=CTR_PS_CACHE,
+               cache_policy="lfuopt", pull_bound=0)
     out = {}
-    for name, kw in runs.items():
-        t0 = time.perf_counter()
+    pushes = []
+    for name, kw in (("no cache", sgd), ("HET cache", het)):
         emb = PSEmbedding(CTR_PS_V, CTR_DIM, seed=seed,
                           pin_memory=device == "cuda", **kw)
-        model = WideDeep(CTR_F, CTR_DIM, CTR_DENSE, CTR_HIDDEN,
-                         generator=torch.Generator(device=device).manual_seed(
-                             seed), device=device)
-        step = model.hybrid_step_fn(AdamOptimizer(CTR_PS_LR))
-        built = time.perf_counter() - t0
-        losses, pulls, steps, pushes = [], [], [], []
-        emb.prefetch(batch_at(0)[0])
-        for it in range(CTR_PS_STEPS):
-            ids, dx, yy = batch_at(it)
-            t1 = time.perf_counter()
-            rows = emb.pull_prefetched()
-            t2 = time.perf_counter()
-            loss, _, g_rows = step(dx, rows, yy)
-            losses.append(float(loss))
-            t3 = time.perf_counter()
-            emb.push(ids, g_rows)
-            t4 = time.perf_counter()
-            if it + 1 < CTR_PS_STEPS:
-                emb.prefetch(batch_at(it + 1)[0])
-            pulls.append(t2 - t1)
-            steps.append(t3 - t2)
-            pushes.append(t4 - t3)
-        emb.flush()
-        t5 = time.perf_counter()
-        emb.pull(batch_at(0)[0])
-        raw_pull = time.perf_counter() - t5
-        hit = emb.cache.hit_rate if emb.cache is not None else None
-        emb.close()
-        ms = {k: statistics.median(v[1:]) * 1e3 for k, v in
-              (("pull", pulls), ("step", steps), ("push", pushes))}
-        total = ms["pull"] + ms["step"] + ms["push"]
-        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-        cache = f", cache {CTR_PS_CACHE} lfuopt" if hit is not None else ""
-        print(f"[ps_ctr] {name}: PSEmbedding({CTR_PS_V}, {CTR_DIM}, "
-              f"{kw['optimizer']}, lr {kw['lr']:g}{cache}) + WideDeep hidden {CTR_HIDDEN} Adam({CTR_PS_LR:g}), B "
-              f"{CTR_B}, built in {built:.1f} s; losses "
-              f"{' '.join(f'{x:.4f}' for x in losses)}")
-        print(f"[ps_ctr] {name}: medians of steps 2-{CTR_PS_STEPS}: pull "
-              f"(waited on the prefetch) {ms['pull']:.3f} ms, step (copy in, "
-              f"forward, backward, Adam) {ms['step']:.3f} ms, push "
-              f"{ms['push']:.3f} ms; {CTR_B / total * 1e3:.1f} samples/s; a "
-              f"pull not overlapped {raw_pull * 1e3:.3f} ms"
-              f"{'; hit rate %.4f' % hit if hit is not None else ''} "
-              f"[{card}]")
-        check(all(np.isfinite(losses)), f"a ps_ctr loss is not finite "
-                                        f"({name})")
-        check(last < first, f"the ps_ctr loss did not fall ({name}: mean of "
-                            f"the first five {first:.4f}, of the last five "
-                            f"{last:.4f})")
-        if hit is not None:
-            check(hit > 0, "the HET cache never hit")
-        out[name] = dict(ms, samples_per_s=CTR_B / total * 1e3,
-                         raw_pull_ms=raw_pull * 1e3, hit_rate=hit,
-                         losses=losses)
+        record = pushes if name == "no cache" else None
+        if record is not None:
+            initial = emb.table.dense_pull()
+        try:
+            out[name] = _ps_ctr_arm(name, emb, kw, batch_at, card, device,
+                                    seed, record)
+            if record is not None:
+                final = emb.table.dense_pull()
+        finally:
+            emb.close()
+    with van_servers(VAN_SERVERS) as eps:
+        for name, kw in (("remote: 2 servers", sgd),
+                         ("remote: HET cache", het)):
+            t0 = time.perf_counter()
+            emb = PSEmbedding(CTR_PS_V, CTR_DIM, seed=seed, endpoints=eps,
+                              pin_memory=device == "cuda", **kw)
+            made = time.perf_counter() - t0
+            check(emb.table.n_servers == VAN_SERVERS,
+                  f"the table is not partitioned over {VAN_SERVERS} servers")
+            try:
+                run = _ps_ctr_arm(
+                    name, emb, kw, batch_at, card, device, seed,
+                    probe=lambda: (_server_bytes(eps), _client_van_bytes()))
+            finally:
+                emb.close()
+            ((rx0, tx0), ops0), ((rx1, tx1), ops1) = run.pop("probes")
+            ops = {op: (b - ops0.get(op, 0)) / CTR_PS_STEPS
+                   for op, b in ops1.items()
+                   if op.startswith("group_") and b > ops0.get(op, 0)}
+            run.update(table_ms=made * 1e3,
+                       server_rx_per_step=(rx1 - rx0) / CTR_PS_STEPS,
+                       server_tx_per_step=(tx1 - tx0) / CTR_PS_STEPS,
+                       van_bytes_per_step=ops)
+            print(f"[ps_ctr] {name}: the partitioned table ({CTR_PS_V} x "
+                  f"{CTR_DIM} f32 over {VAN_SERVERS} servers) made in "
+                  f"{made * 1e3:.1f} ms; a step moved "
+                  f"{run['server_rx_per_step'] / 1e6:.3f} MB to the servers "
+                  f"and {run['server_tx_per_step'] / 1e6:.3f} MB back "
+                  f"(their transport counters); client van ops a step: "
+                  + (", ".join(f"van.{op}.bytes {b / 1e6:.3f} MB"
+                               for op, b in sorted(ops.items()))
+                     or "none (the remote HET cache's native calls)")
+                  + f" [{card}]")
+            out[name] = run
+        out["replay"] = _ps_replay(eps, initial, pushes, final)
     return out
 
 
@@ -4218,23 +4661,30 @@ def phase_kernel_shapes(card):
                  for k in ("dkdv", "dq")}
 
 
-def _ctr_entry(key, moe_launches, ctr):
-    """The CTR path's part of a kernel's entry in the kernels line: the
-    launches by path, and the times at the CTR step's shapes."""
+def _paths_entry(key, moe_launches, ctr, gates):
+    """The launches by path of a kernel's entry in the kernels line (the
+    MoE step, the four gates' steps summed, the CTR step), and its times at
+    the CTR step's shapes."""
+    i = {"topk": 0, "gather": 1, "scatter": 2}[key]
+    by_gates = sum(g["launches"][i] for g in gates.values())
+    if key == "topk":  # not on the gates' path: 0 there
+        return {"launches_by_path": {"train_moe": moe_launches,
+                                     "train_moe_gates": by_gates}}
     if key == "gather":
         shape = (f"ctr: table [{CTR_V}, {CTR_DIM}] f32, {CTR_B * CTR_F} ids "
                  f"(cold rows, {CTR_GATHER_SETS} batches in turn)")
         return {"launches_by_path": {"train_moe": moe_launches,
+                                     "train_moe_gates": by_gates,
                                      "ctr": ctr["launches"][0]},
                 "by_shape": {shape: ctr["gather"]}}
     if key == "scatter":
         return {"launches_by_path": {"train_moe": moe_launches,
+                                     "train_moe_gates": by_gates,
                                      "ctr": ctr["launches"][1]},
                 "by_shape": {
                     f"ctr deduplicate: {CTR_B * CTR_F} rows of {CTR_DIM} f32 "
                     f"-> {CTR_B * CTR_F} segments, sorted route ({tag} ids)":
                         m for tag, m in ctr["scatter"].items()}}
-    return {}
 
 
 def main(argv=None) -> int:
@@ -4266,6 +4716,8 @@ def main(argv=None) -> int:
     train = phase_train(card, args.seed)
     torch.cuda.empty_cache()
     moe = phase_train_moe(card, args.seed)
+    torch.cuda.empty_cache()
+    moe_gates = phase_train_moe_gates(card, args.seed)
     torch.cuda.empty_cache()
     llama_serve, llama_engine = phase_llama_serve(card, args.seed)
     phase_paged_serve(card, args.seed, llama_engine)
@@ -4331,7 +4783,7 @@ def main(argv=None) -> int:
            "per": per, **{f: moe_kernels[key][f]
                           for f in ("by_call", "by_route", "by_shape")
                           if f in moe_kernels[key]},
-           **_ctr_entry(key, moe["launches"][i], ctr)}
+           **_paths_entry(key, moe["launches"][i], ctr, moe_gates)}
           for name, key, i, src_file, line, per in (
               ("topk_gating", "topk", 0, "topk_gating.cu", 175,
                f"one call, logits [{MOE_T}, {MOE_E}] f32, k {MOE_K}"),

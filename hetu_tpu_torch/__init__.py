@@ -10,7 +10,7 @@ paths and names mirror the reference so each counterpart is found at once:
     htt.init.*        # initializers on an explicit torch.Generator
     htt.rng           # global (seed, seqnum) -> torch.Generators
     htt.layers.*      # nn.Modules: Linear, LayerNorm, MultiHeadAttention,
-                      # TransformerBlock
+                      # TransformerBlock, MoELayer and its five gates
     htt.models.*      # GPT, MoE transformer, Llama (lm_loss_fn for
                       # training), BERT (pretrain_loss_fn), the CTR models
     htt.optim.*       # SGD ... AdamW, Lamb (dense and sparse paths)
@@ -20,13 +20,16 @@ paths and names mirror the reference so each counterpart is found at once:
     htt.serve.*       # ServeEngine, ContinuousBatchingScheduler, metrics,
                       # migrate (live KV-slot migration, its van wire),
                       # InferenceServer / InferenceClient over the van
-    htt.quantwire     # int8 block codec of migration payloads
+    htt.quantwire     # int8 block codec of migration payloads, the PS
+                      # gradient wire's dtypes
     htt.telemetry.*   # span tracer + typed metrics registry
     htt.data.*        # bucketed padding of CTR batches
     htt.utils.metrics # AUC, accuracy, F1 on host arrays
-    htt.ps.*          # the parameter server's in-process tier and its
-                      # TCP van (C++, built with g++ on first use),
-                      # PSEmbedding, van (blob channel, barrier)
+    htt.ps.*          # the parameter server (C++, built with g++ on
+                      # first use): the in-process tier, SSP, PReduce;
+                      # van: remote and partitioned tables, the remote
+                      # HET cache, the scheduler role, the blob channel;
+                      # PSEmbedding over any tier
 
 The package never imports ``jax`` or ``hetu_tpu``.  Entry points run on the
 card (``device="cuda"``) unless the caller asks for the CPU, where every

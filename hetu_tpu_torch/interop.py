@@ -18,8 +18,10 @@ each leaf — into a ``state_dict`` for the port's model of the same config
   packages, so no head key exists; Llama's untied ``lm_head [V, H]`` has
   its own key in both;
 * the CTR models (``WideDeep``, ``WideDeepDevice``, ``DeepFM``,
-  ``DeepCrossing``, ``DCN``), which have no config: the port's model
-  itself takes the config's place.  Their ``state_dict`` names are the
+  ``DeepCrossing``, ``DCN``) and a bare ``MoELayer`` (with any of the five
+  gates: ``{"gate": {...}, "experts": {w1, b1, w2, b2}}``, a hash gate's
+  subtree empty), which have no config: the port's model itself takes the
+  config's place.  Their ``state_dict`` names are the
   reference's tree paths joined by dots (``deep.0.weight`` is
   ``["deep"]["0"]["weight"]``); a ``Linear``'s weight is transposed, every
   other leaf (the embedding table, the residual units' ``w1``/``w2``, the
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from hetu_tpu_torch.layers.linear import Linear
+from hetu_tpu_torch.layers.moe import MoELayer
 from hetu_tpu_torch.models.bert import BertConfig
 from hetu_tpu_torch.models.ctr_zoo import DCN, DeepCrossing, DeepFM
 from hetu_tpu_torch.models.llama import LlamaConfig
@@ -139,27 +142,30 @@ def _moe_to_jax(arr, config) -> dict:
     return p
 
 
-_CTR_MODELS = (WideDeep, WideDeepDevice, DeepFM, DeepCrossing, DCN)
+# models without a config whose state_dict names are the reference's
+# tree paths
+_TREE_MODELS = (WideDeep, WideDeepDevice, DeepFM, DeepCrossing, DCN,
+                MoELayer)
 
 
-def _ctr_flips(model, name: str) -> bool:
-    """Whether ``state_dict`` entry ``name`` of a CTR model is a
+def _tree_flips(model, name: str) -> bool:
+    """Whether ``state_dict`` entry ``name`` of a tree model is a
     ``Linear``'s weight (stored transposed in the reference)."""
     owner, _, leaf = name.rpartition(".")
     return leaf == "weight" and isinstance(model.get_submodule(owner), Linear)
 
 
-def _ctr_from_jax(p, model) -> dict:
+def _tree_from_jax(p, model) -> dict:
     out = {}
     for name in model.state_dict():
         w = p
         for key in name.split("."):
             w = w[key]
-        out[name] = _tensor(w, _ctr_flips(model, name))
+        out[name] = _tensor(w, _tree_flips(model, name))
     return out
 
 
-def _ctr_to_jax(arr, model) -> dict:
+def _tree_to_jax(arr, model) -> dict:
     p: dict = {}
     for name, _ in model.named_modules():  # every child has a subtree
         node = p
@@ -171,17 +177,17 @@ def _ctr_to_jax(arr, model) -> dict:
         for key in path:
             node = node[key]
         w = arr(name)
-        node[leaf] = w.T if _ctr_flips(model, name) else w
+        node[leaf] = w.T if _tree_flips(model, name) else w
     return p
 
 
 def params_from_jax(tree, config) -> dict:
     """``hetu_tpu`` params (or ``{"params": ...}`` variables) → a float32
     CPU ``state_dict`` for the port's model of ``config`` (for a CTR
-    model: the port's model itself)."""
+    model or a bare ``MoELayer``: the port's model itself)."""
     p = tree["params"] if "params" in tree else tree
-    if isinstance(config, _CTR_MODELS):
-        return _ctr_from_jax(p, config)
+    if isinstance(config, _TREE_MODELS):
+        return _tree_from_jax(p, config)
     if isinstance(config, MoEConfig):
         return _moe_from_jax(p, config)
     top, block = _layout(config)
@@ -201,14 +207,14 @@ def params_from_jax(tree, config) -> dict:
 
 
 def params_to_jax(state_dict, config) -> dict:
-    """A ``state_dict`` of the port's model of ``config`` (for a CTR model:
-    the model itself) → the ``hetu_tpu`` parameter tree as float32 numpy
+    """A ``state_dict`` of the port's model of ``config`` (for a CTR model
+    or a bare ``MoELayer``: the model itself) → the ``hetu_tpu`` parameter tree as float32 numpy
     arrays (blocks stacked ``[L, ...]``)."""
     def arr(name):
         return state_dict[name].detach().float().cpu().numpy()
 
-    if isinstance(config, _CTR_MODELS):
-        return _ctr_to_jax(arr, config)
+    if isinstance(config, _TREE_MODELS):
+        return _tree_to_jax(arr, config)
     if isinstance(config, MoEConfig):
         return _moe_to_jax(arr, config)
     top, block = _layout(config)

@@ -1,15 +1,18 @@
-"""Mixture-of-Experts layer and its top-k gate (counterpart of
+"""Mixture-of-Experts layer and its gates (counterpart of
 ``hetu_tpu/layers/moe.py``).
 
-``TopKGate`` → dispatch → ``Expert`` → combine, on one device.  The gate
-picks each token's k experts with the fused top-k kernel
-(``impl="auto"``/``"pallas"``, the reference's names) or in plain PyTorch
-(``"xla"``); the dispatch and the combine move rows with the
+gate → dispatch → ``Expert`` → combine, on one device.  Five gates, the
+reference's: ``TopKGate`` (the fused top-k kernel, ``impl="auto"``/
+``"pallas"``, or plain PyTorch, ``"xla"``), ``HashGate`` (id mod E),
+``KTop1Gate`` (one winner in each of k expert groups),
+``BalanceAssignmentGate`` (Sinkhorn-balanced) and ``SAMGate`` (nearest
+centroid, rescored by the group sum).  Each returns ``(gates [T, k], idx
+[T, k], aux)``.  The dispatch and the combine move rows with the
 ``routed_gather`` kernels (``dispatch_impl="gather"``) or with the dense
-einsum masks (``"einsum"``).  The expert weights are stacked ``[E, ...]``
-in the reference's layout.  The reference's expert-parallel ``mesh`` is the
-multi-GPU slice's and is refused here; its other gates (hash, k-top-1,
-balanced assignment, SAM) are not ported yet.
+einsum masks (``"einsum"``), whatever the gate.  A gate's parameters sit
+where the reference keeps them (``gate_w [D, E]``, ``centroids [E, D]``);
+the expert weights are stacked ``[E, ...]``.  The reference's
+expert-parallel ``mesh`` is the multi-GPU slice's and is refused here.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from hetu_tpu_torch import init as initializers
 from hetu_tpu_torch import ops
 from hetu_tpu_torch.layers.base import Module
 from hetu_tpu_torch.ops.cuda_kernels.embedding import topk_gating
+from hetu_tpu_torch.ops.moe_ops import balance_assignment
+from hetu_tpu_torch.ops.reduce import sam_group_sum
 
 
 class TopKGate(Module):
@@ -68,6 +73,108 @@ class TopKGate(Module):
         ce = F.one_hot(idx[:, 0].long(), self.num_experts).float().mean(dim=0)
         aux = self.aux_weight * self.num_experts * (me * ce).sum()
         return gates, idx, aux
+
+
+def _no_aux(like):
+    """The zero load-balancing loss of the gates that have none."""
+    return torch.zeros((), dtype=torch.float32, device=like.device)
+
+
+class HashGate(Module):
+    """Deterministic hash routing: expert = token id mod E, gate 1.
+    ``forward(token_ids)`` (any integer shape; the ids, not the tokens'
+    features: ``MoELayer(..., gate_input=ids)``) → ``(gates [T, 1]`` f32,
+    ``idx [T, 1]`` int32, ``aux = 0)``.  The mod floors, as the
+    reference's ``%`` does (a negative id maps into ``[0, E)``)."""
+
+    def __init__(self, num_experts: int):
+        super().__init__()
+        self.num_experts = num_experts
+
+    def forward(self, token_ids):
+        ids = token_ids.reshape(-1)
+        idx = torch.remainder(ids, self.num_experts).to(torch.int32)
+        gates = torch.ones((idx.shape[0], 1), dtype=torch.float32,
+                           device=idx.device)
+        return gates, idx[:, None], _no_aux(idx)
+
+
+class KTop1Gate(Module):
+    """k groups of E / k experts, one winner in each: a token takes the
+    argmax of its logits in every group (the first maximum on ties), and
+    its gates are the softmax over the k winners' logits.
+    ``forward(tokens [T, D])`` → ``(gates [T, k]`` f32, ``idx [T, k]``
+    int32, ``aux = 0)``."""
+
+    def __init__(self, hidden_size: int, num_experts: int, k: int = 2, *,
+                 generator: torch.Generator):
+        super().__init__()
+        if num_experts % k:
+            raise ValueError(f"num_experts {num_experts} is not a multiple "
+                             f"of k {k}")
+        self.hidden_size, self.num_experts, self.k = (hidden_size,
+                                                      num_experts, k)
+        self.gate_w = nn.Parameter(initializers.xavier_uniform()(
+            generator, (hidden_size, num_experts)))
+
+    def forward(self, tokens):
+        logits = ops.linear(tokens.float(), self.gate_w)
+        t, per = logits.shape[0], self.num_experts // self.k
+        grouped = logits.reshape(t, self.k, per)
+        offset = torch.arange(self.k, dtype=torch.int32,
+                              device=logits.device) * per
+        idx = grouped.argmax(dim=-1).to(torch.int32) + offset
+        # amax, not max(dim): its gradient splits over tied maxima as
+        # jnp.max's does
+        gates = torch.softmax(grouped.amax(dim=-1), dim=-1)
+        return gates, idx, _no_aux(logits)
+
+
+class BalanceAssignmentGate(Module):
+    """The BASE layer's balanced assignment, by Sinkhorn iteration
+    (:func:`ops.balance_assignment`, ``iters`` rounds): one expert a
+    token, gated by the sigmoid of the token's score there.
+    ``forward(tokens [T, D])`` → ``(gates [T, 1]`` f32, ``idx [T, 1]``
+    int32, ``aux = 0)``."""
+
+    def __init__(self, hidden_size: int, num_experts: int, iters: int = 20,
+                 *, generator: torch.Generator):
+        super().__init__()
+        self.hidden_size, self.num_experts, self.iters = (
+            hidden_size, num_experts, iters)
+        self.gate_w = nn.Parameter(initializers.xavier_uniform()(
+            generator, (hidden_size, num_experts)))
+
+    def forward(self, tokens):
+        scores = ops.linear(tokens.float(), self.gate_w)
+        idx = balance_assignment(scores, iters=self.iters)[:, None]
+        gates = torch.sigmoid(scores).gather(-1, idx)
+        return gates, idx.to(torch.int32), _no_aux(scores)
+
+
+class SAMGate(Module):
+    """The switch-and-mix gate: a token goes to the centroid of highest
+    dot-product affinity (the first on ties), and its gate is the sigmoid
+    of its group's score, the group sum of its tokens
+    (:func:`ops.sam_group_sum`) dotted with the centroid.  The gradient
+    reaches ``centroids`` and the tokens through the group sum.
+    ``forward(tokens [T, D])`` → ``(gates [T, 1]`` f32, ``idx [T, 1]``
+    int32, ``aux = 0)``."""
+
+    def __init__(self, hidden_size: int, num_experts: int, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.hidden_size, self.num_experts = hidden_size, num_experts
+        self.centroids = nn.Parameter(initializers.xavier_uniform()(
+            generator, (num_experts, hidden_size)))
+
+    def forward(self, tokens):
+        c = self.centroids
+        t = tokens.float()
+        idx = (t @ c.t()).argmax(dim=-1)
+        gscore = (sam_group_sum(t, idx, self.num_experts) * c).sum(dim=-1)
+        gates = torch.sigmoid(gscore[idx])[:, None]
+        return gates, idx.to(torch.int32)[:, None], _no_aux(t)
 
 
 class _F32Bmm(torch.autograd.Function):
@@ -134,16 +241,19 @@ class Expert(Module):
 
 
 class MoELayer(Module):
-    """gate → dispatch → experts → combine.
+    """gate → dispatch → experts → combine, with any of the five gates.
 
     ``capacity_factor`` bounds the tokens an expert takes:
-    ``C = max(1, int(cf * T * k / E))``; routes past it are dropped, as in
-    the reference.  ``forward(x [B, S, D] or [T, D])`` → ``(out, aux)``
-    with ``out`` in f32 and shaped like ``x``; with ``return_metrics``,
+    ``C = max(1, int(cf * T * k / E))`` with the gate's ``k`` (1 for a gate
+    without one, as the reference reads it); routes past it are dropped,
+    as in the reference.  ``forward(x [B, S, D] or [T, D], gate_input=None)``
+    → ``(out, aux)`` with ``out`` in f32 and shaped like ``x``; the gate
+    routes by ``gate_input`` where it is given (``HashGate``'s token ids),
+    else by the tokens; with ``return_metrics``,
     ``(out, aux, {"dropped_frac": ...})``, the share of (token, choice)
     routes dropped."""
 
-    def __init__(self, gate: TopKGate, experts: Expert, *,
+    def __init__(self, gate: Module, experts: Expert, *,
                  capacity_factor: float = 1.25, mesh=None,
                  dispatch_impl: str = "gather"):
         super().__init__()
@@ -160,13 +270,14 @@ class MoELayer(Module):
         self.capacity_factor = capacity_factor
         self.dispatch_impl = dispatch_impl
 
-    def forward(self, x, *, return_metrics: bool = False):
+    def forward(self, x, *, gate_input=None, return_metrics: bool = False):
         d = x.shape[-1]
         tokens = x.reshape(-1, d)
         t = tokens.shape[0]
-        e, k = self.experts.num_experts, self.gate.k
+        e, k = self.experts.num_experts, getattr(self.gate, "k", 1)
         capacity = max(1, int(self.capacity_factor * t * k / e))
-        gates, idx, aux = self.gate(tokens)
+        gates, idx, aux = self.gate(
+            tokens if gate_input is None else gate_input.reshape(-1))
         if self.dispatch_impl == "gather":
             # each gather gets its ids' inverse map, so that its gradient
             # (the scatter-add) reads every row's sources with no sort

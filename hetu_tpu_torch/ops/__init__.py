@@ -1,7 +1,7 @@
 """Functional ops on torch tensors (counterpart of ``hetu_tpu/ops``).
 
-What the ported slices run: GPT serving and training, MoE training, Llama
-serving and training, BERT pretraining, CTR training.
+What the ported slices run: GPT serving and training, MoE training (the
+five gates), Llama serving and training, BERT pretraining, CTR training.
 Hand-written CUDA kernels live in :mod:`hetu_tpu_torch.ops.cuda_kernels`.
 """
 
@@ -21,11 +21,12 @@ from hetu_tpu_torch.ops.losses import (
 )
 from hetu_tpu_torch.ops.matmul import linear
 from hetu_tpu_torch.ops.moe_ops import (
-    gather_combine, gather_dispatch, layout_transform, make_dispatch_combine,
-    make_slot_routes, make_slot_routing, reverse_layout_transform,
-    top_k_idx_gate,
+    balance_assignment, balance_log_plan, gather_combine, gather_dispatch,
+    layout_transform, make_dispatch_combine, make_slot_routes,
+    make_slot_routing, reverse_layout_transform, top_k_idx_gate,
 )
 from hetu_tpu_torch.ops.norm import layer_norm, rms_norm
+from hetu_tpu_torch.ops.reduce import sam_group_sum, sam_max
 from hetu_tpu_torch.ops.rope import apply_rope, apply_rope_at, rope_tables
 
 __all__ = [
@@ -40,5 +41,6 @@ __all__ = [
     "softmax_cross_entropy_sparse", "gather_combine", "gather_dispatch",
     "layout_transform", "make_dispatch_combine", "make_slot_routes",
     "make_slot_routing",
-    "reverse_layout_transform", "top_k_idx_gate",
+    "reverse_layout_transform", "top_k_idx_gate", "balance_assignment",
+    "balance_log_plan", "sam_group_sum", "sam_max",
 ]

@@ -134,6 +134,28 @@ def gather_combine(expert_out, token_slot, gates, *, inverse=None):
     return (gates[..., None].to(picked.dtype) * picked).sum(dim=1)
 
 
+def balance_log_plan(scores, *, iters: int = 20):
+    """The Sinkhorn iterate of :func:`balance_assignment`, ``[T, E]`` f32:
+    the scores less their row max, then ``iters`` rounds of column and
+    then row log-normalisation (``logsumexp`` over each axis).  No
+    gradient: the assignment is an argmax of it."""
+    with torch.no_grad():
+        lp = scores.detach().float()
+        lp = lp - lp.amax(dim=-1, keepdim=True)
+        for _ in range(iters):
+            lp = lp - torch.logsumexp(lp, dim=0, keepdim=True)
+            lp = lp - torch.logsumexp(lp, dim=1, keepdim=True)
+    return lp
+
+
+def balance_assignment(scores, *, iters: int = 20):
+    """Balanced token → expert assignment by Sinkhorn iteration, the
+    reference's reformulation of the BASE layer's auction: the row argmax
+    (the first maximum on ties) of :func:`balance_log_plan`.  ``scores
+    [T, E]`` → expert index per token ``[T]`` int64."""
+    return balance_log_plan(scores, iters=iters).argmax(dim=-1)
+
+
 def layout_transform(tokens, dispatch):
     """Pack tokens into the ``[E, C, D]`` expert-major layout (the types
     promote as the reference's einsum promotes them)."""

@@ -1,14 +1,22 @@
-"""The parameter server (counterpart of ``hetu_tpu/ps``): the C++ core
-and its van, built with g++ on first use; the in-process tier's table and
-HET cache, the hybrid path's ``PSEmbedding``, and the van's blob channel
-(:mod:`van`), the transport of the serving front end and the migration
-wire.  The remote tiers wait for a later slice."""
+"""The parameter server (counterpart of ``hetu_tpu/ps``): the C++ core,
+its van and its remote tiers, built with g++ on first use; the in-process
+table and HET cache, SSP clocks and partial reduce (:mod:`client`); the
+remote tables, the partitioned table, the remote HET cache, the scheduler
+role and the blob channel (:mod:`van`); and the hybrid path's
+``PSEmbedding`` over any tier."""
 
 from hetu_tpu_torch.ps import van
 from hetu_tpu_torch.ps.binding import lib
-from hetu_tpu_torch.ps.client import CacheSparseTable, PSTable
+from hetu_tpu_torch.ps.client import (
+    CacheSparseTable, PartialReduce, PSTable, SSPController,
+)
 from hetu_tpu_torch.ps.embedding import PSEmbedding
-from hetu_tpu_torch.ps.van import serve
+from hetu_tpu_torch.ps.van import (
+    PartitionedPSTable, RemoteCacheTable, RemotePReduce, RemotePSTable,
+    RemoteSSP, scheduler_map, serve, serve_and_register,
+)
 
-__all__ = ["lib", "van", "serve", "PSTable", "CacheSparseTable",
-           "PSEmbedding"]
+__all__ = ["lib", "van", "serve", "serve_and_register", "scheduler_map",
+           "PSTable", "CacheSparseTable", "SSPController", "PartialReduce",
+           "RemotePSTable", "PartitionedPSTable", "RemoteCacheTable",
+           "RemoteSSP", "RemotePReduce", "PSEmbedding"]

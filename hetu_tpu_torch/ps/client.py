@@ -1,6 +1,10 @@
 """Client objects over the parameter server's in-process C++ tier
-(counterpart of ``PSTable`` and ``CacheSparseTable`` in
-``hetu_tpu/ps/client.py``, copied with what they need).
+(counterpart of ``hetu_tpu/ps/client.py``, copied with what it needs):
+``PSTable``, ``CacheSparseTable``, the native int8 row codec
+(:func:`q8_encode` / :func:`q8_decode`), the error feedback of a lossy
+gradient wire (:class:`ErrorFeedback`), SSP clocks
+(:class:`SSPController`) and partial-reduce matchmaking
+(:class:`PartialReduce`).
 
 Host-side and numpy: the tables live in host RAM, and
 :class:`~hetu_tpu_torch.ps.embedding.PSEmbedding` turns their rows into
@@ -18,9 +22,12 @@ import threading
 import numpy as np
 
 from hetu_tpu_torch.ps.binding import lib
+from hetu_tpu_torch.quantwire import WIRE_CODES as WIRE_DTYPES
 
 _table_ids = itertools.count(1)
 _cache_ids = itertools.count(1)
+_ssp_ids = itertools.count(1)
+_preduce_ids = itertools.count(1)
 
 
 def _i64p(a):
@@ -33,6 +40,10 @@ def _f32p(a):
 
 def _u64p(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
+
+
+def _i8p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int8))
 
 
 def _as_idx(a) -> np.ndarray:
@@ -67,9 +78,94 @@ def _check(rc, what: str):
 
 _INIT_KINDS = {"zeros": 0, "constant": 1, "uniform": 2, "normal": 3}
 TABLE_DTYPES = {"f32": 0, "bf16": 1, "int8": 2}  # row STORAGE types
+# WIRE_DTYPES (imported above): the gradient push-pull wire's types
 _OPT_KINDS = {"sgd": 0, "momentum": 1, "adagrad": 2, "adam": 3,
               "nesterov": 4}
 _POLICIES = {"lru": 0, "lfu": 1, "lfuopt": 2}
+
+
+def q8_encode(rows) -> tuple:
+    """Symmetric int8 with one scale a row, by the native codec
+    (``csrc/hetu_ps_dtype.h``), the scheme of every storage and wire path
+    (NaN → 0, ±Inf → ±127).  ``rows [n, dim]`` → ``(q int8 [n, dim],
+    scales f32 [n])``."""
+    v = np.ascontiguousarray(rows, np.float32)
+    if v.ndim != 2:
+        raise ValueError(f"q8_encode wants [n, dim] rows, got {v.shape}")
+    n, dim = v.shape
+    q = np.empty((n, dim), np.int8)
+    scales = np.empty(n, np.float32)
+    _check(lib.ps_q8_encode(_f32p(v), n, dim, _i8p(q), _f32p(scales)),
+           "q8_encode")
+    return q, scales
+
+
+def q8_decode(q, scales) -> np.ndarray:
+    """Inverse of :func:`q8_encode`: f32 rows."""
+    q = np.ascontiguousarray(q, np.int8)
+    if q.ndim != 2:
+        raise ValueError(f"q8_decode wants [n, dim] codes, got {q.shape}")
+    n, dim = q.shape
+    s = np.ascontiguousarray(scales, np.float32).reshape(n)
+    out = np.empty((n, dim), np.float32)
+    _check(lib.ps_q8_decode(_i8p(q), _f32p(s), n, dim, _f32p(out)),
+           "q8_decode")
+    return out
+
+
+class ErrorFeedback:
+    """The residual of a lossy (int8) gradient wire, kept by the client:
+    each push sends ``grad + residual`` and keeps ``residual = intended -
+    what the server decoded``, so the quantisation error is applied on a
+    later step instead of lost.
+
+    The wire calls return the server's decode of the payload they sent
+    (``roundtrip``), so the residual needs no copy of the codec.  Sparse
+    residuals are kept a row, by index, at most ``max_rows`` of them
+    (the oldest dropped past it: a dropped residual loses less than one
+    quantum of gradient, what a plain quantised push loses every step)."""
+
+    def __init__(self, dim: int, *, max_rows: int = 1 << 20):
+        self.dim = int(dim)
+        self.max_rows = int(max_rows)
+        self._dense = None           # [rows, dim] f32
+        self._sparse: dict = {}      # index -> [dim] f32 residual
+
+    def fold_dense(self, grad: np.ndarray) -> np.ndarray:
+        """``grad`` plus the carried residual (a new array)."""
+        if self._dense is None:
+            return np.array(grad, np.float32, copy=True)
+        return grad + self._dense
+
+    def absorb_dense(self, intended: np.ndarray,
+                     roundtrip: np.ndarray) -> None:
+        self._dense = intended - roundtrip
+
+    def fold_sparse(self, idx: np.ndarray, grads: np.ndarray) -> np.ndarray:
+        """Each row's gradient plus its carried residual (a new array).  An
+        index repeated within one push gets its residual once, at its first
+        occurrence: the server sums duplicates."""
+        out = np.array(grads, np.float32, copy=True)
+        if self._sparse:
+            uniq, first = np.unique(np.asarray(idx), return_index=True)
+            get = self._sparse.get
+            for j, ii in zip(first, uniq.tolist()):
+                r = get(ii)
+                if r is not None:
+                    out[j] += r
+        return out
+
+    def absorb_sparse(self, idx: np.ndarray, intended: np.ndarray,
+                      roundtrip: np.ndarray) -> None:
+        uniq, inv = np.unique(np.asarray(idx), return_inverse=True)
+        acc = np.zeros((uniq.shape[0], intended.shape[1]), np.float32)
+        np.add.at(acc, inv, intended - roundtrip)
+        sp = self._sparse
+        for j, ii in enumerate(uniq.tolist()):
+            sp.pop(ii, None)  # re-insert: rows touched last live longest
+            sp[ii] = acc[j]
+        while len(sp) > self.max_rows:
+            sp.pop(next(iter(sp)))
 
 
 class PSTable:
@@ -282,3 +378,43 @@ class CacheSparseTable:
         with self._stats_lock:
             self.misses = 0
             self.lookups = 0
+
+
+class SSPController:
+    """Bounded-staleness clocks of ``n_workers`` workers, in this
+    process's library (its own clock table: controllers are
+    independent)."""
+
+    def __init__(self, n_workers: int, staleness: int):
+        self.id = next(_ssp_ids)
+        _check(lib.ps_ssp_init(self.id, n_workers, staleness), "ssp_init")
+        self.n_workers = n_workers
+
+    def clock_and_wait(self, worker: int, timeout_ms: int = 10_000) -> bool:
+        """Advance ``worker``'s clock; True once it is within the bound,
+        False if ``timeout_ms`` passed first."""
+        rc = lib.ps_ssp_clock_and_wait(self.id, worker, timeout_ms)
+        if rc < 0:
+            raise RuntimeError(f"hetu_ps ssp_clock_and_wait rc={rc}")
+        return rc == 0
+
+    def clock(self, worker: int) -> int:
+        return int(lib.ps_ssp_get_clock(self.id, worker))
+
+
+class PartialReduce:
+    """Straggler-tolerant reduce groups: :meth:`get_partner` waits up to
+    ``wait_ms`` for at most ``max_group`` workers and returns the ids of
+    this round's group (the caller then reduces over them)."""
+
+    def __init__(self, max_group: int = 8, wait_ms: int = 100):
+        self.id = next(_preduce_ids)
+        self.max_group = max_group
+        self.wait_ms = wait_ms
+
+    def get_partner(self, worker: int) -> list[int]:
+        if not 0 <= worker < 64:
+            raise ValueError("worker id must be in [0, 64) for mask encoding")
+        mask = int(lib.ps_preduce_get_partner(self.id, worker,
+                                              self.max_group, self.wait_ms))
+        return [i for i in range(64) if mask & (1 << i)]

@@ -5,12 +5,15 @@ The dense parameters train on the card while the embedding table lives on
 the parameter server: a worker pulls the batch's rows before the step,
 the step takes them as an input and returns their gradients, and the host
 pushes those back.  The pull is host work, so :meth:`PSEmbedding.prefetch`
-overlaps the next batch's pull with the current step.
+overlaps the next batch's pull with the current step, and
+:meth:`PSEmbedding.prefetch_layered` issues a batch's pulls in segments
+by the layer that uses them first (P3's priority pull).
 
-Only the in-process tier is ported: the table in this process's host RAM,
-with the HET cache in front of it if asked.  The remote tiers
-(``endpoints=``, ``scheduler=``) need the van, which comes with the fleet
-slice (``ROADMAP.md``, Queue 1).
+Three tiers, one surface: the table in this process's host RAM (the
+default), key-range-partitioned over van servers (``endpoints=``), or
+over the servers a scheduler lists (``scheduler=``); each with the HET
+cache in front of it if asked (``CacheSparseTable`` in process,
+``RemoteCacheTable`` over the wire).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from hetu_tpu_torch.ps.client import CacheSparseTable, PSTable
+from hetu_tpu_torch.ps.van import PartitionedPSTable, RemoteCacheTable
 
 
 def _host_ids(indices) -> np.ndarray:
@@ -32,10 +36,17 @@ def _host_ids(indices) -> np.ndarray:
 
 
 class PSEmbedding:
-    """A ``num_embeddings x dim`` table on the in-process parameter
-    server, updated there by ``optimizer`` at ``lr``, with the HET cache
-    in front of it when ``cache_capacity`` is given (``cache_policy``,
-    ``pull_bound``).
+    """A ``num_embeddings x dim`` table on the parameter server, updated
+    there by ``optimizer`` at ``lr``, with the HET cache in front of it
+    when ``cache_capacity`` is given (``cache_policy``, ``pull_bound``).
+
+    The tier: this process's table by default; with ``endpoints``
+    (``"host:port,host:port"`` or ``[(host, port), ...]``) a table
+    key-range-partitioned over those van servers; with ``scheduler=(host,
+    port, n_servers)`` over the servers the scheduler lists (a server may
+    rejoin at another address).  ``table_id`` names a remote table shared
+    by several workers (a fresh id otherwise).  ``dtype`` is the rows'
+    storage on every tier; pulled rows are f32.
 
     :meth:`pull` returns the rows as a float32 CPU tensor, in pinned
     memory with ``pin_memory=True`` (so that the copy to the card does not
@@ -49,25 +60,46 @@ class PSEmbedding:
                  init: str = "normal", init_b: float = 0.01, seed: int = 0,
                  endpoints=None, scheduler=None, table_id=None,
                  dtype: str = "f32", pin_memory: bool = False):
-        if endpoints is not None or scheduler is not None \
-                or table_id is not None:
-            raise NotImplementedError(
-                "PSEmbedding's remote tiers (endpoints=, scheduler=, "
-                "table_id=) need the van, which hetu_tpu_torch has not "
-                "ported yet (ROADMAP.md, Queue 1: the host-side fleet "
-                "planes); the in-process tier takes none of them")
-        self.table = PSTable(num_embeddings, dim, init=init, init_b=init_b,
-                             seed=seed, optimizer=optimizer, lr=lr,
-                             dtype=dtype)
-        self.cache = (CacheSparseTable(self.table, cache_capacity,
-                                       cache_policy, pull_bound=pull_bound)
-                      if cache_capacity else None)
+        if table_id is not None and endpoints is None and scheduler is None:
+            raise ValueError(
+                "table_id applies to the remote tiers only (the in-process "
+                "PSTable assigns its own id); pass endpoints= or "
+                "scheduler=, or drop table_id")
+        if endpoints is not None and scheduler is not None:
+            raise ValueError(
+                "pass endpoints= OR scheduler=, not both (the scheduler "
+                "resolves the endpoints itself)")
+        kw = dict(init=init, init_b=init_b, seed=seed, optimizer=optimizer,
+                  lr=lr, dtype=dtype)
+        if scheduler is not None:
+            host, port, n_servers = scheduler
+            self.table = PartitionedPSTable.from_scheduler(
+                host, port, n_servers, num_embeddings, dim,
+                table_id=table_id, **kw)
+            cache_cls = RemoteCacheTable
+        elif endpoints is not None:
+            self.table = PartitionedPSTable(endpoints, num_embeddings, dim,
+                                            table_id=table_id, **kw)
+            cache_cls = RemoteCacheTable
+        else:
+            self.table = PSTable(num_embeddings, dim, **kw)
+            cache_cls = CacheSparseTable
+        try:
+            self.cache = (cache_cls(self.table, cache_capacity,
+                                    cache_policy, pull_bound=pull_bound)
+                          if cache_capacity else None)
+        except Exception:
+            # the native group and its heartbeat thread must not leak
+            if hasattr(self.table, "close"):
+                self.table.close()
+            raise
         self.dim = dim
         self.pin_memory = pin_memory
         # one worker thread: a prefetch overlaps the NEXT batch's pull with
-        # the current step
+        # the current step, and layered segments complete in issue order
         self._prefetcher = ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[Future] = None
+        self._layered: dict = {}  # layer index -> Future
 
     def pull(self, indices) -> torch.Tensor:
         """The rows of this batch: ``[*indices.shape, dim]`` float32 on the
@@ -100,6 +132,31 @@ class PSEmbedding:
         self._pending = None
         return out
 
+    def prefetch_layered(self, segments) -> None:
+        """P3's priority pull: ``segments`` is an iterable of
+        ``(layer_idx, indices)``; the pulls go to the prefetch worker in
+        ascending ``layer_idx``, so the rows the model uses first arrive
+        first and compute can start while later segments are in flight.
+        Collect each with :meth:`pull_layered`, in any order."""
+        if self._layered:
+            raise RuntimeError(
+                "previous layered prefetch not fully collected; call "
+                "pull_layered() for every segment first")
+        segs = [(int(li), _host_ids(idx)) for li, idx in segments]
+        if len({li for li, _ in segs}) != len(segs):
+            raise ValueError("duplicate segment layer index")
+        for li, idx in sorted(segs, key=lambda t: t[0]):
+            self._layered[li] = self._prefetcher.submit(self.pull, idx)
+
+    def pull_layered(self, layer_idx: int) -> torch.Tensor:
+        """One segment of :meth:`prefetch_layered`; waits on that segment
+        only."""
+        fut = self._layered.pop(int(layer_idx), None)
+        if fut is None:
+            raise RuntimeError(
+                f"no layered prefetch in flight for layer {layer_idx}")
+        return fut.result()
+
     def push(self, indices, row_grads) -> None:
         """Apply ``d(loss)/d(rows)`` on the server, or into the cache."""
         idx = _host_ids(indices)
@@ -127,10 +184,21 @@ class PSEmbedding:
             self.cache.reset_stats()
 
     def close(self) -> None:
-        """Wait for a prefetch in flight, then flush the cache."""
+        """Wait for the prefetches in flight (they hold the native cache
+        and group), flush the cache, close the cache, close the table.  A
+        flush that fails because the servers are gone is dropped: nothing
+        durable is left to save."""
         self._prefetcher.shutdown(wait=True)
         self._pending = None
-        self.flush()
+        self._layered.clear()
+        try:
+            self.flush()
+        except RuntimeError:
+            pass
+        if self.cache is not None and hasattr(self.cache, "close"):
+            self.cache.close()
+        if hasattr(self.table, "close"):
+            self.table.close()
 
     def __del__(self):  # interpreter-shutdown best effort
         try:

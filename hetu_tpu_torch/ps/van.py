@@ -1,25 +1,32 @@
-"""The van's blob channel: the message plane of the serving front end and
-of the migration wire (counterpart of the blob-channel part of
-``hetu_tpu/ps/van.py``).
+"""The van: the parameter server's message plane across processes and
+hosts (counterpart of ``hetu_tpu/ps/van.py``).
 
 The van is the C++ TCP server embedded in the PS library
-(``csrc/hetu_ps_van.cpp``, built with the in-process tier by
-:mod:`hetu_tpu_torch.ps.binding`).  A process calls :func:`serve` to run
-it; clients open :class:`BlobChannel` s (single-slot acked mailboxes) and
-:class:`RemoteBarrier` s against it, and :func:`stats` reads its transport
-counters.  The wire format is the reference's: a port client talks to a
-reference server and the other way round.
+(``csrc/hetu_ps_van.cpp``, built with the other tiers by
+:mod:`hetu_tpu_torch.ps.binding`).  A process calls :func:`serve` (or
+:func:`serve_and_register`, which also registers it with a scheduler and
+keeps the registration alive) to run it.  Clients talk to it through:
+
+* :class:`RemotePSTable` — one table on one server (dtype'd rows, the
+  quantised gradient wire with error feedback, compare-and-set, slots);
+* :class:`PartitionedPSTable` — one table key-range-partitioned over
+  several servers, listed or resolved from a scheduler
+  (:func:`scheduler_map`), recreating a shard whose server restarted;
+* :class:`RemoteCacheTable` — the HET cache over such a table;
+* :class:`RemoteSSP`, :class:`RemotePReduce` — SSP clocks and
+  partial-reduce matchmaking held by a server;
+* :class:`BlobChannel` s (single-slot acked mailboxes),
+  :class:`RemoteBarrier` s and :func:`stats` (its transport counters).
+
+The wire format is the reference's: a port client talks to a reference
+server and the other way round.
 
 Every client op runs under :func:`_op_span`: the fault hook and the netem
 hook fire first (a raise surfaces before the wire op), then the op is
 timed into ``telemetry.default_registry`` (``van.<op>.calls`` /
-``.bytes`` / ``.latency_s`` / ``.errors``) and, with tracing on, a
-``van.<op>`` span.
-
-Not here: the remote tables (``RemotePSTable``, ``PartitionedPSTable``,
-``RemoteCacheTable``), SSP, PReduce, the scheduler map and the
-heartbeats (``serve_and_register``) come with the remote tiers
-(``ROADMAP.md`` Queue 1 item 5).
+``.bytes`` / ``.latency_s`` / ``.errors``, and for a quantised op
+``van.<op>.bytes_logical`` / ``.bytes_wire`` / ``.bytes_saved``) and,
+with tracing on, a ``van.<op>`` span.
 
 Deadlines use ``time.monotonic()``: a wall-clock jump must not expire or
 extend a transport timeout (the native layer uses a steady clock too).
@@ -31,12 +38,19 @@ import ctypes
 import os
 import socket
 import struct
+import threading
 import time
 from typing import Optional
 
 import numpy as np
 
 from hetu_tpu_torch.ps.binding import lib
+from hetu_tpu_torch.ps.client import (
+    _INIT_KINDS, _OPT_KINDS, _POLICIES, TABLE_DTYPES, WIRE_DTYPES,
+    ErrorFeedback, _as_idx, _as_mat, _check, _f32p, _i64p, _out_rows,
+    _u64p, cache_metrics,
+)
+from hetu_tpu_torch.quantwire import record_wire_bytes, row_wire_bytes
 from hetu_tpu_torch.telemetry import default_registry
 from hetu_tpu_torch.telemetry import trace as _trace
 
@@ -73,11 +87,16 @@ def _op_metrics(op: str):
 
 
 class _OpSpan:
-    __slots__ = ("op", "nbytes", "_t0", "_tr0", "_traced")
+    __slots__ = ("op", "nbytes", "logical_nbytes", "_t0", "_tr0",
+                 "_traced")
 
-    def __init__(self, op: str, nbytes: int = 0):
+    def __init__(self, op: str, nbytes: int = 0, logical_nbytes: int = 0):
         self.op = op
         self.nbytes = int(nbytes)
+        # nonzero only for a quantised op: nbytes is then the wire's count
+        # and logical_nbytes the f32 payload's, recorded as the pair
+        # van.<op>.bytes_logical / .bytes_wire (and .bytes_saved)
+        self.logical_nbytes = int(logical_nbytes)
 
     def __enter__(self):
         _maybe_inject(self.op)
@@ -101,6 +120,9 @@ class _OpSpan:
             return False
         if self.nbytes:
             nbytes.inc(self.nbytes)
+        if self.logical_nbytes:
+            record_wire_bytes(default_registry, span_name,
+                              self.logical_nbytes, self.nbytes)
         lat.observe(dt)
         if self._traced and _trace.enabled():
             _trace.complete(span_name, self._tr0,
@@ -109,8 +131,14 @@ class _OpSpan:
         return False
 
 
-def _op_span(op: str, nbytes: int = 0) -> _OpSpan:
-    return _OpSpan(op, nbytes)
+def _op_span(op: str, nbytes: int = 0, logical_nbytes: int = 0) -> _OpSpan:
+    return _OpSpan(op, nbytes, logical_nbytes)
+
+
+class _WireUnsupported(Exception):
+    """rc -100 from a quantised wire op (a server that predates it).
+    Raised inside the op's span, so the refused attempt counts as a call
+    and an error only; the f32 retry records the real transfer."""
 
 
 def op_stats() -> dict:
@@ -135,7 +163,7 @@ def op_stats() -> dict:
 
 def set_fault_hook(hook):
     """Install ``hook(op: str)``, called before every client-side wire op
-    (blob put and get).  It may sleep (a delay) or raise (a
+    (pulls, pushes, sets, blob put and get).  It may sleep (a delay) or raise (a
     transient error, surfacing to the caller as a real transport failure
     would, so retry paths run end to end).  Returns the hook it
     replaced."""
@@ -215,6 +243,9 @@ def _connect_with_deadline(host: str, port: int, timeout_s: float,
     return fd
 
 
+_beat_handles: list = []
+
+
 def serve(port: int = 0) -> int:
     """Start this process's van server on ``port`` (0: a free one);
     returns the bound port.  Raises if it cannot start (already running,
@@ -227,8 +258,641 @@ def serve(port: int = 0) -> int:
 
 def stop() -> None:
     """Stop this process's van server; its channels and barriers go with
-    it (a later ``serve()`` starts empty)."""
+    it (a later ``serve()`` starts empty).  Its scheduler heartbeats stop
+    first: a beat that outlived the server would advertise a dead
+    endpoint as alive."""
+    while _beat_handles:
+        lib.ps_sched_beat_stop(_beat_handles.pop())
     lib.ps_van_stop()
+
+
+def serve_and_register(sched_host: str, sched_port: int, *,
+                       port: int = 0, rank_hint: int = -1,
+                       beat_ms: int = 1000,
+                       register_timeout_s: float = 10.0) -> tuple:
+    """Start this process's van server and register it with the scheduler
+    at ``sched_host:sched_port`` (a van server too).  The scheduler
+    assigns a rank, or honours ``rank_hint`` (a server rejoining, also at
+    another port or host), and learns the endpoint from the registration's
+    connection.  A native heartbeat thread keeps the registration alive
+    until :func:`stop`.  Returns ``(bound_port, rank)``."""
+    bound = serve(port)
+    h = lib.ps_sched_beat_start(sched_host.encode(), sched_port, rank_hint,
+                                bound, beat_ms, register_timeout_s)
+    if h <= 0:
+        stop()
+        raise ConnectionError(
+            f"cannot register with scheduler {sched_host}:{sched_port}")
+    _beat_handles.append(h)
+    return bound, int(lib.ps_sched_beat_rank(h))
+
+
+def scheduler_map(host: str, port: int) -> list:
+    """The scheduler's endpoint map: ``[{rank, alive, host, port}, ...]``."""
+    fd = lib.ps_van_connect(host.encode(), port)
+    if fd < 0:
+        raise ConnectionError(f"cannot reach scheduler {host}:{port}")
+    try:
+        kmax = 64
+        ranks = (ctypes.c_int32 * kmax)()
+        alive = (ctypes.c_uint8 * kmax)()
+        ports = (ctypes.c_int32 * kmax)()
+        hosts = ctypes.create_string_buffer(kmax * 64)
+        n = lib.ps_van_sched_map(fd, kmax, ranks, alive, ports, hosts)
+        if n < 0:
+            raise RuntimeError(f"scheduler map query failed rc={n}")
+        return [{"rank": int(ranks[i]), "alive": bool(alive[i]),
+                 "host": hosts.raw[i * 64:(i + 1) * 64].split(b"\0")[0]
+                 .decode(), "port": int(ports[i])} for i in range(n)]
+    finally:
+        lib.ps_van_close(fd)
+
+
+class RemotePSTable:
+    """A :class:`~hetu_tpu_torch.ps.client.PSTable` held by the van server
+    at ``host:port`` (the worker side of the reference's kvworker).
+
+    ``dtype`` ("f32", "bf16", "int8") is the rows' storage and their
+    encoding on the wire: a pull or set of a bf16 table moves half the
+    bytes, of an int8 one a quarter (and a scale a row); gradients push
+    in bf16 to a bf16 table and in f32 otherwise.  Callers see f32 arrays
+    only.  Both ends of a shared table id must agree on its dtype.
+
+    ``wire`` ("bf16", "int8"; None or "f32" for the f32 wire) quantises
+    the gradient plane too (``dense_push``, ``sparse_push``,
+    ``dense_pull``), whatever the storage; int8 keeps an
+    :class:`~hetu_tpu_torch.ps.client.ErrorFeedback` residual unless
+    ``error_feedback=False``.  Each message names its wire type, and a
+    server that predates the quantised ops answers rc -100: the client
+    then falls back to the f32 ops for the connection's life and counts
+    it in ``van.wire_negotiation.fallbacks``.  The savings land in
+    ``telemetry.default_registry`` as ``van.<op>.bytes_logical`` /
+    ``.bytes_wire`` / ``.bytes_saved``.
+
+    ``create=False`` attaches to a table that exists (``table_id`` then
+    names it); otherwise the table is created with a fresh id unless
+    ``table_id`` is given."""
+
+    def __init__(self, host: str, port: int, rows: int, dim: int, *,
+                 table_id: Optional[int] = None, create: bool = True,
+                 init: str = "normal", init_a: float = 0.0,
+                 init_b: float = 0.01, seed: int = 0,
+                 optimizer: str = "sgd", lr: float = 0.01,
+                 momentum: float = 0.9, eps: float = 1e-7,
+                 beta1: float = 0.9, beta2: float = 0.999,
+                 dtype: str = "f32", wire: Optional[str] = None,
+                 error_feedback: bool = True,
+                 connect_timeout_s: float = 10.0,
+                 rcv_timeout_s: Optional[float] = None):
+        self.rows, self.dim = rows, dim
+        self.dtype = dtype
+        self._dt = TABLE_DTYPES[dtype]
+        if wire is not None and wire not in WIRE_DTYPES:
+            raise ValueError(f"unknown wire dtype {wire!r}; expected one "
+                             f"of {sorted(WIRE_DTYPES)}")
+        self.wire = None if wire == "f32" else wire
+        self._wdt = WIRE_DTYPES[wire] if self.wire else 0
+        self._ef = ErrorFeedback(dim) if (
+            self.wire == "int8" and error_feedback) else None
+        self.fd = _connect_with_deadline(host, port, connect_timeout_s,
+                                         rcv_timeout_s)
+        self.id = table_id if table_id is not None else fresh_table_id()
+        if create:
+            try:
+                _check(lib.ps_van_table_create_dt(
+                    self.fd, self.id, rows, dim, _INIT_KINDS[init], init_a,
+                    init_b, seed, self._dt), "van_table_create")
+                _check(lib.ps_van_set_optimizer(
+                    self.fd, self.id, _OPT_KINDS[optimizer], lr, momentum,
+                    eps, beta1, beta2), "van_set_optimizer")
+            except Exception:
+                self.close()  # the connection must not outlive a failed
+                raise         # create (a lost race, a server refusal)
+
+    def ping(self) -> bool:
+        return lib.ps_van_ping(self.fd) == 0
+
+    def _wire_unsupported(self) -> None:
+        """rc -100 from a quantised op: fall back to the f32 ops for the
+        connection's life, and count it once."""
+        default_registry.counter(
+            "van.wire_negotiation.fallbacks",
+            help="quantized-wire clients downgraded to f32 by an old "
+                 "server").inc()
+        self.wire = None
+        self._ef = None
+
+    def sparse_pull(self, indices) -> np.ndarray:
+        idx = _as_idx(indices)
+        out = np.empty((idx.shape[0], self.dim), np.float32)
+        with _op_span("van_sparse_pull", out.nbytes):
+            _check(lib.ps_van_sparse_pull_dt(self.fd, self.id, _i64p(idx),
+                                             idx.shape[0], _f32p(out),
+                                             self.dim, self._dt),
+                   "van_sparse_pull")
+        return out
+
+    def sparse_push(self, indices, grads) -> None:
+        idx = _as_idx(indices)
+        g = _as_mat(grads, idx.shape[0], self.dim)
+        if self.wire:
+            logical = g.nbytes
+            if self._ef is not None:
+                g = self._ef.fold_sparse(idx, g)
+            rt = np.empty_like(g) if self._ef is not None else None
+            n = idx.shape[0]
+            try:
+                with _op_span("van_sparse_push",
+                              row_wire_bytes(self.wire, n, self.dim),
+                              logical_nbytes=logical):
+                    rc = lib.ps_van_sparse_push_w(
+                        self.fd, self.id, _i64p(idx), _f32p(g), n,
+                        self.dim, self._wdt, 0,
+                        None if rt is None else _f32p(rt))
+                    if rc == -100:
+                        raise _WireUnsupported
+                    _check(rc, "van_sparse_push_w")
+            except _WireUnsupported:
+                self._wire_unsupported()
+                return self.sparse_push(idx, g)
+            if self._ef is not None:
+                self._ef.absorb_sparse(idx, g, rt)
+            return
+        with _op_span("van_sparse_push", g.nbytes):
+            _check(lib.ps_van_sparse_push_dt(self.fd, self.id, _i64p(idx),
+                                             _f32p(g), idx.shape[0],
+                                             self.dim, self._dt),
+                   "van_sparse_push")
+
+    def dense_pull(self) -> np.ndarray:
+        out = np.empty((self.rows, self.dim), np.float32)
+        if self.wire:
+            try:
+                with _op_span("van_dense_pull",
+                              row_wire_bytes(self.wire, self.rows, self.dim),
+                              logical_nbytes=out.nbytes):
+                    rc = lib.ps_van_dense_pull_w(
+                        self.fd, self.id, _f32p(out), self.rows, self.dim,
+                        self._wdt)
+                    if rc == -100:
+                        raise _WireUnsupported
+                    _check(rc, "van_dense_pull_w")
+            except _WireUnsupported:
+                self._wire_unsupported()
+                return self.dense_pull()
+            return out
+        with _op_span("van_dense_pull", out.nbytes):
+            _check(lib.ps_van_dense_pull(self.fd, self.id, _f32p(out),
+                                         self.rows * self.dim),
+                   "van_dense_pull")
+        return out
+
+    def dense_push(self, grad) -> None:
+        g = _as_mat(grad, self.rows, self.dim)
+        if self.wire:
+            logical = g.nbytes
+            if self._ef is not None:
+                g = self._ef.fold_dense(g)
+            rt = np.empty_like(g) if self._ef is not None else None
+            try:
+                with _op_span("van_dense_push",
+                              row_wire_bytes(self.wire, self.rows, self.dim),
+                              logical_nbytes=logical):
+                    rc = lib.ps_van_dense_push_w(
+                        self.fd, self.id, _f32p(g), self.rows, self.dim,
+                        self._wdt, 0, None if rt is None else _f32p(rt))
+                    if rc == -100:
+                        raise _WireUnsupported
+                    _check(rc, "van_dense_push_w")
+            except _WireUnsupported:
+                self._wire_unsupported()
+                return self.dense_push(g)
+            if self._ef is not None:
+                self._ef.absorb_dense(g, rt)
+            return
+        with _op_span("van_dense_push", g.nbytes):
+            _check(lib.ps_van_dense_push(self.fd, self.id, _f32p(g),
+                                         self.rows * self.dim),
+                   "van_dense_push")
+
+    def sparse_set(self, indices, values) -> None:
+        idx = _as_idx(indices)
+        v = _as_mat(values, idx.shape[0], self.dim)
+        with _op_span("van_sparse_set", v.nbytes):
+            _check(lib.ps_van_sparse_set_dt(self.fd, self.id, _i64p(idx),
+                                            _f32p(v), idx.shape[0], self.dim,
+                                            self._dt),
+                   "van_sparse_set")
+
+    def row_cas(self, row: int, field: int, expected: float, desired):
+        """Compare field ``field`` of ``row`` with ``expected`` and, if they
+        match, write the whole ``desired`` row, atomically among CAS
+        callers.  Returns ``(swapped, row after the op)``: a losing
+        claimant reads the winner's row from the same round trip.  Raises
+        ``NotImplementedError`` against a server without the op (rc
+        -100)."""
+        d = np.ascontiguousarray(np.asarray(desired, np.float32).reshape(-1))
+        if d.shape[0] != self.dim:
+            raise ValueError(f"desired row has {d.shape[0]} fields; "
+                             f"table dim is {self.dim}")
+        actual = np.empty(self.dim, np.float32)
+        with _op_span("van_row_cas", d.nbytes):
+            rc = lib.ps_van_row_cas(self.fd, self.id, int(row), int(field),
+                                    float(expected), _f32p(d), self.dim,
+                                    _f32p(actual))
+        if rc == -100:
+            raise NotImplementedError("van server does not speak OP_ROW_CAS")
+        if rc not in (0, 1):
+            _check(rc, "van_row_cas")
+        return rc == 0, actual
+
+    def clear(self) -> None:
+        """Zero the table in place; bumps versions, so caches re-pull."""
+        _check(lib.ps_van_table_clear(self.fd, self.id), "van_table_clear")
+
+    def slots_get(self, indices):
+        """The server-side optimizer's slots of ``indices``: ``(s1, s2,
+        step)`` as ``PSTable.slots_get`` gives them; f32 on the wire
+        whatever the row dtype."""
+        idx = _as_idx(indices)
+        n = idx.shape[0]
+        s1 = np.empty((n, self.dim), np.float32)
+        s2 = np.empty((n, self.dim), np.float32)
+        step = np.empty(n, np.uint64)
+        with _op_span("van_slots_get", s1.nbytes + s2.nbytes + step.nbytes):
+            _check(lib.ps_van_table_slots_get(
+                self.fd, self.id, _i64p(idx), n, self.dim, _f32p(s1),
+                _f32p(s2), _u64p(step)), "van_slots_get")
+        return s1, s2, step
+
+    def slots_set(self, indices, s1, s2, step) -> None:
+        idx = _as_idx(indices)
+        n = idx.shape[0]
+        s1 = _as_mat(s1, n, self.dim)
+        s2 = _as_mat(s2, n, self.dim)
+        step = np.ascontiguousarray(step, np.uint64).reshape(n)
+        with _op_span("van_slots_set", s1.nbytes + s2.nbytes + step.nbytes):
+            _check(lib.ps_van_table_slots_set(
+                self.fd, self.id, _i64p(idx), n, self.dim, _f32p(s1),
+                _f32p(s2), _u64p(step)), "van_slots_set")
+
+    def save(self, path) -> None:
+        _check(lib.ps_van_table_save(self.fd, self.id, str(path).encode()),
+               "van_table_save")
+
+    def load(self, path) -> None:
+        _check(lib.ps_van_table_load(self.fd, self.id, str(path).encode()),
+               "van_table_load")
+
+    def close(self) -> None:
+        if self.fd >= 0:
+            lib.ps_van_close(self.fd)
+            self.fd = -1
+
+
+class PartitionedPSTable:
+    """One table key-range-partitioned over N van servers: keys in
+    ``[rows·i/n, rows·(i+1)/n)`` live on server i, at local row ids.  The
+    range split, the fan-out, the heartbeats and the retries live in the
+    native group (``csrc/hetu_ps_group.cpp``).
+
+    A server that restarts blank gets its shard recreated (fresh init) by
+    the next call that reaches it, and :attr:`recovered` counts it; the
+    caller decides whether to restore rows (``sparse_set`` from a
+    checkpoint).  ``endpoints``: ``"host:port,host:port"`` or
+    ``[(host, port), ...]``."""
+
+    def __init__(self, endpoints, rows: int, dim: int, *,
+                 table_id: Optional[int] = None,
+                 init: str = "normal", init_a: float = 0.0,
+                 init_b: float = 0.01, seed: int = 0,
+                 optimizer: str = "sgd", lr: float = 0.01,
+                 momentum: float = 0.9, eps: float = 1e-7,
+                 beta1: float = 0.9, beta2: float = 0.999,
+                 dtype: str = "f32",
+                 connect_timeout_s: float = 10.0,
+                 heartbeat_ms: int = 0):
+        if not isinstance(endpoints, str):
+            endpoints = ",".join(f"{h}:{p}" for h, p in endpoints)
+        self.rows, self.dim = rows, dim
+        self.dtype = dtype
+        self.id = table_id if table_id is not None else fresh_table_id()
+        gid = lib.ps_group_create_dt(
+            endpoints.encode(), self.id, rows, dim, _INIT_KINDS[init],
+            init_a, init_b, seed, connect_timeout_s, heartbeat_ms,
+            TABLE_DTYPES[dtype])
+        if gid <= 0:
+            raise ConnectionError(
+                f"cannot establish PS group over {endpoints} (rc={gid})")
+        self._finish_init(gid, optimizer, lr, momentum, eps, beta1, beta2)
+
+    def _finish_init(self, gid, optimizer, lr, momentum, eps, beta1, beta2):
+        self.gid = gid
+        self.lr = lr
+        try:
+            _check(lib.ps_group_set_optimizer(
+                gid, _OPT_KINDS[optimizer], lr, momentum, eps, beta1, beta2),
+                "group_set_optimizer")
+        except Exception:
+            # the native group and its heartbeat thread must not leak
+            self.gid = 0
+            lib.ps_group_close(gid)
+            raise
+
+    @classmethod
+    def from_scheduler(cls, sched_host: str, sched_port: int,
+                       n_servers: int, rows: int, dim: int, *,
+                       table_id: Optional[int] = None,
+                       init: str = "normal", init_a: float = 0.0,
+                       init_b: float = 0.01, seed: int = 0,
+                       optimizer: str = "sgd", lr: float = 0.01,
+                       momentum: float = 0.9, eps: float = 1e-7,
+                       beta1: float = 0.9, beta2: float = 0.999,
+                       dtype: str = "f32",
+                       connect_timeout_s: float = 10.0,
+                       heartbeat_ms: int = 0) -> "PartitionedPSTable":
+        """The endpoints of ranks ``0..n_servers-1`` resolved from the
+        scheduler (waiting until all are alive).  A shard whose direct
+        reconnect fails re-resolves its endpoint there, so a server may
+        rejoin at another address with no change on the client."""
+        self = cls.__new__(cls)
+        self.rows, self.dim = rows, dim
+        self.dtype = dtype
+        self.id = table_id if table_id is not None else fresh_table_id()
+        gid = lib.ps_group_create_sched_dt(
+            sched_host.encode(), sched_port, n_servers, self.id, rows, dim,
+            _INIT_KINDS[init], init_a, init_b, seed, connect_timeout_s,
+            heartbeat_ms, TABLE_DTYPES[dtype])
+        if gid <= 0:
+            raise ConnectionError(
+                f"cannot establish PS group via scheduler "
+                f"{sched_host}:{sched_port} (rc={gid})")
+        self._finish_init(gid, optimizer, lr, momentum, eps, beta1, beta2)
+        return self
+
+    @property
+    def n_servers(self) -> int:
+        return int(lib.ps_group_n(self.gid))
+
+    @property
+    def shard_starts(self) -> list:
+        return [int(lib.ps_group_start(self.gid, i))
+                for i in range(self.n_servers)]
+
+    @property
+    def alive(self) -> list:
+        mask = int(lib.ps_group_alive_mask(self.gid))
+        return [bool(mask & (1 << i)) for i in range(self.n_servers)]
+
+    @property
+    def recovered(self) -> int:
+        """How many times a shard of a server restarted blank was
+        recreated."""
+        return int(lib.ps_group_recovered(self.gid))
+
+    def sparse_pull(self, indices, *, out=None) -> np.ndarray:
+        """The rows of ``indices`` ``[n, dim]`` f32, into ``out`` where
+        given."""
+        idx = _as_idx(indices)
+        out = _out_rows(out, idx.shape[0], self.dim)
+        with _op_span("group_sparse_pull", out.nbytes):
+            _check(lib.ps_group_sparse_pull(self.gid, _i64p(idx),
+                                            idx.shape[0], _f32p(out)),
+                   "group_sparse_pull")
+        return out
+
+    def sparse_push(self, indices, grads) -> None:
+        idx = _as_idx(indices)
+        g = _as_mat(grads, idx.shape[0], self.dim)
+        with _op_span("group_sparse_push", g.nbytes):
+            _check(lib.ps_group_sparse_push(self.gid, _i64p(idx), _f32p(g),
+                                            idx.shape[0]),
+                   "group_sparse_push")
+
+    def sparse_set(self, indices, values) -> None:
+        idx = _as_idx(indices)
+        v = _as_mat(values, idx.shape[0], self.dim)
+        with _op_span("group_sparse_set", v.nbytes):
+            _check(lib.ps_group_sparse_set(self.gid, _i64p(idx), _f32p(v),
+                                           idx.shape[0]),
+                   "group_sparse_set")
+
+    def dense_pull(self) -> np.ndarray:
+        out = np.empty((self.rows, self.dim), np.float32)
+        with _op_span("group_dense_pull", out.nbytes):
+            _check(lib.ps_group_dense_pull(self.gid, _f32p(out)),
+                   "group_dense_pull")
+        return out
+
+    def dense_push(self, grad) -> None:
+        g = _as_mat(grad, self.rows, self.dim)
+        with _op_span("group_dense_push", g.nbytes):
+            _check(lib.ps_group_dense_push(self.gid, _f32p(g)),
+                   "group_dense_push")
+
+    def slots_get(self, indices):
+        """The server-side optimizer's slots across the group: ``(s1, s2,
+        step)``."""
+        idx = _as_idx(indices)
+        n = idx.shape[0]
+        s1 = np.empty((n, self.dim), np.float32)
+        s2 = np.empty((n, self.dim), np.float32)
+        step = np.empty(n, np.uint64)
+        with _op_span("group_slots_get",
+                      s1.nbytes + s2.nbytes + step.nbytes):
+            _check(lib.ps_group_slots_get(self.gid, _i64p(idx), n,
+                                          _f32p(s1), _f32p(s2),
+                                          _u64p(step)), "group_slots_get")
+        return s1, s2, step
+
+    def slots_set(self, indices, s1, s2, step) -> None:
+        idx = _as_idx(indices)
+        n = idx.shape[0]
+        s1 = _as_mat(s1, n, self.dim)
+        s2 = _as_mat(s2, n, self.dim)
+        step = np.ascontiguousarray(step, np.uint64).reshape(n)
+        with _op_span("group_slots_set",
+                      s1.nbytes + s2.nbytes + step.nbytes):
+            _check(lib.ps_group_slots_set(self.gid, _i64p(idx), _f32p(s1),
+                                          _f32p(s2), _u64p(step), n),
+                   "group_slots_set")
+
+    def sync_pull(self, indices, cached_versions, bound: int = 0):
+        """Version-bounded sync over the wire (HET's kSyncEmbedding):
+        ``(positions, versions, rows)`` of the requested rows whose server
+        version exceeds ``cached_versions + bound`` (every row of a shard
+        recreated since: a new incarnation starts at a later base) or went
+        back.  ``np.uint64(-1)`` means "not cached, always send".
+        Versions are opaque monotonic counters."""
+        idx = _as_idx(indices)
+        vers = np.ascontiguousarray(cached_versions, np.uint64).reshape(-1)
+        if vers.shape[0] != idx.shape[0]:
+            raise ValueError("cached_versions must match indices length")
+        n = idx.shape[0]
+        sel = np.empty(n, np.uint32)
+        vout = np.empty(n, np.uint64)
+        rout = np.empty((n, self.dim), np.float32)
+        m = lib.ps_group_sync_pull(
+            self.gid, _i64p(idx), _u64p(vers), n, bound,
+            sel.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            _u64p(vout), _f32p(rout))
+        if m < 0:
+            raise RuntimeError(f"hetu_ps group_sync_pull failed rc={m}")
+        m = int(m)
+        return sel[:m].copy(), vout[:m].copy(), rout[:m].copy()
+
+    def save(self, path) -> None:
+        """Each server saves ``<path>.shard<i>`` on its own host."""
+        _check(lib.ps_group_save(self.gid, str(path).encode()), "group_save")
+
+    def load(self, path) -> None:
+        _check(lib.ps_group_load(self.gid, str(path).encode()), "group_load")
+
+    def close(self) -> None:
+        if getattr(self, "gid", 0) > 0:
+            lib.ps_group_close(self.gid)
+            self.gid = 0
+
+
+class RemoteCacheTable:
+    """The worker-side HET cache over a :class:`PartitionedPSTable`
+    (``csrc/hetu_ps_rcache.cpp``): the surface of
+    :class:`~hetu_tpu_torch.ps.client.CacheSparseTable`, with a miss or a
+    stale row crossing the wire in one fused push-and-sync round trip a
+    shard.  The native calls hold the cache's own mutex; the hit
+    accounting takes ``_stats_lock``.  With a ``registry`` every lookup
+    also sets its ``ps.cache.*`` metrics."""
+
+    def __init__(self, table: PartitionedPSTable, capacity: int,
+                 policy: str = "lfuopt", *, pull_bound: int = 0,
+                 registry=None):
+        self.table = table
+        self.dim = table.dim
+        self.pull_bound = pull_bound
+        cid = lib.ps_rcache_create(table.gid, capacity, _POLICIES[policy],
+                                   getattr(table, "lr", 0.01))
+        if cid <= 0:
+            raise RuntimeError(f"hetu_ps rcache_create failed rc={cid}")
+        self.id = cid
+        self._stats_lock = threading.Lock()
+        self._metrics = cache_metrics(registry) if registry is not None \
+            else None
+        self.misses = 0
+        self.lookups = 0
+
+    def embedding_lookup(self, indices, *, out=None) -> np.ndarray:
+        """The rows of ``indices`` ``[*indices.shape, dim]`` f32, into
+        ``out`` (``[n, dim]``) where given."""
+        idx = np.ascontiguousarray(indices, np.int64)
+        flat = idx.reshape(-1)
+        rows = _out_rows(out, flat.shape[0], self.dim)
+        m = lib.ps_rcache_lookup(self.id, _i64p(flat), flat.shape[0],
+                                 self.pull_bound, _f32p(rows))
+        if m < 0:
+            raise RuntimeError(f"hetu_ps rcache_lookup failed rc={m}")
+        with self._stats_lock:
+            self.misses += int(m)
+            self.lookups += flat.shape[0]
+            misses, lookups = self.misses, self.lookups
+        if self._metrics is not None:
+            c_lookups, c_misses, hit_rate, size = self._metrics
+            c_lookups.inc(flat.shape[0])
+            c_misses.inc(int(m))
+            hit_rate.set(1.0 - misses / max(lookups, 1))
+            size.set(self.size)
+        return rows.reshape(*idx.shape, self.dim)
+
+    def embedding_update(self, indices, grads) -> None:
+        idx = _as_idx(indices)
+        g = _as_mat(grads, idx.shape[0], self.dim)
+        _check(lib.ps_rcache_update(self.id, _i64p(idx), _f32p(g),
+                                    idx.shape[0]), "rcache_update")
+
+    def flush(self) -> None:
+        _check(lib.ps_rcache_flush(self.id), "rcache_flush")
+
+    @property
+    def size(self) -> int:
+        return int(lib.ps_rcache_size(self.id))
+
+    @property
+    def hit_rate(self) -> float:
+        with self._stats_lock:
+            return 1.0 - self.misses / max(self.lookups, 1)
+
+    def reset_stats(self) -> None:
+        with self._stats_lock:
+            self.misses = 0
+            self.lookups = 0
+
+    def close(self) -> None:
+        if getattr(self, "id", 0) > 0:
+            lib.ps_rcache_close(self.id)
+            self.id = 0
+
+
+class RemoteSSP:
+    """SSP clocks held by the van server at ``host:port``: workers of
+    several processes or hosts share one clock table ``ssp_id``."""
+
+    def __init__(self, host: str, port: int, ssp_id: int, n_workers: int,
+                 staleness: int, *, create: bool = True,
+                 connect_timeout_s: float = 10.0):
+        self.fd = _connect_with_deadline(host, port, connect_timeout_s)
+        self.id = ssp_id
+        self.n_workers = n_workers
+        if create:
+            rc = lib.ps_van_ssp_init(self.fd, ssp_id, n_workers, staleness)
+            if rc not in (0, -2):  # -2: another worker created it first
+                self.close()
+                raise RuntimeError(f"remote ssp_init failed rc={rc}")
+
+    def clock_and_wait(self, worker: int, timeout_ms: int = 10_000) -> bool:
+        rc = lib.ps_van_ssp_clock(self.fd, self.id, worker, timeout_ms)
+        if rc < 0:
+            raise RuntimeError(f"remote ssp_clock failed rc={rc}")
+        return rc == 0
+
+    def clock(self, worker: int) -> int:
+        clk = int(lib.ps_van_ssp_get(self.fd, self.id, worker))
+        if clk < 0:
+            raise RuntimeError(f"remote ssp_get failed rc={clk}")
+        return clk
+
+    def close(self) -> None:
+        if self.fd >= 0:
+            lib.ps_van_close(self.fd)
+            self.fd = -1
+
+
+class RemotePReduce:
+    """Partial-reduce matchmaking held by the van server at
+    ``host:port`` (pool ``pool_id``)."""
+
+    def __init__(self, host: str, port: int, pool_id: int,
+                 max_group: int = 8, wait_ms: int = 100,
+                 connect_timeout_s: float = 10.0):
+        self.fd = _connect_with_deadline(host, port, connect_timeout_s)
+        self.id = pool_id
+        self.max_group = max_group
+        self.wait_ms = wait_ms
+
+    def get_partner(self, worker: int) -> list:
+        if not 0 <= worker < 64:
+            raise ValueError("worker id must be in [0, 64) for mask encoding")
+        mask = int(lib.ps_van_preduce(self.fd, self.id, worker,
+                                      self.max_group, self.wait_ms))
+        if mask == 0:
+            # a group always holds the worker that asked, so 0 means the
+            # transport or the server failed
+            raise RuntimeError("remote preduce matchmaking failed "
+                               "(van unreachable or server error)")
+        return [i for i in range(64) if mask & (1 << i)]
+
+    def close(self) -> None:
+        if self.fd >= 0:
+            lib.ps_van_close(self.fd)
+            self.fd = -1
 
 
 class BlobChannel:

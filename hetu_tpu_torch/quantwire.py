@@ -13,16 +13,32 @@
   product with its reciprocal on the card, one bit off the reference.
 * :func:`record_wire_bytes` — the ``<path>.bytes_logical`` /
   ``bytes_wire`` / ``bytes_saved`` counters, in a
-  :class:`~hetu_tpu_torch.telemetry.MetricsRegistry` the caller passes
-  (this package has no process-wide default registry).
+  :class:`~hetu_tpu_torch.telemetry.MetricsRegistry` the caller passes.
+* ``WIRE_CODES`` and :func:`row_wire_bytes` — the PS gradient wire's
+  dtypes (the numbering of ``WireDtype`` in ``csrc/hetu_ps_dtype.h``) and
+  the bytes ``n`` rows take on it.
 
-The reference's jax block codec (quantized collectives) and its wire-dtype
-helpers wait for the multi-GPU slice.
+The reference's jax block codec (quantized collectives) waits for the
+multi-GPU slice.
 """
 
 from __future__ import annotations
 
 import torch
+
+# the PS gradient wire's dtypes, numbered as csrc's WireDtype; "f32" means
+# the legacy ops
+WIRE_CODES = {"f32": 0, "bf16": 1, "int8": 2}
+
+
+def row_wire_bytes(wire: str, n: int, dim: int) -> int:
+    """Wire bytes of ``n`` rows of ``dim`` elements in ``wire`` encoding
+    (csrc's ``wire_row_bytes``: int8 carries one f32 scale a row)."""
+    if wire == "bf16":
+        return n * dim * 2
+    if wire == "int8":
+        return n * (dim + 4)
+    return n * dim * 4
 
 
 def q8_encode_axes(a: torch.Tensor, reduce_axes) -> tuple:

@@ -494,17 +494,107 @@ def test_ctr_phase_rehearses_up_to_its_launch_count(monkeypatch, capsys):
 
 
 def test_ps_ctr_phase_runs_on_the_cpu(monkeypatch, capsys):
-    """At the phase's batch and widths, on a table of 20000 rows."""
+    """At the phase's batch and widths, on a table of 20000 rows: the two
+    in-process arms, the two remote arms over two server processes, and
+    the replay gate (every row bitwise the in-process table's)."""
     monkeypatch.setattr(chip_smoke, "CTR_PS_V", 20000)
     monkeypatch.setattr(chip_smoke, "CTR_PS_CACHE", 4096)
     out = chip_smoke.phase_ps_ctr("cpu", 0, device="cpu")
-    assert set(out) == {"no cache", "HET cache"}
+    arms = {"no cache", "HET cache", "remote: 2 servers", "remote: HET cache"}
+    assert set(out) == arms | {"replay"}
     assert out["no cache"]["hit_rate"] is None
+    assert out["remote: 2 servers"]["hit_rate"] is None
     assert out["HET cache"]["hit_rate"] > 0
-    for run in out.values():
-        assert len(run["losses"]) == chip_smoke.CTR_PS_STEPS
-        assert run["samples_per_s"] > 0
-    assert "hit rate" in capsys.readouterr().out
+    assert out["remote: HET cache"]["hit_rate"] > 0
+    for name in arms:
+        assert len(out[name]["losses"]) == chip_smoke.CTR_PS_STEPS
+        assert out[name]["samples_per_s"] > 0
+    assert out["replay"]["bitwise_rows"] == 20000
+    # the pull and push bytes a step do not depend on the table's rows
+    ops = out["remote: 2 servers"]["van_bytes_per_step"]
+    ids = chip_smoke.CTR_B * chip_smoke.CTR_F
+    assert ops["group_sparse_pull"] == ops["group_sparse_push"] == \
+        ids * chip_smoke.CTR_DIM * 4
+    printed = capsys.readouterr().out
+    assert "hit rate" in printed and "20000 of 20000 rows bitwise" in printed
+
+
+def test_van_servers_are_killed_and_a_failed_start_raises(monkeypatch):
+    with chip_smoke.van_servers(2) as eps:
+        assert len({port for _, port in eps}) == 2
+        from hetu_tpu_torch.ps import van
+        assert van.stats(*eps[0])["frames"] >= 1
+    with pytest.raises(ConnectionError):
+        van.stats(*eps[0], timeout_s=0.3)
+    monkeypatch.setattr(chip_smoke, "_VAN_SERVER_SRC", "raise SystemExit(3)")
+    with pytest.raises(chip_smoke.SmokeFailure, match="failed to start"):
+        with chip_smoke.van_servers(1):
+            pass
+
+
+# ---- the MoE gates phase ----
+
+TINY_GATES = dict(MOE_H=32, MOE_E=4, MOE_T=512, MOE_V=97, GATES_FFN=64)
+
+
+@pytest.mark.parametrize("kind", ["hash", "ktop1", "balance", "sam"])
+def test_gates_phase_rehearses_up_to_its_launch_count(monkeypatch, capsys,
+                                                      kind):
+    """Each gate at a tiny width: the kernel-vs-plain gate (loss, routes,
+    every gradient) and 10 falling steps run; CPU tensors launch no
+    kernel, so the phase stops at its launch count."""
+    for name, value in TINY_GATES.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "GATES", (kind,))
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match=rf"\[{kind}\] the step did not launch 2 "
+                             rf"gathers, 2 scatter-adds"):
+        chip_smoke.phase_train_moe_gates("cpu", 0, device="cpu")
+    out = capsys.readouterr().out
+    assert f"{kind}: kernel path vs plain path" in out
+    assert f"[{kind}] gradients of" in out
+    assert "embedding_gather 0" in out
+
+
+def test_gates_phase_constants():
+    """examples/moe_gates_train.py's loop at MoEConfig's widths: D 512, E
+    8, FFN 4 D, cf 1.25, 16384 tokens, Adam(3e-3), 10 classes; 2560 slots
+    an expert at k 1, 5120 for ktop1."""
+    c = chip_smoke
+    assert (c.MOE_H, c.MOE_E, c.GATES_FFN, c.MOE_CF, c.MOE_T) == \
+        (512, 8, 2048, 1.25, 16384)
+    assert (c.GATES_LR, c.GATES_CLASSES, c.GATES_STEPS) == (3e-3, 10, 10)
+    assert c.GATES == ("hash", "ktop1", "balance", "sam")
+    assert [c.gates_capacity(k) for k in c.GATES] == [2560, 5120, 2560, 2560]
+    assert c.GATES_KTOP1_K == 2 and c.GATES_ITERS == 20
+
+
+def test_gates_flops():
+    """3 x the forward: the gate's scores (2 D E a token; SAM adds its
+    group sum and score; hash none), the head (2 D 10 a token) and the
+    expert FFN (4 D F a kept route)."""
+    d, e, f, t = 512, 8, 2048, 16384
+    head = 2 * d * 10
+    assert chip_smoke._gates_flops("hash", 14517) == \
+        3 * (t * head + 14517 * 4 * d * f)
+    for kind in ("ktop1", "balance"):
+        assert chip_smoke._gates_flops(kind, 100) == \
+            3 * (t * (2 * d * e + head) + 100 * 4 * d * f)
+    assert chip_smoke._gates_flops("sam", 100) == \
+        3 * (t * (2 * d * e + d + head) + 2 * e * d + 100 * 4 * d * f)
+
+
+def test_kernels_line_counts_the_gates_path():
+    """rows 4 and 5 gain "train_moe_gates" (the four gates' steps summed);
+    the top-k gate's entry reads 0 there."""
+    gates = {k: {"launches": [0, 20, 20]} for k in chip_smoke.GATES}
+    ctr = {"launches": [10, 10], "gather": {}, "scatter": {"uniform": {}}}
+    for key, i in (("gather", 1), ("scatter", 2)):
+        entry = chip_smoke._paths_entry(key, 80, ctr, gates)
+        assert entry["launches_by_path"] == {
+            "train_moe": 80, "train_moe_gates": 80, "ctr": 10}
+    assert chip_smoke._paths_entry("topk", 40, ctr, gates)[
+        "launches_by_path"] == {"train_moe": 40, "train_moe_gates": 0}
 
 
 def test_ctr_batches_are_drawn_as_bench_ctr_and_the_example_draw_them():

@@ -45,6 +45,29 @@ def _qkv(b, h, s_q, s_k, d, seed):
             g.standard_normal((b, h, s_k, d)).astype(np.float32))
 
 
+def _attention64(q, k, v, causal):
+    """O in float64 numpy: the oracle that tells which side of a mismatch
+    moved (bottom-right causal; a row that sees no key gives 0)."""
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64),
+                  k.astype(np.float64)) * q.shape[-1] ** -0.5
+    if causal:
+        s_q, s_k = s.shape[-2:]
+        s = np.where(np.tril(np.ones((s_q, s_k), bool), k=s_k - s_q), s,
+                     -np.inf)
+    m = s.max(-1, keepdims=True)
+    p = np.where(np.isfinite(m), np.exp(s - np.where(np.isfinite(m), m, 0)),
+                 0.0)
+    l = np.maximum(p.sum(-1, keepdims=True), 1e-300)
+    return np.einsum("bhqk,bhkd->bhqd", p, v.astype(np.float64)) / l
+
+
+def _torch_state():
+    """The process-wide torch settings that change a CPU f32 matmul."""
+    return (f"threads={torch.get_num_threads()}, mkldnn matmul "
+            f"fp32_precision={torch.backends.mkldnn.matmul.fp32_precision}, "
+            f"fp32_precision={torch.backends.fp32_precision}")
+
+
 def _pallas(q, k, v, causal, block=16):
     out, lse = _flash_fwd(*(jnp.asarray(a) for a in (q, k, v)),
                           scale=q.shape[-1] ** -0.5, causal=causal,
@@ -73,6 +96,14 @@ def test_plain_matches_pallas(shape):
                              causal=causal, return_lse=True)
     assert o.shape == (b, h, s_q, d) and lse.shape == (b * h, s_q, 1)
     assert o.dtype == torch.float32 and lse.dtype == torch.float32
+    # each side against float64 first, so that a mismatch names the side
+    # that moved
+    exact = _attention64(q, k, v, causal)
+    np.testing.assert_allclose(want_o, exact, rtol=TOL, atol=TOL,
+                               err_msg="Pallas against float64")
+    np.testing.assert_allclose(o.numpy(), exact, rtol=TOL, atol=TOL,
+                               err_msg=f"port against float64 "
+                                       f"({_torch_state()})")
     np.testing.assert_allclose(o.numpy(), want_o, rtol=TOL, atol=TOL)
     np.testing.assert_allclose(lse.numpy(), want_lse, rtol=TOL, atol=TOL)
     if causal and s_q > s_k:

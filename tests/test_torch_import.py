@@ -8,7 +8,9 @@ end over the van (``InferenceServer`` answering an ``InferenceClient``,
 then ``migrate_inflight`` over two blob channels), the GPT and MoE
 training slices (two
 AdamW steps of the Executor and a checkpoint round trip each), GQA Llama
-serving and a BERT pretraining step; ``jax`` and ``hetu_tpu`` must
+serving and a BERT pretraining step, the four other MoE gates and the
+remote PS tiers (a partitioned table, the remote HET cache, ``PSEmbedding``
+over them); ``jax`` and ``hetu_tpu`` must
 stay out of ``sys.modules``.  An AST scan of every module of the package,
 and of ``chip_smoke.py``, finds no import of either.
 """
@@ -264,6 +266,46 @@ def test_llama_serving_and_bert_training_run_without_jax():
     assert "LEAKED []" in out
 
 
+def test_moe_gates_and_remote_ps_tiers_run_without_jax():
+    """``layers.moe`` with each of the four other gates (a forward and a
+    backward through ``MoELayer``), then ``ps.van`` and ``ps.embedding``:
+    a van server in this process, a table partitioned over it behind the
+    remote HET cache, and ``PSEmbedding(endpoints=...)``'s pull, push and
+    layered prefetch."""
+    out = _run(
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "import numpy as np\n"
+        "from hetu_tpu_torch.layers import moe\n"
+        "from hetu_tpu_torch.ps import embedding, van\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "for gate in (moe.HashGate(4), moe.KTop1Gate(8, 4, 2, generator=g),\n"
+        "             moe.BalanceAssignmentGate(8, 4, generator=g),\n"
+        "             moe.SAMGate(8, 4, generator=g)):\n"
+        "    layer = moe.MoELayer(gate, moe.Expert(4, 8, 16, generator=g))\n"
+        "    x = torch.randn(32, 8, generator=g, requires_grad=True)\n"
+        "    gi = torch.arange(32) if isinstance(gate, moe.HashGate) \\\n"
+        "        else None\n"
+        "    y, aux = layer(x, gate_input=gi)\n"
+        "    (y.sum() + aux).backward()\n"
+        "    assert x.grad is not None\n"
+        "port = van.serve(0)\n"
+        "t = van.PartitionedPSTable([('127.0.0.1', port)], 50, 4)\n"
+        "c = van.RemoteCacheTable(t, 8)\n"
+        "assert c.embedding_lookup([1, 2]).shape == (2, 4)\n"
+        "c.close(); t.close()\n"
+        "e = embedding.PSEmbedding(50, 4, endpoints=[('127.0.0.1', port)],\n"
+        "                          cache_capacity=16)\n"
+        "e.push([3, 4], e.pull([3, 4]))\n"
+        "e.prefetch_layered([(1, [5]), (0, [6])])\n"
+        "assert e.pull_layered(0).shape == (1, 4)\n"
+        "e.pull_layered(1); e.close(); van.stop()\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
@@ -293,4 +335,5 @@ def test_scan_sees_the_whole_package():
             "ops/cuda_kernels/embedding.py", "ops/moe_ops.py",
             "layers/moe.py", "models/moe_transformer.py",
             "models/llama.py", "models/bert.py", "ops/rope.py",
-            "ps/van.py", "serve/server.py", "serve/migrate.py"} <= names
+            "ps/van.py", "serve/server.py", "serve/migrate.py",
+            "ops/reduce.py", "ps/embedding.py", "ps/client.py"} <= names

@@ -216,11 +216,17 @@ def test_pull_prefetch_and_checkpoint(tmp_path):
     e.close()
 
 
-@pytest.mark.parametrize("kw", [dict(endpoints="localhost:1"),
-                                dict(scheduler=("localhost", 1, 2)),
-                                dict(table_id=3)])
-def test_remote_tiers_are_not_ported_yet(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+@pytest.mark.parametrize("kw,error", [
+    (dict(endpoints="localhost:1"), (ConnectionError, "PS group over")),
+    (dict(scheduler=("localhost", 1, 2)), (ConnectionError, "scheduler")),
+    (dict(table_id=3), (ValueError, "remote tiers only"))],
+    ids=["kw0", "kw1", "kw2"])
+def test_remote_tiers_are_not_ported_yet(kw, error):
+    """The remote tiers are ported (``tests/test_torch_ps_remote.py``
+    trains on them): an unreachable server or scheduler raises
+    ``ConnectionError``, and a ``table_id`` without a remote tier is
+    refused, as in the reference."""
+    with pytest.raises(error[0], match=error[1]):
         PSEmbedding(10, 2, **kw)
 
 
@@ -228,7 +234,7 @@ def test_a_failed_build_raises_with_the_compilers_output(tmp_path,
                                                          monkeypatch):
     bad = tmp_path / "hetu_ps.cpp"
     bad.write_text("int broken( {\n")
-    monkeypatch.setattr(binding, "_SRC", bad)
+    monkeypatch.setattr(binding, "_SRCS", (bad,))
     monkeypatch.setattr(binding, "_HDRS", ())
     monkeypatch.setattr(binding, "_BUILD", tmp_path / "_build")
     monkeypatch.setattr(binding, "_SO", tmp_path / "_build" / "lib.so")

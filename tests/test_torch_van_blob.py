@@ -397,14 +397,14 @@ def test_known_link_rate_reads_netem_then_the_measured_rate():
 def test_a_library_built_from_the_old_source_list_is_rebuilt(tmp_path,
                                                             monkeypatch):
     """A library built from ``hetu_ps.cpp`` alone (the in-process tier's
-    list) is newer than every source, yet has no van: ``build()`` must
-    rebuild it with the van."""
+    list) is newer than every source, yet has no van and no remote tier:
+    ``build()`` must rebuild it from the four sources."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
     so = tmp_path / "_build" / "libhetu_ps.so"
     so.parent.mkdir()
     subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-                    "-pthread", str(binding._SRC), "-o", str(so)],
+                    "-pthread", str(binding._SRCS[0]), "-o", str(so)],
                    check=True, capture_output=True)
     old = ctypes.CDLL(str(so))
     assert not hasattr(old, "ps_van_start")
@@ -412,14 +412,15 @@ def test_a_library_built_from_the_old_source_list_is_rebuilt(tmp_path,
     monkeypatch.setattr(binding, "_SO", so)
     assert so.stat().st_mtime >= max(
         p.stat().st_mtime
-        for p in (binding._SRC, binding._VAN_SRC, *binding._HDRS))
+        for p in (*binding._SRCS, *binding._HDRS))
     assert binding.build() == so
     # loaded from another path: dlopen hands back the library already
     # loaded under a name
     shutil.copy(so, tmp_path / "rebuilt.so")
-    assert hasattr(ctypes.CDLL(str(tmp_path / "rebuilt.so")),
-                   "ps_van_start")
+    rebuilt = ctypes.CDLL(str(tmp_path / "rebuilt.so"))
+    for symbol in ("ps_van_start", "ps_group_create_dt", "ps_rcache_create"):
+        assert hasattr(rebuilt, symbol), symbol
     assert (so.parent / "libhetu_ps.so.srcs").read_text() == \
-        "hetu_ps.cpp\nhetu_ps_van.cpp\n"
+        "hetu_ps.cpp\nhetu_ps_van.cpp\nhetu_ps_group.cpp\nhetu_ps_rcache.cpp\n"
     mtime = so.stat().st_mtime_ns
     assert binding.build() == so and so.stat().st_mtime_ns == mtime
