@@ -152,6 +152,18 @@ without the final result line:
    in-process sgd arm's initial rows and pushes replayed on the
    partitioned table leave it equal to the in-process table (rtol 1e-6,
    the count of bitwise rows printed).
+15b. train_cnn — examples/cnn_resnet.py's ResNet-18 / CIFAR-10 (f32, B
+   128, Momentum(0.9) under the cosine schedule) on its ``--subset`` of
+   the synthetic CIFAR-10 through ``Dataloader`` and 20
+   ``Executor.run("train")`` steps (finite, falling loss; the batch norms'
+   buffers are the state's model state; no kernel of the six launches),
+   ``validate``, a checkpoint round trip (the next step's loss bitwise);
+   one step in f32 (TF32 off) against float64 through the same ReLU
+   pattern, at the initial and the trained weights (loss, every gradient,
+   the new statistics); step time, samples/s, the conv and fc FLOPs a
+   step over the f32 peak, peak memory, one profiled step; then VGG-16
+   (BN, DropOut from the step's generator), LeNet (MNIST padded to 32 x
+   32) and the MLP, 10 steps each (finite, falling loss).
 16. kernel_shapes — the three flash kernels at the new paths' shapes:
    (1, 32, S, 128) causal for S = 128, 512 and 1024 (the forward), (4, 32,
    4096, 128) causal and (16, 12, 512, 64) non-causal (forward and
@@ -379,8 +391,27 @@ _VAN_SERVER_SRC = (
     "sys.stdin.read()\n")  # serves until the parent closes the pipe
 CTR_GATHER_SETS = 32  # id sets the gather's timing cycles through
 
+# the CNN family: examples/cnn_resnet.py's configuration (ResNet-18, 10
+# classes, f32, batch 128 of [3, 32, 32], Momentum(0.9) under
+# CosineScheduler(0.1, t_max, warmup=steps_per_epoch // 10)) on its
+# --subset of the synthetic CIFAR-10 (random labels, so the signal is
+# memorisation of the repeated subset: 2 batches an epoch); then VGG-16
+# (BN, DropOut 0.5) on the same shapes, LeNet on MNIST padded to 32 x 32
+# and the MLP on its 784 features, 10 steps each at Momentum(0.01, 0.9)
+CNN_B, CNN_STEPS, CNN_SUBSET, CNN_LR = 128, 20, 256, 0.1
+CNN_ZOO_STEPS, CNN_ZOO_LR, CNN_VALID = 10, 0.01, 1024
+# one step of the same weights and batch in f32 (TF32 off) against
+# float64, the float64 pass through the f32 pass's ReLU pattern (a ReLU
+# input within rounding of 0 lands on either side and keeps or drops that
+# element's gradient, a discontinuity, not a rounding: 4.6e-2 of max|G|
+# at B 128 on the card): the loss's relative gap, each gradient's max gap
+# over its max |G|, the new statistics' gap over their max |s|
+TOL_CNN_LOSS, TOL_CNN_GRAD, TOL_CNN_STATS = 1e-4, 1e-2, 1e-4
+
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_S = 989e12    # dense bf16 tensor cores, H100 SXM data sheet
+H100_F32_FLOP_S = 67e12      # f32 outside the tensor cores, H100 SXM data
+#                              sheet (TF32 is off in this script)
 
 
 class SmokeFailure(RuntimeError):
@@ -1064,14 +1095,17 @@ def _profile_table(prof, tag, card, wall_us, steps=1):
 
 def _kind(kernel: str) -> str:
     """The port's own kernels (flash; gather, scatter-add and gate),
-    cuBLAS's GEMMs, copies and fills, and the rest (PyTorch's elementwise
-    and reduction kernels)."""
+    cuDNN's convolutions, cuBLAS's GEMMs, copies and fills, and the rest
+    (PyTorch's elementwise and reduction kernels)."""
     if _short(kernel).startswith(("flash_fwd_", "flash_bwd_")):
         return "flash kernels"
     if _short(kernel).startswith(("gather_kernel", "scatter_add_kernel",
                                   "topk_small_kernel", "topk_group_kernel",
                                   "topk_wide_kernel")):
         return "gather, scatter-add and gate kernels"
+    if any(t in kernel
+           for t in ("cudnn", "fprop", "dgrad", "wgrad", "fft")):
+        return "convolutions"
     if any(t in kernel for t in ("nvjet", "gemm", "xmma", "cutlass")):
         return "GEMMs"
     if any(t in kernel.lower() for t in ("copy", "memcpy", "memset")):
@@ -3932,6 +3966,326 @@ def phase_train_bert(card, seed, device="cuda"):
                 busy_share=busy, losses=losses, grad_ratio=grad_ratio)
 
 
+# ------------------------------------------------------------------- CNN
+
+def _all_counters():
+    """The launch counters of the port's six kernels, in the kernels
+    line's order."""
+    from hetu_tpu_torch.ops.cuda_kernels import (
+        embedding_gather, embedding_scatter_add, topk_gating,
+    )
+    return (*_flash_counters(), topk_gating, embedding_gather,
+            embedding_scatter_add)
+
+
+def conv_fc_macs(model, x):
+    """Multiply-adds of the convolutions and matmuls of ``model``'s
+    forward on ``x`` (an evaluation forward, which leaves the batch norms'
+    state alone): N·Cout·Hout·Wout·Cin·kh·kw a convolution, N·in·out a
+    Linear."""
+    from hetu_tpu_torch.layers import Conv2d, Linear
+    macs = []
+
+    def hook(m, inp, out):
+        w = m.weight
+        macs.append(out.numel() * (w[0].numel() if isinstance(m, Conv2d)
+                                   else w.shape[1]))
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (Conv2d, Linear))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(macs)
+
+
+def _epochs(loader):
+    while True:
+        yield from loader
+
+
+def _as_f64(model):
+    """A float64 copy of ``model``: parameters, buffers and each layer's
+    compute type."""
+    other = copy.deepcopy(model).double()
+    for m in other.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = torch.float64
+    return other
+
+
+def _cnn_one_step(model, batch):
+    """Loss, every gradient and the new statistics of one training step's
+    forward and backward (no update), on ``model``'s own tensors."""
+    from hetu_tpu_torch.layers import state_buffers
+    from hetu_tpu_torch.models import classifier_loss_fn
+    params = dict(model.named_parameters())
+    state = state_buffers(model)
+    loss, _ = classifier_loss_fn(model)(params, state, batch, None, True)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads)), state
+
+
+@contextlib.contextmanager
+def _relu_pattern(masks, flips=None):
+    """Route every ``ops.relu`` of the block through a kept pattern: with
+    ``flips`` None each call appends its ``x > 0`` to ``masks`` and
+    computes the plain ReLU; otherwise each call takes the next recorded
+    mask (``where(mask, x, 0)``) and adds to ``flips[0]`` the elements
+    whose own sign disagrees with it.  A ReLU input within rounding of 0
+    lands on either side in f32 and float64, and keeps or drops that
+    element's gradient: holding both passes to one pattern leaves only
+    the rounding to compare."""
+    from hetu_tpu_torch import ops
+    plain = ops.relu
+    replay = iter(masks)
+
+    def relu(x):
+        if flips is None:
+            masks.append(x.detach() > 0)
+            return plain(x)
+        m = next(replay)
+        flips[0] += int((m != (x.detach() > 0)).sum())
+        return torch.where(m, x, x.new_zeros(()))
+    ops.relu = relu
+    try:
+        yield
+    finally:
+        ops.relu = plain
+
+
+def _gaps(got, ref):
+    return {n: float((got[n].double() - r).abs().max() / r.abs().max())
+            for n, r in ref.items()}
+
+
+def _cnn_f32_vs_f64(model, batch, device, tag):
+    """One step of ``model``'s weights on ``batch`` in f32 and in float64,
+    the float64 pass through the f32 pass's ReLU pattern: the gaps, held
+    to the tolerances, the ReLU inputs on the other side of
+    0 in float64 and the gradient gap with float64's own pattern, and
+    whether two f32 steps are bitwise equal."""
+    x, y = (torch.as_tensor(a).to(device) for a in batch)
+    masks, flips, runs = [], [0], []
+    for i in range(2):
+        m32 = copy.deepcopy(model)
+        with _relu_pattern(masks) if i == 0 else contextlib.nullcontext():
+            runs.append(_cnn_one_step(m32, (x, y)))
+        del m32
+    _, own64, _ = _cnn_one_step(_as_f64(model), (x.double(), y))
+    with _relu_pattern(masks, flips):
+        loss64, grads64, state64 = _cnn_one_step(_as_f64(model),
+                                                 (x.double(), y))
+    n_relu = sum(m.numel() for m in masks)
+    del masks
+    loss32, grads32, state32 = runs[0]
+    loss_gap = abs(float(loss32) - float(loss64)) / abs(float(loss64))
+    grad_gap = _gaps(grads32, grads64)
+    stat_gap = _gaps(state32, state64)
+    own_gap = max(_gaps(grads32, own64).items(), key=lambda kv: kv[1])
+    bitwise = bool(torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(runs[0][1][n], runs[1][1][n]) for n in grads32))
+    worst_g = max(grad_gap.items(), key=lambda kv: kv[1])
+    worst_s = max(stat_gap.items(), key=lambda kv: kv[1])
+    print(f"[train_cnn] f32 (TF32 off) vs float64, one step of the {tag} "
+          f"on one batch, float64 through f32's ReLU pattern: loss "
+          f"{float(loss32):.7f} vs {float(loss64):.7f} (gap "
+          f"{loss_gap:.3e}, tol {TOL_CNN_LOSS:g}); gradients of "
+          f"{len(grad_gap)} parameters max|dG| / max|G| <= "
+          f"{worst_g[1]:.3e} ({worst_g[0]}, tol {TOL_CNN_GRAD:g}); new "
+          f"statistics of {len(stat_gap)} buffers max|ds| / max|s| <= "
+          f"{worst_s[1]:.3e} ({worst_s[0]}, tol {TOL_CNN_STATS:g}); "
+          f"{flips[0]} of {n_relu} ReLU inputs on the other side of 0 in "
+          f"float64, whose own pattern gives gradients within "
+          f"{own_gap[1]:.3e} ({own_gap[0]}); two f32 steps bitwise equal "
+          f"(loss and every gradient): {bitwise}")
+    check(loss_gap <= TOL_CNN_LOSS, f"{tag}: the f32 loss disagrees with "
+                                    f"float64")
+    check(worst_g[1] <= TOL_CNN_GRAD,
+          f"{tag}: the f32 gradient of {worst_g[0]} disagrees with float64")
+    check(worst_s[1] <= TOL_CNN_STATS,
+          f"{tag}: the f32 statistics {worst_s[0]} disagree with float64")
+    return dict(loss_gap=loss_gap, grad_gap=worst_g[1],
+                stats_gap=worst_s[1], relu_flips=flips[0],
+                own_pattern_grad_gap=own_gap[1], bitwise_f32=bitwise)
+
+
+def _cnn_train(tag, model, loader, steps, optimizer, device, loss_fn=None):
+    """``steps`` Executor train steps over ``loader``'s epochs: finite,
+    falling loss; returns the executor, state, losses, host times and the
+    last batch."""
+    from hetu_tpu_torch.models import classifier_loss_fn
+    from hetu_tpu_torch.train import Executor
+    ex = Executor(loss_fn or classifier_loss_fn(model), optimizer)
+    state = ex.init_state(model)
+    losses, times = [], []
+    batches = _epochs(loader)
+    for _ in range(steps):
+        batch = next(batches)
+        _sync(device)
+        t0 = time.perf_counter()
+        state, met = ex.run("train", state, batch)
+        losses.append(float(met["loss"]))
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    print(f"[train_cnn] {tag} losses: "
+          f"{' '.join(f'{x:.4f}' for x in losses)} (acc of the last batch "
+          f"{float(met['acc']):.3f})")
+    check(all(np.isfinite(losses)), f"{tag}: a training loss is not finite")
+    check(losses[-1] < losses[0], f"{tag}: the loss did not fall")
+    return ex, state, losses, times, batch
+
+
+def phase_train_cnn(card, seed, device="cuda"):
+    """ResNet-18 / CIFAR-10 (examples/cnn_resnet.py) through the Executor
+    with its BatchNorm state, f32 against float64, the checkpoint round
+    trip; then VGG-16, LeNet and MLP."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hetu_tpu_torch.data import Dataloader, datasets
+    from hetu_tpu_torch.layers import state_buffers
+    from hetu_tpu_torch.lr import CosineScheduler
+    from hetu_tpu_torch.models import MLP, VGG, LeNet, ResNet18
+    from hetu_tpu_torch.optim import MomentumOptimizer
+    from hetu_tpu_torch.train import Executor, checkpoint
+
+    t_phase = time.perf_counter()
+    counters = _all_counters()
+    train_x, train_y, test_x, test_y = datasets.cifar10()
+    loader = Dataloader((train_x[:CNN_SUBSET], train_y[:CNN_SUBSET]), CNN_B,
+                        shuffle=True)
+    spe = loader.num_batches
+    sched = CosineScheduler(CNN_LR, t_max=CNN_STEPS, warmup=spe // 10)
+    model = ResNet18(generator=torch.Generator(device=device).manual_seed(
+        seed + 30), device=device)
+    initial = copy.deepcopy(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[train_cnn] ResNet-18 ({n_params / 1e6:.2f} M params, "
+          f"{len(state_buffers(model))} state buffers) f32, B {CNN_B} of "
+          f"[3, 32, 32], synthetic CIFAR-10 subset {CNN_SUBSET} ({spe} "
+          f"batches an epoch), Momentum(0.9) under CosineScheduler("
+          f"{CNN_LR:g}, t_max {CNN_STEPS}, warmup {spe // 10}), "
+          f"{CNN_STEPS} steps")
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    ex, state, losses, times, batch = _cnn_train(
+        "resnet18", model, loader, CNN_STEPS, MomentumOptimizer(sched, 0.9),
+        device, model.loss_fn())
+    launches = [c.launches for c in counters]
+    peak = _peak_gib(device)
+    own = state_buffers(model)
+    check(state.model_state.keys() == own.keys() and all(
+        state.model_state[k] is t for k, t in own.items()),
+        "the Executor's model state is not the model's buffers")
+    moved = sum(not torch.equal(t, torch.ones_like(t))
+                for k, t in own.items() if k.endswith(".var"))
+    print(f"[train_cnn] state: {len(own)} buffers are the model's own, "
+          f"{moved} of {len(own) // 2} running variances moved; launches of "
+          f"the six kernels in {CNN_STEPS} steps: {launches}")
+    check(moved == len(own) // 2, "a running variance did not move")
+    check(launches == [0] * 6, "the CNN path launched a port kernel")
+    valid = ex.run("validate", state, (test_x[:CNN_VALID],
+                                       test_y[:CNN_VALID]))
+    print(f"[train_cnn] validate on {CNN_VALID} test samples: loss "
+          f"{float(valid['loss']):.4f}, acc {float(valid['acc']):.4f} "
+          f"(random labels: chance is 0.1)")
+    check(np.isfinite(float(valid["loss"])), "the validation loss is not "
+                                             "finite")
+
+    # the checkpoint round trip: a fresh model and Executor take the saved
+    # state, then one more step on each from the same batch
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "resnet18.npz")
+        ex.save(path, state, model)
+        fresh = ResNet18(generator=torch.Generator(device=device)
+                         .manual_seed(seed + 31), device=device)
+        ex2 = Executor(fresh.loss_fn(), MomentumOptimizer(sched, 0.9))
+        state2 = ex2.load(path, ex2.init_state(fresh), fresh)
+    same = all(np.array_equal(a, b) for a, b in zip(
+        checkpoint.state_dict(state, model).values(),
+        checkpoint.state_dict(state2, fresh).values()))
+    state, m1 = ex.run("train", state, batch)
+    state2, m2 = ex2.run("train", state2, batch)
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    params_equal = all(torch.equal(a, b) for a, b in zip(
+        state.params.values(), state2.params.values()))
+    print(f"[train_cnn] checkpoint: loaded state equal to the saved one: "
+          f"{same}; next step's loss {l1!r} vs {l2!r} (bitwise: "
+          f"{l1 == l2}); parameters after it bitwise equal: {params_equal}")
+    check(same, "the loaded checkpoint differs from the saved state")
+    check(l1 == l2, "the step after the checkpoint differs")
+    del fresh, ex2, state2
+
+    gaps = _cnn_f32_vs_f64(initial, batch, device, "initial weights")
+    trained = _cnn_f32_vs_f64(model, batch, device, "trained weights")
+    del initial
+
+    med, lo, hi = _step_stats(times)
+    x_dev = torch.as_tensor(batch[0]).to(device)
+    macs = conv_fc_macs(model, x_dev)
+    flops = 2 * 3 * macs
+    share = flops / (med / 1e3) / H100_F32_FLOP_S
+    print(f"[train_cnn] step median {med:.3f} ms (steps 2-{CNN_STEPS}: "
+          f"{lo:.3f}-{hi:.3f}; first {times[0] * 1e3:.3f} ms), "
+          f"{CNN_B / med * 1e3:.1f} samples/s, {flops / 1e9:.2f} GFLOP a "
+          f"step (2 x 3 x {macs} conv and fc multiply-adds), "
+          f"{flops / (med / 1e3) / 1e12:.2f} TFLOP/s = "
+          f"{100 * share:.2f} % of 67 TFLOP/s (f32 outside the tensor "
+          f"cores, H100 SXM data sheet), peak {peak:.2f} GiB allocated "
+          f"[{card}]")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, met = ex.run("train", state, batch)
+        float(met["loss"])
+        _sync(device)
+    busy = _profile_table(prof, "train_cnn step", card, med * 1e3)
+    del model, ex, state
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # VGG-16 (BN) on CIFAR shapes, LeNet on MNIST padded to 32 x 32, the
+    # MLP on MNIST's 784 features
+    mx, my, _, _ = datasets.mnist()
+    mx, my = mx[:CNN_SUBSET], my[:CNN_SUBSET]
+    padded = np.pad(mx.reshape(-1, 1, 28, 28), ((0, 0), (0, 0), (2, 2),
+                                                (2, 2)))
+    zoo = {}
+    for name, build, data in (
+            ("vgg16", lambda g: VGG(16, generator=g, device=device),
+             (train_x[:CNN_SUBSET], train_y[:CNN_SUBSET])),
+            ("lenet", lambda g: LeNet(generator=g, device=device),
+             (padded, my)),
+            ("mlp", lambda g: MLP(generator=g, device=device), (mx, my))):
+        for c in counters:
+            c.launches = 0
+        m = build(torch.Generator(device=device).manual_seed(seed + 32))
+        _, _, zl, zt, _ = _cnn_train(
+            name, m, Dataloader(data, CNN_B, shuffle=True), CNN_ZOO_STEPS,
+            MomentumOptimizer(CNN_ZOO_LR, 0.9), device)
+        zmed = _step_stats(zt)[0]
+        zoo[name] = dict(losses=zl, step_ms=zmed,
+                         launches=[c.launches for c in counters])
+        print(f"[train_cnn] {name}: step median {zmed:.3f} ms, "
+              f"{CNN_B / zmed * 1e3:.1f} samples/s, launches "
+              f"{zoo[name]['launches']} [{card}]")
+        check(zoo[name]["launches"] == [0] * 6,
+              f"{name}: the CNN path launched a port kernel")
+        del m
+    took = time.perf_counter() - t_phase
+    print(f"[train_cnn] phase took {took:.1f} s")
+    return dict(launches=launches, step_ms=med, step_spread_ms=(lo, hi),
+                samples_per_s=CNN_B / med * 1e3, flops=flops,
+                f32_share=share, peak_gib=peak, busy_share=busy,
+                losses=losses, valid_acc=float(valid["acc"]), zoo=zoo,
+                trained=trained, **gaps)
+
+
 # ------------------------------------------------------------------- CTR
 
 def ctr_batch(g, b, vocab):
@@ -4661,26 +5015,29 @@ def phase_kernel_shapes(card):
                  for k in ("dkdv", "dq")}
 
 
-def _paths_entry(key, moe_launches, ctr, gates):
+def _paths_entry(key, moe_launches, ctr, gates, cnn_launches):
     """The launches by path of a kernel's entry in the kernels line (the
-    MoE step, the four gates' steps summed, the CTR step), and its times at
-    the CTR step's shapes."""
+    MoE step, the four gates' steps summed, the CTR step, the CNN steps),
+    and its times at the CTR step's shapes."""
     i = {"topk": 0, "gather": 1, "scatter": 2}[key]
     by_gates = sum(g["launches"][i] for g in gates.values())
     if key == "topk":  # not on the gates' path: 0 there
         return {"launches_by_path": {"train_moe": moe_launches,
-                                     "train_moe_gates": by_gates}}
+                                     "train_moe_gates": by_gates,
+                                     "train_cnn": cnn_launches}}
     if key == "gather":
         shape = (f"ctr: table [{CTR_V}, {CTR_DIM}] f32, {CTR_B * CTR_F} ids "
                  f"(cold rows, {CTR_GATHER_SETS} batches in turn)")
         return {"launches_by_path": {"train_moe": moe_launches,
                                      "train_moe_gates": by_gates,
-                                     "ctr": ctr["launches"][0]},
+                                     "ctr": ctr["launches"][0],
+                                     "train_cnn": cnn_launches},
                 "by_shape": {shape: ctr["gather"]}}
     if key == "scatter":
         return {"launches_by_path": {"train_moe": moe_launches,
                                      "train_moe_gates": by_gates,
-                                     "ctr": ctr["launches"][1]},
+                                     "ctr": ctr["launches"][1],
+                                     "train_cnn": cnn_launches},
                 "by_shape": {
                     f"ctr deduplicate: {CTR_B * CTR_F} rows of {CTR_DIM} f32 "
                     f"-> {CTR_B * CTR_F} segments, sorted route ({tag} ids)":
@@ -4734,6 +5091,9 @@ def main(argv=None) -> int:
     ctr = phase_train_ctr(card, args.seed)
     torch.cuda.empty_cache()
     phase_ps_ctr(card, args.seed)
+    torch.cuda.empty_cache()
+    cnn = phase_train_cnn(card, args.seed)
+    torch.cuda.empty_cache()
     shapes_fwd, shapes_bwd = phase_kernel_shapes(card)
 
     shape = [TRAIN_B, NH, TRAIN_S, HEAD_DIM]
@@ -4755,7 +5115,8 @@ def main(argv=None) -> int:
                               "migrate": migrate["launches"],
                               "server": server["launches"],
                               "llama_train": llama_train["launches"][0],
-                              "bert_train": bert["launches"][0]},
+                              "bert_train": bert["launches"][0],
+                              "train_cnn": cnn["launches"][0]},
          # the serving path's largest prompt bucket, and S = 512
          "serve_s128": timings[(1, 128)], "serve_s512": timings[(1, 512)],
          # the Llama (head dim 128) and BERT (non-causal) paths' shapes
@@ -4770,7 +5131,8 @@ def main(argv=None) -> int:
            "shape": shape, "dtype": "bfloat16",
            "launches_by_path": {"train": train["launches"][i],
                                 "llama_train": llama_train["launches"][i],
-                                "bert_train": bert["launches"][i]},
+                                "bert_train": bert["launches"][i],
+                                "train_cnn": cnn["launches"][i]},
            "by_shape": shapes_bwd[k]}
           for i, k, line in ((1, "dkdv", 198), (2, "dq", 239))),
         *({"name": name, "route": "cuda",
@@ -4783,7 +5145,8 @@ def main(argv=None) -> int:
            "per": per, **{f: moe_kernels[key][f]
                           for f in ("by_call", "by_route", "by_shape")
                           if f in moe_kernels[key]},
-           **_paths_entry(key, moe["launches"][i], ctr, moe_gates)}
+           **_paths_entry(key, moe["launches"][i], ctr, moe_gates,
+                          cnn["launches"][3 + i])}
           for name, key, i, src_file, line, per in (
               ("topk_gating", "topk", 0, "topk_gating.cu", 175,
                f"one call, logits [{MOE_T}, {MOE_E}] f32, k {MOE_K}"),

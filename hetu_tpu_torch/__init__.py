@@ -9,10 +9,13 @@ paths and names mirror the reference so each counterpart is found at once:
                                            # forward and backward
     htt.init.*        # initializers on an explicit torch.Generator
     htt.rng           # global (seed, seqnum) -> torch.Generators
-    htt.layers.*      # nn.Modules: Linear, LayerNorm, MultiHeadAttention,
-                      # TransformerBlock, MoELayer and its five gates
+    htt.layers.*      # nn.Modules: Linear, Conv2d, LayerNorm, BatchNorm
+                      # (running statistics as buffers), pools, DropOut,
+                      # Sequential, MultiHeadAttention, TransformerBlock,
+                      # MoELayer and its five gates
     htt.models.*      # GPT, MoE transformer, Llama (lm_loss_fn for
-                      # training), BERT (pretrain_loss_fn), the CTR models
+                      # training), BERT (pretrain_loss_fn), the CTR models,
+                      # ResNet, VGG, LeNet, MLP (classifier_loss_fn)
     htt.optim.*       # SGD ... AdamW, Lamb (dense and sparse paths)
     htt.lr.*          # step -> lr schedulers
     htt.train.*       # Executor, TrainState, checkpoint
@@ -23,7 +26,8 @@ paths and names mirror the reference so each counterpart is found at once:
     htt.quantwire     # int8 block codec of migration payloads, the PS
                       # gradient wire's dtypes
     htt.telemetry.*   # span tracer + typed metrics registry
-    htt.data.*        # bucketed padding of CTR batches
+    htt.data.*        # CIFAR-10 and MNIST, the Dataloader, bucketed
+                      # padding of CTR batches
     htt.utils.metrics # AUC, accuracy, F1 on host arrays
     htt.ps.*          # the parameter server (C++, built with g++ on
                       # first use): the in-process tier, SSP, PReduce;

@@ -49,14 +49,27 @@ def truncated_normal(mean=0.0, stddev=0.05):
     return init
 
 
+def _fans(shape):
+    """(fan_in, fan_out) by the reference's rule: a 2-D ``[in, out]``
+    shape's two sides; an OIHW convolution weight's ``I·kh·kw`` and
+    ``O·kh·kw``; ``int(sqrt(prod(shape)))`` for both otherwise (the 3-D
+    stacked expert weights)."""
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    if len(shape) == 4:
+        rf = shape[2] * shape[3]
+        return shape[1] * rf, shape[0] * rf
+    fan = int(math.sqrt(math.prod(shape)))
+    return fan, fan
+
+
 def xavier_uniform(gain: float = 1.0):
-    """Glorot uniform for a 2-D weight.  The limit depends on
-    ``fan_in + fan_out`` only, so it is the same for the port's
-    ``[out, in]`` weights as for the reference's ``[in, out]``."""
+    """Glorot uniform, limit ``gain * sqrt(6 / (fan_in + fan_out))``.  For
+    a 2-D weight the sum is the same for the port's ``[out, in]`` as for
+    the reference's ``[in, out]``."""
     def init(generator, shape, dtype=torch.float32):
-        if len(shape) != 2:
-            raise ValueError(f"xavier_uniform takes a 2-D shape, got {shape}")
-        limit = gain * math.sqrt(6.0 / (shape[0] + shape[1]))
+        fan_in, fan_out = _fans(shape)
+        limit = gain * math.sqrt(6.0 / (fan_in + fan_out))
         return _empty(generator, shape, dtype).uniform_(
             -limit, limit, generator=generator)
     return init
@@ -64,15 +77,10 @@ def xavier_uniform(gain: float = 1.0):
 
 def he_normal(gain: float = 1.0):
     """He (Kaiming) normal, std ``gain * sqrt(2 / fan_in)``, with the
-    reference's fans: a 2-D ``[in, out]`` shape's ``in``, and
-    ``int(sqrt(prod(shape)))`` for the 3-D stacked expert weights."""
+    reference's fans (:func:`_fans`): a 2-D ``[in, out]`` shape's ``in``,
+    an OIHW convolution weight's ``I·kh·kw``."""
     def init(generator, shape, dtype=torch.float32):
-        if len(shape) == 2:
-            fan_in = shape[0]
-        elif len(shape) == 4:
-            raise ValueError("he_normal: convolution weights are not ported")
-        else:
-            fan_in = int(math.sqrt(math.prod(shape)))
+        fan_in, _ = _fans(shape)
         return _empty(generator, shape, dtype).normal_(
             0.0, gain * math.sqrt(2.0 / fan_in), generator=generator)
     return init

@@ -32,6 +32,11 @@ each leaf — into a ``state_dict`` for the port's model of the same config
 optimizer state ``{"step", "slots": {"m": params-like, "v": ...}}``, whose
 slots mirror the parameters.
 
+:func:`state_from_jax` and :func:`state_to_jax` do it for the model state
+(``variables["state"]``): a tree model's :func:`state_buffers` (the batch
+norms' ``mean`` and ``var``) by the same dotted paths, every module a
+subtree, empty where it holds no state, as in the reference.
+
 No ``jax`` import: leaves are read with ``np.asarray``.
 """
 
@@ -40,12 +45,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hetu_tpu_torch.layers.base import Sequential, state_buffers
 from hetu_tpu_torch.layers.linear import Linear
 from hetu_tpu_torch.layers.moe import MoELayer
 from hetu_tpu_torch.models.bert import BertConfig
 from hetu_tpu_torch.models.ctr_zoo import DCN, DeepCrossing, DeepFM
 from hetu_tpu_torch.models.llama import LlamaConfig
 from hetu_tpu_torch.models.moe_transformer import MoEConfig
+from hetu_tpu_torch.models.resnet import BasicBlock, ResNet
 from hetu_tpu_torch.models.wdl import WideDeep, WideDeepDevice
 
 # (reference path under "blocks", port name under "blocks.<i>.", is a
@@ -142,52 +149,60 @@ def _moe_to_jax(arr, config) -> dict:
     return p
 
 
-# models without a config whose state_dict names are the reference's
-# tree paths
+# models without a config whose parameter and state names are the
+# reference's tree paths
 _TREE_MODELS = (WideDeep, WideDeepDevice, DeepFM, DeepCrossing, DCN,
-                MoELayer)
+                MoELayer, ResNet, BasicBlock, Sequential)
 
 
 def _tree_flips(model, name: str) -> bool:
-    """Whether ``state_dict`` entry ``name`` of a tree model is a
-    ``Linear``'s weight (stored transposed in the reference)."""
+    """Whether parameter ``name`` of a tree model is a ``Linear``'s weight
+    (stored transposed in the reference)."""
     owner, _, leaf = name.rpartition(".")
     return leaf == "weight" and isinstance(model.get_submodule(owner), Linear)
 
 
-def _tree_from_jax(p, model) -> dict:
-    out = {}
-    for name in model.state_dict():
-        w = p
-        for key in name.split("."):
-            w = w[key]
-        out[name] = _tensor(w, _tree_flips(model, name))
-    return out
+def _param_names(model) -> list:
+    return [name for name, _ in model.named_parameters()]
 
 
-def _tree_to_jax(arr, model) -> dict:
+def _at(tree, name: str):
+    """The node of a nested dict at dotted path ``name`` (the root at
+    ``""``)."""
+    for key in name.split(".") if name else ():
+        tree = tree[key]
+    return tree
+
+
+def _tree_from_jax(p, model, names) -> dict:
+    return {name: _tensor(_at(p, name), _tree_flips(model, name))
+            for name in names}
+
+
+def _tree_to_jax(arr, model, names) -> dict:
+    """The reference's tree of ``model``: a subtree for every module, the
+    leaves ``names`` filled from ``arr``."""
     p: dict = {}
-    for name, _ in model.named_modules():  # every child has a subtree
+    for name, _ in model.named_modules():
         node = p
         for key in name.split(".") if name else ():
             node = node.setdefault(key, {})
-    for name in model.state_dict():
+    for name in names:
         *path, leaf = name.split(".")
-        node = p
-        for key in path:
-            node = node[key]
         w = arr(name)
-        node[leaf] = w.T if _tree_flips(model, name) else w
+        _at(p, ".".join(path))[leaf] = w.T if _tree_flips(model, name) \
+            else w
     return p
 
 
 def params_from_jax(tree, config) -> dict:
-    """``hetu_tpu`` params (or ``{"params": ...}`` variables) → a float32
-    CPU ``state_dict`` for the port's model of ``config`` (for a CTR
-    model or a bare ``MoELayer``: the port's model itself)."""
+    """``hetu_tpu`` params (or ``{"params": ...}`` variables) → the
+    parameters of a float32 CPU ``state_dict`` for the port's model of
+    ``config`` (for a tree model: the port's model itself; a model with
+    state takes its buffers from :func:`state_from_jax`)."""
     p = tree["params"] if "params" in tree else tree
     if isinstance(config, _TREE_MODELS):
-        return _tree_from_jax(p, config)
+        return _tree_from_jax(p, config, _param_names(config))
     if isinstance(config, MoEConfig):
         return _moe_from_jax(p, config)
     top, block = _layout(config)
@@ -207,14 +222,15 @@ def params_from_jax(tree, config) -> dict:
 
 
 def params_to_jax(state_dict, config) -> dict:
-    """A ``state_dict`` of the port's model of ``config`` (for a CTR model
-    or a bare ``MoELayer``: the model itself) → the ``hetu_tpu`` parameter tree as float32 numpy
-    arrays (blocks stacked ``[L, ...]``)."""
+    """The parameters of a ``state_dict`` of the port's model of
+    ``config`` (for a tree model: the model itself) → the ``hetu_tpu``
+    parameter tree as float32 numpy arrays (blocks stacked ``[L,
+    ...]``)."""
     def arr(name):
         return state_dict[name].detach().float().cpu().numpy()
 
     if isinstance(config, _TREE_MODELS):
-        return _tree_to_jax(arr, config)
+        return _tree_to_jax(arr, config, _param_names(config))
     if isinstance(config, MoEConfig):
         return _moe_to_jax(arr, config)
     top, block = _layout(config)
@@ -228,6 +244,28 @@ def params_to_jax(state_dict, config) -> dict:
         node[path[-1]] = np.stack([w.T if flip else w for w in layers])
     p["blocks"] = blocks
     return p
+
+
+def state_from_jax(tree, config) -> dict:
+    """``hetu_tpu`` model state (or ``{"state": ...}`` variables) → float32
+    CPU tensors by the names of :func:`state_buffers`.  Only the tree
+    models hold state; for the others the (empty) state is copied."""
+    s = tree["state"] if "state" in tree else tree
+    if isinstance(config, _TREE_MODELS):
+        return _tree_from_jax(s, config, state_buffers(config))
+    return {k: _tensor(v, False) for k, v in s.items()}
+
+
+def state_to_jax(model_state, config) -> dict:
+    """The port's model state (name -> tensor) → the ``hetu_tpu`` state
+    tree as float32 numpy arrays: a tree model's nested dicts, every
+    module a subtree (empty without state)."""
+    def arr(name):
+        return model_state[name].detach().float().cpu().numpy()
+
+    if isinstance(config, _TREE_MODELS):
+        return _tree_to_jax(arr, config, model_state)
+    return {k: arr(k) for k in model_state}
 
 
 def opt_state_from_jax(tree, config) -> dict:

@@ -3,7 +3,10 @@
 The reference's modules are pure functions over parameter pytrees
 (``init(key)`` / ``apply(variables, x, train=, rng=)``); the port's are
 ``nn.Module``s that own real parameters, built from an explicit
-``torch.Generator`` and called as ``module(x, train=, generator=)``.
+``torch.Generator`` and called as ``module(x, train=, generator=)``
+(where a module needs either).  The reference's non-trainable ``state``
+(BatchNorm's running statistics) is the modules' buffers named in their
+``state_names``; :func:`state_buffers` collects them.
 
 Parameters are float32 master weights; a layer's ``dtype`` is its COMPUTE
 type, applied at each use as in the reference.  Serving does not want that
@@ -14,7 +17,8 @@ parameters a layer would cast are stored, once, in its compute type.
 from __future__ import annotations
 
 import copy
-from typing import Optional
+import inspect
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -35,21 +39,35 @@ def child_generator(generator: Optional[torch.Generator],
         derive_seed(generator.initial_seed(), i))
 
 
-def require_own_parameters(own: dict, params: dict) -> None:
+def require_own_parameters(own: dict, params: dict,
+                           what: str = "parameters") -> None:
     """Raise unless ``params`` holds exactly the tensors of ``own`` (a
-    model's ``named_parameters()``): a loss function written over a module
-    reads the module's own tensors, so others passed in would be ignored
-    (and a recomputed block would read the module's, not the passed
-    ones).  Load other values with ``load_state_dict``."""
+    model's ``named_parameters()``, or its :func:`state_buffers`): a loss
+    function written over a module reads the module's own tensors, so
+    others passed in would be ignored (and a recomputed block would read
+    the module's, not the passed ones).  Load other values with
+    ``load_state_dict``."""
     if params.keys() != own.keys() or any(
             params[n] is not p for n, p in own.items()):
-        raise ValueError("lm_loss_fn runs on the model's own parameters; "
-                         "load others with load_state_dict")
+        raise ValueError(f"the loss function runs on the model's own "
+                         f"{what}; load others with load_state_dict")
+
+
+def state_buffers(model: nn.Module) -> dict:
+    """The model's state (the reference's ``variables["state"]``): name ->
+    the model's own buffer, for each buffer a module names in its
+    ``state_names``.  A train step writes them in place, as the optimizer
+    writes the parameters."""
+    return {f"{prefix}.{n}" if prefix else n: getattr(m, n)
+            for prefix, m in model.named_modules()
+            for n in getattr(m, "state_names", ())}
 
 
 class Module(nn.Module):
     #: names of the parameters ``forward`` casts to ``self.dtype`` at use
     compute_params: tuple = ()
+    #: names of the buffers that are model state (see :func:`state_buffers`)
+    state_names: tuple = ()
 
     def cast_copy(self) -> "Module":
         """A copy without gradients whose (sub)layers' compute parameters
@@ -71,11 +89,18 @@ class Module(nn.Module):
         return copy.deepcopy(self, memo)
 
 
+def _keywords(module: nn.Module) -> tuple:
+    """Which of ``train`` and ``generator`` ``module``'s forward takes."""
+    params = inspect.signature(module.forward).parameters
+    return tuple(k for k in ("train", "generator") if k in params)
+
+
 class Sequential(Module):
     """A chain of modules, children named ``"0"``, ``"1"``, ... as the
     reference's parameter tree keys them.  Each child is called on the
-    previous one's output alone: the ported layers a chain holds (Linear,
-    Relu) take no ``train`` or generator."""
+    previous one's output, with ``train`` if its forward takes it and
+    ``generator=child_generator(generator, i)`` if it takes a generator,
+    as the reference passes ``train`` and ``child_rng(rng, i)``."""
 
     def __init__(self, *modules: nn.Module):
         super().__init__()
@@ -83,8 +108,26 @@ class Sequential(Module):
             modules = tuple(modules[0])
         for i, m in enumerate(modules):
             self.add_module(str(i), m)
+        self._keywords = [_keywords(m) for m in modules]
+
+    def forward(self, x, *, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        for i, (m, keys) in enumerate(zip(self.children(), self._keywords)):
+            kw = {}
+            if "train" in keys:
+                kw["train"] = train
+            if "generator" in keys:
+                kw["generator"] = child_generator(generator, i)
+            x = m(x, **kw)
+        return x
+
+
+class Lambda(Module):
+    """A stateless function as a module."""
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
 
     def forward(self, x):
-        for m in self.children():
-            x = m(x)
-        return x
+        return self.fn(x)

@@ -1,4 +1,4 @@
-"""Linear and Embedding layers (counterpart of
+"""Linear, convolution and Embedding layers (counterpart of
 ``hetu_tpu/layers/linear.py``)."""
 
 from __future__ import annotations
@@ -34,6 +34,44 @@ class Linear(Module):
     def forward(self, x):
         return ops.linear(x.to(self.dtype), self.weight.to(self.dtype).t(),
                           self.bias.to(self.dtype))
+
+
+class Conv2d(Module):
+    """NCHW convolution with an OIHW ``weight`` (the reference's layout,
+    kept as it is), drawn He normal by default, and an optional zero
+    ``bias``.  Computes in ``dtype``: the input and the weight are cast to
+    it, while the bias stays float32 (a bf16 convolution returns float32,
+    :func:`~hetu_tpu_torch.ops.conv2d`, so the sum is float32).
+    ``activation`` is applied to the result when given."""
+
+    compute_params = ("weight",)
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding=0, *, generator: torch.Generator,
+                 bias: bool = True, weight_init=None, bias_init=None,
+                 activation=None, dtype=torch.float32):
+        super().__init__()
+        ks = (kernel_size, kernel_size) if isinstance(kernel_size, int) \
+            else tuple(kernel_size)
+        self.stride = stride
+        self.padding = padding
+        self.activation = activation
+        self.dtype = dtype
+        w_init = weight_init or initializers.he_normal()
+        self.weight = nn.Parameter(w_init(
+            generator, (out_channels, in_channels) + ks))
+        self.bias = nn.Parameter((bias_init or initializers.zeros())(
+            generator, (out_channels,))) if bias else None
+
+    def forward(self, x):
+        w = self.weight.to(self.dtype)
+        x = x.to(self.dtype)
+        if self.bias is not None:
+            y = ops.conv2d_add_bias(x, w, self.bias, stride=self.stride,
+                                    padding=self.padding)
+        else:
+            y = ops.conv2d(x, w, stride=self.stride, padding=self.padding)
+        return y if self.activation is None else self.activation(y)
 
 
 class Embedding(Module):

@@ -1,5 +1,5 @@
-"""Losses (counterpart of ``hetu_tpu/ops/losses.py``): what the GPT and
-CTR training steps run.
+"""Losses (counterpart of ``hetu_tpu/ops/losses.py``): what the GPT, CTR
+and CNN training steps run.
 
 Per-row losses unless reduced, with the reduction in float32 whatever the
 logits' type, as in the reference.
@@ -27,6 +27,31 @@ def binary_cross_entropy_with_logits(logits, label):
     abs_x = torch.where(logits >= 0, logits, -logits)
     return torch.maximum(logits, logits.new_zeros(())) - logits * label \
         + torch.log1p(torch.exp(-abs_x))
+
+
+def cross_entropy(pred, label, eps: float = 1e-12):
+    """``-sum(y log p)`` over the last axis; ``pred`` is a distribution,
+    clipped below at ``eps``."""
+    return -(label * torch.log(pred.clamp_min(eps))).sum(dim=-1)
+
+
+def cross_entropy_sparse(pred, label, ignored_index: int = -1,
+                         eps: float = 1e-12):
+    """``-log p[label]`` per row of a distribution ``pred`` (clipped below
+    at ``eps``); rows labelled ``ignored_index`` give 0."""
+    p = pred.gather(-1, label.long().clamp_min(0)[..., None])[..., 0]
+    loss = -torch.log(p.clamp_min(eps))
+    return torch.where(label == ignored_index, 0.0, loss)
+
+
+def softmax_cross_entropy(logits, label):
+    """Fused softmax + CE on one-hot or soft labels, per row."""
+    return -(label * torch.log_softmax(logits, dim=-1)).sum(dim=-1)
+
+
+def nll_loss(logp, label):
+    """``-logp[label]`` per row of log-probabilities."""
+    return -logp.gather(-1, label.long()[..., None])[..., 0]
 
 
 def softmax_cross_entropy_sparse(logits, label, ignored_index: int = -1):

@@ -10,10 +10,12 @@ renamed into place, so a crash never destroys the previous checkpoint.
 The leaves are those of the reference's ``TrainState`` in its flatten
 order: the parameter tree (dict keys sorted, blocks stacked ``[L, ...]``,
 matmul weights ``[in, out]``), the optimizer state (``slots`` by sorted
-name, then ``step``), the model state, the rng words and the step.  So a
-checkpoint crosses between the two packages in both directions;
-:mod:`hetu_tpu_torch.interop` converts the layouts of the models it knows
-(``config`` is the model's ``GPTConfig`` or ``MoEConfig``).
+name, then ``step``), the model state tree (a batch norm's ``mean`` and
+``var``), the rng words and the step.  So a checkpoint crosses between
+the two packages in both directions; :mod:`hetu_tpu_torch.interop`
+converts the layouts of the models it knows (``config`` is the model's
+``GPTConfig`` or ``MoEConfig``, or the model itself for the CTR and CNN
+models).
 """
 
 from __future__ import annotations
@@ -43,11 +45,19 @@ class CheckpointCorruptError(CheckpointError):
     bit rot, or garbage bytes."""
 
 
-def _flatten(tree) -> list:
-    """Leaves in JAX's order for nested dicts: keys sorted, depth first."""
+def _paths(tree, prefix: str):
+    """(path, leaf) of a nested dict in JAX's flatten order (keys sorted,
+    depth first), the path written as ``jax.tree_util.keystr`` writes dict
+    keys."""
     if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _flatten(tree[k])]
-    return [tree]
+        for k in sorted(tree):
+            yield from _paths(tree[k], f"{prefix}[{k!r}]")
+    else:
+        yield prefix, tree
+
+
+def _flatten(tree) -> list:
+    return [leaf for _, leaf in _paths(tree, "")]
 
 
 def _unflatten(template, leaves):
@@ -62,9 +72,19 @@ def _trees(state, config) -> list:
     """The reference ``TrainState``'s children, in its order."""
     return [interop.params_to_jax(state.params, config),
             interop.opt_state_to_jax(state.opt_state, config),
-            {k: np.asarray(v) for k, v in state.model_state.items()},
+            interop.state_to_jax(state.model_state, config),
             np.asarray(state.rng, np.uint32),
             np.asarray(state.step, np.int32)]
+
+
+def state_dict(state, config) -> dict:
+    """``{path: numpy array}`` of ``state`` (a port ``TrainState`` of the
+    model of ``config``), keyed as the reference's ``state_dict`` keys its
+    ``TrainState``: ``[<flat index i>]`` for its ``i``-th child, then the
+    dict keys.  The arrays are copies, not views of the live tensors."""
+    return {path: np.array(leaf)
+            for i, tree in enumerate(_trees(state, config))
+            for path, leaf in _paths(tree, f"[<flat index {i}>]")}
 
 
 def save(path, state, config, *, extra: Optional[dict] = None) -> None:
@@ -110,9 +130,9 @@ def _leaf(arr, dtype: str, shape) -> np.ndarray:
     return arr
 
 
-def _read(path):
+def _open(path):
     try:
-        z = np.load(path, allow_pickle=False)
+        return np.load(path, allow_pickle=False)
     except zipfile.BadZipFile as e:
         raise CheckpointCorruptError(
             f"{path} is truncated or corrupt (not a readable npz archive: "
@@ -120,14 +140,27 @@ def _read(path):
     except ValueError as e:
         raise CheckpointCorruptError(
             f"{path} is not a v2 (npz) checkpoint ({e})") from e
-    with z:
-        try:
-            header = json.loads(bytes(z["header"]).decode("utf-8"))
-        except (KeyError, UnicodeDecodeError, json.JSONDecodeError,
-                zipfile.BadZipFile) as e:
-            raise CheckpointCorruptError(
-                f"{path}: checkpoint header missing or unreadable ({e})"
-            ) from e
+
+
+def _header(z, path) -> dict:
+    try:
+        return json.loads(bytes(z["header"]).decode("utf-8"))
+    except (KeyError, UnicodeDecodeError, json.JSONDecodeError,
+            zipfile.BadZipFile) as e:
+        raise CheckpointCorruptError(
+            f"{path}: checkpoint header missing or unreadable ({e})") from e
+
+
+def read_header(path) -> dict:
+    """Just the JSON header of a checkpoint: ``{version, n_leaves,
+    dtypes, shapes, rng, extra}``; no leaf is decoded."""
+    with _open(path) as z:
+        return _header(z, path)
+
+
+def _read(path):
+    with _open(path) as z:
+        header = _header(z, path)
         if header["version"] > _FORMAT_VERSION:
             raise CheckpointError(
                 f"checkpoint format version {header['version']} is newer "
@@ -148,10 +181,11 @@ def _read(path):
 
 def load(path, state, config, *, restore_rng: bool = True):
     """Load ``path`` into ``state`` (a port ``TrainState`` of the model of
-    ``config``): parameters and slots are copied into the state's own
-    tensors, in place.  Returns the state with the saved steps and rng
-    words.  Raises :class:`CheckpointCorruptError` for an unreadable file
-    and :class:`CheckpointError` for one of another architecture."""
+    ``config``): parameters, slots and state buffers are copied into the
+    state's own tensors, in place.  Returns the state with the saved
+    steps and rng words.  Raises :class:`CheckpointCorruptError` for an
+    unreadable file and :class:`CheckpointError` for one of another
+    architecture."""
     header, leaves = _read(path)
     template = _trees(state, config)
     flat = [leaf for tree in template for leaf in _flatten(tree)]
@@ -168,16 +202,17 @@ def load(path, state, config, *, restore_rng: bool = True):
                                            for t in template)
     loaded = interop.params_from_jax(params, config)
     opt_state = interop.opt_state_from_jax(opt, config)
+    buffers = interop.state_from_jax(model_state, config)
     with torch.no_grad():
         for name, p in state.params.items():
             p.copy_(loaded[name])
         for slot, d in state.opt_state.get("slots", {}).items():
             for name, t in d.items():
                 t.copy_(opt_state["slots"][slot][name])
+        for name, t in state.model_state.items():
+            t.copy_(buffers[name])
     if state.opt_state:
         state.opt_state["step"] = opt_state["step"]
-    state.model_state = {k: torch.as_tensor(v)
-                         for k, v in model_state.items()}
     state.rng = np.asarray(rng, np.uint32)
     state.step = int(step)
     if restore_rng:

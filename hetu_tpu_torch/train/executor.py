@@ -8,9 +8,11 @@ parameter comes out non-finite) and ``"validate"`` (the loss without
 gradients).  PyTorch runs eagerly, so where the reference traces and
 compiles one function per name, the port calls the step directly.
 
-The model owns its parameters: ``TrainState.params`` holds the model's own
-tensors and the optimizer writes them in place (the reference returns new
-arrays and donates the old).
+The model owns its parameters and its state: ``TrainState.params`` holds
+the model's own tensors and the optimizer writes them in place (the
+reference returns new arrays and donates the old);
+``TrainState.model_state`` holds the model's own state buffers (the batch
+norms' running statistics), which a train step's forward writes in place.
 
 Spans: ``train.host_to_device`` around moving the batch to the
 parameters' device, ``train.step.<name>`` around the step.  Kernels run
@@ -32,6 +34,7 @@ import torch
 from torch import nn
 
 from hetu_tpu_torch import rng as hrng
+from hetu_tpu_torch.layers.base import state_buffers
 from hetu_tpu_torch.optim.optimizer import Optimizer
 from hetu_tpu_torch.telemetry import trace
 
@@ -51,6 +54,8 @@ class TrainState:
         derived together with ``step`` (the slot of the reference's PRNG
         key, saved in its place in a checkpoint).
     step: train steps taken, skipped guarded steps included.
+    model_state: name → the model's own state buffers (float32), updated
+        in place by each train step; ``{}`` for a model without state.
     """
 
     params: dict
@@ -89,15 +94,17 @@ class Executor:
             hrng.set_random_seed(seed)
 
     def init_state(self, model: nn.Module) -> TrainState:
-        """The state over ``model``'s own parameters, with fresh optimizer
-        slots on their device and rng words drawn from the global (seed,
-        seqnum) stream."""
+        """The state over ``model``'s own parameters and state buffers
+        (:func:`~hetu_tpu_torch.layers.base.state_buffers`), with fresh
+        optimizer slots on their device and rng words drawn from the global
+        (seed, seqnum) stream."""
         params = dict(model.named_parameters())
         opt_state = (self.optimizer.init_state(params)
                      if self.optimizer is not None else {})
         return TrainState(params=params, opt_state=opt_state,
                           rng=hrng.np_rng().integers(0, 2 ** 32, 2,
-                                                     dtype=np.uint32))
+                                                     dtype=np.uint32),
+                          model_state=state_buffers(model))
 
     def run(self, name: str, state: TrainState, batch):
         """One step of subexecutor ``name``: ``(new_state, metrics)`` for
@@ -121,6 +128,19 @@ class Executor:
             if trace.enabled() and device.type == "cuda":
                 torch.cuda.synchronize(device)
             return out
+
+    def save(self, path, state: TrainState, config, *,
+             extra: Optional[dict] = None) -> None:
+        """:func:`~hetu_tpu_torch.train.checkpoint.save` of ``state`` (the
+        model of ``config``), with the global (seed, seqnum)."""
+        from hetu_tpu_torch.train import checkpoint
+        checkpoint.save(path, state, config, extra=extra)
+
+    def load(self, path, state: TrainState, config) -> TrainState:
+        """:func:`~hetu_tpu_torch.train.checkpoint.load` into ``state``'s
+        own tensors."""
+        from hetu_tpu_torch.train import checkpoint
+        return checkpoint.load(path, state, config)
 
     def profile(self, *args, **kwargs):
         raise NotImplementedError(
@@ -155,10 +175,11 @@ class Executor:
     def _train_step_guarded(self, state: TrainState, batch):
         """The train step with a non-finite guard: a poisoned batch or an
         exploding update (NaN/Inf loss or parameters) leaves the pre-step
-        parameters and optimizer state in place and reports
+        parameters, optimizer state and model state in place and reports
         ``metrics["nonfinite"] = 1``.  The step counter still advances, so
         training moves past the batch instead of retrying it.  Costs one
-        copy of the parameters and slots, and one synchronisation."""
+        copy of the parameters, slots and state buffers, and one
+        synchronisation."""
         before = _snapshot(state)
         new_state, metrics = self._train_step(state, batch)
         ok = torch.isfinite(metrics["loss"])
@@ -167,8 +188,8 @@ class Executor:
                 ok = ok & torch.isfinite(p).all()
         ok = bool(ok)
         if not ok:
-            # the update wrote the tensors in place: put the copies back,
-            # and keep the pre-step optimizer step and model state
+            # the forward and the update wrote the tensors in place: put
+            # the copies back, and keep the pre-step optimizer step
             _restore(state, before)
             new_state = TrainState(params=state.params,
                                    opt_state=state.opt_state, rng=state.rng,
@@ -188,10 +209,11 @@ class Executor:
 
 
 def _tensors(state: TrainState) -> list:
-    """The parameters and optimizer slots, in a fixed order."""
+    """The parameters, optimizer slots and state buffers, in a fixed
+    order."""
     return list(state.params.values()) + [
         t for d in state.opt_state.get("slots", {}).values()
-        for t in d.values()]
+        for t in d.values()] + list(state.model_state.values())
 
 
 def _snapshot(state: TrainState) -> list:

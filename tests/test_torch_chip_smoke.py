@@ -586,15 +586,18 @@ def test_gates_flops():
 
 def test_kernels_line_counts_the_gates_path():
     """rows 4 and 5 gain "train_moe_gates" (the four gates' steps summed);
-    the top-k gate's entry reads 0 there."""
+    the top-k gate's entry reads 0 there.  Rows 4 to 6 carry the CNN
+    path's count too ("train_cnn")."""
     gates = {k: {"launches": [0, 20, 20]} for k in chip_smoke.GATES}
     ctr = {"launches": [10, 10], "gather": {}, "scatter": {"uniform": {}}}
     for key, i in (("gather", 1), ("scatter", 2)):
-        entry = chip_smoke._paths_entry(key, 80, ctr, gates)
+        entry = chip_smoke._paths_entry(key, 80, ctr, gates, 0)
         assert entry["launches_by_path"] == {
-            "train_moe": 80, "train_moe_gates": 80, "ctr": 10}
-    assert chip_smoke._paths_entry("topk", 40, ctr, gates)[
-        "launches_by_path"] == {"train_moe": 40, "train_moe_gates": 0}
+            "train_moe": 80, "train_moe_gates": 80, "ctr": 10,
+            "train_cnn": 0}
+    assert chip_smoke._paths_entry("topk", 40, ctr, gates, 0)[
+        "launches_by_path"] == {"train_moe": 40, "train_moe_gates": 0,
+                                "train_cnn": 0}
 
 
 def test_ctr_batches_are_drawn_as_bench_ctr_and_the_example_draw_them():
@@ -899,3 +902,45 @@ def test_server_phase_runs_on_the_cpu(monkeypatch, capsys):
     assert out["launches"] == 0
     assert {m.attention_impl for m in engine.model.modules()
             if hasattr(m, "attention_impl")} == {"flash"}
+
+
+# ---- the CNN phase, rehearsed on the CPU ----
+
+def test_conv_fc_macs_is_a_count_by_hand_of_resnet18():
+    """ResNet-18 on 32 x 32: the stem, four stages of two blocks (the
+    first of stages 2 to 4 strided, with its 1x1 downsample) and the
+    head; 0.56 G multiply-adds a sample."""
+    from hetu_tpu_torch.models import ResNet18
+
+    def conv(c_out, hw, c_in, k=3):
+        return c_out * hw * hw * c_in * k * k
+    per_sample = conv(64, 32, 3) + 4 * conv(64, 32, 64)
+    for c, hw in ((128, 16), (256, 8), (512, 4)):
+        per_sample += conv(c, hw, c // 2) + 3 * conv(c, hw, c) \
+            + conv(c, hw, c // 2, 1)
+    per_sample += 512 * 10
+    assert per_sample == 555_422_720
+    got = chip_smoke.conv_fc_macs(ResNet18(device="cpu"),
+                                  torch.zeros(2, 3, 32, 32))
+    assert got == 2 * per_sample
+
+
+# the phase at batch 8 on one repeated batch (ResNet-18 and the zoo at
+# full width; the f32-vs-f64 step, the checkpoint round trip, the launch
+# gates, which expect none): every gate runs
+TINY_CNN = dict(CNN_B=8, CNN_STEPS=5, CNN_SUBSET=8, CNN_ZOO_STEPS=4,
+                CNN_VALID=8)
+
+
+def test_train_cnn_phase_runs_on_the_cpu(monkeypatch, capsys):
+    for name, value in TINY_CNN.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    out = chip_smoke.phase_train_cnn("cpu", 0, device="cpu")
+    text = capsys.readouterr().out
+    assert "[train_cnn] checkpoint: loaded state equal to the saved one: " \
+        "True" in text
+    assert out["launches"] == [0] * 6
+    assert out["flops"] == 6 * 8 * 555_422_720
+    assert out["grad_gap"] <= chip_smoke.TOL_CNN_GRAD
+    for name in ("vgg16", "lenet", "mlp"):
+        assert out["zoo"][name]["losses"][-1] < out["zoo"][name]["losses"][0]

@@ -306,6 +306,43 @@ def test_moe_gates_and_remote_ps_tiers_run_without_jax():
     assert "LEAKED []" in out
 
 
+def test_cnn_training_slice_runs_without_jax(tmp_path):
+    """A tiny ResNet ([1, 1, 1, 1] blocks) trains two Executor steps with
+    its BatchNorm state, through the Dataloader, and round-trips a
+    checkpoint, in a process where ``jax`` and ``hetu_tpu`` cannot be
+    imported at all."""
+    out = _run(
+        "import sys\n"
+        "sys.modules.update(jax=None, jaxlib=None, hetu_tpu=None)\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from hetu_tpu_torch import layers\n"
+        "from hetu_tpu_torch.data import Dataloader, datasets\n"
+        "from hetu_tpu_torch.models import BasicBlock, ResNet\n"
+        "from hetu_tpu_torch.optim import MomentumOptimizer\n"
+        "from hetu_tpu_torch.train import Executor, checkpoint\n"
+        "x, y, _, _ = datasets.cifar10(synthetic_n=16)\n"
+        "m = ResNet(BasicBlock, [1, 1, 1, 1], device='cpu')\n"
+        "ex = Executor(m.loss_fn(), MomentumOptimizer(0.1, 0.9), seed=0)\n"
+        "st = ex.init_state(m)\n"
+        "for b in Dataloader((x, y), 8, shuffle=True):\n"
+        "    st, met = ex.run('train', st, b)\n"
+        "assert st.step == 2 and float(met['loss']) == float(met['loss'])\n"
+        "assert st.model_state['bn1.mean'] is m.bn1.mean\n"
+        "assert float(m.bn1.var.min()) != 1.0\n"
+        f"ex.save({str(tmp_path / 'c.npz')!r}, st, m)\n"
+        "want = checkpoint.state_dict(st, m)\n"
+        "m.bn1.mean.zero_()\n"
+        f"st = ex.load({str(tmp_path / 'c.npz')!r}, st, m)\n"
+        "got = checkpoint.state_dict(st, m)\n"
+        "assert all(np.array_equal(got[k], w) for k, w in want.items())\n"
+        "ex.run('validate', st, (x[:4], y[:4]))\n"
+        "mods = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
+        "              and m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
@@ -336,4 +373,6 @@ def test_scan_sees_the_whole_package():
             "layers/moe.py", "models/moe_transformer.py",
             "models/llama.py", "models/bert.py", "ops/rope.py",
             "ps/van.py", "serve/server.py", "serve/migrate.py",
-            "ops/reduce.py", "ps/embedding.py", "ps/client.py"} <= names
+            "ops/reduce.py", "ps/embedding.py", "ps/client.py",
+            "ops/conv.py", "models/resnet.py", "models/cnn_zoo.py",
+            "models/mlp.py", "data/datasets.py", "data/dataloader.py"} <= names
