@@ -164,6 +164,26 @@ without the final result line:
    step over the f32 peak, peak memory, one profiled step; then VGG-16
    (BN, DropOut from the step's generator), LeNet (MNIST padded to 32 x
    32) and the MLP, 10 steps each (finite, falling loss).
+15c. train_rnn — examples/rnn_mnist.py's recurrent classifiers (rnn,
+   lstm, gru; 28 rows of 28 pixels, hidden 128, B 128, Adam(1e-3)), 20
+   Executor steps each on a 256-sample subset of the synthetic MNIST
+   (finite, falling loss; no kernel of the six launches), one pass in f32
+   against float64; step time, samples/s, peak memory, one profiled step.
+15d. train_gcn — the 2-layer GCN (hidden 256, dropout 0.5, Adam(0.01)) on
+   a seeded graph at ogbn-arxiv's sizes (169 343 nodes, 128 features, 40
+   classes, 2 332 486 directed edges), 20 full-graph Executor steps
+   (finite, falling loss; gcn_norm's degrees exact; no kernel launches),
+   one pass in f32 against float64 through f32's ReLU pattern; step time,
+   nodes/s, peak memory, one profiled step.
+15e. gcn_sampled — the same graph published to in-process PS tables,
+   GraphSAGE's sampling (fanouts 25, 10; 512 seeds) through
+   ``NeighborSampler``, 8 padded batches normalised on the card and
+   trained through the Executor (every sampled edge real, fan-in bounded,
+   the loss of the last 3 batches below the first 3's); sample, pull and
+   step times.
+15f. ops_zoo — every op of the elementwise, shape, reduce and matmul
+   families on the card against the CPU (index and shape ops exactly,
+   arithmetic within 1e-6 of max|y|; ties for top-k, argsort, unique).
 16. kernel_shapes — the three flash kernels at the new paths' shapes:
    (1, 32, S, 128) causal for S = 128, 512 and 1024 (the forward), (4, 32,
    4096, 128) causal and (16, 12, 512, 64) non-causal (forward and
@@ -174,7 +194,8 @@ The last three lines of standard output are the card's name and power
 limit (as nvidia-smi gives them), the kernel report
 ``{"kernels": [...]}`` (all six kernels: the three flash kernels, the top-k
 gate, the gather and the scatter-add, the last two with their CTR
-launches and times) and ``{"ok": true, "device": {...}}``.
+launches and times; each with its launches by path, 0 on the CNN, RNN and
+GCN paths) and ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -407,6 +428,42 @@ CNN_ZOO_STEPS, CNN_ZOO_LR, CNN_VALID = 10, 0.01, 1024
 # at B 128 on the card): the loss's relative gap, each gradient's max gap
 # over its max |G|, the new statistics' gap over their max |s|
 TOL_CNN_LOSS, TOL_CNN_GRAD, TOL_CNN_STATS = 1e-4, 1e-2, 1e-4
+# train_rnn: examples/rnn_mnist.py's configuration, uncut (28 rows of 28
+# pixels as T 28 x D 28, hidden 128, a Linear(128, 10) head on the last
+# step, Adam(1e-3), B 128), 20 steps a cell on a 256-sample subset of the
+# synthetic MNIST (random labels: the signal is memorisation); one step in
+# f32 against float64 (no ReLU on this path): the loss's relative gap and
+# each gradient's max gap over its max |G|
+RNN_CELLS = ("rnn", "lstm", "gru")
+RNN_B, RNN_STEPS, RNN_SUBSET, RNN_HIDDEN, RNN_LR = 128, 20, 256, 128, 1e-3
+TOL_RNN_LOSS, TOL_RNN_GRAD = 1e-4, 1e-2
+# train_gcn: the reference's 2-layer GCN at ogbn-arxiv's published sizes
+# (169 343 nodes, 128 features, 40 classes, 1 166 243 directed edges, both
+# directions added as examples/gnn_gcn.py does; the train split's 54 %
+# labelled) on a seeded graph of 40 communities, one a class, GCN_INTRA of
+# the edges inside a community and features a class mean plus noise of
+# GCN_NOISE; the OGB arxiv GCN baseline's hidden 256, dropout 0.5 and
+# Adam(0.01); 20 full-graph steps.  Cut by the reference model's own
+# structure: 2 layers (OGB: 3), no batch norm, no bias.  One step in f32
+# against float64 through f32's ReLU pattern, dropout off, at the same
+# limits as train_rnn's
+GCN_N, GCN_F, GCN_CLASSES, GCN_EDGES = 169_343, 128, 40, 1_166_243
+GCN_HIDDEN, GCN_DROPOUT, GCN_LR, GCN_STEPS = 256, 0.5, 0.01, 20
+GCN_TRAIN_SHARE, GCN_INTRA, GCN_NOISE = 0.54, 0.9, 2.0
+TOL_GCN_LOSS, TOL_GCN_GRAD = 1e-4, 1e-2
+# gcn_sampled: GraphSAGE's published sampling (Hamilton et al. 2017, sec.
+# 4: K 2, fanouts 25 and 10, 512 seeds a batch) on the same graph,
+# published to in-process PS tables (max degree 128); each batch padded to
+# 512 (1 + 25 + 250) + 1 nodes and 512 (25 + 250) edges; 8 batches train
+# the same GCN with Adam(0.01)
+SAGE_FANOUTS, SAGE_SEEDS, SAGE_BATCHES, SAGE_MAX_DEGREE = (25, 10), 512, 8, 128
+SAGE_PAD_NODES = SAGE_SEEDS * (1 + 25 + 250) + 1
+SAGE_PAD_EDGES = SAGE_SEEDS * (25 + 250)
+# ops_zoo: every op of the elementwise, shape, reduce and matmul families
+# on the card against the same op on the CPU: index and shape ops (and the
+# ops that round nothing) exactly, arithmetic within this share of the
+# output's largest magnitude
+TOL_ZOO = 1e-6
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_S = 989e12    # dense bf16 tensor cores, H100 SXM data sheet
@@ -1093,6 +1150,18 @@ def _profile_table(prof, tag, card, wall_us, steps=1):
     return busy / wall_us
 
 
+def _profiled_step(ex, state, batch, device, tag, card, wall_ms):
+    """One more train step under torch.profiler: the busy share of
+    ``wall_ms`` and the 8 largest kernels (``_profile_table``)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, met = ex.run("train", state, batch)
+        float(met["loss"])
+        _sync(device)
+    return state, _profile_table(prof, tag, card, wall_ms * 1e3)
+
+
 def _kind(kernel: str) -> str:
     """The port's own kernels (flash; gather, scatter-add and gate),
     cuDNN's convolutions, cuBLAS's GEMMs, copies and fills, and the rest
@@ -1159,7 +1228,6 @@ def _check_grads(tag, grads_k, grads_p):
 
 def phase_train(card, seed, device="cuda"):
     """GPT-2-small training steps at bench_gpt's width and shape."""
-    from torch.profiler import ProfilerActivity, profile
 
     from hetu_tpu_torch import interop
     from hetu_tpu_torch.layers import MultiHeadAttention
@@ -1257,13 +1325,8 @@ def phase_train(card, seed, device="cuda"):
           f"{n_params / 1e6:.1f} M params, over 989 TFLOP/s), peak "
           f"{peak_gib:.2f} GiB allocated [{card}]")
 
-    # one profiled step
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state, met = ex.run("train", state, batch)
-        float(met["loss"])
-        torch.cuda.synchronize()
-    busy = _profile_table(prof, "train step", card, step_s * 1e6)
+    _, busy = _profiled_step(ex, state, batch, device, "train step", card,
+                             step_s * 1e3)
     return dict(launches=launches, step_ms=step_s * 1e3,
                 tokens_per_s=tokens / step_s, mfu=mfu, peak_gib=peak_gib,
                 busy_share=busy, losses=losses)
@@ -1861,7 +1924,6 @@ def phase_train_moe(card, seed, device="cuda"):
     """The MoE transformer's training step at MoEConfig's widths, bf16,
     B 32 x S 512: the kernel path against the plain path and the einsum
     dispatch on one batch, then 10 Executor steps."""
-    from torch.profiler import ProfilerActivity, profile
 
     from hetu_tpu_torch import interop
     from hetu_tpu_torch.models import MoEConfig, MoETransformer
@@ -2021,12 +2083,8 @@ def phase_train_moe(card, seed, device="cuda"):
               f"{MOE_H}, {MOE_FFN}]: bf16 with f32 output {out_f32:.4f} ms, "
               f"up-cast f32 {upcast:.4f} ms [{card}]")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state, met = ex.run("train", state, batch)
-        float(met["loss"])
-        _sync(device)
-    busy = _profile_table(prof, "train_moe step", card, step_s * 1e6)
+    _, busy = _profiled_step(ex, state, batch, device, "train_moe step",
+                             card, step_s * 1e3)
     return dict(launches=launches, step_ms=step_s * 1e3,
                 tokens_per_s=MOE_T / step_s, mfu=mfu, peak_gib=peak_gib,
                 busy_share=busy, losses=losses, grad_ratio=grad_ratio,
@@ -3715,7 +3773,6 @@ def phase_server(card, seed, llama_engine, llama_run, migrated,
 def phase_train_llama(card, seed, device="cuda"):
     """Llama-2-7B's widths at 4 layers: the kernel-vs-plain gate, then 10
     Executor steps at B 4 x S 4096."""
-    from torch.profiler import ProfilerActivity, profile
 
     from hetu_tpu_torch.models import LlamaConfig, LlamaModel
     from hetu_tpu_torch.optim import AdamWOptimizer
@@ -3800,12 +3857,8 @@ def phase_train_llama(card, seed, device="cuda"):
           f"a token, {n_params / 1e6:.1f} M params, over 989 TFLOP/s), "
           f"peak {peak:.2f} GiB allocated [{card}]")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state, met = ex.run("train", state, batch)
-        float(met["loss"])
-        _sync(device)
-    busy = _profile_table(prof, "train_llama step", card, med * 1e3)
+    _, busy = _profiled_step(ex, state, batch, device, "train_llama step",
+                             card, med)
     return dict(launches=launches, step_ms=med, step_spread_ms=(lo, hi),
                 tokens_per_s=tokens / med * 1e3, mfu=mfu, peak_gib=peak,
                 busy_share=busy, losses=losses, grad_ratio=grad_ratio)
@@ -3847,7 +3900,6 @@ def phase_train_bert(card, seed, device="cuda"):
     steps."""
     import warnings
 
-    from torch.profiler import ProfilerActivity, profile
 
     from hetu_tpu_torch.models import BertConfig, BertModel
     from hetu_tpu_torch.optim import AdamWOptimizer
@@ -3955,12 +4007,8 @@ def phase_train_bert(card, seed, device="cuda"):
           f"{n_params / 1e6:.1f} M params, over 989 TFLOP/s), peak "
           f"{peak:.2f} GiB allocated [{card}]")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state, met = ex.run("train", state, batch)
-        float(met["loss"])
-        _sync(device)
-    busy = _profile_table(prof, "train_bert step", card, med * 1e3)
+    _, busy = _profiled_step(ex, state, batch, device, "train_bert step",
+                             card, med)
     return dict(launches=launches, step_ms=med, step_spread_ms=(lo, hi),
                 samples_per_s=BERT_B / med * 1e3, mfu=mfu, peak_gib=peak,
                 busy_share=busy, losses=losses, grad_ratio=grad_ratio)
@@ -4112,10 +4160,11 @@ def _cnn_f32_vs_f64(model, batch, device, tag):
                 own_pattern_grad_gap=own_gap[1], bitwise_f32=bitwise)
 
 
-def _cnn_train(tag, model, loader, steps, optimizer, device, loss_fn=None):
-    """``steps`` Executor train steps over ``loader``'s epochs: finite,
-    falling loss; returns the executor, state, losses, host times and the
-    last batch."""
+def _train_steps(tag, model, loader, steps, optimizer, device, loss_fn=None,
+                 phase="train_cnn"):
+    """``steps`` Executor train steps over ``loader``'s epochs (any
+    iterable of batches): finite, falling loss; returns the executor,
+    state, losses, host times and the last batch."""
     from hetu_tpu_torch.models import classifier_loss_fn
     from hetu_tpu_torch.train import Executor
     ex = Executor(loss_fn or classifier_loss_fn(model), optimizer)
@@ -4130,7 +4179,7 @@ def _cnn_train(tag, model, loader, steps, optimizer, device, loss_fn=None):
         losses.append(float(met["loss"]))
         _sync(device)
         times.append(time.perf_counter() - t0)
-    print(f"[train_cnn] {tag} losses: "
+    print(f"[{phase}] {tag} losses: "
           f"{' '.join(f'{x:.4f}' for x in losses)} (acc of the last batch "
           f"{float(met['acc']):.3f})")
     check(all(np.isfinite(losses)), f"{tag}: a training loss is not finite")
@@ -4144,7 +4193,6 @@ def phase_train_cnn(card, seed, device="cuda"):
     trip; then VGG-16, LeNet and MLP."""
     import tempfile
 
-    from torch.profiler import ProfilerActivity, profile
 
     from hetu_tpu_torch.data import Dataloader, datasets
     from hetu_tpu_torch.layers import state_buffers
@@ -4174,7 +4222,7 @@ def phase_train_cnn(card, seed, device="cuda"):
         torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
-    ex, state, losses, times, batch = _cnn_train(
+    ex, state, losses, times, batch = _train_steps(
         "resnet18", model, loader, CNN_STEPS, MomentumOptimizer(sched, 0.9),
         device, model.loss_fn())
     launches = [c.launches for c in counters]
@@ -4239,12 +4287,8 @@ def phase_train_cnn(card, seed, device="cuda"):
           f"{100 * share:.2f} % of 67 TFLOP/s (f32 outside the tensor "
           f"cores, H100 SXM data sheet), peak {peak:.2f} GiB allocated "
           f"[{card}]")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state, met = ex.run("train", state, batch)
-        float(met["loss"])
-        _sync(device)
-    busy = _profile_table(prof, "train_cnn step", card, med * 1e3)
+    _, busy = _profiled_step(ex, state, batch, device, "train_cnn step",
+                             card, med)
     del model, ex, state
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -4265,7 +4309,7 @@ def phase_train_cnn(card, seed, device="cuda"):
         for c in counters:
             c.launches = 0
         m = build(torch.Generator(device=device).manual_seed(seed + 32))
-        _, _, zl, zt, _ = _cnn_train(
+        _, _, zl, zt, _ = _train_steps(
             name, m, Dataloader(data, CNN_B, shuffle=True), CNN_ZOO_STEPS,
             MomentumOptimizer(CNN_ZOO_LR, 0.9), device)
         zmed = _step_stats(zt)[0]
@@ -4284,6 +4328,506 @@ def phase_train_cnn(card, seed, device="cuda"):
                 f32_share=share, peak_gib=peak, busy_share=busy,
                 losses=losses, valid_acc=float(valid["acc"]), zoo=zoo,
                 trained=trained, **gaps)
+
+
+# ------------------------------------------------------- RNN, GCN, op zoo
+
+def _grads_of(model, loss_fn, batch):
+    """Loss and every gradient of one evaluation-mode pass (no dropout, no
+    update) of ``loss_fn`` over ``model``'s own parameters."""
+    params = dict(model.named_parameters())
+    loss, _ = loss_fn(params, {}, batch, None, False)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def _f32_vs_f64(phase, tag, model, make_loss, batch32, batch64, tol_loss,
+                tol_grad, relu=False):
+    """One pass of ``model``'s weights in f32 and in float64 (the float64
+    pass through the f32 pass's ReLU pattern when ``relu``): the loss's
+    relative gap and each gradient's max gap over its max |G|, held to
+    ``tol_loss`` and ``tol_grad``; returns the gaps and the flips."""
+    masks, flips = [], [0]
+    with _relu_pattern(masks) if relu else contextlib.nullcontext():
+        loss32, grads32 = _grads_of(model, make_loss(model), batch32)
+    m64 = _as_f64(model)
+    with _relu_pattern(masks, flips) if relu else contextlib.nullcontext():
+        loss64, grads64 = _grads_of(m64, make_loss(m64), batch64)
+    n_relu = sum(m.numel() for m in masks)
+    del masks, m64
+    loss_gap = abs(float(loss32) - float(loss64)) / abs(float(loss64))
+    worst = max(_gaps(grads32, grads64).items(), key=lambda kv: kv[1])
+    pattern = (f", float64 through f32's ReLU pattern ({flips[0]} of "
+               f"{n_relu} ReLU inputs on the other side of 0 in float64)"
+               if relu else "")
+    print(f"[{phase}] {tag}: f32 (TF32 off) vs float64, one pass of the "
+          f"same weights and batch{pattern}: loss {float(loss32):.7f} vs "
+          f"{float(loss64):.7f} (gap {loss_gap:.3e}, tol {tol_loss:g}); "
+          f"gradients of {len(grads32)} parameters max|dG| / max|G| <= "
+          f"{worst[1]:.3e} ({worst[0]}, tol {tol_grad:g})")
+    check(loss_gap <= tol_loss, f"{tag}: the f32 loss disagrees with "
+                                f"float64")
+    check(worst[1] <= tol_grad,
+          f"{tag}: the f32 gradient of {worst[0]} disagrees with float64")
+    return dict(loss_gap=loss_gap, grad_gap=worst[1], relu_flips=flips[0])
+
+
+def phase_train_rnn(card, seed, device="cuda"):
+    """examples/rnn_mnist.py's recurrent classifiers (rnn, lstm, gru) on
+    the synthetic MNIST through the Executor: 20 steps each (finite,
+    falling loss; no kernel of the six launches), one pass in f32 against
+    float64, step time, samples/s, busy share, peak memory."""
+    from hetu_tpu_torch.data import Dataloader, datasets
+    from hetu_tpu_torch.models import RNNClassifier
+    from hetu_tpu_torch.optim import AdamOptimizer
+
+    t_phase = time.perf_counter()
+    counters = _all_counters()
+    mx, my, _, _ = datasets.mnist()
+    data = (mx[:RNN_SUBSET], my[:RNN_SUBSET])
+    print(f"[train_rnn] T 28 x D 28, hidden {RNN_HIDDEN}, Linear("
+          f"{RNN_HIDDEN}, 10) on the last step, f32, B {RNN_B}, Adam("
+          f"{RNN_LR:g}), {RNN_STEPS} steps a cell on a {RNN_SUBSET}-sample "
+          f"subset of the synthetic MNIST")
+    cells, launches = {}, [0] * 6
+    for i, cell in enumerate(RNN_CELLS):
+        model = RNNClassifier(cell, RNN_HIDDEN, generator=torch.Generator(
+            device=device).manual_seed(seed + 40 + i), device=device)
+        initial = copy.deepcopy(model)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        ex, state, losses, times, batch = _train_steps(
+            cell, model, Dataloader(data, RNN_B, shuffle=True), RNN_STEPS,
+            AdamOptimizer(RNN_LR), device, model.loss_fn(),
+            phase="train_rnn")
+        got = [c.launches for c in counters]
+        launches = [a + b for a, b in zip(launches, got)]
+        peak = _peak_gib(device)
+        check(got == [0] * 6, f"{cell}: the RNN path launched a port kernel")
+        x, y = (torch.as_tensor(a).to(device) for a in batch)
+        gaps = _f32_vs_f64("train_rnn", f"{cell}, initial weights", initial,
+                           lambda m: m.loss_fn(), (x, y), (x.double(), y),
+                           TOL_RNN_LOSS, TOL_RNN_GRAD)
+        med, lo, hi = _step_stats(times)
+        print(f"[train_rnn] {cell}: step median {med:.3f} ms (steps "
+              f"2-{RNN_STEPS}: {lo:.3f}-{hi:.3f}; first "
+              f"{times[0] * 1e3:.3f} ms), {RNN_B / med * 1e3:.1f} samples/s, "
+              f"peak {peak:.3f} GiB allocated, launches of the six kernels "
+              f"{got} [{card}]")
+        _, busy = _profiled_step(ex, state, batch, device,
+                                 f"train_rnn {cell} step", card, med)
+        cells[cell] = dict(step_ms=med, step_spread_ms=(lo, hi),
+                           samples_per_s=RNN_B / med * 1e3, peak_gib=peak,
+                           busy_share=busy, losses=losses, **gaps)
+        del model, initial, ex, state
+    print(f"[train_rnn] phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, cells=cells)
+
+
+def arxiv_like_graph(seed):
+    """A seeded graph at ogbn-arxiv's sizes (``GCN_N`` nodes, ``GCN_F``
+    features, ``GCN_CLASSES`` classes, ``GCN_EDGES`` directed edges, then
+    both directions as examples/gnn_gcn.py adds them): one community a
+    class, ``GCN_INTRA`` of the edges inside a community, features the
+    class's mean plus normal noise of ``GCN_NOISE``, a ``GCN_TRAIN_SHARE``
+    label mask.  Returns numpy ``(x, labels, src, dst, mask)``, made once
+    for train_gcn and gcn_sampled."""
+    return _graph(seed, GCN_N, GCN_F, GCN_CLASSES, GCN_EDGES, GCN_INTRA,
+                  GCN_NOISE, GCN_TRAIN_SHARE)
+
+
+@functools.lru_cache(maxsize=1)
+def _graph(seed, n, f, classes, edges, intra, noise, train_share):
+    g = np.random.default_rng(seed + 50)
+    labels = g.integers(0, classes, n)
+    members = np.argsort(labels, kind="stable")
+    counts = np.bincount(labels, minlength=classes)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    src = g.integers(0, n, edges)
+    c = labels[src]
+    mate = members[starts[c] + (g.random(edges) * counts[c]).astype(
+        np.int64)]
+    dst = np.where(g.random(edges) < intra, mate, g.integers(0, n, edges))
+    src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+    means = g.standard_normal((classes, f)).astype(np.float32)
+    x = means[labels] + np.float32(noise) * g.standard_normal(
+        (n, f), np.float32)
+    mask = (g.random(n) < train_share).astype(np.float32)
+    return x, labels, src, dst, mask
+
+
+def phase_train_gcn(card, seed, device="cuda"):
+    """The reference's 2-layer GCN on the whole arxiv-sized graph through
+    the Executor: 20 steps (finite, falling loss; no kernel of the six
+    launches), gcn_norm's degrees exact, one pass in f32 against float64
+    through f32's ReLU pattern, step time, nodes/s, busy share, peak."""
+    from hetu_tpu_torch.models import GCN
+    from hetu_tpu_torch.ops.graph_ops import gcn_norm, in_degree
+    from hetu_tpu_torch.optim import AdamOptimizer
+
+    t_phase = time.perf_counter()
+    counters = _all_counters()
+    x, labels, src, dst, mask = arxiv_like_graph(seed)
+    n = x.shape[0]
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    es, ed, ew = gcn_norm(torch.as_tensor(src, device=device),
+                          torch.as_tensor(dst, device=device), n)
+    deg = in_degree(ed, n)
+    exact = bool(torch.equal(deg, torch.bincount(ed, minlength=n).float()))
+    print(f"[train_gcn] graph: {n} nodes, {x.shape[1]} features, "
+          f"{int(labels.max()) + 1} classes, {src.size} edges ({src.size // 2}"
+          f" drawn, both directions) + {n} self loops = {es.numel()}; "
+          f"degrees {int(deg.min())}-{int(deg.max())}, exact integers: "
+          f"{exact}; {int(mask.sum())} labelled nodes "
+          f"({100 * mask.mean():.1f} %)")
+    check(exact and float(deg.max()) < 2 ** 24,
+          "gcn_norm's degrees are not exact integers")
+    batch = (torch.as_tensor(x, device=device),
+             torch.as_tensor(labels, device=device),
+             torch.as_tensor(mask, device=device))
+    model = GCN(x.shape[1], GCN_HIDDEN, GCN_CLASSES,
+                dropout_rate=GCN_DROPOUT, generator=torch.Generator(
+                    device=device).manual_seed(seed + 51), device=device)
+    initial = copy.deepcopy(model)
+    print(f"[train_gcn] GCN({x.shape[1]}, {GCN_HIDDEN}, {GCN_CLASSES}), "
+          f"dropout {GCN_DROPOUT}, f32, Adam({GCN_LR:g}), {GCN_STEPS} "
+          f"full-graph steps")
+    ex, state, losses, times, _ = _train_steps(
+        "gcn", model, [batch], GCN_STEPS, AdamOptimizer(GCN_LR), device,
+        model.loss_fn(es, ed, ew), phase="train_gcn")
+    launches = [c.launches for c in counters]
+    peak = _peak_gib(device)
+    check(launches == [0] * 6, "the GCN path launched a port kernel")
+    med, lo, hi = _step_stats(times)
+    print(f"[train_gcn] step median {med:.3f} ms (steps 2-{GCN_STEPS}: "
+          f"{lo:.3f}-{hi:.3f}; first {times[0] * 1e3:.3f} ms), "
+          f"{n / med * 1e3:.0f} nodes/s, peak {peak:.3f} GiB allocated, "
+          f"launches of the six kernels {launches} [{card}]")
+    _, busy = _profiled_step(ex, state, batch, device, "train_gcn step",
+                             card, med)
+    del ex, state, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    gaps = _f32_vs_f64(
+        "train_gcn", "initial weights", initial,
+        lambda m: m.loss_fn(es, ed, ew if m.w1.dtype == torch.float32
+                            else ew.double()),
+        batch, (batch[0].double(), batch[1], batch[2].double()),
+        TOL_GCN_LOSS, TOL_GCN_GRAD, relu=True)
+    print(f"[train_gcn] phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, step_ms=med, step_spread_ms=(lo, hi),
+                nodes_per_s=n / med * 1e3, peak_gib=peak, busy_share=busy,
+                losses=losses, **gaps)
+
+
+class _TimedGraph:
+    """A DistGraph's pulls, each timed into ``pull_s``."""
+
+    def __init__(self, graph):
+        self.g = graph
+        self.pull_s = 0.0
+
+    def _timed(self, fn, nodes):
+        t0 = time.perf_counter()
+        try:
+            return fn(nodes)
+        finally:
+            self.pull_s += time.perf_counter() - t0
+
+    def neighbors(self, nodes):
+        return self._timed(self.g.neighbors, nodes)
+
+    def features(self, nodes):
+        return self._timed(self.g.features, nodes)
+
+    def labels(self, nodes):
+        return self._timed(self.g.labels, nodes)
+
+
+def edge_keys(src, dst, n):
+    """The sorted keys ``src · n + dst`` of a graph's edges."""
+    return np.unique(np.asarray(src, np.int64) * n + dst)
+
+
+def sampled_edges_real(batch, keys, n):
+    """Whether every sampled edge ``u -> v`` (compact ids) is an edge ``(v,
+    u)`` of the graph of ``keys`` (:func:`edge_keys`) on ``n`` nodes: v
+    pulled u as a neighbour."""
+    want = batch.nodes[batch.edge_dst] * n + batch.nodes[batch.edge_src]
+    at = np.minimum(np.searchsorted(keys, want), keys.size - 1)
+    return bool((keys[at] == want).all())
+
+
+def fan_in_bounded(batch, fanouts):
+    """Whether a seed takes at most the first hop's fanout plus the later
+    ones', and any other node at most the later hops'."""
+    indeg = np.bincount(batch.edge_dst, minlength=len(batch.nodes))
+    n_seed = int(batch.seed_mask.sum())
+    return bool(indeg[:n_seed].max(initial=0) <= sum(fanouts)
+                and indeg[n_seed:].max(initial=0) <= sum(fanouts[1:]))
+
+
+def phase_gcn_sampled(card, seed, device="cuda"):
+    """GraphSAGE-style sampled training of the same GCN: the graph
+    published to in-process PS tables, 8 batches of 512 seeds sampled
+    (25, 10) on the host, padded to static shapes, normalised on the card
+    and trained through the Executor; every sampled edge real, fan-in
+    bounded, a finite loss whose last 3 batches' mean is below the first
+    3's; sample, pull, copy and step times."""
+    from hetu_tpu_torch.data.graph_sampler import DistGraph, NeighborSampler
+    from hetu_tpu_torch.models import GCN
+    from hetu_tpu_torch.ops.graph_ops import gcn_norm
+    from hetu_tpu_torch.optim import AdamOptimizer
+    from hetu_tpu_torch.ps import PSTable
+    from hetu_tpu_torch.train import Executor
+
+    t_phase = time.perf_counter()
+    counters = _all_counters()
+    x, labels, src, dst, mask = arxiv_like_graph(seed)
+    n = x.shape[0]
+    t0 = time.perf_counter()
+    graph = DistGraph.publish(
+        src, dst, x, labels, max_degree=SAGE_MAX_DEGREE, seed=seed,
+        table_factory=lambda rows, dim, tag: PSTable(rows, dim,
+                                                     init="zeros"))
+    publish_s = time.perf_counter() - t0
+    keys = edge_keys(src, dst, n)
+    timed = _TimedGraph(graph)
+    sampler = NeighborSampler(timed, seed=seed)
+    print(f"[gcn_sampled] published {n} nodes to in-process PS tables "
+          f"(adjacency [{n}, {SAGE_MAX_DEGREE + 1}], features [{n}, "
+          f"{x.shape[1]}], labels [{n}, 1] f32) in {publish_s:.2f} s; "
+          f"{SAGE_BATCHES} batches of {SAGE_SEEDS} seeds, fanouts "
+          f"{SAGE_FANOUTS}, padded to {SAGE_PAD_NODES} nodes and "
+          f"{SAGE_PAD_EDGES} edges")
+    model = GCN(x.shape[1], GCN_HIDDEN, GCN_CLASSES,
+                dropout_rate=GCN_DROPOUT, generator=torch.Generator(
+                    device=device).manual_seed(seed + 52), device=device)
+
+    def loss_fn(params, model_state, batch, generator, train):
+        *data, es, ed, ew = batch
+        return model.loss_fn(es, ed, ew)(params, model_state, tuple(data),
+                                         generator, train)
+    ex = Executor(loss_fn, AdamOptimizer(GCN_LR))
+    state = ex.init_state(model)
+    train_nodes = np.flatnonzero(mask)
+    rng = np.random.default_rng(seed + 53)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    rows, losses = [], []
+    for i in range(SAGE_BATCHES):
+        seeds = rng.choice(train_nodes, SAGE_SEEDS, replace=False)
+        timed.pull_s = 0.0
+        t0 = time.perf_counter()
+        raw = sampler.sample(seeds, SAGE_FANOUTS)
+        sample_s = time.perf_counter() - t0
+        check(sampled_edges_real(raw, keys, n),
+              f"batch {i}: a sampled edge is not an edge of the graph")
+        check(fan_in_bounded(raw, SAGE_FANOUTS),
+              f"batch {i}: a node's fan-in exceeds its fanout")
+        b = raw.pad_to(SAGE_PAD_NODES, SAGE_PAD_EDGES)
+        _sync(device)
+        t0 = time.perf_counter()
+        data = [torch.as_tensor(a).to(device) for a in (
+            b.features, b.labels, b.seed_mask, b.edge_src, b.edge_dst)]
+        _sync(device)
+        copy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        *data, es, ed = data
+        es, ed, ew = gcn_norm(es, ed, SAGE_PAD_NODES)
+        state, met = ex.run("train", state, (*data, es, ed, ew))
+        losses.append(float(met["loss"]))
+        _sync(device)
+        step_s = time.perf_counter() - t0
+        rows.append(dict(sample_ms=sample_s * 1e3,
+                         pull_ms=timed.pull_s * 1e3, copy_ms=copy_s * 1e3,
+                         step_ms=step_s * 1e3, nodes=len(raw.nodes),
+                         edges=len(raw.edge_src)))
+        print(f"[gcn_sampled] batch {i}: sample {sample_s * 1e3:.1f} ms "
+              f"(pulls {timed.pull_s * 1e3:.1f} ms), copy to the card "
+              f"{copy_s * 1e3:.3f} ms, norm and step "
+              f"{step_s * 1e3:.3f} ms, {len(raw.nodes)} nodes and "
+              f"{len(raw.edge_src)} edges before padding, loss "
+              f"{losses[-1]:.4f}, acc {float(met['acc']):.3f} [{card}]")
+    launches = [c.launches for c in counters]
+    peak = _peak_gib(device)
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    print(f"[gcn_sampled] loss mean of the first 3 batches {first:.4f}, of "
+          f"the last 3 {last:.4f}; peak {peak:.3f} GiB allocated; launches "
+          f"of the six kernels {launches}; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    check(all(np.isfinite(losses)), "a sampled batch's loss is not finite")
+    check(last < first, "the sampled training's loss did not fall")
+    check(launches == [0] * 6, "the sampled GCN path launched a port kernel")
+    return dict(launches=launches, batches=rows, losses=losses,
+                publish_s=publish_s, peak_gib=peak)
+
+
+_DEVICE = "<the device under test>"  # a zoo case's device keyword
+
+
+def _zoo_cases(g):
+    """``(name, args, kwargs, exact)`` for every op of the elementwise,
+    matmul, shape and reduce families: numpy inputs drawn from ``g``, with
+    ties where an order among equals matters."""
+    def r(*shape):
+        return g.standard_normal(shape).astype(np.float32)
+    x, y = r(256, 333), r(256, 333)
+    pos = np.abs(r(256, 333)) + 0.1
+    a, b, c = r(128, 64), r(64, 96), r(128, 96)
+    ba, bb, bc = r(8, 128, 64), r(8, 64, 96), r(8, 128, 96)
+    ties = g.integers(0, 7, (64, 200)).astype(np.float32)
+    ints = g.integers(-50, 50, (64, 200)).astype(np.int32)
+    img = r(4, 3, 32, 32)
+    perm = np.stack([g.permutation(333) for _ in range(256)])
+    rows = g.permutation(256)[:100]
+    exact = [
+        ("abs_", (x,), {}), ("opposite", (x,), {}), ("floor", (3 * x,), {}),
+        ("ceil", (3 * x,), {}), ("clamp", (x, -0.5, 0.5), {}),
+        ("sign", (ties - 3,), {}), ("bool_", (ties,), {}),
+        ("where", (x > 0, x, y), {}), ("masked_fill", (x, x > 0, -1.0), {}),
+        ("mask", (x, x > 0), {}),
+        ("reshape", (x, (333, 256)), {}), ("transpose", (ba, (1, 0, 2)), {}),
+        ("concat", (x, y), {"axis": 1}),
+        ("concatenate", ([x, y, x],), {"axis": 0}),
+        ("split", (x, 4), {"axis": 0}), ("split", (x, [5, 100]), {"axis": 1}),
+        ("slice_", (x, (3, 7), (100, 200)), {}),
+        ("slice_assign", (x, y[:50, :60], (250, 10)), {}),
+        ("slice_by_matrix", (x, g.integers(-256, 256, 500),
+                             g.integers(0, 333, 500)), {}),
+        ("pad", (x, ((1, 2), (3, 4))), {"constant_values": 2.0}),
+        ("pad", (x, ((5, 1), (3, 9))), {"mode": "reflect"}),
+        ("pad", (x, ((5, 1), (3, 9))), {"mode": "edge"}),
+        ("pad", (x, ((5, 1), (3, 9))), {"mode": "symmetric"}),
+        ("pad", (x, ((5, 1), (3, 9))), {"mode": "wrap"}),
+        ("tile", (a, (2, 3)), {}), ("repeat", (a, 3), {"axis": 1}),
+        ("repeat", (a, g.integers(0, 4, 128)), {"axis": 0}),
+        ("roll", (x, 17), {"axis": 1}), ("broadcast_shape", (x[:1],
+                                                             (256, 333)), {}),
+        ("broadcast_to", (x[:, :1], (2, 256, 333)), {}),
+        ("gather", (x, g.integers(-333, 333, (40, 5))), {"axis": 1}),
+        ("gather_elements", (x, g.integers(0, 333, (256, 50))), {"axis": 1}),
+        ("scatter", (x, perm[:, :200], y[:, :200]), {"axis": 1}),
+        ("scatter1d", (x, rows, y[:100]), {}),
+        ("indexing", (x, g.integers(-256, 256, 300)), {}),
+        ("one_hot", (g.integers(-2, 12, 500), 10), {}),
+        ("arange", (3, 1000, 7), {"device": _DEVICE}),
+        ("arange", (0.5, 99.0), {"device": _DEVICE}),
+        ("full", ((64, 5), 2.5), {"device": _DEVICE}),
+        ("full_like", (x, 3.0), {}), ("ones_like", (x,), {}),
+        ("zeros_like", (x,), {}), ("cumsum", (ints,), {"axis": 1}),
+        ("flip", (ba, (0, 2)), {}), ("tril", (x, -3), {}),
+        ("triu", (x, 5), {}), ("tril_lookup", (ba,), {"offset": 2}),
+        ("interpolate", (img,), {"size": (64, 48), "mode": "nearest"}),
+        ("interpolate", (img,), {"size": (13, 20), "mode": "nearest"}),
+        ("reduce_min", (x, 1), {}), ("reduce_max", (x,), {}),
+        ("max_", (x, 0), {"keepdims": True}), ("min_", (x,), {}),
+        ("argmax", (ties, 1), {}), ("argsort", (ties, 1), {}),
+        ("argsort", (ties, 0), {"descending": True}),
+        ("topk", (ties, 10), {}), ("topk", (ties, 5), {"axis": 0}),
+        ("topk_idx", (ties, 3), {}), ("topk_val", (ties, 3), {}),
+        ("unique", (ints, 150), {"fill_value": 0}),
+        ("unique", (ties, 4), {}),
+    ]
+    arith = [
+        ("add", (x, y), {}), ("add_const", (x, 2.5), {}),
+        ("minus", (x, y), {}), ("minus_const", (x, 1.5), {}),
+        ("const_minus", (1.5, x), {}), ("multiply", (x, y), {}),
+        ("mul_const", (x, -3.0), {}), ("divide", (x, pos), {}),
+        ("div_const", (x, 7.0), {}), ("const_div", (2.0, pos), {}),
+        ("exp", (x,), {}), ("log", (pos,), {}), ("pow_", (pos, y), {}),
+        ("const_pow", (2.0, x), {}), ("power", (pos, 3.0), {}),
+        ("sqrt", (pos,), {}), ("rsqrt", (pos,), {}), ("sin", (x,), {}),
+        ("cos", (x,), {}),
+        ("matmul", (a, b), {}), ("matmul", (a.T.copy(), b),
+                                 {"trans_a": True}),
+        ("linear", (a, b.T.copy(), c[0]), {"trans_w": True}),
+        ("batch_matmul", (ba, bb), {}),
+        ("addmm", (c, a, b), {"alpha": 2.0, "beta": 0.5}),
+        ("baddbmm", (bc, ba, bb), {"alpha": -1.0, "beta": 3.0}),
+        ("matrix_dot", (x, y), {}), ("cumsum", (x,), {"axis": 0}),
+        ("interpolate", (img,), {"size": (64, 48)}),
+        ("interpolate", (img,), {"size": (13, 20)}),
+        ("reduce_sum", (x, 1), {}), ("reduce_sum", (x,), {}),
+        ("reduce_mean", (x, (0, 1)), {"keepdims": True}),
+        ("reduce_mul", (1 + 0.1 * x[:, :8], 1), {}),
+        ("reduce_norm1", (x, 0), {}), ("reduce_norm2", (x, 1), {}),
+        ("reduce_sum_axis_zero", (x,), {}), ("norm", (x,), {}),
+        ("norm", (x, 3), {}),
+    ]
+    return [(n, a_, k, True) for n, a_, k in exact] + \
+        [(n, a_, k, False) for n, a_, k in arith]
+
+
+def _zoo_args(args, device):
+    def one(a):
+        if isinstance(a, list):
+            return [one(b) for b in a]
+        return torch.as_tensor(a, device=device) \
+            if isinstance(a, np.ndarray) else a
+    return [one(a) for a in args]
+
+
+def _zoo_leaves(out):
+    return [t for o in out for t in _zoo_leaves(o)] \
+        if isinstance(out, (list, tuple)) else [out]
+
+
+def phase_ops_zoo(card, device="cuda"):
+    """Every op of the elementwise, shape, reduce and matmul families on
+    the card against the same op on the CPU, on the same inputs: exact
+    where the op rounds nothing (index, shape, order ops), within
+    ``TOL_ZOO`` of the output's largest magnitude otherwise; an id out of
+    range raises on the card too."""
+    from hetu_tpu_torch import ops
+
+    t_phase = time.perf_counter()
+    cases = _zoo_cases(np.random.default_rng(60))
+    worst = ("", 0.0)
+    for name, args, kw, exact in cases:
+        outs = []
+        for dev in ("cpu", device):
+            kw_dev = {k: dev if v is _DEVICE else v for k, v in kw.items()}
+            outs.append(_zoo_leaves(getattr(ops, name)(
+                *_zoo_args(args, dev), **kw_dev)))
+        ref, got = outs
+        check(len(got) == len(ref), f"ops_zoo {name}: {len(got)} outputs")
+        for gt, rt in zip(got, ref):
+            gt = gt.cpu()
+            check(gt.shape == rt.shape and gt.dtype == rt.dtype,
+                  f"ops_zoo {name}: {gt.shape} {gt.dtype} vs {rt.shape} "
+                  f"{rt.dtype}")
+            if exact or not rt.is_floating_point():
+                check(torch.equal(gt, rt), f"ops_zoo {name}: not exact")
+                continue
+            scale = float(rt.abs().max())
+            gap = float((gt - rt).abs().max()) / scale if scale else 0.0
+            worst = max(worst, (name, gap), key=lambda w: w[1])
+            check(gap <= TOL_ZOO, f"ops_zoo {name}: {gap:.3e} of max|y| "
+                                  f"> {TOL_ZOO:g}")
+    x = torch.zeros(4, 3, device=device)
+    for name, args in (("gather", (x, torch.tensor([0, 4], device=device))),
+                       ("scatter1d", (x, torch.tensor([-5], device=device),
+                                      torch.ones(1, 3, device=device)))):
+        try:
+            getattr(ops, name)(*args)
+        except IndexError:
+            continue
+        check(False, f"ops_zoo {name}: an id out of range did not raise")
+    n_exact = sum(c[3] for c in cases)
+    print(f"[ops_zoo] {len(cases)} cases ({n_exact} exact, "
+          f"{len(cases) - n_exact} within {TOL_ZOO:g} of max|y|) on "
+          f"{device} against the CPU: all agree; worst arithmetic gap "
+          f"{worst[1]:.3e} ({worst[0]}); ids out of range raise; "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return dict(cases=len(cases), exact=n_exact, worst=worst)
 
 
 # ------------------------------------------------------------------- CTR
@@ -5015,29 +5559,28 @@ def phase_kernel_shapes(card):
                  for k in ("dkdv", "dq")}
 
 
-def _paths_entry(key, moe_launches, ctr, gates, cnn_launches):
+def _paths_entry(key, moe_launches, ctr, gates, later):
     """The launches by path of a kernel's entry in the kernels line (the
-    MoE step, the four gates' steps summed, the CTR step, the CNN steps),
-    and its times at the CTR step's shapes."""
+    MoE step, the four gates' steps summed, the CTR step, then ``later``:
+    path -> this kernel's launches on the paths that run none of the six,
+    the CNN, RNN and GCN steps), and its times at the CTR step's
+    shapes."""
     i = {"topk": 0, "gather": 1, "scatter": 2}[key]
     by_gates = sum(g["launches"][i] for g in gates.values())
     if key == "topk":  # not on the gates' path: 0 there
         return {"launches_by_path": {"train_moe": moe_launches,
-                                     "train_moe_gates": by_gates,
-                                     "train_cnn": cnn_launches}}
+                                     "train_moe_gates": by_gates, **later}}
     if key == "gather":
         shape = (f"ctr: table [{CTR_V}, {CTR_DIM}] f32, {CTR_B * CTR_F} ids "
                  f"(cold rows, {CTR_GATHER_SETS} batches in turn)")
         return {"launches_by_path": {"train_moe": moe_launches,
                                      "train_moe_gates": by_gates,
-                                     "ctr": ctr["launches"][0],
-                                     "train_cnn": cnn_launches},
+                                     "ctr": ctr["launches"][0], **later},
                 "by_shape": {shape: ctr["gather"]}}
     if key == "scatter":
         return {"launches_by_path": {"train_moe": moe_launches,
                                      "train_moe_gates": by_gates,
-                                     "ctr": ctr["launches"][1],
-                                     "train_cnn": cnn_launches},
+                                     "ctr": ctr["launches"][1], **later},
                 "by_shape": {
                     f"ctr deduplicate: {CTR_B * CTR_F} rows of {CTR_DIM} f32 "
                     f"-> {CTR_B * CTR_F} segments, sorted route ({tag} ids)":
@@ -5094,7 +5637,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     cnn = phase_train_cnn(card, args.seed)
     torch.cuda.empty_cache()
+    rnn = phase_train_rnn(card, args.seed)
+    torch.cuda.empty_cache()
+    gcn = phase_train_gcn(card, args.seed)
+    torch.cuda.empty_cache()
+    sampled = phase_gcn_sampled(card, args.seed)
+    torch.cuda.empty_cache()
+    phase_ops_zoo(card)
+    torch.cuda.empty_cache()
     shapes_fwd, shapes_bwd = phase_kernel_shapes(card)
+    # each kernel's launches on the paths that run none of the six
+    later = [{"train_cnn": cnn["launches"][i], "train_rnn": rnn["launches"][i],
+              "train_gcn": gcn["launches"][i],
+              "gcn_sampled": sampled["launches"][i]} for i in range(6)]
 
     shape = [TRAIN_B, NH, TRAIN_S, HEAD_DIM]
     src = "hetu_tpu/ops/pallas_kernels/flash_attention.py"
@@ -5116,7 +5671,7 @@ def main(argv=None) -> int:
                               "server": server["launches"],
                               "llama_train": llama_train["launches"][0],
                               "bert_train": bert["launches"][0],
-                              "train_cnn": cnn["launches"][0]},
+                              **later[0]},
          # the serving path's largest prompt bucket, and S = 512
          "serve_s128": timings[(1, 128)], "serve_s512": timings[(1, 512)],
          # the Llama (head dim 128) and BERT (non-causal) paths' shapes
@@ -5132,7 +5687,7 @@ def main(argv=None) -> int:
            "launches_by_path": {"train": train["launches"][i],
                                 "llama_train": llama_train["launches"][i],
                                 "bert_train": bert["launches"][i],
-                                "train_cnn": cnn["launches"][i]},
+                                **later[i]},
            "by_shape": shapes_bwd[k]}
           for i, k, line in ((1, "dkdv", 198), (2, "dq", 239))),
         *({"name": name, "route": "cuda",
@@ -5146,7 +5701,7 @@ def main(argv=None) -> int:
                           for f in ("by_call", "by_route", "by_shape")
                           if f in moe_kernels[key]},
            **_paths_entry(key, moe["launches"][i], ctr, moe_gates,
-                          cnn["launches"][3 + i])}
+                          later[3 + i])}
           for name, key, i, src_file, line, per in (
               ("topk_gating", "topk", 0, "topk_gating.cu", 175,
                f"one call, logits [{MOE_T}, {MOE_E}] f32, k {MOE_K}"),

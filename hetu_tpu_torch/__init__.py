@@ -12,13 +12,14 @@ paths and names mirror the reference so each counterpart is found at once:
     htt.layers.*      # nn.Modules: Linear, Conv2d, LayerNorm, BatchNorm
                       # (running statistics as buffers), pools, DropOut,
                       # Sequential, MultiHeadAttention, TransformerBlock,
-                      # MoELayer and its five gates
+                      # MoELayer and its five gates, the RNN cells and RNN
     htt.models.*      # GPT, MoE transformer, Llama (lm_loss_fn for
                       # training), BERT (pretrain_loss_fn), the CTR models,
-                      # ResNet, VGG, LeNet, MLP (classifier_loss_fn)
+                      # ResNet, VGG, LeNet, MLP (classifier_loss_fn), GCN,
+                      # RNNClassifier
     htt.optim.*       # SGD ... AdamW, Lamb (dense and sparse paths)
     htt.lr.*          # step -> lr schedulers
-    htt.train.*       # Executor, TrainState, checkpoint
+    htt.train.*       # Executor, TrainState, checkpoint, gradients
     htt.interop       # hetu_tpu parameter / optimizer trees <-> state_dicts
     htt.serve.*       # ServeEngine, ContinuousBatchingScheduler, metrics,
                       # migrate (live KV-slot migration, its van wire),
@@ -27,7 +28,8 @@ paths and names mirror the reference so each counterpart is found at once:
                       # gradient wire's dtypes
     htt.telemetry.*   # span tracer + typed metrics registry
     htt.data.*        # CIFAR-10 and MNIST, the Dataloader, bucketed
-                      # padding of CTR batches
+                      # padding of CTR batches, the graph sampler over PS
+                      # tables
     htt.utils.metrics # AUC, accuracy, F1 on host arrays
     htt.ps.*          # the parameter server (C++, built with g++ on
                       # first use): the in-process tier, SSP, PReduce;

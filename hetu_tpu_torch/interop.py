@@ -18,14 +18,19 @@ each leaf — into a ``state_dict`` for the port's model of the same config
   packages, so no head key exists; Llama's untied ``lm_head [V, H]`` has
   its own key in both;
 * the CTR models (``WideDeep``, ``WideDeepDevice``, ``DeepFM``,
-  ``DeepCrossing``, ``DCN``) and a bare ``MoELayer`` (with any of the five
+  ``DeepCrossing``, ``DCN``), a bare ``MoELayer`` (with any of the five
   gates: ``{"gate": {...}, "experts": {w1, b1, w2, b2}}``, a hash gate's
-  subtree empty), which have no config: the port's model itself takes the
-  config's place.  Their ``state_dict`` names are the
-  reference's tree paths joined by dots (``deep.0.weight`` is
-  ``["deep"]["0"]["weight"]``); a ``Linear``'s weight is transposed, every
-  other leaf (the embedding table, the residual units' ``w1``/``w2``, the
-  cross net's ``w``) is copied as it is.  Parameterless children (the
+  subtree empty), the CNN family, the RNN cells, ``RNN`` and
+  ``RNNClassifier`` (``{"rnn": {w, b}, "head": {weight, bias}}``, as
+  ``examples/rnn_mnist.py`` builds it) and ``GCN`` (``{w1, w2}``), which
+  have no config: the port's model itself takes the config's place.
+  Their ``state_dict`` names are the reference's tree paths joined by dots
+  (``deep.0.weight`` is ``["deep"]["0"]["weight"]``), but for an ``RNN``,
+  whose parameters the reference holds at its own level and the port in
+  its ``cell`` (``rnn.cell.w`` is ``["rnn"]["w"]``); a ``Linear``'s weight
+  is transposed, every other leaf (the embedding table, the residual
+  units' ``w1``/``w2``, the cross net's ``w``, the cells' fused ``w``,
+  GCN's ``w1``/``w2``) is copied as it is.  Parameterless children (the
   towers' ``Relu``s) are empty dicts in the reference's tree.
 
 :func:`opt_state_from_jax` and :func:`opt_state_to_jax` do the same for an
@@ -48,11 +53,14 @@ import torch
 from hetu_tpu_torch.layers.base import Sequential, state_buffers
 from hetu_tpu_torch.layers.linear import Linear
 from hetu_tpu_torch.layers.moe import MoELayer
+from hetu_tpu_torch.layers.rnn import RNN, RNNCellBase
 from hetu_tpu_torch.models.bert import BertConfig
 from hetu_tpu_torch.models.ctr_zoo import DCN, DeepCrossing, DeepFM
+from hetu_tpu_torch.models.gcn import GCN
 from hetu_tpu_torch.models.llama import LlamaConfig
 from hetu_tpu_torch.models.moe_transformer import MoEConfig
 from hetu_tpu_torch.models.resnet import BasicBlock, ResNet
+from hetu_tpu_torch.models.rnn_classifier import RNNClassifier
 from hetu_tpu_torch.models.wdl import WideDeep, WideDeepDevice
 
 # (reference path under "blocks", port name under "blocks.<i>.", is a
@@ -152,7 +160,8 @@ def _moe_to_jax(arr, config) -> dict:
 # models without a config whose parameter and state names are the
 # reference's tree paths
 _TREE_MODELS = (WideDeep, WideDeepDevice, DeepFM, DeepCrossing, DCN,
-                MoELayer, ResNet, BasicBlock, Sequential)
+                MoELayer, ResNet, BasicBlock, Sequential, RNNCellBase, RNN,
+                RNNClassifier, GCN)
 
 
 def _tree_flips(model, name: str) -> bool:
@@ -166,16 +175,28 @@ def _param_names(model) -> list:
     return [name for name, _ in model.named_parameters()]
 
 
-def _at(tree, name: str):
-    """The node of a nested dict at dotted path ``name`` (the root at
-    ``""``)."""
+def _tree_path(model, name: str) -> list:
+    """The reference's tree path of the port's dotted ``name``: an
+    ``RNN``'s ``cell`` is no level of the reference's tree."""
+    path, node = [], model
     for key in name.split(".") if name else ():
+        skip = isinstance(node, RNN) and key == "cell"
+        node = getattr(node, key)
+        if not skip:
+            path.append(key)
+    return path
+
+
+def _at(tree, path):
+    """The node of a nested dict at ``path``, a list of keys."""
+    for key in path:
         tree = tree[key]
     return tree
 
 
 def _tree_from_jax(p, model, names) -> dict:
-    return {name: _tensor(_at(p, name), _tree_flips(model, name))
+    return {name: _tensor(_at(p, _tree_path(model, name)),
+                          _tree_flips(model, name))
             for name in names}
 
 
@@ -185,13 +206,12 @@ def _tree_to_jax(arr, model, names) -> dict:
     p: dict = {}
     for name, _ in model.named_modules():
         node = p
-        for key in name.split(".") if name else ():
+        for key in _tree_path(model, name):
             node = node.setdefault(key, {})
     for name in names:
-        *path, leaf = name.split(".")
+        *path, leaf = _tree_path(model, name)
         w = arr(name)
-        _at(p, ".".join(path))[leaf] = w.T if _tree_flips(model, name) \
-            else w
+        _at(p, path)[leaf] = w.T if _tree_flips(model, name) else w
     return p
 
 

@@ -13,6 +13,9 @@ from hetu_tpu_torch.layers.moe import (
     TopKGate,
 )
 from hetu_tpu_torch.layers.norm import BatchNorm, InstanceNorm2d, LayerNorm
+from hetu_tpu_torch.layers.rnn import (
+    RNN, GRUCell, LSTMCell, RNNCell, RNNCellBase,
+)
 from hetu_tpu_torch.layers.transformer import TransformerBlock
 
 __all__ = ["Module", "Sequential", "Lambda", "child_generator",
@@ -21,4 +24,5 @@ __all__ = ["Module", "Sequential", "Lambda", "child_generator",
            "AvgPool2d", "LayerNorm", "BatchNorm", "InstanceNorm2d",
            "MultiHeadAttention", "TransformerBlock", "TopKGate",
            "HashGate", "KTop1Gate", "BalanceAssignmentGate", "SAMGate",
-           "Expert", "MoELayer"]
+           "Expert", "MoELayer", "RNNCellBase", "RNNCell", "LSTMCell",
+           "GRUCell", "RNN"]

@@ -45,15 +45,16 @@ class BatchNorm(Module):
 
 
 class LayerNorm(Module):
-    """Parameters ``scale`` and ``bias`` (the reference's names), kept in
-    float32 even in a bf16 model: the statistics run in float32 and the
-    result is cast back to the input's type."""
+    """Parameters ``scale`` and ``bias`` (the reference's names) in
+    ``dtype``, float32 by default, also in a bf16 model: the statistics
+    run in float32 and the result is cast back to the input's type."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 dtype=torch.float32):
         super().__init__()
         self.eps = eps
-        self.scale = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.scale = nn.Parameter(torch.ones(num_features, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(num_features, dtype=dtype))
 
     def forward(self, x):
         return ops.layer_norm(x, self.scale, self.bias, eps=self.eps)

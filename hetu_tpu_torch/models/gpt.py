@@ -256,3 +256,9 @@ class GPTModel(Module):
                                       lengths)
         h = self.ln_f(h)
         return self._head(h[:, 0]), k_cache, v_cache
+
+
+def gpt2_small(*, generator: Optional[torch.Generator] = None,
+               device="cuda", **kw) -> GPTModel:
+    """GPT-2 small (``GPTConfig``'s defaults, ``kw`` overriding fields)."""
+    return GPTModel(GPTConfig(**kw), generator=generator, device=device)

@@ -2,7 +2,9 @@
 
 What the ported slices run: GPT serving and training, MoE training (the
 five gates), Llama serving and training, BERT pretraining, CTR training,
-and the CNN family's convolutions, pools and batch norm.
+the CNN family's convolutions, pools and batch norm, GCN's message
+passing, and the reference's elementwise, shape, reduce and matmul
+families under its names.
 Hand-written CUDA kernels live in :mod:`hetu_tpu_torch.ops.cuda_kernels`.
 """
 
@@ -17,6 +19,12 @@ from hetu_tpu_torch.ops.conv import (
     avg_pool2d, conv2d, conv2d_add_bias, max_pool2d,
 )
 from hetu_tpu_torch.ops.dropout import dropout
+from hetu_tpu_torch.ops.elementwise import (
+    abs_, add, add_const, bool_, ceil, clamp, const_div, const_minus,
+    const_pow, cos, div_const, divide, exp, floor, log, mask, masked_fill,
+    minus, minus_const, mul_const, multiply, opposite, pow_, power, rsqrt,
+    sign, sin, sqrt, where,
+)
 from hetu_tpu_torch.ops.embedding import (
     IndexedSlices, assign_with_indexed_slices, embedding_lookup,
     sparse_embedding_lookup, sum_sparse_gradient, take_grad_indexed,
@@ -26,7 +34,10 @@ from hetu_tpu_torch.ops.losses import (
     cross_entropy_sparse, lm_head_cross_entropy, nll_loss,
     softmax_cross_entropy, softmax_cross_entropy_sparse,
 )
-from hetu_tpu_torch.ops.matmul import linear
+from hetu_tpu_torch.ops.graph_ops import coo_spmm, gcn_conv, gcn_norm
+from hetu_tpu_torch.ops.matmul import (
+    addmm, baddbmm, batch_matmul, linear, matmul, matrix_dot,
+)
 from hetu_tpu_torch.ops.moe_ops import (
     balance_assignment, balance_log_plan, gather_combine, gather_dispatch,
     layout_transform, make_dispatch_combine, make_slot_routes,
@@ -35,8 +46,19 @@ from hetu_tpu_torch.ops.moe_ops import (
 from hetu_tpu_torch.ops.norm import (
     batch_norm, instance_norm2d, layer_norm, rms_norm,
 )
-from hetu_tpu_torch.ops.reduce import sam_group_sum, sam_max
+from hetu_tpu_torch.ops.reduce import (
+    argmax, argsort, max_, min_, norm, reduce_max, reduce_mean, reduce_min,
+    reduce_mul, reduce_norm1, reduce_norm2, reduce_sum, reduce_sum_axis_zero,
+    sam_group_sum, sam_max, topk, topk_idx, topk_val, unique,
+)
 from hetu_tpu_torch.ops.rope import apply_rope, apply_rope_at, rope_tables
+from hetu_tpu_torch.ops.shape import (
+    arange, broadcast_shape, broadcast_to, concat, concatenate, cumsum, flip,
+    full, full_like, gather, gather_elements, indexing, interpolate,
+    one_hot, ones_like, pad, repeat, reshape, roll, scatter, scatter1d,
+    slice_, slice_assign, slice_by_matrix, split, tile, transpose, tril,
+    tril_lookup, triu, zeros_like,
+)
 
 __all__ = [
     "gelu", "relu", "silu", "leaky_relu", "sigmoid", "tanh", "softmax",
@@ -56,4 +78,25 @@ __all__ = [
     "make_slot_routing",
     "reverse_layout_transform", "top_k_idx_gate", "balance_assignment",
     "balance_log_plan", "sam_group_sum", "sam_max",
+    # elementwise
+    "abs_", "add", "add_const", "minus", "minus_const", "const_minus",
+    "multiply", "mul_const", "divide", "div_const", "const_div", "opposite",
+    "exp", "log", "pow_", "const_pow", "power", "sqrt", "rsqrt", "sin",
+    "cos", "floor", "ceil", "clamp", "sign", "bool_", "where",
+    "masked_fill", "mask",
+    # matmul
+    "matmul", "batch_matmul", "addmm", "baddbmm", "matrix_dot",
+    # shape
+    "reshape", "transpose", "concat", "concatenate", "split", "slice_",
+    "slice_assign", "slice_by_matrix", "pad", "tile", "repeat", "roll",
+    "broadcast_shape", "broadcast_to", "gather", "gather_elements",
+    "scatter", "scatter1d", "indexing", "one_hot", "arange", "full",
+    "full_like", "ones_like", "zeros_like", "cumsum", "interpolate", "flip",
+    "tril_lookup", "triu", "tril",
+    # reduce
+    "reduce_sum", "reduce_mean", "reduce_min", "reduce_max", "reduce_mul",
+    "reduce_norm1", "reduce_norm2", "reduce_sum_axis_zero", "norm", "max_",
+    "min_", "argmax", "argsort", "topk_idx", "topk_val", "topk", "unique",
+    # graph
+    "coo_spmm", "gcn_norm", "gcn_conv",
 ]

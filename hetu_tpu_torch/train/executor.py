@@ -39,6 +39,13 @@ from hetu_tpu_torch.optim.optimizer import Optimizer
 from hetu_tpu_torch.telemetry import trace
 
 _SUBEXECUTORS = ("train", "train_guarded", "validate")
+
+
+def gradients(loss_fn: Callable, argnums=0, has_aux: bool = False):
+    """The reference's ``gradients``: reverse-mode autodiff of a scalar
+    loss, ``torch.func.grad`` (the same ``argnums`` and ``has_aux``)."""
+    return torch.func.grad(loss_fn, argnums=argnums, has_aux=has_aux)
+
 _STEP_SPAN = {name: "train.step." + name for name in _SUBEXECUTORS}
 
 
@@ -90,8 +97,14 @@ class Executor:
                 "Executor trains on one device")
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self.grad_scale = 1.0
         if seed is not None:
             hrng.set_random_seed(seed)
+
+    def set_grad_scale(self, scale: float) -> None:
+        """Multiply every gradient by ``scale`` before the optimizer
+        update, from the next step on (1.0: no product)."""
+        self.grad_scale = float(scale)
 
     def init_state(self, model: nn.Module) -> TrainState:
         """The state over ``model``'s own parameters and state buffers
@@ -164,6 +177,8 @@ class Executor:
         grads = dict(zip(params, torch.autograd.grad(
             loss, list(params.values()), allow_unused=True,
             materialize_grads=True)))
+        if self.grad_scale != 1.0:
+            grads = {n: g * self.grad_scale for n, g in grads.items()}
         params, opt_state = self.optimizer.update(grads, state.opt_state,
                                                   params)
         metrics = dict(metrics)

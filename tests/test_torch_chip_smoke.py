@@ -584,20 +584,38 @@ def test_gates_flops():
         3 * (t * (2 * d * e + d + head) + 2 * e * d + 100 * 4 * d * f)
 
 
+LATER = {"train_cnn": 0, "train_rnn": 0, "train_gcn": 0, "gcn_sampled": 0}
+
+
 def test_kernels_line_counts_the_gates_path():
     """rows 4 and 5 gain "train_moe_gates" (the four gates' steps summed);
-    the top-k gate's entry reads 0 there.  Rows 4 to 6 carry the CNN
-    path's count too ("train_cnn")."""
+    the top-k gate's entry reads 0 there.  Rows 4 to 6 carry the counts of
+    the paths that launch none of the six too ("train_cnn", "train_rnn",
+    "train_gcn", "gcn_sampled")."""
     gates = {k: {"launches": [0, 20, 20]} for k in chip_smoke.GATES}
     ctr = {"launches": [10, 10], "gather": {}, "scatter": {"uniform": {}}}
     for key, i in (("gather", 1), ("scatter", 2)):
-        entry = chip_smoke._paths_entry(key, 80, ctr, gates, 0)
+        entry = chip_smoke._paths_entry(key, 80, ctr, gates, LATER)
         assert entry["launches_by_path"] == {
-            "train_moe": 80, "train_moe_gates": 80, "ctr": 10,
-            "train_cnn": 0}
-    assert chip_smoke._paths_entry("topk", 40, ctr, gates, 0)[
+            "train_moe": 80, "train_moe_gates": 80, "ctr": 10, **LATER}
+    assert chip_smoke._paths_entry("topk", 40, ctr, gates, LATER)[
         "launches_by_path"] == {"train_moe": 40, "train_moe_gates": 0,
-                                "train_cnn": 0}
+                                **LATER}
+
+
+def test_kernels_line_names_the_new_paths_for_every_kernel():
+    """main() builds each of the six entries' ``launches_by_path`` with
+    the four later paths, read from each phase's own counts."""
+    src = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    main = src[src.index("def main("):]
+    for key in LATER:
+        assert f'"{key}": ' in main, key
+    assert main.count("**later[0]") == 1 and main.count("**later[i]") == 1
+    assert main.count("later[3 + i]") == 1
+    order = [main.index(f"phase_{p}(card") for p in (
+        "train_cnn", "train_rnn", "train_gcn", "gcn_sampled", "ops_zoo",
+        "kernel_shapes")]
+    assert order == sorted(order)
 
 
 def test_ctr_batches_are_drawn_as_bench_ctr_and_the_example_draw_them():
@@ -944,3 +962,96 @@ def test_train_cnn_phase_runs_on_the_cpu(monkeypatch, capsys):
     assert out["grad_gap"] <= chip_smoke.TOL_CNN_GRAD
     for name in ("vgg16", "lenet", "mlp"):
         assert out["zoo"][name]["losses"][-1] < out["zoo"][name]["losses"][0]
+
+
+# ---- the RNN, GCN and op-zoo phases, rehearsed on the CPU ----
+
+# the RNN phase at hidden 32, B 16 on a 32-sample subset, 12 steps a cell
+TINY_RNN = dict(RNN_B=16, RNN_STEPS=12, RNN_SUBSET=32, RNN_HIDDEN=32)
+# the graph at 3000 nodes and 20 000 drawn edges (128 features, 40
+# classes, as on the card), hidden 32; sampling at 32 seeds a batch
+TINY_GCN = dict(GCN_N=3000, GCN_EDGES=20_000, GCN_HIDDEN=32, GCN_STEPS=6,
+                SAGE_SEEDS=32, SAGE_PAD_NODES=32 * 276 + 1,
+                SAGE_PAD_EDGES=32 * 275)
+
+
+def test_train_rnn_phase_runs_on_the_cpu(monkeypatch, capsys):
+    for name, value in TINY_RNN.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    out = chip_smoke.phase_train_rnn("cpu", 0, device="cpu")
+    assert out["launches"] == [0] * 6
+    assert out["cells"].keys() == set(chip_smoke.RNN_CELLS)
+    for cell in out["cells"].values():
+        assert cell["losses"][-1] < cell["losses"][0]
+        assert cell["grad_gap"] <= chip_smoke.TOL_RNN_GRAD
+        assert cell["loss_gap"] <= chip_smoke.TOL_RNN_LOSS
+    assert "[train_rnn] lstm: step median" in capsys.readouterr().out
+
+
+def test_train_gcn_and_sampled_phases_run_on_the_cpu(monkeypatch, capsys):
+    for name, value in TINY_GCN.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    out = chip_smoke.phase_train_gcn("cpu", 0, device="cpu")
+    assert out["launches"] == [0] * 6
+    assert out["losses"][-1] < out["losses"][0]
+    assert out["grad_gap"] <= chip_smoke.TOL_GCN_GRAD
+    text = capsys.readouterr().out
+    assert "exact integers: True" in text and "ReLU pattern" in text
+    out = chip_smoke.phase_gcn_sampled("cpu", 0, device="cpu")
+    assert out["launches"] == [0] * 6
+    assert len(out["batches"]) == chip_smoke.SAGE_BATCHES
+    for b in out["batches"]:
+        assert b["nodes"] < chip_smoke.SAGE_PAD_NODES
+        assert b["edges"] <= chip_smoke.SAGE_PAD_EDGES
+    assert np.mean(out["losses"][-3:]) < np.mean(out["losses"][:3])
+
+
+def test_graph_is_arxivs_sizes_and_the_pads_hold_any_batch():
+    """The card's graph: ogbn-arxiv's nodes, features and classes, its
+    edges both ways; the pads are a full sample's counts (one padding
+    node more)."""
+    assert (chip_smoke.GCN_N, chip_smoke.GCN_F, chip_smoke.GCN_CLASSES,
+            chip_smoke.GCN_EDGES) == (169_343, 128, 40, 1_166_243)
+    assert (chip_smoke.SAGE_PAD_NODES, chip_smoke.SAGE_PAD_EDGES) == (
+        141_313, 140_800)
+    x, labels, src, dst, mask = chip_smoke._graph(0, 500, 16, 5, 3000, 0.9,
+                                                  2.0, 0.54)
+    assert x.shape == (500, 16) and src.size == dst.size == 6000
+    np.testing.assert_array_equal(src[3000:], dst[:3000])
+    intra = labels[src[:3000]] == labels[dst[:3000]]
+    assert 0.85 < intra.mean() < 0.95 and 0.45 < mask.mean() < 0.65
+
+
+def test_sampled_edge_gates_refuse_a_fake_edge_and_a_wide_fan_in():
+    from hetu_tpu_torch.data.graph_sampler import SampledBatch
+    src, dst, n = np.array([0, 1, 2]), np.array([1, 2, 0]), 3
+    keys = chip_smoke.edge_keys(src, dst, n)
+
+    def batch(es, ed):
+        return SampledBatch(np.array([1, 0, 2]), np.array(es),
+                            np.array(ed), np.zeros((3, 1), np.float32),
+                            np.zeros(3, np.int64),
+                            np.array([1, 0, 0], np.float32))
+    fake = batch([1], [0])  # node 1 pulled node 0: (1, 0) is no edge
+    assert not chip_smoke.sampled_edges_real(fake, keys, n)
+    real = batch([2], [0])  # node 1 pulled node 2: (1, 2) is an edge
+    assert chip_smoke.sampled_edges_real(real, keys, n)
+    assert chip_smoke.fan_in_bounded(real, (1, 1))
+    wide = batch([1, 2], [2, 2])  # a non-seed with 2 in-edges
+    assert not chip_smoke.fan_in_bounded(wide, (5, 1))
+    assert chip_smoke.fan_in_bounded(wide, (5, 2))
+
+
+def test_ops_zoo_phase_runs_on_the_cpu(capsys):
+    """On the CPU the phase compares each op with itself: it runs every
+    case through the port, and an id out of range raises."""
+    out = chip_smoke.phase_ops_zoo("cpu", device="cpu")
+    assert out["cases"] > 90 and out["worst"][1] == 0.0
+    names = {c[0] for c in chip_smoke._zoo_cases(np.random.default_rng(0))}
+    from hetu_tpu_torch import ops
+    families = ("elementwise", "shape", "matmul", "reduce")
+    ported = {n for f in families for n in dir(getattr(ops, f))
+              if not n.startswith("_") and callable(getattr(
+                  getattr(ops, f), n)) and n in ops.__all__}
+    assert ported - {"sam_group_sum", "sam_max"} <= names, \
+        ported - names

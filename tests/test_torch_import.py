@@ -10,7 +10,8 @@ training slices (two
 AdamW steps of the Executor and a checkpoint round trip each), GQA Llama
 serving and a BERT pretraining step, the four other MoE gates and the
 remote PS tiers (a partitioned table, the remote HET cache, ``PSEmbedding``
-over them); ``jax`` and ``hetu_tpu`` must
+over them), the CNN family, and an LSTM classifier, a GCN on a sampled
+batch and the op zoo; ``jax`` and ``hetu_tpu`` must
 stay out of ``sys.modules``.  An AST scan of every module of the package,
 and of ``chip_smoke.py``, finds no import of either.
 """
@@ -343,6 +344,53 @@ def test_cnn_training_slice_runs_without_jax(tmp_path):
     assert "LEAKED []" in out
 
 
+def test_rnn_gcn_and_op_zoo_run_without_jax():
+    """An LSTM classifier's Executor step, a GCN step on a batch sampled
+    from in-process PS tables, and ops of the four families, in a process
+    where ``jax`` and ``hetu_tpu`` cannot be imported at all."""
+    out = _run(
+        "import sys\n"
+        "sys.modules.update(jax=None, jaxlib=None, hetu_tpu=None)\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from hetu_tpu_torch import ops\n"
+        "from hetu_tpu_torch.data.graph_sampler import (\n"
+        "    DistGraph, NeighborSampler)\n"
+        "from hetu_tpu_torch.models import GCN, RNNClassifier\n"
+        "from hetu_tpu_torch.optim import AdamOptimizer\n"
+        "from hetu_tpu_torch.ps import PSTable\n"
+        "from hetu_tpu_torch.train import Executor\n"
+        "g = np.random.default_rng(0)\n"
+        "m = RNNClassifier('lstm', 8, device='cpu')\n"
+        "ex = Executor(m.loss_fn(), AdamOptimizer(1e-3), seed=0)\n"
+        "st, met = ex.run('train', ex.init_state(m),\n"
+        "                 (g.random((4, 784), np.float32),\n"
+        "                  g.integers(0, 10, 4)))\n"
+        "src, dst = g.integers(0, 30, 120), g.integers(0, 30, 120)\n"
+        "graph = DistGraph.publish(\n"
+        "    src, dst, g.standard_normal((30, 6)), g.integers(0, 3, 30),\n"
+        "    max_degree=4, table_factory=lambda r, d, t: PSTable(\n"
+        "        r, d, init='zeros'))\n"
+        "b = NeighborSampler(graph).sample([0, 1], (3, 2)).pad_to(31, 40)\n"
+        "es, ed, ew = ops.gcn_norm(torch.tensor(b.edge_src),\n"
+        "                          torch.tensor(b.edge_dst), 31)\n"
+        "gcn = GCN(6, 8, 3, device='cpu')\n"
+        "ex = Executor(gcn.loss_fn(es, ed, ew), AdamOptimizer(0.01))\n"
+        "st, met2 = ex.run('train', ex.init_state(gcn),\n"
+        "                  (b.features, b.labels, b.seed_mask))\n"
+        "x = torch.tensor(g.standard_normal((3, 4)), dtype=torch.float32)\n"
+        "v, i = ops.topk(ops.add(x, 1.0), 2)\n"
+        "u, inv = ops.unique(ops.argsort(x), 5)\n"
+        "y = ops.interpolate(x[None, None], size=(6, 2))\n"
+        "assert y.shape == (1, 1, 6, 2) and ops.matmul(x, x.t()).shape \\\n"
+        "    == (3, 3)\n"
+        "assert np.isfinite(float(met['loss']) + float(met2['loss']))\n"
+        "mods = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
+        "              and m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
@@ -375,4 +423,7 @@ def test_scan_sees_the_whole_package():
             "ps/van.py", "serve/server.py", "serve/migrate.py",
             "ops/reduce.py", "ps/embedding.py", "ps/client.py",
             "ops/conv.py", "models/resnet.py", "models/cnn_zoo.py",
-            "models/mlp.py", "data/datasets.py", "data/dataloader.py"} <= names
+            "models/mlp.py", "data/datasets.py", "data/dataloader.py",
+            "layers/rnn.py", "ops/graph_ops.py", "models/gcn.py",
+            "models/rnn_classifier.py", "data/graph_sampler.py",
+            "ops/elementwise.py", "ops/shape.py"} <= names
