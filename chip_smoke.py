@@ -184,6 +184,23 @@ without the final result line:
 15f. ops_zoo — every op of the elementwise, shape, reduce and matmul
    families on the card against the CPU (index and shape ops exactly,
    arithmetic within 1e-6 of max|y|; ties for top-k, argsort, unique).
+15g. train_compressed — examples/rec_compressed.py's loop (the
+   EmbeddingMemoryCompression tool's run_compressed) at train_ctr's
+   Criteo-Kaggle table: V 33 000 000, D 16, 26 fields, the example's head
+   (one hidden layer of 32), Adam(5e-3), B 2048, 10 steps over 4
+   Zipf-skewed batches, for the full table and each of the 16 trainable
+   methods of the compression zoo (DPQ and MGQE cut to 2^22 rows: their
+   [V, 4, 64] logits with gradient and Adam take 4 KiB a row); finite,
+   falling loss, step time (host clock and CUDA events), samples/s, peak
+   memory and parameter bytes against the full table's (the eight
+   storage-compressing methods below it); the int8 serving form of the
+   trained full table bitwise on the card and the CPU, DPQ's serving
+   lookups against its hard path, the pruned table's ELL lookups bitwise,
+   a DeepLight schedule (prune rate, then int8), PEP's retrain under its
+   frozen mask, AutoDim's bi-level trainer and OptEmbed's flow; one pass
+   of each method at V 2^20 in f32 against float64 through f32's discrete
+   choices (codes, rounding, masks, ReLUs).  No kernel of the six
+   launches.
 16. kernel_shapes — the three flash kernels at the new paths' shapes:
    (1, 32, S, 128) causal for S = 128, 512 and 1024 (the forward), (4, 32,
    4096, 128) causal and (16, 12, 512, 64) non-causal (forward and
@@ -194,8 +211,8 @@ The last three lines of standard output are the card's name and power
 limit (as nvidia-smi gives them), the kernel report
 ``{"kernels": [...]}`` (all six kernels: the three flash kernels, the top-k
 gate, the gather and the scatter-add, the last two with their CTR
-launches and times; each with its launches by path, 0 on the CNN, RNN and
-GCN paths) and ``{"ok": true, "device": {...}}``.
+launches and times; each with its launches by path, 0 on the CNN, RNN,
+GCN and compression paths) and ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -464,6 +481,27 @@ SAGE_PAD_EDGES = SAGE_SEEDS * (25 + 250)
 # ops that round nothing) exactly, arithmetic within this share of the
 # output's largest magnitude
 TOL_ZOO = 1e-6
+# train_compressed: examples/rec_compressed.py's train_one (the VLDB'24
+# tool's run_compressed loop) at train_ctr's Criteo-Kaggle table, uncut:
+# V CTR_V (33 000 000), D CTR_DIM (16), F CTR_F (26), B CTR_B (2048); the
+# example's head mlp_tower(26 * 16, (32,), out_dim=1), Adam(5e-3), mean BCE
+# with logits, 10 steps cycling over 4 batches of Zipf-skewed ids (a 1.2)
+# labelled by the example's rule.  Every method of
+# tests/test_embedding_compress.py's ALL_METHODS, with the example's
+# constructor arguments where it has them (hash and robe 0.1, prune rate
+# 0.7, dedup 0.2), else the module's defaults, and the "full" table.  Cut:
+# DPQ and MGQE to 2^22 rows, their logits [V, 4, 64] f32 taking 1 KiB a
+# row and 4 KiB with the gradient and Adam's moments (135 GB at 33M rows,
+# 17.2 GB at 2^22).  One pass of each method at V 2^20 in f32 against
+# float64 (train_rnn's limits), the discrete choices replayed
+CMP_METHODS = ("full", "hash", "compo", "dpq", "mgqe", "tt", "dhe", "robe",
+               "alpt", "prune", "pep", "optembed", "autosrh", "mde",
+               "autodim", "dedup", "adapt")
+CMP_STORAGE = ("hash", "compo", "tt", "dhe", "robe", "mde", "dedup",
+               "adapt")  # test_methods_compress_storage's eight
+CMP_CUT, CMP_V_CUT, CMP_F64_V = ("dpq", "mgqe"), 1 << 22, 1 << 20
+CMP_STEPS, CMP_BATCHES, CMP_LR, CMP_HIDDEN = 10, 4, 5e-3, 32
+CMP_RETRAIN_STEPS, CMP_FLOW_STEPS, CMP_GENERATIONS = 3, 3, 2
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_BF16_FLOP_S = 989e12    # dense bf16 tensor cores, H100 SXM data sheet
@@ -4830,6 +4868,465 @@ def phase_ops_zoo(card, device="cuda"):
     return dict(cases=len(cases), exact=n_exact, worst=worst)
 
 
+# ----------------------------------------------------- embedding compression
+
+def compress_table(method, vocab, dim, generator):
+    """examples/rec_compressed.py's ``make_table`` in the port, with the
+    example's constructor arguments where it has them, the module's
+    defaults for the other methods of ALL_METHODS; ``"full"`` is the
+    dense ``Embedding`` (``impl="xla"``: no kernel)."""
+    from hetu_tpu_torch import embedding_compress as ec
+    from hetu_tpu_torch.layers import Embedding
+    kw = dict(generator=generator)
+    tables = {
+        "full": lambda: Embedding(vocab, dim, **kw),
+        "hash": lambda: ec.HashEmbedding(vocab, dim, 0.1, **kw),
+        "compo": lambda: ec.CompositionalEmbedding(vocab, dim, **kw),
+        "dpq": lambda: ec.DPQEmbedding(vocab, dim, **kw),
+        "mgqe": lambda: ec.MGQEEmbedding(vocab, dim, **kw),
+        "tt": lambda: ec.TensorTrainEmbedding(vocab, dim, **kw),
+        "dhe": lambda: ec.DHEEmbedding(vocab, dim, **kw),
+        "robe": lambda: ec.ROBEEmbedding(vocab, dim, 0.1, **kw),
+        "alpt": lambda: ec.ALPTEmbedding(vocab, dim, **kw),
+        "prune": lambda: ec.PrunedEmbedding(vocab, dim, rate=0.7, **kw),
+        "pep": lambda: ec.PEPEmbedding(vocab, dim, **kw),
+        "optembed": lambda: ec.OptEmbedEmbedding(vocab, dim, **kw),
+        "autosrh": lambda: ec.AutoSRHEmbedding(vocab, dim, **kw),
+        "mde": lambda: ec.MixedDimEmbedding(vocab, dim, **kw),
+        "autodim": lambda: ec.AutoDimEmbedding(vocab, dim, **kw),
+        "dedup": lambda: ec.DedupEmbedding(vocab, dim, 0.2, **kw),
+        "adapt": lambda: ec.AdaptiveEmbedding(vocab, dim, **kw),
+    }
+    return tables[method]()
+
+
+def compressed_model(method, vocab, dim, fields, generator):
+    """The example's model: the table (drawn first) and its head,
+    ``mlp_tower(fields * dim, (32,), out_dim=1)``."""
+    from hetu_tpu_torch.models.ctr_common import mlp_tower
+    return torch.nn.ModuleDict({
+        "emb": compress_table(method, vocab, dim, generator),
+        "head": mlp_tower(fields * dim, (CMP_HIDDEN,), out_dim=1,
+                          generator=generator)})
+
+
+def compressed_loss(model, ids, y):
+    """The example's loss, mean BCE with logits of the head over the
+    flattened rows; returns the loss and the rows."""
+    from hetu_tpu_torch import ops
+    rows = model["emb"](ids)
+    logit = model["head"](rows.reshape(rows.shape[0], -1))
+    return ops.binary_cross_entropy_with_logits(logit[:, 0], y).mean(), rows
+
+
+def compressed_step_fn(model, optimizer):
+    """The example's train step over every parameter of ``model``, in
+    place: ``step(ids, labels) -> loss``; its optimizer state is
+    ``step.opt_state``."""
+    params = dict(model.named_parameters())
+    state = optimizer.init_state(params)
+
+    def step(ids, y):
+        loss, _ = compressed_loss(model, ids, y)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        state.update(optimizer.update(dict(zip(params, grads)), state,
+                                      params)[1])
+        return loss.detach()
+
+    step.opt_state = state
+    return step
+
+
+def compressed_batches(g, vocab, n=None, b=None, fields=None):
+    """``n`` batches of ``(ids [b, fields] int32, labels [b] f32)``: Zipf
+    ids (``zipf_ids``) labelled by examples/rec_compressed.py's rule,
+    ``(ids % 5 - 2) @ w * 0.3 + noise > 0`` with ``w`` one draw for all."""
+    n, b, fields = n or CMP_BATCHES, b or CTR_B, fields or CTR_F
+    w = g.standard_normal(fields)
+    out = []
+    for _ in range(n):
+        ids = zipf_ids(g, (b, fields), vocab)
+        logit = (ids % 5 - 2) @ w * 0.3
+        out.append((ids, (logit + g.standard_normal(b) > 0).astype(
+            np.float32)))
+    return out
+
+
+@contextlib.contextmanager
+def _choice_pattern(records, flips=None):
+    """Route each discrete choice of the compression layers (their
+    ``DISCRETE_CHOICES``: codes, rounding, binary steps, pruning masks)
+    through a kept pattern, as :func:`_relu_pattern` does for the ReLU:
+    with ``flips`` None each call appends its choice to ``records[name]``;
+    otherwise each call takes the next recorded choice and adds to
+    ``flips[0]`` the elements where its own choice differs."""
+    from hetu_tpu_torch.embedding_compress import layers
+    saved = {n: getattr(layers, n) for n in layers.DISCRETE_CHOICES}
+    replay = {n: iter(records.get(n, ())) for n in saved}
+
+    def wrap(name, fn):
+        def choice(*args):
+            own = fn(*args)
+            if flips is None:
+                records.setdefault(name, []).append(own.detach())
+                return own
+            kept = next(replay[name])
+            flips[0] += int((kept != own).sum())
+            return kept.to(own.dtype)
+        return choice
+    for n, fn in saved.items():
+        setattr(layers, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(layers, n, fn)
+
+
+def _compressed_pass(model, ids, y):
+    """Loss, every parameter's gradient, and ``sum |dL/dy · y|`` over the
+    rows ``y`` (the size of the terms that cancel in a gradient that is
+    zero in exact arithmetic, ALPT's ``log_scale``)."""
+    params = dict(model.named_parameters())
+    loss, rows = compressed_loss(model, ids, y)
+    *grads, g_rows = torch.autograd.grad(loss, [*params.values(), rows])
+    return loss.detach(), dict(zip(params, grads)), \
+        float((g_rows * rows.detach()).abs().sum())
+
+
+def compressed_f32_vs_f64(name, model, ids, y, replay=True):
+    """One pass of ``model`` in f32 and in float64 on the same batch, the
+    float64 pass (with ``replay``) through the f32 pass's discrete choices
+    and head ReLUs: the loss's relative gap and each gradient's max gap
+    over its max |G| (ALPT's ``log_scale``: over ``sum |dL/dy · y|``),
+    held to train_rnn's limits; returns the gaps and the flips."""
+    records, masks, flips = {}, [], [0]
+    with _choice_pattern(records), _relu_pattern(masks):
+        loss32, g32, _ = _compressed_pass(model, ids, y)
+    m64 = _as_f64(model)
+    with (_choice_pattern(records, flips) if replay
+          else contextlib.nullcontext()), \
+            (_relu_pattern(masks, flips) if replay
+             else contextlib.nullcontext()):
+        loss64, g64, terms = _compressed_pass(m64, ids, y.double())
+    n_choices = sum(t.numel() for r in records.values() for t in r) \
+        + sum(m.numel() for m in masks)
+    del m64, records, masks
+    loss_gap = abs(float(loss32) - float(loss64)) / abs(float(loss64))
+    gaps = {}
+    for n, r in g64.items():
+        scale = terms if (name == "alpt" and n == "emb.log_scale") \
+            else float(r.abs().max())
+        gap = float((g32[n].double() - r).abs().max())
+        gaps[n] = gap / scale if scale else (0.0 if gap == 0 else np.inf)
+    worst = max(gaps.items(), key=lambda kv: kv[1])
+    print(f"[train_compressed] {name}: f32 vs float64 at V {CMP_F64_V}, "
+          f"float64 {'through' if replay else 'without'} f32's "
+          f"{n_choices} discrete choices and ReLUs ({flips[0]} flip in "
+          f"float64): loss gap {loss_gap:.3e} (tol {TOL_RNN_LOSS:g}), "
+          f"gradients of {len(gaps)} parameters max|dG| / max|G| <= "
+          f"{worst[1]:.3e} ({worst[0]}, tol {TOL_RNN_GRAD:g})")
+    check(loss_gap <= TOL_RNN_LOSS, f"{name}: the f32 loss disagrees with "
+                                    f"float64")
+    check(worst[1] <= TOL_RNN_GRAD,
+          f"{name}: the f32 gradient of {worst[0]} disagrees with float64")
+    return dict(loss_gap=loss_gap, grad_gap=worst[1], flips=flips[0],
+                choices=n_choices)
+
+
+def _serve_full(ctx, model):
+    """The trained full table in int8 form: ``from_table``'s q and scale
+    and ``quantize_embedding_lookup`` bitwise on the card and the CPU."""
+    from hetu_tpu_torch import embedding_compress as ec
+    from hetu_tpu_torch import ops
+    table = model["emb"].weight.detach()
+    ids = ctx["batches"][0][0]
+    q, scale = ec.QuantizedEmbedding.from_table(table)
+    rows = ops.quantize_embedding_lookup(q, scale, ids)
+    cq, cscale = ec.QuantizedEmbedding.from_table(table.cpu())
+    crows = ops.quantize_embedding_lookup(cq, cscale, ids.cpu())
+    same = [torch.equal(_bits(a.cpu()), _bits(b))
+            for a, b in ((q, cq), (scale, cscale), (rows, crows))]
+    nbytes = q.numel() + scale.numel() * 4
+    print(f"[train_compressed] full -> QuantizedEmbedding.from_table: "
+          f"{nbytes / 1e9:.3f} GB against {table.numel() * 4 / 1e9:.3f} "
+          f"GB; q, scale and quantize_embedding_lookup of a batch bitwise "
+          f"on {ctx['device']} and the CPU: {same}")
+    check(all(same), "from_table or quantize_embedding_lookup differs "
+                     "from the CPU's")
+    return dict(int8_bytes=nbytes, bitwise=all(same))
+
+
+def _serve_dpq(ctx, model):
+    """DPQ's serving form: its lookups within the reference test's limits
+    of the hard path."""
+    emb, ids = model["emb"], ctx["batches"][0][0]
+    serving = emb.to_serving()
+    with torch.no_grad():
+        got, hard = emb.serving_lookup(serving, ids), emb(ids)
+    ok = bool(torch.allclose(got, hard, rtol=1e-5, atol=1e-6))
+    gap = float((got - hard).abs().max())
+    nbytes = sum(t.numel() * t.element_size() for t in serving.values())
+    print(f"[train_compressed] dpq -> to_serving: codes {tuple(serving['codes'].shape)} "
+          f"{serving['codes'].dtype} + codebooks, {nbytes / 1e6:.3f} MB "
+          f"against logits {emb.logits.numel() * 4 / 1e9:.3f} GB; "
+          f"serving_lookup vs the hard path max gap {gap:.3e} (rtol 1e-5, "
+          f"atol 1e-6): {ok}")
+    check(ok, "DPQ's serving lookup disagrees with its hard path")
+    return dict(serving_bytes=nbytes, gap=gap)
+
+
+def _serve_prune(ctx, model):
+    """The pruned table (the module's forward over every id) in ELL form,
+    its lookups bitwise the pruned rows; then a DeepLight schedule on the
+    module: warmup, prune at 0.9 (``prune_rate_setter``), int8 serving
+    (``switch_to_quantized``)."""
+    from hetu_tpu_torch import embedding_compress as ec
+    from hetu_tpu_torch.embedding_compress.scheduler import (
+        Stage, prune_rate_setter, switch_to_quantized,
+    )
+    from hetu_tpu_torch.optim import AdamOptimizer
+    emb, ids = model["emb"], ctx["batches"][0][0]
+    with torch.no_grad():
+        table = emb(torch.arange(emb.n, device=ctx["device"]))
+    nnz = (table != 0).sum(1)
+    max_nnz = int(nnz.max())
+    sparse = ec.SparseEmbedding.from_dense(table, max_nnz)
+    same = torch.equal(_bits(sparse(ids)), _bits(table[ids.long()]))
+    ell = sparse.values.numel() * 8
+    print(f"[train_compressed] prune (rate {float(emb.rate):g}) -> "
+          f"SparseEmbedding.from_dense: max_nnz {max_nnz}, density "
+          f"{float(nnz.double().mean()) / emb.dim:.4f}, ELL "
+          f"{ell / 1e9:.3f} GB against {table.numel() * 4 / 1e9:.3f} GB; "
+          f"lookups bitwise the pruned rows: {same}")
+    check(same, "the ELL lookups differ from the pruned dense rows")
+    del table, nnz, sparse
+    sched = ec.CompressionScheduler([
+        Stage("warmup", 2), Stage("prune", 4, on_enter=prune_rate_setter(0.9)),
+        Stage("serve", 6, on_enter=switch_to_quantized(emb))])
+    step = compressed_step_fn(model, AdamOptimizer(CMP_LR))
+    losses, stages = [], []
+    for s in range(6):
+        model["emb"] = sched.maybe_transition(s, model["emb"])
+        stages.append(sched.current.name)
+        ids, y = ctx["batches"][s % CMP_BATCHES]
+        if sched.current.name != "serve":
+            losses.append(float(step(ids, y)))
+            continue
+        with torch.no_grad():
+            losses.append(float(compressed_loss(model, ids, y)[0]))
+    q = model["emb"]
+    check(isinstance(q, ec.QuantizedEmbedding) and float(emb.rate) == float(
+        np.float32(0.9)), "the DeepLight schedule did not prune and switch")
+    err = float(((q(ids) - emb.w.detach()[ids.long()]).abs()
+                 / q.scale[ids.long()][..., None]).max())
+    print(f"[train_compressed] DeepLight schedule {stages}: losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; int8 rows within "
+          f"{err:.4f} of a step of the dense rows (<= 0.5)")
+    check(all(np.isfinite(losses)) and err <= 0.5 + 1e-6,
+          "the switched int8 rows are not the dense rows rounded")
+    return dict(max_nnz=max_nnz, ell_bytes=ell, schedule_losses=losses)
+
+
+def _retrain_pep(ctx, model):
+    """``pep_to_retrain`` -> MaskedEmbedding, a few steps of a fresh Adam:
+    finite losses, the frozen mask kept."""
+    from hetu_tpu_torch import embedding_compress as ec
+    from hetu_tpu_torch.optim import AdamOptimizer
+    model["emb"] = ec.pep_to_retrain(model["emb"])
+    step = compressed_step_fn(model, AdamOptimizer(CMP_LR))
+    losses = [float(step(*ctx["batches"][s % CMP_BATCHES]))
+              for s in range(CMP_RETRAIN_STEPS)]
+    me = model["emb"]
+    leaked = bool(((me.w != 0) & (me.mask == 0)).any())
+    kept = float(me.mask.mean())
+    print(f"[train_compressed] pep -> pep_to_retrain: {kept:.4f} of the "
+          f"elements kept; {CMP_RETRAIN_STEPS} retrain steps, losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; a masked weight moved: "
+          f"{leaked}")
+    check(all(np.isfinite(losses)) and not leaked,
+          "the PEP retrain moved a masked weight")
+    return dict(kept=kept, retrain_losses=losses)
+
+
+def _flow_autodim(ctx, model):
+    """AutoDim's bi-level trainer on the trained model (weights on train
+    batches, arch on a validation batch), then its retrain form."""
+    from hetu_tpu_torch import embedding_compress as ec
+    from hetu_tpu_torch.optim import AdamOptimizer
+    emb, batches = model["emb"], ctx["batches"]
+    trainer = ec.AutoDimBiLevelTrainer(
+        emb, lambda p, b: compressed_loss(model, *b)[0], embed_key="emb",
+        weight_opt=AdamOptimizer(CMP_LR), alpha_lr=5e-2)
+    arch0 = emb.arch.detach().clone()
+    _, tl, vl = trainer.fit(dict(model.named_parameters()),
+                            batches[:CMP_FLOW_STEPS], batches[CMP_FLOW_STEPS:])
+    r = trainer.finalize()
+    print(f"[train_compressed] AutoDimBiLevelTrainer: {len(tl)} weight and "
+          f"{len(vl)} arch steps, train {' '.join(f'{x:.4f}' for x in tl)}, "
+          f"val {' '.join(f'{x:.4f}' for x in vl)}; arch "
+          f"{[round(float(a), 5) for a in emb.arch.detach()]}; finalize: dim "
+          f"{int(r.dim)}, t {tuple(r.t.shape)}")
+    check(all(np.isfinite(tl + vl)) and not torch.equal(emb.arch, arch0)
+          and r.t.shape[1] == int(r.dim), "the AutoDim flow failed")
+    return dict(dim=int(r.dim), losses=tl, val_losses=vl)
+
+
+def _flow_optembed(ctx, model):
+    """OptEmbed's flow on the trained model: supernet steps, a short
+    evolutionary search over the fields' dims (fitness: a batch's loss of
+    the masked rows + 1e-3 per kept dim), the retrain form."""
+    from hetu_tpu_torch import embedding_compress as ec
+    from hetu_tpu_torch import ops
+    from hetu_tpu_torch.optim import AdamOptimizer
+    emb, batches = model["emb"], ctx["batches"]
+    flow = ec.OptEmbedFlow(emb, lambda p, b: compressed_loss(model, *b)[0],
+                           embed_key="emb", weight_opt=AdamOptimizer(CMP_LR))
+    _, losses = flow.train_supernet(dict(model.named_parameters()),
+                                    batches[:CMP_FLOW_STEPS])
+    ids, y = batches[-1]
+
+    @torch.no_grad()
+    def fitness(cand):
+        rows = emb(ids) * ec.OptEmbedFlow.field_mask(
+            cand, emb.dim, device=ids.device)
+        logit = model["head"](rows.reshape(rows.shape[0], -1))[:, 0]
+        return float(ops.binary_cross_entropy_with_logits(logit, y).mean()) \
+            + 1e-3 * float(np.sum(cand))
+    best, fit = ec.OptEmbedFlow.evolutionary_search(
+        fitness, n_fields=CTR_F, dim=emb.dim, generations=CMP_GENERATIONS,
+        seed=ctx["seed"])
+    r = flow.finalize(best)
+    kept = float(r.row_mask.mean())
+    print(f"[train_compressed] OptEmbedFlow: supernet losses "
+          f"{' '.join(f'{x:.1f}' for x in losses)} (with the threshold "
+          f"regulariser); {CMP_GENERATIONS}-generation search: best fitness "
+          f"{fit:.4f}, field dims {best.tolist()}; finalize: {kept:.4f} of "
+          f"the rows kept")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and np.isfinite(fit), "the OptEmbed flow failed")
+    return dict(supernet_losses=losses, best=best.tolist(), rows_kept=kept)
+
+
+# what follows a method's timed steps, on its trained model
+_CMP_AFTER = {"full": _serve_full, "dpq": _serve_dpq, "prune": _serve_prune,
+              "pep": _retrain_pep, "autodim": _flow_autodim,
+              "optembed": _flow_optembed}
+
+
+def phase_train_compressed(card, seed, device="cuda"):
+    """examples/rec_compressed.py's loop for every trainable method of the
+    compression zoo and the full table, at the Criteo-Kaggle table (DPQ
+    and MGQE cut to 2^22 rows): finite, falling loss, step time, peak
+    memory, parameter bytes; the eight storage-compressing methods under
+    the full table; one profiled step each; each method in f32 against
+    float64; the serving forms, PEP's retrain, a DeepLight schedule, the
+    AutoDim and OptEmbed flows.  No kernel of the six launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hetu_tpu_torch.optim import AdamOptimizer
+
+    t_phase = time.perf_counter()
+    counters = _all_counters()
+    for c in counters:
+        c.launches = 0
+    g = np.random.default_rng(seed + 70)
+    sets = {v: [tuple(torch.tensor(a, device=device) for a in b)
+                for b in compressed_batches(g, v)]
+            for v in (CTR_V, CMP_V_CUT, CMP_F64_V)}
+    print(f"[train_compressed] examples/rec_compressed.py's loop: V "
+          f"{CTR_V} (dpq, mgqe {CMP_V_CUT}), D {CTR_DIM}, {CTR_F} fields, "
+          f"head mlp_tower({CTR_F * CTR_DIM}, ({CMP_HIDDEN},), 1), B "
+          f"{CTR_B}, Adam({CMP_LR:g}), {CMP_STEPS} steps over "
+          f"{CMP_BATCHES} Zipf(a={CTR_ZIPF_A}) batches, on {device}")
+    methods, after = {}, {}
+    for i, name in enumerate(CMP_METHODS):
+        v = CMP_V_CUT if name in CMP_CUT else CTR_V
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = compressed_model(name, v, CTR_DIM, CTR_F, torch.Generator(
+            device=device).manual_seed(seed + 80 + i))
+        step = compressed_step_fn(model, AdamOptimizer(CMP_LR))
+        _sync(device)
+        build_s = time.perf_counter() - t0
+        losses, host, dev = [], [], []
+        for s in range(CMP_STEPS):
+            ids, y = sets[v][s % CMP_BATCHES]
+            _sync(device)
+            t1 = time.perf_counter()
+            if device == "cuda":
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            loss = step(ids, y)
+            if device == "cuda":
+                ev[1].record()
+            _sync(device)
+            host.append(time.perf_counter() - t1)
+            if device == "cuda":
+                dev.append(ev[0].elapsed_time(ev[1]) / 1e3)
+            losses.append(float(loss))
+        peak = _peak_gib(device)
+        nbytes = sum(p.numel() * p.element_size()
+                     for p in model["emb"].parameters())
+        full_bytes = v * CTR_DIM * 4
+        med, lo, hi = _step_stats(host)
+        dev_ms = _step_stats(dev)[0] if dev else None
+        print(f"[train_compressed] {name}: losses "
+              f"{' '.join(f'{x:.4f}' for x in losses)}; step median "
+              f"{med:.3f} ms on the host clock (steps 2-{CMP_STEPS}: "
+              f"{lo:.3f}-{hi:.3f}), "
+              + (f"{dev_ms:.3f} ms by CUDA events" if dev_ms is not None
+                 else "CUDA events not measured")
+              + f", {CTR_B / med * 1e3:.1f} samples/s; parameters "
+              f"{nbytes / 1e9:.4f} GB = {nbytes / full_bytes:.4f} of the "
+              f"full table's at V {v}; peak {peak:.3f} GiB; built in "
+              f"{build_s:.1f} s [{card}]")
+        check(all(np.isfinite(losses)), f"{name}: a loss is not finite")
+        check(losses[-1] < losses[0], f"{name}: the loss did not fall")
+        busy = None
+        if device == "cuda":  # one more step, profiled
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step(*sets[v][0])
+                _sync(device)
+            busy = _profile_table(prof, f"train_compressed {name} step",
+                                  card, med * 1e3)
+        methods[name] = dict(vocab=v, losses=losses, step_ms=med,
+                             step_spread_ms=(lo, hi), device_step_ms=dev_ms,
+                             samples_per_s=CTR_B / med * 1e3, peak_gib=peak,
+                             param_bytes=nbytes, full_bytes=full_bytes,
+                             busy_share=busy)
+        del step
+        if name in _CMP_AFTER:
+            after[name] = _CMP_AFTER[name](dict(
+                device=device, seed=seed, batches=sets[v]), model)
+        del model
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    for name in CMP_STORAGE:
+        check(methods[name]["param_bytes"] < CTR_V * CTR_DIM * 4,
+              f"{name} holds no fewer parameter bytes than the full table")
+    print(f"[train_compressed] parameter bytes under the full table's "
+          f"{CTR_V * CTR_DIM * 4 / 1e9:.3f} GB: "
+          + ", ".join(f"{n} {methods[n]['param_bytes'] / 1e9:.4f}"
+                      for n in CMP_STORAGE))
+    f64 = {}
+    for i, name in enumerate(CMP_METHODS):
+        model = compressed_model(name, CMP_F64_V, CTR_DIM, CTR_F,
+                                 torch.Generator(device=device).manual_seed(
+                                     seed + 80 + i))
+        ids, y = sets[CMP_F64_V][0]
+        f64[name] = compressed_f32_vs_f64(name, model, ids, y)
+        del model
+    launches = [c.launches for c in counters]
+    print(f"[train_compressed] launches of the six kernels {launches}; "
+          f"phase took {time.perf_counter() - t_phase:.1f} s")
+    check(launches == [0] * 6,
+          "the compression path launched a port kernel")
+    return dict(launches=launches, methods=methods, f64=f64, after=after)
+
+
 # ------------------------------------------------------------------- CTR
 
 def ctr_batch(g, b, vocab):
@@ -5645,11 +6142,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_ops_zoo(card)
     torch.cuda.empty_cache()
+    compressed = phase_train_compressed(card, args.seed)
+    torch.cuda.empty_cache()
     shapes_fwd, shapes_bwd = phase_kernel_shapes(card)
     # each kernel's launches on the paths that run none of the six
     later = [{"train_cnn": cnn["launches"][i], "train_rnn": rnn["launches"][i],
               "train_gcn": gcn["launches"][i],
-              "gcn_sampled": sampled["launches"][i]} for i in range(6)]
+              "gcn_sampled": sampled["launches"][i],
+              "train_compressed": compressed["launches"][i]}
+             for i in range(6)]
 
     shape = [TRAIN_B, NH, TRAIN_S, HEAD_DIM]
     src = "hetu_tpu/ops/pallas_kernels/flash_attention.py"

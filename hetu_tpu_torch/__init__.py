@@ -26,6 +26,9 @@ paths and names mirror the reference so each counterpart is found at once:
                       # InferenceServer / InferenceClient over the van
     htt.quantwire     # int8 block codec of migration payloads, the PS
                       # gradient wire's dtypes
+    htt.embedding_compress  # the 19 compression methods, the stage
+                      # scheduler, the AutoDim and OptEmbed flows, the
+                      # serving cache's row codec
     htt.telemetry.*   # span tracer + typed metrics registry
     htt.data.*        # CIFAR-10 and MNIST, the Dataloader, bucketed
                       # padding of CTR batches, the graph sampler over PS
@@ -47,7 +50,7 @@ from hetu_tpu_torch.version import __version__
 
 _LAZY = {"ops", "init", "rng", "layers", "models", "optim", "lr", "train",
          "interop", "serve", "telemetry", "data", "utils", "ps",
-         "quantwire"}
+         "quantwire", "embedding_compress"}
 
 
 def __getattr__(name):

@@ -42,6 +42,15 @@ slots mirror the parameters.
 norms' ``mean`` and ``var``) by the same dotted paths, every module a
 subtree, empty where it holds no state, as in the reference.
 
+:func:`variables_from_jax` and :func:`variables_to_jax` carry the
+variables of a module whose reference tree is flat, as every method of
+the embedding-compression zoo's is: ``{"params": {name: array}, "state":
+{name: array}}`` against the module's parameters and its ``state_names``
+buffers, under the same names and in the reference's layouts (DPQ's
+``logits [N, m, C]``, the TT cores ``[r, i, j, r']``, the ELL
+``values``/``cols``); the state keeps its dtype (int8 ``q``, int32
+``remap`` and ``cols``).
+
 No ``jax`` import: leaves are read with ``np.asarray``.
 """
 
@@ -308,3 +317,23 @@ def opt_state_to_jax(opt_state, config) -> dict:
     return {"step": np.asarray(opt_state["step"], np.int32),
             "slots": {name: params_to_jax(slot, config)
                       for name, slot in opt_state["slots"].items()}}
+
+
+def variables_from_jax(variables, module) -> dict:
+    """A flat ``hetu_tpu`` variables dict (``{"params": ..., "state":
+    ...}``, numpy leaves) → a CPU ``state_dict`` for ``module``: the
+    parameters as float32, the state buffers in their own dtype."""
+    out = {k: _tensor(v, False) for k, v in variables["params"].items()}
+    out.update({k: torch.tensor(np.asarray(v))
+                for k, v in variables.get("state", {}).items()})
+    return out
+
+
+def variables_to_jax(module) -> dict:
+    """``module``'s parameters and ``state_names`` buffers → the flat
+    ``hetu_tpu`` variables dict of numpy arrays (copies: a later in-place
+    update of the module leaves them as they are)."""
+    return {"params": {n: p.detach().float().cpu().numpy().copy()
+                       for n, p in module.named_parameters()},
+            "state": {n: getattr(module, n).detach().cpu().numpy().copy()
+                      for n in getattr(module, "state_names", ())}}

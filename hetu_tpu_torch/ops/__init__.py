@@ -3,8 +3,9 @@
 What the ported slices run: GPT serving and training, MoE training (the
 five gates), Llama serving and training, BERT pretraining, CTR training,
 the CNN family's convolutions, pools and batch norm, GCN's message
-passing, and the reference's elementwise, shape, reduce and matmul
-families under its names.
+passing, the reference's elementwise, shape, reduce and matmul
+families under its names, and the quantization and pruning ops of the
+embedding-compression zoo.
 Hand-written CUDA kernels live in :mod:`hetu_tpu_torch.ops.cuda_kernels`.
 """
 
@@ -42,6 +43,10 @@ from hetu_tpu_torch.ops.moe_ops import (
     balance_assignment, balance_log_plan, gather_combine, gather_dispatch,
     layout_transform, make_dispatch_combine, make_slot_routes,
     make_slot_routing, reverse_layout_transform, top_k_idx_gate,
+)
+from hetu_tpu_torch.ops.quantize import (
+    dequantize, param_clip, prune_low_magnitude, quantize,
+    quantize_embedding_lookup,
 )
 from hetu_tpu_torch.ops.norm import (
     batch_norm, instance_norm2d, layer_norm, rms_norm,
@@ -99,4 +104,7 @@ __all__ = [
     "min_", "argmax", "argsort", "topk_idx", "topk_val", "topk", "unique",
     # graph
     "coo_spmm", "gcn_norm", "gcn_conv",
+    # quantization and pruning
+    "quantize", "dequantize", "quantize_embedding_lookup",
+    "prune_low_magnitude", "param_clip",
 ]

@@ -584,7 +584,8 @@ def test_gates_flops():
         3 * (t * (2 * d * e + d + head) + 2 * e * d + 100 * 4 * d * f)
 
 
-LATER = {"train_cnn": 0, "train_rnn": 0, "train_gcn": 0, "gcn_sampled": 0}
+LATER = {"train_cnn": 0, "train_rnn": 0, "train_gcn": 0, "gcn_sampled": 0,
+         "train_compressed": 0}
 
 
 def test_kernels_line_counts_the_gates_path():
@@ -605,7 +606,7 @@ def test_kernels_line_counts_the_gates_path():
 
 def test_kernels_line_names_the_new_paths_for_every_kernel():
     """main() builds each of the six entries' ``launches_by_path`` with
-    the four later paths, read from each phase's own counts."""
+    the five later paths, read from each phase's own counts."""
     src = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
     main = src[src.index("def main("):]
     for key in LATER:
@@ -614,7 +615,7 @@ def test_kernels_line_names_the_new_paths_for_every_kernel():
     assert main.count("later[3 + i]") == 1
     order = [main.index(f"phase_{p}(card") for p in (
         "train_cnn", "train_rnn", "train_gcn", "gcn_sampled", "ops_zoo",
-        "kernel_shapes")]
+        "train_compressed", "kernel_shapes")]
     assert order == sorted(order)
 
 
@@ -1055,3 +1056,58 @@ def test_ops_zoo_phase_runs_on_the_cpu(capsys):
                   getattr(ops, f), n)) and n in ops.__all__}
     assert ported - {"sam_group_sum", "sam_max"} <= names, \
         ported - names
+
+
+# ---- the compression phase, rehearsed on the CPU ----
+
+# the table at 20 000 rows (DPQ and MGQE at 4096), B 256; the float64 gate
+# at 2048 rows
+TINY_COMPRESSED = dict(CTR_V=20_000, CMP_V_CUT=4096, CMP_F64_V=2048,
+                       CTR_B=256)
+
+
+def test_train_compressed_phase_runs_on_the_cpu(monkeypatch, capsys):
+    for name, value in TINY_COMPRESSED.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    out = chip_smoke.phase_train_compressed("cpu", 0, device="cpu")
+    assert out["launches"] == [0] * 6
+    assert out["methods"].keys() == set(chip_smoke.CMP_METHODS)
+    for m in out["methods"].values():
+        assert m["losses"][-1] < m["losses"][0]
+    full = 20_000 * chip_smoke.CTR_DIM * 4
+    for name in chip_smoke.CMP_STORAGE:
+        assert out["methods"][name]["param_bytes"] < full
+    assert out["f64"].keys() == set(chip_smoke.CMP_METHODS)
+    for gaps in out["f64"].values():
+        assert gaps["grad_gap"] <= chip_smoke.TOL_RNN_GRAD
+    assert out["after"].keys() == {"full", "dpq", "prune", "pep", "autodim",
+                                   "optembed"}
+    text = capsys.readouterr().out
+    assert "lookups bitwise the pruned rows: True" in text
+    assert "a masked weight moved: False" in text
+
+
+def test_compressed_float64_gate_refuses_a_dpq_code_flipped_unreplayed(
+        monkeypatch):
+    """A float64 pass that picks another code for one (id, subspace) moves
+    the codebooks' gradient past the limit unless the f32 codes are
+    replayed; replayed, the gate passes and counts the flip."""
+    from hetu_tpu_torch.embedding_compress import layers
+    model = chip_smoke.compressed_model(
+        "dpq", 512, 16, 26, torch.Generator().manual_seed(0))
+    ids, y = (torch.tensor(a) for a in chip_smoke.compressed_batches(
+        np.random.default_rng(0), 512, n=1, b=64)[0])
+    plain = layers.hard_codes
+
+    def flipped(logits):
+        codes = plain(logits)
+        if logits.dtype == torch.float64:
+            codes = codes.clone()
+            codes.view(-1)[0] = (codes.view(-1)[0] + 1) % logits.shape[-1]
+        return codes
+    monkeypatch.setattr(layers, "hard_codes", flipped)
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.compressed_f32_vs_f64("dpq", model, ids, y, replay=False)
+    out = chip_smoke.compressed_f32_vs_f64("dpq", model, ids, y)
+    assert out["flips"] == 1
+    assert out["grad_gap"] <= chip_smoke.TOL_RNN_GRAD

@@ -11,7 +11,7 @@ AdamW steps of the Executor and a checkpoint round trip each), GQA Llama
 serving and a BERT pretraining step, the four other MoE gates and the
 remote PS tiers (a partitioned table, the remote HET cache, ``PSEmbedding``
 over them), the CNN family, and an LSTM classifier, a GCN on a sampled
-batch and the op zoo; ``jax`` and ``hetu_tpu`` must
+batch and the op zoo, and the compression zoo; ``jax`` and ``hetu_tpu`` must
 stay out of ``sys.modules``.  An AST scan of every module of the package,
 and of ``chip_smoke.py``, finds no import of either.
 """
@@ -387,6 +387,58 @@ def test_rnn_gcn_and_op_zoo_run_without_jax():
         "assert np.isfinite(float(met['loss']) + float(met2['loss']))\n"
         "mods = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "              and m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out
+
+
+def test_compression_zoo_runs_without_jax():
+    """Each method of the compression zoo looks up a batch, a DPQ table
+    trains one Adam step under the example's head, the OptEmbed flow and
+    the scheduler's int8 switch run, and the quantize ops, in a process
+    where ``jax`` and ``hetu_tpu`` cannot be imported at all."""
+    out = _run(
+        "import sys\n"
+        "sys.modules.update(jax=None, jaxlib=None, hetu_tpu=None)\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(2)\n"
+        "import hetu_tpu_torch as htt\n"
+        "from hetu_tpu_torch import embedding_compress as ec, ops, optim\n"
+        "from hetu_tpu_torch.embedding_compress.scheduler import (\n"
+        "    Stage, switch_to_quantized)\n"
+        "from hetu_tpu_torch.models.ctr_common import mlp_tower\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "ids = torch.tensor([[1, 5, 99], [0, 7, -1]])\n"
+        "names = [n for n in dir(ec) if n.endswith('Embedding')\n"
+        "         and n not in ('SparseEmbedding', 'QuantizedEmbedding')]\n"
+        "args = {'HashEmbedding': (0.1,), 'ROBEEmbedding': (0.1,),\n"
+        "        'DedupEmbedding': (0.2,)}\n"
+        "for n in names:\n"
+        "    rows = getattr(ec, n)(100, 8, *args.get(n, ()), generator=g)(ids)\n"
+        "    assert rows.shape == (2, 3, 8), n\n"
+        "emb = ec.DPQEmbedding(100, 8, codes=16, generator=g)\n"
+        "head = mlp_tower(24, (4,), out_dim=1, generator=g)\n"
+        "params = {**{'embed.' + k: p for k, p in emb.named_parameters()},\n"
+        "          **{'head.' + k: p for k, p in head.named_parameters()}}\n"
+        "opt = optim.AdamOptimizer(1e-2)\n"
+        "loss = head(emb(ids).reshape(2, -1)).square().mean()\n"
+        "opt.update(dict(zip(params, torch.autograd.grad(\n"
+        "    loss, list(params.values())))), opt.init_state(params), params)\n"
+        "oe = ec.OptEmbedEmbedding(100, 8, generator=g)\n"
+        "flow = ec.OptEmbedFlow(oe, lambda p, b: oe(b).square().sum())\n"
+        "flow.train_supernet({'embed.' + k: p for k, p in\n"
+        "                     oe.named_parameters()}, [ids])\n"
+        "assert flow.finalize([1, 2, 3]).field_dims.tolist() == [1, 2, 3]\n"
+        "q = ec.CompressionScheduler([Stage('a', 1), Stage(\n"
+        "    'b', 2, switch_to_quantized(None))]).maybe_transition(\n"
+        "    1, ec.PrunedEmbedding(100, 8, generator=g))\n"
+        "assert q.q.dtype == torch.int8 and q(ids).shape == (2, 3, 8)\n"
+        "x = torch.randn(4, 8, generator=g)\n"
+        "qx, s = ops.quantize(x)\n"
+        "assert ops.dequantize(qx, s).shape == ops.prune_low_magnitude(\n"
+        "    x, 0.5).shape\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu')\n"
+        "              and sys.modules[m] is not None)\n"
         "print('LEAKED', mods)\n")
     assert "LEAKED []" in out
 
