@@ -116,6 +116,26 @@ without the final result line:
    each codec (the migrate phase's row and byte gates), send and receive
    ms, the wire's rate and the crossover against re-prefill beside the
    in-process hand-off.
+11b. pool — the serving pool (``serve/pool.py``) over GPT-2-small at its
+   published widths (V 50257, max_position 1024), three members of 8
+   slots x 512 sharing one copy of the weights, the slice's 16 seeded
+   requests sent by one thread each through ``pool.generate``: (a) f32
+   (the scalar flash forward), every member held at the start of decode
+   round 2; the busiest drained mid-decode (over the van, codec none;
+   then in process) once its peers have room, or killed: every response
+   ok and token-exact to the burst straight through one scheduler, one
+   slot moved for each running request, no prefill token on the
+   survivors for the migrated ones, ``pool_failovers`` after the kill;
+   then ``revive_member`` and new requests on it; (b) bf16 (wgmma), the
+   seeded chaos run of the reference's chaos test: a preemption and an
+   engine kill from one ``FaultSchedule`` fired every 6 decode rounds of
+   the pool through ``FaultInjector`` and ``run_fault_events`` under three
+   looping workers; every response ok, each stream by the near-tie rule,
+   each ``fault.serve_*`` instant paired with its ``serve.migrate`` /
+   ``serve.failover`` span and ranked first by ``diagnose``; detection
+   and recovery ms, drain ms and bytes, TTFT p50/p99, tokens/s, peak
+   memory.  The flash forwards: one a layer a prefill, re-prefills
+   included.
 12. train_llama — Llama-2-7B's widths at 4 layers (cut from 32), bf16,
    flash, recomputation, fused CE, AdamW, B 4 x S 4096: the kernel-vs-plain
    gate, then 10 Executor steps (2·L forwards and L of each backward kernel
@@ -231,6 +251,7 @@ import select
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -391,6 +412,17 @@ MIGRATE_CODECS = ("none", "bf16", "int8")
 # chunks
 SERVER_TIMEOUT_S, FAILOVER_CRASH_AT, FAILOVER_GRACE_S = 300.0, 4, 60.0
 WIRE_CHUNK = 1 << 20
+# the serving pool: GPT-2-small at its published widths (V 50257,
+# max_position 1024), three members of 8 slots x 512 sharing one copy of
+# the weights; a drain or a kill lands while every member is held at the
+# start of decode round POOL_HOLD_AT (each admitted request then holds 3
+# of its 8 or more tokens); the chaos run fires a step of its schedule
+# every POOL_ROUNDS_PER_STEP decode rounds of the pool, under traffic from
+# POOL_WORKERS threads looping over the burst
+POOL_V, POOL_P, POOL_MEMBERS, POOL_SLOTS, POOL_MAX_LEN = (
+    50257, 1024, 3, 8, 512)
+POOL_HOLD_AT, POOL_ROUNDS_PER_STEP, POOL_WORKERS = 2, 6, 3
+POOL_TIMEOUT_S = 300.0
 # training: Llama-2-7B's widths, depth cut to 4 layers (f32 weights,
 # gradients and AdamW's two slots: 17 GB; at 32 layers 108 GB), at the
 # config's max_position and bench_gpt's 16384 tokens a step
@@ -940,12 +972,14 @@ def phase_kernel_bwd(card):
     return report
 
 
-def jax_layout_weights(seed: int, max_position: int = MAX_LEN) -> dict:
+def jax_layout_weights(seed: int, max_position: int = MAX_LEN,
+                       vocab: int | None = None) -> dict:
     """GPT-2-small parameters in the JAX package's layout and with its
     initialisers: normal(0.02) embeddings, Xavier-uniform MHA and Linear
     weights (``[in, out]``, stacked ``[L, ...]``), zero biases, unit
-    LayerNorm scales."""
+    LayerNorm scales.  ``vocab`` defaults to ``V``."""
     g = np.random.default_rng(seed)
+    vocab = V if vocab is None else vocab
 
     def normal(*shape):
         return 0.02 * g.standard_normal(shape, dtype=np.float32)
@@ -957,7 +991,7 @@ def jax_layout_weights(seed: int, max_position: int = MAX_LEN) -> dict:
     z = lambda *shape: np.zeros(shape, np.float32)
     o = lambda *shape: np.ones(shape, np.float32)
     return {
-        "tok_emb": normal(V, H), "pos_emb": normal(max_position, H),
+        "tok_emb": normal(vocab, H), "pos_emb": normal(max_position, H),
         "blocks": {
             "attn": {"qkv_weight": xavier(L, H, 3 * H),
                      "qkv_bias": z(L, 3 * H),
@@ -3808,6 +3842,640 @@ def phase_server(card, seed, llama_engine, llama_run, migrated,
     return out
 
 
+# ------------------------------------------------------------ serving pool
+
+class _PoolProbe:
+    """A member engine of the pool phase: a proxy over a ServeEngine that
+    counts its decode rounds (also into ``rounds``, a shared ``[count,
+    Condition]`` the chaos loop waits on), records every prompt it
+    prefills, and with ``hold_at`` sets ``reached`` and waits on
+    ``release`` at the start of that decode round (0-based): the count of
+    decode rounds at which a drain or a kill lands, never a timer.  Once
+    ``park`` is set, the next decode round sets ``parked`` and waits on
+    ``unpark`` before it runs."""
+
+    def __init__(self, inner, *, hold_at=None, rounds=None):
+        self.inner, self.hold_at, self.rounds = inner, hold_at, rounds
+        self.reached, self.release_evt = threading.Event(), threading.Event()
+        self.park, self.parked, self.unpark = (threading.Event(),
+                                               threading.Event(),
+                                               threading.Event())
+        self.decodes, self.prefilled = 0, []
+        self.cache, self.metrics = inner.cache, inner.metrics
+
+    def alloc_slot(self):
+        return self.inner.alloc_slot()
+
+    def release(self, slot):
+        self.inner.release(slot)
+
+    def prefill(self, slot, prompt):
+        self.prefilled.append([int(t) for t in prompt])
+        return self.inner.prefill(slot, prompt)
+
+    def decode(self):
+        if self.decodes == self.hold_at:
+            self.reached.set()
+            check(self.release_evt.wait(POOL_TIMEOUT_S),
+                  "pool: a held member was never released")
+        if self.park.is_set():
+            self.park.clear()
+            self.parked.set()
+            check(self.unpark.wait(POOL_TIMEOUT_S),
+                  "pool: a parked member was never released")
+            self.unpark.clear()
+        out = self.inner.decode()
+        self.decodes += 1
+        if self.rounds is not None:
+            with self.rounds[1]:
+                self.rounds[0] += 1
+                self.rounds[1].notify_all()
+        return out
+
+    def export_slots(self, slot_ids):
+        return self.inner.export_slots(slot_ids)
+
+    def adopt_slots(self, snapshots):
+        return self.inner.adopt_slots(snapshots)
+
+    def resume_slots(self, slot_ids):
+        self.inner.resume_slots(slot_ids)
+
+
+def _pool_engine(seed, dtype, device):
+    """GPT-2-small at its published widths (``POOL_V``, ``POOL_P``), the
+    JAX package's layout and initialisers from ``seed``, loaded through
+    ``interop``; flash attention (f32: the scalar kernel, bf16: wgmma)."""
+    from hetu_tpu_torch import interop
+    from hetu_tpu_torch.models import GPTConfig, GPTModel
+    from hetu_tpu_torch.serve import ServeEngine
+
+    cfg = GPTConfig(vocab_size=POOL_V, hidden_size=H, num_layers=L,
+                    num_heads=NH, ffn_size=FFN, max_position=POOL_P,
+                    dtype=dtype, attention_impl="flash")
+    model = GPTModel(cfg, device=device)
+    model.load_state_dict(interop.params_from_jax(
+        jax_layout_weights(seed, POOL_P, POOL_V), cfg))
+    return ServeEngine(model, num_slots=POOL_SLOTS, max_len=POOL_MAX_LEN,
+                       device=device)
+
+
+def _until(cond, what, timeout=POOL_TIMEOUT_S):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, what)
+        time.sleep(0.002)
+
+
+def _wait_in_threads(threads, what):
+    for t in threads:
+        t.join(POOL_TIMEOUT_S)
+    check(not any(t.is_alive() for t in threads), what)
+
+
+def _pool_of(make, probes, **kw):
+    """A ``ServingPool`` of ``POOL_MEMBERS`` members whose engines are
+    ``_PoolProbe`` s over ``make()``; each probe made is appended to
+    ``probes`` (a revive makes one more)."""
+    from hetu_tpu_torch.serve import ServingPool
+
+    probe_kw = {k: kw.pop(k) for k in ("hold_at", "rounds") if k in kw}
+
+    def factory():
+        p = _PoolProbe(make(), **probe_kw)
+        probes.append(p)
+        return p
+
+    return ServingPool({f"m{i}": factory for i in range(POOL_MEMBERS)},
+                       health_poll_s=0.05, max_loop_errors=2,
+                       request_timeout_s=POOL_TIMEOUT_S, **kw)
+
+
+def _pool_flash(tag, probes, events, launches, device):
+    """Hard: one ``serve.prefill`` span for each prefill the members ran
+    (re-prefills included), and one flash forward a layer for each on the
+    card.  Returns the count of prefills."""
+    prefills = sum(len(p.prefilled) for p in probes)
+    spans = sum(e["name"] == "serve.prefill" for e in events)
+    check(spans == prefills, f"{tag}: {spans} prefill spans for "
+                             f"{prefills} prefills")
+    expect = L * prefills if device == "cuda" else 0
+    check(launches == expect, f"{tag}: {launches} flash forwards, not "
+                              f"{expect} (one a layer a prefill)")
+    return prefills
+
+
+def _pool_burst(tag, make, pairs, ref_tokens, device, fault, card):
+    """``pairs`` sent through ``pool.generate``, one thread a request, to
+    a pool of three members, each held at the start of its decode round
+    ``POOL_HOLD_AT``; then ``fault(pool, victim, probes, held)`` drains or
+    kills the busiest member (``victim``) and releases the members.  Hard:
+    every response ok with its tokens equal to ``ref_tokens`` (the burst
+    straight through one scheduler), the flash launches one a layer a
+    prefill.  Returns the pool (open), its probes, the fault's record and
+    the numbers."""
+    from hetu_tpu_torch.telemetry import trace
+
+    counters = _flash_counters()
+    probes = []
+    pool = _pool_of(make, probes, hold_at=POOL_HOLD_AT)
+    n = len(pairs)
+    resps = [None] * n
+
+    def worker(i):
+        resps[i] = pool.generate(pairs[i][0], max_tokens=pairs[i][1],
+                                 timeout_s=POOL_TIMEOUT_S)
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(n)]
+    for c in counters:
+        c.launches = 0
+    tracer = trace.enable()
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for p in probes:
+            check(p.reached.wait(POOL_TIMEOUT_S),
+                  f"{tag}: a member never reached decode round "
+                  f"{POOL_HOLD_AT}")
+        victim = max(pool.members.values(), key=lambda m: m.scheduler.load)
+        held = dict(name=victim.name, load=victim.scheduler.load,
+                    running=list(victim.scheduler._running.values()))
+        fault_out = fault(pool, victim, probes, held)
+        _wait_in_threads(threads, f"{tag}: a generate did not return")
+        _sync(device)
+        wall = time.perf_counter() - t0
+        launches = counters[0].launches
+    finally:
+        for p in probes:
+            p.release_evt.set()
+        trace.disable()
+    check(all(r["status"] == "ok" for r in resps),
+          f"{tag}: a response is not ok: {[r['status'] for r in resps]}")
+    got = [r["tokens"] for r in resps]
+    check(got == ref_tokens, f"{tag}: a stream differs from the burst run "
+                             f"straight through one scheduler")
+    prefills = _pool_flash(tag, probes, tracer.events, launches, device)
+    n_tok = sum(len(t) for t in got)
+    ttft = sorted(r["ttft_s"] for r in resps)
+    out = dict(wall_s=wall, tokens_per_s=n_tok / wall, launches=launches,
+               prefills=prefills, exact=n, victim=victim.name,
+               ttft_p50_ms=ttft[len(ttft) // 2] * 1e3,
+               migrate_ms=_span_ms(tracer.events, "serve.migrate")[0],
+               failover_ms=_span_ms(tracer.events, "serve.failover")[0],
+               **{f"{k}_ms": _span_ms(tracer.events, f"serve.{k}")[0]
+                  for k in ("export_slots", "migrate.pack", "migrate.send",
+                            "migrate.recv", "migrate.unpack",
+                            "adopt_slots")},
+               **fault_out)
+    print(f"[pool] {tag}: {n} requests over {POOL_MEMBERS} members, "
+          f"{victim.name} held at decode round {POOL_HOLD_AT} with "
+          f"{held['load']} requests ({len(held['running'])} running); "
+          f"every response ok, {n} of {n} streams token-exact to the "
+          f"straight run; {prefills} prefills, {launches} flash forwards; "
+          f"{n_tok} tokens in {wall:.3f} s, {out['tokens_per_s']:.1f} "
+          f"tokens/s, TTFT p50 {out['ttft_p50_ms']:.2f} ms [{card}]")
+    return pool, probes, out
+
+
+def _held_probe(pool, name):
+    return pool.members[name].engine.inner
+
+
+def _pool_drain(wire):
+    """The fault of a drain run: ``drain_member`` of the busiest member
+    (over the van with codec none, or in process).  Its peers are
+    released first and serve on until each has room for every request
+    running on it (one peer adopts them all, slot for slot); then the
+    drain starts, and the member is released once the drain waits for its
+    scheduler lock (the engine loop hands the lock over before its next
+    step), so the drain lands right after that decode round."""
+
+    def fault(pool, victim, probes, held):
+        need = len(held["running"])
+        peers = [m for m in pool.members.values() if m is not victim]
+        for m in peers:
+            _held_probe(pool, m.name).release_evt.set()
+        _until(lambda: all(m.scheduler.load <= POOL_SLOTS - need
+                           for m in peers),
+               "pool: no peer made room for the drained member's slots")
+        box = {}
+
+        def drain():
+            try:
+                box["map"] = pool.drain_member(victim.name, wire=wire,
+                                               codec="none")
+            except Exception as e:  # reported below
+                box["error"] = repr(e)
+
+        t = threading.Thread(target=drain, daemon=True)
+        t.start()
+        _until(lambda: victim.scheduler.control_waiting > 0
+               or not t.is_alive(), "pool: the drain never reached the "
+                                    "member's scheduler lock")
+        _held_probe(pool, victim.name).release_evt.set()
+        _wait_in_threads([t], "pool: the drain did not return")
+        check("error" not in box, f"pool: the drain failed: "
+                                  f"{box.get('error')}")
+        return dict(slot_map=box["map"], held=held)
+    return fault
+
+
+def _pool_kill(pool, victim, probes, held):
+    """The fault of a kill run: the busiest member's kill switch flips
+    while every member is held, then all are released."""
+    pool.kill_member(victim.name)
+    for p in probes:
+        p.release_evt.set()
+    return dict(held=held)
+
+
+def _drain_gates(tag, pool, probes, out):
+    """Hard, for a drain run: one slot moved for each request running on
+    the member at the drain, ``slots_migrated`` equal to it, and no
+    prefill token on any member for a migrated request after the drain
+    (a prompt that starts with a migrated request's)."""
+    held, slot_map = out["held"], out["slot_map"]
+    running = held["running"]
+    check(len(slot_map) == len(running) > 0,
+          f"{tag}: {len(slot_map)} slots moved for {len(running)} running "
+          f"requests")
+    moved = pool.metrics.count("slots_migrated")
+    check(moved == len(running), f"{tag}: slots_migrated {moved}, not "
+                                 f"{len(running)}")
+    victim = _held_probe(pool, held["name"])
+    extra = sum(len(q) for p in probes if p is not victim
+                for q in p.prefilled
+                for r in running if q[:len(r.prompt)] == list(r.prompt))
+    check(extra == 0, f"{tag}: the survivors prefilled {extra} tokens for "
+                      f"the migrated requests")
+    reg = pool.members[held["name"]].scheduler.metrics.registry
+    out.update(slots=len(slot_map), reprefill_tokens=extra,
+               wire_bytes=reg.counter("serve.migrate.bytes_wire").value,
+               swept=pool.metrics.count("requests_swept_on_drain"))
+    return out
+
+
+def _chaos_schedule():
+    """The first seed whose two victims differ, as the reference's chaos
+    test draws it (``tests/test_serve_pool.py``); the schedule's bytes
+    checked stable."""
+    from hetu_tpu_torch.resilience import FaultSchedule
+
+    def victims(sched):
+        return {e.kind: int(e.arg) for e in sched.events}
+
+    kw = dict(steps=6, serve_preempts=1, serve_engine_kills=1,
+              n_members=POOL_MEMBERS)
+    seed, sched = next(
+        (s, sc) for s, sc in ((s, FaultSchedule.generate(seed=s, **kw))
+                              for s in range(64))
+        if len(sc) == 2 and
+        victims(sc)["serve_preempt"] != victims(sc)["serve_engine_kill"])
+    again = FaultSchedule.generate(seed=seed, **kw).to_json()
+    check(sched.to_json() == again ==
+          FaultSchedule.from_json(again).to_json(),
+          "pool chaos: the schedule's bytes are not stable")
+    return seed, sched
+
+
+def _park_busy(probe, sched):
+    """Park ``probe``'s member at the start of a decode round after which
+    a request of its scheduler ``sched`` is still running, so that a
+    preemption fired now has live KV slots to move.  Returns how many
+    requests will be running after that round."""
+    for _ in range(1000):
+        probe.park.set()
+        check(probe.parked.wait(POOL_TIMEOUT_S),
+              "pool chaos: the preempted member never decoded")
+        probe.parked.clear()
+        # the member's engine loop holds its scheduler lock while parked,
+        # so the running requests stand still
+        live = sum(len(r.tokens) + 1 < r.max_tokens
+                   for r in sched._running.values())
+        if live:
+            return live
+        probe.unpark.set()
+    raise SmokeFailure("pool chaos: the preempted member never had a "
+                       "request that outlives a decode round")
+
+
+def _pool_chaos(engine, pairs, ref_run, device, card):
+    """The seeded chaos run in bf16: a preemption and an engine kill from
+    one ``FaultSchedule``, fired through ``FaultInjector.on_step`` every
+    ``POOL_ROUNDS_PER_STEP`` decode rounds of the pool and applied by
+    ``run_fault_events``, under continuous traffic from
+    ``POOL_WORKERS`` threads looping over the burst.  Hard: every
+    response ok, each stream held to the straight run by the near-tie
+    rule, the preemption landing on a member with a running request
+    (parked at a decode round, see ``_park_busy``, once an earlier kill
+    has failed over) and moving its live KV slots (one
+    ``pool_migrations``, ``slots_migrated`` the requests still running
+    after that round, at least one), every
+    ``fault.serve_*`` instant paired with its recovery span, ``diagnose``
+    ranking each fault first for an alert that names it, the flash
+    launches one a layer a prefill."""
+    from types import SimpleNamespace
+
+    from hetu_tpu_torch.resilience import FaultInjector
+    from hetu_tpu_torch.serve import ServeEngine, migrate
+    from hetu_tpu_torch.telemetry import AlertRule, diagnose, timeline, trace
+
+    seed, sched = _chaos_schedule()
+    print(f"[pool] chaos: schedule seed {seed}, id {sched.schedule_id}: "
+          f"{sched.to_json()}")
+    counters = _flash_counters()
+    rounds = [0, threading.Condition()]
+    probes = []
+    shared = _Served(engine.model)
+    pool = _pool_of(lambda: ServeEngine(shared, num_slots=POOL_SLOTS,
+                                        max_len=POOL_MAX_LEN, device=device),
+                    probes, rounds=rounds, migrate_codec="auto")
+    inj = FaultInjector(sched)
+    served, errors = [], []
+    stop = threading.Event()
+
+    def traffic(w):
+        k = 0
+        while not stop.is_set():
+            i = (w + POOL_WORKERS * k) % len(pairs)
+            try:
+                served.append((i, pool.generate(
+                    pairs[i][0], max_tokens=pairs[i][1],
+                    timeout_s=POOL_TIMEOUT_S)))
+            except Exception as e:  # reported after the join
+                errors.append(repr(e))
+            k += 1
+
+    workers = [threading.Thread(target=traffic, args=(w,), daemon=True)
+               for w in range(POOL_WORKERS)]
+    codecs, live = [], []
+    for c in counters:
+        c.launches = 0
+    tracer = trace.enable()
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        names = list(pool.members)
+        for step in range(1, 6):
+            with rounds[1]:
+                check(rounds[1].wait_for(
+                    lambda: rounds[0] >= POOL_ROUNDS_PER_STEP * step,
+                    POOL_TIMEOUT_S), "pool chaos: the traffic stalled")
+            parked = None
+            for e in sched.at(step):
+                if e.kind == "serve_preempt":
+                    # an earlier kill fails over first: its re-homing
+                    # must not be what the drain below is taken for
+                    _until(lambda: pool.metrics.count("pool_failovers") >=
+                           pool.metrics.count("members_killed"),
+                           "pool chaos: a killed member never failed over")
+                    m = pool.members[names[int(e.arg) % len(names)]]
+                    parked = m, _held_probe(pool, m.name)
+                    live.append(_park_busy(parked[1], m.scheduler))
+                    codecs.append(migrate.resolve_codec("auto",
+                                                        m.scheduler.engine))
+            inj.on_step(step)
+            events = inj.pop_serve_events()
+            if parked is None:
+                pool.run_fault_events(events)
+                continue
+            # the drain waits for the parked member's scheduler lock; the
+            # member is let go once it does, and the drain lands right
+            # after that decode round
+            t = threading.Thread(target=pool.run_fault_events,
+                                 args=(events,), daemon=True)
+            t.start()
+            _until(lambda: parked[0].scheduler.control_waiting > 0
+                   or not t.is_alive(), "pool chaos: the preemption never "
+                                        "reached the member's scheduler lock")
+            parked[1].unpark.set()
+            _wait_in_threads([t], "pool chaos: the preemption did not return")
+        _until(lambda: pool.metrics.count("pool_failovers") >= 1,
+               "pool chaos: the killed member never failed over")
+        # traffic goes on until the burst's count of requests is served
+        _until(lambda: len(served) >= len(pairs),
+               "pool chaos: the survivors stopped serving")
+        stop.set()
+        _wait_in_threads(workers, "pool chaos: a worker did not stop")
+        _sync(device)
+        wall = time.perf_counter() - t0
+        launches = counters[0].launches
+    finally:
+        stop.set()
+        for p in probes:
+            p.park.clear()
+            p.unpark.set()
+        pool.close()
+        trace.disable()
+    check(not errors, f"pool chaos: worker errors {errors}")
+    migrations = pool.metrics.count("pool_migrations")
+    slots = pool.metrics.count("slots_migrated")
+    check(migrations == 1 and slots == sum(live) >= 1,
+          f"pool chaos: the preemption made {migrations} migrations of "
+          f"{slots} slots, not one of the {live} requests running after "
+          f"the parked round")
+    check(all(r["status"] == "ok" for _, r in served),
+          f"pool chaos: a response is not ok: "
+          f"{sorted({r['status'] for _, r in served})}")
+    ev = tracer.events
+    prefills = _pool_flash("pool chaos", probes, ev, launches, device)
+    # every stream against the straight run, by the near-tie rule
+    model = engine.model
+    _set_attention_impl(model, "xla")
+    try:
+        shares = _hold_streams(
+            "chaos", {"requests": [ref_run["requests"][i]
+                                   for i, _ in served]},
+            {"requests": [SimpleNamespace(prompt=pairs[i][0],
+                                          tokens=r["tokens"])
+                          for i, r in served]},
+            _plain_logits(model, device), TOL_LOGITS, phase="pool")
+    finally:
+        _set_attention_impl(model, "flash")
+    pairs_t = timeline.correlate(ev)
+    serve_pairs = [p for p in pairs_t if p.kind.startswith("serve_")]
+    check(sorted(p.kind for p in serve_pairs) ==
+          ["serve_engine_kill", "serve_preempt"],
+          f"pool chaos: fault instants {[p.kind for p in serve_pairs]}")
+    for p in serve_pairs:
+        check(p.paired and p.recovery_name in timeline.RECOVERY_FOR[p.kind],
+              f"pool chaos: fault.{p.kind} has no recovery span")
+        upto = [e for e in ev if e["ts"] <= p.recovery_end_us]
+        d = diagnose(upto, alert=AlertRule(f"serve_recovery.{p.kind}",
+                                           fault_kinds=(p.kind,)),
+                     now_us=p.recovery_end_us)
+        check(d is not None and d["top"]["kind"] == p.kind,
+              f"pool chaos: the doctor blames "
+              f"{d and d['top']['kind']} for fault.{p.kind}")
+        print(f"[pool] chaos: fault.{p.kind} at step {p.step} -> "
+              f"{p.recovery_name}: detection {p.detect_s * 1e3:.3f} ms, "
+              f"recovery {p.recover_s * 1e3:.3f} ms; doctor: "
+              f"{d['top']['text']}")
+    rep = timeline.report(pairs_t)
+    ttft = sorted(r["ttft_s"] for _, r in served)
+    n_tok = sum(len(r["tokens"]) for _, r in served)
+    migrate_ms, _ = _span_ms(ev, "serve.migrate")
+    out = dict(requests=len(served), exact=len(served) - len(shares),
+               near_ties=len(shares), launches=launches, prefills=prefills, wall_s=wall,
+               tokens_per_s=n_tok / wall, migrate_ms=migrate_ms,
+               ttft_p50_ms=ttft[len(ttft) // 2] * 1e3,
+               ttft_p99_ms=ttft[min(len(ttft) - 1,
+                                    int(0.99 * len(ttft)))] * 1e3,
+               failovers=pool.metrics.count("pool_failovers"),
+               requests_failed_over=pool.metrics.count(
+                   "requests_failed_over"),
+               slots_migrated=slots, live_at_preempt=live, codec=codecs, report=rep, seed=seed,
+               schedule_id=sched.schedule_id)
+    print(f"[pool] chaos: {len(served)} requests, every response ok, "
+          f"{out['exact']} token-exact ({len(shares)} parted at a near "
+          f"tie); {out['slots_migrated']} slots migrated (codec auto -> "
+          f"{codecs}, drain {migrate_ms:.3f} ms), {out['failovers']} "
+          f"failover ({out['requests_failed_over']} requests "
+          f"re-prefilled); {prefills} prefills, {launches} flash forwards; "
+          f"{n_tok} tokens in {wall:.3f} s, {out['tokens_per_s']:.1f} "
+          f"tokens/s; TTFT p50 {out['ttft_p50_ms']:.2f} ms, p99 "
+          f"{out['ttft_p99_ms']:.2f} ms [{card}]")
+    for kind, row in rep.items():
+        if kind.startswith("serve_"):
+            print(f"[pool] chaos: report {kind}: " + json.dumps(row))
+    return out
+
+
+def phase_pool(card, seed, device="cuda"):
+    """The serving pool (serve/pool.py) over GPT-2-small at its published
+    widths, three members of ``POOL_SLOTS`` x ``POOL_MAX_LEN`` sharing one
+    copy of the weights: (a) f32, the slice's 16-request burst through
+    ``pool.generate``, token-exact against the burst straight through one
+    scheduler, through a planned drain of the busiest member over the
+    van (codec none) and in process, and through an unplanned kill, then
+    ``revive_member``; (b) bf16, the seeded chaos run."""
+    import gc
+
+    from hetu_tpu_torch.serve import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    pairs = burst(np.random.default_rng(seed), POOL_V, N_REQUESTS,
+                  GPT_PROMPT, GPT_GEN)
+    out = {"launches": 0}
+
+    # (a) f32: the scalar flash forward, token-exact
+    base = _pool_engine(seed, torch.float32, device)
+    _serve_burst(base, _warm_pairs((10, 20, 40, 100), POOL_MAX_LEN), device)
+    straight = _serve_burst(base, pairs, device)
+    ref_tokens = [r.tokens for r in straight["requests"]]
+    shared = _Served(base.model)
+
+    def make():
+        return ServeEngine(shared, num_slots=POOL_SLOTS, max_len=POOL_MAX_LEN,
+                           device=device)
+
+    for tag, wire in (("f32 drain over the van", True),
+                      ("f32 drain in process", False)):
+        pool, probes, run = _pool_burst(tag, make, pairs, ref_tokens, device,
+                                        _pool_drain(wire), card)
+        try:
+            run = _drain_gates(tag, pool, probes, run)
+        finally:
+            pool.close()
+        out["launches"] += run["launches"]
+        out[tag] = {k: v for k, v in run.items()
+                    if k not in ("held", "slot_map")}
+        print(f"[pool] {tag}: {run['victim']} drained mid-decode, "
+              f"{run['slots']} slots moved (slots_migrated {run['slots']}), "
+              f"{run['reprefill_tokens']} prefill tokens on the survivors "
+              f"for them, {run['swept']} swept on close; serve.migrate "
+              f"{run['migrate_ms']:.3f} ms (export "
+              f"{run['export_slots_ms']:.3f}, pack "
+              f"{run['migrate.pack_ms']:.3f}, send "
+              f"{run['migrate.send_ms']:.3f}, receive "
+              f"{run['migrate.recv_ms']:.3f}, unpack "
+              f"{run['migrate.unpack_ms']:.3f}, import "
+              f"{run['adopt_slots_ms']:.3f} ms), {run['wire_bytes']} "
+              f"payload bytes [{card}]")
+        del pool, probes
+        gc.collect()
+
+    tag = "f32 kill"
+    pool, probes, run = _pool_burst(tag, make, pairs, ref_tokens, device,
+                                    _pool_kill, card)
+    try:
+        name = run["victim"]
+        failovers = pool.metrics.count("pool_failovers")
+        check(failovers >= 1, f"{tag}: pool_failovers {failovers}")
+        check(pool.members[name].dead, f"{tag}: {name} is not dead")
+        moved = pool.metrics.count("requests_failed_over")
+        gc.collect()
+        before_gib = (torch.cuda.memory_allocated() / 2 ** 30
+                      if device == "cuda" else 0.0)
+        # the dead engine: its prefill record stays for the launch gate,
+        # the engine itself goes with the pool's last reference to it
+        dead = _held_probe(pool, name)
+        pool.revive_member(name)
+        dead.inner = dead.cache = dead.metrics = None
+        check(pool.members[name].available, f"{tag}: {name} is not back")
+        fresh = _held_probe(pool, name)
+        fresh.release_evt.set()  # the revived engine holds no round
+        # three submits in a row on the idle pool: one a member
+        reqs = [Request(prompt=list(pairs[i][0]), max_tokens=pairs[i][1],
+                        timeout_s=POOL_TIMEOUT_S) for i in range(3)]
+        for r in reqs:
+            pool.submit(r)
+        for r in reqs:
+            check(r.done.wait(POOL_TIMEOUT_S) and r.status == "ok",
+                  f"{tag}: a request after the revive is not ok")
+        check([r.tokens for r in reqs] == ref_tokens[:3],
+              f"{tag}: a stream after the revive differs")
+        check(len(fresh.prefilled) >= 1,
+              f"{tag}: the revived member took no request")
+        gc.collect()
+        after_gib = (torch.cuda.memory_allocated() / 2 ** 30
+                     if device == "cuda" else 0.0)
+        revive_peak_gib = _peak_gib(device)
+        revived = pool.metrics.count("members_revived")
+    finally:
+        pool.close()
+    out["launches"] += run["launches"]
+    run.update(failovers=failovers, requests_failed_over=moved,
+               revived=revived, gib_before_revive=before_gib,
+               gib_after_revive=after_gib,
+               peak_gib_after_revive=revive_peak_gib)
+    out[tag] = {k: v for k, v in run.items() if k != "held"}
+    print(f"[pool] {tag}: {name} killed while held, {failovers} failover "
+          f"({moved} requests re-prefilled on its peers, serve.failover "
+          f"{run['failover_ms']:.3f} ms); revive_member: back in routing, "
+          f"took {len(fresh.prefilled)} of 3 new requests token-exact; "
+          f"{before_gib:.3f} GiB allocated before the revive, "
+          f"{after_gib:.3f} GiB after, peak so far "
+          f"{revive_peak_gib:.3f} GiB [{card}]")
+    del pool, probes, base, shared
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) bf16: the wgmma flash forward, the seeded chaos run
+    engine = _pool_engine(seed, torch.bfloat16, device)
+    _serve_burst(engine, _warm_pairs((10, 20, 40, 100), POOL_MAX_LEN),
+                 device)
+    ref_run = _serve_burst(engine, pairs, device)
+    chaos = _pool_chaos(engine, pairs, ref_run, device, card)
+    out["launches"] += chaos["launches"]
+    out["chaos"] = chaos
+    del engine
+    out["peak_gib"] = _peak_gib(device)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[pool] peak {out['peak_gib']:.2f} GiB allocated; phase "
+          f"{out['seconds']:.1f} s; flash forwards launched "
+          f"{out['launches']} [{card}]")
+    return out
+
+
 def phase_train_llama(card, seed, device="cuda"):
     """Llama-2-7B's widths at 4 layers: the kernel-vs-plain gate, then 10
     Executor steps at B 4 x S 4096."""
@@ -6124,6 +6792,8 @@ def main(argv=None) -> int:
                           migrate)
     del llama_engine
     torch.cuda.empty_cache()
+    pool = phase_pool(card, args.seed)
+    torch.cuda.empty_cache()
     llama_train = phase_train_llama(card, args.seed)
     torch.cuda.empty_cache()
     bert = phase_train_bert(card, args.seed)
@@ -6170,6 +6840,7 @@ def main(argv=None) -> int:
                               "paged_serve": 0,
                               "migrate": migrate["launches"],
                               "server": server["launches"],
+                              "pool": pool["launches"],
                               "llama_train": llama_train["launches"][0],
                               "bert_train": bert["launches"][0],
                               **later[0]},

@@ -29,7 +29,11 @@ paths and names mirror the reference so each counterpart is found at once:
     htt.embedding_compress  # the 19 compression methods, the stage
                       # scheduler, the AutoDim and OptEmbed flows, the
                       # serving cache's row codec
-    htt.telemetry.*   # span tracer + typed metrics registry
+    htt.serve.ServingPool  # routing, planned drain with live KV
+                      # migration, engine-death failover over N engines
+    htt.telemetry.*   # span tracer, typed metrics registry, chaos
+                      # timeline, fleet stream merge, costs, live health
+    htt.resilience.*  # seeded fault schedules and their injector
     htt.data.*        # CIFAR-10 and MNIST, the Dataloader, bucketed
                       # padding of CTR batches, the graph sampler over PS
                       # tables
@@ -50,7 +54,7 @@ from hetu_tpu_torch.version import __version__
 
 _LAZY = {"ops", "init", "rng", "layers", "models", "optim", "lr", "train",
          "interop", "serve", "telemetry", "data", "utils", "ps",
-         "quantwire", "embedding_compress"}
+         "quantwire", "embedding_compress", "resilience"}
 
 
 def __getattr__(name):

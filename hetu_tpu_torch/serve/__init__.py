@@ -22,10 +22,13 @@
   * :mod:`server` — the front end over the van: :class:`InferenceServer`
     (engine loop, one listener per client channel pair, crash requeue and
     failover grace, dedup of a retried submit) and
-    :class:`InferenceClient`.
+    :class:`InferenceClient`;
+  * :mod:`pool` — :class:`ServingPool`: least-loaded routing over N
+    listener-less servers, planned drain with live KV migration (zero
+    re-prefill), unplanned engine-death failover with re-prefill, and
+    the chaos hooks that apply ``resilience.faults`` serve events.
 
-The serving pools (in-process and across hosts) and the CTR front end
-wait for later slices.
+The pool across hosts and the CTR front end wait for later slices.
 """
 
 from hetu_tpu_torch.serve import migrate
@@ -35,6 +38,7 @@ from hetu_tpu_torch.serve.kv_cache import (
 )
 from hetu_tpu_torch.serve.metrics import ServeMetrics
 from hetu_tpu_torch.serve.migrate import MigrationError
+from hetu_tpu_torch.serve.pool import EngineKilled, ServingPool
 from hetu_tpu_torch.serve.scheduler import ContinuousBatchingScheduler, Request
 from hetu_tpu_torch.serve.server import (
     InferenceClient, InferenceServer, request_channel, response_channel,
@@ -44,4 +48,5 @@ __all__ = ["ServeEngine", "PagedServeEngine", "KVCache", "KVCacheSpec",
            "KVSlotSnapshot", "PagedKVCache", "PagePoolExhausted",
            "ServeMetrics", "MigrationError", "migrate",
            "ContinuousBatchingScheduler", "Request", "InferenceServer",
-           "InferenceClient", "request_channel", "response_channel"]
+           "InferenceClient", "request_channel", "response_channel",
+           "ServingPool", "EngineKilled"]

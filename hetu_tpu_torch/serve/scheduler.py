@@ -25,6 +25,15 @@ migration surface (``export_inflight``/``export_inflight_with_slots``/
 ``adopt_inflight``, used by serve/migrate.py) with ``export_slots``,
 ``resume_slots`` and ``adopt_slots``, and the paged engine re-indexes
 adopted pages through ``reindex_prefix``.
+
+One departure from the reference: the lock hand-off.  A control call
+(``submit``, ``stop_intake``, the exports and ``adopt_inflight``)
+registers itself while it waits for the scheduler lock, and an engine
+loop calls :meth:`yield_to_control` between two steps, so the waiting
+call takes the lock before the next step.  Without it the loop re-takes
+the lock the instant ``step()`` releases it, and a drain or a failover
+can wait until the whole burst is served.  The hand-off moves only when
+a control call runs between steps; it changes no token.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import itertools
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -203,10 +213,49 @@ class ContinuousBatchingScheduler:
         self._vfinish = {}    # flow (slo, tenant) -> virtual finish tag
         self._ewma_service_s: Optional[float] = None
         self._lock = threading.Lock()
+        # the lock hand-off: control calls waiting for _lock, counted
+        # under _handoff (see _control_lock / yield_to_control)
+        self._handoff = threading.Condition()
+        self._handoff_waiting = 0
         self._queue = deque()
         self._running = {}   # slot -> Request
         self._accepting = True
         self._reject_status = "shutdown"  # status for post-drain submits
+
+    # ---- the lock hand-off ----
+    @contextmanager
+    def _control_lock(self):
+        """Hold the scheduler lock for a control call, counted as waiting
+        until it has the lock: an engine loop in :meth:`yield_to_control`
+        lets it in before its next step."""
+        with self._handoff:
+            self._handoff_waiting += 1
+        try:
+            self._lock.acquire()
+        finally:
+            with self._handoff:
+                self._handoff_waiting -= 1
+                self._handoff.notify_all()
+        try:
+            yield
+        finally:
+            self._lock.release()
+
+    @property
+    def control_waiting(self) -> int:
+        """Control calls waiting for the scheduler lock now."""
+        return self._handoff_waiting
+
+    def yield_to_control(self) -> bool:
+        """Called by an engine loop between two steps (not holding the
+        lock): while a control call waits for the lock, wait until it has
+        it (at most a second: a waiter takes a free lock at once).
+        Returns whether one was waiting."""
+        with self._handoff:
+            if not self._handoff_waiting:
+                return False
+            self._handoff.wait_for(lambda: not self._handoff_waiting, 1.0)
+        return True
 
     # ---- request intake ----
     def projected_wait_s(self) -> float:
@@ -299,7 +348,7 @@ class ContinuousBatchingScheduler:
                resolve_on_reject: bool = True) -> Request:
         request.submitted_at = time.monotonic()
         shed = False
-        with self._lock:
+        with self._control_lock():
             if self._accepting and self.shed and \
                     request.timeout_s is not None:
                 # the shed decision runs AFTER the accepting gate: a
@@ -457,7 +506,7 @@ class ContinuousBatchingScheduler:
         admitting new work would decode the still-active exported slots
         and silently advance them past the requests' recorded tokens.
         """
-        with self._lock:
+        with self._control_lock():
             pairs = self._export_locked(fold)
             self.metrics.inc("requests_exported", len(pairs))
             return pairs
@@ -469,7 +518,7 @@ class ContinuousBatchingScheduler:
         leaving ``_running`` and their K/V rows being captured, so the
         snapshot and each request's token list always agree.  Returns
         ``(pairs, snapshots)``."""
-        with self._lock:
+        with self._control_lock():
             pairs = self._export_locked(fold=False)
             slots = [slot for _, slot in pairs if slot is not None]
             try:
@@ -579,7 +628,7 @@ class ContinuousBatchingScheduler:
         """
         pairs = list(pairs)
         n = 0
-        with self._lock:
+        with self._control_lock():
             if not self._accepting:
                 raise RuntimeError(
                     "scheduler is drained; cannot adopt migrated requests")
@@ -1092,7 +1141,7 @@ class ContinuousBatchingScheduler:
         member's close).  ``drain(stop_accepting=True)`` is this plus
         resolving everything in flight; ``replace_engine`` reopens
         intake."""
-        with self._lock:
+        with self._control_lock():
             self._accepting = False
             self._reject_status = status
 

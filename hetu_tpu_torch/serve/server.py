@@ -120,6 +120,9 @@ class InferenceServer:
                 if self.scheduler.has_work():
                     self.scheduler.step()
                     consecutive = 0
+                    # a drain, failover or submit waiting for the
+                    # scheduler lock takes it before the next step
+                    self.scheduler.yield_to_control()
                 else:
                     time.sleep(0.002)
             except Exception:

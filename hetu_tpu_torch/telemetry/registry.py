@@ -1,15 +1,20 @@
-"""Typed metrics: Counter, Gauge, fixed-bucket Histogram, one registry.
-
-A copy of the part of ``hetu_tpu/telemetry/registry.py`` that serving uses
-(pure Python); the fleet dump/merge surface waits for the fleet planes.
+"""Typed metrics: Counter, Gauge, fixed-bucket Histogram, one registry
+(counterpart of ``hetu_tpu/telemetry/registry.py``, copied whole: pure
+Python).
 
 * :class:`Counter` — monotonic (fault injected, retry, tokens served);
 * :class:`Gauge`   — last-write-wins level (queue depth, elastic width);
-* :class:`Histogram` — fixed upper-bound buckets plus an exact count and
-  sum.
+* :class:`Histogram` — fixed upper-bound buckets with p50/p90/p99 read
+  out by linear interpolation inside the bucket (the Prometheus
+  ``histogram_quantile`` estimator, computed client-side) plus exact
+  count/sum/min/max.
 
-Exposition: :meth:`MetricsRegistry.prometheus_text` (the text format a
-file-based scrape or a pushgateway ingests).
+Exposition: :meth:`MetricsRegistry.snapshot` (a JSON-able dict),
+:meth:`MetricsRegistry.prometheus_text` (the text format a file-based
+scrape or a pushgateway ingests) and :meth:`MetricsRegistry.dump` (the
+lossless form :meth:`MetricsRegistry.merge` folds, e.g. a member's
+registry shipped to a controller: counters sum, gauges take the last
+write, histograms add bucket by bucket).
 
 Thread safety: every mutation takes the metric's own lock; exposition
 reads under it.  All clocks are the caller's business — the registry
@@ -58,6 +63,10 @@ class Counter:
         with self._lock:
             return self._value
 
+    def reset(self) -> None:
+        with self._lock:
+            self._value = 0
+
 
 class Gauge:
     __slots__ = ("name", "help", "_lock", "_value")
@@ -80,7 +89,10 @@ class Gauge:
 
 class Histogram:
     """Fixed-bucket histogram.  ``buckets`` are INCLUSIVE upper bounds
-    (``le``), ascending; an implicit +inf bucket catches the overflow."""
+    (``le``), ascending; an implicit +inf bucket catches the overflow.
+    Percentiles interpolate linearly within the winning bucket (clamped
+    by the exact observed min/max, so a single-value histogram reports
+    that value, not a bucket edge)."""
 
     __slots__ = ("name", "help", "buckets", "_lock", "_counts", "_sum",
                  "_count", "_min", "_max")
@@ -111,6 +123,16 @@ class Histogram:
             if self._max is None or v > self._max:
                 self._max = v
 
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
     def _percentile_locked(self, q: float) -> Optional[float]:
         """Caller holds self._lock."""
         if self._count == 0:
@@ -125,14 +147,23 @@ class Histogram:
                 hi = self.buckets[i] if i < len(self.buckets) \
                     else self._max
                 # position inside the bucket, linearly interpolated
-                est = lo + (hi - lo) * (rank - cum) / c
+                frac = (rank - cum) / c
+                est = lo + (hi - lo) * frac
                 return min(max(est, self._min), self._max)
             cum += c
         return self._max
 
+    def percentile(self, q: float) -> Optional[float]:
+        """q in [0, 1] → estimated quantile; None with no observations."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError("q must be in [0, 1]")
+        with self._lock:
+            return self._percentile_locked(q)
+
     def snapshot(self) -> dict:
-        """count, sum, min, max and p50/p90/p99, all under one lock
-        acquisition (one set of observations)."""
+        # everything under ONE lock acquisition: count/sum/min/max and the
+        # three percentiles must describe the same set of observations
+        # (a scrape racing a burst of observes must never report p50>p99)
         with self._lock:
             if self._count == 0:
                 return {"count": 0, "sum": 0.0}
@@ -178,6 +209,96 @@ class MetricsRegistry:
         with self._lock:
             return dict(self._metrics)
 
+    # ---- fleet aggregation ----
+    def dump(self) -> dict:
+        """Full-state, JSON-able export: unlike :meth:`snapshot` (which
+        collapses histograms to percentiles), this keeps raw bucket
+        counts — the form :meth:`merge` can fold LOSSLESSLY, which is
+        what lets a controller aggregate member registries shipped over
+        a wire into one fleet registry whose percentiles are computed
+        from the SUMMED buckets, not averaged member percentiles."""
+        out = {}
+        for name, m in sorted(self.metrics().items()):
+            if isinstance(m, Counter):
+                out[name] = {"type": "counter", "value": m.value,
+                             "help": m.help}
+            elif isinstance(m, Gauge):
+                out[name] = {"type": "gauge", "value": m.value,
+                             "help": m.help}
+            elif isinstance(m, Histogram):
+                with m._lock:
+                    out[name] = {"type": "histogram",
+                                 "buckets": list(m.buckets),
+                                 "counts": list(m._counts),
+                                 "sum": m._sum, "count": m._count,
+                                 "min": m._min, "max": m._max,
+                                 "help": m.help}
+        return out
+
+    @classmethod
+    def from_dump(cls, dump: dict) -> "MetricsRegistry":
+        reg = cls()
+        reg.merge(dump)
+        return reg
+
+    def merge(self, other, *, prefix: str = "") -> "MetricsRegistry":
+        """Fold another registry (or a :meth:`dump` dict, e.g. one that
+        crossed a process boundary as JSON) into this one: counters SUM,
+        gauges LAST-WRITE-WINS, histograms add BUCKET-WISE — the bucket
+        schemas must match exactly (mismatched buckets cannot be merged
+        losslessly, so that is an error, not a best-effort).  ``prefix``
+        namespaces every merged name (``prefix="m0."``) so same-named
+        metrics from different processes can coexist when the caller
+        wants per-source attribution instead of a fleet sum."""
+        dump = other.dump() if isinstance(other, MetricsRegistry) else other
+        for raw_name, rec in dump.items():
+            name = prefix + raw_name
+            kind = rec["type"]
+            if kind == "counter":
+                self.counter(name, rec.get("help", "")).inc(rec["value"])
+            elif kind == "gauge":
+                self.gauge(name, rec.get("help", "")).set(rec["value"])
+            elif kind == "histogram":
+                want = tuple(float(b) for b in rec["buckets"])
+                h = self.histogram(name, want, rec.get("help", ""))
+                if h.buckets != want:
+                    raise ValueError(
+                        f"histogram {name!r}: incompatible buckets "
+                        f"{list(h.buckets)} vs {list(want)} — bucket-wise "
+                        f"merge needs one schema")
+                counts = rec["counts"]
+                if len(counts) != len(h._counts):
+                    raise ValueError(
+                        f"histogram {name!r}: {len(counts)} counts for "
+                        f"{len(h._counts)} buckets")
+                with h._lock:
+                    for i, c in enumerate(counts):
+                        h._counts[i] += int(c)
+                    h._sum += float(rec["sum"])
+                    h._count += int(rec["count"])
+                    for attr, pick in (("_min", min), ("_max", max)):
+                        v = rec.get(attr.lstrip("_"))
+                        if v is not None:
+                            cur = getattr(h, attr)
+                            setattr(h, attr, float(v) if cur is None
+                                    else pick(cur, float(v)))
+            else:
+                raise ValueError(f"unknown metric type {kind!r} "
+                                 f"for {name!r}")
+        return self
+
+    # ---- exposition ----
+    def snapshot(self) -> dict:
+        """JSON-able flat dict: counters/gauges → scalar, histograms →
+        {count, sum, min, max, p50, p90, p99}."""
+        out = {}
+        for name, m in sorted(self.metrics().items()):
+            if isinstance(m, Histogram):
+                out[name] = m.snapshot()
+            else:
+                out[name] = m.value
+        return out
+
     def prometheus_text(self) -> str:
         """Prometheus text exposition (0.0.4): counters/gauges one sample
         each, histograms as cumulative ``_bucket{le=...}`` + ``_sum`` +
@@ -208,3 +329,10 @@ class MetricsRegistry:
                 lines.append(f"{pname}_sum {s}")
                 lines.append(f"{pname}_count {total}")
         return "\n".join(lines) + "\n"
+
+    def write_prometheus(self, path) -> str:
+        from pathlib import Path
+        p = Path(path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text(self.prometheus_text())
+        return str(p)

@@ -1111,3 +1111,167 @@ def test_compressed_float64_gate_refuses_a_dpq_code_flipped_unreplayed(
     out = chip_smoke.compressed_f32_vs_f64("dpq", model, ids, y)
     assert out["flips"] == 1
     assert out["grad_gap"] <= chip_smoke.TOL_RNN_GRAD
+
+
+# ---- the pool phase, rehearsed on the CPU ----
+
+# the phase at the sizes of TINY_SERVER's GPT: the burst keeps its 16
+# requests over three members of 8 slots, so the routing, the holds, the
+# drains (6 running slots on the busiest member), the kill and the chaos
+# run are the card's; CPU tensors launch no flash kernel, so every launch
+# gate expects none
+TINY_POOL = dict(V=97, H=64, L=2, NH=4, FFN=128, POOL_V=97, POOL_P=256,
+                 POOL_MAX_LEN=192, N_REQUESTS=16, GPT_PROMPT=(1, 32))
+
+
+def test_pool_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """Every gate of the phase runs: the token-exact drains over the van
+    and in process (one slot moved a running request, no prefill on the
+    survivors for them), the kill's failover and the revive, the chaos
+    run's pairs, the doctor and the near-tie holds, the launch counts
+    (none off the card); the printed lines keep their schema."""
+    import re
+
+    for name, value in TINY_POOL.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    out = chip_smoke.phase_pool("cpu", 0, device="cpu")
+    text = capsys.readouterr().out
+    for tag in ("f32 drain over the van", "f32 drain in process",
+                "f32 kill"):
+        assert re.search(rf"\[pool\] {tag}: 16 requests over 3 members, "
+                         r"m\d held at decode round 2 with \d+ requests "
+                         r"\(\d+ running\); every response ok, 16 of 16 "
+                         r"streams token-exact", text), tag
+        assert out[tag]["exact"] == 16 and out[tag]["launches"] == 0
+    for tag in ("f32 drain over the van", "f32 drain in process"):
+        run = out[tag]
+        assert run["slots"] > 0 and run["reprefill_tokens"] == 0
+        assert re.search(rf"\[pool\] {tag}: m\d drained mid-decode, "
+                         rf"{run['slots']} slots moved \(slots_migrated "
+                         rf"{run['slots']}\), 0 prefill tokens on the "
+                         r"survivors", text)
+    assert out["f32 drain over the van"]["wire_bytes"] > 0
+    assert out["f32 drain in process"]["wire_bytes"] == 0
+    kill = out["f32 kill"]
+    assert kill["failovers"] == 1 and kill["revived"] == 1
+    assert kill["requests_failed_over"] >= 1
+    assert "revive_member: back in routing, took 1 of 3 new requests" in text
+    chaos = out["chaos"]
+    # bf16: only a re-prefilled stream may part at a near tie (the phase
+    # holds each to the rule); a migrated one keeps its K/V and goes on
+    # token for token; the count of served requests is the burst's
+    assert chaos["requests"] >= 16
+    assert chaos["exact"] + chaos["near_ties"] == chaos["requests"]
+    assert chaos["near_ties"] <= chaos["requests_failed_over"]
+    assert chaos["failovers"] == 1 and chaos["launches"] == 0
+    # the preemption moved the live slots of its parked member
+    assert chaos["slots_migrated"] == sum(chaos["live_at_preempt"]) >= 1
+    for kind, rec in (("serve_preempt", "serve.migrate"),
+                      ("serve_engine_kill", "serve.failover")):
+        assert chaos["report"][kind]["paired"] == 1
+        assert re.search(rf"\[pool\] chaos: fault\.{kind} at step \d -> "
+                         rf"{rec}: detection [\d.]+ ms, recovery [\d.]+ ms; "
+                         rf"doctor: serve_recovery\.{kind} ← {kind} ← "
+                         rf"{rec} closed", text), kind
+    assert re.search(r"\[pool\] chaos: \d+ requests, every response ok",
+                     text)
+    assert re.search(r"TTFT p50 [\d.]+ ms, p99 [\d.]+ ms \[cpu\]", text)
+    assert out["launches"] == 0
+    assert re.search(r"\[pool\] peak [\d.]+ GiB allocated; phase [\d.]+ s; "
+                     r"flash forwards launched 0 \[cpu\]", text)
+
+
+class _Probe:
+    def __init__(self, prefilled):
+        self.prefilled = prefilled
+
+
+def test_drain_gate_refuses_a_reprefill_on_a_survivor():
+    """The zero re-prefill gate: a survivor that prefilled a migrated
+    request's prompt (plus its tokens, as a fold does) fails the phase;
+    one that prefilled only other prompts passes."""
+    from types import SimpleNamespace
+
+    class _Metrics:
+        def count(self, name):
+            return 2
+
+    def pool_of(probes):
+        m0 = SimpleNamespace(
+            scheduler=SimpleNamespace(metrics=SimpleNamespace(
+                registry=chip_smoke_registry())),
+            engine=SimpleNamespace(inner=probes[0]))
+        return SimpleNamespace(metrics=_Metrics(), members={"m0": m0})
+
+    running = [SimpleNamespace(prompt=[5, 6, 7]),
+               SimpleNamespace(prompt=[8, 9])]
+    held = {"name": "m0", "running": running}
+    ok = [_Probe([[5, 6, 7], [8, 9]]), _Probe([[1, 2]]), _Probe([])]
+    out = chip_smoke._drain_gates("t", pool_of(ok), ok,
+                                  {"held": held, "slot_map": {0: 1, 1: 2}})
+    assert out["reprefill_tokens"] == 0 and out["slots"] == 2
+    bad = [_Probe([[5, 6, 7], [8, 9]]), _Probe([[8, 9, 4, 4]]), _Probe([])]
+    with pytest.raises(chip_smoke.SmokeFailure, match="prefilled 4 tokens"):
+        chip_smoke._drain_gates("t", pool_of(bad), bad,
+                                {"held": held, "slot_map": {0: 1, 1: 2}})
+    with pytest.raises(chip_smoke.SmokeFailure, match="1 slots moved"):
+        chip_smoke._drain_gates("t", pool_of(ok), ok,
+                                {"held": held, "slot_map": {0: 1}})
+
+
+def test_park_busy_parks_where_a_request_outlives_the_round():
+    """The chaos run's preemption lands on a parked member with a running
+    request: a round whose only request ends in it is let go, and the
+    next round, with a request that outlives it, stays parked."""
+    import threading
+    from types import SimpleNamespace
+
+    probe = chip_smoke._PoolProbe(SimpleNamespace(
+        cache=None, metrics=None, decode=lambda: None))
+    last = SimpleNamespace(tokens=[1, 2, 3], max_tokens=4)
+    rounds = [{0: last},
+              {0: last, 1: SimpleNamespace(tokens=[1], max_tokens=4)}]
+    sched = SimpleNamespace(_running={})
+
+    def loop():
+        # each round starts once the park is asked for, as a member under
+        # continuous traffic decodes round after round
+        for running in rounds:
+            assert probe.park.wait(10)
+            sched._running = running
+            probe.decode()
+
+    t = threading.Thread(target=loop, daemon=True)
+    t.start()
+    try:
+        assert chip_smoke._park_busy(probe, sched) == 1
+        assert probe.decodes == 1 and sched._running is rounds[1]
+    finally:
+        probe.unpark.set()
+        t.join(10)
+    assert not t.is_alive() and probe.decodes == 2
+
+
+def chip_smoke_registry():
+    from hetu_tpu_torch.telemetry import MetricsRegistry
+    return MetricsRegistry()
+
+
+def test_kernels_line_counts_the_pool_path():
+    """main() runs the pool phase right after the server phase and row 1
+    (the flash forward) gains "pool" in its launches by path, read from
+    the phase's own count; the final line is unchanged."""
+    src = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    main = src[src.index("def main("):]
+    order = [main.index(f"phase_{p}(card") for p in (
+        "server", "pool", "train_llama")]
+    assert order == sorted(order)
+    assert main.count('"pool": pool["launches"]') == 1
+    row1 = main[main.index('"name": "flash_attention_fwd"'):
+                main.index('"name": f"flash_attention_bwd_{k}"')]
+    assert '"pool": pool["launches"]' in row1
+    assert '"server": server["launches"]' in row1
+    assert 'print(json.dumps({"ok": True, "device": {' in main
+    assert chip_smoke.POOL_V == 50257 and chip_smoke.POOL_P == 1024
+    assert (chip_smoke.POOL_MEMBERS, chip_smoke.POOL_SLOTS,
+            chip_smoke.POOL_MAX_LEN) == (3, 8, 512)

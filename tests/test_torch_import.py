@@ -11,8 +11,9 @@ AdamW steps of the Executor and a checkpoint round trip each), GQA Llama
 serving and a BERT pretraining step, the four other MoE gates and the
 remote PS tiers (a partitioned table, the remote HET cache, ``PSEmbedding``
 over them), the CNN family, and an LSTM classifier, a GCN on a sampled
-batch and the op zoo, and the compression zoo; ``jax`` and ``hetu_tpu`` must
-stay out of ``sys.modules``.  An AST scan of every module of the package,
+batch and the op zoo, the compression zoo, and the serving pool with the
+fleet plane (a fault schedule, a merged stream, the timeline and the
+doctor); ``jax`` and ``hetu_tpu`` must stay out of ``sys.modules``.  An AST scan of every module of the package,
 and of ``chip_smoke.py``, finds no import of either.
 """
 
@@ -441,6 +442,59 @@ def test_compression_zoo_runs_without_jax():
         "              and sys.modules[m] is not None)\n"
         "print('LEAKED', mods)\n")
     assert "LEAKED []" in out
+
+
+def test_serving_pool_and_fleet_plane_run_without_jax(tmp_path):
+    """A two-member ServingPool serves a request, drains a member in
+    process and fails another over; a seeded FaultSchedule, the
+    timeline, a process stream merged by the fleet plane and the health
+    doctor run beside it."""
+    out = _run(
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from hetu_tpu_torch.models import GPTConfig, GPTModel\n"
+        "from hetu_tpu_torch.serve import ServeEngine, ServingPool\n"
+        "from hetu_tpu_torch.resilience import FaultSchedule\n"
+        "from hetu_tpu_torch.telemetry import (\n"
+        "    fleet, health, timeline, trace)\n"
+        "cfg = GPTConfig(vocab_size=97, hidden_size=32, num_layers=2,\n"
+        "                num_heads=4, ffn_size=64, max_position=32)\n"
+        "m = GPTModel(cfg, device='cpu')\n"
+        "f = lambda: ServeEngine(m, num_slots=2, max_len=32,\n"
+        "                        min_bucket=8, device='cpu')\n"
+        f"tr = trace.open_process_stream({str(tmp_path)!r}, 'pool')\n"
+        "pool = ServingPool({'a': f, 'b': f, 'c': f}, start_poll=False)\n"
+        "try:\n"
+        "    assert pool.generate([1, 2, 3], max_tokens=4)['status'] == 'ok'\n"
+        "    trace.instant('fault.serve_preempt', {'kind': 'serve_preempt'})\n"
+        "    pool.drain_member('a', wire=False)\n"
+        "    trace.instant('fault.serve_engine_kill',\n"
+        "                  {'kind': 'serve_engine_kill'})\n"
+        "    pool.failover('b')\n"
+        "    assert pool.generate([4, 5], max_tokens=3)['status'] == 'ok'\n"
+        "finally:\n"
+        "    pool.close()\n"
+        "    trace.disable()\n"
+        f"ev, procs = fleet.merge_streams({str(tmp_path)!r})\n"
+        "pairs = timeline.correlate(ev)\n"
+        "assert [p.paired for p in pairs] == [True, True], pairs\n"
+        "d = health.diagnose(ev, alert=health.AlertRule(\n"
+        "    'x', fault_kinds=('serve_engine_kill',)))\n"
+        "assert d['top']['kind'] == 'serve_engine_kill', d\n"
+        "s = FaultSchedule.generate(steps=6, seed=0, serve_preempts=1,\n"
+        "                           serve_engine_kills=1, n_members=3)\n"
+        "assert len(s) == 2\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out
+    names = {p.relative_to(PKG).as_posix() for p in SOURCES
+             if PKG in p.parents}
+    assert {"serve/pool.py", "resilience/__init__.py",
+            "resilience/faults.py", "telemetry/registry.py",
+            "telemetry/trace.py", "telemetry/timeline.py",
+            "telemetry/fleet.py", "telemetry/costs.py",
+            "telemetry/health.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
