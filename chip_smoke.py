@@ -136,6 +136,26 @@ without the final result line:
    and recovery ms, drain ms and bytes, TTFT p50/p99, tokens/s, peak
    memory.  The flash forwards: one a layer a prefill, re-prefills
    included.
+11c. crosshost — the cross-process pool (``serve/crosshost.py``): three
+   GPT-2-small member PROCESSES (published widths, weights drawn by
+   ``build_engine`` from the seed) of 8 slots x 512 on the card, this
+   process their controller over the van the pool owns.  (a) f32: the
+   16-request burst through ``pool.generate``, token-exact to the burst
+   straight through one scheduler here on the same spec's weights; a
+   planned drain of the busiest member over the wire (codec none) while
+   the members are parked at a decode round (live slots moved, no
+   prefill token for them on the target, the source exits 0, no
+   failover); a SIGKILL of a parked member (suspect, lost, ``failover``
+   re-prefills on the survivor), then ``revive_member`` (a fresh process
+   that takes a new request); a SIGSTOP shorter than lease + grace
+   (suspected once, cleared once, no failover); (b) bf16: the seeded
+   chaos run of the reference's member kill and suspend, each fault
+   paired with its recovery on the merged fleet timeline of the
+   workdir's per-process streams, every stream by the near-tie rule.
+   The members' flash forwards (scraped from their metrics): one a
+   layer a prefill, re-prefills included; no member loads jax.
+   Spawn-to-READY seconds, the drain's wire bytes and ms, detection and
+   recovery ms, each member's peak memory.
 12. train_llama — Llama-2-7B's widths at 4 layers (cut from 32), bf16,
    flash, recomputation, fused CE, AdamW, B 4 x S 4096: the kernel-vs-plain
    gate, then 10 Executor steps (2·L forwards and L of each backward kernel
@@ -423,6 +443,16 @@ POOL_V, POOL_P, POOL_MEMBERS, POOL_SLOTS, POOL_MAX_LEN = (
     50257, 1024, 3, 8, 512)
 POOL_HOLD_AT, POOL_ROUNDS_PER_STEP, POOL_WORKERS = 2, 6, 3
 POOL_TIMEOUT_S = 300.0
+# the cross-process pool: the serving pool's model and slots in
+# CROSS_MEMBERS member processes; a drain, a kill or a SIGSTOP lands while
+# the members are parked at a decode round (CROSS_WAVE requests a member in
+# flight); the lease is CROSS_LEASE_S + CROSS_GRACE_S of grace, and a
+# suspend runs at CROSS_SUSPEND = (lease, grace, the SIGSTOP's seconds),
+# 3x on either side
+CROSS_MEMBERS, CROSS_WAVE = 3, 2
+CROSS_LEASE_S, CROSS_GRACE_S = 1.0, 1.0
+CROSS_SUSPEND = (0.5, 4.5, 1.5)
+CROSS_WAIT_S = 60.0  # a lease decision's own deadline
 # training: Llama-2-7B's widths, depth cut to 4 layers (f32 weights,
 # gradients and AdamW's two slots: 17 GB; at 32 layers 108 GB), at the
 # config's max_position and bench_gpt's 16384 tokens a step
@@ -4476,6 +4506,577 @@ def phase_pool(card, seed, device="cuda"):
     return out
 
 
+_CROSS_T0 = [0.0]
+
+
+def _cross_t():
+    """Seconds since the crosshost phase began, printed on its lines:
+    where its budget goes."""
+    return time.perf_counter() - _CROSS_T0[0]
+
+
+def _cross_spec(seed, dtype, device):
+    """The member processes' model spec: GPT-2-small at the serving pool's
+    widths and slots, its weights drawn by ``build_engine`` from
+    ``seed``."""
+    return {"vocab_size": POOL_V, "hidden_size": H, "num_layers": L,
+            "num_heads": NH, "ffn_size": FFN, "max_position": POOL_P,
+            "num_slots": POOL_SLOTS, "max_len": POOL_MAX_LEN,
+            "min_bucket": 16, "seed": int(seed), "device": device,
+            "dtype": dtype, "attention_impl": "flash"}
+
+
+def _cross_start(workdir, spec):
+    """Start a ``CrossProcessServingPool`` of ``CROSS_MEMBERS`` in a
+    thread (the members come up while the caller runs its straight
+    reference); ``_cross_join`` waits for it."""
+    from hetu_tpu_torch.serve.crosshost import CrossProcessServingPool
+
+    box = {}
+
+    def make():
+        try:
+            box["pool"] = CrossProcessServingPool(
+                CROSS_MEMBERS, workdir=workdir, model=spec,
+                lease_s=CROSS_LEASE_S, suspect_grace_s=CROSS_GRACE_S,
+                request_timeout_s=POOL_TIMEOUT_S, scrape_s=0.0,
+                spawn_timeout_s=POOL_TIMEOUT_S,
+                # CPU members (a rehearsal) share the host's cores
+                member_env={"OMP_NUM_THREADS": "1"}
+                if spec["device"] == "cpu" else None)
+        except Exception as e:  # reported by _cross_join
+            box["error"] = repr(e)
+
+    t = threading.Thread(target=make, daemon=True)
+    t.start()
+    return t, box
+
+
+def _cross_join(started, tag, card):
+    t, box = started
+    t.join(POOL_TIMEOUT_S)
+    check("pool" in box, f"crosshost {tag}: the pool did not start: "
+                         f"{box.get('error')}")
+    pool = box["pool"]
+    ready = [round(p.ready_s, 3) for p in pool.procs]
+    print(f"[crosshost] {tag}: {CROSS_MEMBERS} member processes "
+          f"(pids {[p.pid for p in pool.procs]}) READY after {ready} s "
+          f"from their spawn [{card}] "
+          f"t+{_cross_t():.1f} s")
+    return pool
+
+
+def _cross_straight(spec, pairs, device):
+    """The burst straight through one scheduler here, on an engine of the
+    members' spec (this process's tracer untouched: it streams the
+    controller's spans).  Returns the engine and the requests."""
+    from hetu_tpu_torch.serve import ContinuousBatchingScheduler, Request
+    from hetu_tpu_torch.serve.crosshost import build_engine
+
+    _, _, engine = build_engine(spec, device=device)
+    sched = ContinuousBatchingScheduler(engine)
+    reqs = [Request(prompt=list(p), max_tokens=m) for p, m in pairs]
+    for r in reqs:
+        sched.submit(r)
+    while sched.has_work():
+        sched.step()
+    check(all(r.status == "ok" and len(r.tokens) == r.max_tokens
+              for r in reqs), "crosshost: the straight run did not finish")
+    return engine, reqs
+
+
+def _cross_held_wave(pool, pairs, idx, slots, tag):
+    """Hold each member of ``slots`` at its next decode round, submit
+    ``pairs[i]`` for ``i`` in ``idx``, then move each hold one round on:
+    every request submitted is admitted by the round the member parks at
+    last, and no member ran ahead meanwhile.  Returns the requests once
+    every member of ``slots`` that took one has parked there."""
+    for s in slots:
+        pool.hold_member(s)
+    reqs = _cross_submit(pool, pairs, idx)
+    for s in slots:
+        pool.hold_member(s, after=1)
+    for s in sorted({r.member for r in reqs} & set(slots)):
+        check(pool.wait_held([s], timeout_s=POOL_TIMEOUT_S),
+              f"crosshost {tag}: member {s} never parked")
+    return reqs
+
+
+def _cross_fault(pool, kind, slot, arg2=0.0):
+    """A ``FaultInjector`` over the pool's member processes whose one
+    event (step 1) hits member ``slot``: the injector indexes the live
+    processes, so the event names the slot's place among them."""
+    from hetu_tpu_torch.resilience import (
+        FaultEvent, FaultInjector, FaultSchedule,
+    )
+
+    live = [p for p in pool.procs if p is not None and p.poll() is None]
+    idx = live.index(pool.procs[slot])
+    return FaultInjector(FaultSchedule([FaultEvent(1, kind, idx, arg2)]),
+                         member_procs=pool.procs)
+
+
+def _cross_submit(pool, pairs, idx):
+    return [pool.submit(pairs[i][0], max_tokens=pairs[i][1],
+                        timeout_s=POOL_TIMEOUT_S) for i in idx]
+
+
+def _cross_done(reqs, tag):
+    for r in reqs:
+        check(r.done.wait(POOL_TIMEOUT_S), f"crosshost {tag}: request "
+                                           f"{r.rid} never resolved")
+    check(all(r.status == "ok" for r in reqs),
+          f"crosshost {tag}: a response is not ok: "
+          f"{[r.status for r in reqs]}")
+    return [list(r.tokens) for r in reqs]
+
+
+def _cross_exact(tag, got, ref):
+    check(got == ref, f"crosshost {tag}: a stream differs from the burst "
+                      f"straight through one scheduler")
+    return len(got)
+
+
+def _cross_value(dump, name):
+    return (dump.get(name) or {}).get("value", 0)
+
+
+def _cross_flash(tag, pool, device):
+    """Hard: the flash forwards the members launched (their counters,
+    scraped; a dead or drained member's last dump, retired incarnations
+    folded in) are one a layer a prefill, and more than 0 on the card.
+    Returns (launches, prefills)."""
+    fleet = pool.fleet_metrics(timeout_s=POOL_TIMEOUT_S).dump()
+    launches = int(_cross_value(fleet, "kernels.flash_fwd.launches"))
+    prefills = int(_cross_value(fleet, "prefills"))
+    expect = L * prefills if device == "cuda" else 0
+    check(launches == expect and (launches > 0 or device != "cuda"),
+          f"crosshost {tag}: {launches} flash forwards in the members, "
+          f"not {expect} (one a layer for each of {prefills} prefills)")
+    return launches, prefills
+
+
+def _cross_no_jax(workdir, pool, tag):
+    """Hard: every member process this pool ever spawned says ``jax=0`` on
+    its READY line, and every dump says ``member.jax_loaded`` 0."""
+    from pathlib import Path
+
+    logs = sorted(Path(workdir).glob("member_*.log"))
+    lines = [ln for p in logs for ln in p.read_text().splitlines()
+             if ln.startswith("READY")]
+    check(len(lines) == len(logs) > 0 and all("jax=0" in ln
+                                               for ln in lines),
+          f"crosshost {tag}: a member process loaded jax: {lines}")
+    dumps = pool.member_metric_dumps
+    check(all(_cross_value(d, "member.jax_loaded") == 0
+              for d in dumps.values()),
+          f"crosshost {tag}: a member reports jax loaded")
+    return len(logs)
+
+
+def _cross_peaks(pool):
+    return {s: round(float(_cross_value(d, "member.peak_gib")), 3)
+            for s, d in sorted(pool.member_metric_dumps.items())}
+
+
+def _cross_final_dump(workdir, pid):
+    """The last metrics black box a member process wrote to its stream
+    (a clean exit writes one on close)."""
+    from pathlib import Path
+
+    from hetu_tpu_torch.telemetry import trace
+
+    for path in Path(workdir).glob(f"member_s*_p{pid}.trace.jsonl"):
+        dumps = [e["args"]["metrics"] for e in trace.load_jsonl(path)
+                 if e.get("name") == "hetu_metrics"]
+        if dumps:
+            return dumps[-1]
+    return {}
+
+
+def _cross_pair(tag, merged, kind, card):
+    """The fault instant of ``kind`` paired with its recovery span on the
+    merged fleet timeline; prints and returns (detect ms, recover ms)."""
+    from hetu_tpu_torch.telemetry import timeline
+
+    pairs = [p for p in timeline.correlate(merged) if p.kind == kind]
+    check(len(pairs) == 1 and pairs[0].paired and pairs[0].recovery_name
+          in timeline.RECOVERY_FOR[kind],
+          f"crosshost {tag}: fault.{kind} is not paired with a recovery "
+          f"span: {pairs}")
+    p = pairs[0]
+    print(f"[crosshost] {tag}: fault.{kind} -> {p.recovery_name}: "
+          f"detection {p.detect_s * 1e3:.3f} ms, recovery "
+          f"{p.recover_s * 1e3:.3f} ms [{card}] "
+          f"t+{_cross_t():.1f} s")
+    return p.detect_s * 1e3, p.recover_s * 1e3
+
+
+def _cross_f32(card, seed, device, workdir):
+    """(a): the burst, the held drain, the held kill with failover and
+    revive, the suspend; returns the numbers."""
+    from hetu_tpu_torch.telemetry import fleet, trace
+
+    out = {}
+    spec = _cross_spec(seed, "float32", device)
+    tracer = trace.open_process_stream(workdir, "controller")
+    started = _cross_start(workdir, spec)
+    pairs = burst(np.random.default_rng(seed), POOL_V, N_REQUESTS,
+                  GPT_PROMPT, GPT_GEN)
+    base, straight = _cross_straight(spec, pairs, device)
+    ref = [r.tokens for r in straight]
+    del base
+    pool = _cross_join(started, "f32", card)
+    try:
+        out["ready_s"] = [p.ready_s for p in pool.procs]
+        # the burst, one thread a request
+        resps = [None] * len(pairs)
+
+        def worker(i):
+            resps[i] = pool.generate(pairs[i][0], max_tokens=pairs[i][1],
+                                     timeout_s=POOL_TIMEOUT_S)
+
+        ts = [threading.Thread(target=worker, args=(i,), daemon=True)
+              for i in range(len(pairs))]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        _wait_in_threads(ts, "crosshost f32: a generate did not return")
+        wall = time.perf_counter() - t0
+        check(all(r["status"] == "ok" for r in resps),
+              f"crosshost f32: a response is not ok: "
+              f"{[r['status'] for r in resps]}")
+        out["burst_exact"] = _cross_exact("f32 burst",
+                                          [r["tokens"] for r in resps], ref)
+        n_tok = sum(len(r["tokens"]) for r in resps)
+        print(f"[crosshost] f32 burst: {len(pairs)} requests over "
+              f"{CROSS_MEMBERS} member processes, every response ok, "
+              f"{out['burst_exact']} of {len(pairs)} streams token-exact to "
+              f"the straight run; {n_tok} tokens in {wall:.3f} s, "
+              f"{n_tok / wall:.1f} tokens/s [{card}] "
+              f"t+{_cross_t():.1f} s")
+        out["burst_tokens_per_s"] = n_tok / wall
+
+        # the drain: two requests a member, every member parked
+        wave = list(range(CROSS_WAVE * CROSS_MEMBERS))
+        reqs = _cross_held_wave(pool, pairs, wave, range(CROSS_MEMBERS),
+                                "f32 drain")
+        before = pool.scrape(timeout_s=POOL_TIMEOUT_S)
+        src = max(range(CROSS_MEMBERS),
+                  key=lambda s: pool._inflight.get(s, 0))
+        src_pid = pool.procs[src].pid
+        t0 = time.perf_counter()
+        n = pool.drain_member(src, codec="none", close=True,
+                              timeout_s=POOL_TIMEOUT_S)
+        drain_wall = time.perf_counter() - t0
+        d = pool.last_drain
+        dst = d["target"]
+        for s in range(CROSS_MEMBERS):
+            if s not in (src, dst):
+                pool.release_member(s)
+        got = _cross_done(reqs, "f32 drain")
+        _cross_exact("f32 drain", got, [ref[i] for i in wave])
+        rc = pool.procs[src].wait(POOL_TIMEOUT_S)
+        after = pool.scrape(timeout_s=POOL_TIMEOUT_S)
+        # the target's prefill tokens: only those of a record that moved
+        # without a slot (a submit still queued at the source), none for
+        # a moved slot
+        extra = int(_cross_value(after[dst], "prefill_tokens") -
+                    _cross_value(before[dst], "prefill_tokens")) - sum(
+            len(r.msg["prompt"]) for r in reqs if r.rid in d["queued"])
+        check(n == d["requests"] == d["slots"] + len(d["queued"]) and
+              d["slots"] >= 1, f"crosshost f32 drain: {d}")
+        check(extra == 0, f"crosshost f32 drain: the target prefilled "
+                          f"{extra} tokens for the moved slots")
+        check(rc == 0, f"crosshost f32 drain: the drained process exited "
+                       f"{rc}")
+        check(pool.metrics.count("pool_failovers") == 0,
+              "crosshost f32 drain: the lease grieved the drained member")
+        wire = int(_cross_value(_cross_final_dump(workdir, src_pid),
+                                "serve.migrate.bytes_wire"))
+        mig_ms, _ = _span_ms(tracer.events, "serve.migrate")
+        out.update(drain_slots=d["slots"], drain_wire_bytes=wire,
+                   drain_ms=mig_ms, drain_wall_s=drain_wall,
+                   drain_reprefill_tokens=extra, drained_rc=rc)
+        print(f"[crosshost] f32 drain: member {src} drained into {dst} "
+              f"while parked: {d['slots']} live slots moved ({n} "
+              f"requests, {len(d['queued'])} of them queued), 0 prefill "
+              f"tokens for the slots on the target; the "
+              f"drained process exited {rc}; pool_failovers 0; "
+              f"{len(reqs)} of {len(reqs)} streams token-exact; wire "
+              f"{wire / 1e6:.3f} MB; serve.migrate {mig_ms:.3f} ms "
+              f"[{card}] t+{_cross_t():.1f} s")
+
+        # the kill: the two members left, parked with two requests each
+        live = [s for s in range(CROSS_MEMBERS) if s != src]
+        wave = list(range(len(wave), len(wave) + CROSS_WAVE * len(live)))
+        reqs = _cross_held_wave(pool, pairs, wave, live, "f32 kill")
+        pool.scrape(timeout_s=POOL_TIMEOUT_S)  # the victim's last dump
+        victim = max(live, key=lambda s: pool._inflight.get(s, 0))
+        inj = _cross_fault(pool, "member_kill", victim)
+        inj.on_step(1)
+        check(pool.procs[victim].poll() is not None,
+              f"crosshost f32 kill: member {victim} was not killed")
+        for s in live:
+            if s != victim:
+                pool.release_member(s)
+        _until(lambda: pool.metrics.count("pool_failovers") >= 1,
+               "crosshost f32 kill: the killed member never failed over",
+               CROSS_WAIT_S)
+        check(pool.svc.state_of(victim).state == "lost",
+              f"crosshost f32 kill: member {victim} is "
+              f"{pool.svc.state_of(victim).state}, not lost")
+        # a fresh process comes up on the killed member's slot while the
+        # failed-over streams finish and the survivor is suspended
+        revive = threading.Thread(target=pool.revive_member, args=(victim,),
+                                  daemon=True)
+        revive.start()
+        got = _cross_done(reqs, "f32 kill")
+        _cross_exact("f32 kill", got, [ref[i] for i in wave])
+        moved = pool.metrics.count("requests_failed_over")
+        out.update(failovers=pool.metrics.count("pool_failovers"),
+                   requests_failed_over=moved)
+        print(f"[crosshost] f32 kill: member {victim} SIGKILLed while "
+              f"parked, suspect -> lost, 1 failover ({moved} requests "
+              f"re-prefilled on the survivor), {len(reqs)} of {len(reqs)} "
+              f"streams token-exact [{card}] "
+              f"t+{_cross_t():.1f} s")
+
+        # the suspend of the survivor (shorter than lease + grace)
+        survivor = next(s for s in live if s != victim)
+        inc = pool.svc.state_of(survivor).incarnation
+        pool.svc.lease_s, pool.svc.suspect_grace_s, sus_s = CROSS_SUSPEND
+        counts = {k: pool.metrics.count(k) for k in (
+            "members_suspected", "members_suspect_cleared",
+            "pool_failovers")}
+        wave = list(range(2, 2 + CROSS_WAVE * len(live)))
+        reqs = _cross_held_wave(pool, pairs, wave, [survivor],
+                                "f32 suspend")
+        _cross_fault(pool, "member_suspend", survivor, sus_s).on_step(1)
+        _until(lambda: pool.metrics.count("members_suspect_cleared") >
+               counts["members_suspect_cleared"],
+               "crosshost f32 suspend: the member was never suspected "
+               "and cleared", CROSS_WAIT_S)
+        pool.release_member(survivor)
+        got = _cross_done(reqs, "f32 suspend")
+        _cross_exact("f32 suspend", got, [ref[i] for i in wave])
+        delta = {k: pool.metrics.count(k) - v for k, v in counts.items()}
+        # the same process throughout: suspected and cleared, never lost
+        # and rejoined under a new incarnation
+        delta["same_incarnation"] = \
+            pool.svc.state_of(survivor).incarnation == inc
+        check(delta == {"members_suspected": 1, "members_suspect_cleared": 1,
+                        "pool_failovers": 0, "same_incarnation": True},
+              f"crosshost f32 suspend: {delta}")
+        print(f"[crosshost] f32 suspend: member {survivor} SIGSTOPped "
+              f"{sus_s} s (lease {CROSS_SUSPEND[0]} s + grace "
+              f"{CROSS_SUSPEND[1]} s): suspected 1, cleared 1, failovers "
+              f"0, the same incarnation; {len(reqs)} of {len(reqs)} "
+              f"streams token-exact [{card}] "
+              f"t+{_cross_t():.1f} s")
+        revive.join(POOL_TIMEOUT_S)
+        check(not revive.is_alive() and pool.procs[victim].poll() is None
+              and pool.svc.state_of(victim).state == "alive",
+              f"crosshost f32 revive: member {victim} did not come back")
+        pool.svc.lease_s, pool.svc.suspect_grace_s = (CROSS_LEASE_S,
+                                                      CROSS_GRACE_S)
+        # two submits in a row: the fresh process (least loaded, its
+        # link unpriced) takes at least the first
+        fresh = _cross_submit(pool, pairs, [0, 1])
+        check(victim in {r.member for r in fresh},
+              f"crosshost f32 revive: the revived member took no request "
+              f"({[r.member for r in fresh]})")
+        _cross_exact("f32 revive", _cross_done(fresh, "f32 revive"),
+                     [ref[0], ref[1]])
+        out["revive_ready_s"] = pool.procs[victim].ready_s
+        print(f"[crosshost] f32 revive: a fresh process on member "
+              f"{victim}'s slot READY after {out['revive_ready_s']:.3f} s "
+              f"took a new request token-exact [{card}] "
+              f"t+{_cross_t():.1f} s")
+        out["suspend"] = delta
+        out["launches"], out["prefills"] = _cross_flash("f32", pool, device)
+        out["peak_gib"] = _cross_peaks(pool)
+        out["members_spawned"] = _cross_no_jax(workdir, pool, "f32")
+    finally:
+        pool.close()
+        trace.disable()
+    merged, _ = fleet.merge_streams(workdir)
+    out["kill_ms"] = _cross_pair("f32 kill", merged, "member_kill", card)
+    out["suspend_ms"] = _cross_pair("f32 suspend", merged, "member_suspend",
+                                    card)
+    return out
+
+
+def _cross_chaos_schedule():
+    """The seeded schedule of the reference's member chaos test at three
+    members: the first seed whose suspend comes before its kill, on
+    another member; its bytes checked stable."""
+    from hetu_tpu_torch.resilience import FaultSchedule
+
+    kw = dict(steps=6, member_suspends=1, member_kills=1,
+              member_suspend_s=CROSS_SUSPEND[2], n_members=CROSS_MEMBERS)
+
+    def ok(sc):
+        ev = {e.kind: e for e in sc.events}
+        return (len(sc) == 2 and ev["member_suspend"].step <
+                ev["member_kill"].step and
+                int(ev["member_suspend"].arg) % CROSS_MEMBERS !=
+                int(ev["member_kill"].arg) % CROSS_MEMBERS)
+
+    seed, sched = next((s, sc) for s, sc in (
+        (s, FaultSchedule.generate(seed=s, **kw)) for s in range(1, 256))
+        if ok(sc))
+    again = FaultSchedule.generate(seed=seed, **kw).to_json()
+    check(sched.to_json() == again == FaultSchedule.from_json(
+        again).to_json(), "crosshost chaos: the schedule's bytes are not "
+                          "stable")
+    return seed, sched
+
+
+def _cross_bf16(card, seed, device, workdir):
+    """(b): the seeded member suspend and kill under the burst, in bf16;
+    returns the numbers."""
+    from types import SimpleNamespace
+
+    from hetu_tpu_torch.resilience import FaultInjector
+    from hetu_tpu_torch.telemetry import fleet, trace
+
+    out = {}
+    spec = _cross_spec(seed, "bfloat16", device)
+    c_seed, sched = _cross_chaos_schedule()
+    ev = {e.kind: e for e in sched.events}
+    print(f"[crosshost] bf16 chaos: schedule seed {c_seed}, id "
+          f"{sched.schedule_id}: {sched.to_json()}")
+    trace.open_process_stream(workdir, "controller")
+    started = _cross_start(workdir, spec)
+    pairs = burst(np.random.default_rng(seed), POOL_V, N_REQUESTS,
+                  GPT_PROMPT, GPT_GEN)
+    engine, straight = _cross_straight(spec, pairs, device)
+    ref_run = {"requests": straight}
+    pool = _cross_join(started, "bf16", card)
+    try:
+        out["ready_s"] = [p.ready_s for p in pool.procs]
+        inj = FaultInjector(sched, member_procs=pool.procs)
+        half = len(pairs) // 2
+        # the suspend, at a parked round of its member
+        pool.svc.lease_s, pool.svc.suspect_grace_s, _ = CROSS_SUSPEND
+        s_victim = int(ev["member_suspend"].arg) % CROSS_MEMBERS
+        cleared = pool.metrics.count("members_suspect_cleared")
+        first = _cross_held_wave(pool, pairs, range(half), [s_victim],
+                                 "bf16 suspend")
+        inj.on_step(ev["member_suspend"].step)
+        _until(lambda: pool.metrics.count("members_suspect_cleared") >
+               cleared, "crosshost bf16: the suspended member was never "
+                        "suspected and cleared", CROSS_WAIT_S)
+        pool.release_member(s_victim)
+        got = _cross_done(first, "bf16 suspend")
+        # the kill, at a parked round of its member
+        pool.svc.lease_s, pool.svc.suspect_grace_s = (CROSS_LEASE_S,
+                                                      CROSS_GRACE_S)
+        k_victim = int(ev["member_kill"].arg) % CROSS_MEMBERS
+        second = _cross_held_wave(pool, pairs, range(half, len(pairs)),
+                                  [k_victim], "bf16 kill")
+        pool.scrape(timeout_s=POOL_TIMEOUT_S)  # the victim's last dump
+        inj.on_step(ev["member_kill"].step)
+        check(inj.counters["member_procs_killed"] == 1,
+              "crosshost bf16: the kill did not land")
+        _until(lambda: pool.metrics.count("pool_failovers") >= 1,
+               "crosshost bf16: the killed member never failed over",
+               CROSS_WAIT_S)
+        got += _cross_done(second, "bf16 kill")
+        check(pool.metrics.count("members_suspect_cleared") == 1 and
+              pool.metrics.count("pool_failovers") == 1 and
+              pool.metrics.count("members_rejoined") == 0,
+              "crosshost bf16: the suspend was grieved or the kill not "
+              "failed over once")
+        out["requests_failed_over"] = pool.metrics.count(
+            "requests_failed_over")
+        out["launches"], out["prefills"] = _cross_flash("bf16", pool,
+                                                        device)
+        out["peak_gib"] = _cross_peaks(pool)
+        out["members_spawned"] = _cross_no_jax(workdir, pool, "bf16")
+    finally:
+        pool.close()
+        trace.disable()
+    model = engine.model
+    _set_attention_impl(model, "xla")
+    try:
+        shares = _hold_streams(
+            "bf16 chaos", ref_run,
+            {"requests": [SimpleNamespace(prompt=pairs[i][0], tokens=t)
+                          for i, t in enumerate(got)]},
+            _plain_logits(model, device), TOL_LOGITS, phase="crosshost")
+    finally:
+        _set_attention_impl(model, "flash")
+    del engine, model
+    out.update(exact=len(got) - len(shares), near_ties=len(shares),
+               seed=c_seed, schedule_id=sched.schedule_id)
+    merged, procs = fleet.merge_streams(workdir)
+    out["streams"] = len(procs)
+    out["suspend_ms"] = _cross_pair("bf16 chaos", merged, "member_suspend",
+                                    card)
+    out["kill_ms"] = _cross_pair("bf16 chaos", merged, "member_kill", card)
+    print(f"[crosshost] bf16 chaos: {len(got)} requests over "
+          f"{CROSS_MEMBERS} member processes, every response ok, "
+          f"{out['exact']} token-exact ({len(shares)} parted at a near "
+          f"tie); suspend cleared, kill failed over "
+          f"({out['requests_failed_over']} requests re-prefilled); "
+          f"{len(procs)} process streams merged [{card}] "
+          f"t+{_cross_t():.1f} s")
+    return out
+
+
+def _cross_evidence(workdir):
+    """On a failure: the controller's membership and routing instants and
+    the tail of each member's log, before the workdir goes."""
+    from pathlib import Path
+
+    from hetu_tpu_torch.telemetry import trace
+
+    for path in sorted(Path(workdir).glob("controller.trace.jsonl")):
+        for e in trace.load_jsonl(path):
+            if e.get("name", "").startswith(("membership.", "route.",
+                                             "fault.")):
+                print(f"[crosshost] evidence: {e['name']} "
+                      f"{json.dumps(e.get('args', {}))[:300]}")
+    for path in sorted(Path(workdir).glob("member_*.log")):
+        tail = path.read_text(errors="replace").splitlines()[-12:]
+        print(f"[crosshost] evidence: {path.name}: " + " | ".join(tail))
+
+
+def phase_crosshost(card, seed, device="cuda"):
+    """The cross-process serving pool (serve/crosshost.py) over GPT-2-small
+    member processes at its published widths: (a) f32, the burst, the
+    held drain, the held kill with failover and revive, the suspend; (b)
+    bf16, the seeded member chaos run.  Returns the numbers; ``launches``
+    sums the members' flash forwards over both."""
+    import tempfile
+
+    t_phase = _CROSS_T0[0] = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="crosshost_") as root:
+        for tag, fn in (("f32", _cross_f32), ("bf16", _cross_bf16)):
+            workdir = os.path.join(root, tag)
+            os.makedirs(workdir)
+            try:
+                out[tag] = fn(card, seed, device, workdir)
+            except Exception:
+                _cross_evidence(workdir)
+                raise
+            print(f"[crosshost] {tag}: pool closed, streams merged "
+                  f"t+{_cross_t():.1f} s")
+    out["launches"] = out["f32"]["launches"] + out["bf16"]["launches"]
+    out["prefills"] = out["f32"]["prefills"] + out["bf16"]["prefills"]
+    out["seconds"] = time.perf_counter() - t_phase
+    for tag in ("f32", "bf16"):
+        print(f"[crosshost] {tag}: peak GiB by member {out[tag]['peak_gib']}"
+              f" [{card}]")
+    print(f"[crosshost] phase {out['seconds']:.1f} s; {out['prefills']} "
+          f"prefills in the members, flash forwards launched "
+          f"{out['launches']} [{card}]")
+    return out
+
+
 def phase_train_llama(card, seed, device="cuda"):
     """Llama-2-7B's widths at 4 layers: the kernel-vs-plain gate, then 10
     Executor steps at B 4 x S 4096."""
@@ -6794,6 +7395,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     pool = phase_pool(card, args.seed)
     torch.cuda.empty_cache()
+    crosshost = phase_crosshost(card, args.seed)
+    torch.cuda.empty_cache()
     llama_train = phase_train_llama(card, args.seed)
     torch.cuda.empty_cache()
     bert = phase_train_bert(card, args.seed)
@@ -6841,6 +7444,8 @@ def main(argv=None) -> int:
                               "migrate": migrate["launches"],
                               "server": server["launches"],
                               "pool": pool["launches"],
+                              # summed over the member processes
+                              "crosshost": crosshost["launches"],
                               "llama_train": llama_train["launches"][0],
                               "bert_train": bert["launches"][0],
                               **later[0]},
@@ -6889,6 +7494,11 @@ def main(argv=None) -> int:
                f"combine backward ([{MOE_T * MOE_K}, {MOE_H}] f32 -> "
                f"{MOE_E * MOE_C} rows, inverse [{MOE_E * MOE_C}, 1]), plus "
                f"the slot_route build; by_route has both routes")))]}
+    # the kernels line runs past a short output tail: the cross-process
+    # phase's own numbers again, on a line that stays in it
+    print(f"[crosshost] summary: phase {crosshost['seconds']:.1f} s, "
+          f"{crosshost['prefills']} member prefills, flash forwards "
+          f"launched {crosshost['launches']} [{card}]")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

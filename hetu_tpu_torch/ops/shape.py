@@ -191,13 +191,13 @@ def one_hot(x, num_classes: int, dtype=torch.float32):
     return (x[..., None] == classes).to(dtype)
 
 
-def arange(start, stop=None, step=1, dtype=None, device=None):
+def arange(start, stop=None, step=1, dtype=None, device="cuda"):
     if stop is None:
         start, stop = 0, start
     return torch.arange(start, stop, step, dtype=dtype, device=device)
 
 
-def full(shape, fill_value, dtype=None, device=None):
+def full(shape, fill_value, dtype=None, device="cuda"):
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     return torch.full(shape, fill_value, dtype=dtype, device=device)
 

@@ -356,6 +356,7 @@ class RemotePSTable:
             self.wire == "int8" and error_feedback) else None
         self.fd = _connect_with_deadline(host, port, connect_timeout_s,
                                          rcv_timeout_s)
+        self._addr = (host, port, connect_timeout_s, rcv_timeout_s)
         self.id = table_id if table_id is not None else fresh_table_id()
         if create:
             try:
@@ -382,14 +383,26 @@ class RemotePSTable:
         self.wire = None
         self._ef = None
 
+    def _wire(self, rc: int, what: str) -> None:
+        """``_check`` for the ops the membership plane retries
+        (``sparse_pull``, ``sparse_set``, ``row_cas``): a transport
+        failure (rc -101) may leave the connection mid-frame, so it is
+        replaced before the error surfaces and a retry runs on a clean
+        stream (the table lives on the server, not in the
+        connection)."""
+        if rc == -101:
+            lib.ps_van_close(self.fd)
+            self.fd = -1
+            self.fd = _connect_with_deadline(*self._addr)
+        _check(rc, what)
+
     def sparse_pull(self, indices) -> np.ndarray:
         idx = _as_idx(indices)
         out = np.empty((idx.shape[0], self.dim), np.float32)
         with _op_span("van_sparse_pull", out.nbytes):
-            _check(lib.ps_van_sparse_pull_dt(self.fd, self.id, _i64p(idx),
-                                             idx.shape[0], _f32p(out),
-                                             self.dim, self._dt),
-                   "van_sparse_pull")
+            self._wire(lib.ps_van_sparse_pull_dt(
+                self.fd, self.id, _i64p(idx), idx.shape[0], _f32p(out),
+                self.dim, self._dt), "van_sparse_pull")
         return out
 
     def sparse_push(self, indices, grads) -> None:
@@ -479,10 +492,9 @@ class RemotePSTable:
         idx = _as_idx(indices)
         v = _as_mat(values, idx.shape[0], self.dim)
         with _op_span("van_sparse_set", v.nbytes):
-            _check(lib.ps_van_sparse_set_dt(self.fd, self.id, _i64p(idx),
-                                            _f32p(v), idx.shape[0], self.dim,
-                                            self._dt),
-                   "van_sparse_set")
+            self._wire(lib.ps_van_sparse_set_dt(
+                self.fd, self.id, _i64p(idx), _f32p(v), idx.shape[0],
+                self.dim, self._dt), "van_sparse_set")
 
     def row_cas(self, row: int, field: int, expected: float, desired):
         """Compare field ``field`` of ``row`` with ``expected`` and, if they
@@ -503,7 +515,7 @@ class RemotePSTable:
         if rc == -100:
             raise NotImplementedError("van server does not speak OP_ROW_CAS")
         if rc not in (0, 1):
-            _check(rc, "van_row_cas")
+            self._wire(rc, "van_row_cas")
         return rc == 0, actual
 
     def clear(self) -> None:
@@ -895,6 +907,13 @@ class RemotePReduce:
             self.fd = -1
 
 
+class BlobTransportError(RuntimeError):
+    """A blob put, get or ack whose transport failed past its deadline.
+    A ``RuntimeError`` like every other failed blob op (the reference's
+    contract); a caller that can wait out a broken connection catches it
+    by name."""
+
+
 class BlobChannel:
     """One-way bulk-blob mailbox over the van: a single-slot acked server
     channel.
@@ -960,6 +979,8 @@ class BlobChannel:
                         raise TimeoutError(
                             f"blob put: ack of the previous message not "
                             f"observed within {timeout_s}s")
+                    if rc == -101:
+                        self._transport_lost("put", rc)
                     raise RuntimeError(f"blob put failed (rc={rc})")
                 if rc == -101:  # transport: reconnect and resend
                     self._reconnect()
@@ -994,11 +1015,22 @@ class BlobChannel:
                         raise TimeoutError(
                             f"blob get: seq {seq} not delivered within "
                             f"{timeout_s}s")
+                    if n == -101:
+                        self._transport_lost("get", n)
                     raise RuntimeError(f"blob get failed (rc={n})")
                 if n == -101:
                     self._reconnect()
                 elif n != -12:
                     raise RuntimeError(f"blob get failed (rc={n})")
+
+    def _transport_lost(self, op: str, rc: int) -> None:
+        """A transport failure that outlived the op's deadline (a stopped,
+        then resumed, caller finds its blocking call broken only after
+        the deadline): the connection may be mid-frame, so it is replaced
+        before the failure is raised, and the next op on this channel
+        runs on a clean stream."""
+        self._reconnect()
+        raise BlobTransportError(f"blob {op} failed (rc={rc})")
 
     def _ack(self, seq: int, deadline: float) -> None:
         """A lost ack wedges the slot (the writer's next put blocks until
@@ -1007,7 +1039,11 @@ class BlobChannel:
             rc = lib.ps_van_blob_ack(self.fd, self.id, seq)
             if rc == 0:
                 return
-            if rc != -101 or time.monotonic() > deadline:
+            if rc == -101 and time.monotonic() > deadline:
+                # the message stays unacked in the slot: a get of the
+                # same seq on the new connection reads it again
+                self._transport_lost("ack", rc)
+            if rc != -101:
                 raise RuntimeError(f"blob ack failed (rc={rc})")
             self._reconnect()
 

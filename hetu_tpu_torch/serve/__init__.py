@@ -26,12 +26,17 @@
   * :mod:`pool` — :class:`ServingPool`: least-loaded routing over N
     listener-less servers, planned drain with live KV migration (zero
     re-prefill), unplanned engine-death failover with re-prefill, and
-    the chaos hooks that apply ``resilience.faults`` serve events.
+    the chaos hooks that apply ``resilience.faults`` serve events;
+  * :mod:`crosshost` — :class:`CrossProcessServingPool`: the pool with
+    each member an OS process of its own, membership leased on a van
+    blackboard, the controller's state journaled on the van (a takeover
+    adopts a dead controller's fleet), drains over the wire.
 
-The pool across hosts and the CTR front end wait for later slices.
+The CTR front end waits for a later slice.
 """
 
 from hetu_tpu_torch.serve import migrate
+from hetu_tpu_torch.serve.crosshost import CrossProcessServingPool
 from hetu_tpu_torch.serve.engine import PagedServeEngine, ServeEngine
 from hetu_tpu_torch.serve.kv_cache import (
     KVCache, KVCacheSpec, KVSlotSnapshot, PagedKVCache, PagePoolExhausted,
@@ -49,4 +54,4 @@ __all__ = ["ServeEngine", "PagedServeEngine", "KVCache", "KVCacheSpec",
            "ServeMetrics", "MigrationError", "migrate",
            "ContinuousBatchingScheduler", "Request", "InferenceServer",
            "InferenceClient", "request_channel", "response_channel",
-           "ServingPool", "EngineKilled"]
+           "ServingPool", "EngineKilled", "CrossProcessServingPool"]

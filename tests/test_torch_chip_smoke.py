@@ -1181,6 +1181,47 @@ def test_pool_phase_runs_on_the_cpu(monkeypatch, capsys):
                      r"flash forwards launched 0 \[cpu\]", text)
 
 
+def test_crosshost_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """The cross-process phase at TINY_POOL's widths, its member processes
+    on the CPU: the burst, the drain, the kill and revive and the suspend
+    token-exact; the bf16 chaos run's faults paired on the merged fleet
+    timeline; no member with jax; the launch counts (none off the card);
+    the printed lines keep their schema."""
+    import re
+
+    for name, value in TINY_POOL.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    out = chip_smoke.phase_crosshost("cpu", 0, device="cpu")
+    text = capsys.readouterr().out
+    f32, bf16 = out["f32"], out["bf16"]
+    assert f32["burst_exact"] == 16
+    assert f32["drain_slots"] >= 1 and f32["drain_reprefill_tokens"] == 0
+    assert f32["drained_rc"] == 0 and f32["drain_wire_bytes"] > 0
+    assert f32["failovers"] == 1 and f32["requests_failed_over"] >= 1
+    assert f32["suspend"] == {"members_suspected": 1,
+                              "members_suspect_cleared": 1,
+                              "pool_failovers": 0, "same_incarnation": True}
+    # three members, the revived one, then three bf16 members: none with jax
+    assert f32["members_spawned"] == 4 and bf16["members_spawned"] == 3
+    assert bf16["exact"] + bf16["near_ties"] == 16
+    assert bf16["streams"] >= 4  # the controller and the three members
+    assert out["launches"] == 0 and out["prefills"] > 0
+    for tag in ("f32 kill", "f32 suspend", "bf16 chaos"):
+        assert re.search(rf"\[crosshost\] {tag}: fault\.member_\w+ -> "
+                         r"serve\.\w+: detection [\d.]+ ms, recovery "
+                         r"[\d.]+ ms \[cpu\]", text), tag
+    assert re.search(r"\[crosshost\] f32 burst: 16 requests over 3 member "
+                     r"processes, every response ok, 16 of 16 streams "
+                     r"token-exact", text)
+    assert re.search(r"\[crosshost\] f32: 3 member processes \(pids \[[\d, "
+                     r"]+\]\) READY after \[[\d., ]+\] s", text)
+    assert re.search(r"\[crosshost\] f32 revive: a fresh process on member "
+                     r"\d's slot READY after [\d.]+ s took a new request "
+                     r"token-exact \[cpu\]", text)
+    assert re.search(r"\[crosshost\] phase [\d.]+ s; \d+ prefills in the "
+                     r"members, flash forwards launched 0 \[cpu\]", text)
+
+
 class _Probe:
     def __init__(self, prefilled):
         self.prefilled = prefilled

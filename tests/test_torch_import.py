@@ -13,7 +13,9 @@ remote PS tiers (a partitioned table, the remote HET cache, ``PSEmbedding``
 over them), the CNN family, and an LSTM classifier, a GCN on a sampled
 batch and the op zoo, the compression zoo, and the serving pool with the
 fleet plane (a fault schedule, a merged stream, the timeline and the
-doctor); ``jax`` and ``hetu_tpu`` must stay out of ``sys.modules``.  An AST scan of every module of the package,
+doctor), and the cross-process pool, whose member processes say
+whether they loaded jax; ``jax`` and ``hetu_tpu`` must stay out of
+``sys.modules``.  An AST scan of every module of the package,
 and of ``chip_smoke.py``, finds no import of either.
 """
 
@@ -495,6 +497,44 @@ def test_serving_pool_and_fleet_plane_run_without_jax(tmp_path):
             "telemetry/trace.py", "telemetry/timeline.py",
             "telemetry/fleet.py", "telemetry/costs.py",
             "telemetry/health.py"} <= names
+
+
+def test_cross_process_pool_and_its_members_run_without_jax(tmp_path):
+    """A CrossProcessServingPool of two member processes on the CPU
+    serves a request with a netem emulator installed: neither the
+    controller nor a member process loads jax (each member says so on its
+    READY line and in its metrics)."""
+    out = _run(
+        "import sys\n"
+        "from hetu_tpu_torch.ps import netem\n"
+        "from hetu_tpu_torch.serve.crosshost import CrossProcessServingPool\n"
+        "model = {'vocab_size': 89, 'hidden_size': 32, 'num_layers': 2,\n"
+        "         'num_heads': 4, 'ffn_size': 64, 'max_position': 32,\n"
+        "         'max_len': 32, 'device': 'cpu'}\n"
+        f"pool = CrossProcessServingPool(2, workdir={str(tmp_path)!r},\n"
+        "    model=model, member_env={'OMP_NUM_THREADS': '1'})\n"
+        "em = netem.NetEm(seed=0).install()\n"
+        "try:\n"
+        "    assert pool.generate([1, 2, 3], max_tokens=4)['status'] == 'ok'\n"
+        "    d = pool.fleet_metrics().dump()\n"
+        "    print('MEMBER_JAX', [int(d[f'm{s}.member.jax_loaded']['value'])\n"
+        "                         for s in (0, 1)])\n"
+        "finally:\n"
+        "    em.uninstall()\n"
+        "    pool.close()\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out
+    assert "MEMBER_JAX [0, 0]" in out
+    logs = sorted(tmp_path.glob("member_*.log"))
+    assert len(logs) == 2
+    for log in logs:
+        assert "READY" in log.read_text() and "jax=0" in log.read_text()
+    names = {p.relative_to(PKG).as_posix() for p in SOURCES
+             if PKG in p.parents}
+    assert {"launcher.py", "resilience/shardproc.py", "ps/netem.py",
+            "ps/membership.py", "serve/crosshost.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

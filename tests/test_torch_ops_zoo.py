@@ -57,10 +57,10 @@ def _compare(got, ref, exact, what):
                                    err_msg=what)
 
 
-def _run(name, args, kw=None, exact=False):
+def _run(name, args, kw=None, exact=False, tkw=None):
     """The op ``name`` of each package on the same inputs: numpy arrays
     (also in a list) become a jax array and a torch tensor, everything
-    else passes as it is."""
+    else passes as it is; ``tkw`` goes to the port's op alone."""
     kw = kw or {}
 
     def each(a, conv):
@@ -70,7 +70,7 @@ def _run(name, args, kw=None, exact=False):
     jargs = [each(a, jnp.asarray) for a in args]
     targs = [each(a, torch.tensor) for a in args]
     ref = getattr(jops, name)(*jargs, **kw)
-    got = getattr(ops, name)(*targs, **kw)
+    got = getattr(ops, name)(*targs, **kw, **(tkw or {}))
     _compare(got, ref, exact, name)
     return got, ref
 
@@ -188,13 +188,16 @@ SHAPE = [
 ]
 # arithmetic among them: compared within RTOL, the rest exactly
 _ARITH = {"cumsum"}
+# the factories make their tensor on the card unless asked for the CPU
+_FACTORIES = {"arange", "full"}
 
 
 @pytest.mark.parametrize("name,args,kw", SHAPE,
                          ids=[f"{n}{i}" for i, (n, _, _) in
                               enumerate(SHAPE)])
 def test_shape_ops(name, args, kw):
-    _run(name, args, kw, exact=name not in _ARITH)
+    _run(name, args, kw, exact=name not in _ARITH,
+         tkw={"device": "cpu"} if name in _FACTORIES else None)
 
 
 def test_tril_lookup_packs_rows_in_order():

@@ -424,3 +424,84 @@ def test_a_library_built_from_the_old_source_list_is_rebuilt(tmp_path,
         "hetu_ps.cpp\nhetu_ps_van.cpp\nhetu_ps_group.cpp\nhetu_ps_rcache.cpp\n"
     mtime = so.stat().st_mtime_ns
     assert binding.build() == so and so.stat().st_mtime_ns == mtime
+
+
+class _LateTransportLib:
+    """The port's native library with one wire op made to fail the way a
+    stopped-then-resumed caller sees it: the call returns the transport
+    rc (-101) only after the op's deadline has passed."""
+
+    def __init__(self, real, op, delay_s):
+        self._real, self._op, self._delay = real, op, delay_s
+        self.fired = 0
+        self.connects = 0
+
+    def __getattr__(self, name):
+        fn = getattr(self._real, name)
+        if name == "ps_van_connect":
+            def connect(*args):
+                self.connects += 1
+                return fn(*args)
+            return connect
+        if name != self._op:
+            return fn
+
+        def late(*args):
+            if not self.fired:
+                self.fired += 1
+                import time
+                time.sleep(self._delay)
+                return -101
+            return fn(*args)
+        return late
+
+
+def test_blob_transport_failure_past_the_deadline_reconnects(
+        server_port, monkeypatch):
+    """A member SIGSTOPped inside a blob get resumes to a transport
+    failure after the get's deadline: the channel reconnects, then raises
+    ``BlobTransportError``, a ``RuntimeError`` as every failed blob op
+    raises (the reference's contract, which the server's listeners
+    catch), and the next get on the same channel object reads the
+    message."""
+    tx = van.BlobChannel(HOST, server_port, 9011)
+    rx = van.BlobChannel(HOST, server_port, 9011)
+    fake = _LateTransportLib(van.lib, "ps_van_blob_get", 0.3)
+    monkeypatch.setattr(van, "lib", fake)
+    before = default_registry.counter("van.blob_channel.reconnects").value
+    with pytest.raises(van.BlobTransportError,
+                       match=r"blob get failed \(rc=-101\)") as err:
+        rx.get(1, timeout_s=0.05)
+    assert isinstance(err.value, RuntimeError)
+    assert fake.fired == 1
+    assert default_registry.counter(
+        "van.blob_channel.reconnects").value == before + 1
+    t = _writer(tx.put, b"after the stop", 1, timeout_s=10.0)
+    assert rx.get(1, timeout_s=10.0) == b"after the stop"
+    _joined(t)
+    tx.close()
+    rx.close()
+
+
+def test_membership_table_ops_reconnect_after_a_transport_failure(
+        server_port, monkeypatch):
+    """``sparse_set`` / ``sparse_pull`` / ``row_cas`` replace a connection
+    that failed in transport before raising, so the membership plane's
+    retry runs on a clean stream."""
+    t = van.RemotePSTable(HOST, server_port, 4, 8, init="zeros",
+                          optimizer="sgd", lr=0.0)
+    row = np.arange(8, dtype=np.float32).reshape(1, 8)
+    for op, call in (
+            ("ps_van_sparse_set_dt", lambda: t.sparse_set([1], row)),
+            ("ps_van_sparse_pull_dt", lambda: t.sparse_pull([1])),
+            ("ps_van_row_cas", lambda: t.row_cas(2, 0, 0.0, row[0]))):
+        fake = _LateTransportLib(binding.lib, op, 0.0)
+        monkeypatch.setattr(van, "lib", fake)
+        with pytest.raises(RuntimeError, match="rc=-101"):
+            call()
+        assert fake.connects == 1 and t.fd >= 0
+        monkeypatch.setattr(van, "lib", binding.lib)
+        call()  # the retry on the new connection
+    np.testing.assert_array_equal(t.sparse_pull([1, 2]), np.stack([row[0],
+                                                                   row[0]]))
+    t.close()
