@@ -156,6 +156,26 @@ without the final result line:
    layer a prefill, re-prefills included; no member loads jax.
    Spawn-to-READY seconds, the drain's wire bytes and ms, detection and
    recovery ms, each member's peak memory.
+11d. vanchaos — the replicated durable tier (``ps/replica.py``) and the
+   standby controller (``resilience/standby.py``): two GPT-2-small member
+   processes (published widths, 8 slots x 512) over a replicated pair of
+   van processes.  (a) f32: the 16-request burst with both members
+   parked at a decode round, the primary van SIGKILLed by the seeded
+   ``van_kill`` schedule: the backup promoted (incarnation 2), the pool
+   and its members rebound, every stream token-exact to the burst
+   straight through one scheduler, ``fault.van_kill`` paired with
+   ``van.promote`` on the merged fleet timeline; the automatic resilver
+   onto a fresh van (every open table bitwise equal on both vans); a
+   second held round kills the promoted primary (incarnation 3).  (b)
+   the fence: a SIGSTOPped primary promoted past at the table layer, a
+   stale handle refused with ``VanFenced`` after SIGCONT, its retry on
+   the backup.  (c) bf16: a controller process streaming seeded
+   requests is SIGKILLed after 3 accepts, and a standby process
+   self-promotes (PROMOTED, ALLDONE, every accepted rid ok).  The members'
+   flash forwards (their last dumps): one a layer a prefill; no member,
+   van or standby process loads jax.  Spawn-to-READY seconds, promotion,
+   rebind and resilver times, resilver bytes, re-sent submits, the
+   standby's times, each member's peak memory.
 12. train_llama — Llama-2-7B's widths at 4 layers (cut from 32), bf16,
    flash, recomputation, fused CE, AdamW, B 4 x S 4096: the kernel-vs-plain
    gate, then 10 Executor steps (2·L forwards and L of each backward kernel
@@ -268,6 +288,7 @@ import itertools
 import json
 import os
 import select
+import signal
 import statistics
 import subprocess
 import sys
@@ -453,6 +474,26 @@ CROSS_MEMBERS, CROSS_WAVE = 3, 2
 CROSS_LEASE_S, CROSS_GRACE_S = 1.0, 1.0
 CROSS_SUSPEND = (0.5, 4.5, 1.5)
 CROSS_WAIT_S = 60.0  # a lease decision's own deadline
+# the durable tier under van death: the cross-process pool's model and
+# slots in VAN_MEMBERS member processes over a replicated pair of van
+# processes (the reference's chaos settings: promotion grace, receive
+# timeout, revalidation cadence, resilver settle), each van kill landing
+# while the members are parked at a decode round; the fence's SIGSTOP
+# with a 1 s receive timeout; the standby's fleet (a controller process
+# streaming VAN_CTRL_REQUESTS seeded requests of VAN_CTRL_TOKENS tokens,
+# one every VAN_CTRL_GAP_S) SIGKILLed after at least VAN_ACCEPTS accepts,
+# its standby claiming after VAN_LEASE_BOUND_S of silence
+VAN_MEMBERS = 2
+VAN_SPEC = {"promote_after_s": 0.3, "rcv_timeout_s": 1.5,
+            "revalidate_s": 0.05, "resilver_settle_s": 0.2}
+VAN_FENCE_RCV_S = 1.0
+VAN_ACCEPTS, VAN_CTRL_REQUESTS, VAN_CTRL_TOKENS, VAN_CTRL_GAP_S = (
+    3, 1000, 24, 0.1)
+VAN_LEASE_BOUND_S = 2.0
+# the pair is compared until it agrees, within ten times the 1 s a
+# replica skips a backup it found unreachable
+VAN_EQUAL_WAIT_S = 10.0
+VAN_BUDGET_S = 90.0
 # training: Llama-2-7B's widths, depth cut to 4 layers (f32 weights,
 # gradients and AdamW's two slots: 17 GB; at 32 layers 108 GB), at the
 # config's max_position and bench_gpt's 16384 tokens a step
@@ -5077,6 +5118,610 @@ def phase_crosshost(card, seed, device="cuda"):
     return out
 
 
+_VAN_T0 = [0.0]
+
+
+def _van_t():
+    """Seconds since the vanchaos phase began, printed on its lines."""
+    return time.perf_counter() - _VAN_T0[0]
+
+
+def _van_pair(workdir, tag, **extra):
+    """Two van server processes and the ``ReplicaSpec`` dict over them;
+    returns (processes, spec, each one's spawn -> READY seconds).  Hard:
+    neither loads jax (nor torch: the van's import path is torch-free)."""
+    from hetu_tpu_torch.ps.membership import fresh_table_id
+    from hetu_tpu_torch.resilience.shardproc import (
+        free_port, spawn_shard_server,
+    )
+
+    procs, ready = [], []
+    for i in range(2):
+        t0 = time.perf_counter()
+        procs.append(spawn_shard_server(workdir, free_port(), f"{tag}{i}"))
+        ready.append(time.perf_counter() - t0)
+        check(procs[-1].ready[1:] == ["jax=0", "torch=0"],
+              f"vanchaos: a van process loaded {procs[-1].ready[1:]}")
+    spec = {"endpoints": [["127.0.0.1", int(p.ready[0])] for p in procs],
+            "epoch_table": fresh_table_id(), **VAN_SPEC, **extra}
+    return procs, spec, ready
+
+
+def _van_reap(procs):
+    for p in procs:
+        if p is not None and p.poll() is None:
+            try:
+                p.send_signal(signal.SIGCONT)
+            except OSError:
+                pass
+            p.kill()
+            p.wait()
+
+
+def _van_member_dumps(workdir):
+    """The last metrics black box of every member process whose stream is
+    in ``workdir`` (a clean exit writes one on close)."""
+    from pathlib import Path
+
+    from hetu_tpu_torch.telemetry import trace
+
+    out = {}
+    for path in sorted(Path(workdir).glob("member_s*_p*.trace.jsonl")):
+        dumps = [e["args"]["metrics"] for e in trace.load_jsonl(path)
+                 if e.get("name") == "hetu_metrics"]
+        if dumps:
+            out[path.name.split(".")[0]] = dumps[-1]
+    return out
+
+
+def _van_members(tag, workdir, n, device):
+    """Hard: every member process of ``workdir`` said ``jax=0`` at READY
+    and in its last dump, and their flash forwards are one a layer a
+    prefill (more than 0 on the card).  Returns (launches, prefills,
+    peak GiB by member)."""
+    from pathlib import Path
+
+    dumps = _van_member_dumps(workdir)
+    logs = sorted(Path(workdir).glob("member_*.log"))
+    ready = [ln for p in logs for ln in p.read_text().splitlines()
+             if ln.startswith("READY")]
+    check(len(dumps) == len(logs) == len(ready) == n and
+          all("jax=0" in ln for ln in ready) and
+          all(_cross_value(d, "member.jax_loaded") == 0
+              for d in dumps.values()),
+          f"vanchaos {tag}: {len(dumps)} member dumps, {len(logs)} logs, "
+          f"READY lines {ready}")
+    launches = sum(int(_cross_value(d, "kernels.flash_fwd.launches"))
+                   for d in dumps.values())
+    prefills = sum(int(_cross_value(d, "prefills")) for d in dumps.values())
+    expect = L * prefills if device == "cuda" else 0
+    check(launches == expect and (launches > 0 or device != "cuda"),
+          f"vanchaos {tag}: {launches} flash forwards in the members, "
+          f"not {expect} (one a layer for each of {prefills} prefills)")
+    peaks = {k: round(float(_cross_value(d, "member.peak_gib")), 3)
+             for k, d in dumps.items()}
+    return launches, prefills, peaks
+
+
+def _van_pair_equal(replica, tag, names=None, evidence=None):
+    """Hard: every table this process opened over the pair holds bitwise
+    equal rows and optimizer slots on the primary and the backup.  Beats
+    land every few tens of ms, now and then between the two reads: each
+    table is read again until both vans agree, within VAN_EQUAL_WAIT_S.  On a
+    failure the message names the table (``names``: id -> role), the rows
+    that differ and their two values, and ``evidence()``'s text.  Returns
+    (tables, reads)."""
+    from hetu_tpu_torch.ps.van import RemotePSTable
+
+    def snapshot(t, idx):
+        h = RemotePSTable(*replica.endpoints[idx], t.rows, t.dim,
+                          table_id=t.id, create=False)
+        try:
+            return (h.dense_pull(), *h.slots_get(np.arange(t.rows)))
+        finally:
+            h.close()
+
+    tables = [t for t in list(replica._tables) if t.replicate]
+    reads = 0
+    for t in tables:
+        deadline = time.monotonic() + VAN_EQUAL_WAIT_S
+        while True:
+            reads += 1
+            b = snapshot(t, replica.backup_idx)
+            p = snapshot(t, replica.primary_idx)
+            if all(x.tobytes() == y.tobytes() for x, y in zip(b, p)):
+                break
+            if time.monotonic() >= deadline:
+                rows = np.where(~np.all(b[0] == p[0], axis=1))[0]
+                slots = [k for k in range(1, 4)
+                         if b[k].tobytes() != p[k].tobytes()]
+                check(False, f"vanchaos {tag}: table {t.id:#x} "
+                             f"({(names or {}).get(t.id, '?')}) differs "
+                             f"between the promoted primary "
+                             f"{replica.primary} and the new backup "
+                             f"{replica.endpoints[replica.backup_idx]}: "
+                             f"rows {rows.tolist()[:16]} (backup "
+                             f"{b[0][rows[:2]].tolist()}, primary "
+                             f"{p[0][rows[:2]].tolist()}), slots {slots}; "
+                             f"{evidence() if evidence else ''}")
+            time.sleep(0.005)
+    return len(tables), reads
+
+
+def _stopped(pid):
+    """Whether every thread of process ``pid`` is stopped (state T): a
+    SIGSTOP is delivered asynchronously, and a van thread can still answer
+    a request after ``kill`` returns."""
+    import glob
+
+    try:
+        states = [open(path).read().rsplit(")", 1)[1].split()[0]
+                  for path in glob.glob(f"/proc/{int(pid)}/task/*/stat")]
+    except OSError:
+        return False
+    return bool(states) and all(st == "T" for st in states)
+
+
+def _van_standby_start(workdir, seed, device):
+    """(c)'s fleet, started first so that its member processes come up
+    while (a) and (b) run: a van pair and a controller process of
+    VAN_MEMBERS bf16 members streaming seeded requests."""
+    from hetu_tpu_torch.resilience.shardproc import spawn_module
+
+    vans, spec, ready = _van_pair(workdir, "c")
+    cfg = {"workdir": workdir, "port": int(vans[0].ready[0]),
+           "n_members": VAN_MEMBERS,
+           "model": _cross_spec(seed, "bfloat16", device),
+           "n_requests": VAN_CTRL_REQUESTS, "prompt_seed": seed,
+           "max_tokens": VAN_CTRL_TOKENS, "submit_gap_s": VAN_CTRL_GAP_S,
+           "hold_s": 600.0, "lease_s": CROSS_LEASE_S,
+           "suspect_grace_s": CROSS_GRACE_S,
+           "request_timeout_s": POOL_TIMEOUT_S, "van": spec,
+           "member_env": {"OMP_NUM_THREADS": "1"} if device == "cpu"
+           else None}
+    path = os.path.join(workdir, "controller.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    ctrl = spawn_module(workdir, "controller",
+                        "hetu_tpu_torch.serve.crosshost",
+                        ["--controller", path], timeout_s=POOL_TIMEOUT_S,
+                        wait=False)
+    return {"vans": vans, "ctrl": ctrl, "van_ready_s": ready}
+
+
+def _van_round(pool, r, pairs, ref, fire, rnd, tracer, card):
+    """One held round of (a): both members parked at a decode round with
+    the burst in flight, ``fire()`` SIGKILLs the primary van, the backup
+    is promoted, the pool rebinds and re-sends, then the members go on.
+    Hard: incarnation ``rnd + 1``, every response ok and token-exact.
+    Returns the round's numbers."""
+    for s in range(VAN_MEMBERS):
+        pool.hold_member(s)
+    reqs = _cross_submit(pool, pairs, range(len(pairs)))
+    for s in range(VAN_MEMBERS):
+        pool.hold_member(s, after=1)
+    for s in sorted({q.member for q in reqs}):
+        check(pool.wait_held([s], timeout_s=POOL_TIMEOUT_S),
+              f"vanchaos f32 round {rnd}: member {s} never parked")
+    resent0 = pool.metrics.count("van_rebind_resent")
+    victim = r.primary[1]
+    t0 = time.perf_counter()
+    fire()
+    _until(lambda: r.incarnation == rnd + 1,
+           f"vanchaos f32 round {rnd}: the backup was never promoted",
+           CROSS_WAIT_S)
+    promoted_s = time.perf_counter() - t0
+    _until(lambda: pool.metrics.count("van_rebinds") >= rnd,
+           f"vanchaos f32 round {rnd}: the pool never rebound",
+           CROSS_WAIT_S)
+    for s in range(VAN_MEMBERS):
+        pool.release_member(s)
+    got = _cross_done(reqs, f"vanchaos f32 round {rnd}")
+    _cross_exact(f"vanchaos f32 round {rnd}", got, ref)
+    check(r.primary_idx == rnd % 2 and r.primary[1] != victim,
+          f"vanchaos f32 round {rnd}: primary {r.primary} after killing "
+          f"port {victim}")
+    rebinds = [e for e in tracer.events if e.get("name") ==
+               "ctrl.van_rebind" and e.get("ph") == "X"]
+    out = {"incarnation": r.incarnation, "exact": len(got),
+           "promoted_host_ms": promoted_s * 1e3,
+           "rebind_ms": rebinds[-1]["dur"] / 1e3 if rebinds else None,
+           "resent": pool.metrics.count("van_rebind_resent") - resent0}
+    # the automatic resilver: a fresh backup, the pair redundant again
+    _until(lambda: not r.degraded,
+           f"vanchaos f32 round {rnd}: the pair was never re-silvered",
+           CROSS_WAIT_S)
+    check(r.export_lag() == 0, f"vanchaos f32 round {rnd}: replication "
+                               f"lag after the resilver")
+    spans = [e for e in tracer.events if e.get("name") == "van.resilver"
+             and e.get("ph") == "X" and e.get("args", {}).get("ok")]
+    check(len(spans) >= rnd, f"vanchaos f32 round {rnd}: no resilver "
+                             f"returned True")
+    tables = [t for t in list(r._tables) if t.replicate]
+    out["resilver_s"] = spans[-1]["dur"] / 1e6
+    out["resilver_rows"] = int(spans[-1]["args"]["rows_copied"])
+    # rows, both optimizer slots and the step counter of every row
+    out["resilver_bytes"] = sum(t.rows * (3 * t.dim * 4 + 8)
+                                for t in tables)
+    names = {pool._bb.id: "blackboard", pool._ledger._table.id: "ledger"}
+
+    def evidence():
+        dump = pool.fleet_metrics(timeout_s=CROSS_WAIT_S).dump()
+        return json.dumps({k: v.get("value") for k, v in sorted(
+            dump.items()) if "van.replica" in k or "van.resilver" in k})
+    out["tables_equal"], out["reads"] = _van_pair_equal(
+        r, f"f32 round {rnd}", names, evidence)
+    print(f"[vanchaos] f32 round {rnd}: {len(pairs)} requests over "
+          f"{VAN_MEMBERS} member processes parked mid-decode, van {victim} "
+          f"SIGKILLed; backup promoted to incarnation {r.incarnation} "
+          f"(seen here {out['promoted_host_ms']:.3f} ms after the kill); "
+          f"rebind {out['rebind_ms']:.3f} ms, {out['resent']} submits "
+          f"re-sent; every response ok, {len(got)} of {len(got)} streams "
+          f"token-exact; resilver {out['resilver_s']:.3f} s, "
+          f"{out['resilver_rows']} rows, {out['resilver_bytes']} bytes; "
+          f"{out['tables_equal']} tables bitwise equal on both vans "
+          f"({out['reads']} reads) [{card}] t+{_van_t():.1f} s")
+    return out
+
+
+def _van_f32(card, seed, device, workdir):
+    """(a): the pool over a replicated pair with an automatic resilver,
+    two held van kills; returns the numbers."""
+    from hetu_tpu_torch.resilience import (
+        FaultEvent, FaultInjector, FaultSchedule,
+    )
+    from hetu_tpu_torch.resilience.shardproc import (
+        free_port, spawn_shard_server,
+    )
+    from hetu_tpu_torch.serve.crosshost import CrossProcessServingPool
+    from hetu_tpu_torch.telemetry import fleet, timeline, trace
+
+    out = {}
+    vans, spec, out["van_ready_s"] = _van_pair(workdir, "a")
+    procs = list(vans)
+    by_port = {int(v.ready[0]): v for v in vans}
+    out["resilver_van_ready_s"] = []
+
+    def fresh_backup(_replica):
+        port = free_port()
+        t0 = time.perf_counter()
+        proc = spawn_shard_server(workdir, port, f"r{port}")
+        out["resilver_van_ready_s"].append(time.perf_counter() - t0)
+        procs.append(proc)
+        by_port[port] = proc
+        return ("127.0.0.1", port)
+
+    model = _cross_spec(seed, "float32", device)
+    tracer = trace.open_process_stream(workdir, "controller")
+    box = {}
+
+    def make():
+        try:
+            box["pool"] = CrossProcessServingPool(
+                VAN_MEMBERS, workdir=workdir, model=model, own_van=False,
+                port=int(vans[0].ready[0]), van_spec=spec,
+                van_backup_factory=fresh_backup, lease_s=CROSS_LEASE_S,
+                suspect_grace_s=CROSS_GRACE_S,
+                request_timeout_s=POOL_TIMEOUT_S, scrape_s=0.0,
+                spawn_timeout_s=POOL_TIMEOUT_S,
+                member_env={"OMP_NUM_THREADS": "1"}
+                if device == "cpu" else None)
+        except Exception as e:  # reported below
+            box["error"] = repr(e)
+
+    maker = threading.Thread(target=make, daemon=True)
+    maker.start()
+    pairs = burst(np.random.default_rng(seed), POOL_V, N_REQUESTS,
+                  GPT_PROMPT, GPT_GEN)
+    base, straight = _cross_straight(model, pairs, device)
+    ref = [q.tokens for q in straight]
+    del base
+    maker.join(POOL_TIMEOUT_S)
+    check("pool" in box, f"vanchaos f32: the pool did not start: "
+                         f"{box.get('error')}")
+    pool = box["pool"]
+    try:
+        out["member_ready_s"] = [p.ready_s for p in pool.procs]
+        r = pool._replica
+        check((r.incarnation, r.primary_idx) == (1, 0),
+              f"vanchaos f32: bootstrap at {r.incarnation}, {r.primary_idx}")
+        print(f"[vanchaos] f32: van pair READY after "
+              f"{[round(x, 3) for x in out['van_ready_s']]} s (jax=0, "
+              f"torch=0), {VAN_MEMBERS} member processes READY after "
+              f"{[round(x, 3) for x in out['member_ready_s']]} s [{card}] "
+              f"t+{_van_t():.1f} s")
+        # the seeded van kill of the reference's chaos test, fired at its
+        # step while the members are parked
+        sched = FaultSchedule.generate(steps=len(pairs), seed=5,
+                                       van_kills=1, n_vans=1)
+        check([e.kind for e in sched.events] == ["van_kill"],
+              f"vanchaos f32: schedule {sched.to_json()}")
+
+        def fire(schedule):
+            def go():
+                victim = by_port[r.primary[1]]
+                inj = FaultInjector(schedule, van_procs=[victim])
+                for step in range(1, schedule.events[0].step + 1):
+                    inj.on_step(step)
+                check(inj.counters["van_procs_killed"] == 1 and
+                      victim.poll() is not None,
+                      "vanchaos f32: the van kill did not land")
+            return go
+
+        out["rounds"] = [
+            _van_round(pool, r, pairs, ref, fire(sched), 1, tracer, card),
+            _van_round(pool, r, pairs, ref, fire(FaultSchedule(
+                [FaultEvent(1, "van_kill", 0.0)])), 2, tracer, card)]
+    finally:
+        pool.close()
+        trace.disable()
+        _van_reap(procs)
+    out["launches"], out["prefills"], out["peak_gib"] = _van_members(
+        "f32", workdir, VAN_MEMBERS, device)
+    merged, _ = fleet.merge_streams(workdir)
+    kills = [p for p in timeline.correlate(merged) if p.kind == "van_kill"]
+    check(len(kills) == 2 and all(p.paired and p.recovery_name ==
+                                  "van.promote" for p in kills),
+          f"vanchaos f32: fault.van_kill not paired with van.promote: "
+          f"{kills}")
+    out["kill_ms"] = [(p.detect_s * 1e3, p.recover_s * 1e3) for p in kills]
+    for i, (det, rec) in enumerate(out["kill_ms"]):
+        print(f"[vanchaos] f32 round {i + 1}: fault.van_kill -> "
+              f"van.promote: detection {det:.3f} ms, recovery {rec:.3f} ms "
+              f"on the merged fleet timeline [{card}] t+{_van_t():.1f} s")
+    return out
+
+
+def _van_fence(card, workdir):
+    """(b): a SIGSTOPped primary at the table layer: a write promotes the
+    backup; after SIGCONT a stale handle idle through the outage raises
+    ``VanFenced``, and its retry lands on the backup."""
+    from hetu_tpu_torch.ps import membership as mb
+    from hetu_tpu_torch.ps import replica as rep
+    from hetu_tpu_torch.ps.van import RemotePSTable
+    from hetu_tpu_torch.resilience import (
+        FaultEvent, FaultInjector, FaultSchedule,
+    )
+    from hetu_tpu_torch.telemetry import timeline, trace
+
+    out = {}
+    vans, spec, _ = _van_pair(workdir, "b", rcv_timeout_s=VAN_FENCE_RCV_S)
+    tracer = trace.Tracer()
+    trace.enable(tracer=tracer)
+    try:
+        rspec = rep.ReplicaSpec.from_dict(spec)
+        r1 = rep.VanReplica(rspec)
+        r1.bootstrap()
+        tid = mb.fresh_table_id()
+        t = r1.table(4, 8, table_id=tid, create=True, sync=True,
+                     init="zeros", optimizer="sgd", lr=0.0)
+        row = np.arange(8, dtype=np.float32).reshape(1, -1)
+        t.sparse_set([0], row)
+        # an independent view bound to the old primary, idle throughout
+        r2 = rep.VanReplica(rspec)
+        r2.incarnation, r2.primary_idx = 1, 0
+        t2 = r2.table(4, 8, table_id=tid, create=False, sync=True)
+        # stopped "for good": the phase resumes it once promoted
+        FaultInjector(FaultSchedule([FaultEvent(1, "van_suspend", 0.0,
+                                                3600.0)]),
+                      van_procs=[vans[0]]).on_step(1)
+        t0 = time.perf_counter()
+        _until(lambda: _stopped(vans[0].pid),
+               "vanchaos fence: the primary never stopped", CROSS_WAIT_S)
+        deadline = time.monotonic() + CROSS_WAIT_S
+        while True:
+            try:
+                t.sparse_set([1], row * 3)
+                break
+            except (ConnectionError, TimeoutError, RuntimeError):
+                check(time.monotonic() < deadline,
+                      "vanchaos fence: a write never promoted the backup")
+                time.sleep(0.01)
+        out["promoted_host_ms"] = (time.perf_counter() - t0) * 1e3
+        check((r1.incarnation, r1.primary_idx) == (2, 1),
+              f"vanchaos fence: incarnation {r1.incarnation}")
+        vans[0].send_signal(signal.SIGCONT)
+        print(f"[vanchaos] fence: promoted past the stopped primary, "
+              f"resumed it [{card}] t+{_van_t():.1f} s", flush=True)
+
+        seen = []
+
+        def fenced():
+            # the resumed van may take a while to answer (its backlog of
+            # the stop): a read that times out is "not yet"
+            try:
+                h = RemotePSTable("127.0.0.1", int(vans[0].ready[0]), 1,
+                                  rep.EPOCH_DIM, table_id=rspec.epoch_table,
+                                  create=False, connect_timeout_s=1.0,
+                                  rcv_timeout_s=1.0, reconnect=False)
+            except ConnectionError as e:
+                seen.append(repr(e))
+                return False
+            try:
+                got = h.sparse_pull([0])[0]
+                seen.append(got[:4].tolist())
+                return int(got[rep.E_INC]) >= 2
+            except RuntimeError as e:
+                seen.append(repr(e))
+                return False
+            finally:
+                h.close()
+
+        def evidence():
+            pid = vans[0].pid
+            try:
+                with open(f"/proc/{pid}/status") as f:
+                    state = [ln.strip() for ln in f
+                             if ln.startswith(("State", "Threads"))]
+                fds = len(os.listdir(f"/proc/{pid}/fd"))
+            except OSError as e:
+                state, fds = repr(e), -1
+            return (f"the old primary: rc {vans[0].poll()}, {state}, {fds} "
+                    f"fds; reads {seen[:3]} ... {seen[-3:]} ({len(seen)}); "
+                    f"r1 incarnation {r1.incarnation}, endpoints "
+                    f"{r1.endpoints}; this process {len(os.listdir('/proc/self/fd'))}"
+                    f" fds, {threading.active_count()} threads")
+        deadline = time.monotonic() + CROSS_WAIT_S
+        while not fenced():
+            check(time.monotonic() < deadline, "vanchaos fence: the resumed "
+                  f"primary was never fenced: {evidence()}")
+            time.sleep(0.05)
+        try:
+            t2.sparse_set([2], row * 9)
+            check(False, "vanchaos fence: a stale handle wrote to the "
+                         "resumed old primary")
+        except rep.VanFenced:
+            pass
+        check(r2.primary_idx == 1, "vanchaos fence: the stale view was "
+                                   "not re-targeted")
+        t2.sparse_set([2], row * 9)
+        check(t.sparse_pull([2])[0].tobytes() == (row[0] * 9).tobytes(),
+              "vanchaos fence: the retried write is not on the backup")
+        for h in (t, t2):
+            h.close()
+    finally:
+        trace.disable()
+        _van_reap(vans)
+    stops = [p for p in timeline.correlate(tracer.events)
+             if p.kind == "van_suspend"]
+    check(len(stops) == 1 and stops[0].paired and
+          stops[0].recovery_name == "van.promote",
+          f"vanchaos fence: fault.van_suspend not paired: {stops}")
+    out["stop_ms"] = (stops[0].detect_s * 1e3, stops[0].recover_s * 1e3)
+    print(f"[vanchaos] fence: primary SIGSTOPped, a write promoted the "
+          f"backup ({out['promoted_host_ms']:.3f} ms on the host clock; "
+          f"fault.van_suspend -> van.promote: detection "
+          f"{out['stop_ms'][0]:.3f} ms, recovery {out['stop_ms'][1]:.3f} "
+          f"ms); after SIGCONT the stale handle raised VanFenced and its "
+          f"retry landed on the backup [{card}] t+{_van_t():.1f} s")
+    return out
+
+
+def _van_logs(workdir, tag):
+    """On a failure: the tail of every log in the part's workdir but the
+    members' (``_cross_evidence`` prints those): the controller's, the
+    standby's, the vans'."""
+    from pathlib import Path
+
+    for path in sorted(p for p in Path(workdir).glob("*.log")
+                       if not p.name.startswith("member_")):
+        tail = path.read_text(errors="replace").splitlines()[-15:]
+        print(f"[vanchaos] {tag} evidence: {path.name}: " + " | ".join(tail))
+
+
+def _van_standby(card, device, workdir, fleet_c):
+    """(c): SIGKILL the controller process after VAN_ACCEPTS accepts, a
+    standby process watching; returns the numbers."""
+    from pathlib import Path
+
+    from hetu_tpu_torch.resilience.shardproc import spawn_module, wait_ready
+
+    out = {"van_ready_s": fleet_c["van_ready_s"]}
+    ctrl = fleet_c["ctrl"]
+    wait_ready(ctrl, "controller", POOL_TIMEOUT_S)
+    log_of = lambda p: Path(p.log_path).read_text(errors="replace")  # noqa
+    _until(lambda: log_of(ctrl).count("ACCEPTED") >= VAN_ACCEPTS,
+           "vanchaos standby: the controller accepted too few requests",
+           CROSS_WAIT_S)
+    path = os.path.join(workdir, "standby.json")
+    with open(path, "w") as f:
+        json.dump({"workdir": workdir, "port": int(
+            fleet_c["vans"][0].ready[0]), "plane": "serving",
+            "lease_bound_s": VAN_LEASE_BOUND_S, "poll_s": 0.05,
+            "hold_s": 0.0, "resolve_timeout_s": CROSS_WAIT_S,
+            "watch_timeout_s": CROSS_WAIT_S,
+            "takeover_kwargs": {"lease_s": CROSS_LEASE_S,
+                                "suspect_grace_s": CROSS_GRACE_S,
+                                "request_timeout_s": POOL_TIMEOUT_S,
+                                "spawn_timeout_s": POOL_TIMEOUT_S}}, f)
+    sb = spawn_module(workdir, "standby", "hetu_tpu_torch.resilience.standby",
+                      [path], timeout_s=CROSS_WAIT_S)
+    _until(lambda: "WATCHING" in log_of(sb),
+           "vanchaos standby: the standby never watched", CROSS_WAIT_S)
+    print(f"[vanchaos] bf16 standby: controller READY after "
+          f"{ctrl.ready_s:.3f} s (its members spawned meanwhile), "
+          f"{log_of(ctrl).count('ACCEPTED')} accepted; the standby READY "
+          f"after {sb.ready_s:.3f} s, WATCHING [{card}] t+{_van_t():.1f} s",
+          flush=True)
+    ctrl.kill()
+    ctrl.wait(CROSS_WAIT_S)
+    accepted = log_of(ctrl).count("ACCEPTED")
+    try:
+        rc = sb.wait(2 * CROSS_WAIT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    log = log_of(sb)
+    lines = {ln.split(" ", 1)[0]: ln for ln in log.splitlines() if ln}
+    check(rc == 0 and "PROMOTED" in lines and "ALLDONE" in lines and
+          "RESOLVED" in lines and "READY jax=0" in log,
+          f"vanchaos standby: rc {rc}, log tail {log[-1500:]!r}")
+    statuses = json.loads(lines["RESOLVED"].split(" ", 1)[1])
+    bad = {rid: statuses.get(str(rid)) for rid in range(1, accepted + 1)
+           if statuses.get(str(rid)) != "ok"}
+    check(not bad, f"vanchaos standby: accepted requests not ok: {bad}")
+    out.update(accepted=accepted, resolved=len(statuses),
+               controller_ready_s=ctrl.ready_s, standby_ready_s=sb.ready_s,
+               detect_to_promoted_s=float(lines["PROMOTED"].split()[1]),
+               promoted_to_alldone_s=float(lines["ALLDONE"].split()[1]))
+    out["launches"], out["prefills"], out["peak_gib"] = _van_members(
+        "bf16 standby", workdir, VAN_MEMBERS, device)
+    print(f"[vanchaos] bf16 standby: controller SIGKILLed after {accepted} "
+          f"accepts; the standby PROMOTED {out['detect_to_promoted_s']:.3f}"
+          f" s after it detected the silence (lease bound "
+          f"{VAN_LEASE_BOUND_S} s), ALLDONE "
+          f"{out['promoted_to_alldone_s']:.3f} s later; every accepted "
+          f"rid ok ({len(statuses)} resolved); READY jax=0 [{card}] "
+          f"t+{_van_t():.1f} s")
+    return out
+
+
+def phase_vanchaos(card, seed, device="cuda"):
+    """The replicated durable tier (ps/replica.py) and the standby
+    controller (resilience/standby.py) under GPT-2-small member processes
+    at its published widths, 8 slots x 512 each: (a) f32, a pool over a
+    replicated van pair whose primary is SIGKILLed twice while the members
+    are parked mid-decode, re-silvered in between; (b) the fence of a
+    SIGSTOPped primary; (c) bf16, a controller process SIGKILLed with a
+    standby process watching.  Returns the numbers; ``launches`` sums the
+    members' flash forwards over (a) and (c)."""
+    import tempfile
+
+    t_phase = _VAN_T0[0] = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="vanchaos_") as root:
+        dirs = {k: os.path.join(root, k) for k in ("f32", "fence", "bf16")}
+        for d in dirs.values():
+            os.makedirs(d)
+        fleet_c = _van_standby_start(dirs["bf16"], seed, device)
+        try:
+            for tag, fn in (("f32", lambda: _van_f32(card, seed, device,
+                                                     dirs["f32"])),
+                            ("fence", lambda: _van_fence(card,
+                                                         dirs["fence"])),
+                            ("bf16", lambda: _van_standby(
+                                card, device, dirs["bf16"], fleet_c))):
+                try:
+                    out[tag] = fn()
+                except Exception:
+                    _cross_evidence(dirs[tag])
+                    _van_logs(dirs[tag], tag)
+                    raise
+        finally:
+            _van_reap([fleet_c["ctrl"], *fleet_c["vans"]])
+            subprocess.run(["pkill", "-9", "-f", root], capture_output=True,
+                           timeout=30)
+    out["launches"] = out["f32"]["launches"] + out["bf16"]["launches"]
+    out["prefills"] = out["f32"]["prefills"] + out["bf16"]["prefills"]
+    out["seconds"] = time.perf_counter() - t_phase
+    for tag in ("f32", "bf16"):
+        print(f"[vanchaos] {tag}: peak GiB by member "
+              f"{out[tag]['peak_gib']} [{card}]")
+    print(f"[vanchaos] phase {out['seconds']:.1f} s (budget "
+          f"{VAN_BUDGET_S:.0f} s); {out['prefills']} prefills in the "
+          f"members, flash forwards launched {out['launches']} [{card}]")
+    return out
+
+
 def phase_train_llama(card, seed, device="cuda"):
     """Llama-2-7B's widths at 4 layers: the kernel-vs-plain gate, then 10
     Executor steps at B 4 x S 4096."""
@@ -7397,6 +8042,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     crosshost = phase_crosshost(card, args.seed)
     torch.cuda.empty_cache()
+    vanchaos = phase_vanchaos(card, args.seed)
+    torch.cuda.empty_cache()
     llama_train = phase_train_llama(card, args.seed)
     torch.cuda.empty_cache()
     bert = phase_train_bert(card, args.seed)
@@ -7446,6 +8093,7 @@ def main(argv=None) -> int:
                               "pool": pool["launches"],
                               # summed over the member processes
                               "crosshost": crosshost["launches"],
+                              "vanchaos": vanchaos["launches"],
                               "llama_train": llama_train["launches"][0],
                               "bert_train": bert["launches"][0],
                               **later[0]},
@@ -7499,6 +8147,12 @@ def main(argv=None) -> int:
     print(f"[crosshost] summary: phase {crosshost['seconds']:.1f} s, "
           f"{crosshost['prefills']} member prefills, flash forwards "
           f"launched {crosshost['launches']} [{card}]")
+    print(f"[vanchaos] summary: phase {vanchaos['seconds']:.1f} s, "
+          f"{vanchaos['prefills']} member prefills, flash forwards "
+          f"launched {vanchaos['launches']}; promotions at incarnations "
+          f"{[x['incarnation'] for x in vanchaos['f32']['rounds']]}, "
+          f"standby PROMOTED {vanchaos['bf16']['detect_to_promoted_s']:.3f}"
+          f" s [{card}]")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

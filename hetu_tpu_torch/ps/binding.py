@@ -2,7 +2,8 @@
 remote tiers, built on first use (counterpart of
 ``hetu_tpu/ps/binding.py``).
 
-Four sources at the repository root (the JAX package's own, unchanged):
+Four sources at the repository root (the JAX package's own, unchanged;
+the van through a wrapper, below):
 ``csrc/hetu_ps.cpp`` holds the in-process tier (tables with server-side
 optimizers, the HET cache, SSP clocks, partial-reduce matchmaking, the
 int8 row codec); ``csrc/hetu_ps_van.cpp`` the van (the
@@ -11,7 +12,10 @@ the quantized gradient wire, the blob channel, the barrier, the
 scheduler role and its heartbeats, the transport counters);
 ``csrc/hetu_ps_group.cpp`` the key-range-partitioned group over several
 van servers; ``csrc/hetu_ps_rcache.cpp`` the HET cache over such a group.
-g++ compiles the four together, in a few seconds, into
+The van compiles through ``hetu_tpu_torch/csrc/hetu_ps_van.cpp``, which
+includes the root source with one repair (a departure): the server's
+accept loop retries a failed ``accept()`` (an interrupted one, after a
+SIGSTOP and SIGCONT, ended it for good).  g++ compiles the four together, in a few seconds, into
 ``hetu_tpu_torch/_build/libhetu_ps.so``.  The library is rebuilt when a
 source or ``csrc/hetu_ps_dtype.h`` is newer, or when it was built from
 another list of sources (the list is kept beside it in
@@ -31,10 +35,12 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG.parent / "csrc"
-_SRCS = tuple(_CSRC / name for name in (
-    "hetu_ps.cpp", "hetu_ps_van.cpp", "hetu_ps_group.cpp",
-    "hetu_ps_rcache.cpp"))
-_HDRS = (_CSRC / "hetu_ps_dtype.h",)  # staleness only (not passed to g++)
+# the van through the port's wrapper of the root source (one repair: its
+# accept loop survives a failed accept)
+_SRCS = (_CSRC / "hetu_ps.cpp", _PKG / "csrc" / "hetu_ps_van.cpp",
+         _CSRC / "hetu_ps_group.cpp", _CSRC / "hetu_ps_rcache.cpp")
+# staleness only (not passed to g++)
+_HDRS = (_CSRC / "hetu_ps_dtype.h", _CSRC / "hetu_ps_van.cpp")
 _BUILD = _PKG / "_build"
 _SO = _BUILD / "libhetu_ps.so"
 

@@ -2,8 +2,9 @@
 (counterpart of ``hetu_tpu/ps/membership.py``).  Row layouts and the
 ledgers' encoding are the reference's, bit for bit: a controller of one
 package and a member of the other read the same blackboard, and a ledger
-written by one decodes in the other.  The replicated durable tier
-(``replica=``) waits for the slice that ports ``ps/replica.py``.
+written by one decodes in the other, also through the replicated
+durable tier (``replica=``, :mod:`hetu_tpu_torch.ps.replica`), whose
+dual-writes keep both vans' rows bitwise equal.
 
 The cross-process control plane both deployment tiers share (arXiv
 2412.14374's multi-controller coordination over DCN, scaled to this
@@ -206,14 +207,17 @@ def control_rpc(fn: Callable, *, attempts: int = 4, base_s: float = 0.05,
 
 
 def _replica_of(replica):
-    """The replicated durable tier (a ``VanReplica``, a ``ReplicaSpec`` or
-    a spec dict in the reference) is not ported yet: any non-empty value
-    raises."""
+    """Accept a :class:`~hetu_tpu_torch.ps.replica.VanReplica`, a
+    ``ReplicaSpec``, or a spec dict; returns the per-process replica
+    coordinator (or None).  Resolution rides ``from_spec`` so a
+    process spawned AFTER a failover adopts the promoted endpoint
+    before any handle binds the dead original primary.  A malformed
+    spec fails as ``ReplicaSpec`` does (``ValueError`` under two
+    endpoints, ``TypeError`` for an unknown key)."""
     if not replica:
         return None
-    raise NotImplementedError(
-        "the replicated durable tier (replica=) comes with the slice that "
-        "ports ps/replica.py")
+    from hetu_tpu_torch.ps.replica import VanReplica
+    return VanReplica.from_spec(replica)
 
 
 def create_blackboard(host: str, port: int, *, table_id: int,
@@ -221,10 +225,20 @@ def create_blackboard(host: str, port: int, *, table_id: int,
                       replica=None):
     """Controller side: create the membership table.  ``n_slots`` member
     rows + 1 control row + 1 controller row, zero-initialized; plain SGD
-    so ``sparse_set`` writes rows verbatim.  ``replica`` (the replicated
-    durable tier) raises ``NotImplementedError`` until ``ps/replica.py``
-    is ported."""
-    _replica_of(replica)
+    so ``sparse_set`` writes rows verbatim.
+
+    ``replica`` (a ``VanReplica``/``ReplicaSpec``/spec dict) builds the
+    blackboard over the REPLICATED durable tier instead: membership
+    rows are load-bearing, so every write dual-writes synchronously and
+    a primary-van death surfaces as a retryable
+    :class:`~hetu_tpu_torch.ps.replica.VanFailover` under
+    ``control_rpc``."""
+    rep = _replica_of(replica)
+    if rep is not None:
+        return rep.table(n_slots + 2, MEMBER_DIM, table_id=table_id,
+                         create=True, sync=True, init="zeros",
+                         optimizer="sgd", lr=0.0,
+                         connect_timeout_s=connect_timeout_s)
     from hetu_tpu_torch.ps.van import RemotePSTable
     return RemotePSTable(host, port, n_slots + 2, MEMBER_DIM,
                          table_id=table_id, create=True, init="zeros",
@@ -238,8 +252,13 @@ def attach_blackboard(host: str, port: int, *, table_id: int,
     """Member (or takeover-controller) side: attach to an EXISTING
     table (no create — a member racing the controller must fail loudly,
     not fork the id; a takeover must adopt the rows, not zero them).
-    ``replica`` raises as in :func:`create_blackboard`."""
-    _replica_of(replica)
+    ``replica`` attaches over the replicated tier (see
+    :func:`create_blackboard`)."""
+    rep = _replica_of(replica)
+    if rep is not None:
+        return rep.table(n_slots + 2, MEMBER_DIM, table_id=table_id,
+                         create=False, sync=True,
+                         connect_timeout_s=connect_timeout_s)
     from hetu_tpu_torch.ps.van import RemotePSTable
     return RemotePSTable(host, port, n_slots + 2, MEMBER_DIM,
                          table_id=table_id, create=False,
@@ -1210,13 +1229,20 @@ class DeltaLedger:
         if table is not None:
             self._table = table
         else:
-            _replica_of(replica)
-            from hetu_tpu_torch.ps.van import RemotePSTable
-            self._table = RemotePSTable(
-                host, port, self.rows, self.dim,
-                table_id=int(table_id), create=create, init="zeros",
-                optimizer="sgd", lr=0.0,
-                connect_timeout_s=connect_timeout_s)
+            rep = _replica_of(replica)
+            if rep is not None:
+                self._table = rep.table(
+                    self.rows, self.dim, table_id=int(table_id),
+                    create=create, sync=True, init="zeros",
+                    optimizer="sgd", lr=0.0,
+                    connect_timeout_s=connect_timeout_s)
+            else:
+                from hetu_tpu_torch.ps.van import RemotePSTable
+                self._table = RemotePSTable(
+                    host, port, self.rows, self.dim,
+                    table_id=int(table_id), create=create, init="zeros",
+                    optimizer="sgd", lr=0.0,
+                    connect_timeout_s=connect_timeout_s)
         self.rpc_deadline_s = float(rpc_deadline_s)
         self._rng = random.Random(0x44454C54)
         self.seq = 0

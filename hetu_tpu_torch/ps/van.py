@@ -243,6 +243,20 @@ def _connect_with_deadline(host: str, port: int, timeout_s: float,
     return fd
 
 
+_fd_lock = threading.Lock()
+
+
+def _take_fd(conn) -> int:
+    """Detach ``conn``'s descriptor (``fd`` becomes -1) and return it,
+    for the one caller that then closes it.  Two threads that close one
+    handle (both saw its transport fail), or a close after a reconnect
+    that failed, would otherwise close the number twice, the second time
+    after the kernel may have handed it to another connection."""
+    with _fd_lock:
+        fd, conn.fd = conn.fd, -1
+    return fd
+
+
 _beat_handles: list = []
 
 
@@ -331,7 +345,13 @@ class RemotePSTable:
 
     ``create=False`` attaches to a table that exists (``table_id`` then
     names it); otherwise the table is created with a fresh id unless
-    ``table_id`` is given."""
+    ``table_id`` is given.
+
+    ``reconnect=False`` makes a transport failure close the connection
+    (``fd`` -1) and raise at once, where by default the handle first
+    connects again (up to ``connect_timeout_s``): the replicated tier's
+    handles (:mod:`hetu_tpu_torch.ps.replica`) must not wait out a
+    connect deadline against a primary that died."""
 
     def __init__(self, host: str, port: int, rows: int, dim: int, *,
                  table_id: Optional[int] = None, create: bool = True,
@@ -343,9 +363,11 @@ class RemotePSTable:
                  dtype: str = "f32", wire: Optional[str] = None,
                  error_feedback: bool = True,
                  connect_timeout_s: float = 10.0,
-                 rcv_timeout_s: Optional[float] = None):
+                 rcv_timeout_s: Optional[float] = None,
+                 reconnect: bool = True):
         self.rows, self.dim = rows, dim
         self.dtype = dtype
+        self._reconnect_on_loss = bool(reconnect)
         self._dt = TABLE_DTYPES[dtype]
         if wire is not None and wire not in WIRE_DTYPES:
             raise ValueError(f"unknown wire dtype {wire!r}; expected one "
@@ -391,9 +413,11 @@ class RemotePSTable:
         stream (the table lives on the server, not in the
         connection)."""
         if rc == -101:
-            lib.ps_van_close(self.fd)
-            self.fd = -1
-            self.fd = _connect_with_deadline(*self._addr)
+            fd = _take_fd(self)
+            if fd >= 0:
+                lib.ps_van_close(fd)
+            if self._reconnect_on_loss:
+                self.fd = _connect_with_deadline(*self._addr)
         _check(rc, what)
 
     def sparse_pull(self, indices) -> np.ndarray:
@@ -557,9 +581,9 @@ class RemotePSTable:
                "van_table_load")
 
     def close(self) -> None:
-        if self.fd >= 0:
-            lib.ps_van_close(self.fd)
-            self.fd = -1
+        fd = _take_fd(self)
+        if fd >= 0:
+            lib.ps_van_close(fd)
 
 
 class PartitionedPSTable:
@@ -872,9 +896,9 @@ class RemoteSSP:
         return clk
 
     def close(self) -> None:
-        if self.fd >= 0:
-            lib.ps_van_close(self.fd)
-            self.fd = -1
+        fd = _take_fd(self)
+        if fd >= 0:
+            lib.ps_van_close(fd)
 
 
 class RemotePReduce:
@@ -902,9 +926,9 @@ class RemotePReduce:
         return [i for i in range(64) if mask & (1 << i)]
 
     def close(self) -> None:
-        if self.fd >= 0:
-            lib.ps_van_close(self.fd)
-            self.fd = -1
+        fd = _take_fd(self)
+        if fd >= 0:
+            lib.ps_van_close(fd)
 
 
 class BlobTransportError(RuntimeError):
@@ -930,6 +954,14 @@ class BlobChannel:
     failed (reconnect and resend), -102 the receive buffer is too small
     (grow it to the size the server reports and read again); any other
     code is a server-side refusal (``RuntimeError`` at once).
+
+    With ``rcv_timeout_s``, a blocking put or get waits on the server in
+    slices of half that timeout (a departure from the reference): a wait
+    longer than the socket's receive timeout would read as a transport
+    failure and resend the put, and the server, which parks the first
+    copy until the slot is acked, would then store the message a second
+    time after the reader acked it — an unread slot that wedges the
+    channel for good.
     """
 
     def __init__(self, host: str, port: int, channel_id: int, *,
@@ -946,12 +978,21 @@ class BlobChannel:
         self.fd = _connect_with_deadline(host, port, connect_timeout_s,
                                          rcv_timeout_s)
 
+    def _wait_ms(self, deadline: float) -> int:
+        """One server-side wait: the time left, in slices shorter than
+        the receive timeout (see the class docstring)."""
+        left = max(1, int((deadline - time.monotonic()) * 1000))
+        if self._rcv_timeout_s:
+            left = min(left, max(1, int(self._rcv_timeout_s * 500)))
+        return left
+
     def _reconnect(self) -> None:
         # op-shaped name: op_stats() shows it as
         # {"blob_channel": {"reconnects": n}}
         default_registry.counter("van.blob_channel.reconnects").inc()
-        if self.fd >= 0:
-            lib.ps_van_close(self.fd)
+        fd = _take_fd(self)  # a failed connect below leaves fd -1
+        if fd >= 0:
+            lib.ps_van_close(fd)
         self.fd = _connect_with_deadline(self.host, self.port,
                                          self._timeout_s,
                                          self._rcv_timeout_s)
@@ -969,9 +1010,8 @@ class BlobChannel:
         with _op_span("blob_put", len(buf)):
             deadline = time.monotonic() + timeout_s
             while True:
-                wait_ms = max(1, int((deadline - time.monotonic()) * 1000))
                 rc = lib.ps_van_blob_put(self.fd, self.id, seq, buf,
-                                         len(buf), wait_ms)
+                                         len(buf), self._wait_ms(deadline))
                 if rc == 0:
                     return
                 if time.monotonic() > deadline:
@@ -995,9 +1035,9 @@ class BlobChannel:
             deadline = time.monotonic() + timeout_s
             need = ctypes.c_int64(0)
             while True:
-                wait_ms = max(1, int((deadline - time.monotonic()) * 1000))
                 n = lib.ps_van_blob_get(self.fd, self.id, seq, self._rbuf,
-                                        len(self._rbuf), wait_ms,
+                                        len(self._rbuf),
+                                        self._wait_ms(deadline),
                                         ctypes.byref(need))
                 if n >= 0:
                     self._ack(seq, deadline)
@@ -1048,9 +1088,9 @@ class BlobChannel:
             self._reconnect()
 
     def close(self) -> None:
-        if self.fd >= 0:
-            lib.ps_van_close(self.fd)
-            self.fd = -1
+        fd = _take_fd(self)
+        if fd >= 0:
+            lib.ps_van_close(fd)
 
 
 class RemoteBarrier:
@@ -1075,9 +1115,9 @@ class RemoteBarrier:
             raise RuntimeError(f"barrier failed (rc={rc})")
 
     def close(self) -> None:
-        if self.fd >= 0:
-            lib.ps_van_close(self.fd)
-            self.fd = -1
+        fd = _take_fd(self)
+        if fd >= 0:
+            lib.ps_van_close(fd)
 
 
 def stats(host: str, port: int, timeout_s: float = 10.0) -> dict:

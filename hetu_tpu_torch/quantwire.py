@@ -19,12 +19,12 @@
   the bytes ``n`` rows take on it.
 
 The reference's jax block codec (quantized collectives) waits for the
-multi-GPU slice.
+multi-GPU slice.  ``torch`` is imported by the codec's two functions
+only: the van's client (:mod:`hetu_tpu_torch.ps.van`) imports this module,
+and a van server process must not pay for ``import torch``.
 """
 
 from __future__ import annotations
-
-import torch
 
 # the PS gradient wire's dtypes, numbered as csrc's WireDtype; "f32" means
 # the legacy ops
@@ -49,6 +49,8 @@ def q8_encode_axes(a: torch.Tensor, reduce_axes) -> tuple:
 
     Returns ``(q int8 of a's shape, scales f32 keepdims-shaped)`` on
     ``a``'s device."""
+    import torch
+
     a32 = a.to(torch.float32)
     finite = torch.isfinite(a32)
     # the masks below change nothing where every element is finite: skip
@@ -74,6 +76,8 @@ def q8_encode_axes(a: torch.Tensor, reduce_axes) -> tuple:
 def q8_decode_axes(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`q8_encode_axes`: f32 (cast at the caller when the
     logical dtype differs)."""
+    import torch
+
     return q.to(torch.float32) * scales.to(torch.float32)
 
 

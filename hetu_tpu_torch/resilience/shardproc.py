@@ -32,7 +32,9 @@ from hetu_tpu_torch.ps import van
 port = van.serve({port})
 trace.instant("van.serve", {{"port": port, "pid": os.getpid()}},
               cat="van")
-print("READY", port, flush=True)
+# the READY line says whether the van loaded jax or torch (neither)
+print("READY", port, "jax=%d" % ("jax" in sys.modules),
+      "torch=%d" % ("torch" in sys.modules), flush=True)
 time.sleep({lifetime})
 """
 
@@ -134,7 +136,8 @@ def wait_ready(proc: subprocess.Popen, tag: str,
 def spawn_shard_server(workdir, port: int, tag: str = "s", *,
                        lifetime_s: int = 600) -> subprocess.Popen:
     """Start a van server subprocess on ``port``; blocks until READY (the
-    server is accepting connections)."""
+    server is accepting connections).  ``proc.ready`` holds ``[port,
+    "jax=0", "torch=0"]``: the server loads neither."""
     return spawn_ready(workdir, f"shard_server_{tag}", _SERVER_SRC,
                        port=int(port), lifetime=int(lifetime_s),
                        trace_dir=str(workdir))

@@ -52,6 +52,15 @@ This needs the van to outlive the controller: run it as its own process
 (``resilience/shardproc.spawn_shard_server``) and build the pool with
 ``own_van=False``.
 
+**Van death too.**  With ``van_spec`` (a
+:class:`~hetu_tpu_torch.ps.replica.ReplicaSpec` dict naming a primary and
+a backup van) the blackboard and the ledger dual-write synchronously to
+both vans, every blob channel binds the replica's CURRENT primary, and a
+SIGKILLed primary costs a promotion (one CAS on the survivor's epoch
+row), a channel rebind on both sides and a re-send of every unresolved
+submit (members dedup by rid); ``van_backup_factory`` then re-silvers a
+fresh backup so the pair survives the next fault as well.
+
 Departures from the reference:
 
 * a member's weights are drawn from the spec's seed with numpy in the
@@ -65,10 +74,11 @@ Departures from the reference:
   adoption that waits for the held member's scheduler lock lets it go;
 * members publish their flash-forward launch count, prefill count, peak
   device memory and whether ``jax`` is loaded in their metrics;
-* the replicated durable tier (``van_spec``, ``MemberSpec.van``, the van
-  failover rebind) and ``controller_main``'s ``autoscale`` raise
-  ``NotImplementedError`` until the slices that port ``ps/replica.py``
-  and ``traffic/``.
+* the pool counts the submits it re-sends after a van failover
+  (``van_rebind_resent``), and ``controller_main``'s READY line says
+  whether the process loaded ``jax``;
+* ``controller_main``'s ``autoscale`` raises ``NotImplementedError``
+  until the slice that ports ``traffic/``.
 """
 
 from __future__ import annotations
@@ -111,12 +121,6 @@ CTRL_CHAN_STRIDE = 1 << 20
 
 def _fenced_chan(base: int, ctrl_inc: int) -> int:
     return int(base) + int(ctrl_inc) * CTRL_CHAN_STRIDE
-
-
-def _no_replica(what: str):
-    raise NotImplementedError(
-        f"{what}: the replicated durable tier comes with the slice that "
-        f"ports ps/replica.py")
 
 
 def _dbg(msg: str) -> None:
@@ -200,9 +204,12 @@ class MemberSpec:
     # cadence, not the constructor default
     trace_dir: str = ""
     scrape_s: float = 1.0
-    # the replicated durable tier (a ReplicaSpec dict in the reference):
-    # kept so that spawn configs keep the reference's keys; a non-empty
-    # value raises in the member until ps/replica.py is ported
+    # replicated durable tier: a ReplicaSpec dict ({"endpoints":
+    # [[h,p],[h,p]], "epoch_table": id, ...}) — non-empty means the
+    # member's blackboard/channel wire runs over the primary+backup van
+    # pair and re-resolves to the promoted endpoint on primary death.
+    # Recorded in the spawn config like every other durable id, so a
+    # controller takeover finds the SAME pair.
     van: dict = field(default_factory=dict)
 
     def to_json(self) -> str:
@@ -409,10 +416,16 @@ class MemberHarness:
             ContinuousBatchingScheduler,
         )
         from hetu_tpu_torch.serve.server import InferenceServer
-        if spec.van:
-            _no_replica("MemberSpec.van")
         self.spec = spec
         self._van = van
+        # the replicated durable tier, when the spawn config names one:
+        # every table/channel this member builds re-resolves to the
+        # promoted endpoint on primary-van death (a VanFailover is a
+        # retried transient at every call site)
+        self.replica = None
+        if spec.van:
+            from hetu_tpu_torch.ps.replica import VanReplica
+            self.replica = VanReplica.from_spec(spec.van)
         # the flight recorder FIRST: every span this process ever
         # records (engine prefill/decode, per-request lifecycle, drain
         # legs) streams to disk line-by-line, so a SIGKILL loses at most
@@ -452,13 +465,15 @@ class MemberHarness:
             failover_grace_s=spec.failover_grace_s)
         self.member = _mb.MembershipClient(
             "127.0.0.1", spec.port, table_id=spec.membership_table,
-            slot=spec.slot, n_slots=spec.n_slots)
+            slot=spec.slot, n_slots=spec.n_slots, replica=self.replica)
         self._stop = threading.Event()
         self._events: queue.Queue = queue.Queue()
         self._migrated: set = set()   # rids handed to a peer (no event)
-        # rid dedup: a re-routed orphan (takeover) can pick this member
-        # again; a rid this member already owns must not be served
-        # twice.  Bounded like _done_log.
+        # rid dedup: after a van failover the controller RE-SENDS every
+        # unresolved submit (it cannot know which landed before the
+        # primary died), and a re-routed orphan (takeover) can pick this
+        # member again; a rid this member already owns must not be
+        # served twice.  Bounded like _done_log.
         self._seen_rids: OrderedDict = OrderedDict()
         self._pending_drain = None    # (xfer_id, pairs) awaiting commit
         # completion RECORDS, kept after emission: when a controller
@@ -483,11 +498,13 @@ class MemberHarness:
                 raise TimeoutError(
                     "no controller incarnation on the control row")
             time.sleep(0.02)
-        # the generation is the controller incarnation: a bump rebinds
-        # the command/event channels (a new controller allocates fresh
-        # incarnation-keyed ids)
         self._ctrl_gen = self.member.ctrl_inc
-        self._in_gen = self._out_gen = self._ctrl_gen
+        self._van_gen = self.replica.incarnation if self.replica else 0
+        # generations are (controller incarnation, van incarnation)
+        # pairs: EITHER bump rebinds the command/event channels — a new
+        # controller allocates fresh incarnation-keyed ids, a promoted
+        # van has fresh (empty) channel state at the same ids
+        self._in_gen = self._out_gen = (self._ctrl_gen, self._van_gen)
         self._in = self._chan(spec.submit_ch, self._ctrl_gen)
         self._out = self._chan(spec.event_ch, self._ctrl_gen)
         self.member.join(epoch_ack=float(self._epoch_ack))
@@ -504,23 +521,30 @@ class MemberHarness:
         self._events.put(ev)
 
     def _chan(self, base: int, ctrl_inc: int):
-        """A control/event blob channel, keyed by controller
-        incarnation."""
-        return self._van.BlobChannel("127.0.0.1", self.spec.port,
-                                     _fenced_chan(base, ctrl_inc))
+        """A control/event blob channel at the CURRENT durable-tier
+        endpoint, keyed by controller incarnation as always."""
+        cid = _fenced_chan(base, ctrl_inc)
+        if self.replica is not None:
+            return self.replica.channel(cid)
+        return self._van.BlobChannel("127.0.0.1", self.spec.port, cid)
 
     def _mig_chan(self, ch_id: int):
+        if self.replica is not None:
+            return self.replica.channel(ch_id)
         return self._van.BlobChannel("127.0.0.1", self.spec.port, ch_id)
 
-    def _gen(self) -> int:
-        return self._ctrl_gen
+    def _gen(self) -> tuple:
+        return (self._ctrl_gen, self._van_gen)
 
     def _ctrl_watch_loop(self) -> None:
         """Track the controller lease: the read updates the client's
         fence (``ctrl_inc``) and silence clock; an incarnation bump is
         the rebind signal for the command/event loops, and the observed
         control EPOCH is acked through the heartbeat so deaf-member
-        detection works on the serving plane too."""
+        detection works on the serving plane too.  With a replicated
+        durable tier the same read drives VAN failover: a failed pull
+        runs the replica's promotion dance inside its retry loop, and
+        the observed van incarnation joins the rebind generation."""
         period = max(self.spec.hb_ms, 10) / 1000.0
         while not self._stop.wait(period):
             try:
@@ -531,28 +555,34 @@ class MemberHarness:
                 self._epoch_ack = max(self._epoch_ack, e)
                 if self.member.ctrl_inc > self._ctrl_gen:
                     self._ctrl_gen = self.member.ctrl_inc
+            if self.replica is not None and \
+                    self.replica.incarnation != self._van_gen:
+                self._van_gen = self.replica.incarnation
 
     def _event_loop(self) -> None:
         seq = 1
         backlog: list = []
         while not self._stop.is_set():
             if self._out_gen != self._gen():
-                # a new controller incarnation owns the fleet: bind the
-                # event channel there and RE-ANNOUNCE every completion
-                # record — the dead controller may have resolved
-                # none/some of them (the new one dedups by rid), and
-                # whatever sat unread in the old channel's single slot
-                # is gone
+                # a new controller incarnation owns the fleet (or the
+                # durable tier failed over to the promoted van): bind
+                # the event channel there and RE-ANNOUNCE every
+                # completion record — the dead controller may have
+                # resolved none/some of them (the new one dedups by
+                # rid), whatever sat unread in the old channel's single
+                # slot is gone, and a promoted van starts with EMPTY
+                # channel state at the same ids
                 gen = self._gen()
                 try:
                     self._out.close()
                 except Exception:
                     pass
                 try:
-                    self._out = self._chan(self.spec.event_ch, gen)
+                    self._out = self._chan(self.spec.event_ch, gen[0])
                 except ConnectionError:
-                    # a transiently unreachable van: keep the thread
-                    # alive and retry
+                    # a transiently unreachable van, or mid-promotion:
+                    # keep the thread alive, retry once the replica
+                    # adopts the new primary
                     time.sleep(0.1)
                     continue
                 self._out_gen = gen
@@ -689,9 +719,16 @@ class MemberHarness:
                 # fence (they were written by the then-legitimate
                 # controller; a zombie can only reach this window by
                 # racing the one bounded drain, after which the old
-                # channel is never read again).
+                # channel is never read again).  When the VAN
+                # incarnation changed, the old channel lives on a dead
+                # (or fenced) van — nothing to drain, and the
+                # controller re-sends every unresolved submit after its
+                # own rebind, so skip straight to the new endpoint.
+                van_changed = self._in_gen[1] != self._van_gen
+                _dbg(f"slot={self.spec.slot} rebind {self._in_gen} -> "
+                     f"{self._gen()}")
                 drain_deadline = time.monotonic() + 5.0
-                while not self._stop.is_set():
+                while not van_changed and not self._stop.is_set():
                     try:
                         # a generous get timeout: 0.2s would conflate
                         # "slot empty" with "slow wire" and drop a
@@ -726,12 +763,15 @@ class MemberHarness:
                 except Exception:
                     pass
                 try:
-                    self._in = self._chan(self.spec.submit_ch, gen)
+                    self._in = self._chan(self.spec.submit_ch, gen[0])
                 except ConnectionError:
-                    # a transiently unreachable van: _in_gen stays
-                    # stale, so the loop re-enters this block and
-                    # re-binds — a member must outlive the window, not
-                    # crash into a lease expiry
+                    # a transiently unreachable van, or the pair
+                    # mid-promotion (a SECOND fault can land while this
+                    # rebind is already in flight): _in_gen stays stale,
+                    # so the loop re-enters this block and re-binds once
+                    # the watch loop adopts the promoted incarnation — a
+                    # member must outlive the window, not crash into a
+                    # lease expiry
                     time.sleep(0.1)
                     continue
                 self._in_gen = gen
@@ -744,6 +784,15 @@ class MemberHarness:
                 # stop (SIGSTOP) that outlasted the get: the command
                 # loop outlives a transiently unreachable wire
             except RuntimeError as e:
+                if self.replica is not None:
+                    # a dead PRIMARY van surfaces here as rc=-101 at
+                    # the get deadline — with a replicated durable
+                    # tier that is a survivable outage (the watch
+                    # loop promotes/adopts and bumps the van
+                    # generation, and this loop rebinds), NOT a
+                    # shutdown signal
+                    time.sleep(0.05)
+                    continue
                 # van gone under us: the log says so before the leave
                 print(f"member {self.spec.slot} exits: command channel "
                       f"failed: {e!r}", file=sys.stderr, flush=True)
@@ -775,8 +824,9 @@ class MemberHarness:
         if cmd == "submit":
             rid = int(msg["rid"])
             if rid in self._seen_rids:
-                # duplicate delivery (an orphan re-route that picked
-                # this member again): already owned — serving it twice would
+                # duplicate delivery (a controller re-send after a van
+                # failover, or an orphan re-route that picked this
+                # member again): already owned — serving it twice would
                 # waste slots, and the original's completion record
                 # answers the controller either way
                 return True
@@ -866,6 +916,8 @@ class MemberHarness:
         ``fleet_metrics()`` and the Prometheus export cover them."""
         from hetu_tpu_torch.telemetry import default_registry
         self._publish_process_metrics()
+        if self.replica is not None:
+            self.replica.export_lag()  # refresh the lag gauge
         dump = {k: v for k, v in default_registry.dump().items()
                 if k.startswith(self._DURABLE_TIER_METRICS)}
         dump.update(self.scheduler.metrics.registry.dump())
@@ -1114,10 +1166,45 @@ class CrossProcessServingPool:
         from hetu_tpu_torch.ps import van
         if n_members < 1:
             raise ValueError("a serving pool needs at least one member")
-        if van_spec or van_backup_factory is not None:
-            _no_replica("van_spec")
         migrate_codec = _migrate.check_codec(migrate_codec)
         self._van = van
+        # replicated durable tier: `van_spec` (a ReplicaSpec dict)
+        # names a primary+backup van pair — the blackboard and ledger
+        # dual-write synchronously, channels re-resolve to the promoted
+        # endpoint, and a primary-van SIGKILL costs a rebind, not the
+        # fleet
+        self._replica = None
+        self._van_spec = dict(van_spec) if van_spec else {}
+        self._van_gen = 0
+        self._mb_van_seen = 0
+        self._van_rebind_pending = False
+        if self._van_spec:
+            if own_van:
+                raise ValueError(
+                    "a replicated durable tier is external by "
+                    "definition: pass own_van=False with van_spec")
+            from hetu_tpu_torch.ps.replica import VanReplica
+            # pair-membership rendezvous on the shared workdir: members
+            # whose cached endpoint view goes fully dead (both slots
+            # replaced while they were busy) re-read the pair from here
+            # instead of livelocking against two dead ports
+            self._van_spec.setdefault(
+                "rendezvous", os.path.join(workdir, "van_pair.json"))
+            self._replica = VanReplica.from_spec(
+                self._van_spec, bootstrap=not _takeover)
+            if _takeover:
+                self._replica.refresh()  # unconditional: a stale
+                # cached view must not adopt the dead primary
+            port = self._replica.primary[1]
+            self._van_gen = self._replica.incarnation
+            self._mb_van_seen = self._replica.incarnation
+            self._replica.register(self._on_van_failover)
+            if van_backup_factory is not None:
+                # continuous redundancy: a promotion auto-resilvers
+                # onto a fresh van from this factory (replica -> (host,
+                # port)), restoring the pair without an operator
+                self._replica.spawn_backup = van_backup_factory
+                self._replica.write_rendezvous()  # seed the snapshot
         self._own_van = own_van
         if own_van:
             self.port = van.serve(port)
@@ -1234,27 +1321,29 @@ class CrossProcessServingPool:
                 self._bb = _mb.attach_blackboard(
                     "127.0.0.1", self.port,
                     table_id=self._membership_table,
-                    n_slots=self.n_members)
+                    n_slots=self.n_members, replica=self._replica)
                 self.svc = _mb.MembershipService(
                     self._bb, self.n_members, lease_s=lease_s,
                     suspect_grace_s=suspect_grace_s,
                     deaf_ack_s=deaf_ack_s)
                 self._ledger = _mb.DeltaLedger(
                     "127.0.0.1", self.port, table_id=self._ledger_table,
-                    rows=self._ledger_rows, create=False)
+                    rows=self._ledger_rows, create=False,
+                    replica=self._replica)
                 self._adopt()
             else:
                 self._bb = _mb.create_blackboard(
                     "127.0.0.1", self.port,
                     table_id=self._membership_table,
-                    n_slots=self.n_members)
+                    n_slots=self.n_members, replica=self._replica)
                 self.svc = _mb.MembershipService(
                     self._bb, self.n_members, lease_s=lease_s,
                     suspect_grace_s=suspect_grace_s,
                     deaf_ack_s=deaf_ack_s)
                 self._ledger = _mb.DeltaLedger(
                     "127.0.0.1", self.port, table_id=self._ledger_table,
-                    rows=self._ledger_rows, create=True)
+                    rows=self._ledger_rows, create=True,
+                    replica=self._replica)
                 # publish the control row BEFORE spawning: members key
                 # their command channels on the incarnation it carries
                 self.svc.publish_control(epoch=1, width=self.n_members,
@@ -1500,6 +1589,11 @@ class CrossProcessServingPool:
         from hetu_tpu_torch.resilience.shardproc import (
             spawn_module, wait_ready,
         )
+        if self._replica is not None:
+            # spawn configs must carry the CURRENT pair membership: a
+            # member spawned after failovers + re-silvers would find
+            # the original endpoints both dead and have no rendezvous
+            self._van_spec = self._replica.current_spec()
         started = []
         try:
             for slot in slots:
@@ -1520,7 +1614,7 @@ class CrossProcessServingPool:
                     ledger_rows=self._ledger_rows,
                     trace_dir=str(self.workdir)
                     if self._telemetry_streams else "",
-                    scrape_s=self._scrape_s)
+                    scrape_s=self._scrape_s, van=self._van_spec)
                 tag = f"member_{slot}_{cid}"
                 cfg = Path(self.workdir) / f"{tag}.json"
                 cfg.write_text(spec.to_json())
@@ -1578,8 +1672,95 @@ class CrossProcessServingPool:
             traceback.print_exc()
 
     def _ctrl_chan(self, channel_id: int):
-        """A control/event blob channel on the van."""
+        """A control/event blob channel at the CURRENT durable-tier
+        endpoint (the replica's primary when replicated)."""
+        if self._replica is not None:
+            return self._replica.channel(channel_id)
         return self._van.BlobChannel("127.0.0.1", self.port, channel_id)
+
+    def _on_van_failover(self, replica) -> None:
+        """Replica callback (runs on whichever thread hit the
+        failover): flag only — the poll loop owns the rebind, so
+        channel surgery never runs concurrently with itself."""
+        self._van_rebind_pending = True
+
+    def _van_rebind(self) -> None:
+        """The durable tier failed over: rebind every member control/
+        event channel to the promoted endpoint (same incarnation-keyed
+        ids — the new van has fresh channel state, both sides reset to
+        seq 1) and RE-SEND every unresolved submit (whatever sat in the
+        dead van's single-slot channels died with it; members dedup by
+        rid, so a duplicate is absorbed and a lost one re-delivered).
+        The blackboard and ledger need no rebinding — their tables
+        re-target inside :class:`~hetu_tpu_torch.ps.replica.
+        ReplicatedPSTable`."""
+        if self._replica is None:
+            return
+        from hetu_tpu_torch.ps.replica import retire_handle
+        self._van_rebind_pending = False
+        self._van_gen = self._replica.incarnation
+        self.port = self._replica.primary[1]
+        with trace.span("ctrl.van_rebind",
+                        {"incarnation": int(self._van_gen)},
+                        cat="ctrl") as sp:
+            inc = self.svc.ctrl_incarnation
+            with self._lock:
+                bases = dict(self._ch_bases)
+            rebind_failed = False
+            _dbg(f"ctrl van rebind to incarnation {self._van_gen}")
+            for slot, (sub, evb) in sorted(bases.items()):
+                try:
+                    ch = self._ctrl_chan(_fenced_chan(sub, inc))
+                except Exception:
+                    traceback.print_exc()
+                    # this slot is still bound to the dead van: the
+                    # pending flag was cleared at entry, so re-arm it
+                    # below or the slot never rebinds (a SECOND fault
+                    # mid-rebind would strand it forever)
+                    rebind_failed = True
+                    continue
+                with self._lock:
+                    old = self._out.get(slot)
+                    self._out[slot] = (ch, threading.Lock(), [1])
+                if old is not None:
+                    # deferred close: a _send may be inside the old
+                    # channel — closing now frees its fd for kernel
+                    # reassignment mid-op
+                    retire_handle(old[0])
+                self._start_listener(slot, evb)
+            if rebind_failed:
+                self._van_rebind_pending = True
+            with self._lock:
+                pending = [r for r in self._requests.values()
+                           if not r.done.is_set()]
+            resent = 0
+            for r in pending:
+                if r.member is not None and r.sent:
+                    try:
+                        self._send(r.member, {"cmd": "submit",
+                                              "rid": r.rid, **r.msg})
+                        r.routed_at = time.monotonic()
+                        resent += 1
+                    except Exception:
+                        # the member did not hear the re-send (its own
+                        # rebind may be lagging): PARK the rid so the
+                        # unrouted sweep re-routes it — a sent+owned
+                        # request is otherwise in nobody's recovery
+                        # scope (the lease never expires for a beating
+                        # member, and the replay nudge only re-emits
+                        # COMPLETED records)
+                        _dbg(f"ctrl re-send of rid {r.rid} failed")
+                        with self._lock:
+                            r.sent = False
+                            self._unrouted.setdefault(
+                                r.rid, time.monotonic() + float(
+                                    r.msg.get("timeout_s",
+                                              self.request_timeout_s)))
+                else:
+                    self._route(r)
+            sp.set("resent", resent)
+        self.metrics.inc("van_rebinds")
+        self.metrics.inc("van_rebind_resent", resent)
 
     def _start_listener(self, slot: int, event_ch: int) -> None:
         old = self._listeners.get(slot)
@@ -2093,9 +2274,12 @@ class CrossProcessServingPool:
             reg.merge(gauges, prefix=f"m{slot}.")
         reg.merge(self.metrics.registry.dump(), prefix="ctrl.")
         # the controller's own durable-tier health (ledger append/
-        # compaction bytes, stale reads) lives in the process-default
-        # registry — exported under ctrl. like the rest of its metrics
+        # compaction bytes, replication lag, promotions observed) lives
+        # in the process-default registry — exported under ctrl. like
+        # the rest of its metrics
         from hetu_tpu_torch.telemetry import default_registry
+        if self._replica is not None:
+            self._replica.export_lag()
         reg.merge({k: v for k, v in default_registry.dump().items()
                    if k.startswith(MemberHarness._DURABLE_TIER_METRICS)},
                   prefix="ctrl.")
@@ -2372,6 +2556,14 @@ class CrossProcessServingPool:
                 self.poll()
             except Exception:
                 traceback.print_exc()  # the poll must survive anything
+            # the durable tier failed over: rebind channels + re-send
+            # unresolved submits (the poll loop owns channel surgery)
+            if self._van_rebind_pending and not self._fenced:
+                try:
+                    self._van_rebind()
+                except Exception:
+                    traceback.print_exc()
+                    self._van_rebind_pending = True  # retry next sweep
             try:
                 self._sweep_unrouted()
             except Exception:
@@ -2420,6 +2612,14 @@ class CrossProcessServingPool:
             return self._poll_locked()
 
     def _poll_locked(self) -> int:
+        # a durable-tier failover stalls every member's beats while the
+        # pair promotes: grant the lease grace BEFORE this sweep so the
+        # window never reads as member silence (and a loss that still
+        # slips through is forgiven once the member's beats resume)
+        if self._replica is not None and \
+                self._replica.incarnation != self._mb_van_seen:
+            self._mb_van_seen = self._replica.incarnation
+            self.svc.note_van_failover()
         try:
             events = self.svc.poll()
         except _mb.ControllerFenced:
@@ -2808,6 +3008,8 @@ class CrossProcessServingPool:
             except Exception:
                 pass
             self.health_monitor = None
+        if self._replica is not None:
+            self._replica.unregister(self._on_van_failover)
         t = getattr(self, "_poll_thread", None)
         if t is not None:
             t.join(timeout_s)
@@ -2914,7 +3116,7 @@ def controller_main(config_path: str) -> int:
         request_timeout_s=float(cfg.get("request_timeout_s", 120.0)),
         deaf_ack_s=cfg.get("deaf_ack_s"),
         van_spec=cfg.get("van"), member_env=cfg.get("member_env"))
-    print("READY", flush=True)
+    print("READY", f"jax={int('jax' in sys.modules)}", flush=True)
     try:
         if cfg.get("autoscale"):
             raise NotImplementedError(

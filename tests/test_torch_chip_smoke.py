@@ -1222,6 +1222,67 @@ def test_crosshost_phase_runs_on_the_cpu(monkeypatch, capsys):
                      r"members, flash forwards launched 0 \[cpu\]", text)
 
 
+def test_vanchaos_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """The durable-tier phase at TINY_POOL's widths, its member processes
+    on the CPU: both held van kills token-exact at incarnations 2 and 3,
+    each paired with van.promote on the merged timeline, the resilvers
+    leaving both vans bitwise equal, the fence, the standby's promotion
+    with every accepted rid ok, no jax anywhere, the launch counts (none
+    off the card); the printed lines keep their schema."""
+    import re
+
+    for name, value in TINY_POOL.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "VAN_CTRL_REQUESTS", 40)
+    out = chip_smoke.phase_vanchaos("cpu", 0, device="cpu")
+    text = capsys.readouterr().out
+    f32, fence, bf16 = out["f32"], out["fence"], out["bf16"]
+    assert [r["incarnation"] for r in f32["rounds"]] == [2, 3]
+    for rnd, r in enumerate(f32["rounds"], 1):
+        assert r["exact"] == 16 and r["tables_equal"] == 2
+        assert r["resilver_rows"] > 0 and r["resilver_bytes"] > 0
+        assert re.search(rf"\[vanchaos\] f32 round {rnd}: 16 requests over 2 "
+                         r"member processes parked mid-decode, van \d+ "
+                         rf"SIGKILLed; backup promoted to incarnation "
+                         rf"{rnd + 1} .* 16 of 16 streams token-exact; "
+                         r"resilver [\d.]+ s, \d+ rows, \d+ bytes; 2 tables "
+                         r"bitwise equal on both vans", text), rnd
+        assert re.search(rf"\[vanchaos\] f32 round {rnd}: fault\.van_kill -> "
+                         r"van\.promote: detection [\d.]+ ms, recovery "
+                         r"[\d.]+ ms", text), rnd
+    assert len(f32["kill_ms"]) == 2
+    assert len(f32["resilver_van_ready_s"]) >= 2
+    assert fence["promoted_host_ms"] > 0 and len(fence["stop_ms"]) == 2
+    assert "the stale handle raised VanFenced" in text
+    assert bf16["accepted"] >= 3 and bf16["resolved"] >= bf16["accepted"]
+    assert bf16["detect_to_promoted_s"] > 0
+    assert out["launches"] == 0 and out["prefills"] > 0
+    assert f32["prefills"] >= 32  # two rounds of 16, and nothing else
+    assert re.search(r"\[vanchaos\] bf16 standby: controller SIGKILLed "
+                     r"after \d+ accepts; the standby PROMOTED [\d.]+ s", text)
+    assert re.search(r"\[vanchaos\] phase [\d.]+ s \(budget 90 s\); \d+ "
+                     r"prefills in the members, flash forwards launched 0 "
+                     r"\[cpu\]", text)
+
+
+def test_kernels_line_counts_the_vanchaos_path():
+    """main() runs the vanchaos phase right after crosshost; row 1 (the
+    flash forward) gains "vanchaos" in its launches by path, from the
+    phase's own count, and its summary line stays in the output's tail;
+    the phase keeps the published widths and two members."""
+    src = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    main = src[src.index("def main("):]
+    order = [main.index(f"phase_{p}(card") for p in (
+        "crosshost", "vanchaos", "train_llama")]
+    assert order == sorted(order)
+    row1 = main[main.index('"name": "flash_attention_fwd"'):
+                main.index('"name": f"flash_attention_bwd_{k}"')]
+    assert row1.count('"vanchaos": vanchaos["launches"]') == 1
+    assert main.index("[vanchaos] summary:") < main.index("print(card)")
+    assert chip_smoke.VAN_MEMBERS == 2
+    assert chip_smoke.VAN_SPEC["promote_after_s"] == 0.3
+
+
 class _Probe:
     def __init__(self, prefilled):
         self.prefilled = prefilled

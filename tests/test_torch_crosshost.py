@@ -370,14 +370,74 @@ def test_deaf_ack_plumbs_through_serving_pool(tmp_path, monkeypatch):
         pool.close()
 
 
-def test_replicated_tier_is_refused_by_name(tmp_path):
+def test_replicated_tier_is_refused_by_name(tmp_path, monkeypatch):
+    """``van_spec`` and ``MemberSpec.van`` do what the reference's do.  A
+    malformed spec fails in the pool and in the member with the exception
+    the reference's ``ReplicaSpec`` raises; ``own_van=True`` with a spec
+    is refused; a well-formed spec over two van processes builds a pool
+    whose blackboard and ledger are replicated (member spawns patched
+    out), and an in-process member that binds its membership and its
+    channels through the same pair."""
+    from hetu_tpu.ps import replica as jrep
+    from hetu_tpu_torch.ps import membership as mb
+    from hetu_tpu_torch.ps import replica as rep
+    from hetu_tpu_torch.ps import van
     from hetu_tpu_torch.serve.crosshost import MemberHarness, MemberSpec
-    with pytest.raises(NotImplementedError, match="replica"):
-        CrossProcessServingPool(2, workdir=tmp_path, own_van=False,
-                                port=1, van_spec={"endpoints": []})
-    with pytest.raises(NotImplementedError, match="replica"):
-        MemberHarness(MemberSpec(port=1, slot=0, n_slots=1, submit_ch=1,
-                                 event_ch=2, van={"endpoints": []}))
+    for bad in ({"endpoints": []}, {"x": 1}):
+        with pytest.raises(Exception) as want:
+            jrep.VanReplica.from_spec(bad)
+        with pytest.raises(type(want.value)):
+            CrossProcessServingPool(2, workdir=tmp_path, own_van=False,
+                                    port=1, van_spec=bad)
+        with pytest.raises(type(want.value)):
+            MemberHarness(MemberSpec(port=1, slot=0, n_slots=1, submit_ch=1,
+                                     event_ch=2, van=bad))
+    ports = [free_port(), free_port()]
+    vans = [spawn_shard_server(tmp_path, p, f"v{i}")
+            for i, p in enumerate(ports)]
+    spec = {"endpoints": [["127.0.0.1", p] for p in ports],
+            "epoch_table": van.fresh_table_id(), "promote_after_s": 0.3,
+            "rcv_timeout_s": 1.5}
+    with pytest.raises(ValueError, match="own_van=False"):
+        CrossProcessServingPool(2, workdir=tmp_path, van_spec=spec)
+    monkeypatch.setattr(CrossProcessServingPool, "_spawn",
+                        lambda self, slots: None)
+    monkeypatch.setattr(CrossProcessServingPool, "_wait_joined",
+                        lambda self, slots, timeout_s=None: None)
+    pool = member = None
+    try:
+        pool = CrossProcessServingPool(1, workdir=tmp_path, own_van=False,
+                                       port=ports[0], van_spec=spec,
+                                       start_poll=False)
+        r = pool._replica
+        assert (r.incarnation, r.primary_idx) == (1, 0)
+        assert isinstance(pool._bb, rep.ReplicatedPSTable)
+        assert isinstance(pool._ledger._table, rep.ReplicatedPSTable)
+        assert pool._van_spec["rendezvous"].endswith("van_pair.json")
+        member = MemberHarness(MemberSpec(
+            port=ports[0], slot=0, n_slots=1, submit_ch=11, event_ch=12,
+            membership_table=pool._membership_table, model=TINY,
+            van=r.current_spec()))
+        assert member.replica is r  # one view of the pair a process
+        assert member._gen() == (pool.svc.ctrl_incarnation, 1)
+        assert type(member._in) is rep._replica_channel_cls()
+        _until(lambda: pool.svc.poll() is not None and
+               pool.svc.state_of(0).state == "alive",
+               "the member never joined over the pair")
+        rows = [van.RemotePSTable("127.0.0.1", p, 3, mb.MEMBER_DIM,
+                                  table_id=pool._membership_table,
+                                  create=False).dense_pull()
+                for p in ports]
+        assert rows[0][0].any()  # the member's row, on both vans
+        assert rows[0][0].tobytes() == rows[1][0].tobytes()
+    finally:
+        if member is not None:
+            member.close()
+        if pool is not None:
+            pool.close()
+        for v in vans:
+            v.kill()
+            v.wait()
 
 
 @pytest.mark.parametrize("err,served", [
@@ -406,7 +466,10 @@ def test_member_command_loop_outlives_a_broken_get(err, served):
     h = MemberHarness.__new__(MemberHarness)
     h.spec = MemberSpec(port=1, slot=0, n_slots=1, submit_ch=1, event_ch=2)
     h._van, h._stop, h._in = van, threading.Event(), Chan()
-    h._ctrl_gen = h._in_gen = 1
+    # the generation is (controller incarnation, van incarnation); no
+    # replicated tier here
+    h.replica, h._ctrl_gen, h._van_gen = None, 1, 0
+    h._in_gen = (1, 0)
     seen = []
     h._dispatch = lambda msg, allow_stale=False: seen.append(msg) or False
     h.close = h._stop.set

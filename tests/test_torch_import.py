@@ -14,7 +14,7 @@ over them), the CNN family, and an LSTM classifier, a GCN on a sampled
 batch and the op zoo, the compression zoo, and the serving pool with the
 fleet plane (a fault schedule, a merged stream, the timeline and the
 doctor), and the cross-process pool, whose member processes say
-whether they loaded jax; ``jax`` and ``hetu_tpu`` must stay out of
+whether they loaded jax, as van servers and standby controllers do; ``jax`` and ``hetu_tpu`` must stay out of
 ``sys.modules``.  An AST scan of every module of the package,
 and of ``chip_smoke.py``, finds no import of either.
 """
@@ -535,6 +535,49 @@ def test_cross_process_pool_and_its_members_run_without_jax(tmp_path):
              if PKG in p.parents}
     assert {"launcher.py", "resilience/shardproc.py", "ps/netem.py",
             "ps/membership.py", "serve/crosshost.py"} <= names
+
+
+def test_van_and_standby_processes_run_without_jax(tmp_path):
+    """A van server process loads neither jax nor torch (its READY line
+    says so), and a standby controller process attached to a blackboard
+    on it over a replicated pair says ``jax=0`` on its READY line and
+    stands down when its watch budget lapses."""
+    import json
+
+    from hetu_tpu_torch.ps import membership as mb
+    from hetu_tpu_torch.resilience.shardproc import (
+        free_port, spawn_module, spawn_shard_server,
+    )
+    ports = [free_port(), free_port()]
+    vans = [spawn_shard_server(tmp_path, p, f"v{i}")
+            for i, p in enumerate(ports)]
+    try:
+        for v, p in zip(vans, ports):
+            assert v.ready == [str(p), "jax=0", "torch=0"]
+        spec = {"endpoints": [["127.0.0.1", p] for p in ports],
+                "epoch_table": mb.fresh_table_id()}
+        tid = mb.fresh_table_id()
+        bb = mb.create_blackboard("127.0.0.1", ports[0], table_id=tid,
+                                  n_slots=1, replica=spec)
+        cfg = tmp_path / "standby.json"
+        cfg.write_text(json.dumps({
+            "workdir": str(tmp_path), "port": ports[0], "n_slots": 1,
+            "membership_table": tid, "van": spec, "lease_bound_s": 60.0,
+            "watch_timeout_s": 0.5}))
+        sb = spawn_module(tmp_path, "standby",
+                          "hetu_tpu_torch.resilience.standby", [str(cfg)],
+                          timeout_s=120.0)
+        assert sb.wait(120.0) == 2  # no decision: TIMEOUT
+        log = sb.log_path.read_text()
+        assert "READY jax=0" in log and "TIMEOUT" in log
+        bb.close()
+    finally:
+        for v in vans:
+            v.kill()
+            v.wait()
+    names = {p.relative_to(PKG).as_posix() for p in SOURCES
+             if PKG in p.parents}
+    assert {"ps/replica.py", "resilience/standby.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -18,7 +18,9 @@ Mirrored, on numpy fake tables (no van, no process):
 Added: a port ``MembershipService`` with a reference ``MembershipClient``
 and the reverse on one fake table, all four pairings leaving the same
 rows bit for bit; ledgers written by one package and read by the other,
-the tables bitwise equal; the replicated tier refused by name.
+the tables bitwise equal; ``replica=`` failing on a malformed spec as
+the reference does, and building a replicated blackboard and ledger over
+two van processes.
 
 The lease machine runs on a fake clock (``time`` in the membership
 module replaced): silences are advanced, not slept, with margins of 3x
@@ -842,13 +844,65 @@ def test_ledgers_written_by_one_package_decode_in_the_other():
                                dim=8).read() == snap_j.read()
 
 
-def test_replicated_tier_is_refused_by_name():
-    for fn in (lambda: mb.create_blackboard("127.0.0.1", 1, table_id=1,
-                                            n_slots=2,
-                                            replica={"endpoints": []}),
-               lambda: mb.attach_blackboard("127.0.0.1", 1, table_id=1,
-                                            n_slots=2, replica={"x": 1}),
-               lambda: mb.DeltaLedger("127.0.0.1", 1, table_id=1,
-                                      replica={"x": 1})):
-        with pytest.raises(NotImplementedError, match="replica"):
-            fn()
+def test_replicated_tier_is_refused_by_name(tmp_path):
+    """``replica=`` does what the reference's does.  A malformed spec
+    (no endpoints, an unknown key) fails with the exception the
+    reference's ``ReplicaSpec`` raises for the same arguments; a
+    well-formed one over two van processes builds a replicated
+    blackboard (create and attach) and delta ledger whose writes land
+    on both vans, bitwise."""
+    from hetu_tpu_torch.ps import replica as rep
+    from hetu_tpu_torch.ps.van import RemotePSTable
+    from hetu_tpu_torch.resilience.shardproc import (
+        free_port, spawn_shard_server,
+    )
+    calls = [
+        lambda m, r: m.create_blackboard("127.0.0.1", 1, table_id=1,
+                                         n_slots=2, replica=r),
+        lambda m, r: m.attach_blackboard("127.0.0.1", 1, table_id=1,
+                                         n_slots=2, replica=r),
+        lambda m, r: m.DeltaLedger("127.0.0.1", 1, table_id=1, replica=r)]
+    for bad in ({"endpoints": []}, {"x": 1}):
+        for fn in calls:
+            with pytest.raises(Exception) as want:
+                fn(jmb, bad)
+            assert isinstance(want.value, (ValueError, TypeError))
+            with pytest.raises(type(want.value)):
+                fn(mb, bad)
+    ports = [free_port(), free_port()]
+    vans = [spawn_shard_server(tmp_path, p, f"v{i}")
+            for i, p in enumerate(ports)]
+    try:
+        spec = {"endpoints": [["127.0.0.1", p] for p in ports],
+                "epoch_table": mb.fresh_table_id(), "promote_after_s": 0.3,
+                "rcv_timeout_s": 1.5}
+        r = rep.VanReplica.from_spec(spec, bootstrap=True)
+        assert r.incarnation == 1 and r.primary == ("127.0.0.1", ports[0])
+        tid, lid = mb.fresh_table_id(), mb.fresh_table_id()
+        bb = mb.create_blackboard("127.0.0.1", 0, table_id=tid, n_slots=2,
+                                  replica=spec)
+        assert isinstance(bb, rep.ReplicatedPSTable) and bb.replica is r
+        row = np.arange(mb.MEMBER_DIM, dtype=np.float32).reshape(1, -1)
+        bb.sparse_set([1], row)
+        peer = mb.attach_blackboard("127.0.0.1", 0, table_id=tid,
+                                    n_slots=2, replica=r)
+        assert peer.sparse_pull([1]).tobytes() == row.tobytes()
+        led = mb.DeltaLedger(table_id=lid, rows=64, dim=16, replica=spec)
+        led.append({"a": [1, {"prompt": [1]}]}, ctrl_inc=1)
+        for table_id, rows, dim in ((tid, 4, mb.MEMBER_DIM),
+                                    (lid, 64, 16)):
+            got = [RemotePSTable("127.0.0.1", p, rows, dim,
+                                 table_id=table_id, create=False)
+                   for p in ports]
+            assert got[0].dense_pull().tobytes() == \
+                got[1].dense_pull().tobytes()
+            assert got[0].dense_pull().any()
+            for t in got:
+                t.close()
+        assert led.read()["deltas"] == [{"a": [1, {"prompt": [1]}]}]
+        for t in (led, bb, peer):
+            t.close()
+    finally:
+        for v in vans:
+            v.kill()
+            v.wait()
