@@ -176,6 +176,27 @@ without the final result line:
    van or standby process loads jax.  Spawn-to-READY seconds, promotion,
    rebind and resilver times, resilver bytes, re-sent submits, the
    standby's times, each member's peak memory.
+11e. traffic — the traffic plane (``traffic/loadgen.py``,
+   ``traffic/autoscale.py``) over the cross-process pool: three
+   GPT-2-small member slots (published widths, f32, 8 slots x 512), the
+   reference bench's SLO classes and shedding, two slots parked before
+   the trace.  r1, the ok requests a second one member sustains, is
+   measured closed-loop (32 requests of the trace's shape, 8 in flight);
+   a seeded open-loop trace of 40 s (two tenants, a 10x diurnal spike on
+   a base rate of 0.3 r1, the bronze tenant bursting) is replayed through
+   ``replay`` while the autoscaler (the reference bench's policy) revives
+   and drains members; a calm tail waits for the fleet to shrink.  Hard:
+   at least one scale up and one down, each a ``traffic.scale`` span with
+   its reason on the merged fleet timeline; every accepted request ok,
+   shed or timeout; every ok request that a drain moved, and 64 others
+   drawn with the seed, token-exact to a straight run on the members'
+   weights (a moved slot prefilled nothing on its adopter); the members'
+   flash forwards one a layer a prefill, > 0; no member loads jax; the
+   trace's bytes those of the spec synthesized again.  Per tenant ok,
+   shed and timeout counts and TTFT p50/p99 (gold's against its 2.5 s
+   budget, not a gate), ok-QPS, each action's decision-to-READY and
+   READY-to-first-route times, the time at each fleet size, a tick's
+   scrape time.
 12. train_llama — Llama-2-7B's widths at 4 layers (cut from 32), bf16,
    flash, recomputation, fused CE, AdamW, B 4 x S 4096: the kernel-vs-plain
    gate, then 10 Executor steps (2·L forwards and L of each backward kernel
@@ -494,6 +515,38 @@ VAN_LEASE_BOUND_S = 2.0
 # replica skips a backup it found unreachable
 VAN_EQUAL_WAIT_S = 10.0
 VAN_BUDGET_S = 90.0
+# the traffic plane: the cross-process pool's model and slots in
+# TRAFFIC_MAXM member slots, TRAFFIC_MINM of them serving when the trace
+# starts (the rest parked by a close drain); r1, the ok requests a second
+# one member sustains, measured closed-loop over TRAFFIC_R1_N requests of
+# the trace's shape with TRAFFIC_R1_INFLIGHT in flight (after
+# TRAFFIC_R1_WARM more); the trace's base rate TRAFFIC_BASE_SHARE * r1,
+# so its TRAFFIC_PEAK_X peak asks three members' worth; the reference
+# bench's SLO classes and autoscaler policy (bench.py bench_autoscale); a
+# calm tail of at most TRAFFIC_TAIL_S waiting for the fleet to shrink;
+# TRAFFIC_SAMPLE ok requests beside the drained ones held token-exact
+TRAFFIC_MINM, TRAFFIC_MAXM = 1, 3
+TRAFFIC_R1_N, TRAFFIC_R1_INFLIGHT, TRAFFIC_R1_WARM = 32, 8, 8
+TRAFFIC_BASE_SHARE, TRAFFIC_PEAK_X, TRAFFIC_DURATION_S = 0.3, 10.0, 40.0
+TRAFFIC_GEN, TRAFFIC_PROMPTS, TRAFFIC_PROMPT_LEN = 16, 64, 64
+TRAFFIC_GOLD_SLO_S = 2.5
+TRAFFIC_SLO_CLASSES = {
+    "gold": {"priority": 2, "weight": 4.0,
+             "ttft_slo_s": TRAFFIC_GOLD_SLO_S},
+    "bronze": {"priority": 0, "weight": 1.0, "ttft_slo_s": None}}
+TRAFFIC_POLICY = {"min_members": TRAFFIC_MINM,
+                  "max_members": TRAFFIC_MAXM, "interval_s": 0.3,
+                  "queue_high": 2.0, "queue_low": 0.5, "shed_high": 0.02,
+                  "shed_low": 0.005, "up_ticks": 2, "down_ticks": 4,
+                  "up_cooldown_s": 1.0, "down_cooldown_s": 2.0}
+TRAFFIC_SCRAPE_S = 0.25
+# the controller's journal holds every unresolved request with its prompt
+# (up to 63 tokens): hundreds queue at the spike, past the 64 KB base
+# snapshot of the pool's default 2048 ledger rows; four times that
+TRAFFIC_LEDGER_ROWS = 8192
+TRAFFIC_TAIL_S = 40.0
+TRAFFIC_SAMPLE = 64
+TRAFFIC_BUDGET_S = 120.0
 # training: Llama-2-7B's widths, depth cut to 4 layers (f32 weights,
 # gradients and AdamW's two slots: 17 GB; at 32 layers 108 GB), at the
 # config's max_position and bench_gpt's 16384 tokens a step
@@ -4567,24 +4620,25 @@ def _cross_spec(seed, dtype, device):
             "dtype": dtype, "attention_impl": "flash"}
 
 
-def _cross_start(workdir, spec):
-    """Start a ``CrossProcessServingPool`` of ``CROSS_MEMBERS`` in a
-    thread (the members come up while the caller runs its straight
-    reference); ``_cross_join`` waits for it."""
+def _cross_start(workdir, spec, n=None, **pool_kw):
+    """Start a ``CrossProcessServingPool`` of ``n`` members
+    (``CROSS_MEMBERS``) in a thread (the members come up while the caller
+    runs its straight reference); ``_cross_join`` waits for it.
+    ``pool_kw`` overrides the pool's other settings."""
     from hetu_tpu_torch.serve.crosshost import CrossProcessServingPool
 
     box = {}
+    kw = {"lease_s": CROSS_LEASE_S, "suspect_grace_s": CROSS_GRACE_S,
+          "request_timeout_s": POOL_TIMEOUT_S, "scrape_s": 0.0,
+          "spawn_timeout_s": POOL_TIMEOUT_S,
+          # CPU members (a rehearsal) share the host's cores
+          "member_env": {"OMP_NUM_THREADS": "1"}
+          if spec["device"] == "cpu" else None, **pool_kw}
 
     def make():
         try:
             box["pool"] = CrossProcessServingPool(
-                CROSS_MEMBERS, workdir=workdir, model=spec,
-                lease_s=CROSS_LEASE_S, suspect_grace_s=CROSS_GRACE_S,
-                request_timeout_s=POOL_TIMEOUT_S, scrape_s=0.0,
-                spawn_timeout_s=POOL_TIMEOUT_S,
-                # CPU members (a rehearsal) share the host's cores
-                member_env={"OMP_NUM_THREADS": "1"}
-                if spec["device"] == "cpu" else None)
+                n or CROSS_MEMBERS, workdir=workdir, model=spec, **kw)
         except Exception as e:  # reported by _cross_join
             box["error"] = repr(e)
 
@@ -4593,17 +4647,17 @@ def _cross_start(workdir, spec):
     return t, box
 
 
-def _cross_join(started, tag, card):
+def _cross_join(started, tag, card, phase="crosshost", clock=None):
     t, box = started
     t.join(POOL_TIMEOUT_S)
-    check("pool" in box, f"crosshost {tag}: the pool did not start: "
+    check("pool" in box, f"{phase} {tag}: the pool did not start: "
                          f"{box.get('error')}")
     pool = box["pool"]
     ready = [round(p.ready_s, 3) for p in pool.procs]
-    print(f"[crosshost] {tag}: {CROSS_MEMBERS} member processes "
+    print(f"[{phase}] {tag}: {len(pool.procs)} member processes "
           f"(pids {[p.pid for p in pool.procs]}) READY after {ready} s "
           f"from their spawn [{card}] "
-          f"t+{_cross_t():.1f} s")
+          f"t+{(clock or _cross_t)():.1f} s")
     return pool
 
 
@@ -5327,14 +5381,19 @@ def _van_round(pool, r, pairs, ref, fire, rnd, tracer, card):
            "promoted_host_ms": promoted_s * 1e3,
            "rebind_ms": rebinds[-1]["dur"] / 1e3 if rebinds else None,
            "resent": pool.metrics.count("van_rebind_resent") - resent0}
-    # the automatic resilver: a fresh backup, the pair redundant again
-    _until(lambda: not r.degraded,
+    # the automatic resilver: a fresh backup, the pair redundant again.
+    # The resilver clears `degraded` before it records its span, so wait
+    # for both: reading the spans at once races the span's write
+    def resilvers():
+        return [e for e in tracer.events if e.get("name") == "van.resilver"
+                and e.get("ph") == "X" and e.get("args", {}).get("ok")]
+
+    _until(lambda: not r.degraded and len(resilvers()) >= rnd,
            f"vanchaos f32 round {rnd}: the pair was never re-silvered",
            CROSS_WAIT_S)
     check(r.export_lag() == 0, f"vanchaos f32 round {rnd}: replication "
                                f"lag after the resilver")
-    spans = [e for e in tracer.events if e.get("name") == "van.resilver"
-             and e.get("ph") == "X" and e.get("args", {}).get("ok")]
+    spans = resilvers()
     check(len(spans) >= rnd, f"vanchaos f32 round {rnd}: no resilver "
                              f"returned True")
     tables = [t for t in list(r._tables) if t.replicate]
@@ -5719,6 +5778,519 @@ def phase_vanchaos(card, seed, device="cuda"):
     print(f"[vanchaos] phase {out['seconds']:.1f} s (budget "
           f"{VAN_BUDGET_S:.0f} s); {out['prefills']} prefills in the "
           f"members, flash forwards launched {out['launches']} [{card}]")
+    return out
+
+
+_TRAFFIC_T0 = [0.0]
+
+
+def _traffic_t():
+    """Seconds since the traffic phase began, printed on its lines."""
+    return time.perf_counter() - _TRAFFIC_T0[0]
+
+
+def traffic_base_qps(r1):
+    """The trace's base rate from ``r1``, the ok requests a second one
+    member sustains: the TRAFFIC_PEAK_X peak of the diurnal curve then
+    asks TRAFFIC_PEAK_X * TRAFFIC_BASE_SHARE members' worth (3)."""
+    return TRAFFIC_BASE_SHARE * float(r1)
+
+
+def traffic_spec(seed, base_qps):
+    """The phase's trace: one diurnal period over TRAFFIC_DURATION_S, two
+    tenants (the reference bench's gold and bursting bronze), prompts from
+    a 64-entry Zipf catalog over the members' vocabulary, 16 tokens
+    generated a request."""
+    from hetu_tpu_torch.traffic import TenantSpec, TraceSpec
+
+    return TraceSpec(
+        seed=int(seed), duration_s=TRAFFIC_DURATION_S,
+        base_qps=float(base_qps), diurnal_peak_x=TRAFFIC_PEAK_X,
+        vocab=POOL_V, n_prompts=TRAFFIC_PROMPTS,
+        max_prompt_len=TRAFFIC_PROMPT_LEN, zipf_s=1.1,
+        tenants=[TenantSpec(name="gold", share=0.3, slo="gold",
+                            deadline_lo_s=8.0, deadline_hi_s=12.0,
+                            max_tokens=TRAFFIC_GEN),
+                 TenantSpec(name="bronze", share=0.7, slo="bronze",
+                            deadline_lo_s=1.0, deadline_hi_s=2.5,
+                            burst_x=3.0, burst_on_s=1.5, burst_off_s=2.0,
+                            max_tokens=TRAFFIC_GEN)])
+
+
+def _quantile(xs, q):
+    """The reference bench's quantile: the sorted sample at int(q n)."""
+    xs = sorted(xs)
+    return xs[min(int(q * len(xs)), len(xs) - 1)] if xs else None
+
+
+class _ScaleProbe:
+    """The pool as the autoscaler drives it, each actuation and each
+    scrape timed; everything else passes through."""
+
+    def __init__(self, pool):
+        self._pool = pool
+        self.actions, self.scrape_s = [], []
+
+    def __getattr__(self, name):
+        return getattr(self._pool, name)
+
+    def fleet_metrics(self, **kw):
+        t0 = time.perf_counter()
+        try:
+            return self._pool.fleet_metrics(**kw)
+        finally:
+            self.scrape_s.append(time.perf_counter() - t0)
+
+    def revive_member(self, slot):
+        from hetu_tpu_torch.telemetry import trace
+
+        t0 = time.monotonic()
+        self._pool.revive_member(slot)
+        # READY here: the fresh process joined and is routable
+        trace.instant("traffic.member_ready", {"slot": int(slot)},
+                      cat="traffic")
+        self.actions.append({"action": "up", "slot": int(slot), "t0": t0,
+                             "t1": time.monotonic(), "spawn_ready_s":
+                             self._pool.procs[slot].ready_s})
+
+    def drain_member(self, slot, close=True):
+        t0 = time.monotonic()
+        n = self._pool.drain_member(slot, close=close,
+                                    timeout_s=POOL_TIMEOUT_S)
+        rc = self._pool.procs[slot].poll() if close else None
+        self.actions.append({"action": "down", "slot": int(slot), "t0": t0,
+                             "t1": time.monotonic(), "n": n, "rc": rc,
+                             "drain": dict(self._pool.last_drain)})
+        return n
+
+
+def _traffic_ledger_counts():
+    """This process's delta-ledger counters (the controller's journal)."""
+    from hetu_tpu_torch.telemetry import default_registry
+
+    out = {k: default_registry.counter(f"ledger.{k}").value
+           for k in ("delta_appends", "compactions", "compaction_bytes")}
+    # the control sends (blob puts): a timed-out attempt is an error
+    out.update({f"blob_put_{k}": default_registry.counter(
+        f"van.blob_put.{k}").value for k in ("calls", "errors")})
+    return out
+
+
+def _traffic_closed_loop(pool, pairs, inflight, tag):
+    """``pairs`` through ``pool.generate`` by ``inflight`` client threads,
+    each taking the next pair as its last one returns; returns the
+    responses and the wall seconds."""
+    resps = [None] * len(pairs)
+    nxt = itertools.count()
+
+    def worker():
+        for i in iter(lambda: next(nxt), None):
+            if i >= len(pairs):
+                return
+            resps[i] = pool.generate(pairs[i][0], max_tokens=pairs[i][1],
+                                     timeout_s=POOL_TIMEOUT_S)
+
+    ts = [threading.Thread(target=worker, daemon=True)
+          for _ in range(inflight)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    _wait_in_threads(ts, f"traffic {tag}: a generate did not return")
+    wall = time.perf_counter() - t0
+    check(all(r["status"] == "ok" for r in resps),
+          f"traffic {tag}: a response is not ok: "
+          f"{[r['status'] for r in resps]}")
+    return resps, wall
+
+
+def _traffic_moved(merged, handles, actions):
+    """The requests each drain moved, from the controller's routes on the
+    merged timeline: a rid last routed to the drained slot whose request
+    ended owned by the drain's target.  Returns [(rids, drain record)]."""
+    last = {}
+    for e in merged:
+        if e.get("name") == "serve.route":
+            last[int(e["args"]["rid"])] = int(e["args"]["member"])
+    out = []
+    for a in actions:
+        if a["action"] != "down":
+            continue
+        d = a["drain"]
+        rids = sorted(rid for rid, h in handles.items()
+                      if last.get(rid) == d["source"] and
+                      h.member == d["target"])
+        out.append((rids, d))
+    return out
+
+
+def _traffic_exact(merged, handles, events, moved, ref, seed):
+    """Hard: every ok request a drain moved, and TRAFFIC_SAMPLE other ok
+    requests drawn with the seed, token-exact to the straight run; a
+    request moved with its slot prefilled nothing on the adopter (its
+    member-side ``serve.request`` span there has no queue wait: it was
+    never admitted, so never prefilled).  Returns (moved, sampled)."""
+    spans = {}
+    for e in merged:
+        if e.get("name") == "serve.request" and e.get("ph") == "X":
+            spans.setdefault(int(e["args"]["rid"]), []).append(e["args"])
+    moved_ok = 0
+    for rids, d in moved:
+        for rid in rids:
+            h = handles[rid]
+            if h.status != "ok":
+                continue
+            check(list(h.tokens) == ref[tuple(events[rid]["prompt"])],
+                  f"traffic: request {rid}, moved by the drain of member "
+                  f"{d['source']}, differs from the straight run")
+            if rid not in d["queued"]:
+                at = [a for a in spans.get(rid, ())
+                      if a.get("slot") == d["target"]]
+                check(len(at) == 1 and "queue_s" not in at[0],
+                      f"traffic: request {rid} moved with its slot into "
+                      f"member {d['target']}, which admitted it again: "
+                      f"{at}")
+            moved_ok += 1
+    skip = {rid for rids, _ in moved for rid in rids}
+    pool_ok = sorted(rid for rid, h in handles.items()
+                     if h.status == "ok" and rid not in skip)
+    g = np.random.default_rng(seed)
+    pick = sorted(g.choice(pool_ok, size=min(TRAFFIC_SAMPLE, len(pool_ok)),
+                           replace=False).tolist()) if pool_ok else []
+    for rid in pick:
+        check(list(handles[rid].tokens) ==
+              ref[tuple(events[rid]["prompt"])],
+              f"traffic: request {rid} differs from the straight run")
+    return moved_ok, len(pick)
+
+
+def _traffic_fleet_sizes(actions, t_start, t_stop):
+    """Seconds the fleet spent at each size between the autoscaler's start
+    and stop (an up counts from its member's READY, a down from the
+    drain's end), and the peak size."""
+    size, at, spent, peak = TRAFFIC_MINM, t_start, {}, TRAFFIC_MINM
+    for a in sorted(actions, key=lambda a: a["t1"]):
+        spent[size] = spent.get(size, 0.0) + a["t1"] - at
+        size += 1 if a["action"] == "up" else -1
+        at, peak = a["t1"], max(peak, size)
+    spent[size] = spent.get(size, 0.0) + t_stop - at
+    return peak, {k: round(v, 3) for k, v in sorted(spent.items())}
+
+
+def _traffic_tenants(issued, skip):
+    """Per tenant: ok, shed and timeout counts, shed rate, TTFT p50/p99 of
+    its ok requests (a request moved with its slot reports the adopter's
+    TTFT of 0: left out)."""
+    out = {}
+    for ev, h in issued:
+        t = out.setdefault(ev["tenant"], {"ok": 0, "shed": 0, "timeout": 0,
+                                          "other": 0, "ttft": []})
+        st = h.status if h.status in ("ok", "shed", "timeout") else "other"
+        t[st] += 1
+        if st == "ok" and h.ttft_s is not None and h.rid not in skip:
+            t["ttft"].append(float(h.ttft_s))
+    for t in out.values():
+        tt = t.pop("ttft")
+        n = t["ok"] + t["shed"] + t["timeout"] + t["other"]
+        t.update(n=n, shed_rate=t["shed"] / n if n else 0.0,
+                 ttft_p50_s=_quantile(tt, 0.5), ttft_p99_s=_quantile(tt, 0.99))
+    return out
+
+
+def traffic_lines(out, card):
+    """The phase's printed lines, from its numbers."""
+    f = out
+    lines = [
+        f"[traffic] r1 {f['r1']:.3f} ok requests/s ({TRAFFIC_R1_N} "
+        f"closed-loop requests, {TRAFFIC_R1_INFLIGHT} in flight, "
+        f"{f['r1_wall_s']:.3f} s, token-exact) on 1 member; base_qps "
+        f"{f['base_qps']:.3f}, peak {TRAFFIC_PEAK_X:g}x [{card}]",
+        f"[traffic] trace: {f['events']} events over "
+        f"{TRAFFIC_DURATION_S:g} s, {f['trace_bytes']} bytes, sha256 "
+        f"{f['trace_sha256'][:16]}, synthesized again byte-identical "
+        f"[{card}]",
+        f"[traffic] replay: {f['issued']} issued open-loop "
+        f"({f['submit_errors']} refused), {f['ok']} ok in "
+        f"{f['wall_s']:.3f} s, ok-QPS {f['ok_qps']:.3f} [{card}]",
+        f"[traffic] submit path: issue behind the trace p50 "
+        f"{f['issue_lag_s']['p50']:.3f} s, p99 "
+        f"{f['issue_lag_s']['p99']:.3f} s, max "
+        f"{f['issue_lag_s']['max']:.3f} s; a submit call p50 "
+        f"{f['submit_ms']['p50']:.3f} ms, p99 {f['submit_ms']['p99']:.3f} "
+        f"ms, max {f['submit_ms']['max']:.3f} ms; ledger "
+        f"{f['ledger']['delta_appends']} delta appends, "
+        f"{f['ledger']['compactions']} compactions "
+        f"({f['ledger']['compaction_bytes']} bytes); control blob puts "
+        f"{f['ledger']['blob_put_calls']} ("
+        f"{f['ledger']['blob_put_errors']} attempts failed) [{card}]"]
+    for name, t in sorted(f["tenants"].items()):
+        p50, p99 = t["ttft_p50_s"], t["ttft_p99_s"]
+        budget = ""
+        if name == "gold":
+            budget = (f"; p99 {'met' if f['gold_p99_met'] else 'missed'} "
+                      f"its {TRAFFIC_GOLD_SLO_S:g} s budget")
+        lines.append(
+            f"[traffic] tenant {name}: ok {t['ok']}, shed {t['shed']}, "
+            f"timeout {t['timeout']} of {t['n']}, shed rate "
+            f"{t['shed_rate']:.4f}; TTFT p50 "
+            f"{'-' if p50 is None else f'{p50:.4f}'} s, p99 "
+            f"{'-' if p99 is None else f'{p99:.4f}'} s{budget} [{card}]")
+    for i, a in enumerate(f["actions"], 1):
+        if a["action"] == "up":
+            route = "none before it was drained" \
+                if a["ready_to_route_ms"] is None \
+                else f"{a['ready_to_route_ms']:.3f} ms"
+            lines.append(
+                f"[traffic] scale {i}: up slot {a['slot']} "
+                f"({a['reason']}): decision -> READY "
+                f"{a['decision_to_ready_s']:.3f} s (spawn -> READY line "
+                f"{a['spawn_ready_s']:.3f} s), READY -> first routed "
+                f"request {route} [{card}]")
+        else:
+            lines.append(
+                f"[traffic] scale {i}: down slot {a['slot']} "
+                f"({a['reason']}) into member {a['target']}: decision -> "
+                f"drained {a['decision_to_drained_s']:.3f} s, "
+                f"{a['moved']} requests moved ({a['slots']} live slots, "
+                f"{a['queued']} queued), exit {a['rc']} [{card}]")
+    lines += [
+        f"[traffic] fleet: peak {f['peak_members']} members; seconds at "
+        f"each size {f['time_at_size']}; requests routed by member "
+        f"{f['routed']} [{card}]",
+        f"[traffic] scrape: {f['scrape']['n']} ticks, p50 "
+        f"{f['scrape']['p50_ms']:.3f} ms, max {f['scrape']['max_ms']:.3f} "
+        f"ms a tick's fleet_metrics [{card}]",
+        f"[traffic] gates: {f['ups']} up, {f['downs']} down, each a "
+        f"traffic.scale span with its reason; every accepted request ok, "
+        f"shed or timeout; {f['exact_moved']} moved + {f['exact_sampled']} "
+        f"sampled ok streams token-exact, moved slots prefilled nothing; "
+        f"flash forwards {f['launches']} = {L} x {f['prefills']} prefills; "
+        f"{f['members_spawned']} member processes, none with jax [{card}]",
+        f"[traffic] phase {f['seconds']:.1f} s (budget "
+        f"{TRAFFIC_BUDGET_S:.0f} s); peak GiB by member {f['peak_gib']} "
+        f"[{card}]"]
+    return lines
+
+
+def _traffic_run(card, seed, device, workdir):
+    import hashlib
+
+    from hetu_tpu_torch.telemetry import fleet, trace
+    from hetu_tpu_torch.traffic import (
+        AutoscalePolicy, Autoscaler, dumps_trace, llm_submitter, load_trace,
+        replay, save_trace, synthesize,
+    )
+    from hetu_tpu_torch.traffic.loadgen import prompt_catalog
+
+    out = {}
+    spec = _cross_spec(seed, "float32", device)
+    tracer = trace.open_process_stream(workdir, "controller")
+    started = _cross_start(workdir, spec, n=TRAFFIC_MAXM, shed=True,
+                           slo_classes=TRAFFIC_SLO_CLASSES,
+                           scrape_s=TRAFFIC_SCRAPE_S,
+                           ledger_rows=TRAFFIC_LEDGER_ROWS)
+    # the catalog depends on the seed alone, not on the rate: its 64
+    # prompts straight through one scheduler while the members come up
+    catalog = prompt_catalog(traffic_spec(seed, 1.0))
+    base, straight = _cross_straight(
+        spec, [(p, TRAFFIC_GEN) for p in catalog], device)
+    del base
+    ref = {tuple(p): list(r.tokens) for p, r in zip(catalog, straight)}
+    pool = _cross_join(started, "start", card, "traffic", _traffic_t)
+    scaler = None
+    try:
+        for s in range(TRAFFIC_MINM, TRAFFIC_MAXM):
+            pool.drain_member(s, close=True, timeout_s=POOL_TIMEOUT_S)
+            check(pool.procs[s].wait(POOL_TIMEOUT_S) == 0,
+                  f"traffic: parked member {s} did not exit 0")
+        # r1: closed loop on the one member, requests of the trace's shape
+        shape = [(ev["prompt"], ev["max_tokens"]) for ev in synthesize(
+            traffic_spec(seed, 2.0 * TRAFFIC_R1_N))["events"]]
+        warm = shape[:TRAFFIC_R1_WARM]
+        timed = shape[TRAFFIC_R1_WARM:TRAFFIC_R1_WARM + TRAFFIC_R1_N]
+        check(len(timed) == TRAFFIC_R1_N, "traffic: too few r1 requests")
+        _traffic_closed_loop(pool, warm, TRAFFIC_R1_INFLIGHT, "r1 warm-up")
+        resps, wall = _traffic_closed_loop(pool, timed, TRAFFIC_R1_INFLIGHT,
+                                           "r1")
+        check([r["tokens"] for r in resps] ==
+              [ref[tuple(p)] for p, _ in timed],
+              "traffic r1: a stream differs from the straight run")
+        out.update(r1=TRAFFIC_R1_N / wall, r1_wall_s=wall)
+        out["base_qps"] = traffic_base_qps(out["r1"])
+        # the trace, twice and through a file: the same bytes
+        tr = synthesize(traffic_spec(seed, out["base_qps"]))
+        text = dumps_trace(tr)
+        path = os.path.join(workdir, "trace.json")
+        save_trace(tr, path)
+        again = dumps_trace(synthesize(traffic_spec(seed,
+                                                    out["base_qps"])))
+        check(text == again == dumps_trace(load_trace(path)),
+              "traffic: the trace's bytes differ from the spec's "
+              "synthesized again")
+        events = tr["events"]
+        check(all(tuple(ev["prompt"]) in ref and
+                  ev["max_tokens"] == TRAFFIC_GEN for ev in events),
+              "traffic: an event's prompt is not in the catalog")
+        out.update(events=len(events), trace_bytes=len(text.encode()),
+                   trace_sha256=hashlib.sha256(text.encode()).hexdigest())
+        print(f"[traffic] r1 {out['r1']:.3f} ok requests/s, base_qps "
+              f"{out['base_qps']:.3f}; {len(events)} events to replay "
+              f"[{card}] t+{_traffic_t():.1f} s")
+
+        probe = _ScaleProbe(pool)
+        scaler = Autoscaler(probe, AutoscalePolicy(**TRAFFIC_POLICY),
+                            ttft_slos={"gold": TRAFFIC_GOLD_SLO_S},
+                            active=set(range(TRAFFIC_MINM)))
+        t_start = time.monotonic()
+        scaler.start()
+        ledger0 = _traffic_ledger_counts()
+        lag, calls = [], []
+        sub = llm_submitter(pool)
+
+        def submit(ev):
+            # each event's issue behind its arrival time, and its submit
+            # call: what the open loop costs the controller
+            t = time.perf_counter()
+            lag.append(t - t0 - ev["t"])
+            try:
+                return sub(ev)
+            finally:
+                calls.append(time.perf_counter() - t)
+
+        t0 = time.perf_counter()
+        issued = replay(tr, submit)
+        out["ledger"] = {k: v - ledger0[k]
+                         for k, v in _traffic_ledger_counts().items()}
+        out["issue_lag_s"] = {"p50": _quantile(lag, 0.5),
+                              "p99": _quantile(lag, 0.99),
+                              "max": max(lag)}
+        out["submit_ms"] = {"p50": _quantile(calls, 0.5) * 1e3,
+                            "p99": _quantile(calls, 0.99) * 1e3,
+                            "max": max(calls) * 1e3}
+        accepted = [(ev, h) for ev, h in issued if hasattr(h, "done")]
+        out.update(issued=len(issued),
+                   submit_errors=len(issued) - len(accepted))
+        print(f"[traffic] replayed {len(issued)} events in "
+              f"{time.perf_counter() - t0:.3f} s; fleet "
+              f"{sorted(scaler.active)} [{card}] t+{_traffic_t():.1f} s")
+        grace = max(ev["deadline_s"] for ev, _ in accepted) + 60.0
+        deadline = time.monotonic() + grace
+        for _, h in accepted:
+            h.done.wait(max(deadline - time.monotonic(), 0.0))
+        out["wall_s"] = time.perf_counter() - t0
+        # the calm tail: the fleet shrinks back once load is gone
+        tail = time.monotonic() + TRAFFIC_TAIL_S
+        while len(scaler.active) > TRAFFIC_MINM and \
+                time.monotonic() < tail:
+            time.sleep(0.1)
+        scaler.stop()
+        t_stop = time.monotonic()
+        print(f"[traffic] tail over: fleet {sorted(scaler.active)} "
+              f"[{card}] t+{_traffic_t():.1f} s")
+        unresolved = [h.rid for _, h in accepted if not h.done.is_set()]
+        bad = sorted({h.status for _, h in accepted if h.done.is_set()} -
+                     {"ok", "shed", "timeout"})
+        check(not unresolved and not bad,
+              f"traffic: accepted requests unresolved {unresolved[:20]} "
+              f"or in another state {bad}")
+        decided = [d for d in scaler.decisions
+                   if d["action"] in ("up", "down")]
+        out["ups"] = sum(d["action"] == "up" for d in decided)
+        out["downs"] = sum(d["action"] == "down" for d in decided)
+        check(out["ups"] >= 1 and out["downs"] >= 1,
+              f"traffic: {out['ups']} scale ups and {out['downs']} downs, "
+              f"not at least one each: "
+              f"{[d['action'] for d in scaler.decisions]}")
+        out["launches"], out["prefills"] = _cross_flash("traffic", pool,
+                                                        device)
+        out["peak_gib"] = _cross_peaks(pool)
+        out["members_spawned"] = _cross_no_jax(workdir, pool, "traffic")
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        pool.close()
+        trace.disable()
+    merged, _ = fleet.merge_streams(workdir)
+    spans = [(e["args"]["action"], int(e["args"]["slot"]),
+              e["args"].get("reason")) for e in merged
+             if e.get("name") == "traffic.scale" and e.get("ph") == "X"]
+    # a failed actuation keeps its span (and its reason): every decision
+    # that acted, failed or not, is on the timeline
+    acted = [(d["action"].split("_")[0], d["slot"], d["reason"])
+             for d in scaler.decisions if d["action"] != "hold"]
+    check(sorted(spans) == sorted(acted) and
+          all(r for _, _, r in spans),
+          f"traffic: the traffic.scale spans {spans} are not the "
+          f"decisions' actions with their reasons {acted}")
+    out["failed_actions"] = sum(d["action"].endswith("_failed")
+                                for d in scaler.decisions)
+    handles = {h.rid: h for _, h in accepted}
+    by_rid = {h.rid: ev for ev, h in accepted}
+    moved = _traffic_moved(merged, handles, probe.actions)
+    out["exact_moved"], out["exact_sampled"] = _traffic_exact(
+        merged, handles, by_rid, moved, ref, seed)
+    skip = {rid for rids, _ in moved for rid in rids}
+    out["tenants"] = _traffic_tenants(accepted, skip)
+    out["ok"] = sum(t["ok"] for t in out["tenants"].values())
+    out["ok_qps"] = out["ok"] / out["wall_s"]
+    gold = out["tenants"].get("gold", {}).get("ttft_p99_s")
+    out["gold_p99_met"] = gold is not None and gold <= TRAFFIC_GOLD_SLO_S
+    # each action beside its decision: READY and the first route after it
+    routes = [(e["ts"], int(e["args"]["member"])) for e in tracer.events
+              if e.get("name") == "serve.route"]
+    out["routed"] = {m: sum(1 for _, x in routes if x == m)
+                     for m in sorted({m for _, m in routes})}
+    readies = [e["ts"] for e in tracer.events
+               if e.get("name") == "traffic.member_ready"]
+    moved_by = iter(moved)
+    out["actions"] = []
+    for d, a in zip(decided, probe.actions):
+        rec = {"action": a["action"], "slot": a["slot"],
+               "reason": d["reason"]}
+        if a["action"] == "up":
+            ready = readies.pop(0)
+            first = min((ts for ts, m in routes
+                         if m == a["slot"] and ts >= ready), default=None)
+            rec.update(decision_to_ready_s=a["t1"] - d["t"],
+                       spawn_ready_s=a["spawn_ready_s"],
+                       ready_to_route_ms=None if first is None
+                       else (first - ready) / 1e3)
+        else:
+            rids, dr = next(moved_by)
+            rec.update(decision_to_drained_s=a["t1"] - d["t"],
+                       target=dr["target"], moved=len(rids),
+                       slots=dr["slots"], queued=len(dr["queued"]),
+                       rc=a["rc"])
+        out["actions"].append(rec)
+    out["peak_members"], out["time_at_size"] = _traffic_fleet_sizes(
+        probe.actions, t_start, t_stop)
+    ms = [x * 1e3 for x in probe.scrape_s]
+    out["scrape"] = {"n": len(ms), "p50_ms": statistics.median(ms),
+                     "max_ms": max(ms)}
+    return out
+
+
+def phase_traffic(card, seed, device="cuda"):
+    """The traffic plane (traffic/loadgen.py, traffic/autoscale.py) over
+    GPT-2-small member processes at its published widths, f32, 8 slots x
+    512 each: r1 measured on one member, a seeded open-loop trace with a
+    10x diurnal spike replayed while the autoscaler scales the fleet up
+    and back down.  Returns the numbers; ``launches`` are the members'
+    flash forwards."""
+    import tempfile
+
+    t_phase = _TRAFFIC_T0[0] = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="traffic_") as workdir:
+        try:
+            out = _traffic_run(card, seed, device, workdir)
+        except Exception:
+            _cross_evidence(workdir)
+            raise
+        finally:
+            subprocess.run(["pkill", "-9", "-f", workdir],
+                           capture_output=True, timeout=30)
+    out["seconds"] = time.perf_counter() - t_phase
+    for line in traffic_lines(out, card):
+        print(line)
     return out
 
 
@@ -8014,6 +8586,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
+    t_script = time.perf_counter()
     card = card_line()
     phase_device(card)
     phase_build()
@@ -8043,6 +8616,8 @@ def main(argv=None) -> int:
     crosshost = phase_crosshost(card, args.seed)
     torch.cuda.empty_cache()
     vanchaos = phase_vanchaos(card, args.seed)
+    torch.cuda.empty_cache()
+    traffic = phase_traffic(card, args.seed)
     torch.cuda.empty_cache()
     llama_train = phase_train_llama(card, args.seed)
     torch.cuda.empty_cache()
@@ -8094,6 +8669,7 @@ def main(argv=None) -> int:
                               # summed over the member processes
                               "crosshost": crosshost["launches"],
                               "vanchaos": vanchaos["launches"],
+                              "traffic": traffic["launches"],
                               "llama_train": llama_train["launches"][0],
                               "bert_train": bert["launches"][0],
                               **later[0]},
@@ -8153,6 +8729,16 @@ def main(argv=None) -> int:
           f"{[x['incarnation'] for x in vanchaos['f32']['rounds']]}, "
           f"standby PROMOTED {vanchaos['bf16']['detect_to_promoted_s']:.3f}"
           f" s [{card}]")
+    g = traffic["tenants"].get("gold", {})
+    print(f"[traffic] summary: phase {traffic['seconds']:.1f} s, r1 "
+          f"{traffic['r1']:.3f}/s, {traffic['issued']} issued, ok-QPS "
+          f"{traffic['ok_qps']:.3f}, {traffic['ups']} up / "
+          f"{traffic['downs']} down, peak {traffic['peak_members']} "
+          f"members, gold TTFT p99 {g.get('ttft_p99_s')} s "
+          f"({'met' if traffic['gold_p99_met'] else 'missed'}), "
+          f"{traffic['prefills']} member prefills, flash forwards launched "
+          f"{traffic['launches']}; the script "
+          f"{time.perf_counter() - t_script:.1f} s [{card}]")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,8 @@ paths and names mirror the reference so each counterpart is found at once:
     htt.telemetry.*   # span tracer, typed metrics registry, chaos
                       # timeline, fleet stream merge, costs, live health
     htt.resilience.*  # seeded fault schedules and their injector
+    htt.traffic.*     # seeded open-loop traces and their replay, the
+                      # measured-load autoscaler over the process pool
     htt.data.*        # CIFAR-10 and MNIST, the Dataloader, bucketed
                       # padding of CTR batches, the graph sampler over PS
                       # tables
@@ -54,7 +56,8 @@ from hetu_tpu_torch.version import __version__
 
 _LAZY = {"ops", "init", "rng", "layers", "models", "optim", "lr", "train",
          "interop", "serve", "telemetry", "data", "utils", "ps",
-         "quantwire", "embedding_compress", "resilience"}
+         "quantwire", "embedding_compress", "resilience",
+         "traffic"}
 
 
 def __getattr__(name):

@@ -77,8 +77,11 @@ Departures from the reference:
 * the pool counts the submits it re-sends after a van failover
   (``van_rebind_resent``), and ``controller_main``'s READY line says
   whether the process loaded ``jax``;
-* ``controller_main``'s ``autoscale`` raises ``NotImplementedError``
-  until the slice that ports ``traffic/``.
+* ``controller_main``'s ``autoscale`` drives
+  :class:`~hetu_tpu_torch.traffic.autoscale.Autoscaler` as the
+  reference's does; the pool journals its state (``journal_autoscaler``,
+  ``'s'`` ledger records) and a takeover hands it to a successor loop
+  (``autoscaler_state``).
 """
 
 from __future__ import annotations
@@ -1307,9 +1310,9 @@ class CrossProcessServingPool:
         self.procs: list = [None] * self.n_members
         self.adopted: dict = {}         # takeover: rid -> PoolRequest
         self.takeover_report: dict = {}
-        # the autoscaler's journaled state ('s' ledger records): replayed
-        # and carried through compaction so a ledger decodes as in the
-        # reference; its writer comes with traffic/ (the autoscaler)
+        # the autoscaler's journaled state ('s' ledger records, written
+        # by journal_autoscaler): replayed and carried through
+        # compaction, so a successor's loop resumes warm
         self._autoscaler_state: Optional[dict] = None
         # live health plane (started on demand by start_health_monitor)
         self.health_monitor = None
@@ -1805,6 +1808,30 @@ class CrossProcessServingPool:
                 "autoscaler": dict(self._autoscaler_state)
                 if self._autoscaler_state else None,
             }
+
+    # ---- warm autoscaler takeover (the control loop's durable RAM) ----
+    def journal_autoscaler(self, state: dict, *,
+                           sync: bool = True) -> None:
+        """Journal the autoscaler's exported state (streaks, cooldown
+        elapsed times, active set) into the ledger alongside accepts.
+        ``sync=True`` for ACTION ticks (a lost scale action must not be
+        repeated by a cold successor); hold ticks may coalesce — each
+        record is a full upsert, so losing one costs staleness, never
+        corruption."""
+        with self._lock:
+            self._autoscaler_state = dict(state)
+        rec = {"s": dict(state)}
+        if sync:
+            self._append_ledger([rec])
+        else:
+            self._queue_delta(rec)
+
+    def autoscaler_state(self) -> Optional[dict]:
+        """The journaled autoscaler state (after a takeover: replayed
+        from the ledger) — what a resumed control loop warms up from."""
+        with self._lock:
+            return dict(self._autoscaler_state) \
+                if self._autoscaler_state else None
 
     def _append_ledger(self, records) -> None:
         """Synchronously journal delta records (accept / drain / spawn
@@ -3118,10 +3145,24 @@ def controller_main(config_path: str) -> int:
         van_spec=cfg.get("van"), member_env=cfg.get("member_env"))
     print("READY", f"jax={int('jax' in sys.modules)}", flush=True)
     try:
-        if cfg.get("autoscale"):
-            raise NotImplementedError(
-                "autoscale: the control loop comes with the slice that "
-                "ports traffic/")
+        ac = cfg.get("autoscale")
+        if ac:
+            # a controller-kill target: make >= 1 JOURNALED scale
+            # decision before the harness SIGKILLs this process, so a
+            # takeover can show the successor resumes the loop's RAM
+            # warm (no duplicate action)
+            from hetu_tpu_torch.traffic.autoscale import (AutoscalePolicy,
+                                                          Autoscaler)
+            for s in ac.get("park", []):
+                pool.drain_member(int(s), close=True)
+            scaler = Autoscaler(
+                pool, AutoscalePolicy(**ac["policy"]),
+                active={int(s) for s in ac.get("active", [0])})
+            for _ in range(int(ac.get("ticks", 1))):
+                rec = scaler.tick()
+                print(f"SCALED {rec['action']} {rec.get('slot', -1)}",
+                      flush=True)
+                time.sleep(float(ac.get("tick_gap_s", 0.1)))
         prompts = seeded_prompts(
             int(cfg.get("n_requests", 8)),
             int(cfg.get("prompt_seed", 0)),

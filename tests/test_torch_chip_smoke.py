@@ -1283,6 +1283,169 @@ def test_kernels_line_counts_the_vanchaos_path():
     assert chip_smoke.VAN_SPEC["promote_after_s"] == 0.3
 
 
+def test_traffic_rate_sizing_and_trace_spec():
+    """The traffic phase sizes its trace from the measured r1: a base rate
+    of 0.3 r1, so the 10x peak asks three members' worth; the spec is the
+    reference bench's two tenants over one 40 s diurnal period at
+    GPT-2-small's vocabulary, and its events carry a catalog prompt of 2
+    to 63 tokens, 16 tokens to generate, a tenant's SLO class and a
+    deadline in its tenant's range."""
+    from hetu_tpu_torch.traffic import synthesize
+    from hetu_tpu_torch.traffic.loadgen import prompt_catalog
+
+    assert chip_smoke.traffic_base_qps(20.0) == pytest.approx(6.0)
+    assert chip_smoke.TRAFFIC_PEAK_X * chip_smoke.TRAFFIC_BASE_SHARE == \
+        pytest.approx(chip_smoke.TRAFFIC_MAXM)
+    spec = chip_smoke.traffic_spec(3, chip_smoke.traffic_base_qps(20.0))
+    assert (spec.seed, spec.duration_s, spec.base_qps, spec.diurnal_peak_x,
+            spec.diurnal_period_s, spec.vocab, spec.n_prompts,
+            spec.max_prompt_len, spec.zipf_s) == (
+        3, 40.0, pytest.approx(6.0), 10.0, None, 50257, 64, 64, 1.1)
+    gold, bronze = spec.tenants
+    assert (gold.name, gold.slo, gold.share, gold.deadline_lo_s,
+            gold.deadline_hi_s, gold.burst_x, gold.max_tokens) == (
+        "gold", "gold", 0.3, 8.0, 12.0, 1.0, 16)
+    assert (bronze.name, bronze.slo, bronze.share, bronze.deadline_lo_s,
+            bronze.deadline_hi_s, bronze.burst_x, bronze.burst_on_s,
+            bronze.burst_off_s, bronze.max_tokens) == (
+        "bronze", "bronze", 0.7, 1.0, 2.5, 3.0, 1.5, 2.0, 16)
+    assert set(chip_smoke.TRAFFIC_SLO_CLASSES) == {"gold", "bronze"}
+    assert chip_smoke.TRAFFIC_SLO_CLASSES["gold"]["ttft_slo_s"] == 2.5
+    catalog = {tuple(p) for p in prompt_catalog(spec)}
+    events = synthesize(spec)["events"]
+    # a raised-cosine day: mean multiplier 5.5; bronze bursts on top
+    assert 6.0 * 5.5 * 40.0 < len(events) < 6.0 * 5.5 * 40.0 * 2.5
+    for ev in events:
+        assert tuple(ev["prompt"]) in catalog
+        assert 2 <= len(ev["prompt"]) <= 63
+        assert all(1 <= t < 50257 for t in ev["prompt"])
+        assert ev["max_tokens"] == 16 and ev["kind"] == "llm"
+        assert ev["slo"] == ev["tenant"]
+        lo, hi = (8.0, 12.0) if ev["tenant"] == "gold" else (1.0, 2.5)
+        assert lo <= ev["deadline_s"] <= hi
+    # prompt + generated tokens fit a member's slot
+    assert 63 + 16 <= chip_smoke.POOL_MAX_LEN
+    mid = sum(15.0 <= ev["t"] < 25.0 for ev in events)
+    edge = sum(ev["t"] < 5.0 or ev["t"] >= 35.0 for ev in events)
+    assert mid > 3 * edge
+
+
+def test_traffic_fleet_sizes_and_quantiles():
+    """Seconds at each fleet size run from the autoscaler's start to its
+    stop, an up counting from its member's READY and a down from its
+    drain's end; the quantile is the reference bench's."""
+    acts = [{"action": "up", "t1": 12.0}, {"action": "up", "t1": 30.0},
+            {"action": "down", "t1": 45.0}, {"action": "down", "t1": 48.5}]
+    peak, spent = chip_smoke._traffic_fleet_sizes(acts, 2.0, 50.0)
+    assert peak == 3
+    assert spent == {1: 10.0 + 1.5, 2: 18.0 + 3.5, 3: 15.0}
+    assert chip_smoke._quantile([], 0.99) is None
+    assert chip_smoke._quantile([3.0, 1.0, 2.0], 0.5) == 2.0
+    assert chip_smoke._quantile(list(range(100)), 0.99) == 99
+
+
+def test_traffic_lines_keep_their_schema():
+    """The phase's printed lines, from a set of numbers of the shape the
+    phase returns."""
+    import re
+
+    out = {"r1": 25.5, "r1_wall_s": 1.255, "base_qps": 7.65, "events": 2600,
+           "trace_bytes": 512000, "trace_sha256": "ab" * 32, "issued": 2600,
+           "submit_errors": 0, "ok": 2100, "wall_s": 52.0, "ok_qps": 40.38,
+           "issue_lag_s": {"p50": 0.012, "p99": 2.5, "max": 9.75},
+           "submit_ms": {"p50": 1.25, "p99": 30.0, "max": 1500.5},
+           "ledger": {"delta_appends": 4000, "compactions": 12,
+                      "compaction_bytes": 1200000, "blob_put_calls": 9000,
+                      "blob_put_errors": 2},
+           "routed": {0: 1500, 1: 700, 2: 400},
+           "tenants": {
+               "gold": {"ok": 780, "shed": 0, "timeout": 0, "other": 0,
+                        "n": 780, "shed_rate": 0.0, "ttft_p50_s": 0.05,
+                        "ttft_p99_s": 1.2},
+               "bronze": {"ok": 1320, "shed": 400, "timeout": 100,
+                          "other": 0, "n": 1820, "shed_rate": 0.2198,
+                          "ttft_p50_s": 0.5, "ttft_p99_s": None}},
+           "gold_p99_met": True,
+           "actions": [{"action": "up", "slot": 1, "reason": "shed_rate",
+                        "decision_to_ready_s": 14.2, "spawn_ready_s": 13.9,
+                        "ready_to_route_ms": 3.5},
+                       {"action": "down", "slot": 2, "reason": "idle",
+                        "target": 0, "decision_to_drained_s": 0.8,
+                        "moved": 3, "slots": 2, "queued": 1, "rc": 0}],
+           "peak_members": 3, "time_at_size": {1: 10.0, 2: 12.5, 3: 20.0},
+           "scrape": {"n": 150, "p50_ms": 4.5, "max_ms": 40.2},
+           "ups": 2, "downs": 2, "exact_moved": 3, "exact_sampled": 64,
+           "launches": 24000, "prefills": 2000, "members_spawned": 5,
+           "seconds": 95.5, "peak_gib": {0: 0.8, 1: 0.8, 2: 0.8}}
+    text = "\n".join(chip_smoke.traffic_lines(out, "H100, 700.00 W"))
+    card = r"\[H100, 700\.00 W\]"
+    for pattern in (
+            r"\[traffic\] r1 25\.500 ok requests/s \(32 closed-loop "
+            r"requests, 8 in flight, 1\.255 s, token-exact\) on 1 member; "
+            r"base_qps 7\.650, peak 10x ",
+            r"\[traffic\] trace: 2600 events over 40 s, 512000 bytes, "
+            r"sha256 abababababababab, synthesized again byte-identical ",
+            r"\[traffic\] replay: 2600 issued open-loop \(0 refused\), "
+            r"2100 ok in 52\.000 s, ok-QPS 40\.380 ",
+            r"\[traffic\] submit path: issue behind the trace p50 0\.012 s, "
+            r"p99 2\.500 s, max 9\.750 s; a submit call p50 1\.250 ms, "
+            r"p99 30\.000 ms, max 1500\.500 ms; ledger 4000 delta appends, "
+            r"12 compactions \(1200000 bytes\); control blob puts 9000 \(2 "
+            r"attempts failed\) ",
+            r"\[traffic\] tenant gold: ok 780, shed 0, timeout 0 of 780, "
+            r"shed rate 0\.0000; TTFT p50 0\.0500 s, p99 1\.2000 s; p99 met "
+            r"its 2\.5 s budget ",
+            r"\[traffic\] tenant bronze: ok 1320, shed 400, timeout 100 of "
+            r"1820, shed rate 0\.2198; TTFT p50 0\.5000 s, p99 - s ",
+            r"\[traffic\] scale 1: up slot 1 \(shed_rate\): decision -> "
+            r"READY 14\.200 s \(spawn -> READY line 13\.900 s\), READY -> "
+            r"first routed request 3\.500 ms ",
+            r"\[traffic\] scale 2: down slot 2 \(idle\) into member 0: "
+            r"decision -> drained 0\.800 s, 3 requests moved \(2 live "
+            r"slots, 1 queued\), exit 0 ",
+            r"\[traffic\] fleet: peak 3 members; seconds at each size "
+            r"\{1: 10\.0, 2: 12\.5, 3: 20\.0\}; requests routed by member "
+            r"\{0: 1500, 1: 700, 2: 400\} ",
+            r"\[traffic\] scrape: 150 ticks, p50 4\.500 ms, max 40\.200 ms "
+            r"a tick's fleet_metrics ",
+            r"\[traffic\] gates: 2 up, 2 down, each a traffic\.scale span "
+            r"with its reason; every accepted request ok, shed or timeout; "
+            r"3 moved \+ 64 sampled ok streams token-exact, moved slots "
+            r"prefilled nothing; flash forwards 24000 = 12 x 2000 prefills; "
+            r"5 member processes, none with jax ",
+            r"\[traffic\] phase 95\.5 s \(budget 120 s\); peak GiB by "
+            r"member \{0: 0\.8, 1: 0\.8, 2: 0\.8\} "):
+        assert re.search(pattern + card, text), pattern
+    assert "missed" not in text
+    out["actions"][0]["ready_to_route_ms"] = None
+    assert "READY -> first routed request none before it was drained" in \
+        "\n".join(chip_smoke.traffic_lines(out, "cpu"))
+    out["gold_p99_met"] = False
+    assert "p99 missed its 2.5 s budget" in "\n".join(
+        chip_smoke.traffic_lines(out, "cpu"))
+
+
+def test_kernels_line_counts_the_traffic_path():
+    """main() runs the traffic phase right after vanchaos; row 1 (the
+    flash forward) gains "traffic" in its launches by path, from the
+    phase's own count, and its summary line (with the script's seconds)
+    stays in the output's tail."""
+    src = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    main = src[src.index("def main("):]
+    order = [main.index(f"phase_{p}(card") for p in (
+        "vanchaos", "traffic", "train_llama")]
+    assert order == sorted(order)
+    row1 = main[main.index('"name": "flash_attention_fwd"'):
+                main.index('"name": f"flash_attention_bwd_{k}"')]
+    assert row1.count('"traffic": traffic["launches"]') == 1
+    assert main.index("[traffic] summary:") < main.index("print(card)")
+    assert chip_smoke.TRAFFIC_POLICY == {
+        "min_members": 1, "max_members": 3, "interval_s": 0.3,
+        "queue_high": 2.0, "queue_low": 0.5, "shed_high": 0.02,
+        "shed_low": 0.005, "up_ticks": 2, "down_ticks": 4,
+        "up_cooldown_s": 1.0, "down_cooldown_s": 2.0}
+
+
 class _Probe:
     def __init__(self, prefilled):
         self.prefilled = prefilled

@@ -14,7 +14,9 @@ over them), the CNN family, and an LSTM classifier, a GCN on a sampled
 batch and the op zoo, the compression zoo, and the serving pool with the
 fleet plane (a fault schedule, a merged stream, the timeline and the
 doctor), and the cross-process pool, whose member processes say
-whether they loaded jax, as van servers and standby controllers do; ``jax`` and ``hetu_tpu`` must stay out of
+whether they loaded jax, as van servers and standby controllers do, and
+the traffic plane with an autoscaling controller over such a pool;
+``jax`` and ``hetu_tpu`` must stay out of
 ``sys.modules``.  An AST scan of every module of the package,
 and of ``chip_smoke.py``, finds no import of either.
 """
@@ -578,6 +580,53 @@ def test_van_and_standby_processes_run_without_jax(tmp_path):
     names = {p.relative_to(PKG).as_posix() for p in SOURCES
              if PKG in p.parents}
     assert {"ps/replica.py", "resilience/standby.py"} <= names
+
+
+def test_traffic_plane_and_autoscaled_controller_run_without_jax(tmp_path):
+    """A controller scales a CrossProcessServingPool of CPU members with
+    the traffic plane: a slot parked, an autoscaler tick that revives it,
+    a seeded open-loop trace replayed through ``llm_submitter``; neither
+    the controller nor a member process loads jax."""
+    out = _run(
+        "import sys\n"
+        "from hetu_tpu_torch.serve.crosshost import CrossProcessServingPool\n"
+        "from hetu_tpu_torch.traffic import (AutoscalePolicy, Autoscaler,\n"
+        "    TenantSpec, TraceSpec, llm_submitter, replay, synthesize)\n"
+        "model = {'vocab_size': 89, 'hidden_size': 32, 'num_layers': 2,\n"
+        "         'num_heads': 4, 'ffn_size': 64, 'max_position': 32,\n"
+        "         'max_len': 32, 'device': 'cpu'}\n"
+        f"pool = CrossProcessServingPool(2, workdir={str(tmp_path)!r},\n"
+        "    model=model, member_env={'OMP_NUM_THREADS': '1'}, shed=True,\n"
+        "    slo_classes={'gold': {'priority': 2, 'weight': 4.0}},\n"
+        "    scrape_s=0.25)\n"
+        "try:\n"
+        "    pool.drain_member(1, close=True)\n"
+        "    sc = Autoscaler(pool, AutoscalePolicy(min_members=1,\n"
+        "        max_members=2, queue_high=0.0, up_ticks=1), active={0})\n"
+        "    assert sc.tick()['action'] == 'up' and sc.active == {0, 1}\n"
+        "    trace = synthesize(TraceSpec(seed=1, duration_s=1.0,\n"
+        "        base_qps=6.0, vocab=89, max_prompt_len=6,\n"
+        "        tenants=[TenantSpec('gold', slo='gold', max_tokens=3,\n"
+        "                            deadline_lo_s=60, deadline_hi_s=90)]))\n"
+        "    out = replay(trace, llm_submitter(pool))\n"
+        "    assert out and all(h.done.wait(60) for _, h in out)\n"
+        "    print('STATUS', sorted({h.status for _, h in out}))\n"
+        "    print('JOURNALED', pool.autoscaler_state()['actions'])\n"
+        "finally:\n"
+        "    pool.close()\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out
+    assert "STATUS ['ok']" in out and "JOURNALED 1" in out
+    logs = sorted(tmp_path.glob("member_*.log"))
+    assert len(logs) == 3  # two members, then the revived one
+    for log in logs:
+        assert "READY" in log.read_text() and "jax=0" in log.read_text()
+    names = {p.relative_to(PKG).as_posix() for p in SOURCES
+             if PKG in p.parents}
+    assert {"traffic/__init__.py", "traffic/loadgen.py",
+            "traffic/autoscale.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
