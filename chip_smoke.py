@@ -233,6 +233,29 @@ without the final result line:
    in-process sgd arm's initial rows and pushes replayed on the
    partitioned table leave it equal to the in-process table (rtol 1e-6,
    the count of bitwise rows printed).
+15a. supervise — the training supervisor (``resilience/supervisor.py``):
+   (a) GPT-2-small at its published widths (V 50257, max_position 1024;
+   bf16, flash, remat, AdamW), B 8 x S 1024, 12 ``Supervisor`` steps with
+   two data faults (``retries_data`` 2, a ``recovery.retry`` span each),
+   run twice in this process, uninterrupted and with no checkpoint
+   directory (the card's reproducibility: bitwise or the twins' gap);
+   then in a child process (no jax, no hetu_tpu) checkpointing every 4
+   (keep 2) and held after step 5 while it is sent SIGTERM: it exits 0 at
+   step 6 with checkpoints 4 and 6; checkpoint 6's body is corrupted and
+   a second child skips it by its CRC, restores step 4 and finishes at
+   12, its final checkpoint held to the uninterrupted arms (parameters,
+   AdamW slots, step, rng words and (seed, seqnum) bitwise if the twins
+   are, else within their gap); 2 L flash forwards and L of each
+   backward kernel a step in every run; the step time supervised and
+   bare, each save's and the restore's bytes and ms, SIGTERM -> exit and
+   start -> first step.  (b) ps_ctr's PS leg (1M x 16 f32 adagrad rows
+   over two van shard processes, WideDeep under Adam, B 2048) through
+   ``train_guarded`` for 40 steps under the reference chaos test's seeded
+   schedule (a shard SIGKILLed and restarted on its port, a NaN batch,
+   two van faults), ``PSShardGuard`` snapshotting every 5: the counters,
+   the repaired shard's rows and slots bitwise its snapshot of before the
+   kill, the live shard unchanged, a falling loss, each fault paired with
+   its recovery span; snapshot and repair ms, death -> repaired s.
 15b. train_cnn — examples/cnn_resnet.py's ResNet-18 / CIFAR-10 (f32, B
    128, Momentum(0.9) under the cosine schedule) on its ``--subset`` of
    the synthetic CIFAR-10 through ``Dataloader`` and 20
@@ -584,6 +607,25 @@ _VAN_SERVER_SRC = (
     "print('READY', van.serve(0), flush=True)\n"
     "sys.stdin.read()\n")  # serves until the parent closes the pipe
 CTR_GATHER_SETS = 32  # id sets the gather's timing cycles through
+
+# the training supervisor: (a) GPT-2-small at its published widths (V
+# 50257, max_position 1024; the train phase's bf16, flash, remat, fused CE,
+# AdamW) at B 8 x S 1024, 12 supervised steps, a checkpoint every 4, 2
+# kept, data faults at steps 2 and 9; the preempted child is held after
+# step 5 while it is sent SIGTERM; the bare guarded step timed for 12 steps;
+# a child's deadline, its start-up included.  (b) ps_ctr's PS leg (1M rows
+# x 16 f32, the example's adagrad at lr 0.05, B 2048, 26 + 13 fields, the
+# dense part under Adam 1e-3) over two van shard processes for 40 steps,
+# the table snapshotted every 5, under the reference chaos test's seeded
+# schedule
+SUP_V, SUP_B, SUP_S, SUP_STEPS, SUP_LR = 50257, 8, 1024, 12, 1e-4
+SUP_CKPT_EVERY, SUP_KEEP, SUP_HOLD_AT, SUP_BARE_STEPS = 4, 2, 5, 12
+SUP_DATA_ERRORS = (2, 9)
+SUP_CHILD_S = 300.0
+SUP_PS_STEPS, SUP_PS_EVERY, SUP_PS_ADAGRAD_LR = 40, 5, 0.05
+SUP_PS_SCHEDULE = dict(steps=SUP_PS_STEPS, seed=11, van_errors=2,
+                       nan_steps=1, kill_shards=1, n_shards=2)
+SUP_BUDGET_S = 100.0
 
 # the CNN family: examples/cnn_resnet.py's configuration (ResNet-18, 10
 # classes, f32, batch 128 of [3, 32, 32], Momentum(0.9) under
@@ -8412,6 +8454,701 @@ def phase_ps_ctr(card, seed, device="cuda"):
     return out
 
 
+# ------------------------------------------------------------- supervise
+
+def _sup_spec(seed, device):
+    """Arm (a)'s configuration, passed whole to its child processes (which
+    adopt these widths)."""
+    return {"seed": seed, "device": device, "V": SUP_V, "H": H, "L": L,
+            "NH": NH, "FFN": FFN, "B": SUP_B, "S": SUP_S,
+            "steps": SUP_STEPS, "lr": SUP_LR, "every": SUP_CKPT_EVERY,
+            "keep": SUP_KEEP, "data_errors": list(SUP_DATA_ERRORS),
+            "hold_at": -1}
+
+
+def _sup_gpt(spec):
+    """GPT-2-small at the spec's widths (bf16, flash, remat, fused CE),
+    its weights drawn from the seed in the JAX package's layout, an
+    Executor (AdamW) over it, and the seeded batch of each step; made the
+    same way in every arm.  Returns (config, executor, state, batch_fn)."""
+    from hetu_tpu_torch import interop
+    from hetu_tpu_torch.models import GPTConfig, GPTModel
+    from hetu_tpu_torch.optim import AdamWOptimizer
+    from hetu_tpu_torch.train import Executor
+
+    cfg = GPTConfig(vocab_size=spec["V"], hidden_size=spec["H"],
+                    num_layers=spec["L"], num_heads=spec["NH"],
+                    ffn_size=spec["FFN"], max_position=spec["S"],
+                    dropout_rate=0.0, dtype=torch.bfloat16,
+                    attention_impl="flash", remat=True, fused_ce=True)
+    model = GPTModel(cfg, device=spec["device"])
+    model.load_state_dict(interop.params_from_jax(
+        jax_layout_weights(spec["seed"], spec["S"], spec["V"]), cfg))
+    ex = Executor(model.lm_loss_fn(), AdamWOptimizer(spec["lr"]),
+                  seed=spec["seed"])
+    state = ex.init_state(model)
+
+    def batch_fn(i):
+        g = np.random.default_rng([spec["seed"], 22, int(i)])
+        return (g.integers(0, spec["V"], (spec["B"], spec["S"])),)
+    return cfg, ex, state, batch_fn
+
+
+def _sup_supervisor(spec, ex, cfg, ckpt_dir=None):
+    """The arm's Supervisor: the data faults of the spec, and with
+    ``ckpt_dir`` a checkpoint every ``every`` steps, ``keep`` kept."""
+    from hetu_tpu_torch.resilience import (
+        FaultEvent, FaultInjector, FaultSchedule, Supervisor,
+    )
+    sched = FaultSchedule([FaultEvent(s, "data_error")
+                           for s in spec["data_errors"]])
+    kw = (dict(ckpt_dir=ckpt_dir, ckpt_every=spec["every"],
+               keep=spec["keep"]) if ckpt_dir else {})
+    return Supervisor(ex, injector=FaultInjector(sched), config=cfg, **kw)
+
+
+def supervise_child(spec_json, ckpt_dir):
+    """One GPT-2-small training process of the supervise phase's arm (a):
+    ``Supervisor.run`` over ``ckpt_dir`` (resuming from it when it holds a
+    checkpoint), printing ``step <i> <loss>`` after each step and, at step
+    ``hold_at``, waiting for a line on its standard input; then each
+    checkpoint's ``SAVE``/``RESTORE`` line, its launches, counters and
+    modules, and ``PREEMPTED <step>`` or ``DONE <step>``."""
+    spec = json.loads(spec_json)
+    globals().update(H=spec["H"], L=spec["L"], NH=spec["NH"],
+                     FFN=spec["FFN"])
+    if spec["device"] == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg, ex, state, batch_fn = _sup_gpt(spec)
+    sup = _sup_supervisor(spec, ex, cfg, ckpt_dir)
+    mgr = sup.manager
+    save, restore = mgr.save, mgr.restore
+
+    def timed_save(st, step, *, extra=None):
+        t0 = time.perf_counter()
+        path = save(st, step, extra=extra)
+        print(f"SAVE {step} {path.stat().st_size} "
+              f"{(time.perf_counter() - t0) * 1e3:.3f}", flush=True)
+        return path
+
+    def timed_restore(template, *, restore_rng=True):
+        t0 = time.perf_counter()
+        got = restore(template, restore_rng=restore_rng)
+        size = os.path.getsize(mgr.last_restored) if got else 0
+        print(f"RESTORE {got[1] if got else -1} {size} "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} {len(mgr.skipped)}",
+              flush=True)
+        return got
+    mgr.save, mgr.restore = timed_save, timed_restore
+
+    def post_step(i, st, metrics, batch):
+        print(f"step {i} {float(metrics['loss']):.6f}", flush=True)
+        if i == spec["hold_at"]:
+            sys.stdin.readline()  # held until the parent has signalled
+
+    counters = _all_counters()
+    for c in counters:
+        c.launches = 0
+    rep = sup.run(state, batch_fn, spec["steps"], post_step=post_step)
+    print("LAUNCHES", *(c.launches for c in counters), flush=True)
+    print("COUNTERS", json.dumps(rep.counters), flush=True)
+    print("MODULES jax=%d hetu_tpu=%d" % (
+        "jax" in sys.modules,
+        any(m == "hetu_tpu" or m.startswith("hetu_tpu.")
+            for m in sys.modules)), flush=True)
+    print("PREEMPTED" if rep.preempted else "DONE", rep.step, flush=True)
+    return 0
+
+
+_SUP_CHILD_SRC = (
+    "import sys\nsys.path.insert(0, sys.argv[1])\nimport chip_smoke\n"
+    "sys.exit(chip_smoke.supervise_child(sys.argv[2], sys.argv[3]))\n")
+
+
+def _sup_child(spec, ckpt_dir, workdir, tag, on_line=None):
+    """Run :func:`supervise_child` in a fresh interpreter; ``on_line(proc,
+    line)`` sees each line of its output as it comes.  Returns its exit
+    code, its lines, the seconds from its spawn to its first step and the
+    ``perf_counter`` of its exit."""
+    import queue
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    err_path = os.path.join(workdir, f"{tag}.err")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _SUP_CHILD_SRC, root, json.dumps(spec),
+             ckpt_dir], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=err, text=True)
+    lines, first_step = queue.Queue(), None
+
+    def reader():
+        for line in proc.stdout:
+            lines.put(line.strip())
+        lines.put(None)
+
+    threading.Thread(target=reader, daemon=True).start()
+    out = []
+    deadline = t0 + SUP_CHILD_S
+    try:
+        while True:
+            try:
+                line = lines.get(timeout=max(deadline - time.perf_counter(),
+                                             0.01))
+            except queue.Empty:
+                check(False, f"supervise {tag}: the child said nothing for "
+                             f"{SUP_CHILD_S:g} s: {out[-5:]}")
+            if line is None:
+                break
+            out.append(line)
+            if line.startswith("step ") and first_step is None:
+                first_step = time.perf_counter() - t0
+            if on_line is not None:
+                on_line(proc, line)
+        rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+        t_exit = time.perf_counter()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        with open(err_path) as f:
+            print(f.read()[-3000:], file=sys.stderr)
+    check(rc == 0, f"supervise {tag}: the child exited {rc}: {out[-5:]}")
+    return dict(rc=rc, lines=out, first_step_s=first_step, t_exit=t_exit)
+
+
+def _sup_parse(run, steps, tag, device, n_layers):
+    """The child's report: the steps it printed, saves, restore, launches
+    (held to 2 L forwards and L of each backward kernel a step on the
+    card, none off it), counters, no jax."""
+    lines = run["lines"]
+    word = {ln.split()[0]: ln.split()[1:] for ln in lines if ln}
+    run["steps"] = [int(ln.split()[1]) for ln in lines
+                    if ln.startswith("step ")]
+    run["saves"] = [(int(s), int(b), float(ms)) for s, b, ms in
+                    (ln.split()[1:] for ln in lines
+                     if ln.startswith("SAVE "))]
+    r = word.get("RESTORE")
+    run["restore"] = (int(r[0]), int(r[1]), float(r[2]), int(r[3])) \
+        if r else None
+    run["launches"] = [int(x) for x in word["LAUNCHES"]]
+    run["counters"] = json.loads(
+        next(ln for ln in lines if ln.startswith("COUNTERS "))[9:])
+    check(word["MODULES"] == ["jax=0", "hetu_tpu=0"],
+          f"supervise {tag}: the child loaded {word['MODULES']}")
+    n = len(steps)
+    want = [2 * n_layers * n, n_layers * n, n_layers * n] \
+        if device == "cuda" else [0, 0, 0]
+    check(run["launches"][:3] == want,
+          f"supervise {tag}: flash launches {run['launches'][:3]} over "
+          f"{n} steps, expected {want}")
+    check(run["steps"] == list(steps),
+          f"supervise {tag}: ran steps {run['steps']}, expected "
+          f"{list(steps)}")
+    return run
+
+
+def _sup_state(path):
+    """A checkpoint's header and leaves, read with numpy alone (the port's
+    loader is not what is checked here)."""
+    with np.load(path, allow_pickle=False) as z:
+        header = json.loads(bytes(z["header"]).decode())
+        return header, [z[f"leaf_{i}"] for i in range(header["n_leaves"])]
+
+
+def _sup_gaps(a, b):
+    """Per leaf (max |a - b|, bitwise equal)."""
+    out = []
+    for x, y in zip(a, b):
+        x, y = np.asarray(x), np.asarray(y)
+        same = x.shape == y.shape and x.tobytes() == y.tobytes()
+        gap = 0.0 if same else float(np.max(np.abs(
+            x.astype(np.float64) - y.astype(np.float64))))
+        out.append((gap, same))
+    return out
+
+
+def _sup_inproc(spec, tag, trace_on, card):
+    """An uninterrupted supervised run in this process (no checkpoint
+    directory): its final leaves in checkpoint order, (seed, seqnum), the
+    step times (between successive post_steps; the guarded step waits for
+    its finiteness check), launches and counters; with ``trace_on``, its
+    ``recovery.retry`` spans."""
+    from hetu_tpu_torch import rng as hrng
+    from hetu_tpu_torch.telemetry import trace
+    from hetu_tpu_torch.train import checkpoint
+
+    cfg, ex, state, batch_fn = _sup_gpt(spec)
+    sup = _sup_supervisor(spec, ex, cfg)
+    stamps, losses = [time.perf_counter()], []
+
+    def post_step(i, st, metrics, batch):
+        stamps.append(time.perf_counter())
+        losses.append(float(metrics["loss"]))
+
+    counters = _all_counters()
+    for c in counters:
+        c.launches = 0
+    tracer = trace.enable() if trace_on else None
+    try:
+        rep = sup.run(state, batch_fn, spec["steps"], post_step=post_step)
+    finally:
+        if trace_on:
+            trace.disable()
+    launches = [c.launches for c in counters]
+    n, nl = spec["steps"], spec["L"]
+    want = [2 * nl * n, nl * n, nl * n] if spec["device"] == "cuda" \
+        else [0, 0, 0]
+    check(launches[:3] == want, f"supervise {tag}: flash launches "
+                                f"{launches[:3]}, expected {want}")
+    check(all(np.isfinite(losses)),
+          f"supervise {tag}: a loss is not finite: {losses}")
+    check(rep.counters.get("retries_data") == len(spec["data_errors"]),
+          f"supervise {tag}: {rep.counters.get('retries_data')} data "
+          f"retries, expected {len(spec['data_errors'])}")
+    out = dict(leaves=list(checkpoint.state_dict(rep.state, cfg).values()),
+               seed_status=hrng.get_seed_status(), losses=losses,
+               times=np.diff(stamps), launches=launches,
+               counters=rep.counters, ex=ex, state=rep.state,
+               batch_fn=batch_fn)
+    if trace_on:
+        out["retry_spans"] = [e for e in tracer.events
+                              if e["name"] == "recovery.retry"]
+        check(len(out["retry_spans"]) == len(spec["data_errors"]) and all(
+            e["args"]["what"] == "data" for e in out["retry_spans"]),
+            f"supervise {tag}: recovery.retry spans "
+            f"{[e['args'] for e in out['retry_spans']]}")
+    print(f"[supervise] gpt {tag}: {n} supervised steps, losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; data retries "
+          f"{rep.counters['retries_data']}; flash launches {launches[:3]} "
+          f"[{card}]")
+    return out
+
+
+def _sup_gpt_arm(card, seed, device, workdir):
+    """Arm (a): GPT-2-small through the Supervisor, uninterrupted twice in
+    this process, then preempted by SIGTERM in a child held at step 5,
+    its newest checkpoint corrupted, and resumed in a second child."""
+    spec = _sup_spec(seed, device)
+    t0 = time.perf_counter()
+    a1 = _sup_inproc(spec, "uninterrupted 1", True, card)
+    for k in ("ex", "state", "batch_fn"):
+        a1.pop(k)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    a2 = _sup_inproc(spec, "uninterrupted 2", False, card)
+    # the same guarded step with no supervisor around it
+    ex, state, batch_fn = a2.pop("ex"), a2.pop("state"), a2.pop("batch_fn")
+    bare = []
+    for i in range(SUP_BARE_STEPS):
+        t = time.perf_counter()
+        state, met = ex.run("train_guarded", state, batch_fn(i))
+        float(met["loss"])
+        bare.append(time.perf_counter() - t)
+    del ex, state, met
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    inproc_s = time.perf_counter() - t0
+    twins = _sup_gaps(a1["leaves"], a2["leaves"])
+    reproducible = all(same for _, same in twins) and \
+        a1["seed_status"] == a2["seed_status"]
+    sup_ms = float(np.median(a2["times"][1:])) * 1e3
+    bare_ms = float(np.median(bare[1:])) * 1e3
+    overhead = 100.0 * (sup_ms - bare_ms) / bare_ms
+    print(f"[supervise] gpt: the two uninterrupted arms "
+          f"{'bitwise equal' if reproducible else 'differ'} "
+          f"({sum(s for _, s in twins)} of {len(twins)} leaves bitwise, "
+          f"max |d| {max(g for g, _ in twins):.3e}); step median "
+          f"supervised {sup_ms:.3f} ms, bare {bare_ms:.3f} ms, overhead "
+          f"{overhead:.2f} % (the reference's target < 2 %, reported); "
+          f"in process {inproc_s:.1f} s [{card}]")
+
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    t_sig = []
+
+    def preempt(proc, line):
+        if line.startswith(f"step {SUP_HOLD_AT} "):
+            t_sig.append(time.perf_counter())
+            proc.send_signal(signal.SIGTERM)
+            proc.stdin.write("go\n")
+            proc.stdin.flush()
+
+    pre = _sup_parse(_sup_child(dict(spec, hold_at=SUP_HOLD_AT), ckpt_dir,
+                                workdir, "preempted", preempt),
+                     range(SUP_HOLD_AT + 1), "preempted", device, spec["L"])
+    stop = SUP_HOLD_AT + 1
+    pre_files = sorted(f for f in os.listdir(ckpt_dir) if f.endswith(".npz"))
+    check(pre["lines"][-1] == f"PREEMPTED {stop}" and
+          pre["counters"].get("preempt_signals") == 1 and
+          [s for s, _, _ in pre["saves"]] == [SUP_CKPT_EVERY, stop] and
+          pre_files == [f"ckpt-{SUP_CKPT_EVERY:08d}.npz",
+                        f"ckpt-{stop:08d}.npz"],
+          f"supervise preempted: {pre['lines'][-1]}, saves "
+          f"{pre['saves']}, files {pre_files}, counters {pre['counters']}")
+    check(pre["counters"].get("retries_data", 0) ==
+          sum(s < stop for s in SUP_DATA_ERRORS),
+          f"supervise preempted: data retries {pre['counters']}")
+    sigterm_exit_s = pre["t_exit"] - t_sig[0]
+
+    # bit rot in the newest checkpoint's body: its CRC no longer matches
+    newest = os.path.join(ckpt_dir, f"ckpt-{stop:08d}.npz")
+    with open(newest, "r+b") as f:
+        f.seek(os.path.getsize(newest) // 2)
+        body = bytearray(f.read(64))
+        f.seek(-len(body), 1)
+        f.write(bytes(b ^ 0xFF for b in body))
+
+    res = _sup_parse(_sup_child(spec, ckpt_dir, workdir, "resumed"),
+                     range(SUP_CKPT_EVERY, SUP_STEPS), "resumed", device,
+                     spec["L"])
+    c = res["counters"]
+    check(res["lines"][-1] == f"DONE {SUP_STEPS}" and
+          c.get("corrupt_checkpoints_skipped") == 1 and
+          c.get("resumed_from_step") == SUP_CKPT_EVERY and
+          res["restore"] is not None and
+          res["restore"][0] == SUP_CKPT_EVERY and res["restore"][3] == 1,
+          f"supervise resumed: {res['lines'][-1]}, restore "
+          f"{res['restore']}, counters {c}")
+    check(c.get("retries_data", 0) ==
+          sum(s >= SUP_CKPT_EVERY for s in SUP_DATA_ERRORS),
+          f"supervise resumed: data retries {c}")
+    print(f"[supervise] gpt resumed: skipped the corrupt checkpoint of "
+          f"step {stop} (CRC), restored step {res['restore'][0]} "
+          f"(resumed_from_step {c['resumed_from_step']}), ran steps "
+          f"{res['steps'][0]}-{res['steps'][-1]}, DONE {SUP_STEPS} "
+          f"[{card}]")
+
+    header, leaves = _sup_state(os.path.join(ckpt_dir,
+                                             f"ckpt-{SUP_STEPS:08d}.npz"))
+    gaps = _sup_gaps(leaves, a1["leaves"])
+    bitwise = all(same for _, same in gaps)
+    rng_same = tuple(header["rng"]) == tuple(a1["seed_status"])
+    if reproducible:
+        ok = bitwise and rng_same
+        rule = "bitwise, as the two uninterrupted arms are"
+    else:
+        ok = rng_same and all(g <= t for (g, _), (t, _) in zip(gaps, twins))
+        rule = "each leaf within the uninterrupted arms' own gap"
+    print(f"[supervise] gpt resume vs uninterrupted: "
+          f"{sum(s for _, s in gaps)} of {len(gaps)} leaves (parameters, "
+          f"AdamW slots, step, rng words) bitwise, max |d| "
+          f"{max(g for g, _ in gaps):.3e}; (seed, seqnum) {header['rng']} "
+          f"vs {list(a1['seed_status'])}; rule: {rule} [{card}]")
+    check(ok, "supervise: the resumed run does not match the uninterrupted "
+              f"one ({rule})")
+    saves = pre["saves"] + res["saves"]
+    for who, run in (("preempted", pre), ("resumed", res)):
+        for step, size, ms in run["saves"]:
+            print(f"[supervise] gpt {who}: save of step {step}: {size} "
+                  f"bytes in {ms:.1f} ms ({size / ms / 1e6:.3f} GB/s) "
+                  f"[{card}]")
+    r_step, r_size, r_ms, _ = res["restore"]
+    print(f"[supervise] gpt resumed: restore {r_ms:.1f} ms (two CRC "
+          f"passes, one of them over the corrupt file, and the load of "
+          f"step {r_step}'s {r_size} bytes); SIGTERM -> the child's exit "
+          f"{sigterm_exit_s:.3f} s; the resumed child's start -> its first "
+          f"step {res['first_step_s']:.3f} s (the preempted child's "
+          f"{pre['first_step_s']:.3f} s) [{card}]")
+    launches = [a + b + p + r for a, b, p, r in zip(
+        a1["launches"], a2["launches"], pre["launches"], res["launches"])]
+    return dict(reproducible=reproducible, bitwise=bitwise,
+                max_gap=max(g for g, _ in gaps),
+                twin_gap=max(g for g, _ in twins),
+                step_ms=sup_ms, bare_ms=bare_ms, overhead_pct=overhead,
+                saves=saves, restore=res["restore"],
+                sigterm_exit_s=sigterm_exit_s,
+                resume_first_step_s=res["first_step_s"],
+                preempt_first_step_s=pre["first_step_s"],
+                launches=launches,
+                launches_by_arm={"uninterrupted_1": a1["launches"],
+                                 "uninterrupted_2": a2["launches"],
+                                 "preempted": pre["launches"],
+                                 "resumed": res["launches"]})
+
+
+class _ShardSlot:
+    """A van shard process on a fixed port, as ``FaultInjector`` kills it:
+    ``kill()`` SIGKILLs it and returns once the table's heartbeat has seen
+    it die (the guard's poll then finds it dead, as a poll one heartbeat
+    later would), and restarts it on the same port after a beat of
+    downtime (the preemptible fleet's scheduler), in a thread."""
+
+    def __init__(self, workdir, port, tag):
+        from hetu_tpu_torch.resilience.shardproc import spawn_shard_server
+        self._spawn = lambda t: spawn_shard_server(workdir, port, t)
+        self.port, self.tag = port, tag
+        self.proc = self._spawn(tag)
+        self.table = self.index = self.killed = self.thread = None
+        self.dead_seen_s = self.respawned_s = None
+
+    def kill(self):
+        self.killed = self.proc
+        t0 = time.perf_counter()
+        self.proc.kill()
+        self.proc.wait()
+        deadline = time.monotonic() + 30.0
+        while self.table.alive[self.index]:
+            check(time.monotonic() < deadline, "supervise ps: the heartbeat "
+                  "did not see the killed shard die within 30 s")
+            time.sleep(0.005)
+        self.dead_seen_s = time.perf_counter() - t0
+
+        def respawn():
+            time.sleep(0.2)
+            self.proc = self._spawn(self.tag + "r")
+            self.respawned_s = time.perf_counter() - t0
+        self.thread = threading.Thread(target=respawn, daemon=True)
+        self.thread.start()
+
+    def wait(self, timeout=None):
+        return (self.killed or self.proc).wait(timeout)
+
+    def poll(self):
+        return self.proc.poll()
+
+    def send_signal(self, sig):
+        self.proc.send_signal(sig)
+
+    def close(self):
+        if self.thread is not None:
+            self.thread.join(30)
+        self.proc.kill()
+        self.proc.wait()
+
+
+def _sup_checked_guard(table, snapshot_path):
+    """``PSShardGuard`` holding every repair to its snapshot: the repaired
+    shard's rows and adagrad slots must read back bitwise equal to the
+    snapshot the guard held when it first saw the shard dead (and still
+    holds), and every other shard's rows as they were just before."""
+    from hetu_tpu_torch.resilience import PSShardGuard
+
+    class CheckedGuard(PSShardGuard):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.checked, self.at_death = [], {}
+
+        def poll(self):
+            t = self.table
+            due = set(self._pending) | {i for i, a in enumerate(t.alive)
+                                        if not a}
+            for i in due - set(self.at_death):
+                if i in self._have_slots:
+                    r = self.shard_rows(i)
+                    self.at_death[i] = [a[r].copy() for a in (
+                        self._snap, self._snap_s1, self._snap_s2,
+                        self._snap_step)]
+            before = {j: t.sparse_pull(self.shard_rows(j))
+                      for j in range(t.n_servers) if due and j not in due}
+            t0 = time.perf_counter()
+            done = super().poll()
+            ms = (time.perf_counter() - t0) * 1e3
+            for i in (due - self._pending) if done else ():
+                r = self.shard_rows(i)
+                got = [t.sparse_pull(r), *t.slots_get(r)]
+                snap = [a[r] for a in (self._snap, self._snap_s1,
+                                       self._snap_s2, self._snap_step)]
+                ok = all(np.array_equal(x, y) and np.array_equal(x, z)
+                         for x, y, z in zip(got, snap, self.at_death[i]))
+                live = all(np.array_equal(t.sparse_pull(self.shard_rows(j)),
+                                          b) for j, b in before.items())
+                self.checked.append(dict(shard=i, rows=len(r), ms=ms,
+                                         bitwise=ok, live_unchanged=live))
+                check(ok, f"supervise ps: shard {i}'s rows or slots differ "
+                          "from the snapshot after the repair")
+                check(live, "supervise ps: the repair changed a live shard")
+            return done
+
+    return CheckedGuard(table, snapshot_path=snapshot_path)
+
+
+def _sup_ps_arm(card, seed, device, workdir):
+    """Arm (b): the Wide & Deep PS step at ps_ctr's PS-leg size through
+    the Supervisor, over a table key-range-split across two van shard
+    processes, under the reference chaos test's seeded schedule (a shard
+    SIGKILLed and repaired from the guard's snapshot, a NaN batch, two
+    van faults)."""
+    from hetu_tpu_torch import ops
+    from hetu_tpu_torch.models import WideDeep
+    from hetu_tpu_torch.optim import AdamOptimizer
+    from hetu_tpu_torch.ps import PartitionedPSTable
+    from hetu_tpu_torch.resilience import (
+        FaultInjector, FaultSchedule, Supervisor,
+    )
+    from hetu_tpu_torch.resilience.shardproc import free_port
+    from hetu_tpu_torch.telemetry import timeline, trace
+    from hetu_tpu_torch.train import Executor
+
+    sched = FaultSchedule.generate(**SUP_PS_SCHEDULE)
+    kinds = sorted(e.kind for e in sched.events)
+    check(kinds == ["kill_shard", "nan_grad", "van_error", "van_error"],
+          f"supervise ps: the seeded schedule drew {kinds}")
+    sparse, dense_x, y = synthetic_ctr(CTR_B * 64, CTR_F, CTR_DENSE,
+                                       CTR_PS_V, seed)
+    n = sparse.shape[0]
+    t0 = time.perf_counter()
+    slots = [_ShardSlot(workdir, free_port(), f"sup{i}") for i in range(2)]
+    table = None
+    try:
+        table = PartitionedPSTable(
+            [("127.0.0.1", s.port) for s in slots], CTR_PS_V, CTR_DIM,
+            init="normal", init_b=0.01, seed=seed, optimizer="adagrad",
+            lr=SUP_PS_ADAGRAD_LR, heartbeat_ms=100)
+        for i, s in enumerate(slots):
+            s.table, s.index = table, i
+        model = WideDeep(CTR_F, CTR_DIM, CTR_DENSE, CTR_HIDDEN,
+                         generator=torch.Generator(device=device).manual_seed(
+                             seed), device=device)
+
+        def loss_fn(params, model_state, batch, gen, train):
+            rows = batch["rows"].requires_grad_()
+            logit = model(batch["dense"], rows)
+            loss = ops.binary_cross_entropy_with_logits(
+                logit, batch["y"]).mean()
+            # the rows' gradient rides the metrics out to the push; the
+            # Executor then takes the parameters' from the same graph
+            ge, = torch.autograd.grad(loss, rows, retain_graph=True)
+            return loss, ({"ge": ge}, model_state)
+
+        def batch_fn(i):
+            lo = (i * CTR_B) % (n - CTR_B)
+            ids = sparse[lo:lo + CTR_B]
+            rows = table.sparse_pull(ids.reshape(-1))
+            return {"dense": dense_x[lo:lo + CTR_B], "ids": ids,
+                    "rows": rows.reshape(CTR_B, CTR_F, CTR_DIM),
+                    "y": y[lo:lo + CTR_B]}
+
+        losses = []
+
+        def post_step(i, st, metrics, batch):
+            table.sparse_push(batch["ids"].reshape(-1),
+                              metrics["ge"].detach().reshape(-1, CTR_DIM)
+                              .float().cpu().numpy())
+            losses.append((i, float(metrics["loss"])))
+
+        ex = Executor(loss_fn, AdamOptimizer(CTR_PS_LR), seed=seed)
+        guard = _sup_checked_guard(table, os.path.join(workdir, "snap.npz"))
+        sup = Supervisor(ex, injector=FaultInjector(sched, shard_procs=slots),
+                         guards=[guard], ckpt_every=SUP_PS_EVERY, retries=25,
+                         backoff_base_s=0.05, backoff_max_s=0.5, seed=seed)
+        built = time.perf_counter() - t0
+        counters = _all_counters()
+        for c in counters:
+            c.launches = 0
+        tracer = trace.enable()
+        t1 = time.perf_counter()
+        try:
+            rep = sup.run(ex.init_state(model), batch_fn, SUP_PS_STEPS,
+                          post_step=post_step)
+        finally:
+            trace.disable()
+        run_s = time.perf_counter() - t1
+        ps_launches = [c.launches for c in counters]
+        recovered = table.recovered
+    finally:
+        if table is not None:
+            table.close()
+        for s in slots:
+            s.close()
+    c = rep.counters
+    print(f"[supervise] ps: WideDeep hidden {CTR_HIDDEN} Adam({CTR_PS_LR:g})"
+          f" on a PartitionedPSTable({CTR_PS_V}, {CTR_DIM}, adagrad, lr "
+          f"{SUP_PS_ADAGRAD_LR:g}) over 2 van shard processes, B {CTR_B}, "
+          f"{SUP_PS_STEPS} steps under FaultSchedule.generate("
+          f"{', '.join(f'{k}={v}' for k, v in SUP_PS_SCHEDULE.items())}) = "
+          f"{sched.to_json()}; built in {built:.1f} s, ran in {run_s:.1f} s "
+          f"[{card}]")
+    print(f"[supervise] ps counters: " + ", ".join(
+        f"{k} {c.get(k, 0)}" for k in (
+            "shards_killed", "van_errors_injected", "nan_injected",
+            "nonfinite_steps_skipped", "retries", "retries_data",
+            "retries_guard", "retries_post_step", "shard_repairs",
+            "shard_snapshots", "shard_snapshot_errors"))
+          + f"; table.recovered {recovered} [{card}]")
+    check(c.get("shards_killed") == 1 and c.get("van_errors_injected") == 2
+          and c.get("nan_injected") == 1
+          and c.get("nonfinite_steps_skipped", 0) >= 1
+          and c.get("retries", 0) >= 2 and c.get("shard_repairs", 0) >= 1
+          and recovered >= 1, f"supervise ps: counters {dict(c)}, "
+                              f"recovered {recovered}")
+    check(guard.checked and all(x["bitwise"] and x["live_unchanged"]
+                                for x in guard.checked),
+          f"supervise ps: the repair was not checked: {guard.checked}")
+    vals = [x for _, x in losses]
+    check(rep.step == SUP_PS_STEPS and len(vals) == SUP_PS_STEPS - c[
+        "nonfinite_steps_skipped"] and all(np.isfinite(vals)),
+          f"supervise ps: step {rep.step}, {len(vals)} finite losses")
+    first, last = float(np.mean(vals[:5])), float(np.mean(vals[-5:]))
+    print(f"[supervise] ps losses (finite steps): "
+          f"{' '.join(f'{x:.4f}' for x in vals)}; mean of the first five "
+          f"{first:.4f}, of the last five {last:.4f} [{card}]")
+    check(last < first, "supervise ps: the loss did not fall")
+    pairs = timeline.correlate(tracer.events)
+    by = {}
+    for p in pairs:
+        by.setdefault(p.kind, []).append(p)
+    for kind, name in (("kill_shard", "recovery.shard_repair"),
+                       ("nan_grad", "recovery.nonfinite_skip"),
+                       ("van_error", "recovery.retry")):
+        check(kind in by and all(p.paired and p.recovery_name == name
+                                 for p in by[kind]),
+              f"supervise ps: fault.{kind} is not paired with {name}: "
+              f"{by.get(kind)}")
+        for p in by[kind]:
+            print(f"[supervise] ps: fault.{kind} -> {p.recovery_name}: "
+                  f"detection {p.detect_s * 1e3:.3f} ms, recovery "
+                  f"{p.recover_s * 1e3:.3f} ms [{card}]")
+    snaps = [e["dur"] / 1e3 for e in tracer.events
+             if e["name"] == "supervisor.shard_snapshot"]
+    snap_mb = os.path.getsize(os.path.join(workdir, "snap.npz")) / 1e6
+    wire_mb = CTR_PS_V * (3 * CTR_DIM * 4 + 8) / 1e6
+    repair = guard.checked[0]
+    kill_s = by["kill_shard"][0].recover_s
+    slot = slots[int(next(e.arg for e in sched.events
+                          if e.kind == "kill_shard"))]
+    print(f"[supervise] ps: {len(snaps)} snapshots of {wire_mb:.1f} MB "
+          f"pulled (rows, two slots, steps) and a {snap_mb:.1f} MB file: "
+          f"ms {' '.join(f'{x:.1f}' for x in snaps)}; the repair of shard "
+          f"{repair['shard']} ({repair['rows']} rows and slots bitwise the "
+          f"snapshot of before its death; the live shard unchanged) "
+          f"{repair['ms']:.1f} ms; the kill -> heartbeat saw it dead "
+          f"{slot.dead_seen_s:.3f} s, -> respawned READY "
+          f"{slot.respawned_s:.3f} s, -> repaired {kill_s:.3f} s [{card}]")
+    return dict(counters=dict(c), recovered=recovered, losses=vals,
+                snapshot_ms=snaps, snapshot_mb=snap_mb, wire_mb=wire_mb,
+                repair_ms=repair["ms"], death_to_repaired_s=kill_s,
+                respawned_s=slot.respawned_s, run_s=run_s,
+                launches=ps_launches)
+
+
+def phase_supervise(card, seed, device="cuda"):
+    """The training supervisor (resilience/supervisor.py): (a) GPT-2-small
+    preempted by a real SIGTERM and resumed step-exactly in a fresh
+    process past a corrupt checkpoint; (b) a PS-hybrid Wide & Deep run
+    whose van shard process is SIGKILLed and repaired from the guard's
+    snapshot.  Returns the numbers for the summary and the kernels
+    line."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="supervise_") as root:
+        gpt = _sup_gpt_arm(card, seed, device, root)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        ps_dir = os.path.join(root, "ps")
+        os.makedirs(ps_dir)
+        ps = _sup_ps_arm(card, seed, device, ps_dir)
+    out = dict(gpt=gpt, ps=ps, launches=gpt["launches"],
+               ps_launches=ps["launches"],
+               seconds=time.perf_counter() - t0)
+    print(f"[supervise] phase {out['seconds']:.1f} s (budget "
+          f"{SUP_BUDGET_S:g} s); launches of the six kernels: gpt "
+          f"{out['launches']}, ps {out['ps_launches']} [{card}]")
+    return out
+
+
 def _fwd_case(card, shape, causal, gen, runs, tag):
     """The forward kernel at ``shape`` (bf16, contiguous): held against
     its plain version with the row-scaled ``TOL_F``, then timed beside it,
@@ -8627,6 +9364,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_ps_ctr(card, args.seed)
     torch.cuda.empty_cache()
+    supervise = phase_supervise(card, args.seed)
+    torch.cuda.empty_cache()
     cnn = phase_train_cnn(card, args.seed)
     torch.cuda.empty_cache()
     rnn = phase_train_rnn(card, args.seed)
@@ -8644,7 +9383,11 @@ def main(argv=None) -> int:
     later = [{"train_cnn": cnn["launches"][i], "train_rnn": rnn["launches"][i],
               "train_gcn": gcn["launches"][i],
               "gcn_sampled": sampled["launches"][i],
-              "train_compressed": compressed["launches"][i]}
+              "train_compressed": compressed["launches"][i],
+              # the supervisor's GPT arm (all its runs, the children's
+              # included) and its PS arm
+              "supervise": supervise["launches"][i],
+              "supervise_ps": supervise["ps_launches"][i]}
              for i in range(6)]
 
     shape = [TRAIN_B, NH, TRAIN_S, HEAD_DIM]
@@ -8737,7 +9480,18 @@ def main(argv=None) -> int:
           f"members, gold TTFT p99 {g.get('ttft_p99_s')} s "
           f"({'met' if traffic['gold_p99_met'] else 'missed'}), "
           f"{traffic['prefills']} member prefills, flash forwards launched "
-          f"{traffic['launches']}; the script "
+          f"{traffic['launches']} [{card}]")
+    sg, sp = supervise["gpt"], supervise["ps"]
+    print(f"[supervise] summary: phase {supervise['seconds']:.1f} s; gpt "
+          f"step {sg['step_ms']:.3f} ms supervised, {sg['bare_ms']:.3f} ms "
+          f"bare ({sg['overhead_pct']:.2f} %), preempted at step "
+          f"{SUP_HOLD_AT + 1}, SIGTERM -> exit {sg['sigterm_exit_s']:.3f} s, "
+          f"resumed past a corrupt checkpoint "
+          f"{'bitwise' if sg['bitwise'] else 'within the twins gap'} "
+          f"(twins {'bitwise' if sg['reproducible'] else 'differ'}); ps "
+          f"shard repaired {sp['death_to_repaired_s']:.3f} s after its kill, "
+          f"repair {sp['repair_ms']:.1f} ms; flash launches "
+          f"{supervise['launches'][:3]}; the script "
           f"{time.perf_counter() - t_script:.1f} s [{card}]")
     print(card)
     print(json.dumps(report))

@@ -132,17 +132,6 @@ class MembershipWireError(TimeoutError):
     here)."""
 
 
-def default_is_transient(exc: BaseException) -> bool:
-    """Errors worth retrying (the reference supervisor's rule): transport
-    failures of the van (a dropped connection, an injected fault, a
-    native wire op's ``hetu_ps ... rc=`` error) and flaky-data errors.
-    Everything else (shape errors, real bugs) is not."""
-    from hetu_tpu_torch.resilience.faults import TransientDataError
-    if isinstance(exc, (ConnectionError, TimeoutError, TransientDataError)):
-        return True
-    return isinstance(exc, RuntimeError) and "hetu_ps" in str(exc)
-
-
 def fresh_incarnation() -> int:
     """Random nonzero 20-bit id — exact in f32, negligible collision odds
     across the handful of processes sharing one blackboard."""
@@ -170,6 +159,7 @@ def control_rpc(fn: Callable, *, attempts: int = 4, base_s: float = 0.05,
     is truncated, so a fully partitioned member's heartbeat loop cycles
     at a bounded period instead of stacking full backoff ladders."""
     if is_transient is None:
+        from hetu_tpu_torch.resilience.supervisor import default_is_transient
         is_transient = default_is_transient
     rng = rng if rng is not None else random
     t0 = time.monotonic()

@@ -15,7 +15,9 @@ name, then ``step``), the model state tree (a batch norm's ``mean`` and
 the two packages in both directions; :mod:`hetu_tpu_torch.interop`
 converts the layouts of the models it knows (``config`` is the model's
 ``GPTConfig`` or ``MoEConfig``, or the model itself for the CTR and CNN
-models).
+models).  With ``config=None`` the state is any nested dict of numpy
+arrays or tensors, its leaves in the same order (keys sorted, depth
+first), as the reference saves a plain pytree.
 """
 
 from __future__ import annotations
@@ -77,6 +79,28 @@ def _trees(state, config) -> list:
             np.asarray(state.step, np.int32)]
 
 
+def _host(leaf):
+    """A leaf as numpy: a tensor is read back from its device (a bf16
+    tensor as float32, exact)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(leaf)
+
+
+def _leaves(state, config) -> list:
+    """``state``'s leaves in the reference's flatten order: a ``TrainState``
+    of the model of ``config``, or (``config=None``) a nested dict."""
+    if config is None:
+        if not isinstance(state, dict):
+            raise TypeError(
+                f"a {type(state).__name__} is saved with its model's "
+                "config (checkpoint.save(path, state, config)); "
+                "config=None takes a nested dict of arrays or tensors")
+        return [_host(leaf) for leaf in _flatten(state)]
+    return [leaf for tree in _trees(state, config) for leaf in _flatten(tree)]
+
+
 def state_dict(state, config) -> dict:
     """``{path: numpy array}`` of ``state`` (a port ``TrainState`` of the
     model of ``config``), keyed as the reference's ``state_dict`` keys its
@@ -87,13 +111,14 @@ def state_dict(state, config) -> dict:
             for path, leaf in _paths(tree, f"[<flat index {i}>]")}
 
 
-def save(path, state, config, *, extra: Optional[dict] = None) -> None:
-    """Write ``state`` (a port ``TrainState`` of the model of ``config``)
-    to ``path``."""
+def save(path, state, config=None, *,
+         extra: Optional[dict] = None) -> None:
+    """Write ``state`` (a port ``TrainState`` of the model of ``config``,
+    or with ``config=None`` a nested dict of arrays or tensors) to
+    ``path``."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    leaves = [leaf for tree in _trees(state, config)
-              for leaf in _flatten(tree)]
+    leaves = _leaves(state, config)
     seed, seqnum = hrng.get_seed_status()
     arrays = {f"leaf_{i}": np.asarray(leaf) for i, leaf in enumerate(leaves)}
     header = {
@@ -179,24 +204,45 @@ def _read(path):
     return header, leaves
 
 
-def load(path, state, config, *, restore_rng: bool = True):
+def _from_template(arr, want):
+    """A loaded leaf in the kind of its template leaf: a tensor of the
+    template's dtype on its device, or a numpy array of its dtype."""
+    if isinstance(want, torch.Tensor):
+        return torch.from_numpy(np.array(arr)).to(device=want.device,
+                                                  dtype=want.dtype)
+    if hasattr(want, "dtype") and arr.dtype != want.dtype:
+        return arr.astype(want.dtype)
+    return arr
+
+
+def load(path, state, config=None, *, restore_rng: bool = True):
     """Load ``path`` into ``state`` (a port ``TrainState`` of the model of
     ``config``): parameters, slots and state buffers are copied into the
     state's own tensors, in place.  Returns the state with the saved
-    steps and rng words.  Raises :class:`CheckpointCorruptError` for an
-    unreadable file and :class:`CheckpointError` for one of another
+    steps and rng words.  With ``config=None`` ``state`` is a nested dict
+    (the template) and a new one comes back, each leaf in its template
+    leaf's kind, dtype and device.  Raises :class:`CheckpointCorruptError`
+    for an unreadable file and :class:`CheckpointError` for one of another
     architecture."""
     header, leaves = _read(path)
-    template = _trees(state, config)
+    template = _trees(state, config) if config is not None else [state]
     flat = [leaf for tree in template for leaf in _flatten(tree)]
     if len(leaves) != len(flat):
         raise CheckpointError(
             f"checkpoint has {len(leaves)} leaves, template {len(flat)}")
     for i, (arr, want) in enumerate(zip(leaves, flat)):
-        if tuple(arr.shape) != tuple(np.shape(want)):
+        shape = tuple(want.shape if hasattr(want, "shape")
+                      else np.shape(want))
+        if tuple(arr.shape) != shape:
             raise CheckpointError(
                 f"checkpoint leaf {i} shape {arr.shape} != template "
-                f"{tuple(np.shape(want))}; wrong architecture?")
+                f"{shape}; wrong architecture?")
+    if config is None:
+        out = _unflatten(state, iter(
+            _from_template(arr, want) for arr, want in zip(leaves, flat)))
+        if restore_rng:
+            hrng.set_seed_status(*header["rng"])
+        return out
     it = iter(leaves)
     params, opt, model_state, rng, step = (_unflatten(t, it)
                                            for t in template)

@@ -1540,3 +1540,104 @@ def test_kernels_line_counts_the_pool_path():
     assert chip_smoke.POOL_V == 50257 and chip_smoke.POOL_P == 1024
     assert (chip_smoke.POOL_MEMBERS, chip_smoke.POOL_SLOTS,
             chip_smoke.POOL_MAX_LEN) == (3, 8, 512)
+
+
+# ---- the supervise phase ----
+
+TINY_SUPERVISE = dict(H=64, L=2, NH=4, FFN=128, SUP_V=97, SUP_S=64, SUP_B=2,
+                      CTR_PS_V=20000, CTR_B=128, CTR_HIDDEN=(16, 16))
+
+
+def test_supervise_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """Both arms at tiny widths, their processes on the CPU: the two
+    uninterrupted runs bitwise equal, the child preempted at step 6 by a
+    real SIGTERM, the corrupt checkpoint skipped, step 4 restored and the
+    resumed run bitwise the uninterrupted one; the shard killed, repaired
+    bitwise from its snapshot and every fault paired; no child with jax
+    or hetu_tpu (the phase's own gate); no launch off the card; the
+    printed lines and the summary keep their schema."""
+    import re
+
+    for name, value in TINY_SUPERVISE.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    out = chip_smoke.phase_supervise("cpu", 0, device="cpu")
+    text = capsys.readouterr().out
+    gpt, ps = out["gpt"], out["ps"]
+    assert gpt["reproducible"] and gpt["bitwise"] and gpt["max_gap"] == 0.0
+    assert [s for s, _, _ in gpt["saves"]] == [4, 6, 8, 12]
+    assert gpt["restore"][0] == 4 and gpt["restore"][3] == 1
+    assert gpt["sigterm_exit_s"] > 0 and gpt["resume_first_step_s"] > 0
+    assert gpt["step_ms"] > 0 and gpt["bare_ms"] > 0
+    assert set(gpt["launches_by_arm"]) == {"uninterrupted_1",
+                                           "uninterrupted_2", "preempted",
+                                           "resumed"}
+    c = ps["counters"]
+    assert c["shards_killed"] == 1 and c["van_errors_injected"] == 2
+    assert c["nan_injected"] == 1 and c["nonfinite_steps_skipped"] == 1
+    assert c["retries"] >= 2 and c["shard_repairs"] >= 1
+    assert ps["recovered"] >= 1 and len(ps["snapshot_ms"]) == 7
+    assert ps["death_to_repaired_s"] > 0 and ps["repair_ms"] > 0
+    assert out["launches"] == [0] * 6 and out["ps_launches"] == [0] * 6
+    assert out["seconds"] > 0
+    for pattern in (
+            r"\[supervise\] gpt: the two uninterrupted arms bitwise equal "
+            r"\(\d+ of \d+ leaves bitwise, max \|d\| 0\.000e\+00\); step "
+            r"median supervised [\d.]+ ms, bare [\d.]+ ms, overhead "
+            r"-?[\d.]+ %",
+            r"\[supervise\] gpt resumed: skipped the corrupt checkpoint of "
+            r"step 6 \(CRC\), restored step 4 \(resumed_from_step 4\), ran "
+            r"steps 4-11, DONE 12",
+            r"\[supervise\] gpt resume vs uninterrupted: (\d+) of \1 leaves",
+            r"\[supervise\] gpt preempted: save of step 6: \d+ bytes in "
+            r"[\d.]+ ms",
+            r"SIGTERM -> the child's exit [\d.]+ s; the resumed child's "
+            r"start -> its first step [\d.]+ s",
+            r"\[supervise\] ps counters: shards_killed 1, "
+            r"van_errors_injected 2, nan_injected 1, "
+            r"nonfinite_steps_skipped 1",
+            r"\[supervise\] ps: fault\.kill_shard -> recovery\.shard_repair:"
+            r" detection [\d.]+ ms, recovery [\d.]+ ms \[cpu\]",
+            r"\[supervise\] ps: fault\.nan_grad -> recovery\.nonfinite_skip",
+            r"\[supervise\] ps: 7 snapshots of [\d.]+ MB pulled .* the "
+            r"repair of shard 1 \(10000 rows and slots bitwise the snapshot "
+            r"of before its death; the live shard unchanged\)",
+            r"\[supervise\] phase [\d.]+ s \(budget 100 s\); launches of the"
+            r" six kernels: gpt \[0, 0, 0, 0, 0, 0\], ps \[0, 0, 0, 0, 0, "
+            r"0\] \[cpu\]"):
+        assert re.search(pattern, text), pattern
+
+
+def test_supervise_resume_rule_holds_a_leaf_to_the_twins_gap():
+    """The resume gate's per-leaf gaps: bitwise leaves read 0; a leaf one
+    ulp away reads its difference and is not bitwise."""
+    a = [np.arange(4, dtype=np.float32), np.array([1, 2], np.uint32)]
+    b = [a[0].copy(), a[1].copy()]
+    assert chip_smoke._sup_gaps(a, b) == [(0.0, True), (0.0, True)]
+    b[0][2] = np.nextafter(np.float32(2), np.float32(3))
+    (gap, same), _ = chip_smoke._sup_gaps(a, b)
+    assert not same and gap == pytest.approx(2.0 ** -22)
+
+
+def test_kernels_line_counts_the_supervise_paths():
+    """main() runs the supervise phase right after ps_ctr; every row's
+    launches by path gains "supervise" (the GPT arm, its children
+    included) and "supervise_ps" (the PS arm) through ``later``, and the
+    phase's summary line stays in the output's tail after traffic's; the
+    phase keeps GPT-2-small's published widths and its schedule."""
+    src = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    main = src[src.index("def main("):]
+    order = [main.index(f"phase_{p}(card") for p in (
+        "ps_ctr", "supervise", "train_cnn")]
+    assert order == sorted(order)
+    assert main.count('"supervise": supervise["launches"][i]') == 1
+    assert main.count('"supervise_ps": supervise["ps_launches"][i]') == 1
+    assert main.index("[traffic] summary:") < \
+        main.index("[supervise] summary:") < main.index("print(card)")
+    assert (chip_smoke.SUP_V, chip_smoke.SUP_S, chip_smoke.SUP_B,
+            chip_smoke.SUP_STEPS) == (50257, 1024, 8, 12)
+    assert (chip_smoke.SUP_CKPT_EVERY, chip_smoke.SUP_KEEP,
+            chip_smoke.SUP_HOLD_AT) == (4, 2, 5)
+    assert chip_smoke.SUP_PS_SCHEDULE == dict(
+        steps=40, seed=11, van_errors=2, nan_steps=1, kill_shards=1,
+        n_shards=2)
+    assert "jax" not in chip_smoke._SUP_CHILD_SRC

@@ -629,6 +629,63 @@ def test_traffic_plane_and_autoscaled_controller_run_without_jax(tmp_path):
             "traffic/autoscale.py"} <= names
 
 
+def test_training_supervisor_straggler_and_logger_run_without_jax(
+        tmp_path):
+    """The supervisor, straggler detection and the metric logger import
+    without torch (the checkpoint module loads on first use), then a
+    supervised run preempted by the injector resumes from its checkpoint,
+    a detector sweep records an episode, and the logger holds the
+    counters; jax and hetu_tpu stay out."""
+    out = _run(
+        "import sys\n"
+        "import hetu_tpu_torch.resilience.supervisor\n"
+        "import hetu_tpu_torch.resilience.straggler\n"
+        "import hetu_tpu_torch.utils.logger\n"
+        "print('TORCH', 'torch' in sys.modules)\n"
+        "import torch\n"
+        "from hetu_tpu_torch import layers, ops, optim\n"
+        "from hetu_tpu_torch.resilience import (FaultEvent, FaultInjector,\n"
+        "    FaultSchedule, Supervisor)\n"
+        "from hetu_tpu_torch.resilience.straggler import StragglerDetector\n"
+        "from hetu_tpu_torch.train import Executor\n"
+        "from hetu_tpu_torch.utils import MetricLogger\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "model = layers.Sequential(layers.Linear(4, 8, generator=g),\n"
+        "                          layers.Relu(),\n"
+        "                          layers.Linear(8, 2, generator=g))\n"
+        "x = torch.randn(16, 4, generator=g)\n"
+        "y = (x.sum(1) > 0).int()\n"
+        "def loss_fn(params, model_state, batch, gen, train):\n"
+        "    loss = ops.softmax_cross_entropy_sparse(model(batch[0]),\n"
+        "                                            batch[1]).mean()\n"
+        "    return loss, ({}, model_state)\n"
+        "logger = MetricLogger()\n"
+        "ex = Executor(loss_fn, optim.AdamOptimizer(0.01), seed=0)\n"
+        "inj = FaultInjector(FaultSchedule([FaultEvent(2, 'preempt')]))\n"
+        f"sup = Supervisor(ex, ckpt_dir={str(tmp_path)!r}, injector=inj,\n"
+        "                 config=model, logger=logger)\n"
+        "rep = sup.run(ex.init_state(model), lambda i: (x, y), 5)\n"
+        "assert rep.preempted and rep.step == 3\n"
+        f"rep = Supervisor(ex, ckpt_dir={str(tmp_path)!r}, config=model)\\\n"
+        "    .run(ex.init_state(model), lambda i: (x, y), 5)\n"
+        "print('RESUMED', rep.counters['resumed_from_step'], rep.step)\n"
+        "det = StragglerDetector(factor=2.0)\n"
+        "det.observe({0: 10.0, 1: 10.0, 2: 50.0})\n"
+        "det.close_all()\n"
+        "print('EPISODES', len(det.records))\n"
+        "print('LOGGED', logger.counters_snapshot()['checkpoints'])\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "TORCH False" in out and "LEAKED []" in out
+    assert "RESUMED 3 5" in out and "EPISODES 1" in out
+    assert "LOGGED 1" in out
+    names = {p.relative_to(PKG).as_posix() for p in SOURCES
+             if PKG in p.parents}
+    assert {"resilience/supervisor.py", "resilience/straggler.py",
+            "utils/logger.py"} <= names
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
