@@ -256,7 +256,27 @@ without the final result line:
    the repaired shard's rows and slots bitwise its snapshot of before the
    kill, the live shard unchanged, a falling loss, each fault paired with
    its recovery span; snapshot and repair ms, death -> repaired s.
-15b. train_cnn — examples/cnn_resnet.py's ResNet-18 / CIFAR-10 (f32, B
+15b. elastic — the multi-controller elastic training plane
+   (``resilience/multicontroller.py``, ``resilience/memberproc.py``) and
+   the standby's elastic takeover, over one van process: three worker
+   processes (numpy over the van, neither torch nor jax) train a seeded
+   regression on a [1024, 1024] f32 weights table (4 MiB) and a [3072,
+   1024] staging table with rank-ordered apply, 6144 samples, global
+   batch 768, lr 0.05, 48 steps.  (a) two clean in-process supervisors:
+   complete covers, the final weights bitwise equal and within 1e-5 of
+   max|w| of a plain numpy replay, a falling loss; (b) the seeded worker
+   SIGKILL: the shrink at width 2, 5 survivor steps, a replacement grows
+   the fleet back to 3, widths {2, 3}, the kill paired with
+   ``elastic.reshard`` within 10 s; (c) the controller a process of its
+   own, SIGKILLed by the seeded schedule under a standby process
+   (``plane="elastic"``): PROMOTED and ALLDONE, incarnation >= 2, a
+   ``takeover`` resize, a complete cover, the final weights bitwise (a)'s
+   where no gradient was re-pushed, the kill paired with
+   ``ctrl.takeover``.  No worker, controller or standby loads torch or
+   jax.  The median step ms and the van's bytes a step of each arm, the
+   detection, shrink, READY, grow and hand-off times; the phase's seconds
+   against its 60 s budget.
+15c. train_cnn — examples/cnn_resnet.py's ResNet-18 / CIFAR-10 (f32, B
    128, Momentum(0.9) under the cosine schedule) on its ``--subset`` of
    the synthetic CIFAR-10 through ``Dataloader`` and 20
    ``Executor.run("train")`` steps (finite, falling loss; the batch norms'
@@ -268,27 +288,27 @@ without the final result line:
    step over the f32 peak, peak memory, one profiled step; then VGG-16
    (BN, DropOut from the step's generator), LeNet (MNIST padded to 32 x
    32) and the MLP, 10 steps each (finite, falling loss).
-15c. train_rnn — examples/rnn_mnist.py's recurrent classifiers (rnn,
+15d. train_rnn — examples/rnn_mnist.py's recurrent classifiers (rnn,
    lstm, gru; 28 rows of 28 pixels, hidden 128, B 128, Adam(1e-3)), 20
    Executor steps each on a 256-sample subset of the synthetic MNIST
    (finite, falling loss; no kernel of the six launches), one pass in f32
    against float64; step time, samples/s, peak memory, one profiled step.
-15d. train_gcn — the 2-layer GCN (hidden 256, dropout 0.5, Adam(0.01)) on
+15e. train_gcn — the 2-layer GCN (hidden 256, dropout 0.5, Adam(0.01)) on
    a seeded graph at ogbn-arxiv's sizes (169 343 nodes, 128 features, 40
    classes, 2 332 486 directed edges), 20 full-graph Executor steps
    (finite, falling loss; gcn_norm's degrees exact; no kernel launches),
    one pass in f32 against float64 through f32's ReLU pattern; step time,
    nodes/s, peak memory, one profiled step.
-15e. gcn_sampled — the same graph published to in-process PS tables,
+15f. gcn_sampled — the same graph published to in-process PS tables,
    GraphSAGE's sampling (fanouts 25, 10; 512 seeds) through
    ``NeighborSampler``, 8 padded batches normalised on the card and
    trained through the Executor (every sampled edge real, fan-in bounded,
    the loss of the last 3 batches below the first 3's); sample, pull and
    step times.
-15f. ops_zoo — every op of the elementwise, shape, reduce and matmul
+15g. ops_zoo — every op of the elementwise, shape, reduce and matmul
    families on the card against the CPU (index and shape ops exactly,
    arithmetic within 1e-6 of max|y|; ties for top-k, argsort, unique).
-15g. train_compressed — examples/rec_compressed.py's loop (the
+15h. train_compressed — examples/rec_compressed.py's loop (the
    EmbeddingMemoryCompression tool's run_compressed) at train_ctr's
    Criteo-Kaggle table: V 33 000 000, D 16, 26 fields, the example's head
    (one hidden layer of 32), Adam(5e-3), B 2048, 10 steps over 4
@@ -316,7 +336,7 @@ limit (as nvidia-smi gives them), the kernel report
 ``{"kernels": [...]}`` (all six kernels: the three flash kernels, the top-k
 gate, the gather and the scatter-add, the last two with their CTR
 launches and times; each with its launches by path, 0 on the CNN, RNN,
-GCN and compression paths) and ``{"ok": true, "device": {...}}``.
+GCN, compression and elastic paths) and ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -626,6 +646,30 @@ SUP_PS_STEPS, SUP_PS_EVERY, SUP_PS_ADAGRAD_LR = 40, 5, 0.05
 SUP_PS_SCHEDULE = dict(steps=SUP_PS_STEPS, seed=11, van_errors=2,
                        nan_steps=1, kill_shards=1, n_shards=2)
 SUP_BUDGET_S = 100.0
+
+# the multi-controller elastic training plane: one van process and three
+# worker processes (numpy over the van: neither torch nor jax) training the
+# plane's seeded regression (Y = X @ W_true + noise, mean-squared loss, SGD
+# on the van), widened from the reference tests' 8 x 4 until the van sets a
+# step's pace: [1024, 1024] f32 weights (4 MiB) and the ordered apply's
+# [3 x 1024, 1024] staging table (12 MiB), 6144 samples, global batch 768
+# (divisible by every width 1-3), lr 0.05, 48 steps; no public source
+# defines this plane's table.  (a) two clean in-process supervisors; (b) a
+# seeded worker SIGKILL, then a replacement; (c) the controller a process
+# of its own over the van, SIGKILLed, a standby process adopting the fleet.
+# Lease and grace are the supervisor's defaults; (b) and (c) pace the fleet
+# by a sleep a step so that their faults land inside the run; a worker's
+# READY, a standby's promotion and each wait within ELASTIC_WAIT_S.  The
+# phase's processes share the host's cores: each worker gets its share of
+# them as BLAS threads (OpenBLAS's default, a thread a core in each of
+# three workers, leaves spinning threads that slow the van and the ordered
+# apply)
+ELASTIC_WORKERS, ELASTIC_FEATURES, ELASTIC_OUT = 3, 1024, 1024
+ELASTIC_SAMPLES, ELASTIC_GB, ELASTIC_LR, ELASTIC_STEPS = 6144, 768, 0.05, 48
+ELASTIC_LEASE_S, ELASTIC_GRACE_S, ELASTIC_CTRL_LEASE_S = 0.6, 0.4, 0.8
+ELASTIC_PACE_S, ELASTIC_STANDBY_BOUND_S, ELASTIC_WAIT_S = 0.1, 0.5, 120.0
+ELASTIC_REPLAY_TOL = 1e-5  # of max|w|: the twins against the numpy replay
+ELASTIC_BUDGET_S = 60.0
 
 # the CNN family: examples/cnn_resnet.py's configuration (ResNet-18, 10
 # classes, f32, batch 128 of [3, 32, 32], Momentum(0.9) under
@@ -9149,6 +9193,534 @@ def phase_supervise(card, seed, device="cuda"):
     return out
 
 
+_ELASTIC_T0 = [0.0]
+
+
+def _elastic_t():
+    """Seconds since the elastic phase began, printed on its lines."""
+    return time.perf_counter() - _ELASTIC_T0[0]
+
+
+@contextlib.contextmanager
+def _elastic_blas_threads():
+    """The BLAS threads of every process the phase spawns: the host's
+    cores over the workers (at least 1), set in this process's
+    environment for its children and restored after."""
+    n = str(max(1, len(os.sched_getaffinity(0)) // ELASTIC_WORKERS))
+    keys = ("OPENBLAS_NUM_THREADS", "OMP_NUM_THREADS")
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.update({k: n for k in keys})
+    try:
+        yield int(n)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _elastic_kw(seed, port, **kw):
+    """The supervisor's arguments for the phase's problem, over the
+    phase's van process."""
+    return dict(steps=ELASTIC_STEPS, global_batch=ELASTIC_GB,
+                features=ELASTIC_FEATURES, out_dim=ELASTIC_OUT,
+                n_samples=ELASTIC_SAMPLES, data_seed=seed, lr=ELASTIC_LR,
+                lease_s=ELASTIC_LEASE_S, suspect_grace_s=ELASTIC_GRACE_S,
+                ordered_grads=True, own_van=False, port=port,
+                spawn_timeout_s=ELASTIC_WAIT_S, **kw)
+
+
+def _elastic_until(sup, cond, what):
+    """Poll the supervisor until ``cond()``; fail after ELASTIC_WAIT_S
+    with the fleet's state."""
+    deadline = time.monotonic() + ELASTIC_WAIT_S
+    while not cond():
+        sup.poll()
+        check(time.monotonic() < deadline,
+              f"elastic: {what} within {ELASTIC_WAIT_S:g} s: "
+              f"{[(m.slot, m.state, m.committed) for m in sup.svc.members]}")
+        time.sleep(0.02)
+
+
+def _elastic_step_mib(width):
+    """The bytes one ordered-apply step moves over the van at ``width``,
+    in MiB: each rank pulls the weights and stages its gradient, rank 0
+    pulls the staged block and pushes it back in rank order."""
+    return 4 * width * ELASTIC_FEATURES * ELASTIC_OUT * 4 / 2 ** 20
+
+
+def _elastic_records(workdir):
+    """step -> the committed records of the workers' consumed logs (the
+    step's latest epoch)."""
+    from pathlib import Path
+
+    by_step = {}
+    for path in Path(workdir).glob("worker_*_*.jsonl"):
+        if path.name.endswith(".trace.jsonl"):
+            continue
+        for line in path.read_text().splitlines():
+            if line.strip():
+                rec = json.loads(line)
+                by_step.setdefault(int(rec["step"]), []).append(rec)
+    return {step: [r for r in recs
+                   if r["epoch"] == max(x["epoch"] for x in recs)]
+            for step, recs in by_step.items()}
+
+
+_ELASTIC_PARTS = ("bar_sync", "pull", "grad", "push")
+
+
+def _elastic_steps(records):
+    """(median step ms, per-step losses): a step's ms is its slowest
+    rank's sync barrier, pull, gradient and push (the commit barrier and
+    the pacing sleep are not in the record); its loss the mean of its
+    ranks' slice losses."""
+    ms = [max(sum(r["ms"][k] for k in _ELASTIC_PARTS) for r in recs)
+          for _, recs in sorted(records.items())]
+    losses = [float(np.mean([r["loss"] for r in recs]))
+              for _, recs in sorted(records.items())]
+    return statistics.median(ms), losses
+
+
+def _elastic_parts(records):
+    """The median ms of each part of a step, for rank 0 (whose push
+    is the ordered apply) and for the other ranks (stage and wait)."""
+    def med(pick):
+        return {k: round(statistics.median(
+            r["ms"][k] for recs in records.values() for r in recs
+            if pick(r["rank"])), 3) for k in _ELASTIC_PARTS}
+    return {"rank0": med(lambda r: r == 0), "others": med(lambda r: r > 0)}
+
+
+def _elastic_no_torch(workdir, tag):
+    """Hard: every worker process of ``workdir`` said ``jax=0 torch=0`` on
+    its READY line.  Returns how many did."""
+    from pathlib import Path
+
+    lines = [ln for p in Path(workdir).glob("worker_*_*.log")
+             for ln in p.read_text(errors="replace").splitlines()
+             if ln.startswith("READY")]
+    check(lines and all(ln.split()[2:] == ["jax=0", "torch=0"]
+                        for ln in lines),
+          f"elastic {tag}: a worker loaded jax or torch: {lines}")
+    return len(lines)
+
+
+def _proc_libs(pid):
+    """Whether process ``pid`` has torch's or jaxlib's shared libraries
+    mapped (an import of either maps them)."""
+    with open(f"/proc/{int(pid)}/maps") as f:
+        maps = f.read()
+    return {"torch": int("libtorch" in maps or "/torch/lib/" in maps),
+            "jax": int("jaxlib" in maps)}
+
+
+def _elastic_van_mib(port, before):
+    """MiB the van received and sent since ``before`` (its stats)."""
+    from hetu_tpu_torch.ps import van
+
+    now = van.stats("127.0.0.1", port)
+    return (now["bytes_rx"] + now["bytes_tx"] - before["bytes_rx"]
+            - before["bytes_tx"]) / 2 ** 20
+
+
+def _elastic_replay(seed):
+    """The plain numpy replay of a clean run: per step, each rank's
+    gradient of the mean-squared loss on its slice of the width-invariant
+    schedule from the step's weights, then ``w -= lr * g`` rank by rank
+    in f32 (the van's SGD)."""
+    from hetu_tpu_torch.resilience.multicontroller import (
+        WorkerSpec, make_schedule,
+    )
+
+    sched = make_schedule(WorkerSpec(
+        port=0, slot=-1, n_slots=ELASTIC_WORKERS, steps=ELASTIC_STEPS,
+        global_batch=ELASTIC_GB, features=ELASTIC_FEATURES,
+        out_dim=ELASTIC_OUT, n_samples=ELASTIC_SAMPLES, data_seed=seed,
+        lr=ELASTIC_LR))
+    w = np.zeros((ELASTIC_FEATURES, ELASTIC_OUT), np.float32)
+    lr = np.float32(ELASTIC_LR)
+    for step in range(ELASTIC_STEPS):
+        grads = []
+        for r in range(ELASTIC_WORKERS):
+            xb, yb = sched.local_slice(step, r, ELASTIC_WORKERS)
+            grads.append((2.0 / ELASTIC_GB) * (xb.T @ (xb @ w - yb)))
+        for g in grads:
+            w = w - lr * g
+    return w
+
+
+def _elastic_twins(card, seed, root, port):
+    """(a): two clean in-process supervisors, the same seed.  Hard: both
+    complete covers, their final weights bitwise equal and within
+    ELASTIC_REPLAY_TOL of max|w| of the numpy replay, the loss of the
+    last 4 steps below the first 4's, no worker with jax or torch."""
+    from hetu_tpu_torch.ps import van
+    from hetu_tpu_torch.resilience.multicontroller import (
+        MultiControllerElasticSupervisor,
+    )
+
+    runs = []
+    for i in (1, 2):
+        workdir = os.path.join(root, f"clean_{i}")
+        os.makedirs(workdir)
+        before = van.stats("127.0.0.1", port)
+        t0 = time.perf_counter()
+        sup = MultiControllerElasticSupervisor(
+            ELASTIC_WORKERS, workdir=workdir, **_elastic_kw(seed, port))
+        try:
+            up_s = time.perf_counter() - t0
+            rep = sup.run(deadline_s=ELASTIC_WAIT_S)
+            run_s = time.perf_counter() - t0 - up_s
+            sup.verify_consumed(rep["consumed"])
+            repushed = int(sup.fleet_metrics().counter(
+                "ps.dp_repush_duplicates").value)
+        finally:
+            sup.close()
+        records = _elastic_records(workdir)
+        step_ms, losses = _elastic_steps(records)
+        runs.append(dict(w=rep["final_weights"], up_s=up_s, run_s=run_s,
+                         step_ms=step_ms, losses=losses, repushed=repushed,
+                         parts=_elastic_parts(records),
+                         mib=_elastic_van_mib(port, before) / ELASTIC_STEPS,
+                         ready=_elastic_no_torch(workdir, f"(a) run {i}")))
+    w1, w2 = runs[0]["w"], runs[1]["w"]
+    check(w1.shape == (ELASTIC_FEATURES, ELASTIC_OUT) and
+          bool(np.isfinite(w1).all()),
+          f"elastic (a): final weights {w1.shape}, finite "
+          f"{bool(np.isfinite(w1).all())}")
+    check(np.array_equal(w1, w2),
+          f"elastic (a): the twins differ, max |d| "
+          f"{float(np.abs(w1 - w2).max())}")
+    t0 = time.perf_counter()
+    ref = _elastic_replay(seed)
+    replay_s = time.perf_counter() - t0
+    gap = float(np.abs(w1 - ref).max())
+    scale = float(np.abs(ref).max())
+    check(gap <= ELASTIC_REPLAY_TOL * scale,
+          f"elastic (a): max |d| to the numpy replay {gap:.3e} > "
+          f"{ELASTIC_REPLAY_TOL:g} x {scale:.4f}")
+    losses = runs[0]["losses"]
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    check(len(losses) == ELASTIC_STEPS and last < first,
+          f"elastic (a): loss of the first 4 steps {first:.6f}, of the "
+          f"last 4 {last:.6f} ({len(losses)} steps)")
+    out = dict(max_gap=gap, scale=scale, loss_first=first, loss_last=last,
+               replay_s=replay_s, repushed=[r["repushed"] for r in runs],
+               **{k: [r[k] for r in runs]
+                  for k in ("up_s", "run_s", "step_ms", "mib", "parts")})
+    print(f"[elastic] (a) clean twins: verify_consumed passed in both; "
+          f"final weights [{ELASTIC_FEATURES}, {ELASTIC_OUT}] f32 bitwise "
+          f"equal; max |d| to the numpy replay {gap:.3e} (bound "
+          f"{ELASTIC_REPLAY_TOL:g} x max|w| {scale:.6f}); loss of steps 0-3 "
+          f"{first:.6f} -> steps {ELASTIC_STEPS - 4}-{ELASTIC_STEPS - 1} "
+          f"{last:.6f}; step ms median "
+          f"{[round(x, 3) for x in out['step_ms']]}; van MiB a step "
+          f"{[round(x, 3) for x in out['mib']]} (the apply's "
+          f"{_elastic_step_mib(ELASTIC_WORKERS):.3f}); fleet up "
+          f"{[round(x, 3) for x in out['up_s']]} s, run "
+          f"{[round(x, 3) for x in out['run_s']]} s; replay "
+          f"{replay_s:.3f} s; re-pushed {out['repushed']}; "
+          f"{sum(r['ready'] for r in runs)} workers READY jax=0 torch=0 "
+          f"[{card}] t+{_elastic_t():.1f} s", flush=True)
+    for i, run in enumerate(runs, 1):
+        print(f"[elastic] (a) run {i}: median ms of a step's parts, rank 0 "
+              f"(its push is the ordered apply) {run['parts']['rank0']}, "
+              f"ranks 1-2 {run['parts']['others']} [{card}]", flush=True)
+    return out, w1
+
+
+def _elastic_worker_kill(card, seed, workdir, port):
+    """(b): the seeded worker SIGKILL and a replacement process.  Hard:
+    the shrink at width 2, 5 survivor steps, the grow back to 3 at a
+    resume no earlier, a complete cover at widths exactly {2, 3}, one
+    worker killed, the kill paired with ``elastic.reshard`` within 10 s,
+    no worker with jax or torch."""
+    from hetu_tpu_torch.ps import van
+    from hetu_tpu_torch.resilience.faults import FaultInjector, FaultSchedule
+    from hetu_tpu_torch.resilience.multicontroller import (
+        MultiControllerElasticSupervisor,
+    )
+    from hetu_tpu_torch.telemetry import timeline, trace
+
+    schedule = FaultSchedule.generate(steps=ELASTIC_STEPS, seed=77 + seed,
+                                      worker_proc_kills=1,
+                                      n_workers=ELASTIC_WORKERS)
+    (ev,) = schedule.events
+    check(ev.kind == "worker_proc_kill",
+          f"elastic (b): the seeded schedule drew {ev.kind}")
+    before = van.stats("127.0.0.1", port)
+    tracer = trace.Tracer()
+    trace.enable(tracer=tracer)
+    try:
+        sup = MultiControllerElasticSupervisor(
+            ELASTIC_WORKERS, workdir=workdir,
+            **_elastic_kw(seed, port, step_sleep_s=ELASTIC_PACE_S))
+        sup.injector = FaultInjector(schedule, worker_procs=sup.procs)
+        try:
+            _elastic_until(sup, lambda: bool(sup.resizes), "the shrink")
+            shrink = sup.resizes[0]
+            check(shrink.kind == "shrink" and shrink.width == 2,
+                  f"elastic (b): the first resize {shrink}")
+            killed = sup.injector.counters["worker_procs_killed"]
+            check(killed == 1, f"elastic (b): {killed} workers killed")
+            dead = next(s for s in range(ELASTIC_WORKERS)
+                        if sup.procs[s].poll() is not None)
+            _elastic_until(sup, lambda: min(
+                sup.svc.state_of(s).committed
+                for s in range(ELASTIC_WORKERS) if s != dead)
+                >= shrink.resume_step + 5, "5 steps after the shrink")
+            sup.spawn_replacement(dead)  # returns at its READY
+            ready_s = sup.procs[dead].ready_s
+            t_ready = time.perf_counter()
+            _elastic_until(sup, lambda: len(sup.resizes) >= 2, "the grow")
+            ready_to_grow_s = time.perf_counter() - t_ready
+            grow = sup.resizes[-1]
+            check(grow.kind == "grow" and grow.width == 3 and
+                  grow.resume_step >= shrink.resume_step,
+                  f"elastic (b): the grow {grow} after {shrink}")
+            rep = sup.run(deadline_s=ELASTIC_WAIT_S)
+            sup.verify_consumed(rep["consumed"])
+            widths = {r["width"] for r in rep["resizes"]}
+            check(widths == {2, 3}, f"elastic (b): widths {widths}")
+            repushed = int(sup.fleet_metrics().counter(
+                "ps.dp_repush_duplicates").value)
+        finally:
+            sup.close()
+    finally:
+        trace.disable()
+    pairs = [p for p in timeline.correlate(tracer.events)
+             if p.kind == "worker_proc_kill"]
+    check(len(pairs) == 1 and pairs[0].paired and
+          pairs[0].recovery_name == "elastic.reshard" and
+          pairs[0].detect_s < 10.0,
+          f"elastic (b): the kill's pairing {pairs}")
+    step_ms, _ = _elastic_steps(_elastic_records(workdir))
+    out = dict(kill_step=ev.step, victim=dead, detect_s=pairs[0].detect_s,
+               shrink_s=pairs[0].recover_s, ready_s=ready_s,
+               ready_to_grow_s=ready_to_grow_s, repushed=repushed,
+               shrink_resume=shrink.resume_step,
+               grow_resume=grow.resume_step, step_ms=step_ms,
+               mib=_elastic_van_mib(port, before) / ELASTIC_STEPS,
+               ready=_elastic_no_torch(workdir, "(b)"))
+    print(f"[elastic] (b) worker kill: worker {dead} SIGKILLed at step "
+          f"{ev.step}; kill -> lease expiry {out['detect_s']:.3f} s, kill "
+          f"-> shrink published (width 2, resume {shrink.resume_step}) "
+          f"{out['shrink_s']:.3f} s; replacement spawn -> READY "
+          f"{ready_s:.3f} s, READY -> grow published (width 3, resume "
+          f"{grow.resume_step}) {ready_to_grow_s:.3f} s; widths {{2, 3}}, "
+          f"verify_consumed passed; ps.dp_repush_duplicates {repushed}; "
+          f"step ms median {step_ms:.3f}; van MiB a step {out['mib']:.3f} "
+          f"(re-runs and the probes included); {out['ready']} workers "
+          f"READY jax=0 torch=0 [{card}] t+{_elastic_t():.1f} s",
+          flush=True)
+    return out
+
+
+def _elastic_controller_kill(card, seed, workdir, port, clean_w):
+    """(c): the controller a process of its own (``--controller``) over
+    the van, a standby process (``plane="elastic"``) watching; the seeded
+    controller SIGKILL.  Hard: the standby PROMOTED and ALLDONE, its
+    adopted supervisor at incarnation >= 2 with a ``takeover`` resize, a
+    complete cover, the final weights bitwise (a)'s where no gradient was
+    re-pushed (else within rtol 0.05, atol 0.01), the kill paired with
+    ``ctrl.takeover``, no process of the arm with jax or torch."""
+    from pathlib import Path
+
+    from hetu_tpu_torch.ps import van
+    from hetu_tpu_torch.ps.van import RemotePSTable
+    from hetu_tpu_torch.resilience.faults import FaultInjector, FaultSchedule
+    from hetu_tpu_torch.resilience.multicontroller import (
+        WorkerSpec, check_complete_cover, make_schedule, merge_consumed_logs,
+        worker_metrics,
+    )
+    from hetu_tpu_torch.resilience.shardproc import spawn_module
+    from hetu_tpu_torch.telemetry import fleet, timeline, trace
+
+    schedule = FaultSchedule.generate(steps=ELASTIC_STEPS, seed=11 + seed,
+                                      controller_kills=1)
+    (ev,) = schedule.events
+    check(ev.kind == "controller_kill",
+          f"elastic (c): the seeded schedule drew {ev.kind}")
+    log_of = lambda p: Path(p.log_path).read_text(errors="replace")  # noqa
+    path = os.path.join(workdir, "controller.json")
+    with open(path, "w") as f:
+        json.dump({"workdir": workdir, "port": port,
+                   "n_workers": ELASTIC_WORKERS, "steps": ELASTIC_STEPS,
+                   "global_batch": ELASTIC_GB, "data_seed": seed,
+                   "features": ELASTIC_FEATURES, "out_dim": ELASTIC_OUT,
+                   "n_samples": ELASTIC_SAMPLES, "lr": ELASTIC_LR,
+                   "ordered_grads": True, "lease_s": ELASTIC_LEASE_S,
+                   "suspect_grace_s": ELASTIC_GRACE_S,
+                   "step_sleep_s": ELASTIC_PACE_S,
+                   "ctrl_lease_s": ELASTIC_CTRL_LEASE_S,
+                   "deadline_s": ELASTIC_WAIT_S}, f)
+    before = van.stats("127.0.0.1", port)
+    ctrl = spawn_module(workdir, "controller",
+                        "hetu_tpu_torch.resilience.multicontroller",
+                        ["--controller", path], timeout_s=ELASTIC_WAIT_S)
+    spec = WorkerSpec.from_json(sorted(Path(workdir).glob(
+        "worker_*_*.json"))[0].read_text())
+    path = os.path.join(workdir, "standby.json")
+    with open(path, "w") as f:
+        json.dump({"workdir": workdir, "port": port, "plane": "elastic",
+                   "membership_table": spec.membership_table,
+                   "n_slots": spec.n_slots,
+                   "lease_bound_s": ELASTIC_STANDBY_BOUND_S, "poll_s": 0.05,
+                   "watch_timeout_s": ELASTIC_WAIT_S,
+                   "resolve_timeout_s": ELASTIC_WAIT_S,
+                   "takeover_kwargs": {"lease_s": ELASTIC_LEASE_S,
+                                       "suspect_grace_s": ELASTIC_GRACE_S,
+                                       "spawn_timeout_s": ELASTIC_WAIT_S}},
+                  f)
+    sb = spawn_module(workdir, "standby", "hetu_tpu_torch.resilience.standby",
+                      [path], timeout_s=ELASTIC_WAIT_S)
+    deadline = time.monotonic() + ELASTIC_WAIT_S
+    while "WATCHING" not in log_of(sb):
+        check(sb.poll() is None and time.monotonic() < deadline,
+              f"elastic (c): the standby never watched: {log_of(sb)[-800:]}")
+        time.sleep(0.02)
+    libs = {"controller": _proc_libs(ctrl.pid), "standby": _proc_libs(sb.pid)}
+    check(all(v == {"torch": 0, "jax": 0} for v in libs.values()),
+          f"elastic (c): libraries mapped {libs}")
+    tracer = trace.open_process_stream(workdir, "harness")
+    try:
+        inj = FaultInjector(schedule, ctrl_procs=[ctrl])
+        fired = 0
+        while ctrl.poll() is None:
+            check(time.monotonic() < deadline,
+                  f"elastic (c): the kill at step {ev.step} never fired: "
+                  f"{log_of(ctrl)[-800:]}")
+            cur = sum(ln.startswith("STEP")
+                      for ln in log_of(ctrl).splitlines())
+            for t in range(fired + 1, cur + 1):
+                inj.on_step(t)
+            fired = max(fired, cur)
+            time.sleep(0.02)
+        killed = inj.counters["controller_procs_killed"]
+    finally:
+        trace.disable()
+        if tracer is not None:
+            tracer.close()
+    check(killed == 1, f"elastic (c): {killed} controllers killed")
+    try:
+        rc = sb.wait(2 * ELASTIC_WAIT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    log = log_of(sb)
+    lines = {ln.split(" ", 1)[0]: ln for ln in log.splitlines() if ln}
+    check(rc == 0 and {"PROMOTED", "RESOLVED", "ALLDONE"} <= set(lines) and
+          "READY jax=0 torch=0" in log,
+          f"elastic (c): the standby rc {rc}, log tail {log[-1500:]!r}")
+    report = json.loads(lines["RESOLVED"].split(" ", 1)[1])
+    inc = report["takeover"]["incarnation"]
+    kinds = [r["kind"] for r in report["resizes"]]
+    check(inc >= 2 and "takeover" in kinds,
+          f"elastic (c): incarnation {inc}, resizes {kinds}")
+    table = RemotePSTable("127.0.0.1", port, spec.features, spec.out_dim,
+                          table_id=spec.weights_table, create=False)
+    try:
+        weights = table.dense_pull()
+    finally:
+        table.close()
+    logs = [p for p in Path(workdir).glob("worker_*_*.jsonl")
+            if not p.name.endswith(".trace.jsonl")]
+    check_complete_cover(merge_consumed_logs(logs), make_schedule(spec),
+                         spec.steps)
+    repushed = int(worker_metrics(workdir).counter(
+        "ps.dp_repush_duplicates").value)
+    gap = float(np.abs(weights - clean_w).max())
+    if repushed == 0:
+        check(np.array_equal(weights, clean_w),
+              f"elastic (c): no re-push, yet max |d| to (a) {gap:.3e}")
+    else:
+        check(np.allclose(weights, clean_w, rtol=0.05, atol=0.01),
+              f"elastic (c): {repushed} re-pushed, max |d| to (a) {gap:.3e}")
+    merged, _ = fleet.merge_streams(workdir)
+    pairs = [p for p in timeline.correlate(merged)
+             if p.kind == "controller_kill"]
+    check(len(pairs) == 1 and pairs[0].paired and
+          pairs[0].recovery_name == "ctrl.takeover",
+          f"elastic (c): the kill's pairing {pairs}")
+    step_ms, _ = _elastic_steps(_elastic_records(workdir))
+    out = dict(kill_step=ev.step, incarnation=inc, repushed=repushed,
+               gap=gap, detect_s=pairs[0].detect_s,
+               handoff_s=pairs[0].recover_s,
+               promoted_s=float(lines["PROMOTED"].split()[1]),
+               alldone_s=float(lines["ALLDONE"].split()[1]),
+               controller_ready_s=ctrl.ready_s, standby_ready_s=sb.ready_s,
+               resume=report["takeover"]["resume_step"], step_ms=step_ms,
+               mib=_elastic_van_mib(port, before) / ELASTIC_STEPS,
+               ready=_elastic_no_torch(workdir, "(c)"))
+    print(f"[elastic] (c) controller kill: controller process READY after "
+          f"{ctrl.ready_s:.3f} s (its 3 workers spawned), standby READY "
+          f"after {sb.ready_s:.3f} s; SIGKILLed at step {ev.step}; kill -> "
+          f"ctrl.takeover start {out['detect_s']:.3f} s, kill -> hand-off "
+          f"complete {out['handoff_s']:.3f} s (incarnation {inc}, resume "
+          f"{out['resume']}); the standby PROMOTED {out['promoted_s']:.3f} "
+          f"s after it saw the silence (bound {ELASTIC_STANDBY_BOUND_S:g} "
+          f"s), ALLDONE {out['alldone_s']:.3f} s later; verify_consumed "
+          f"passed; ps.dp_repush_duplicates {repushed}, final weights "
+          f"{'bitwise' if gap == 0.0 else f'max |d| {gap:.3e} from'} (a)'s; "
+          f"step ms median {step_ms:.3f}; van MiB a step {out['mib']:.3f}; "
+          f"controller and standby map neither torch nor jax, "
+          f"{out['ready']} workers READY jax=0 torch=0 [{card}] "
+          f"t+{_elastic_t():.1f} s", flush=True)
+    return out
+
+
+def phase_elastic(card, seed):
+    """The multi-controller elastic training plane
+    (``resilience/multicontroller.py``, ``resilience/memberproc.py``) and
+    the standby's elastic takeover, over one van process: (a) two clean
+    3-worker runs, (b) a worker SIGKILL and its replacement, (c) the
+    controller process SIGKILLed under a standby process.  No kernel runs
+    on this path: its processes are numpy over the van.  Returns the
+    numbers for the summary and the kernels line."""
+    import tempfile
+
+    from hetu_tpu_torch.resilience.shardproc import (
+        free_port, spawn_shard_server,
+    )
+
+    t_phase = _ELASTIC_T0[0] = time.perf_counter()
+    counters = _all_counters()
+    for c in counters:
+        c.launches = 0
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="elastic_") as root, \
+            _elastic_blas_threads() as threads:
+        out["blas_threads"] = threads
+        port = free_port()
+        vanp = spawn_shard_server(root, port, "elastic")
+        try:
+            check(vanp.ready[1:] == ["jax=0", "torch=0"],
+                  f"elastic: the van process READY {vanp.ready}")
+            out["a"], clean_w = _elastic_twins(card, seed, root, port)
+            for tag, fn in (
+                    ("b", lambda d: _elastic_worker_kill(card, seed, d,
+                                                         port)),
+                    ("c", lambda d: _elastic_controller_kill(
+                        card, seed, d, port, clean_w))):
+                workdir = os.path.join(root, tag)
+                os.makedirs(workdir)
+                out[tag] = fn(workdir)
+        finally:
+            vanp.kill()
+            vanp.wait()
+            subprocess.run(["pkill", "-9", "-f", root], capture_output=True,
+                           timeout=30)
+    out["launches"] = [c.launches for c in counters]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[elastic] phase {out['seconds']:.1f} s (budget "
+          f"{ELASTIC_BUDGET_S:g} s: "
+          f"{'met' if out['seconds'] <= ELASTIC_BUDGET_S else 'missed'}); "
+          f"{out['blas_threads']} BLAS threads a process; launches of the "
+          f"six kernels {out['launches']} [{card}]", flush=True)
+    return out
+
+
 def _fwd_case(card, shape, causal, gen, runs, tag):
     """The forward kernel at ``shape`` (bf16, contiguous): held against
     its plain version with the row-scaled ``TOL_F``, then timed beside it,
@@ -9366,6 +9938,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     supervise = phase_supervise(card, args.seed)
     torch.cuda.empty_cache()
+    elastic = phase_elastic(card, args.seed)
     cnn = phase_train_cnn(card, args.seed)
     torch.cuda.empty_cache()
     rnn = phase_train_rnn(card, args.seed)
@@ -9387,7 +9960,9 @@ def main(argv=None) -> int:
               # the supervisor's GPT arm (all its runs, the children's
               # included) and its PS arm
               "supervise": supervise["launches"][i],
-              "supervise_ps": supervise["ps_launches"][i]}
+              "supervise_ps": supervise["ps_launches"][i],
+              # the elastic training plane's processes run no kernel
+              "elastic": elastic["launches"][i]}
              for i in range(6)]
 
     shape = [TRAIN_B, NH, TRAIN_S, HEAD_DIM]
@@ -9491,7 +10066,19 @@ def main(argv=None) -> int:
           f"(twins {'bitwise' if sg['reproducible'] else 'differ'}); ps "
           f"shard repaired {sp['death_to_repaired_s']:.3f} s after its kill, "
           f"repair {sp['repair_ms']:.1f} ms; flash launches "
-          f"{supervise['launches'][:3]}; the script "
+          f"{supervise['launches'][:3]} [{card}]")
+    ea, eb, ec = elastic["a"], elastic["b"], elastic["c"]
+    print(f"[elastic] summary: phase {elastic['seconds']:.1f} s (budget "
+          f"{ELASTIC_BUDGET_S:g} s); step ms median (a) "
+          f"{[round(x, 3) for x in ea['step_ms']]}, (b) {eb['step_ms']:.3f},"
+          f" (c) {ec['step_ms']:.3f}; van MiB a step (a) "
+          f"{[round(x, 3) for x in ea['mib']]}; twins bitwise, replay max "
+          f"|d| {ea['max_gap']:.3e}; worker kill -> shrink "
+          f"{eb['shrink_s']:.3f} s, replacement READY {eb['ready_s']:.3f} s,"
+          f" READY -> grow {eb['ready_to_grow_s']:.3f} s; controller kill "
+          f"-> hand-off {ec['handoff_s']:.3f} s (incarnation "
+          f"{ec['incarnation']}); re-pushed (b) {eb['repushed']}, (c) "
+          f"{ec['repushed']}; launches {elastic['launches']}; the script "
           f"{time.perf_counter() - t_script:.1f} s [{card}]")
     print(card)
     print(json.dumps(report))

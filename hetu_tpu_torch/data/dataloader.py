@@ -8,6 +8,10 @@ numpy generator as the reference's, so one ``set_random_seed`` gives the
 same order in both packages) and yields numpy minibatches; the Executor
 moves them to the card.  ``ElasticBatchSchedule`` fixes the global batch
 sequence across resizes.
+
+The module loads ``torch`` (through the rng) only when a ``Dataloader``
+shuffles: the elastic training plane's worker processes build their
+``ElasticBatchSchedule`` without it.
 """
 
 from __future__ import annotations
@@ -16,8 +20,6 @@ import math
 from typing import Optional
 
 import numpy as np
-
-from hetu_tpu_torch import rng as hrng
 
 
 class Dataloader:
@@ -83,6 +85,7 @@ class Dataloader:
         n = arrs[0].shape[0]
         order = np.arange(n)
         if self.shuffle:
+            from hetu_tpu_torch import rng as hrng
             hrng.np_rng().shuffle(order)
         nb = self.num_batches
         for b in range(nb):

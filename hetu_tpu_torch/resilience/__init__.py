@@ -8,10 +8,14 @@ guard, PS shard repair, cooperative preemption with step-exact resume).
 
 :mod:`~hetu_tpu_torch.resilience.straggler` holds the shared straggler
 detection; :mod:`~hetu_tpu_torch.resilience.standby` the self-promoting
-standby controller (serving plane);
-:mod:`~hetu_tpu_torch.resilience.shardproc` spawns van, member and standby
-processes.  The elastic mesh (``elastic.py``) and the multi-controller
-training fleet wait for later slices.
+standby controller (serving and elastic planes);
+:mod:`~hetu_tpu_torch.resilience.shardproc` spawns van, member, worker and
+standby processes; :mod:`~hetu_tpu_torch.resilience.multicontroller` is
+the multi-controller elastic training plane (worker processes over the
+van, membership epochs, the consumed-batch cover) and
+:mod:`~hetu_tpu_torch.resilience.memberproc` its member protocol, both
+imported on use.  The elastic mesh (``elastic.py``) waits for the
+multi-GPU slice.
 """
 
 from hetu_tpu_torch.resilience.faults import (

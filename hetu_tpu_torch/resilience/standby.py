@@ -11,9 +11,11 @@ field decides the race, so of N standbys watching one fleet exactly one
 wins (the losers observe the winner's incarnation in the CAS response
 and exit FENCED, touching nothing).  The winner then invokes the
 plane's ``takeover()`` classmethod
-(:class:`~hetu_tpu_torch.serve.crosshost.CrossProcessServingPool`),
-which claims the fence one higher again and adopts the fleet — the
-standby adds only the WATCHING and the CAS-decided right to act.
+(:class:`~hetu_tpu_torch.serve.crosshost.CrossProcessServingPool`,
+:class:`~hetu_tpu_torch.resilience.multicontroller.
+MultiControllerElasticSupervisor`), which claims the fence one higher
+again and adopts the fleet — the standby adds only the WATCHING and the
+CAS-decided right to act.
 
 Why the pre-claim is single-shot where ``claim_controller``'s CAS loop
 retries: a retrying loser would out-claim the winner mid-takeover (two
@@ -28,13 +30,17 @@ The ``standby_main`` harness runs this as its own process
 ``ALLDONE``), with a crash-durable span stream like every other fleet
 process.
 
-Only the serving plane is ported: ``plane="elastic"`` and
-``plane="mpmd"`` name the training supervisors of slices still to come
-and raise ``NotImplementedError``.  Departures from the reference: the
-READY line says whether the process loaded ``jax``; ``WATCHING`` is
+The serving and the elastic planes are ported; ``plane="mpmd"`` names
+the pipeline supervisor of a slice still to come and raises
+``NotImplementedError``.  Departures from the reference: the READY line
+says whether the process loaded ``jax`` and ``torch``; ``WATCHING`` is
 printed once the watch starts; ``PROMOTED`` carries the seconds from
 the detected silence to the end of the takeover and ``ALLDONE`` the
-seconds from ``PROMOTED``.
+seconds from ``PROMOTED``.  On the elastic plane the promoted standby
+drives the adopted fleet to its last step, checks the consumed batches'
+complete cover and prints ``RESOLVED`` with the takeover report and the
+resizes before ``ALLDONE``; the reference prints ``ALLDONE`` at once and
+its close then kills the workers it has just adopted.
 """
 
 from __future__ import annotations
@@ -52,14 +58,10 @@ import numpy as np
 from hetu_tpu_torch.ps import membership as _mb
 from hetu_tpu_torch.telemetry import trace
 
-# the planes whose takeover() the standby invokes, and the slices that
-# bring the two still missing
+# the planes whose takeover() the standby invokes, and the slice that
+# brings the one still missing
 PLANES = ("serving", "elastic", "mpmd")
 _NOT_PORTED = {
-    "elastic": "the elastic plane's supervisor "
-               "(MultiControllerElasticSupervisor) comes with the slice "
-               "that ports the rest of resilience/ (ROADMAP.md Queue 1, "
-               "item 6.4)",
     "mpmd": "the MPMD pipeline's supervisor (MPMDPipelineSupervisor) "
             "comes with the multi-GPU slice (ROADMAP.md Queue 1, item 8)",
 }
@@ -68,8 +70,9 @@ _NOT_PORTED = {
 class StandbyController:
     """Watch a fleet's controller lease; self-promote on silence.
 
-    ``plane`` names which ``takeover()`` to invoke: ``"serving"`` (the
-    others raise ``NotImplementedError`` until their slices).
+    ``plane`` names which ``takeover()`` to invoke: ``"serving"`` or
+    ``"elastic"`` (``"mpmd"`` raises ``NotImplementedError`` until its
+    slice).
     ``takeover_kwargs`` are passed through (``workdir``/``port`` ride
     separately).  ``table=`` injects a pre-built blackboard surface
     (tests); otherwise the standby attaches over the van — replicated
@@ -222,10 +225,16 @@ class StandbyController:
             stop.wait(0.1)
 
     def _invoke_takeover(self):
+        kw = dict(self.takeover_kwargs)
+        if self.plane == "elastic":
+            from hetu_tpu_torch.resilience.multicontroller import (
+                MultiControllerElasticSupervisor,
+            )
+            return MultiControllerElasticSupervisor.takeover(
+                workdir=self.workdir, port=self.port, **kw)
         from hetu_tpu_torch.serve.crosshost import CrossProcessServingPool
         return CrossProcessServingPool.takeover(
-            workdir=self.workdir, port=self.port,
-            **dict(self.takeover_kwargs))
+            workdir=self.workdir, port=self.port, **kw)
 
     # ---- the loop ----
     def run_once(self) -> Optional[str]:
@@ -290,8 +299,12 @@ def standby_main(config_path: str) -> int:
     blackboard (membership_table/n_slots/port — or a workdir whose
     member spawn configs carry them), the plane, and the lease bound.
     Markers: ``READY`` (armed) → ``WATCHING`` → ``PROMOTED``/``FENCED``
-    → ``RESOLVED {rid: status}`` → ``ALLDONE`` (serving plane: every
-    adopted request resolved).  Exit codes: 0 promoted and done, 1 a
+    → ``RESOLVED`` → ``ALLDONE``.  Serving plane: ``RESOLVED {rid:
+    status}``, ALLDONE once every adopted request resolved.  Elastic
+    plane: the adopted fleet runs to its last step within
+    ``resolve_timeout_s``, its consumed batches are checked, then
+    ``RESOLVED {"takeover": report, "resizes": [...], "epochs": n}``
+    and ALLDONE.  Exit codes: 0 promoted and done, 1 a
     failure after the promotion, 2 no decision within
     ``watch_timeout_s``, 3 fenced (another claimant won)."""
     with open(config_path) as f:
@@ -323,7 +336,8 @@ def standby_main(config_path: str) -> int:
         poll_s=float(cfg.get("poll_s", 0.1)),
         van_spec=spec.get("van"),
         takeover_kwargs=cfg.get("takeover_kwargs"))
-    print("READY", f"jax={int('jax' in sys.modules)}", flush=True)
+    print("READY", f"jax={int('jax' in sys.modules)}",
+          f"torch={int('torch' in sys.modules)}", flush=True)
     print("WATCHING", flush=True)
     try:
         out = sb.watch(timeout_s=float(cfg.get("watch_timeout_s",
@@ -340,7 +354,17 @@ def standby_main(config_path: str) -> int:
     print(f"PROMOTED {sb.promoted_at - sb.detected_at:.6f}", flush=True)
     rc = 0
     try:
-        if sb.adopted is not None:
+        if sb.plane == "elastic" and sb.adopted is not None:
+            # drive the adopted fleet to its end: closing it now would
+            # kill the workers this incarnation owns
+            report = sb.adopted.run(deadline_s=float(
+                cfg.get("resolve_timeout_s", 120.0)))
+            sb.adopted.verify_consumed(report["consumed"])
+            print("RESOLVED", json.dumps({
+                "takeover": sb.adopted.takeover_report,
+                "resizes": report["resizes"],
+                "epochs": report["epochs"]}), flush=True)
+        elif sb.adopted is not None:
             results = sb.adopted.wait_adopted(
                 timeout_s=float(cfg.get("resolve_timeout_s", 120.0)))
             # one rid → status map covering BOTH sources of truth: the
@@ -353,7 +377,7 @@ def standby_main(config_path: str) -> int:
             print("RESOLVED", json.dumps(statuses), flush=True)
         print(f"ALLDONE {time.monotonic() - sb.promoted_at:.6f}",
               flush=True)
-        if sb.adopted is not None:
+        if sb.plane == "serving" and sb.adopted is not None:
             # keep serving (and beating the controller row) for the
             # configured hold — the promoted incarnation must not go
             # silent the moment the adoption resolves, or a trailing

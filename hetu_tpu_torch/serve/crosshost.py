@@ -1056,9 +1056,13 @@ class MemberHarness:
         t = trace.get_tracer()
         if t is not None:
             try:  # final black-box record + flush (clean exits; kills
-                # rely on the per-line flush)
-                self._publish_process_metrics()
-                t.metric_dump(self.scheduler.metrics.registry.dump())
+                # rely on the per-line flush).  The engine loop still
+                # steps until the server closes: the record is taken
+                # between two steps, or a prefill counted at its start
+                # would stand beside only some of its layers' launches
+                with self.scheduler.between_steps(2.0):
+                    self._publish_process_metrics()
+                    t.metric_dump(self.scheduler.metrics.registry.dump())
                 t.flush()
             except Exception:
                 pass
@@ -1256,6 +1260,14 @@ class CrossProcessServingPool:
         self._fenced = False
         self._inflight: dict = {}       # slot -> outstanding count
         self._draining: set = set()
+        # slot -> submits being sent to it by _route now; a drain waits
+        # for 0 before its drain command (see drain_member)
+        self._routing: dict = {}
+        self._routing_cv = threading.Condition(self._lock)
+        # slots being revived: the fresh process joins the blackboard
+        # before its control channel is bound here, and a submit sent
+        # meanwhile would go down the dead incarnation's channel
+        self._binding: set = set()
         self._quarantined: set = set()  # engine-dead / failed-over slots
         self._suspect_t0: dict = {}     # slot -> trace ts of suspicion
         # per-link health, measured from this controller's OWN control
@@ -2421,6 +2433,7 @@ class CrossProcessServingPool:
             return [s for s in alive
                     if s not in exclude and s not in self._draining
                     and s not in self._quarantined
+                    and s not in self._binding
                     and self.svc.state_of(s).healthy]
 
     def _route(self, req: PoolRequest, *, exclude=None) -> None:
@@ -2444,9 +2457,15 @@ class CrossProcessServingPool:
                 if prev is not None:
                     self._inflight[prev] = max(
                         self._inflight.get(prev, 1) - 1, 0)
+                self._routing[slot] = self._routing.get(slot, 0) + 1
             try:
-                self._send(slot, {"cmd": "submit", "rid": req.rid,
-                                  **req.msg})
+                try:
+                    self._send(slot, {"cmd": "submit", "rid": req.rid,
+                                      **req.msg})
+                finally:
+                    with self._lock:
+                        self._routing[slot] -= 1
+                        self._routing_cv.notify_all()
                 req.sent = True
                 req.routed_at = time.monotonic()
                 trace.instant("serve.route",
@@ -2845,6 +2864,13 @@ class CrossProcessServingPool:
             if slot in self._draining or slot in self._quarantined:
                 return 0
             self._draining.add(slot)
+            # a submit routed here before the slot was marked draining
+            # must be on the member's channel before the drain command:
+            # the member reads its channel in order, so the export
+            # carries the request.  Put after the drain, it would be
+            # read by a member that has already exported (or has left)
+            self._routing_cv.wait_for(
+                lambda: not self._routing.get(slot), timeout_s)
         xid = None
         try:
             with trace.span("serve.migrate", cat="serve") as sp:
@@ -3011,8 +3037,14 @@ class CrossProcessServingPool:
                 os.kill(self._member_pids[slot], _signal.SIGKILL)
             except OSError:
                 pass
-        self._spawn([slot])
-        self._wait_joined([slot])
+        with self._lock:
+            self._binding.add(slot)
+        try:
+            self._spawn([slot])
+            self._wait_joined([slot])
+        finally:
+            with self._lock:
+                self._binding.discard(slot)
         with self._lock:
             self._quarantined.discard(slot)
             self._draining.discard(slot)
@@ -3112,6 +3144,8 @@ def _begin_drain_and_hang(pool: CrossProcessServingPool, *,
         tgt = min((s for s in range(pool.n_members) if s != src),
                   key=lambda s: pool._inflight.get(s, 0))
         pool._draining.add(src)
+        pool._routing_cv.wait_for(lambda: not pool._routing.get(src),
+                                  timeout_s)
     pool._drain_begin(src, tgt, codec="none", close=True,
                       timeout_s=timeout_s)
     print("DRAIN_SENT", flush=True)

@@ -241,6 +241,26 @@ class ContinuousBatchingScheduler:
         finally:
             self._lock.release()
 
+    @contextmanager
+    def between_steps(self, timeout_s: float):
+        """Like :meth:`_control_lock`, but waiting at most ``timeout_s``
+        for the lock; yields whether it got it.  Counters read inside
+        are not split by a step half done (a forward whose layers have
+        launched in part)."""
+        with self._handoff:
+            self._handoff_waiting += 1
+        try:
+            got = self._lock.acquire(timeout=max(float(timeout_s), 0.0))
+        finally:
+            with self._handoff:
+                self._handoff_waiting -= 1
+                self._handoff.notify_all()
+        try:
+            yield got
+        finally:
+            if got:
+                self._lock.release()
+
     @property
     def control_waiting(self) -> int:
         """Control calls waiting for the scheduler lock now."""

@@ -1641,3 +1641,120 @@ def test_kernels_line_counts_the_supervise_paths():
         steps=40, seed=11, van_errors=2, nan_steps=1, kill_shards=1,
         n_shards=2)
     assert "jax" not in chip_smoke._SUP_CHILD_SRC
+
+
+# ---- the elastic phase ----
+
+TINY_ELASTIC = dict(ELASTIC_FEATURES=8, ELASTIC_OUT=4, ELASTIC_SAMPLES=256,
+                    ELASTIC_GB=24, ELASTIC_STEPS=24)
+
+
+def test_elastic_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """The three arms at the reference tests' 8 x 4 size and 24 steps,
+    every gate live: the twins bitwise and within the bound of the numpy
+    replay, a falling loss; the worker kill's shrink, 5 survivor steps, the
+    grow, widths {2, 3}, the kill paired with ``elastic.reshard``; the
+    controller kill under a standby process (PROMOTED, ALLDONE, incarnation
+    2, a ``takeover`` resize, the weights bitwise the twins' where nothing
+    was re-pushed, paired with ``ctrl.takeover``); no process of the phase
+    with jax or torch; no launch; the lines keep their schema."""
+    import re
+
+    for name, value in TINY_ELASTIC.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    out = chip_smoke.phase_elastic("cpu", 0)
+    text = capsys.readouterr().out
+    a, b, c = out["a"], out["b"], out["c"]
+    assert a["max_gap"] <= chip_smoke.ELASTIC_REPLAY_TOL * a["scale"]
+    assert a["loss_last"] < a["loss_first"]
+    assert len(a["step_ms"]) == 2 and all(x > 0 for x in a["step_ms"])
+    assert all(x > 0 for x in a["mib"])
+    assert b["kill_step"] == 2 and b["detect_s"] < 10.0
+    assert b["shrink_s"] >= b["detect_s"] and b["ready_s"] > 0
+    assert b["grow_resume"] >= b["shrink_resume"]
+    assert c["kill_step"] == 4 and c["incarnation"] >= 2
+    assert c["handoff_s"] >= c["detect_s"] > 0
+    if c["repushed"] == 0:
+        assert c["gap"] == 0.0
+    assert b["ready"] == 4 and c["ready"] == 3  # (b)'s replacement too
+    assert out["launches"] == [0] * 6 and out["seconds"] > 0
+    for pattern in (
+            r"\[elastic\] \(a\) clean twins: verify_consumed passed in both;"
+            r" final weights \[8, 4\] f32 bitwise equal; max \|d\| to the "
+            r"numpy replay [\d.e+-]+ \(bound 1e-05 x max\|w\| [\d.]+\); loss "
+            r"of steps 0-3 [\d.]+ -> steps 20-23 [\d.]+; step ms median "
+            r"\[[\d., ]+\]; van MiB a step \[[\d., ]+\] \(the apply's "
+            r"[\d.]+\); .* 6 workers READY jax=0 torch=0 \[cpu\]",
+            r"\[elastic\] \(b\) worker kill: worker \d SIGKILLed at step 2; "
+            r"kill -> lease expiry [\d.]+ s, kill -> shrink published "
+            r"\(width 2, resume \d+\) [\d.]+ s; replacement spawn -> READY "
+            r"[\d.]+ s, READY -> grow published \(width 3, resume \d+\) "
+            r"[\d.]+ s; widths \{2, 3\}, verify_consumed passed; "
+            r"ps\.dp_repush_duplicates \d+; step ms median [\d.]+",
+            r"\[elastic\] \(c\) controller kill: controller process READY "
+            r"after [\d.]+ s .* SIGKILLed at step 4; kill -> ctrl\.takeover "
+            r"start [\d.]+ s, kill -> hand-off complete [\d.]+ s "
+            r"\(incarnation \d+, resume \d+\); the standby PROMOTED [\d.]+ s "
+            r".* ALLDONE [\d.]+ s later; verify_consumed passed; "
+            r"ps\.dp_repush_duplicates \d+, final weights .*controller and "
+            r"standby map neither torch nor jax, 3 workers READY jax=0 "
+            r"torch=0 \[cpu\]",
+            r"\[elastic\] \(a\) run 2: median ms of a step's parts, rank 0 "
+            r"\(its push is the ordered apply\) \{'bar_sync': [\d.]+, "
+            r"'pull': [\d.]+, 'grad': [\d.]+, 'push': [\d.]+\}, ranks 1-2 ",
+            r"\[elastic\] phase [\d.]+ s \(budget 60 s: (met|missed)\); "
+            r"\d+ BLAS threads a process; launches of the six kernels "
+            r"\[0, 0, 0, 0, 0, 0\] \[cpu\]"):
+        assert re.search(pattern, text), (pattern, text)
+
+
+def test_elastic_replay_is_the_step_body_in_numpy():
+    """The replay the twins are held to: one step of it at the tiny size
+    is the worker's step body (each rank's gradient from the step's
+    weights, applied rank by rank), computed here by hand."""
+    from hetu_tpu_torch.resilience.multicontroller import (
+        WorkerSpec, make_schedule,
+    )
+
+    tiny = dict(ELASTIC_FEATURES=8, ELASTIC_OUT=4, ELASTIC_SAMPLES=256,
+                ELASTIC_GB=24, ELASTIC_STEPS=1)
+    old = {k: getattr(chip_smoke, k) for k in tiny}
+    try:
+        for k, v in tiny.items():
+            setattr(chip_smoke, k, v)
+        got = chip_smoke._elastic_replay(3)
+    finally:
+        for k, v in old.items():
+            setattr(chip_smoke, k, v)
+    sched = make_schedule(WorkerSpec(port=0, slot=-1, n_slots=3, steps=1,
+                                     global_batch=24, features=8, out_dim=4,
+                                     n_samples=256, data_seed=3))
+    x, y = sched.global_batch(0)
+    want = np.zeros((8, 4), np.float32)
+    for r in range(3):  # w starts at 0: each slice's gradient is -2/B X^T Y
+        xs, ys = x[8 * r:8 * (r + 1)], y[8 * r:8 * (r + 1)]
+        want = want - np.float32(0.05) * ((2.0 / 24) * (xs.T @ (-ys)))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    assert chip_smoke._elastic_step_mib(3) == 48.0 * (
+        chip_smoke.ELASTIC_FEATURES * chip_smoke.ELASTIC_OUT) / (1024 * 1024)
+
+
+def test_kernels_line_counts_the_elastic_path():
+    """main() runs the elastic phase right after supervise; every row's
+    launches by path gains "elastic" through ``later``, its summary line
+    stays before the card line; the phase keeps its widths, steps and
+    budget."""
+    src = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    main = src[src.index("def main("):]
+    order = [main.index(f"phase_{p}(card") for p in (
+        "supervise", "elastic", "train_cnn")]
+    assert order == sorted(order)
+    assert main.count('"elastic": elastic["launches"][i]') == 1
+    assert main.index("[supervise] summary:") < \
+        main.index("[elastic] summary:") < main.index("print(card)")
+    assert (chip_smoke.ELASTIC_WORKERS, chip_smoke.ELASTIC_FEATURES,
+            chip_smoke.ELASTIC_OUT, chip_smoke.ELASTIC_SAMPLES,
+            chip_smoke.ELASTIC_GB, chip_smoke.ELASTIC_LR,
+            chip_smoke.ELASTIC_STEPS) == (3, 1024, 1024, 6144, 768, 0.05, 48)
+    assert chip_smoke.ELASTIC_BUDGET_S == 60.0
+    assert chip_smoke._elastic_step_mib(3) == 48.0

@@ -221,6 +221,101 @@ def test_held_drain_migrates_live_slots_with_zero_reprefill(tmp_path,
         pool.close()
 
 
+def test_drain_waits_for_a_submit_being_routed_to_its_member(tmp_path,
+                                                             oracle):
+    """A submit routed to a member whose put is still under way when the
+    member's drain starts: the drain sends nothing to the source until the
+    put is done, so the member reads the submit before the drain command
+    and the export carries it; the request is served token-exact.  (Put
+    after the drain had exported, the request was read by no one: the
+    autoscaler's drains lost one so, ``accepted requests unresolved``.)"""
+    pool = _pool(tmp_path)
+    gate, entered = threading.Event(), threading.Event()
+    picked, sent = [], []
+    real = pool._send
+
+    def send(slot, msg, **kw):
+        if msg.get("cmd") == "submit" and not entered.is_set():
+            picked.append(slot)
+            entered.set()
+            assert gate.wait(WAIT_S), "the held submit was never let go"
+        elif not gate.is_set():
+            sent.append((slot, msg.get("cmd")))
+        return real(slot, msg, **kw)
+
+    out = {}
+    try:
+        pool._send = send
+        t = threading.Thread(target=lambda: out.setdefault(
+            "req", pool.submit([7, 3, 5], max_tokens=8, timeout_s=120.0)),
+            daemon=True)
+        t.start()
+        assert entered.wait(WAIT_S), "the submit never reached a send"
+        src = picked[0]
+        d = threading.Thread(target=lambda: out.setdefault(
+            "n", pool.drain_member(src, close=True, codec="none")),
+            daemon=True)
+        d.start()
+        _until(lambda: src in pool._draining, "the drain never started")
+        deadline = time.monotonic() + 1.0
+        while time.monotonic() < deadline:
+            assert (src, "drain") not in sent, \
+                "the drain command went out with a submit to it in flight"
+            time.sleep(0.01)
+        gate.set()
+        t.join(WAIT_S)
+        d.join(WAIT_S)
+        assert not t.is_alive() and not d.is_alive()
+        req = out["req"]
+        assert out["n"] == pool.last_drain["requests"] == 1
+        assert req.done.wait(WAIT_S), "the routed request was lost"
+        assert req.status == "ok" and req.tokens == oracle([7, 3, 5], 8)
+        assert pool.procs[src].wait(WAIT_S) == 0
+    finally:
+        gate.set()
+        pool.close()
+
+
+def test_revived_member_is_not_routed_before_its_channel_is_bound(
+        tmp_path, oracle):
+    """A drained slot revived: the fresh process joins the blackboard
+    before the controller binds its control channel.  In that window the
+    slot is not routable, so a submit goes to the other member and is
+    served; once bound, the revived member serves.  (Routed there, the
+    submit went down the dead incarnation's channel and was read by no
+    one: the autoscaler's scale-ups lost one so.)"""
+    pool = _pool(tmp_path)
+    seen = {}
+    real = pool._bind_member
+
+    def bind(slot, spec):
+        _until(lambda: slot in pool.svc.alive_slots(),
+               "the revived member never joined")
+        seen["routable"] = pool._routable()
+        seen["req"] = pool.submit([2, 7, 1], max_tokens=6, timeout_s=120.0)
+        return real(slot, spec)
+
+    try:
+        pool.drain_member(1, close=True, codec="none")
+        assert pool.procs[1].wait(WAIT_S) == 0
+        _until(lambda: 1 not in pool.svc.alive_slots(),
+               "the drained member never left")
+        pool._bind_member = bind
+        pool.revive_member(1)
+        assert seen["routable"] == [0]
+        req = seen["req"]
+        assert req.member == 0
+        assert req.done.wait(WAIT_S), "the request was lost"
+        assert req.status == "ok" and req.tokens == oracle([2, 7, 1], 6)
+        assert 1 in pool._routable()
+        reqs = _submit_all(pool, [[5, 6], [6, 5]], 4)
+        assert {r.member for r in reqs} == {0, 1}
+        assert _finish(reqs) == [("ok", oracle([5, 6], 4)),
+                                 ("ok", oracle([6, 5], 4))]
+    finally:
+        pool.close()
+
+
 def test_held_kill_fails_over_then_revive_serves(tmp_path, oracle):
     """SIGKILL of a member parked at a decode round: the lease
     declares it lost and ``failover`` re-prefills its requests on the

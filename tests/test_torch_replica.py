@@ -16,7 +16,8 @@ writes); ``ReplicaSpec.to_json`` byte-identical across the packages; the
 wire-error classification of every failure the port's van raises; the
 replica channel's ``VanFailover`` on a superseded incarnation (a fake
 replica whose incarnation moves); ``tests/test_health.py``'s retired-
-handle gauge; the standby planes still to be ported refused by name.
+handle gauge; the standby plane still to be ported (``mpmd``) refused by
+name.
 
 Waits are joins with deadlines; the watch test runs on wall time (the
 lease is defined on it) with margins of 3x or more.
@@ -487,8 +488,7 @@ def test_standby_rejects_unknown_plane():
         StandbyController(plane="nope", n_slots=1, table=object())
 
 
-@pytest.mark.parametrize("plane,names", [("elastic", "resilience/"),
-                                         ("mpmd", "multi-GPU")])
+@pytest.mark.parametrize("plane,names", [("mpmd", "multi-GPU")])
 def test_standby_planes_still_to_port_are_refused_by_name(plane, names):
     with pytest.raises(NotImplementedError, match=names):
         StandbyController(plane=plane, n_slots=1, table=object())

@@ -665,6 +665,43 @@ def test_engine_loop_hands_the_lock_to_a_waiting_export(gpt):
         srv.close()
 
 
+def test_between_steps_waits_for_the_step_and_is_bounded(gpt):
+    """``between_steps``, in which a member process takes its final
+    black-box record: while a decode round is held it gives up after its
+    timeout and yields False; waiting longer, it gets the lock right after
+    the held round, and no round runs while it holds it."""
+    jm, jv, tm = gpt
+    held = _HeldEngine(_engine(tm), hold_at=2)
+    sched = ContinuousBatchingScheduler(held)
+    req = Request(prompt=[1, 2, 3], max_tokens=30, timeout_s=90.0)
+    sched.submit(req)
+    srv = InferenceServer(sched, max_clients=0, poll_s=0.05)
+    out = {}
+
+    def take():
+        with sched.between_steps(WAIT_S) as got:
+            n = held.decodes
+            time.sleep(0.1)
+            out["x"] = (got, n, held.decodes)
+
+    try:
+        assert held.reached.wait(WAIT_S)
+        with sched.between_steps(0.05) as got:
+            assert not got
+        assert sched.control_waiting == 0
+        t = threading.Thread(target=take, daemon=True)
+        t.start()
+        _until(lambda: sched.control_waiting > 0, "the take never waited")
+        held.release_evt.set()
+        t.join(WAIT_S)
+        assert out["x"] == (True, 3, 3)
+        assert req.done.wait(WAIT_S) and req.status == "ok"
+        assert req.tokens == _ref_greedy(jm, jv, [1, 2, 3], 30)
+    finally:
+        held.release_evt.set()
+        srv.close()
+
+
 def test_port_pool_and_reference_pool_give_the_same_tokens(gpt):
     """The same prompts through a port pool and a reference pool (the
     JAX engines on the same weights), each of two members: the same
