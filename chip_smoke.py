@@ -65,11 +65,13 @@ without the final result line:
    layer input's included; then 10 Adam steps (finite, falling loss; 2
    gathers, 2 scatter-adds and no top-k gate a step), step time,
    tokens/s, dropped_frac and peak memory.
-8. llama_serve — Llama-2-7B at full width and depth (LlamaConfig's
-   defaults), bf16, flash, weights drawn on the card from ``--seed``;
-   ``ServeEngine`` + ``ContinuousBatchingScheduler`` with 8 slots x 1024
-   (cut from max_position 4096) over 16 seeded requests (prompts of 4-512
-   tokens, 8-64 generated); 32 flash forwards a prefill; the kernel path's
+8. llama_serve — Llama-2-7B at full width (LlamaConfig's defaults) and
+   16 of its 32 layers (cut for the script's time limit; the paged,
+   migrate and server phases serve this engine), bf16, flash,
+   weights drawn on the card from ``--seed``; ``ServeEngine`` +
+   ``ContinuousBatchingScheduler`` with 8 slots x 1024 (cut from
+   max_position 4096) over 16 seeded requests (prompts of 4-512 tokens,
+   8-64 generated); 16 flash forwards a prefill; the kernel path's
    last-position prefill logits against the plain path's on the same
    weights; a profiled prefill and decode step.
 9. paged_serve — ``PagedServeEngine`` (16-token pages, 64-token chunks)
@@ -233,9 +235,39 @@ without the final result line:
    in-process sgd arm's initial rows and pushes replayed on the
    partitioned table leave it equal to the in-process table (rtol 1e-6,
    the count of bitwise rows printed).
-15a. supervise — the training supervisor (``resilience/supervisor.py``):
+15a. recsys — online CTR serving (``serve/recsys.py``): ``WideDeep`` at
+   train_ctr's widths (26 sparse fields, emb dim 16, 13 dense, hidden (256,
+   256)), f32 on the card, its weights drawn from the seed in the JAX
+   package's layout, behind ``ServingEmbeddingCache`` s (131072 rows, LRU,
+   pull_bound 1) over a van ``PartitionedPSTable`` of 1M x 16 f32 rows
+   (adagrad) on two shard processes (ps_ctr's PS leg, cut from train_ctr's
+   33M card-resident rows), engines of max_batch 256 from bucket 8.  (a)
+   bench_ctr_serve's A/B: 4096 seeded single requests (Zipf(1.2) ids) in
+   waves of 8 through ``RecsysBatcher.step``, cached against cache-less in
+   alternating rounds: every request ok, one fixed batch of each bucket
+   bitwise equal through both engines, every score within 1e-5 of a
+   float64 CPU forward on the same rows, at most one shape a bucket, a hit
+   rate above 0; QPS, TTFR p50/p99, hit rate, PS bytes and the median
+   gather, dispatch and device_wait spans.  (b) a two-member
+   ``RecsysPool`` while a trainer thread writes a version-encoded sentinel
+   row over the van: every served sentinel at most pull_bound versions
+   stale; ``kill_member`` fails over with every request ok;
+   ``revive_member`` routes to the revived member again and closes the
+   dead engine's cache once; 64 requests through ``pool.frontend()`` and a
+   ``RecsysClient`` within 1e-6 of the same request in process.  (c) the
+   reference chaos test's seeded shard SIGKILL under traffic: every
+   request ok, degraded lookups, the shard restarted on its port and no
+   cache left degraded, ``fault.kill_shard`` paired with
+   ``serve.recsys_degrade``; kill -> first degraded answer, the window and
+   restart -> recovered.  (d) an open-loop CTR trace (10 s, base 50/s, a
+   10x diurnal peak, 65536 Zipf ranks over the 1M keys) through
+   ``ctr_submitter``: every request ok, shed or timeout, one ok at least;
+   counts, TTFR p50/p99 and the replay's lag behind the trace.  No kernel
+   of the six launches.
+15b. supervise — the training supervisor (``resilience/supervisor.py``):
    (a) GPT-2-small at its published widths (V 50257, max_position 1024;
-   bf16, flash, remat, AdamW), B 8 x S 1024, 12 ``Supervisor`` steps with
+   bf16, flash, remat, AdamW) and 6 of its 12 layers, B 8 x S 1024, 12
+   ``Supervisor`` steps with
    two data faults (``retries_data`` 2, a ``recovery.retry`` span each),
    run twice in this process, uninterrupted and with no checkpoint
    directory (the card's reproducibility: bitwise or the twins' gap);
@@ -256,7 +288,7 @@ without the final result line:
    the repaired shard's rows and slots bitwise its snapshot of before the
    kill, the live shard unchanged, a falling loss, each fault paired with
    its recovery span; snapshot and repair ms, death -> repaired s.
-15b. elastic — the multi-controller elastic training plane
+15c. elastic — the multi-controller elastic training plane
    (``resilience/multicontroller.py``, ``resilience/memberproc.py``) and
    the standby's elastic takeover, over one van process: three worker
    processes (numpy over the van, neither torch nor jax) train a seeded
@@ -276,7 +308,7 @@ without the final result line:
    jax.  The median step ms and the van's bytes a step of each arm, the
    detection, shrink, READY, grow and hand-off times; the phase's seconds
    against its 60 s budget.
-15c. train_cnn — examples/cnn_resnet.py's ResNet-18 / CIFAR-10 (f32, B
+15d. train_cnn — examples/cnn_resnet.py's ResNet-18 / CIFAR-10 (f32, B
    128, Momentum(0.9) under the cosine schedule) on its ``--subset`` of
    the synthetic CIFAR-10 through ``Dataloader`` and 20
    ``Executor.run("train")`` steps (finite, falling loss; the batch norms'
@@ -288,27 +320,27 @@ without the final result line:
    step over the f32 peak, peak memory, one profiled step; then VGG-16
    (BN, DropOut from the step's generator), LeNet (MNIST padded to 32 x
    32) and the MLP, 10 steps each (finite, falling loss).
-15d. train_rnn — examples/rnn_mnist.py's recurrent classifiers (rnn,
+15e. train_rnn — examples/rnn_mnist.py's recurrent classifiers (rnn,
    lstm, gru; 28 rows of 28 pixels, hidden 128, B 128, Adam(1e-3)), 20
    Executor steps each on a 256-sample subset of the synthetic MNIST
    (finite, falling loss; no kernel of the six launches), one pass in f32
    against float64; step time, samples/s, peak memory, one profiled step.
-15e. train_gcn — the 2-layer GCN (hidden 256, dropout 0.5, Adam(0.01)) on
+15f. train_gcn — the 2-layer GCN (hidden 256, dropout 0.5, Adam(0.01)) on
    a seeded graph at ogbn-arxiv's sizes (169 343 nodes, 128 features, 40
    classes, 2 332 486 directed edges), 20 full-graph Executor steps
    (finite, falling loss; gcn_norm's degrees exact; no kernel launches),
    one pass in f32 against float64 through f32's ReLU pattern; step time,
    nodes/s, peak memory, one profiled step.
-15f. gcn_sampled — the same graph published to in-process PS tables,
+15g. gcn_sampled — the same graph published to in-process PS tables,
    GraphSAGE's sampling (fanouts 25, 10; 512 seeds) through
    ``NeighborSampler``, 8 padded batches normalised on the card and
    trained through the Executor (every sampled edge real, fan-in bounded,
    the loss of the last 3 batches below the first 3's); sample, pull and
    step times.
-15g. ops_zoo — every op of the elementwise, shape, reduce and matmul
+15h. ops_zoo — every op of the elementwise, shape, reduce and matmul
    families on the card against the CPU (index and shape ops exactly,
    arithmetic within 1e-6 of max|y|; ties for top-k, argsort, unique).
-15h. train_compressed — examples/rec_compressed.py's loop (the
+15i. train_compressed — examples/rec_compressed.py's loop (the
    EmbeddingMemoryCompression tool's run_compressed) at train_ctr's
    Criteo-Kaggle table: V 33 000 000, D 16, 26 fields, the example's head
    (one hidden layer of 32), Adam(5e-3), B 2048, 10 steps over 4
@@ -336,7 +368,7 @@ limit (as nvidia-smi gives them), the kernel report
 ``{"kernels": [...]}`` (all six kernels: the three flash kernels, the top-k
 gate, the gather and the scatter-add, the last two with their CTR
 launches and times; each with its launches by path, 0 on the CNN, RNN,
-GCN, compression and elastic paths) and ``{"ok": true, "device": {...}}``.
+GCN, compression, recsys and elastic paths) and ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -473,12 +505,16 @@ GATES_KTOP1_K, GATES_ITERS = 2, 20
 # where the top two lp of a row lie that close.
 BALANCE_TIE_ULPS = 16  # a Sinkhorn round
 
-# Llama-2-7B (LlamaConfig's defaults; hetu_tpu/models/llama.py:31-45)
+# Llama-2-7B (LlamaConfig's defaults; hetu_tpu/models/llama.py:31-45) at
+# its widths; served at LLAMA_L = 16 of its LLAMA_DEPTH = 32 layers (cut
+# for the whole script's time limit: the serving, paged, migration and
+# front-end phases run its bursts, decodes and 8-slot drains)
 LLAMA_V, LLAMA_H, LLAMA_L, LLAMA_NH, LLAMA_FFN, LLAMA_P = (
-    32000, 4096, 32, 32, 11008, 4096)
+    32000, 4096, 16, 32, 11008, 4096)
+LLAMA_DEPTH = 32
 LLAMA_HEAD_DIM = LLAMA_H // LLAMA_NH  # 128
-# serving: 8 slots x 1024 (cut from max_position 4096: a 4.3 GB cache),
-# one closed burst of 16 requests
+# serving: 8 slots x 1024 (cut from max_position 4096: a 2.1 GB cache at
+# 16 layers), one closed burst of 16 requests
 LLAMA_SLOTS, LLAMA_MAX_LEN, LLAMA_REQUESTS = 8, 1024, 16
 LLAMA_PROMPT, LLAMA_GEN = (4, 512), (8, 64)
 LLAMA_FWD_S = (128, 512, 1024)  # the forward timed at (1, 32, S, 128)
@@ -628,10 +664,39 @@ _VAN_SERVER_SRC = (
     "sys.stdin.read()\n")  # serves until the parent closes the pipe
 CTR_GATHER_SETS = 32  # id sets the gather's timing cycles through
 
+# online CTR serving (serve/recsys.py): train_ctr's Wide & Deep widths (26
+# sparse fields, emb dim 16, 13 dense, hidden (256, 256)), f32, its weights
+# drawn with numpy from the seed in the JAX package's layout; a van
+# PartitionedPSTable of ps_ctr's PS-leg rows (1M x 16 f32, adagrad) over two
+# shard processes; caches of ps_ctr's HET capacity, pull_bound 1, LRU;
+# engines of max_batch 256 from bucket 8.  (a) bench_ctr_serve's A/B: 4096
+# single requests (Zipf(1.2) ids, standard-normal dense) in waves of 8
+# through RecsysBatcher.step, cached against cache-less in alternating
+# rounds, two each; (b) a two-member RecsysPool under a trainer thread
+# writing a version-encoded sentinel row, a member kill and revive, and 64
+# requests over the wire; (c) a seeded shard SIGKILL under traffic; (d) an
+# open-loop CTR trace (10 s, base 50/s, a 10x diurnal peak) through
+# ctr_submitter
+RECSYS_V, RECSYS_CACHE, RECSYS_PULL_BOUND = CTR_PS_V, CTR_PS_CACHE, 1
+RECSYS_MAX_BATCH, RECSYS_MIN_BUCKET = 256, 8
+RECSYS_REQUESTS, RECSYS_WAVE, RECSYS_ROUNDS = 4096, 8, 2
+RECSYS_ADAGRAD_LR = 0.05
+RECSYS_TOL_F64 = 1e-5   # a served probability vs a float64 CPU forward
+RECSYS_TOL_WIRE = 1e-6  # over the wire vs the same request in process
+RECSYS_SENTINEL_S = 1.5  # the trainer thread's run
+RECSYS_WIRE_REQUESTS = 64
+RECSYS_KILL_SCHEDULE = dict(steps=8, seed=1234, kill_shards=1, n_shards=2)
+RECSYS_KILL_STEPS = 12
+RECSYS_TRACE = dict(duration_s=10.0, base_qps=50.0, diurnal_peak_x=10.0,
+                    n_prompts=65536, fields=CTR_F, dense_dim=CTR_DENSE,
+                    key_space=CTR_PS_V)
+RECSYS_WAIT_S = 30.0  # a wait's own deadline
+RECSYS_BUDGET_S = 45.0
+
 # the training supervisor: (a) GPT-2-small at its published widths (V
 # 50257, max_position 1024; the train phase's bf16, flash, remat, fused CE,
-# AdamW) at B 8 x S 1024, 12 supervised steps, a checkpoint every 4, 2
-# kept, data faults at steps 2 and 9; the preempted child is held after
+# AdamW; 6 of its 12 layers) at B 8 x S 1024, 12 supervised steps, a
+# checkpoint every 4, 2 kept, data faults at steps 2 and 9; the preempted child is held after
 # step 5 while it is sent SIGTERM; the bare guarded step timed for 12 steps;
 # a child's deadline, its start-up included.  (b) ps_ctr's PS leg (1M rows
 # x 16 f32, the example's adagrad at lr 0.05, B 2048, 26 + 13 fields, the
@@ -639,6 +704,7 @@ CTR_GATHER_SETS = 32  # id sets the gather's timing cycles through
 # the table snapshotted every 5, under the reference chaos test's seeded
 # schedule
 SUP_V, SUP_B, SUP_S, SUP_STEPS, SUP_LR = 50257, 8, 1024, 12, 1e-4
+SUP_L = 6  # of GPT-2-small's 12 layers: no gate of the arm needs depth
 SUP_CKPT_EVERY, SUP_KEEP, SUP_HOLD_AT, SUP_BARE_STEPS = 4, 2, 5, 12
 SUP_DATA_ERRORS = (2, 9)
 SUP_CHILD_S = 300.0
@@ -1183,13 +1249,15 @@ def phase_kernel_bwd(card):
 
 
 def jax_layout_weights(seed: int, max_position: int = MAX_LEN,
-                       vocab: int | None = None) -> dict:
+                       vocab: int | None = None,
+                       layers: int | None = None) -> dict:
     """GPT-2-small parameters in the JAX package's layout and with its
     initialisers: normal(0.02) embeddings, Xavier-uniform MHA and Linear
     weights (``[in, out]``, stacked ``[L, ...]``), zero biases, unit
-    LayerNorm scales.  ``vocab`` defaults to ``V``."""
+    LayerNorm scales.  ``vocab`` defaults to ``V``, ``layers`` to ``L``."""
     g = np.random.default_rng(seed)
     vocab = V if vocab is None else vocab
+    nl = L if layers is None else layers
 
     def normal(*shape):
         return 0.02 * g.standard_normal(shape, dtype=np.float32)
@@ -1203,13 +1271,13 @@ def jax_layout_weights(seed: int, max_position: int = MAX_LEN,
     return {
         "tok_emb": normal(vocab, H), "pos_emb": normal(max_position, H),
         "blocks": {
-            "attn": {"qkv_weight": xavier(L, H, 3 * H),
-                     "qkv_bias": z(L, 3 * H),
-                     "out_weight": xavier(L, H, H), "out_bias": z(L, H)},
-            "ln1": {"scale": o(L, H), "bias": z(L, H)},
-            "ffn_in": {"weight": xavier(L, H, FFN), "bias": z(L, FFN)},
-            "ffn_out": {"weight": xavier(L, FFN, H), "bias": z(L, H)},
-            "ln2": {"scale": o(L, H), "bias": z(L, H)},
+            "attn": {"qkv_weight": xavier(nl, H, 3 * H),
+                     "qkv_bias": z(nl, 3 * H),
+                     "out_weight": xavier(nl, H, H), "out_bias": z(nl, H)},
+            "ln1": {"scale": o(nl, H), "bias": z(nl, H)},
+            "ffn_in": {"weight": xavier(nl, H, FFN), "bias": z(nl, FFN)},
+            "ffn_out": {"weight": xavier(nl, FFN, H), "bias": z(nl, H)},
+            "ln2": {"scale": o(nl, H), "bias": z(nl, H)},
         },
         "ln_f_scale": o(H), "ln_f_bias": z(H),
     }
@@ -2681,7 +2749,7 @@ def phase_llama_serve(card, seed, device="cuda"):
                       ffn_size=LLAMA_FFN, max_position=LLAMA_P,
                       dtype=torch.bfloat16, attention_impl="flash")
     t0 = time.perf_counter()
-    # drawn on the card: 6.7 B f32 parameters would take 27 GB of host RAM
+    # drawn on the card: 3.5 B f32 parameters would take 14 GB of host RAM
     model = LlamaModel(cfg, generator=torch.Generator(
         device=device).manual_seed(seed), device=device)
     n_params = sum(p.numel() for p in model.parameters())
@@ -2694,6 +2762,7 @@ def phase_llama_serve(card, seed, device="cuda"):
     serving_gib = sum(p.numel() * p.element_size()
                       for p in engine.model.parameters()) / 2 ** 30
     print(f"[llama_serve] Llama-2-7B V={LLAMA_V} H={LLAMA_H} L={LLAMA_L} "
+          f"(of {LLAMA_DEPTH}) "
           f"heads={LLAMA_NH} head_dim={LLAMA_HEAD_DIM} ffn={LLAMA_FFN} "
           f"({n_params / 1e9:.3f} B params) bf16 flash, {LLAMA_SLOTS} slots "
           f"x {LLAMA_MAX_LEN}: built in {time.perf_counter() - t0:.1f} s, "
@@ -6402,7 +6471,7 @@ def phase_train_llama(card, seed, device="cuda"):
                           device=device),)
     _sync(device)
     print(f"[train_llama] Llama-2-7B widths, {LLAMA_TRAIN_L} layers (cut "
-          f"from {LLAMA_L}) B={LLAMA_TRAIN_B} S={LLAMA_TRAIN_S} bf16 flash "
+          f"from {LLAMA_DEPTH}) B={LLAMA_TRAIN_B} S={LLAMA_TRAIN_S} bf16 flash "
           f"remat fused-CE AdamW({LLAMA_LR:g}): built in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -8498,12 +8567,563 @@ def phase_ps_ctr(card, seed, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------- recsys
+
+def recsys_jax_layout_weights(seed, model) -> dict:
+    """``model``'s parameters as the JAX package's tree (a Linear's weight
+    ``[in, out]``), drawn with numpy from ``seed`` leaf by leaf in the
+    tree's sorted order: Xavier-uniform weights, normal(0, 0.01) biases."""
+    from hetu_tpu_torch import interop
+
+    g = np.random.default_rng([seed, 24])
+
+    def draw(node):
+        if isinstance(node, dict):
+            return {k: draw(node[k]) for k in sorted(node)}
+        shape = np.shape(node)
+        if len(shape) == 2:
+            lim = np.float32(np.sqrt(6.0 / (shape[0] + shape[1])))
+            return (g.random(shape, dtype=np.float32) * 2 - 1) * lim
+        return 0.01 * g.standard_normal(shape, dtype=np.float32)
+    return draw(interop.params_to_jax(model.state_dict(), model))
+
+
+def recsys_model(seed, device):
+    """train_ctr's Wide & Deep tower (26 fields, emb dim 16, 13 dense,
+    hidden (256, 256)), f32 on ``device``, its weights
+    :func:`recsys_jax_layout_weights` loaded through ``interop``."""
+    from hetu_tpu_torch import interop
+    from hetu_tpu_torch.models import WideDeep
+
+    model = WideDeep(CTR_F, CTR_DIM, CTR_DENSE, CTR_HIDDEN,
+                     generator=torch.Generator(device=device).manual_seed(
+                         seed), device=device)
+    model.load_state_dict(interop.params_from_jax(
+        recsys_jax_layout_weights(seed, model), model))
+    return model
+
+
+def _recsys_f64(model64, dense, rows):
+    """CTR probabilities of a float64 CPU forward."""
+    with torch.no_grad():
+        logit = model64(torch.from_numpy(dense).double(),
+                        torch.from_numpy(rows).double())
+    return torch.sigmoid(logit).numpy()
+
+
+def _recsys_cache(table, capacity, cls=None):
+    from hetu_tpu_torch.serve.recsys import ServingEmbeddingCache
+    from hetu_tpu_torch.telemetry.registry import MetricsRegistry
+    return (cls or ServingEmbeddingCache)(
+        table, capacity, pull_bound=RECSYS_PULL_BOUND, policy="lru",
+        registry=MetricsRegistry())
+
+
+def _recsys_engine(model, cache, device):
+    from hetu_tpu_torch.serve.recsys import RecsysEngine
+    return RecsysEngine(model, cache, max_batch=RECSYS_MAX_BATCH,
+                        min_bucket=RECSYS_MIN_BUCKET, device=device)
+
+
+def _recsys_requests(g, n):
+    """``n`` requests' (dense [n, 13] f32, ids [n, 26] int64): standard-
+    normal dense features, Zipf(1.2) ids over the table's rows."""
+    ids = zipf_ids(g, (n, CTR_F), RECSYS_V).astype(np.int64)
+    return g.standard_normal((n, CTR_DENSE)).astype(np.float32), ids
+
+
+def _span_medians(events):
+    """Median ms of the engine's three spans among ``events``."""
+    out = {}
+    for part in ("gather", "dispatch", "device_wait"):
+        d = [e["dur"] / 1e3 for e in events
+             if e.get("name") == f"serve.recsys.{part}" and "dur" in e]
+        out[part] = float(np.median(d)) if d else float("nan")
+    return out
+
+
+def _recsys_ab(card, seed, model, table, device):
+    """Arm (a): bench_ctr_serve's A/B of the cached engine against the
+    cache-less one on the same seeded single requests, in waves through
+    ``RecsysBatcher.step``, the variants alternating round by round."""
+    from hetu_tpu_torch.serve.recsys import RecsysBatcher, RecsysRequest
+    from hetu_tpu_torch.telemetry import trace
+
+    g = np.random.default_rng([seed, 24, 1])
+    dense, ids = _recsys_requests(g, RECSYS_REQUESTS)
+    v = {name: {"eng": _recsys_engine(model, _recsys_cache(table, cap),
+                                      device),
+                "cap": cap, "lats": [], "busy": 0.0, "spans": [],
+                "scores": np.zeros(RECSYS_REQUESTS, np.float32),
+                "status": []}
+         for name, cap in (("cached", RECSYS_CACHE), ("cache-less", 0))}
+    # one fixed batch of each bucket through both engines: bitwise equal
+    # (it also builds every bucket's staging before the timed rounds)
+    gb = np.random.default_rng([seed, 24, 2])
+    cached, bare = v["cached"]["eng"], v["cache-less"]["eng"]
+    for b in cached.buckets:
+        bd, bi = _recsys_requests(gb, b)
+        x, y = cached.score(bd, bi), bare.score(bd, bi)
+        check(np.array_equal(x, y), f"recsys (a): bucket {b}: the cached "
+              f"and cache-less engines differ (max |d| "
+              f"{np.abs(x - y).max():.3e})")
+    for x in v.values():  # measure the replayed traffic only
+        x["eng"].close()
+        x["eng"].caches = (_recsys_cache(table, x["cap"]),)
+        x["sched"] = RecsysBatcher(x["eng"], max_delay_s=0.001)
+    per = RECSYS_REQUESTS // RECSYS_ROUNDS
+    tracer = trace.enable()
+    try:
+        for r in range(RECSYS_ROUNDS):
+            order = ("cached", "cache-less") if r % 2 == 0 \
+                else ("cache-less", "cached")
+            for name in order:
+                x, n0 = v[name], len(tracer.events)
+                t0 = time.perf_counter()
+                for lo in range(r * per, (r + 1) * per, RECSYS_WAVE):
+                    hi = min(lo + RECSYS_WAVE, (r + 1) * per)
+                    wave = [RecsysRequest(dense=dense[i], sparse=ids[i],
+                                          timeout_s=60.0)
+                            for i in range(lo, hi)]
+                    for req in wave:
+                        x["sched"].submit(req)
+                    while x["sched"].has_work():
+                        x["sched"].step()
+                    for i, req in zip(range(lo, hi), wave):
+                        x["status"].append(req.status)
+                        x["scores"][i] = np.nan if req.score is None \
+                            else req.score
+                        x["lats"].append(req.ttfr_s)
+                x["busy"] += time.perf_counter() - t0
+                x["spans"] += tracer.events[n0:]
+    finally:
+        trace.disable()
+    model64 = copy.deepcopy(model).to("cpu", torch.float64)
+    rows = table.sparse_pull(ids.reshape(-1)).reshape(
+        RECSYS_REQUESTS, CTR_F, CTR_DIM)
+    p64 = _recsys_f64(model64, dense, rows)
+    out = {}
+    for name, x in v.items():
+        eng, st = x["eng"], x["eng"].caches[0].stats()
+        bad = [s for s in x["status"] if s != "ok"]
+        check(not bad and len(x["status"]) == RECSYS_REQUESTS,
+              f"recsys (a) {name}: {len(bad)} requests not ok: "
+              f"{sorted(set(bad))}")
+        err = float(np.abs(x["scores"].astype(np.float64) - p64).max())
+        check(err <= RECSYS_TOL_F64, f"recsys (a) {name}: max |p - "
+              f"p_float64| {err:.3e} > {RECSYS_TOL_F64:g}")
+        check(eng.compiled_executables() <= eng.max_executables,
+              f"recsys (a) {name}: {eng.compiled_executables()} shapes > "
+              f"{eng.max_executables}")
+        lats = np.asarray(x["lats"]) * 1e3
+        out[name] = dict(
+            qps=RECSYS_REQUESTS / x["busy"],
+            ttfr_p50_ms=float(np.percentile(lats, 50)),
+            ttfr_p99_ms=float(np.percentile(lats, 99)),
+            hit_rate=st["hit_rate"], bytes_pulled=st["ps_bytes_pulled"],
+            bytes_saved=st["ps_bytes_saved"], max_err=err,
+            batches=eng.metrics.count("recsys_batches") - len(eng.buckets),
+            shapes=eng.compiled_executables(),
+            spans=_span_medians(x["spans"]))
+        o = out[name]
+        print(f"[recsys] (a) {name}: {RECSYS_REQUESTS} requests in waves of "
+              f"{RECSYS_WAVE}, {o['batches']} batches, every response ok; "
+              f"QPS {o['qps']:.1f}, TTFR p50 {o['ttfr_p50_ms']:.3f} ms, p99 "
+              f"{o['ttfr_p99_ms']:.3f} ms; hit rate {o['hit_rate']:.4f}, PS "
+              f"bytes pulled {o['bytes_pulled']}, saved {o['bytes_saved']}; "
+              f"median span ms gather {o['spans']['gather']:.3f}, dispatch "
+              f"{o['spans']['dispatch']:.3f}, device_wait "
+              f"{o['spans']['device_wait']:.3f}; max |p - p_float64| "
+              f"{err:.3e} (limit {RECSYS_TOL_F64:g}); {o['shapes']} of "
+              f"{eng.max_executables} bucket shapes [{card}]")
+        eng.close()
+    check(out["cached"]["hit_rate"] > 0, "recsys (a): the cache never hit")
+    print(f"[recsys] (a) one fixed batch of each bucket "
+          f"{list(cached.buckets)} bitwise equal through both engines; "
+          f"cache-less p99 / cached p99 "
+          f"{out['cache-less']['ttfr_p99_ms'] / out['cached']['ttfr_p99_ms']:.3f}"
+          f" [{card}]")
+    return out
+
+
+def _recsys_wait(cond, what):
+    deadline = time.monotonic() + RECSYS_WAIT_S
+    while not cond():
+        check(time.monotonic() < deadline, f"recsys: {what} within "
+                                           f"{RECSYS_WAIT_S:g} s")
+        time.sleep(0.005)
+
+
+def _recsys_pool_arm(card, seed, model, table, device):
+    """Arm (b): a two-member RecsysPool over the table while a trainer
+    thread writes a version-encoded sentinel row; a member killed, failed
+    over and revived; 64 requests over the wire.  Returns the pool (for
+    arms (c) and (d)) and the arm's numbers."""
+    from hetu_tpu_torch.serve.recsys import (
+        RecsysClient, RecsysPool, ServingEmbeddingCache,
+    )
+
+    sentinel = RECSYS_V - 1
+    published, seen, closes = [0], [], {}
+
+    class SentinelCache(ServingEmbeddingCache):
+        """Records, for every lookup of the sentinel, the trainer's count
+        of completed sets when the lookup began and the rows served."""
+
+        def lookup(self, indices):
+            c0 = published[0]
+            rows = super().lookup(indices)
+            hit = np.asarray(indices).reshape(-1) == sentinel
+            if hit.any():
+                seen.append((c0, rows.reshape(-1, CTR_DIM)[hit]))
+            return rows
+
+        def close(self):
+            closes[id(self)] = closes.get(id(self), 0) + 1
+            super().close()
+
+    def factory():
+        return _recsys_engine(model, _recsys_cache(table, RECSYS_CACHE,
+                                                   SentinelCache), device)
+
+    g = np.random.default_rng([seed, 24, 3])
+    pool = RecsysPool({"a": factory, "b": factory}, failover_grace_s=30.0,
+                      request_timeout_s=60.0)
+    try:
+        table.sparse_set([sentinel], np.zeros((1, CTR_DIM), np.float32))
+        stop = threading.Event()
+
+        def trainer():
+            ver = 0
+            while not stop.is_set():
+                ver += 1
+                table.sparse_set([sentinel],
+                                 np.full((1, CTR_DIM), ver, np.float32))
+                published[0] = ver  # after the set
+
+        statuses, lock = [], threading.Lock()
+
+        def client(k):
+            gc = np.random.default_rng([seed, 24, 4, k])
+            while not stop.is_set():
+                d, i = _recsys_requests(gc, 1)
+                i[0, 0] = sentinel
+                r = pool.score(d[0], i[0], timeout_s=60.0)
+                with lock:
+                    statuses.append(r["status"])
+
+        th = [threading.Thread(target=trainer, daemon=True)] + [
+            threading.Thread(target=client, args=(k,), daemon=True)
+            for k in range(4)]
+        for t in th:
+            t.start()
+        time.sleep(RECSYS_SENTINEL_S)
+        stop.set()
+        for t in th:
+            t.join(RECSYS_WAIT_S)
+        check(not any(t.is_alive() for t in th),
+              "recsys (b): a client or the trainer hung")
+        lags = [c0 - int(r[0]) for c0, rows in seen for r in rows]
+        torn = sum(int(not np.all(rows == rows[:, :1])) for _, rows in seen)
+        check(statuses and all(s == "ok" for s in statuses),
+              f"recsys (b): sentinel requests not ok: {set(statuses)}")
+        check(published[0] > 10 and len(lags) > 10 and not torn,
+              f"recsys (b): {published[0]} sentinel sets, {len(lags)} "
+              f"sentinel lookups, {torn} torn")
+        check(max(lags) <= RECSYS_PULL_BOUND, f"recsys (b): a served "
+              f"sentinel {max(lags)} versions stale > pull_bound "
+              f"{RECSYS_PULL_BOUND}")
+        print(f"[recsys] (b) sentinel: {len(statuses)} requests by 4 "
+              f"clients while a trainer thread made {published[0]} sets "
+              f"of row {sentinel} over the van, every response ok; "
+              f"{len(lags)} sentinel rows served, lag max {max(lags)} "
+              f"versions (pull_bound {RECSYS_PULL_BOUND}; below 0 where a "
+              f"set completed during the lookup), none torn [{card}]")
+
+        # the kill: the victim's loop strikes out under traffic and the
+        # health poll fails its queue over to the peer
+        dead = pool.members["a"].engine
+        t0 = time.perf_counter()
+        pool.kill_member("a")
+        kill_status = []
+        for _ in range(16):
+            d, i = _recsys_requests(g, 1)
+            kill_status.append(pool.score(d[0], i[0],
+                                          timeout_s=60.0)["status"])
+        _recsys_wait(lambda: pool.metrics.count("pool_failovers") == 1,
+                     "the killed member failed over")
+        failover_s = time.perf_counter() - t0
+        check(all(s == "ok" for s in kill_status) and
+              not pool.members["a"].available,
+              f"recsys (b): after the kill {set(kill_status)}, member a "
+              f"available {pool.members['a'].available}")
+        t1 = time.perf_counter()
+        pool.revive_member("a")
+        revive_ms = (time.perf_counter() - t1) * 1e3
+        check([closes.get(id(c)) for c in dead.caches] == [1],
+              f"recsys (b): the dead engine's caches closed "
+              f"{[closes.get(id(c)) for c in dead.caches]} times")
+        new = pool.members["a"].engine
+        for _ in range(4):
+            d, i = _recsys_requests(g, 1)
+            check(pool.score(d[0], i[0], timeout_s=60.0)["status"] == "ok",
+                  "recsys (b): a request after the revive failed")
+        check(new is not dead and pool.members["a"].available and
+              new.metrics.count("recsys_scored") > 0,
+              "recsys (b): the revived member took no request")
+        print(f"[recsys] (b) kill_member: 16 requests every one ok, "
+              f"pool_failovers 1 after {failover_s * 1e3:.1f} ms "
+              f"(requests_failed_over "
+              f"{pool.metrics.count('requests_failed_over')}); revive_member "
+              f"{revive_ms:.1f} ms, the dead engine's cache closed once, the "
+              f"revived member scored {new.metrics.count('recsys_scored')} "
+              f"of 4 new requests [{card}]")
+
+        # 64 requests over the wire, each against the same in process
+        front = pool.frontend(max_clients=1)
+        cl = RecsysClient("127.0.0.1", pool.port, 0)
+        wire_ms, gaps = [], []
+        try:
+            for _ in range(RECSYS_WIRE_REQUESTS):
+                d, i = _recsys_requests(g, 1)
+                t = time.perf_counter()
+                resp = cl.score(d[0], i[0], timeout_s=60.0)
+                wire_ms.append((time.perf_counter() - t) * 1e3)
+                here = pool.score(d[0], i[0], timeout_s=60.0)
+                check(resp["status"] == "ok" and here["status"] == "ok",
+                      f"recsys (b): wire {resp['status']}, in process "
+                      f"{here['status']}")
+                gaps.append(abs(resp["score"] - here["score"]))
+        finally:
+            cl.close()
+            front.close()
+        check(max(gaps) <= RECSYS_TOL_WIRE, f"recsys (b): a wire score "
+              f"{max(gaps):.3e} from the same request in process")
+        print(f"[recsys] (b) wire: {RECSYS_WIRE_REQUESTS} requests through "
+              f"pool.frontend() and a RecsysClient, every one ok, max |wire "
+              f"- in process| {max(gaps):.3e} (limit {RECSYS_TOL_WIRE:g}); "
+              f"round trip p50 {float(np.median(wire_ms)):.3f} ms, p99 "
+              f"{float(np.percentile(wire_ms, 99)):.3f} ms [{card}]")
+    except BaseException:
+        pool.close()
+        raise
+    return pool, dict(sentinel_sets=published[0], lag_max=max(lags),
+                      failover_ms=failover_s * 1e3, revive_ms=revive_ms,
+                      wire_gap=max(gaps))
+
+
+def _recsys_shard_kill(card, seed, pool, table, slots):
+    """Arm (c): the reference chaos test's seeded shard SIGKILL under the
+    pool's traffic; the shard restarts on its port and the caches
+    recover."""
+    from hetu_tpu_torch.resilience import FaultInjector, FaultSchedule
+    from hetu_tpu_torch.telemetry import timeline, trace
+
+    sched = FaultSchedule.generate(**RECSYS_KILL_SCHEDULE)
+    (kill_ev,) = sched.events
+    check(kill_ev.kind == "kill_shard", f"recsys (c): drew {kill_ev}")
+    slot = slots[int(kill_ev.arg)]
+    inj = FaultInjector(sched, shard_procs=slots)
+    g = np.random.default_rng([seed, 24, 5])
+    statuses = []
+
+    def one():
+        d, i = _recsys_requests(g, 1)
+        statuses.append(pool.score(d[0], i[0], timeout_s=60.0)["status"])
+
+    tracer = trace.enable()
+    try:
+        for step in range(1, RECSYS_KILL_STEPS + 1):
+            inj.on_step(step)
+            for _ in range(2):
+                one()
+        slot.thread.join(RECSYS_WAIT_S)
+        _recsys_wait(lambda: all(table.alive),
+                     "the restarted shard reconnected")
+        # a degraded cache re-probes the PS at its first lookup past
+        # probe_interval_s: serve on until the probes have run
+        caches = [c for m in pool.members.values() for c in m.engine.caches]
+        deadline = time.monotonic() + RECSYS_WAIT_S
+        while any(c.degraded for c in caches):
+            check(time.monotonic() < deadline,
+                  "recsys (c): a cache never recovered")
+            time.sleep(0.05)
+            one()
+    finally:
+        trace.disable()
+    events = tracer.events
+    degraded = sum(c.stats()["degraded_lookups"] for c in caches)
+    check(inj.counters["shards_killed"] == 1 and degraded > 0,
+          f"recsys (c): {inj.counters['shards_killed']} shards killed, "
+          f"{degraded} degraded lookups")
+    check(all(s == "ok" for s in statuses),
+          f"recsys (c): responses {sorted(set(statuses))}")
+    ks = [p for p in timeline.correlate(events) if p.kind == "kill_shard"]
+    check(len(ks) == 1 and ks[0].paired and
+          ks[0].recovery_name == "serve.recsys_degrade",
+          f"recsys (c): fault.kill_shard paired as {ks}")
+    kill = next(e for e in events if e.get("name") == "fault.kill_shard")
+    enter = next(e for e in events
+                 if e.get("name") == "serve.recsys.degrade_enter")
+    window = next(e for e in events
+                  if e.get("name") == "serve.recsys_degrade")
+    out = dict(
+        requests=len(statuses), degraded_lookups=degraded,
+        kill_to_degraded_ms=(enter["ts"] - kill["ts"]) / 1e3,
+        window_ms=window["dur"] / 1e3,
+        restart_to_recovered_ms=(window["ts"] + window["dur"] - kill["ts"])
+        / 1e3 - slot.respawned_s * 1e3,
+        detect_s=ks[0].detect_s, recover_s=ks[0].recover_s)
+    print(f"[recsys] (c) shard kill: FaultSchedule.generate("
+          f"{', '.join(f'{k}={x}' for k, x in RECSYS_KILL_SCHEDULE.items())})"
+          f" SIGKILLed shard {int(kill_ev.arg)} at step {kill_ev.step}; "
+          f"{out['requests']} requests, every one ok, {degraded} degraded "
+          f"lookups; kill -> first degraded answer "
+          f"{out['kill_to_degraded_ms']:.3f} ms, degraded window "
+          f"{out['window_ms']:.3f} ms, restart -> recovered "
+          f"{out['restart_to_recovered_ms']:.3f} ms (the heartbeat saw it "
+          f"dead {slot.dead_seen_s:.3f} s after the kill, READY again "
+          f"{slot.respawned_s:.3f} s); fault.kill_shard paired with "
+          f"serve.recsys_degrade, no cache left degraded [{card}]")
+    return out
+
+
+def _recsys_trace(card, seed, pool):
+    """Arm (d): an open-loop CTR trace replayed through
+    ``ctr_submitter``."""
+    from hetu_tpu_torch.traffic import (
+        TenantSpec, TraceSpec, ctr_submitter, replay, synthesize,
+    )
+
+    spec = TraceSpec(seed=seed, tenants=[TenantSpec("ctr", kind="ctr")],
+                     **RECSYS_TRACE)
+    trace_d = synthesize(spec)
+    lag, t0 = [], [0.0]
+
+    def on_submit(ev, handle):
+        lag.append(time.monotonic() - t0[0] - ev["t"])
+
+    t0[0] = time.monotonic()
+    out = replay(trace_d, ctr_submitter(pool), on_submit=on_submit)
+    for _, h in out:
+        check(not isinstance(h, Exception), f"recsys (d): a submit raised "
+                                            f"{h!r}")
+        check(h.done.wait(h.timeout_s + 15.0), "recsys (d): a request "
+                                               "never resolved")
+    counts = {}
+    for _, h in out:
+        counts[h.status] = counts.get(h.status, 0) + 1
+    check(set(counts) <= {"ok", "shed", "timeout"} and
+          counts.get("ok", 0) >= 1, f"recsys (d): statuses {counts}")
+    ok = np.asarray([h.ttfr_s for _, h in out if h.status == "ok"]) * 1e3
+    res = dict(events=len(out), counts=counts,
+               ttfr_p50_ms=float(np.percentile(ok, 50)),
+               ttfr_p99_ms=float(np.percentile(ok, 99)),
+               lag_p99_ms=float(np.percentile(lag, 99)) * 1e3,
+               lag_max_ms=float(np.max(lag)) * 1e3)
+    print(f"[recsys] (d) open-loop trace: {res['events']} CTR events over "
+          f"{spec.duration_s:g} s (base {spec.base_qps:g}/s, diurnal peak "
+          f"x{spec.diurnal_peak_x:g}) through ctr_submitter: "
+          + ", ".join(f"{k} {n}" for k, n in sorted(counts.items()))
+          + f"; TTFR p50 {res['ttfr_p50_ms']:.3f} ms, p99 "
+          f"{res['ttfr_p99_ms']:.3f} ms; the replay behind the trace p99 "
+          f"{res['lag_p99_ms']:.3f} ms, max {res['lag_max_ms']:.3f} ms "
+          f"[{card}]")
+    return res
+
+
+def phase_recsys(card, seed, device="cuda"):
+    """Online CTR serving (serve/recsys.py) on the card: the Wide & Deep
+    tower at train_ctr's widths behind ServingEmbeddingCaches over a van
+    PartitionedPSTable of 1M x 16 f32 rows on two shard processes.  The
+    table is ps_ctr's PS leg, cut from train_ctr's 33M card-resident rows
+    to keep the van servers' start-up inside the script's limit.  Arms:
+    (a) the cached engine against the cache-less one, (b) a RecsysPool
+    under a sentinel-writing trainer, a member kill and revive and the
+    wire, (c) a seeded shard SIGKILL, (d) an open-loop CTR trace.  No
+    kernel of the six runs on this path (rows are gathered on the host).
+    Returns the numbers for the summary and the kernels line."""
+    import tempfile
+
+    from hetu_tpu_torch.ps import PartitionedPSTable
+    from hetu_tpu_torch.resilience.shardproc import free_port
+
+    t0 = time.perf_counter()
+    counters = _all_counters()
+    with tempfile.TemporaryDirectory(prefix="recsys_") as root:
+        slots, table, pool = [], None, None
+        try:
+            for i in range(2):
+                slots.append(_ShardSlot(root, free_port(), f"rs{i}"))
+            t1 = time.perf_counter()
+            table = PartitionedPSTable(
+                [("127.0.0.1", s.port) for s in slots], RECSYS_V, CTR_DIM,
+                init="normal", init_b=0.01, seed=seed, optimizer="adagrad",
+                lr=RECSYS_ADAGRAD_LR, heartbeat_ms=100)
+            made_ms = (time.perf_counter() - t1) * 1e3
+            for i, s in enumerate(slots):
+                s.table, s.index = table, i
+            model = recsys_model(seed, device)
+            print(f"[recsys] WideDeep({CTR_F}, {CTR_DIM}, {CTR_DENSE}, "
+                  f"{CTR_HIDDEN}) f32 on {device}; PartitionedPSTable("
+                  f"{RECSYS_V}, {CTR_DIM}, f32, adagrad) over 2 van shard "
+                  f"processes made in {made_ms:.1f} ms; caches {RECSYS_CACHE}"
+                  f" rows, LRU, pull_bound {RECSYS_PULL_BOUND}; engines "
+                  f"max_batch {RECSYS_MAX_BATCH} from bucket "
+                  f"{RECSYS_MIN_BUCKET} [{card}]")
+            for c in counters:
+                c.launches = 0
+            ab = _recsys_ab(card, seed, model, table, device)
+            pool, pl = _recsys_pool_arm(card, seed, model, table, device)
+            kill = _recsys_shard_kill(card, seed, pool, table, slots)
+            tr = _recsys_trace(card, seed, pool)
+            launches = [c.launches for c in counters]
+        finally:
+            if pool is not None:
+                pool.close()
+            if table is not None:
+                table.close()
+            for s in slots:
+                s.close()
+    check(launches == [0] * 6, f"recsys: the six kernels launched "
+                               f"{launches} on a path that runs none")
+    out = dict(ab=ab, pool=pl, kill=kill, trace=tr, table_ms=made_ms,
+               launches=launches, seconds=time.perf_counter() - t0)
+    print(f"[recsys] phase {out['seconds']:.1f} s (budget "
+          f"{RECSYS_BUDGET_S:g} s: "
+          f"{'met' if out['seconds'] <= RECSYS_BUDGET_S else 'missed'}); "
+          f"launches of the six kernels {launches} [{card}]")
+    return out
+
+
+def recsys_summary(recsys, card) -> str:
+    """The recsys phase's summary line, printed in the output's tail."""
+    ra, rp = recsys["ab"], recsys["pool"]
+    rk, rt = recsys["kill"], recsys["trace"]
+    return (f"[recsys] summary: phase {recsys['seconds']:.1f} s (budget "
+            f"{RECSYS_BUDGET_S:g} s); (a) QPS cached "
+            f"{ra['cached']['qps']:.1f}, cache-less "
+            f"{ra['cache-less']['qps']:.1f}, TTFR p99 cached "
+            f"{ra['cached']['ttfr_p99_ms']:.3f} ms, cache-less "
+            f"{ra['cache-less']['ttfr_p99_ms']:.3f} ms, hit rate "
+            f"{ra['cached']['hit_rate']:.4f}; (b) sentinel lag max "
+            f"{rp['lag_max']}, failover {rp['failover_ms']:.1f} ms, wire "
+            f"max |d| {rp['wire_gap']:.3e}; (c) kill -> degraded "
+            f"{rk['kill_to_degraded_ms']:.3f} ms, window "
+            f"{rk['window_ms']:.3f} ms, restart -> recovered "
+            f"{rk['restart_to_recovered_ms']:.3f} ms; (d) {rt['events']} "
+            f"events, " + ", ".join(f"{k} {n}" for k, n in
+                                    sorted(rt['counts'].items()))
+            + f", TTFR p99 {rt['ttfr_p99_ms']:.3f} ms; launches "
+            f"{recsys['launches']} [{card}]")
+
+
 # ------------------------------------------------------------- supervise
 
 def _sup_spec(seed, device):
     """Arm (a)'s configuration, passed whole to its child processes (which
     adopt these widths)."""
-    return {"seed": seed, "device": device, "V": SUP_V, "H": H, "L": L,
+    return {"seed": seed, "device": device, "V": SUP_V, "H": H, "L": SUP_L,
             "NH": NH, "FFN": FFN, "B": SUP_B, "S": SUP_S,
             "steps": SUP_STEPS, "lr": SUP_LR, "every": SUP_CKPT_EVERY,
             "keep": SUP_KEEP, "data_errors": list(SUP_DATA_ERRORS),
@@ -8527,7 +9147,8 @@ def _sup_gpt(spec):
                     attention_impl="flash", remat=True, fused_ce=True)
     model = GPTModel(cfg, device=spec["device"])
     model.load_state_dict(interop.params_from_jax(
-        jax_layout_weights(spec["seed"], spec["S"], spec["V"]), cfg))
+        jax_layout_weights(spec["seed"], spec["S"], spec["V"], spec["L"]),
+        cfg))
     ex = Executor(model.lm_loss_fn(), AdamWOptimizer(spec["lr"]),
                   seed=spec["seed"])
     state = ex.init_state(model)
@@ -8934,8 +9555,8 @@ class _ShardSlot:
         self.proc.wait()
         deadline = time.monotonic() + 30.0
         while self.table.alive[self.index]:
-            check(time.monotonic() < deadline, "supervise ps: the heartbeat "
-                  "did not see the killed shard die within 30 s")
+            check(time.monotonic() < deadline, "the table's heartbeat did "
+                  "not see the killed shard die within 30 s")
             time.sleep(0.005)
         self.dead_seen_s = time.perf_counter() - t0
 
@@ -9936,6 +10557,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_ps_ctr(card, args.seed)
     torch.cuda.empty_cache()
+    recsys = phase_recsys(card, args.seed)
+    torch.cuda.empty_cache()
     supervise = phase_supervise(card, args.seed)
     torch.cuda.empty_cache()
     elastic = phase_elastic(card, args.seed)
@@ -9961,6 +10584,8 @@ def main(argv=None) -> int:
               # included) and its PS arm
               "supervise": supervise["launches"][i],
               "supervise_ps": supervise["ps_launches"][i],
+              # online CTR serving gathers its rows on the host
+              "recsys": recsys["launches"][i],
               # the elastic training plane's processes run no kernel
               "elastic": elastic["launches"][i]}
              for i in range(6)]
@@ -10056,6 +10681,7 @@ def main(argv=None) -> int:
           f"({'met' if traffic['gold_p99_met'] else 'missed'}), "
           f"{traffic['prefills']} member prefills, flash forwards launched "
           f"{traffic['launches']} [{card}]")
+    print(recsys_summary(recsys, card))
     sg, sp = supervise["gpt"], supervise["ps"]
     print(f"[supervise] summary: phase {supervise['seconds']:.1f} s; gpt "
           f"step {sg['step_ms']:.3f} ms supervised, {sg['bare_ms']:.3f} ms "

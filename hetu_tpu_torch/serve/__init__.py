@@ -30,9 +30,11 @@
   * :mod:`crosshost` — :class:`CrossProcessServingPool`: the pool with
     each member an OS process of its own, membership leased on a van
     blackboard, the controller's state journaled on the van (a takeover
-    adopts a dead controller's fleet), drains over the wire.
-
-The CTR front end waits for a later slice.
+    adopts a dead controller's fleet), drains over the wire;
+  * :mod:`recsys` — online CTR serving: the bounded-staleness serving
+    cache over the PS (:class:`ServingEmbeddingCache`), the bucketed
+    Wide & Deep / DeepFM engine on the card (:class:`RecsysEngine`), the
+    micro-batcher, its wire front end and :class:`RecsysPool`.
 """
 
 from hetu_tpu_torch.serve import migrate
@@ -44,6 +46,11 @@ from hetu_tpu_torch.serve.kv_cache import (
 from hetu_tpu_torch.serve.metrics import ServeMetrics
 from hetu_tpu_torch.serve.migrate import MigrationError
 from hetu_tpu_torch.serve.pool import EngineKilled, ServingPool
+from hetu_tpu_torch.serve.recsys import (
+    NOT_CACHED, STALENESS_BUCKETS, EngineKilledError, RecsysBatcher,
+    RecsysClient, RecsysEngine, RecsysPool, RecsysRequest, RecsysServer,
+    ServingEmbeddingCache, recsys_member_factory,
+)
 from hetu_tpu_torch.serve.scheduler import ContinuousBatchingScheduler, Request
 from hetu_tpu_torch.serve.server import (
     InferenceClient, InferenceServer, request_channel, response_channel,
@@ -54,4 +61,8 @@ __all__ = ["ServeEngine", "PagedServeEngine", "KVCache", "KVCacheSpec",
            "ServeMetrics", "MigrationError", "migrate",
            "ContinuousBatchingScheduler", "Request", "InferenceServer",
            "InferenceClient", "request_channel", "response_channel",
-           "ServingPool", "EngineKilled", "CrossProcessServingPool"]
+           "ServingPool", "EngineKilled", "CrossProcessServingPool",
+           "ServingEmbeddingCache", "RecsysEngine", "RecsysBatcher",
+           "RecsysRequest", "RecsysServer", "RecsysClient", "RecsysPool",
+           "recsys_member_factory", "EngineKilledError", "NOT_CACHED",
+           "STALENESS_BUCKETS"]

@@ -119,13 +119,21 @@ class _GuardedEngine:
 
 
 class PoolMember:
-    """One engine + scheduler + (listener-less) server in the pool."""
+    """One engine + scheduler + (listener-less) server in the pool.
 
-    def __init__(self, name: str, factory, scheduler, server):
+    ``fresh_engine`` builds a new GUARDED engine from the member's
+    factory — ``revive_member`` goes through it so a custom member kind
+    (the CTR members ``member_factory`` builds in serve/recsys.py) revives
+    with ITS guard class, not the LLM one."""
+
+    def __init__(self, name: str, factory, scheduler, server, *,
+                 fresh_engine=None):
         self.name = name
         self.factory = factory
         self.scheduler = scheduler
         self.server = server
+        self.fresh_engine = fresh_engine if fresh_engine is not None \
+            else (lambda: _GuardedEngine(factory()))
         self.draining = False  # planned drain in progress / completed
         self.dead = False      # failed over or drained-and-closed
         self.pending = 0       # submits routed here, not yet queued
@@ -163,8 +171,15 @@ class ServingPool:
                  chunk_bytes: int = _migrate.DEFAULT_CHUNK_BYTES,
                  migrate_codec: str = "none",
                  metrics: Optional[ServeMetrics] = None,
+                 member_factory=None,
                  start_poll: bool = True):
         from hetu_tpu_torch.ps import van
+        # member_factory(pool, name, engine_factory) -> PoolMember lets a
+        # different serving workload (the CTR members of
+        # serve/recsys.RecsysPool) ride the SAME routing/drain/failover
+        # machinery; None = the LLM member (engine + continuous-batching
+        # scheduler + listener-less InferenceServer)
+        self._member_factory = member_factory
         items = list(engine_factories.items()) \
             if isinstance(engine_factories, dict) \
             else [(f"m{i}", f) for i, f in enumerate(engine_factories)]
@@ -207,6 +222,8 @@ class ServingPool:
             self._poll_thread.start()
 
     def _make_member(self, name: str, factory) -> PoolMember:
+        if self._member_factory is not None:
+            return self._member_factory(self, name, factory)
         engine = _GuardedEngine(factory())
         sched = ContinuousBatchingScheduler(
             engine, max_requeues=self._max_requeues)
@@ -546,6 +563,7 @@ class ServingPool:
                 swept = self._rehome(stragglers, tried={name})
                 self.metrics.inc("requests_swept_on_drain", swept)
             m.server.close()
+            self._close_engine(m)
             with self._lock:
                 m.dead = True
         return slot_map
@@ -562,11 +580,14 @@ class ServingPool:
         """Bring a dead/drained member back with a fresh engine from its
         factory; it rejoins routing immediately."""
         m = self.members[name]
+        self._close_engine(m)  # the dead engine's resources (e.g. a CTR
+        # member's serving caches, whose open degrade window must be
+        # recorded, not dropped) are released before the replacement
         if m.server._stop.is_set():
             # drained-and-closed: the old server is gone; rebuild whole
             self.members[name] = self._make_member(name, m.factory)
         else:
-            m.server.restart_engine(_GuardedEngine(m.factory()))
+            m.server.restart_engine(m.fresh_engine())
             with self._lock:
                 m.dead = False
                 m.draining = False
@@ -600,6 +621,19 @@ class ServingPool:
             self.apply_fault(kind, idx)
 
     # ---- lifecycle ----
+    @staticmethod
+    def _close_engine(m: PoolMember) -> None:
+        """Best-effort engine close where the engine kind has one (the
+        LLM ServeEngine does not; a CTR engine closes its serving
+        caches, recording any still-open degrade span)."""
+        close = getattr(m.scheduler.engine, "close", None)
+        if close is None:
+            return
+        try:
+            close()
+        except Exception:
+            traceback.print_exc()
+
     def close(self, timeout_s: float = 10.0) -> None:
         stop = getattr(self, "_stop", None)
         if stop is not None:
@@ -612,5 +646,6 @@ class ServingPool:
                 m.server.close(timeout_s)
             except Exception:
                 traceback.print_exc()
+            self._close_engine(m)
         if self._own_van:
             self._van.stop()

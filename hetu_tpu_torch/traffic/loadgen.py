@@ -35,11 +35,9 @@ injectable clock/sleep pair.  The submit callable comes from
 :func:`llm_submitter` / :func:`ctr_submitter` (or anything with the same
 ``(event) -> handle`` shape).
 
-Departures from the reference: :func:`ctr_submitter` needs
-``serve.recsys.RecsysRequest``, which the port does not have yet; its
-submit raises ``NotImplementedError`` naming that module until it lands.
-:func:`prompt_catalog` gives the catalog :func:`synthesize` draws from
-(a reference computes every event's stream from it).
+Departure from the reference: :func:`prompt_catalog` gives the catalog
+:func:`synthesize` draws from (a reference computes every event's stream
+from it).
 """
 
 from __future__ import annotations
@@ -261,18 +259,12 @@ def llm_submitter(pool) -> Callable:
 
 
 def ctr_submitter(rpool) -> Callable:
-    """Event → non-blocking submit against a ``RecsysPool`` (delegated
+    """Event → non-blocking submit against a
+    :class:`~hetu_tpu_torch.serve.recsys.RecsysPool` (delegated
     ``submit(RecsysRequest)``); the handle's ``done`` event resolves
-    like the LLM pool's.  The port's ``serve/recsys.py`` is not written
-    yet: until it is, the submit raises ``NotImplementedError``."""
+    like the LLM pool's."""
     def _submit(ev: dict):
-        try:
-            from hetu_tpu_torch.serve.recsys import RecsysRequest
-        except ImportError as e:
-            raise NotImplementedError(
-                "ctr_submitter: RecsysPool and RecsysRequest come with "
-                "the slice that ports serve/recsys.py (ROADMAP.md Queue "
-                "1, item 7)") from e
+        from hetu_tpu_torch.serve.recsys import RecsysRequest
         req = RecsysRequest(
             dense=np.asarray(ev["dense"], np.float32),
             sparse=np.asarray(ev["sparse"], np.int64),

@@ -1544,7 +1544,8 @@ def test_kernels_line_counts_the_pool_path():
 
 # ---- the supervise phase ----
 
-TINY_SUPERVISE = dict(H=64, L=2, NH=4, FFN=128, SUP_V=97, SUP_S=64, SUP_B=2,
+TINY_SUPERVISE = dict(H=64, L=2, SUP_L=2, NH=4, FFN=128, SUP_V=97, SUP_S=64,
+                      SUP_B=2,
                       CTR_PS_V=20000, CTR_B=128, CTR_HIDDEN=(16, 16))
 
 
@@ -1637,6 +1638,11 @@ def test_kernels_line_counts_the_supervise_paths():
             chip_smoke.SUP_STEPS) == (50257, 1024, 8, 12)
     assert (chip_smoke.SUP_CKPT_EVERY, chip_smoke.SUP_KEEP,
             chip_smoke.SUP_HOLD_AT) == (4, 2, 5)
+    # 6 of GPT-2-small's 12 layers, its widths unchanged
+    assert chip_smoke.SUP_L == 6 and chip_smoke.L == 12
+    spec = chip_smoke._sup_spec(0, "cpu")
+    assert (spec["L"], spec["H"], spec["NH"], spec["FFN"]) == (6, 768, 12,
+                                                              3072)
     assert chip_smoke.SUP_PS_SCHEDULE == dict(
         steps=40, seed=11, van_errors=2, nan_steps=1, kill_shards=1,
         n_shards=2)
@@ -1758,3 +1764,153 @@ def test_kernels_line_counts_the_elastic_path():
             chip_smoke.ELASTIC_STEPS) == (3, 1024, 1024, 6144, 768, 0.05, 48)
     assert chip_smoke.ELASTIC_BUDGET_S == 60.0
     assert chip_smoke._elastic_step_mib(3) == 48.0
+
+
+def test_supervise_weights_draw_the_specs_depth(monkeypatch):
+    """The supervise arm's GPT draws as many layers as its spec names
+    (``jax_layout_weights(..., layers=)``), in the parent and in a child
+    alike; the other callers keep drawing ``L``."""
+    for name, value in dict(H=8, FFN=16).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    w = chip_smoke.jax_layout_weights(0, 16, 11, layers=3)
+    assert w["blocks"]["attn"]["qkv_weight"].shape == (3, 8, 24)
+    assert w["blocks"]["ffn_out"]["bias"].shape == (3, 8)
+    assert chip_smoke.jax_layout_weights(0, 16, 11)["blocks"]["ln1"][
+        "scale"].shape == (chip_smoke.L, 8)
+    a = chip_smoke.jax_layout_weights(0, 16, 11, layers=3)
+    assert all(np.array_equal(x, y) for x, y in zip(
+        a["blocks"]["ffn_in"].values(), w["blocks"]["ffn_in"].values()))
+
+
+# ---- the recsys phase ----
+
+TINY_RECSYS = dict(RECSYS_V=20000, RECSYS_CACHE=4096, RECSYS_REQUESTS=256,
+                   CTR_HIDDEN=(16, 16), RECSYS_WIRE_REQUESTS=8,
+                   RECSYS_SENTINEL_S=0.5)
+
+
+def test_recsys_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """Every arm at a 20000-row table, a 16-wide tower and a 3 s trace,
+    every gate live: (a) all ok, the buckets bitwise through both
+    engines, the float64 gate, a hit rate above 0; (b) the sentinel
+    within pull_bound, the kill's failover, the revive (the dead cache
+    closed once), the wire within 1e-6; (c) the seeded shard kill
+    degraded, recovered and paired; (d) the trace's statuses; no launch;
+    the lines and the summary keep their schema."""
+    import re
+
+    for name, value in TINY_RECSYS.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "RECSYS_TRACE", dict(
+        chip_smoke.RECSYS_TRACE, duration_s=3.0, base_qps=20.0,
+        n_prompts=256, key_space=20000))
+    out = chip_smoke.phase_recsys("cpu", 0, device="cpu")
+    text = capsys.readouterr().out
+    ab = out["ab"]
+    for name in ("cached", "cache-less"):
+        assert ab[name]["max_err"] <= chip_smoke.RECSYS_TOL_F64
+        assert ab[name]["batches"] == 256 // 8 and ab[name]["shapes"] == 6
+        assert ab[name]["qps"] > 0 and ab[name]["ttfr_p99_ms"] > 0
+    assert ab["cached"]["hit_rate"] > 0 and ab["cache-less"]["hit_rate"] == 0
+    assert ab["cache-less"]["bytes_saved"] == 0
+    assert out["pool"]["lag_max"] <= 1 and out["pool"]["wire_gap"] <= 1e-6
+    assert out["kill"]["degraded_lookups"] > 0
+    assert out["kill"]["window_ms"] > 0
+    assert set(out["trace"]["counts"]) <= {"ok", "shed", "timeout"}
+    assert out["launches"] == [0] * 6 and out["seconds"] > 0
+    for pattern in (
+            r"\[recsys\] WideDeep\(26, 16, 13, \(16, 16\)\) f32 on cpu; "
+            r"PartitionedPSTable\(20000, 16, f32, adagrad\) over 2 van "
+            r"shard processes made in [\d.]+ ms",
+            r"\[recsys\] \(a\) cached: 256 requests in waves of 8, 32 "
+            r"batches, every response ok; QPS [\d.]+, TTFR p50 [\d.]+ ms, "
+            r"p99 [\d.]+ ms; hit rate [\d.]+, PS bytes pulled \d+, saved "
+            r"\d+; median span ms gather [\d.]+, dispatch [\d.]+, "
+            r"device_wait [\d.]+; max \|p - p_float64\| [\d.e+-]+ \(limit "
+            r"1e-05\); 6 of 6 bucket shapes \[cpu\]",
+            r"\[recsys\] \(a\) one fixed batch of each bucket \[8, 16, 32, "
+            r"64, 128, 256\] bitwise equal through both engines",
+            r"\[recsys\] \(b\) sentinel: \d+ requests by 4 clients while a "
+            r"trainer thread made \d+ sets of row 19999 over the van, every "
+            r"response ok; \d+ sentinel rows served, lag max -?\d versions",
+            r"\[recsys\] \(b\) kill_member: 16 requests every one ok, "
+            r"pool_failovers 1 after [\d.]+ ms .* the dead engine's cache "
+            r"closed once, the revived member scored \d+ of 4",
+            r"\[recsys\] \(b\) wire: 8 requests through pool.frontend\(\) "
+            r"and a RecsysClient, every one ok",
+            r"\[recsys\] \(c\) shard kill: FaultSchedule.generate\(steps=8, "
+            r"seed=1234, kill_shards=1, n_shards=2\) SIGKILLed shard \d at "
+            r"step \d+; \d+ requests, every one ok, \d+ degraded lookups; "
+            r"kill -> first degraded answer [\d.]+ ms, degraded window "
+            r"[\d.]+ ms, restart -> recovered -?[\d.]+ ms .* fault.kill_shard "
+            r"paired with serve.recsys_degrade, no cache left degraded",
+            r"\[recsys\] \(d\) open-loop trace: \d+ CTR events over 3 s "
+            r"\(base 20/s, diurnal peak x10\) through ctr_submitter: .*ok "
+            r"\d+.*; TTFR p50 [\d.]+ ms, p99 [\d.]+ ms; the replay behind "
+            r"the trace p99 -?[\d.]+ ms",
+            r"\[recsys\] phase [\d.]+ s \(budget 45 s: (met|missed)\); "
+            r"launches of the six kernels \[0, 0, 0, 0, 0, 0\] \[cpu\]"):
+        assert re.search(pattern, text), (pattern, text)
+    assert re.fullmatch(
+        r"\[recsys\] summary: phase [\d.]+ s \(budget 45 s\); \(a\) QPS "
+        r"cached [\d.]+, cache-less [\d.]+, TTFR p99 cached [\d.]+ ms, "
+        r"cache-less [\d.]+ ms, hit rate [\d.]+; \(b\) sentinel lag max "
+        r"-?\d+, failover [\d.]+ ms, wire max \|d\| [\d.e+-]+; \(c\) kill "
+        r"-> degraded [\d.]+ ms, window [\d.]+ ms, restart -> recovered "
+        r"-?[\d.]+ ms; \(d\) \d+ events, ok \d+(, shed \d+)?(, timeout "
+        r"\d+)?, TTFR p99 [\d.]+ ms; launches \[0, 0, 0, 0, 0, 0\] \[cpu\]",
+        chip_smoke.recsys_summary(out, "cpu"))
+
+
+def test_kernels_line_counts_the_recsys_path():
+    """main() runs the recsys phase right after ps_ctr; every row's
+    launches by path gains "recsys" through ``later``; its summary line
+    sits in the output's tail between traffic's and supervise's; the
+    phase keeps train_ctr's widths, ps_ctr's table and cache, the
+    engines' buckets and the arms' sizes."""
+    src = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    main = src[src.index("def main("):]
+    order = [main.index(f"phase_{p}(card") for p in (
+        "ps_ctr", "recsys", "supervise", "train_cnn")]
+    assert order == sorted(order)
+    assert main.count('"recsys": recsys["launches"][i]') == 1
+    assert main.index("[traffic] summary:") < \
+        main.index("print(recsys_summary(") < \
+        main.index("[supervise] summary:") < main.index("print(card)")
+    c = chip_smoke
+    assert (c.CTR_F, c.CTR_DIM, c.CTR_DENSE, c.CTR_HIDDEN) == (
+        26, 16, 13, (256, 256))
+    assert (c.RECSYS_V, c.RECSYS_CACHE, c.RECSYS_PULL_BOUND) == (
+        1_000_000, 131072, 1)
+    assert (c.RECSYS_MAX_BATCH, c.RECSYS_MIN_BUCKET) == (256, 8)
+    assert (c.RECSYS_REQUESTS, c.RECSYS_WAVE, c.RECSYS_ROUNDS) == (
+        4096, 8, 2)
+    assert (c.RECSYS_TOL_F64, c.RECSYS_TOL_WIRE) == (1e-5, 1e-6)
+    assert c.RECSYS_WIRE_REQUESTS == 64
+    assert c.RECSYS_KILL_SCHEDULE == dict(steps=8, seed=1234, kill_shards=1,
+                                          n_shards=2)
+    assert c.RECSYS_TRACE == dict(duration_s=10.0, base_qps=50.0,
+                                  diurnal_peak_x=10.0, n_prompts=65536,
+                                  fields=26, dense_dim=13,
+                                  key_space=1_000_000)
+    assert c.RECSYS_BUDGET_S == 45.0
+
+
+def test_recsys_weights_are_drawn_in_the_references_layout():
+    """The tower's weights come from a numpy draw in the JAX package's
+    tree (a Linear's weight [in, out]) through ``interop``: the same seed
+    gives the same tensors, another seed others."""
+    from hetu_tpu_torch import interop
+
+    a, b = (chip_smoke.recsys_model(s, "cpu") for s in (0, 0))
+    c = chip_smoke.recsys_model(1, "cpu")
+    tree = chip_smoke.recsys_jax_layout_weights(0, a)
+    assert tree["deep"]["0"]["weight"].shape == (26 * 16 + 13, 256)
+    assert tree["wide"]["weight"].shape == (13, 1)
+    back = interop.params_to_jax(a.state_dict(), a)
+    assert np.array_equal(back["deep"]["0"]["weight"],
+                          tree["deep"]["0"]["weight"])
+    for (n, p), (_, q), (_, r) in zip(a.named_parameters(),
+                                      b.named_parameters(),
+                                      c.named_parameters()):
+        assert torch.equal(p, q) and not torch.equal(p, r), n

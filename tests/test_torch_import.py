@@ -631,6 +631,52 @@ def test_traffic_plane_and_autoscaled_controller_run_without_jax(tmp_path):
             "traffic/autoscale.py"} <= names
 
 
+def test_ctr_serving_runs_without_jax():
+    """A two-member RecsysPool on the CPU over a PS table scores a
+    request, a trace's CTR events through ``ctr_submitter`` and one over
+    the wire; ``hetu_tpu_torch.serve.recsys`` loads neither jax nor
+    hetu_tpu."""
+    out = _run(
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from hetu_tpu_torch.models import WideDeep\n"
+        "from hetu_tpu_torch.ps.client import PSTable\n"
+        "from hetu_tpu_torch.serve import (RecsysClient, RecsysEngine,\n"
+        "    RecsysPool, ServingEmbeddingCache)\n"
+        "from hetu_tpu_torch.telemetry.registry import MetricsRegistry\n"
+        "from hetu_tpu_torch.traffic import (TenantSpec, TraceSpec,\n"
+        "    ctr_submitter, replay, synthesize)\n"
+        "m = WideDeep(4, 8, 8, hidden=(16,), device='cpu')\n"
+        "t = PSTable(64, 8, seed=1)\n"
+        "f = lambda: RecsysEngine(m, ServingEmbeddingCache(\n"
+        "    t, 16, registry=MetricsRegistry()), max_batch=8,\n"
+        "    min_bucket=2, device='cpu')\n"
+        "pool = RecsysPool({'a': f, 'b': f}, start_poll=False)\n"
+        "front = pool.frontend(max_clients=1)\n"
+        "cl = RecsysClient('127.0.0.1', pool.port, 0)\n"
+        "try:\n"
+        "    assert pool.score([0.0] * 8, [1, 2, 3, 4])['status'] == 'ok'\n"
+        "    assert cl.score([0.0] * 8, [1, 2, 3, 4])['status'] == 'ok'\n"
+        "    tr = synthesize(TraceSpec(seed=2, duration_s=1.0, base_qps=8.0,\n"
+        "        tenants=[TenantSpec('c', kind='ctr', deadline_lo_s=60,\n"
+        "                            deadline_hi_s=90)]))\n"
+        "    out = replay(tr, ctr_submitter(pool))\n"
+        "    assert out and all(h.done.wait(60) for _, h in out)\n"
+        "    print('STATUS', sorted({h.status for _, h in out}))\n"
+        "finally:\n"
+        "    cl.close()\n"
+        "    front.close()\n"
+        "    pool.close()\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out and "STATUS ['ok']" in out
+    names = {p.relative_to(PKG).as_posix() for p in SOURCES
+             if PKG in p.parents}
+    assert {"serve/recsys.py", "serve/pool.py",
+            "traffic/loadgen.py"} <= names
+
+
 def test_training_supervisor_straggler_and_logger_run_without_jax(
         tmp_path):
     """The supervisor, straggler detection and the metric logger import

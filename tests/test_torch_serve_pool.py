@@ -831,3 +831,110 @@ def test_chaos_seeded_preempt_plus_kill_at_decode_round_counts(gpt):
     assert rep["serve_preempt"]["paired"] == 1
     assert rep["serve_engine_kill"]["paired"] == 1
     assert "recover_s" in rep["serve_preempt"]
+
+
+# ---------------------------------------------------------------- hooks
+
+def test_member_factory_builds_the_members(gpt):
+    """``member_factory(pool, name, factory)`` builds every member (the
+    hook the CTR members ride) and is called again for a member rebuilt
+    after a drain-and-close."""
+    from hetu_tpu_torch.serve.pool import PoolMember, _GuardedEngine
+
+    jm, jv, tm = gpt
+    calls = []
+
+    def member_factory(pool, name, factory):
+        calls.append((pool, name, factory))
+        sched = ContinuousBatchingScheduler(_GuardedEngine(factory()))
+        srv = InferenceServer(sched, port=pool.port, own_van=False,
+                              max_clients=0)
+        return PoolMember(name, factory, sched, srv)
+
+    f = _factory(tm)
+    pool = ServingPool({"a": f, "b": f}, start_poll=False,
+                       member_factory=member_factory)
+    try:
+        assert [(c[0], c[1], c[2]) for c in calls] == \
+            [(pool, "a", f), (pool, "b", f)]
+        assert [pool.members[n].scheduler for n in "ab"] == \
+            [pool.members[n].scheduler for n in "ab"]
+        r = pool.generate([1, 2, 3], max_tokens=4, timeout_s=60.0)
+        assert r["status"] == "ok"
+        assert r["tokens"] == _ref_greedy(jm, jv, [1, 2, 3], 4)
+        pool.drain_member("a")
+        pool.revive_member("a")  # closed: rebuilt whole, by the hook
+        assert [c[1] for c in calls] == ["a", "b", "a"]
+        assert pool.members["a"].available
+    finally:
+        pool.close()
+
+
+def test_revive_goes_through_fresh_engine_and_closes_the_dead_one(gpt):
+    """``revive_member`` takes the member's ``fresh_engine`` (not the LLM
+    guard over the factory) and closes the dead engine once; the pool's
+    close closes the live one, and a drain's close its member's."""
+    from hetu_tpu_torch.serve.pool import PoolMember, _GuardedEngine
+
+    jm, jv, tm = gpt
+    closed, fresh = [], []
+
+    class ClosingGuard(_GuardedEngine):
+        def close(self):
+            closed.append(self)
+
+    def make_fresh(factory):
+        def fresh_engine():
+            e = ClosingGuard(factory())
+            fresh.append(e)
+            return e
+        return fresh_engine
+
+    def member_factory(pool, name, factory):
+        sched = ContinuousBatchingScheduler(ClosingGuard(factory()))
+        srv = InferenceServer(sched, port=pool.port, own_van=False,
+                              max_clients=0)
+        return PoolMember(name, factory, sched, srv,
+                          fresh_engine=make_fresh(factory))
+
+    f = _factory(tm)
+    pool = ServingPool({"a": f, "b": f}, start_poll=False,
+                       member_factory=member_factory)
+    try:
+        dead = pool.members["a"].engine
+        pool.kill_member("a")
+        pool.revive_member("a")
+        assert fresh == [pool.members["a"].engine] and fresh[0] is not dead
+        assert closed == [dead]
+        r = pool.generate([2, 5], max_tokens=3, timeout_s=60.0)
+        assert r["status"] == "ok"
+        assert r["tokens"] == _ref_greedy(jm, jv, [2, 5], 3)
+        b = pool.members["b"].engine
+        pool.drain_member("b")
+        assert closed == [dead, b]
+    finally:
+        pool.close()
+    # the pool's close closes every member's engine, a drained one's too
+    assert closed[2:] == [fresh[0], b] and closed.count(dead) == 1
+    # the LLM member's default: a fresh guard over its factory
+    m = PoolMember("x", f, None, None)
+    e = m.fresh_engine()
+    assert type(e) is _GuardedEngine and isinstance(e.inner, ServeEngine)
+
+
+@pytest.mark.parametrize("option, value", [
+    ("token_budget", 96), ("shed", True), ("shed_headroom", 0.5),
+    ("migrate_channel_base", 0x20000000)])
+def test_pool_takes_no_option_without_a_caller(option, value):
+    """The reference's ``ServingPool`` also takes these four; no caller
+    of the port sets them yet, so the port's pool refuses each rather
+    than carry it (a ``RecsysPool`` passes its keywords through and
+    refuses them too, before any member is built)."""
+    from hetu_tpu_torch.serve.recsys import RecsysPool
+
+    built = []
+    for cls in (ServingPool, RecsysPool):
+        with pytest.raises(TypeError, match=option):
+            cls({"a": lambda: built.append(1)}, start_poll=False,
+                **{option: value})
+    assert built == []

@@ -372,18 +372,49 @@ def test_replay_is_open_loop_on_a_fake_clock():
         replay(trace, submit, speed=0.0, clock=clock, sleep=sleep)
 
 
-def test_ctr_submitter_names_the_missing_module():
-    """The port has no ``serve/recsys.py`` yet: a CTR event's submit
-    raises and names the slice that brings it; replay records the raise
-    and goes on."""
-    trace = synthesize(_spec(duration_s=3.0))
+def test_ctr_submitter_scores_the_traces_ctr_events():
+    """The trace's CTR events through ``ctr_submitter`` into a CPU
+    ``RecsysPool`` (a Wide & Deep at the trace's widths over a PS table
+    of its key space): every handle resolves ok with a probability, each
+    within 1e-6 of the same request scored alone on the same weights."""
+    from hetu_tpu_torch.models import WideDeep
+    from hetu_tpu_torch.ps.client import PSTable
+    from hetu_tpu_torch.serve.recsys import (
+        RecsysEngine, RecsysPool, RecsysRequest, ServingEmbeddingCache,
+    )
+    from hetu_tpu_torch.telemetry.registry import MetricsRegistry
+
+    spec = _spec(duration_s=3.0)
+    trace = synthesize(spec)
     ctr = [e for e in trace["events"] if e["kind"] == "ctr"]
     assert ctr
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ctr_submitter(object())(ctr[0])
-    out = replay({"events": ctr[:2]}, ctr_submitter(object()),
-                 clock=lambda: 0.0, sleep=lambda dt: None)
-    assert all(isinstance(h, NotImplementedError) for _, h in out)
+    model = WideDeep(spec.fields, 8, spec.dense_dim, hidden=(16,),
+                     generator=torch.Generator().manual_seed(0),
+                     device="cpu")
+    table = PSTable(spec.key_space, 8, init="normal", seed=1)
+
+    def factory():
+        return RecsysEngine(model, ServingEmbeddingCache(
+            table, 32, registry=MetricsRegistry()), max_batch=16,
+            min_bucket=4, device="cpu")
+
+    pool = RecsysPool({"a": factory, "b": factory}, start_poll=False)
+    try:
+        out = replay({"events": ctr}, ctr_submitter(pool),
+                     clock=lambda: 0.0, sleep=lambda dt: None)
+        assert len(out) == len(ctr)
+        alone = factory()
+        for ev, (_, h) in zip(ctr, out):
+            assert isinstance(h, RecsysRequest), h
+            assert h.done.wait(60.0) and h.status == "ok", h.status
+            assert 0.0 < h.score < 1.0
+            want = alone.score(np.asarray([ev["dense"]], np.float32),
+                               np.asarray([ev["sparse"]], np.int64))[0]
+            assert abs(h.score - float(want)) <= 1e-6
+            assert h.timeout_s == ev["deadline_s"]
+        assert pool.metrics.count("pool_requests") == len(ctr)
+    finally:
+        pool.close()
 
 
 # ---------------------------------------------------------------------------
