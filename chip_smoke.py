@@ -506,11 +506,12 @@ GATES_KTOP1_K, GATES_ITERS = 2, 20
 BALANCE_TIE_ULPS = 16  # a Sinkhorn round
 
 # Llama-2-7B (LlamaConfig's defaults; hetu_tpu/models/llama.py:31-45) at
-# its widths; served at LLAMA_L = 16 of its LLAMA_DEPTH = 32 layers (cut
+# its widths; served at LLAMA_L = 8 of its LLAMA_DEPTH = 32 layers (cut
 # for the whole script's time limit: the serving, paged, migration and
-# front-end phases run its bursts, decodes and 8-slot drains)
+# front-end phases run its bursts, decodes and 8-slot drains; 16 until the
+# mesh phase joined)
 LLAMA_V, LLAMA_H, LLAMA_L, LLAMA_NH, LLAMA_FFN, LLAMA_P = (
-    32000, 4096, 16, 32, 11008, 4096)
+    32000, 4096, 8, 32, 11008, 4096)
 LLAMA_DEPTH = 32
 LLAMA_HEAD_DIM = LLAMA_H // LLAMA_NH  # 128
 # serving: 8 slots x 1024 (cut from max_position 4096: a 2.1 GB cache at
@@ -704,7 +705,9 @@ RECSYS_BUDGET_S = 45.0
 # the table snapshotted every 5, under the reference chaos test's seeded
 # schedule
 SUP_V, SUP_B, SUP_S, SUP_STEPS, SUP_LR = 50257, 8, 1024, 12, 1e-4
-SUP_L = 6  # of GPT-2-small's 12 layers: no gate of the arm needs depth
+# of GPT-2-small's 12 layers: no gate of the arm needs depth (6 until the
+# mesh phase joined)
+SUP_L = 3
 SUP_CKPT_EVERY, SUP_KEEP, SUP_HOLD_AT, SUP_BARE_STEPS = 4, 2, 5, 12
 SUP_DATA_ERRORS = (2, 9)
 SUP_CHILD_S = 300.0
@@ -10472,6 +10475,377 @@ def phase_kernel_shapes(card):
                  for k in ("dkdv", "dq")}
 
 
+# ---------------------------------------------------------------- mesh
+# The data- and tensor-parallel plane: two rank processes on the one card
+# over gloo (NCCL refuses two ranks on one GPU), then one rank over nccl.
+MESH_L = 4  # of GPT-2-small's 12 layers, at full width (V, H, NH, FFN)
+MESH_B, MESH_S, MESH_STEPS = 4, 256, 3
+MESH_LR = 1e-4
+MESH_F32_L, MESH_F32_B, MESH_F32_S, MESH_F32_STEPS = 2, 2, 128, 2
+MESH_SERVE_L = 2
+MESH_REQS, MESH_PROMPT, MESH_GEN = 4, 24, 32
+MESH_SERVE_LEN = 64
+# the gates, fixed before the first run: a bf16 arm's loss within 2^-7 of
+# the single process's (relative, each step: two roundings of a bf16
+# partial sum apart); the f32 arm within the reference's own rtol 2e-4
+# (tests/test_sharded_gpt.py, tests/test_strategies.py); the int8 arm
+# within 10 % of the exact arm; the collectives within 1e-6 of max|ref|
+# (two-rank sums are exact in either order: 0 expected)
+TOL_MESH_BF16 = 2 ** -7
+TOL_MESH_F32 = 2e-4
+MESH_INT8_REL = 0.10
+TOL_MESH_COLL = 1e-6
+MESH_BUDGET_S = 90.0
+
+
+def mesh_config(layers, dtype, s=MESH_S):
+    from hetu_tpu_torch.models import GPTConfig
+    return GPTConfig(vocab_size=V, hidden_size=H, num_layers=layers,
+                     num_heads=NH, ffn_size=FFN, max_position=max(s, 1024),
+                     dropout_rate=0.0, dtype=dtype, attention_impl="flash",
+                     remat=dtype == torch.bfloat16, fused_ce=True)
+
+
+def mesh_batch(seed, b, s, masked: bool):
+    """Token ids ``[b, s]`` from ``seed``; ``masked`` makes the first dp
+    shard hold fewer valid labels than the second (half of row 0 is -1),
+    where a per-shard mean differs from the global batch's."""
+    ids = np.random.default_rng(seed + 7).integers(0, V, (b, s))
+    if masked:
+        ids[0, s // 2:] = -1
+    return torch.tensor(ids, dtype=torch.int64)
+
+
+def mesh_train(seed, layers, dtype, steps, batch, device, mesh=None,
+               strategy=None, grad_sync="exact"):
+    """``steps`` Executor steps of GPT-2-small at ``layers`` layers:
+    (losses, step seconds, launches of the three flash kernels)."""
+    from hetu_tpu_torch.models import GPTModel
+    from hetu_tpu_torch.optim import AdamWOptimizer
+    from hetu_tpu_torch.train import Executor
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = GPTModel(mesh_config(layers, dtype, batch.shape[1]),
+                     generator=gen, device=device)
+    ex = Executor(model.lm_loss_fn(), AdamWOptimizer(MESH_LR), mesh=mesh,
+                  dist_strategy=strategy, grad_sync=grad_sync, seed=seed)
+    state = ex.init_state(model)
+    counters = _flash_counters()
+    for c in counters:
+        c.launches = 0
+    losses, times = [], []
+    for _ in range(steps):
+        _sync(device)
+        t0 = time.perf_counter()
+        state, m = ex.run("train", state, (batch,))
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    return [losses, times, [c.launches for c in counters], state]
+
+
+def mesh_requests(seed):
+    g = np.random.default_rng(seed + 11)
+    return [g.integers(0, V, MESH_PROMPT).tolist() for _ in range(MESH_REQS)]
+
+
+def mesh_serve(seed, device, mesh=None):
+    """Greedy tokens of ``MESH_REQS`` requests of ``MESH_GEN`` tokens
+    through ``ServeEngine`` and ``PagedServeEngine`` (f32 GPT-2-small at
+    ``MESH_SERVE_L`` layers), and the flash forwards they launched."""
+    from hetu_tpu_torch.models import GPTModel
+    from hetu_tpu_torch.serve import (
+        ContinuousBatchingScheduler, PagedServeEngine, Request, ServeEngine,
+    )
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    model = GPTModel(mesh_config(MESH_SERVE_L, torch.float32),
+                     generator=gen, device=device)
+    out, launches = {}, 0
+    fwd = _flash_counters()[0]
+    for name, make in (("slot", lambda: ServeEngine(
+            model, num_slots=MESH_REQS, max_len=MESH_SERVE_LEN,
+            device=device, mesh=mesh)),
+            ("paged", lambda: PagedServeEngine(
+                model, num_slots=MESH_REQS, max_len=MESH_SERVE_LEN,
+                page_size=PAGE_SIZE, device=device, mesh=mesh))):
+        engine = make()
+        fwd.launches = 0
+        sched = ContinuousBatchingScheduler(engine)
+        reqs = [Request(prompt=p, max_tokens=MESH_GEN)
+                for p in mesh_requests(seed)]
+        for r in reqs:
+            sched.submit(r)
+        while sched.has_work():
+            sched.step()
+        out[name] = [list(r.tokens) for r in reqs]
+        launches += fwd.launches
+    return out, launches
+
+
+def mesh_inputs(rank, shape=(8, 6)):
+    g = torch.Generator().manual_seed(100 + rank)
+    return torch.randn(*shape, generator=g)
+
+
+def mesh_collectives(rank, mesh, device):
+    """Every function of ``parallel.collectives`` on this rank's input."""
+    from hetu_tpu_torch.parallel import collectives as C
+    x = mesh_inputs(rank).to(device)
+    out = {
+        "psum": C.psum(x, "dp", mesh=mesh),
+        "pmean": C.pmean(x, "dp", mesh=mesh),
+        "all_gather": C.all_gather(x, "dp", tiled_dim=1, mesh=mesh),
+        "reduce_scatter": C.reduce_scatter(x, "dp", scatter_dim=0,
+                                           mesh=mesh),
+        "all_to_all": C.all_to_all(x, "dp", split_dim=0, concat_dim=1,
+                                   mesh=mesh),
+        "hierarchical_all_to_all": C.hierarchical_all_to_all(
+            x, "pp", "dp", mesh=mesh),
+        "quantized_psum_int8": C.quantized_psum(x, "dp", wire="int8",
+                                                block=16, mesh=mesh),
+        "quantized_psum_bf16": C.quantized_psum(x, "dp", wire="bf16",
+                                                mesh=mesh),
+        "quantized_pmean_int8": C.quantized_pmean(x, "dp", wire="int8",
+                                                  block=16, mesh=mesh),
+        "ppermute_shift": C.ppermute_shift(x, "dp", 1, mesh=mesh),
+        "grouped_allreduce": C.grouped_allreduce(mesh, "dp")(x),
+    }
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def mesh_expected(rank, world=2):
+    """What rank ``rank`` of :func:`mesh_collectives` must hold, assembled
+    in one process from every rank's input."""
+    from hetu_tpu_torch.quantwire import block_decode, block_encode
+    xs = [mesh_inputs(r) for r in range(world)]
+    tot = xs[0] + xs[1]
+    q = [block_decode(*block_encode(x, 16), x.numel(), x.shape) for x in xs]
+    qsum = torch.stack(q).sum(0)
+    b16 = torch.stack([x.to(torch.bfloat16).float() for x in xs]).sum(0)
+    a2a = [x.chunk(world, 0)[rank] for x in xs]
+    return {k: v.numpy() for k, v in {
+        "psum": tot, "pmean": tot / world,
+        "all_gather": torch.cat(xs, 1),
+        "reduce_scatter": tot.chunk(world, 0)[rank],
+        "all_to_all": torch.cat(a2a, 1),
+        "hierarchical_all_to_all": torch.cat(a2a, 0),
+        "quantized_psum_int8": qsum, "quantized_psum_bf16": b16,
+        "quantized_pmean_int8": qsum / world,
+        "ppermute_shift": xs[(rank - 1) % world],
+        "grouped_allreduce": tot}.items()}
+
+
+def mesh_rank(rank, world, spec):
+    """One rank of the mesh phase: arms (a)-(d) on this rank's share."""
+    g = globals()
+    for k, v in spec["consts"].items():
+        g[k] = v
+    device = spec["device"]
+    seed = spec["seed"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from hetu_tpu_torch.parallel import collectives, make_mesh
+    from hetu_tpu_torch.parallel.strategies import MegatronLM
+    from hetu_tpu_torch.telemetry import default_registry as reg
+    out = {"t_start": time.time()}
+    tp = make_mesh(tp=2, device=device, backend="gloo")
+    dp = make_mesh(dp=2, device=device, backend="gloo")
+    # (a) Megatron tp = 2: bf16 flash remat at MESH_L layers, f32 at 2
+    batch = mesh_batch(seed, MESH_B, MESH_S, masked=False)
+    la, ta, na, st = mesh_train(seed, MESH_L, torch.bfloat16, MESH_STEPS,
+                                batch, device, tp, MegatronLM())
+    w = st.params["blocks.0.ffn_in.weight"]
+    out["a"] = dict(losses=la, times=ta, launches=na,
+                    placement=str(w.placements),
+                    local_shape=list(w.to_local().shape))
+    del st
+    f32 = mesh_batch(seed, MESH_F32_B, MESH_F32_S, masked=False)
+    lf, _, _, st = mesh_train(seed, MESH_F32_L, torch.float32,
+                              MESH_F32_STEPS, f32, device, tp, MegatronLM())
+    out["a_f32"] = dict(losses=lf)
+    del st
+    # (b) dp = 2 on a batch whose shards hold unequal valid counts
+    masked = mesh_batch(seed, MESH_B, MESH_S, masked=True)
+    lb, tb, nb, st = mesh_train(seed, MESH_L, torch.bfloat16, MESH_STEPS,
+                                masked, device, dp)
+    del st
+    before = (reg.counter("train.grad_sync.bytes_logical").value,
+              reg.counter("train.grad_sync.bytes_wire").value)
+    li, ti, ni, st = mesh_train(seed, MESH_L, torch.bfloat16, MESH_STEPS,
+                                masked, device, dp, grad_sync="int8")
+    del st
+    out["b"] = dict(
+        exact=dict(losses=lb, times=tb, launches=nb),
+        int8=dict(losses=li, times=ti, launches=ni,
+                  logical=reg.counter("train.grad_sync.bytes_logical").value
+                  - before[0],
+                  wire=reg.counter("train.grad_sync.bytes_wire").value
+                  - before[1]))
+    # (c) tp = 2 serving with a kv-head-sharded cache
+    _sync(device)
+    t0 = time.perf_counter()
+    tokens, sl = mesh_serve(seed, device, tp)
+    out["c"] = dict(tokens=tokens, launches=sl,
+                    seconds=time.perf_counter() - t0)
+    # (d) the collectives
+    out["d"] = mesh_collectives(rank, dp, device)
+    out["staged"] = dict(collectives.STAGED)
+    return out
+
+
+def _mesh_gate(tag, got, ref, tol, card, what="the single process"):
+    """Each step's loss against the reference: |d| <= tol x |ref|."""
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    print(f"[mesh] {tag}: losses {[round(x, 6) for x in got]} vs {what} "
+          f"{[round(x, 6) for x in ref]}; worst relative gap {worst:.3e} "
+          f"(gate {tol:.3e}) [{card}]")
+    check(worst <= tol, f"mesh {tag}: loss gap {worst:.3e} > {tol:.3e}")
+    return worst
+
+
+def phase_mesh(card, seed, device="cuda"):
+    """The data- and tensor-parallel plane (parallel/, the Executor's
+    mesh, dist_strategy and grad_sync, the tp serving engines): the
+    single-process references first, then two rank processes on the card
+    over gloo run (a)-(d), then one rank over nccl (e)."""
+    import torch.distributed as dist
+
+    from hetu_tpu_torch.parallel import make_mesh, ranks
+
+    t_phase = time.perf_counter()
+    print(f"[mesh] GPT-2-small V={V} H={H} NH={NH} FFN={FFN}: tp/dp arms at "
+          f"{MESH_L} layers B={MESH_B} S={MESH_S} bf16 flash remat AdamW "
+          f"x {MESH_STEPS} steps, f32 arm at {MESH_F32_L} layers; serving "
+          f"{MESH_REQS} x {MESH_GEN} tokens at {MESH_SERVE_L} layers f32")
+    batch = mesh_batch(seed, MESH_B, MESH_S, masked=False)
+    masked = mesh_batch(seed, MESH_B, MESH_S, masked=True)
+    ref_a = mesh_train(seed, MESH_L, torch.bfloat16, MESH_STEPS, batch,
+                       device)
+    ref_f32 = mesh_train(seed, MESH_F32_L, torch.float32, MESH_F32_STEPS,
+                         mesh_batch(seed, MESH_F32_B, MESH_F32_S, False),
+                         device)
+    ref_b = mesh_train(seed, MESH_L, torch.bfloat16, MESH_STEPS, masked,
+                       device)
+    ref_c, _ = mesh_serve(seed, device)
+    t_ref = time.perf_counter() - t_phase
+    for ref in (ref_a, ref_f32, ref_b):
+        ref[3] = None  # the states: free their memory for the ranks
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    consts = {k: globals()[k] for k in (
+        "V", "H", "NH", "FFN", "PAGE_SIZE") + tuple(
+        k for k in globals() if k.startswith("MESH_"))}
+    spec = {"seed": seed, "device": device, "consts": consts}
+    t0 = time.time()
+    res = ranks.run(mesh_rank, 2, backend="gloo", args=(spec,),
+                    timeout_s=600.0)
+    t_ranks = time.time() - t0
+    start_s = max(r["t_start"] for r in res) - t0
+    print(f"[mesh] two ranks over gloo on {device}: {t_ranks:.1f} s, the "
+          f"ranks up after {start_s:.1f} s (reference runs {t_ref:.1f} s) "
+          f"[{card}]")
+    launches = [0] * 6
+    for r, out in enumerate(res):
+        a, b, c = out["a"], out["b"], out["c"]
+        _mesh_gate(f"(a) rank {r} tp=2 bf16", a["losses"], ref_a[0],
+                   TOL_MESH_BF16, card)
+        _mesh_gate(f"(a) rank {r} tp=2 f32", out["a_f32"]["losses"],
+                   ref_f32[0], TOL_MESH_F32, card)
+        print(f"[mesh] (a) rank {r}: ffn_in.weight {a['placement']} local "
+              f"{a['local_shape']}; step ms "
+              f"{[round(x * 1e3, 3) for x in a['times']]}; flash launches "
+              f"{a['launches']}")
+        expect = [2 * MESH_L * MESH_STEPS, MESH_L * MESH_STEPS,
+                  MESH_L * MESH_STEPS]
+        for arm, n in (("(a)", a["launches"]), ("(b) exact",
+                                                b["exact"]["launches"]),
+                       ("(b) int8", b["int8"]["launches"])):
+            if device == "cuda":
+                check(n == expect, f"mesh {arm} rank {r}: flash launches "
+                                   f"{n}, expected {expect}")
+        check("Shard" in a["placement"],
+              f"mesh (a): ffn_in.weight is not tp-sharded after the "
+              f"updates: {a['placement']}")
+        _mesh_gate(f"(b) rank {r} dp=2 exact, unequal valid counts",
+                   b["exact"]["losses"], ref_b[0], TOL_MESH_BF16, card)
+        _mesh_gate(f"(b) rank {r} dp=2 int8 vs the exact arm",
+                   b["int8"]["losses"], b["exact"]["losses"],
+                   MESH_INT8_REL, card, what="the exact arm")
+        i8 = b["int8"]
+        print(f"[mesh] (b) rank {r}: grad sync int8 wire {i8['wire']} B vs "
+              f"logical {i8['logical']} B ({i8['wire'] / i8['logical']:.4f})"
+              f"; step ms exact {[round(x * 1e3, 3) for x in b['exact']['times']]}"
+              f", int8 {[round(x * 1e3, 3) for x in i8['times']]} [{card}]")
+        for name in ("slot", "paged"):
+            same = c["tokens"][name] == ref_c[name]
+            print(f"[mesh] (c) rank {r} tp=2 {name} engine: "
+                  f"{MESH_REQS} x {MESH_GEN} tokens "
+                  f"{'equal' if same else 'DIFFER from'} the single "
+                  f"process's ({c['seconds']:.2f} s both engines)")
+            check(same, f"mesh (c) rank {r} {name}: tokens differ")
+        exp = mesh_expected(r)
+        worst = {k: float(np.abs(out["d"][k] - exp[k]).max()
+                          / max(1e-30, np.abs(exp[k]).max()))
+                 for k in exp}
+        print(f"[mesh] (d) rank {r} collectives on {device}, max |d| / "
+              f"max|ref|: {', '.join(f'{k} {v:.1e}' for k, v in worst.items())}"
+              f"; staged through the host: {out['staged'] or 'none'}")
+        check(max(worst.values()) <= TOL_MESH_COLL,
+              f"mesh (d) rank {r}: {max(worst, key=worst.get)} off by "
+              f"{max(worst.values()):.3e}")
+        for i, arm in enumerate((a["launches"], b["exact"]["launches"],
+                                 b["int8"]["launches"])):
+            for k in range(3):
+                launches[k] += arm[k]
+        launches[0] += c["launches"]
+    # (e) one rank over nccl (the default backend) in this process
+    nccl = {}
+    if device == "cuda":
+        nccl = phase_mesh_nccl(card, seed, batch)
+    seconds = time.perf_counter() - t_phase
+    print(f"[mesh] phase {seconds:.1f} s (budget {MESH_BUDGET_S:g} s); "
+          f"flash launches over both ranks {launches[:3]} [{card}]")
+    return dict(launches=launches, seconds=seconds, ranks_s=t_ranks,
+                start_s=start_s, staged=res[0]["staged"], nccl=nccl,
+                step_ms=[x * 1e3 for x in res[0]["a"]["times"]])
+
+
+def phase_mesh_nccl(card, seed, batch):
+    """(e): the Executor on ``make_mesh(dp=1)`` (nccl, one rank) takes one
+    step bitwise the single-device step, and ``make_mesh(tp=2)`` on one
+    GPU raises."""
+    import torch.distributed as dist
+
+    from hetu_tpu_torch.parallel import make_mesh
+    try:
+        make_mesh(tp=2)
+    except ValueError as e:
+        print(f"[mesh] (e) make_mesh(tp=2) on one GPU raises: {e}")
+    else:
+        raise SmokeFailure("make_mesh(tp=2) on one GPU did not raise")
+    mesh = make_mesh(dp=1)
+    try:
+        backend = dist.get_backend()
+        l1, _, _, ref = mesh_train(seed, MESH_L, torch.bfloat16, 1, batch,
+                                   "cuda")
+        l2, _, _, got = mesh_train(seed, MESH_L, torch.bfloat16, 1, batch,
+                                   "cuda", mesh)
+        first = None if l1 == l2 else "the loss"
+        for n, p in ref.params.items():
+            if first is not None:
+                break
+            q = got.params[n].detach().full_tensor()
+            if not torch.equal(p.detach(), q):
+                first = n
+        print(f"[mesh] (e) one rank over {backend}: one step "
+              f"{'bitwise the single-device step' if first is None else 'differs first at ' + first}"
+              f" [{card}]")
+        check(first is None, f"mesh (e): nccl step differs at {first}")
+    finally:
+        dist.destroy_process_group()
+    return dict(backend=backend, bitwise=first is None)
+
+
 def _paths_entry(key, moe_launches, ctr, gates, later):
     """The launches by path of a kernel's entry in the kernels line (the
     MoE step, the four gates' steps summed, the CTR step, then ``later``:
@@ -10574,6 +10948,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     compressed = phase_train_compressed(card, args.seed)
     torch.cuda.empty_cache()
+    mesh = phase_mesh(card, args.seed)
+    torch.cuda.empty_cache()
     shapes_fwd, shapes_bwd = phase_kernel_shapes(card)
     # each kernel's launches on the paths that run none of the six
     later = [{"train_cnn": cnn["launches"][i], "train_rnn": rnn["launches"][i],
@@ -10587,7 +10963,9 @@ def main(argv=None) -> int:
               # online CTR serving gathers its rows on the host
               "recsys": recsys["launches"][i],
               # the elastic training plane's processes run no kernel
-              "elastic": elastic["launches"][i]}
+              "elastic": elastic["launches"][i],
+              # the two tp/dp ranks together (their MoE rows: 0)
+              "mesh": mesh["launches"][i]}
              for i in range(6)]
 
     shape = [TRAIN_B, NH, TRAIN_S, HEAD_DIM]
@@ -10706,6 +11084,13 @@ def main(argv=None) -> int:
           f"{ec['incarnation']}); re-pushed (b) {eb['repushed']}, (c) "
           f"{ec['repushed']}; launches {elastic['launches']}; the script "
           f"{time.perf_counter() - t_script:.1f} s [{card}]")
+    print(f"[mesh] summary: phase {mesh['seconds']:.1f} s (budget "
+          f"{MESH_BUDGET_S:g} s), two gloo ranks {mesh['ranks_s']:.1f} s "
+          f"(up after {mesh['start_s']:.1f} s); (a) tp=2 step ms "
+          f"{[round(x, 3) for x in mesh['step_ms']]}; staged through the "
+          f"host {mesh['staged'] or 'none'}; (e) nccl one rank "
+          f"{'bitwise' if mesh['nccl'].get('bitwise') else 'differs'}; "
+          f"flash launches {mesh['launches'][:3]} [{card}]")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

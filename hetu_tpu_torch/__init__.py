@@ -19,7 +19,10 @@ paths and names mirror the reference so each counterpart is found at once:
                       # RNNClassifier
     htt.optim.*       # SGD ... AdamW, Lamb (dense and sparse paths)
     htt.lr.*          # step -> lr schedulers
-    htt.train.*       # Executor, TrainState, checkpoint, gradients
+    htt.train.*       # Executor (mesh=, dist_strategy=, grad_sync=),
+                      # TrainState, checkpoint, gradients
+    htt.parallel.*    # make_mesh (also htt.make_mesh), the rank processes,
+                      # collectives, ShardSpec, the strategies
     htt.interop       # hetu_tpu parameter / optimizer trees <-> state_dicts
     htt.serve.*       # ServeEngine, ContinuousBatchingScheduler, metrics,
                       # migrate (live KV-slot migration, its van wire),
@@ -57,10 +60,13 @@ from hetu_tpu_torch.version import __version__
 _LAZY = {"ops", "init", "rng", "layers", "models", "optim", "lr", "train",
          "interop", "serve", "telemetry", "data", "utils", "ps",
          "quantwire", "embedding_compress", "resilience",
-         "traffic"}
+         "traffic", "parallel"}
 
 
 def __getattr__(name):
+    if name == "make_mesh":
+        from hetu_tpu_torch.parallel.mesh import make_mesh
+        return make_mesh
     if name in _LAZY:
         import importlib
         mod = importlib.import_module(f"hetu_tpu_torch.{name}")
@@ -69,4 +75,4 @@ def __getattr__(name):
     raise AttributeError(f"module 'hetu_tpu_torch' has no attribute {name!r}")
 
 
-__all__ = ["__version__", *sorted(_LAZY)]
+__all__ = ["__version__", "make_mesh", *sorted(_LAZY)]

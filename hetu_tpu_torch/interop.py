@@ -224,6 +224,44 @@ def _tree_to_jax(arr, model, names) -> dict:
     return p
 
 
+def _keystr(path) -> str:
+    """``jax.tree_util.keystr`` of a path of dict keys."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def reference_paths(config, names) -> dict:
+    """Port parameter name -> ``(keystr, flips, stacked)``: the
+    reference's tree path of that parameter as ``jax.tree_util.keystr``
+    prints it (``"['blocks']['attn']['qkv_weight']"``), whether its layout
+    is the transpose of the port's, and whether the reference stacks it
+    over the layers (a leading ``[L]`` dimension the port's per-layer
+    tensor lacks).  ``config`` as for :func:`params_from_jax`."""
+    if isinstance(config, _TREE_MODELS):
+        return {n: (_keystr(_tree_path(config, n)), _tree_flips(config, n),
+                    False) for n in names}
+    out = {}
+    if isinstance(config, MoEConfig):
+        top, layered = _MOE_TOP_PARAMS, _MOE_LAYER_PARAMS
+        for src, dst, flip in top:
+            out[dst] = (_keystr((src,)), flip, False)
+        for layer in range(config.num_layers):
+            for path, dst, flip in layered:
+                out[f"layers.{layer}.{dst}"] = (
+                    _keystr((f"layer{layer}",) + path), flip, False)
+    else:
+        top, block = _layout(config)
+        for src, dst, flip in top:
+            out[dst] = (_keystr((src,)), flip, False)
+        for layer in range(config.num_layers):
+            for path, dst, flip in block:
+                out[f"blocks.{layer}.{dst}"] = (
+                    _keystr(("blocks",) + path), flip, True)
+    missing = [n for n in names if n not in out]
+    if missing:
+        raise KeyError(f"no reference path for {missing[:3]}")
+    return {n: out[n] for n in names}
+
+
 def params_from_jax(tree, config) -> dict:
     """``hetu_tpu`` params (or ``{"params": ...}`` variables) → the
     parameters of a float32 CPU ``state_dict`` for the port's model of

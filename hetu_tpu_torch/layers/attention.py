@@ -31,6 +31,9 @@ from hetu_tpu_torch import ops
 from hetu_tpu_torch.layers.base import Module
 from hetu_tpu_torch.layers.linear import Linear
 from hetu_tpu_torch.ops.cuda_kernels import flash_attention
+from hetu_tpu_torch.parallel.spec import (
+    gather_dim, heads_for_cache, local_call, moved_heads, shard_heads,
+)
 
 
 class MultiHeadAttention(Module):
@@ -61,9 +64,12 @@ class MultiHeadAttention(Module):
         """Fused projection split into q/k/v in cache layout
         ``[B, S, nh, hd]``."""
         b, s, _ = x.shape
-        qkv = self.qkv(x.to(self.dtype)).reshape(b, s, 3, self.num_heads,
-                                                 self.head_dim)
-        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        # under MegatronLM the projection's output is split over tp at a
+        # point that is no head boundary: gather it, then give each rank
+        # its own heads
+        qkv = gather_dim(self.qkv(x.to(self.dtype)), -1).reshape(
+            b, s, 3, self.num_heads, self.head_dim)
+        return tuple(shard_heads(qkv[:, :, i], 2) for i in range(3))
 
     def _out(self, out, b, s):
         return self.out(out.transpose(1, 2).reshape(b, s, self.hidden_size))
@@ -124,9 +130,17 @@ class MultiHeadAttention(Module):
 
     def _cached_step(self, core, x, k_cache, v_cache, starts):
         self._require_causal()
-        q, k, v = self._qkv(x)
-        ops.cache_update(k_cache, v_cache, k, v, starts)
-        out = core(q.transpose(1, 2), k_cache, v_cache, starts)
+        # under tp the cache holds this rank's heads (or all of them when
+        # tp does not divide them): the cache write and the core run on
+        # each rank's local tensors
+        q, k, v = (heads_for_cache(t, 2, k_cache.shape[2])
+                   for t in self._qkv(x))
+
+        def step(q, k, v, k_cache, v_cache, starts):
+            ops.cache_update(k_cache, v_cache, k, v, starts)
+            return core(q.transpose(1, 2), k_cache, v_cache, starts)
+        out = local_call(step, moved_heads(2, 1), q, k, v, k_cache, v_cache,
+                         starts)
         return self._out(out, *x.shape[:2]), k_cache, v_cache
 
     def prefill_chunk_step(self, x, k_cache, v_cache, starts):

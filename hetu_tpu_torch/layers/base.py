@@ -39,14 +39,17 @@ def child_generator(generator: Optional[torch.Generator],
         derive_seed(generator.initial_seed(), i))
 
 
-def require_own_parameters(own: dict, params: dict,
+def require_own_parameters(own, params: dict,
                            what: str = "parameters") -> None:
     """Raise unless ``params`` holds exactly the tensors of ``own`` (a
-    model's ``named_parameters()``, or its :func:`state_buffers`): a loss
+    model, whose ``named_parameters()`` are read at the call, or a dict
+    such as its :func:`state_buffers`): a loss
     function written over a module reads the module's own tensors, so
     others passed in would be ignored (and a recomputed block would read
     the module's, not the passed ones).  Load other values with
     ``load_state_dict``."""
+    if isinstance(own, nn.Module):
+        own = dict(own.named_parameters())
     if params.keys() != own.keys() or any(
             params[n] is not p for n, p in own.items()):
         raise ValueError(f"the loss function runs on the model's own "

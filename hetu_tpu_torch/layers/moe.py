@@ -12,7 +12,8 @@ centroid, rescored by the group sum).  Each returns ``(gates [T, k], idx
 einsum masks (``"einsum"``), whatever the gate.  A gate's parameters sit
 where the reference keeps them (``gate_w [D, E]``, ``centroids [E, D]``);
 the expert weights are stacked ``[E, ...]``.  The reference's
-expert-parallel ``mesh`` is the multi-GPU slice's and is refused here.
+expert-parallel ``mesh`` is slice 8b's of the multi-GPU port and is
+refused here.
 """
 
 from __future__ import annotations
@@ -259,9 +260,9 @@ class MoELayer(Module):
         super().__init__()
         if mesh is not None:
             raise NotImplementedError(
-                "an expert-parallel mesh belongs to the multi-GPU slice of "
-                "hetu_tpu_torch, which is not ported yet; the MoE layer runs "
-                "on one device")
+                "an expert-parallel mesh belongs to slice 8b of the "
+                "multi-GPU port of hetu_tpu_torch (with ShardedGPT), which "
+                "is not ported yet; the MoE layer runs on one device")
         if dispatch_impl not in ("gather", "einsum"):
             raise ValueError(f"dispatch_impl {dispatch_impl!r}: "
                              "'gather' or 'einsum'")

@@ -125,10 +125,8 @@ class BertModel(Module):
         ``batch = (input_ids, token_type_ids, attention_mask, mlm_labels,
         nsp_labels)`` (mask may be None; an MLM label of -1 is not
         predicted) and ``params`` this model's own parameters."""
-        own = dict(self.named_parameters())
-
         def fn(params, model_state, batch, generator, train):
-            require_own_parameters(own, params)
+            require_own_parameters(self, params)
             input_ids, tok_type, attn_mask, mlm_labels, nsp_labels = batch
             seq = self.encode(input_ids, tok_type, attn_mask, train=train,
                               generator=generator)

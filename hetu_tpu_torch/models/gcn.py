@@ -54,10 +54,8 @@ class GCN(Module):
         closed-over edges: the softmax cross entropy and the accuracy,
         each averaged over the nodes of ``mask`` (the semi-supervised
         setting)."""
-        own = dict(self.named_parameters())
-
         def fn(params, model_state, batch, generator, train):
-            require_own_parameters(own, params)
+            require_own_parameters(self, params)
             x, labels, mask = batch
             logits = self(x, edge_src, edge_dst, edge_weight, train=train,
                           generator=generator)

@@ -28,6 +28,7 @@ from hetu_tpu_torch.layers.base import (
 )
 from hetu_tpu_torch.layers.norm import LayerNorm
 from hetu_tpu_torch.layers.transformer import TransformerBlock
+from hetu_tpu_torch.parallel.spec import is_dtensor
 
 
 @dataclass
@@ -165,10 +166,8 @@ class GPTModel(Module):
         :func:`ops.lm_head_cross_entropy`; otherwise the logits are formed
         whole and the per-row CE is summed over the rows whose label is not
         -1 and divided by their count, as the fused path does."""
-        own = dict(self.named_parameters())
-
         def fn(params, model_state, batch, generator, train):
-            require_own_parameters(own, params)
+            require_own_parameters(self, params)
             ids = batch[0] if isinstance(batch, (tuple, list)) else batch
             c = self.c
             if c.fused_ce:
@@ -198,7 +197,11 @@ class GPTModel(Module):
         away.
         """
         s = input_ids.shape[1]
-        h = self._embed(input_ids, self.pos_emb[None, :s])
+        # a DTensor table is gathered, not sliced: a view of it cannot be
+        # made under inference mode
+        pos = self.pos_emb[torch.arange(s, device=input_ids.device)] \
+            if is_dtensor(self.pos_emb) else self.pos_emb[:s]
+        h = self._embed(input_ids, pos[None])
         ks, vs = [], []
         for blk in self.blocks:
             h, k, v = blk.prefill_step(h)

@@ -15,7 +15,7 @@ the KV-cache methods on a :meth:`LlamaModel.inference_copy`.  The cache
 holds the ROTATED keys and the ``num_kv_heads`` un-repeated heads;
 ``ops.decode_attention`` repeats them at read time.
 
-Still to port: ``HeteroLlama`` (with the multi-GPU slice).
+Still to port: ``HeteroLlama`` (with slice 8d of the multi-GPU port).
 """
 
 from __future__ import annotations
@@ -31,6 +31,9 @@ from hetu_tpu_torch import init as initializers
 from hetu_tpu_torch import ops
 from hetu_tpu_torch.layers.base import Module, require_own_parameters
 from hetu_tpu_torch.ops.cuda_kernels import flash_attention
+from hetu_tpu_torch.parallel.spec import (
+    gather_dim, is_dtensor, local_call, moved_heads, shard_heads,
+)
 
 
 @dataclass
@@ -91,7 +94,9 @@ class LlamaAttention(Module):
         ``[B, S, nkv, hd]`` (the cache layout)."""
         b, s, _ = x.shape
         hd, nh, nkv = self.head_dim, self.num_heads, self.num_kv_heads
-        qkv = ops.linear(x, self.qkv_weight.to(self.dtype).t())
+        # gathered over tp: the fused split is no head boundary
+        qkv = gather_dim(ops.linear(x, self.qkv_weight.to(self.dtype).t()),
+                         -1)
         return (qkv[..., :nh * hd].reshape(b, s, nh, hd),
                 qkv[..., nh * hd:(nh + nkv) * hd].reshape(b, s, nkv, hd),
                 qkv[..., (nh + nkv) * hd:].reshape(b, s, nkv, hd))
@@ -116,6 +121,9 @@ class LlamaAttention(Module):
             rep = self.num_heads // self.num_kv_heads
             kr = k.repeat_interleave(rep, dim=1)
             vr = v.repeat_interleave(rep, dim=1)
+        # under tp each rank attends with its own query heads and their
+        # kv heads
+        q, kr, vr = (shard_heads(t, 1) for t in (q, kr, vr))
         if self.attention_impl == "flash":
             o = flash_attention(q, kr, vr, causal=True)
         else:
@@ -166,10 +174,20 @@ class LlamaBlock(Module):
 
     def _cached_step(self, core, x, k_cache, v_cache, starts, cos, sin):
         q, k, v = self.attn.qkv(self._norm1(x))
+        # under tp a cache with this rank's kv heads takes this rank's
+        # query heads; a replicated cache (tp does not divide the kv
+        # heads) takes all of them
         q = ops.apply_rope_at(q.transpose(1, 2), cos, sin, starts)
         k = ops.apply_rope_at(k.transpose(1, 2), cos, sin, starts)
-        ops.cache_update(k_cache, v_cache, k.transpose(1, 2), v, starts)
-        o = core(q, k_cache, v_cache, starts)
+        if is_dtensor(k) and k_cache.shape[2] < k.shape[1]:
+            q, k = shard_heads(q, 1), shard_heads(k, 1)
+            v = shard_heads(v, 2)
+
+        def step(q, k, v, k_cache, v_cache, starts):
+            ops.cache_update(k_cache, v_cache, k.transpose(1, 2), v, starts)
+            return core(q, k_cache, v_cache, starts)
+        o = local_call(step, moved_heads(1, 1), q, k, v, k_cache, v_cache,
+                       starts)
         return self._mlp(x + self.attn.out(o)), k_cache, v_cache
 
     def prefill_chunk_step(self, x, k_cache, v_cache, starts, cos, sin):
@@ -277,10 +295,8 @@ class LlamaModel(Module):
         ``config.fused_ce`` the untied head and the CE run through
         :func:`ops.lm_head_cross_entropy`; otherwise the logits are formed
         whole and the CE is averaged over the labels that are not -1."""
-        own = dict(self.named_parameters())
-
         def fn(params, model_state, batch, generator, train):
-            require_own_parameters(own, params)
+            require_own_parameters(self, params)
             ids = batch[0] if isinstance(batch, (tuple, list)) else batch
             c = self.c
             if c.fused_ce:

@@ -101,10 +101,8 @@ class MoETransformer(Module):
         model_state))``, where ``lm`` is the mean next-token CE over every
         row (no label is ignored) and ``params`` are this model's own
         parameters (``dict(model.named_parameters())``)."""
-        own = dict(self.named_parameters())
-
         def fn(params, model_state, batch, generator, train):
-            require_own_parameters(own, params)
+            require_own_parameters(self, params)
             ids = batch[0] if isinstance(batch, (tuple, list)) else batch
             logits, aux = self(ids)
             lm = ops.softmax_cross_entropy_sparse(logits[:, :-1],

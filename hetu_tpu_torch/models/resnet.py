@@ -105,12 +105,10 @@ def classifier_loss_fn(model):
     the model's own parameters and :func:`state_buffers`; a training call
     writes the new running statistics into the latter, which it
     returns."""
-    own = dict(model.named_parameters())
-    own_state = state_buffers(model)
-
     def fn(params, model_state, batch, generator, train):
-        require_own_parameters(own, params)
-        require_own_parameters(own_state, model_state, "state buffers")
+        require_own_parameters(model, params)
+        require_own_parameters(state_buffers(model), model_state,
+                               "state buffers")
         x, y = batch
         logits = model(x, train=train, generator=generator)
         loss = ops.softmax_cross_entropy_sparse(logits, y).mean()

@@ -41,10 +41,8 @@ class RNNClassifier(Module):
     def loss_fn(self):
         """The Executor's loss over ``batch = (x, labels)``: the mean
         softmax cross entropy and the accuracy."""
-        own = dict(self.named_parameters())
-
         def fn(params, model_state, batch, generator, train):
-            require_own_parameters(own, params)
+            require_own_parameters(self, params)
             x, y = batch
             logits = self(x)
             loss = ops.softmax_cross_entropy_sparse(logits, y).mean()

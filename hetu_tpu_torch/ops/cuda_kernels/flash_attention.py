@@ -46,6 +46,8 @@ import ctypes
 
 import torch
 
+from hetu_tpu_torch.parallel.spec import is_dtensor, local_call
+
 from hetu_tpu_torch.ops.cuda_kernels import build
 
 NEG_INF = -1e30  # the TPU kernel's mask value
@@ -417,8 +419,17 @@ def flash_attention(q, k, v, *, causal: bool, scale=None,
     ``return_lse``), differentiable in q, k and v.
 
     CPU tensors run the plain versions; CUDA tensors launch the kernels or
-    raise.  ``flash_attention.launches`` counts forward launches.
+    raise.  ``flash_attention.launches`` counts forward launches.  DTensor
+    operands (heads split over tp, the batch over dp) run the kernels on
+    each rank's local tensors, under ``local_map``.
     """
+    if is_dtensor(q):
+        if return_lse:
+            raise NotImplementedError("return_lse of sharded operands")
+        return local_call(
+            lambda a, b, c: flash_attention(a, b, c, causal=causal,
+                                            scale=scale),
+            lambda a, *_: list(a.placements), q, k, v)
     _check(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5

@@ -14,6 +14,10 @@ from dataclasses import dataclass
 
 import torch
 
+from hetu_tpu_torch.parallel.spec import (
+    gather_dim, is_dtensor, local_call, unpartial,
+)
+
 # jax.ops.segment_max's value for an empty int32 segment
 _INT32_MIN = -2 ** 31
 
@@ -36,11 +40,46 @@ def embedding_lookup(table, indices):
     """Dense gather ``table[indices]``; out-of-range ids give zero rows,
     like the reference.  Torch indexing raises on the CPU and asserts on
     the device for a bad id, so ids are clamped into range first and the
-    rows masked after."""
+    rows masked after.  A DTensor table is looked up vocab-parallel
+    (:func:`_sharded_lookup`)."""
+    if is_dtensor(table):
+        return _sharded_lookup(table, indices)
     idx = indices.long()
     in_range = (idx >= 0) & (idx < table.shape[0])
     rows = table[idx.clamp(0, table.shape[0] - 1)]
     return torch.where(in_range[..., None], rows, rows.new_zeros(()))
+
+
+def _sharded_lookup(table, indices):
+    """The lookup of a DTensor table, Megatron's vocab-parallel embedding:
+    a table split by rows over some mesh axes looks up, on each rank, the
+    ids in its own rows (zeros for the others), and the rows are a partial
+    sum over those axes; the batch keeps the ids' split.  Runs on the
+    local tensors (``local_map``), with no DTensor indexing."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    table = gather_dim(unpartial(table), 1)
+    mesh = table.device_mesh
+    start, rows = 0, table.shape[0]
+    for i, p in enumerate(table.placements):
+        if p.is_shard(0):  # an even split (Strategy._fit's rule)
+            rows //= mesh.size(i)
+            start += mesh.get_local_rank(i) * rows
+    ids_pl = list(indices.placements) if is_dtensor(indices) \
+        else [Replicate()] * mesh.ndim
+    out_pl = [Partial() if t.is_shard(0) else b
+              for t, b in zip(table.placements, ids_pl)]
+    grad_pl = [Partial() if b.is_shard() else t
+               for t, b in zip(table.placements, ids_pl)]
+    v = table.shape[0]
+
+    def lookup(t, ids):
+        idx = ids.long()
+        mine = (idx >= start) & (idx < start + t.shape[0]) & (idx < v)
+        got = t[(idx - start).clamp(0, t.shape[0] - 1)]
+        return torch.where(mine[..., None], got, got.new_zeros(()))
+    return local_call(lookup, lambda *_: out_pl, table, indices,
+                      in_grad_placements=(grad_pl, ids_pl))
 
 
 @dataclass

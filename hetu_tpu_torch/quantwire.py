@@ -1,6 +1,6 @@
-"""The int8 block codec and wire-byte accounting of KV migration payloads
-(counterpart of the parts of ``hetu_tpu/quantwire.py`` that
-``serve/migrate.py`` uses).
+"""The wire-dtype conventions (counterpart of ``hetu_tpu/quantwire.py``):
+the int8 codecs of KV migration payloads and of quantized collectives, and
+wire-byte accounting.
 
 * :func:`q8_encode_axes` / :func:`q8_decode_axes` — symmetric int8 with one
   f32 scale per block, as torch ops on the tensor's own device.  Bit for
@@ -11,6 +11,12 @@
   all-nonfinite) block keeps scale 0 and decodes to zeros.  Every
   division is tensor by tensor: a division by a Python scalar may run as a
   product with its reciprocal on the card, one bit off the reference.
+* :func:`block_encode` / :func:`block_decode` — the block codec of the
+  quantized collectives (:func:`~hetu_tpu_torch.parallel.collectives.
+  quantized_psum`): flatten, pad to whole blocks, one f32 scale a block,
+  the same clamp rules; bitwise the reference's ``jnp_block_encode``
+  codes and scales.  :func:`block_wire_bytes` prices it and
+  :func:`check_wire` names the wire dtypes.
 * :func:`record_wire_bytes` — the ``<path>.bytes_logical`` /
   ``bytes_wire`` / ``bytes_saved`` counters, in a
   :class:`~hetu_tpu_torch.telemetry.MetricsRegistry` the caller passes.
@@ -18,17 +24,35 @@
   dtypes (the numbering of ``WireDtype`` in ``csrc/hetu_ps_dtype.h``) and
   the bytes ``n`` rows take on it.
 
-The reference's jax block codec (quantized collectives) waits for the
-multi-GPU slice.  ``torch`` is imported by the codec's two functions
-only: the van's client (:mod:`hetu_tpu_torch.ps.van`) imports this module,
+``torch`` is imported inside the codecs' functions only: the van's client (:mod:`hetu_tpu_torch.ps.van`) imports this module,
 and a van server process must not pay for ``import torch``.
 """
 
 from __future__ import annotations
 
+WIRE_DTYPES = ("f32", "bf16", "int8")
+
 # the PS gradient wire's dtypes, numbered as csrc's WireDtype; "f32" means
 # the legacy ops
 WIRE_CODES = {"f32": 0, "bf16": 1, "int8": 2}
+
+
+def check_wire(wire: str) -> str:
+    if wire not in WIRE_DTYPES:
+        raise ValueError(f"unknown wire dtype {wire!r}; "
+                         f"expected one of {WIRE_DTYPES}")
+    return wire
+
+
+def block_wire_bytes(n_elems: int, wire: str, block: int) -> int:
+    """Wire bytes of ``n_elems`` flat elements in block-scaled ``wire``
+    encoding (one f32 scale per ``block`` elements, int8 only)."""
+    if wire == "bf16":
+        return n_elems * 2
+    if wire == "int8":
+        nblk = -(-max(n_elems, 1) // block)
+        return n_elems + nblk * 4
+    return n_elems * 4
 
 
 def row_wire_bytes(wire: str, n: int, dim: int) -> int:
@@ -79,6 +103,44 @@ def q8_decode_axes(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     import torch
 
     return q.to(torch.float32) * scales.to(torch.float32)
+
+
+def block_encode(x, block: int):
+    """Flatten ``x``, pad it with zeros to a multiple of ``block`` and
+    quantize each block to int8 with a symmetric f32 scale: ``(q [nblk,
+    block] int8, scales [nblk, 1] f32)`` on ``x``'s device.  The scale is
+    amax/127 over the block's FINITE magnitudes; NaN quantizes to 0, +Inf
+    to 127 and -Inf to -127 (:func:`q8_encode_axes`'s rules).  Gradients
+    reach ``x`` through the scales only, as through the reference's
+    rounding."""
+    import torch
+
+    flat = x.to(torch.float32).reshape(-1)
+    pad = (-flat.numel()) % block
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    blocks = flat.reshape(-1, block)
+    finite = torch.isfinite(blocks)
+    zero = blocks.new_zeros(())
+    amax = torch.where(finite, blocks, zero).abs().amax(dim=1, keepdim=True)
+    scale = amax / torch.full_like(amax, 127.0)
+    pos = scale > 0
+    inv = torch.where(pos, torch.ones_like(scale)
+                      / torch.where(pos, scale, torch.ones_like(scale)),
+                      zero)
+    q = torch.clamp(torch.round(blocks * inv), -127.0, 127.0)
+    q = torch.where(torch.isnan(blocks), zero, q)
+    q = torch.where(torch.isposinf(blocks), zero + 127.0, q)
+    q = torch.where(torch.isneginf(blocks), zero - 127.0, q)
+    return q.to(torch.int8), scale
+
+
+def block_decode(q, scales, size: int, shape):
+    """Inverse of :func:`block_encode` back to ``shape`` (f32)."""
+    import torch
+
+    out = q.to(torch.float32) * scales
+    return out.reshape(-1)[:size].reshape(shape)
 
 
 def record_wire_bytes(registry, path: str, logical: int, wire: int) -> None:

@@ -14,8 +14,8 @@ standby processes; :mod:`~hetu_tpu_torch.resilience.multicontroller` is
 the multi-controller elastic training plane (worker processes over the
 van, membership epochs, the consumed-batch cover) and
 :mod:`~hetu_tpu_torch.resilience.memberproc` its member protocol, both
-imported on use.  The elastic mesh (``elastic.py``) waits for the
-multi-GPU slice.
+imported on use.  The elastic mesh (``elastic.py``) waits for slice 8c
+of the multi-GPU port.
 """
 
 from hetu_tpu_torch.resilience.faults import (

@@ -63,7 +63,8 @@ from hetu_tpu_torch.telemetry import trace
 PLANES = ("serving", "elastic", "mpmd")
 _NOT_PORTED = {
     "mpmd": "the MPMD pipeline's supervisor (MPMDPipelineSupervisor) "
-            "comes with the multi-GPU slice (ROADMAP.md Queue 1, item 8)",
+            "comes with slice 8c of the multi-GPU port (ROADMAP.md Queue 1, "
+            "item 8c)",
 }
 
 

@@ -24,8 +24,15 @@ Both engines run under ``torch.inference_mode()`` on a copy of the model
 whose matmul weights were cast to the compute type ONCE, when the engine
 was built (:meth:`GPTModel.inference_copy`).  Both export, resume and
 adopt live slots for migration (serve/migrate.py): an adopted slot decodes
-on where its source stopped, with no prefill.  The reference's tensor
-parallel ``mesh`` waits for the multi-GPU slice.
+on where its source stopped, with no prefill.
+
+Tensor parallelism: pass ``mesh`` (``parallel.make_mesh(tp=...)``, one
+process a rank, every rank making the same calls) and the engine places
+the serving copy's parameters at MegatronLM's split points, with the
+vocabulary kept whole (:class:`_DecodeTP`), and keeps on each rank the KV
+cache (or page pool) of its own kv heads when they divide tp, of all of
+them otherwise.  The cache and the attention core stay plain local
+tensors; the projections run on DTensors.
 """
 
 from __future__ import annotations
@@ -35,11 +42,54 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dataclasses import replace
+
+from hetu_tpu_torch.parallel.spec import is_dtensor, mesh_context
+from hetu_tpu_torch.parallel.strategies.simple import MegatronLM
 from hetu_tpu_torch.serve.kv_cache import (
     KVCache, KVCacheSpec, PagedKVCache, pow2_ceil,
 )
 from hetu_tpu_torch.serve.metrics import ServeMetrics
 from hetu_tpu_torch.telemetry import trace
+
+
+class _DecodeTP(MegatronLM):
+    """MegatronLM's splits with the vocabulary kept whole: a decode step
+    reads the whole ``[V]`` logits row of every sequence each token, so a
+    vocab-parallel embedding would gather every step for no gain at
+    serving batch sizes."""
+
+    VOCAB = ()
+
+
+def _place_params_and_cache_spec(model, mesh, spec: KVCacheSpec):
+    """The tp placement both engines share: MegatronLM's split points on
+    the serving copy's parameters (in place), and the cache geometry of
+    this rank: its share of the kv heads when they divide tp, all of them
+    otherwise.  Returns ``(spec, (tp, tp_rank) or None)``, the second the
+    split of a sharded cache."""
+    if mesh is None:
+        return spec, None
+    names = mesh.mesh_dim_names
+    tp = mesh.size(names.index("tp")) if "tp" in names else 1
+    _DecodeTP().place(model, mesh)
+    if tp > 1 and spec.num_kv_heads % tp == 0:
+        return (replace(spec, num_kv_heads=spec.num_kv_heads // tp),
+                (tp, mesh.get_local_rank("tp")))
+    return spec, None
+
+
+def _local_kv(t, split):
+    """K or V of a prefill (``[..., heads, hd]``, a DTensor under tp) as
+    this rank's cache holds it: its share of the heads, or all."""
+    if not is_dtensor(t):
+        return t
+    t = t.full_tensor()
+    return t if split is None else t.chunk(split[0], -2)[split[1]]
+
+
+def _whole(t):
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def _pow2_buckets(lo: int, hi: int) -> tuple:
@@ -64,7 +114,8 @@ class ServeEngine:
 
     def __init__(self, model, *, num_slots: int = 8,
                  max_len: Optional[int] = None, min_bucket: int = 16,
-                 metrics: Optional[ServeMetrics] = None, device="cuda"):
+                 metrics: Optional[ServeMetrics] = None, device="cuda",
+                 mesh=None):
         self.metrics = metrics or ServeMetrics()
         c = model.c
         max_len = int(max_len or c.max_position)
@@ -73,9 +124,11 @@ class ServeEngine:
                              f"max_position {c.max_position}")
         self.device = torch.device(device)
         self.model = model.inference_copy().to(self.device)
+        self.mesh = mesh
+        spec, self._kv_split = _place_params_and_cache_spec(
+            self.model, mesh, KVCacheSpec.from_model(model))
         self.buckets = _pow2_buckets(min(min_bucket, max_len), max_len)
-        self.cache = KVCache(KVCacheSpec.from_model(model), num_slots,
-                             max_len, device=self.device)
+        self.cache = KVCache(spec, num_slots, max_len, device=self.device)
         # newest token per slot (decode feeds all slots every step)
         self.last_tokens = np.zeros(num_slots, np.int32)
         self.active = np.zeros(num_slots, bool)
@@ -109,7 +162,8 @@ class ServeEngine:
             self.metrics.inc("prefill_compiles")
             trace.instant("serve.recompile",
                           {"kind": "prefill", "bucket": s})
-        with trace.span("serve.prefill") as sp, torch.inference_mode():
+        with trace.span("serve.prefill") as sp, torch.inference_mode(), \
+                mesh_context(self.mesh):
             sp.set("slot", int(slot))
             sp.set("tokens", n)
             sp.set("bucket", s)
@@ -120,11 +174,11 @@ class ServeEngine:
             logits, k, v = self.model.prefill_with_cache(
                 self._tensor(ids), last_index=n - 1)
             # k: [L, 1, S, nkv, hd] — batch 1 IS the slot's row
-            self.cache.k[:, slot, :s] = k[:, 0]
-            self.cache.v[:, slot, :s] = v[:, 0]
+            self.cache.k[:, slot, :s] = _local_kv(k[:, 0], self._kv_split)
+            self.cache.v[:, slot, :s] = _local_kv(v[:, 0], self._kv_split)
             # the host fetch is the sync point: inside the span, so the
             # span covers device execution, not just the launches
-            first = int(torch.argmax(logits[0]))
+            first = int(torch.argmax(_whole(logits)[0]))
         self.cache.lengths[slot] = n
         self.last_tokens[slot] = first
         self.active[slot] = True
@@ -145,14 +199,15 @@ class ServeEngine:
             self._decoded = True
             self.metrics.inc("decode_compiles")
             trace.instant("serve.recompile", {"kind": "decode"})
-        with trace.span("serve.decode") as sp, torch.inference_mode():
+        with trace.span("serve.decode") as sp, torch.inference_mode(), \
+                mesh_context(self.mesh):
             if trace.enabled():  # the reduction is attr-only: skip when off
                 sp.set("active", int(self.active.sum()))
             logits, _, _ = self.model.decode_with_cache(
                 self._tensor(self.last_tokens), self.cache.k, self.cache.v,
                 self._tensor(self.cache.lengths))
             # host fetch = the sync point; inside the span (see prefill)
-            nxt = torch.argmax(logits, -1).cpu().numpy()
+            nxt = torch.argmax(_whole(logits), -1).cpu().numpy()
         out = {}
         for slot in np.nonzero(self.active)[0]:
             self.cache.lengths[slot] += 1
@@ -304,7 +359,8 @@ class PagedServeEngine:
                  num_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None, min_bucket: int = 16,
                  prefix_sharing: bool = True, max_prefix_entries: int = 256,
-                 metrics: Optional[ServeMetrics] = None, device="cuda"):
+                 metrics: Optional[ServeMetrics] = None, device="cuda",
+                 mesh=None):
         self.metrics = metrics or ServeMetrics()
         c = model.c
         max_len = int(max_len or c.max_position)
@@ -313,8 +369,11 @@ class PagedServeEngine:
                              f"max_position {c.max_position}")
         self.device = torch.device(device)
         self.model = model.inference_copy().to(self.device)
+        self.mesh = mesh
+        spec, self._kv_split = _place_params_and_cache_spec(
+            self.model, mesh, KVCacheSpec.from_model(model))
         self.cache = PagedKVCache(
-            KVCacheSpec.from_model(model), num_slots, max_len,
+            spec, num_slots, max_len,
             page_size=page_size, num_pages=num_pages,
             max_prefix_entries=max_prefix_entries if prefix_sharing else 0,
             device=self.device)
@@ -459,7 +518,7 @@ class PagedServeEngine:
         t = cache.tables[slot]
         aux[3 * s:3 * s + len(t)] = t
         with trace.span("serve.prefill_chunk") as sp, \
-                torch.inference_mode():
+                torch.inference_mode(), mesh_context(self.mesh):
             sp.set("slot", int(slot))
             sp.set("start", int(start))
             sp.set("tokens", int(size))
@@ -476,7 +535,7 @@ class PagedServeEngine:
             cache.k[:, wpage, woff] = k_seq[:, 0, start:start + s]
             cache.v[:, wpage, woff] = v_seq[:, 0, start:start + s]
             # the host fetch is the sync point, inside the span
-            tok = int(torch.argmax(logits[0]))
+            tok = int(torch.argmax(_whole(logits)[0]))
         cache.lengths[slot] = end
         cur.pos = end
         self.metrics.inc("prefill_tokens", size)
@@ -547,7 +606,8 @@ class PagedServeEngine:
         aux[:, n_pg + 1] = self.last_tokens[sl]
         aux[:, n_pg + 2] = wp
         aux[:, n_pg + 3] = wo
-        with trace.span("serve.decode") as sp, torch.inference_mode():
+        with trace.span("serve.decode") as sp, torch.inference_mode(), \
+                mesh_context(self.mesh):
             if trace.enabled():
                 sp.set("active", int(len(act)))
                 sp.set("pages", int(n_pg))
@@ -565,7 +625,7 @@ class PagedServeEngine:
             wpage, woff = dev[:, n_pg + 2], dev[:, n_pg + 3]
             cache.k[:, wpage, woff] = k_seq[:, rows, at]
             cache.v[:, wpage, woff] = v_seq[:, rows, at]
-            nxt = torch.argmax(logits, -1).cpu().numpy()  # the sync point
+            nxt = torch.argmax(_whole(logits), -1).cpu().numpy()  # sync
         out = {}
         for i, slot in enumerate(act):
             cache.lengths[slot] += 1

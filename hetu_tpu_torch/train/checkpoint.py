@@ -33,6 +33,7 @@ import torch
 
 from hetu_tpu_torch import interop
 from hetu_tpu_torch import rng as hrng
+from hetu_tpu_torch.parallel.spec import is_dtensor
 
 _FORMAT_VERSION = 2
 
@@ -70,11 +71,26 @@ def _unflatten(template, leaves):
     return next(leaves)
 
 
+def _whole(d: dict) -> dict:
+    """Name -> tensor with every DTensor gathered whole (a collective:
+    every rank of its mesh calls it)."""
+    return {n: t.full_tensor() if is_dtensor(t) else t for n, t in d.items()}
+
+
+def _sharded(state) -> bool:
+    return any(is_dtensor(t) for t in state.params.values())
+
+
 def _trees(state, config) -> list:
-    """The reference ``TrainState``'s children, in its order."""
-    return [interop.params_to_jax(state.params, config),
-            interop.opt_state_to_jax(state.opt_state, config),
-            interop.state_to_jax(state.model_state, config),
+    """The reference ``TrainState``'s children, in its order (a sharded
+    state's tensors gathered whole)."""
+    opt = state.opt_state
+    if opt:
+        opt = dict(opt, slots={k: _whole(v)
+                               for k, v in opt["slots"].items()})
+    return [interop.params_to_jax(_whole(state.params), config),
+            interop.opt_state_to_jax(opt, config),
+            interop.state_to_jax(_whole(state.model_state), config),
             np.asarray(state.rng, np.uint32),
             np.asarray(state.step, np.int32)]
 
@@ -115,10 +131,26 @@ def save(path, state, config=None, *,
          extra: Optional[dict] = None) -> None:
     """Write ``state`` (a port ``TrainState`` of the model of ``config``,
     or with ``config=None`` a nested dict of arrays or tensors) to
-    ``path``."""
+    ``path``.  A sharded state (DTensors on a mesh) is saved whole, in the
+    same format: every rank calls ``save``, the pieces are gathered, rank
+    0 writes the file and the others wait for it."""
     path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
     leaves = _leaves(state, config)
+    sharded = config is not None and _sharded(state)
+    if sharded:
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            dist.barrier()
+            return
+    try:
+        _write(path, leaves, extra)
+    finally:
+        if sharded:
+            dist.barrier()
+
+
+def _write(path, leaves, extra) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
     seed, seqnum = hrng.get_seed_status()
     arrays = {f"leaf_{i}": np.asarray(leaf) for i, leaf in enumerate(leaves)}
     header = {
@@ -215,6 +247,17 @@ def _from_template(arr, want):
     return arr
 
 
+def _like(value, want):
+    """A whole loaded value placed as ``want`` is: on a DTensor's mesh with
+    its placements (each rank keeps its piece), else as it is."""
+    if not is_dtensor(want):
+        return value
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(value.to(want.device_mesh.device_type),
+                             want.device_mesh, want.placements,
+                             src_data_rank=None)
+
+
 def load(path, state, config=None, *, restore_rng: bool = True):
     """Load ``path`` into ``state`` (a port ``TrainState`` of the model of
     ``config``): parameters, slots and state buffers are copied into the
@@ -223,7 +266,9 @@ def load(path, state, config=None, *, restore_rng: bool = True):
     (the template) and a new one comes back, each leaf in its template
     leaf's kind, dtype and device.  Raises :class:`CheckpointCorruptError`
     for an unreadable file and :class:`CheckpointError` for one of another
-    architecture."""
+    architecture.  A sharded state loads by placing each whole value again
+    on its tensors' mesh, whatever mesh saved it (every rank calls
+    ``load``)."""
     header, leaves = _read(path)
     template = _trees(state, config) if config is not None else [state]
     flat = [leaf for tree in template for leaf in _flatten(tree)]
@@ -251,12 +296,12 @@ def load(path, state, config=None, *, restore_rng: bool = True):
     buffers = interop.state_from_jax(model_state, config)
     with torch.no_grad():
         for name, p in state.params.items():
-            p.copy_(loaded[name])
+            p.copy_(_like(loaded[name], p))
         for slot, d in state.opt_state.get("slots", {}).items():
             for name, t in d.items():
-                t.copy_(opt_state["slots"][slot][name])
+                t.copy_(_like(opt_state["slots"][slot][name], t))
         for name, t in state.model_state.items():
-            t.copy_(buffers[name])
+            t.copy_(_like(buffers[name], t))
     if state.opt_state:
         state.opt_state["step"] = opt_state["step"]
     state.rng = np.asarray(rng, np.uint32)

@@ -19,9 +19,20 @@ parameters' device, ``train.step.<name>`` around the step.  Kernels run
 asynchronously, so while tracing is on the step span ends with a device
 synchronisation; with tracing off nothing synchronises.
 
-The mesh, gradient-sync, distribution-strategy and profiler options of the
-reference belong to the multi-GPU and profiler slices of the port and are
-refused here.
+On a mesh (:func:`~hetu_tpu_torch.parallel.make_mesh`, one process a rank)
+every rank runs the same calls with the same global batch.
+:meth:`Executor.init_state` makes the model's parameters DTensors, placed
+by ``dist_strategy`` (replicated without one) and the optimizer slots by
+its ``slot_spec`` (ZeRO-1 shards them over dp); each rank keeps its piece
+of the batch's dim 0 over ``dp_axis``.  With ``grad_sync="exact"`` the loss
+is the global batch's (DTensor sums and counts across the shards) and
+each gradient is reduced to its parameter's placement (the reference's
+SPMD psum).  With ``"int8"``/``"bf16"`` (or a callable choosing per
+parameter) the parameters stay plain replicated tensors, the loss runs on
+each rank's own shard, and every gradient crosses
+:func:`~hetu_tpu_torch.parallel.collectives.quantized_pmean` over dp: the
+reference's ``shard_map`` step, per shard by contract.  The profiler
+option belongs to the profiler slice and is refused here.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from torch import nn
 from hetu_tpu_torch import rng as hrng
 from hetu_tpu_torch.layers.base import state_buffers
 from hetu_tpu_torch.optim.optimizer import Optimizer
+from hetu_tpu_torch.parallel.spec import is_dtensor, mesh_context
 from hetu_tpu_torch.telemetry import trace
 
 _SUBEXECUTORS = ("train", "train_guarded", "validate")
@@ -87,19 +99,59 @@ class Executor:
 
     def __init__(self, loss_fn: Callable,
                  optimizer: Optional[Optimizer] = None, *,
-                 seed: Optional[int] = None, mesh: Any = None,
-                 dist_strategy: Any = None, grad_sync: Any = "exact"):
-        if mesh is not None or dist_strategy is not None \
-                or grad_sync != "exact":
-            raise NotImplementedError(
-                "mesh, dist_strategy and grad_sync belong to the multi-GPU "
-                "slice of hetu_tpu_torch, which is not ported yet; the "
-                "Executor trains on one device")
+                 mesh: Any = None, dp_axis: str = "dp",
+                 param_sharding: Optional[dict] = None,
+                 dist_strategy: Any = None, grad_sync: Any = "exact",
+                 grad_sync_block: int = 256, seed: Optional[int] = None):
+        """``mesh``: a ``DeviceMesh`` from ``parallel.make_mesh``;
+        ``dist_strategy``: a ``parallel.strategies.Strategy`` placing the
+        parameters and slots (needs a mesh); ``param_sharding``: name ->
+        placements, for the parameters it names, without a strategy;
+        ``grad_sync``: ``"exact"`` (default), ``"int8"``, ``"bf16"`` or a
+        callable ``name -> wire`` for the data-parallel gradient sync,
+        ``grad_sync_block`` the int8 block (one f32 scale a block).
+        Quantized sync needs a mesh and replicated parameters."""
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self.mesh = mesh
+        self.dp_axis = dp_axis
+        self.param_sharding = param_sharding
+        self.dist_strategy = dist_strategy
+        if dist_strategy is not None and mesh is None:
+            raise ValueError("dist_strategy requires a mesh")
+        if isinstance(grad_sync, str) and grad_sync not in (
+                "exact", "f32", "bf16", "int8"):
+            raise ValueError(f"unknown grad_sync {grad_sync!r}; expected "
+                             f"'exact'/'f32'/'bf16'/'int8' or a callable")
+        self.grad_sync = grad_sync
+        self.grad_sync_block = int(grad_sync_block)
+        if self._quant_sync():
+            if mesh is None:
+                raise ValueError("quantized grad_sync requires a mesh")
+            if dist_strategy is not None or param_sharding is not None:
+                raise ValueError(
+                    "quantized grad_sync supports replicated parameters "
+                    "only (plain data parallelism); it cannot combine "
+                    "with dist_strategy/param_sharding")
+        self._grad_sync_bytes = None  # (logical, wire) per step, lazy
         self.grad_scale = 1.0
         if seed is not None:
             hrng.set_random_seed(seed)
+
+    def set_mesh(self, mesh: Any) -> None:
+        """Point the executor at a (re)formed mesh.  The caller places the
+        live state on it (``dist_strategy.place`` or
+        :func:`~hetu_tpu_torch.train.checkpoint.load` into a placed
+        template) before the next :meth:`run`."""
+        self.mesh = mesh
+
+    def _quant_sync(self) -> bool:
+        return callable(self.grad_sync) or self.grad_sync in ("int8",
+                                                              "bf16")
+
+    def _wire_for(self, name: str) -> str:
+        gs = self.grad_sync
+        return gs(name) if callable(gs) else gs
 
     def set_grad_scale(self, scale: float) -> None:
         """Multiply every gradient by ``scale`` before the optimizer
@@ -111,9 +163,21 @@ class Executor:
         (:func:`~hetu_tpu_torch.layers.base.state_buffers`), with fresh
         optimizer slots on their device and rng words drawn from the global
         (seed, seqnum) stream."""
+        if self.mesh is not None and not self._quant_sync():
+            _place(model, self.mesh, self.dist_strategy,
+                   self.param_sharding)
         params = dict(model.named_parameters())
         opt_state = (self.optimizer.init_state(params)
                      if self.optimizer is not None else {})
+        if self.dist_strategy is not None and opt_state:
+            # slots follow slot_spec: under ZeRO-1 they shard over dp
+            # while the parameters they mirror stay replicated
+            from hetu_tpu_torch.parallel.mesh import active_mesh
+            slot_sh = self.dist_strategy.slot_shardings(params, self.mesh)
+            opt_state["slots"] = {
+                k: {n: t.redistribute(active_mesh(self.mesh), slot_sh[n])
+                    for n, t in v.items()}
+                for k, v in opt_state["slots"].items()}
         return TrainState(params=params, opt_state=opt_state,
                           rng=hrng.np_rng().integers(0, 2 ** 32, 2,
                                                      dtype=np.uint32),
@@ -129,9 +193,14 @@ class Executor:
         if name != "validate" and self.optimizer is None:
             raise ValueError(f"{name} subexecutor needs an optimizer")
         device = next(iter(state.params.values())).device
+        if self._quant_sync() and name != "validate":
+            self._record_grad_sync_bytes(state)
         with trace.span("train.host_to_device"):
             batch = _device_batch(batch, device)
-        with trace.span(_STEP_SPAN[name]):
+            if self.mesh is not None:
+                batch = _shard_batch(batch, self.mesh, self.dp_axis,
+                                     local=self._quant_sync())
+        with trace.span(_STEP_SPAN[name]), mesh_context(self.mesh):
             if name == "train":
                 out = self._train_step(state, batch)
             elif name == "train_guarded":
@@ -141,6 +210,25 @@ class Executor:
             if trace.enabled() and device.type == "cuda":
                 torch.cuda.synchronize(device)
             return out
+
+    def _record_grad_sync_bytes(self, state: TrainState) -> None:
+        """One step's gradient-sync traffic on the
+        ``train.grad_sync.bytes_logical`` / ``bytes_wire`` counters of
+        ``telemetry.default_registry`` (sizes are static: computed once)."""
+        from hetu_tpu_torch.quantwire import (block_wire_bytes,
+                                              record_wire_bytes)
+        from hetu_tpu_torch.telemetry import default_registry
+        if self._grad_sync_bytes is None:
+            logical = wire = 0
+            for n, p in state.params.items():
+                w = self._wire_for(n)
+                logical += p.numel() * 4
+                wire += block_wire_bytes(p.numel(),
+                                         "f32" if w == "exact" else w,
+                                         self.grad_sync_block)
+            self._grad_sync_bytes = (logical, wire)
+        record_wire_bytes(default_registry, "train.grad_sync",
+                          *self._grad_sync_bytes)
 
     def save(self, path, state: TrainState, config, *,
              extra: Optional[dict] = None) -> None:
@@ -177,15 +265,52 @@ class Executor:
         grads = dict(zip(params, torch.autograd.grad(
             loss, list(params.values()), allow_unused=True,
             materialize_grads=True)))
+        if self.mesh is not None:
+            if self._quant_sync():
+                loss, metrics, model_state, grads = self._quant_reduce(
+                    loss, metrics, model_state, grads)
+            else:
+                # the exact sync: each gradient reduced to its parameter's
+                # placement (an all-reduce of a replicated parameter's
+                # partial sums, a reduce-scatter of a sharded one's)
+                grads = {n: g.redistribute(params[n].device_mesh,
+                                           params[n].placements)
+                         for n, g in grads.items()}
         if self.grad_scale != 1.0:
             grads = {n: g * self.grad_scale for n, g in grads.items()}
         params, opt_state = self.optimizer.update(grads, state.opt_state,
                                                   params)
-        metrics = dict(metrics)
-        metrics["loss"] = loss.detach()
+        metrics = _whole(dict(metrics))
+        metrics["loss"] = _whole(loss.detach())
         return TrainState(params=params, opt_state=opt_state, rng=state.rng,
                           step=state.step + 1,
                           model_state=model_state), metrics
+
+    def _quant_reduce(self, loss, metrics, model_state, grads):
+        """The quantized step's reductions over dp: every gradient through
+        ``quantized_pmean`` in its wire dtype; the loss and float metrics
+        ``pmean``, integer metrics ``psum`` (counts); float model state
+        ``pmean`` (written in place), other model state as the rank has
+        it."""
+        from hetu_tpu_torch.parallel.collectives import (pmean, psum,
+                                                         quantized_pmean)
+        dp, mesh = self.dp_axis, self.mesh
+        grads = {n: quantized_pmean(g, dp, wire=self._wire_for(n),
+                                    block=self.grad_sync_block, mesh=mesh)
+                 for n, g in grads.items()}
+
+        def red(v):
+            if not isinstance(v, torch.Tensor) or v.dtype == torch.bool:
+                return v
+            if v.is_floating_point():
+                return pmean(v.detach(), dp, mesh=mesh)
+            return psum(v, dp, mesh=mesh)
+        with torch.no_grad():
+            for t in model_state.values():
+                if t.is_floating_point():
+                    t.copy_(pmean(t, dp, mesh=mesh))
+        return (red(loss), {k: red(v) for k, v in metrics.items()},
+                model_state, grads)
 
     def _train_step_guarded(self, state: TrainState, batch):
         """The train step with a non-finite guard: a poisoned batch or an
@@ -200,7 +325,7 @@ class Executor:
         ok = torch.isfinite(metrics["loss"])
         for p in new_state.params.values():
             if p.is_floating_point():
-                ok = ok & torch.isfinite(p).all()
+                ok = ok & _whole(torch.isfinite(p).all())
         ok = bool(ok)
         if not ok:
             # the forward and the update wrote the tensors in place: put
@@ -218,9 +343,67 @@ class Executor:
         with torch.no_grad():
             loss, (metrics, _) = self.loss_fn(state.params, state.model_state,
                                               batch, None, False)
-        metrics = dict(metrics)
-        metrics["loss"] = loss
+        metrics = _whole(dict(metrics))
+        metrics["loss"] = _whole(loss)
         return metrics
+
+
+def _place(model: nn.Module, mesh, strategy, param_sharding) -> None:
+    """Make ``model``'s parameters and state buffers DTensors on ``mesh``:
+    the parameters by ``strategy`` (or ``param_sharding``'s placements for
+    the parameters it names; replicated otherwise), the state buffers
+    replicated."""
+    from hetu_tpu_torch.parallel.mesh import host_to_device, replicated
+    from hetu_tpu_torch.parallel.strategies import DataParallel, Strategy
+
+    if strategy is None and param_sharding:
+        table = dict(param_sharding)
+
+        class _Given(Strategy):
+            def shardings(self, params, mesh_):
+                return {n: list(table.get(n, replicated(mesh_)))
+                        for n in params}
+        strategy = _Given()
+    (strategy or DataParallel()).place(model, mesh)
+    for prefix, m in model.named_modules():
+        for n in getattr(m, "state_names", ()):
+            buf = getattr(m, n)
+            if not is_dtensor(buf):
+                setattr(m, n, host_to_device(buf.detach(), mesh,
+                                             replicated(mesh)))
+
+
+def _whole(v):
+    """A metric as a plain tensor: a DTensor's whole value (every rank
+    holds the same), a dict value by value."""
+    if isinstance(v, dict):
+        return {k: _whole(x) for k, x in v.items()}
+    return v.full_tensor() if is_dtensor(v) else v
+
+
+def _shard_batch(batch, mesh, dp_axis: str, *, local: bool):
+    """The global batch on ``mesh``: each leaf's dim 0 split over
+    ``dp_axis`` — as a DTensor (``local=False``), or as this rank's plain
+    piece (``local=True``, the quantized step).  Every rank passes the
+    same global batch."""
+    from hetu_tpu_torch.parallel.mesh import batch_sharding, host_to_device
+    dp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get(dp_axis, 1)
+    if batch is None:
+        return None
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_shard_batch(b, mesh, dp_axis, local=local)
+                           for b in batch)
+    if isinstance(batch, dict):
+        return {k: _shard_batch(v, mesh, dp_axis, local=local)
+                for k, v in batch.items()}
+    if batch.shape[0] % dp:
+        raise ValueError(
+            f"global batch dim {batch.shape[0]} not divisible by dp={dp}; "
+            f"pad or drop the remainder (Dataloader(drop_last=True))")
+    if local:
+        return batch.chunk(dp)[mesh.get_local_rank(dp_axis)] if dp > 1 \
+            else batch
+    return host_to_device(batch, mesh, batch_sharding(mesh, dp_axis))
 
 
 def _tensors(state: TrainState) -> list:

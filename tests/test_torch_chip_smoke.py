@@ -1638,10 +1638,10 @@ def test_kernels_line_counts_the_supervise_paths():
             chip_smoke.SUP_STEPS) == (50257, 1024, 8, 12)
     assert (chip_smoke.SUP_CKPT_EVERY, chip_smoke.SUP_KEEP,
             chip_smoke.SUP_HOLD_AT) == (4, 2, 5)
-    # 6 of GPT-2-small's 12 layers, its widths unchanged
-    assert chip_smoke.SUP_L == 6 and chip_smoke.L == 12
+    # 3 of GPT-2-small's 12 layers, its widths unchanged
+    assert chip_smoke.SUP_L == 3 and chip_smoke.L == 12
     spec = chip_smoke._sup_spec(0, "cpu")
-    assert (spec["L"], spec["H"], spec["NH"], spec["FFN"]) == (6, 768, 12,
+    assert (spec["L"], spec["H"], spec["NH"], spec["FFN"]) == (3, 768, 12,
                                                               3072)
     assert chip_smoke.SUP_PS_SCHEDULE == dict(
         steps=40, seed=11, van_errors=2, nan_steps=1, kill_shards=1,
@@ -1914,3 +1914,77 @@ def test_recsys_weights_are_drawn_in_the_references_layout():
                                       b.named_parameters(),
                                       c.named_parameters()):
         assert torch.equal(p, q) and not torch.equal(p, r), n
+
+
+TINY_MESH = dict(V=64, H=32, NH=4, FFN=64, PAGE_SIZE=4, MESH_L=2, MESH_B=4,
+                 MESH_S=16, MESH_STEPS=3, MESH_F32_L=2, MESH_F32_B=2,
+                 MESH_F32_S=16, MESH_F32_STEPS=2, MESH_SERVE_L=2,
+                 MESH_REQS=3, MESH_PROMPT=5, MESH_GEN=6, MESH_SERVE_LEN=16)
+
+
+def test_mesh_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """The mesh phase at a tiny width in two gloo rank processes on the
+    CPU, every gate live but the launch counts (no kernel off the card)
+    and (e), which needs the card: (a) tp = 2 within its gates, the ffn
+    weight still tp-split; (b) dp = 2 exact and int8; (c) both engines'
+    tokens equal; (d) every collective exact, nothing staged; the lines
+    keep their schema."""
+    import re
+    import sys
+
+    for name, value in TINY_MESH.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    # the ranks unpickle their body as chip_smoke.mesh_rank (the widths
+    # reach them in its spec)
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
+    out = chip_smoke.phase_mesh("cpu", 0, device="cpu")
+    text = capsys.readouterr().out
+    assert out["launches"] == [0] * 6 and out["staged"] == {}
+    assert out["nccl"] == {} and out["seconds"] > 0
+    for r in (0, 1):
+        for arm in (f"(a) rank {r} tp=2 bf16", f"(a) rank {r} tp=2 f32",
+                    f"(b) rank {r} dp=2 exact, unequal valid counts",
+                    f"(b) rank {r} dp=2 int8 vs the exact arm"):
+            line = next(x for x in text.splitlines() if arm + ":" in x)
+            assert re.search(r"worst relative gap \S+ \(gate \S+\) \[cpu\]",
+                             line), line
+        assert f"(a) rank {r}: ffn_in.weight (Shard(dim=0),)" in text
+        for name in ("slot", "paged"):
+            assert f"(c) rank {r} tp=2 {name} engine: 3 x 6 tokens equal" \
+                in text
+        assert re.search(rf"\(d\) rank {r} collectives on cpu, max \|d\| / "
+                         rf"max\|ref\|: psum 0\.0e\+00.*grouped_allreduce "
+                         rf"0\.0e\+00; staged through the host: none", text)
+    assert re.search(r"\[mesh\] two ranks over gloo on cpu: \S+ s, the "
+                     r"ranks up after \S+ s", text)
+    assert "[mesh] phase " in text
+
+
+def test_mesh_phase_gates_and_wiring():
+    """The gates are the ones fixed before the first card run; main runs
+    the phase before the kernel shapes, gives its launches to all six
+    rows and prints its summary before the card line."""
+    import inspect
+
+    assert chip_smoke.TOL_MESH_BF16 == 2 ** -7
+    assert chip_smoke.TOL_MESH_F32 == 2e-4
+    assert chip_smoke.MESH_INT8_REL == 0.10
+    assert chip_smoke.TOL_MESH_COLL == 1e-6
+    assert chip_smoke.MESH_BUDGET_S == 90.0
+    # GPT-2-small at full width; depth cut to 4 of 12 layers
+    assert (chip_smoke.V, chip_smoke.H, chip_smoke.NH, chip_smoke.FFN,
+            chip_smoke.MESH_L) == (50304, 768, 12, 3072, 4)
+    main = inspect.getsource(chip_smoke.main)
+    assert main.index("phase_mesh(card") < main.index(
+        "phase_kernel_shapes(card")
+    assert main.count('"mesh": mesh["launches"][i]') == 1
+    assert main.index("[elastic] summary:") < main.index(
+        "[mesh] summary:") < main.index("print(card)")
+    with pytest.raises(chip_smoke.SmokeFailure, match="loss gap"):
+        chip_smoke._mesh_gate("x", [1.0], [1.1], 1e-3, "cpu")
+    exp = chip_smoke.mesh_expected(1)
+    assert set(exp) == {
+        "psum", "pmean", "all_gather", "reduce_scatter", "all_to_all",
+        "hierarchical_all_to_all", "quantized_psum_int8",
+        "quantized_psum_bf16", "quantized_pmean_int8", "ppermute_shift",
+        "grouped_allreduce"}

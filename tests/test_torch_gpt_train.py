@@ -385,9 +385,11 @@ def test_executor_refuses_what_this_slice_lacks():
         ex.run("train", state, _ids())
     with pytest.raises(KeyError):
         ex.run("eval_all", state, _ids())
-    for kw in (dict(mesh=object()), dict(grad_sync="int8"),
-               dict(dist_strategy=object())):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # the mesh options are taken (tests/test_torch_parallel_train.py);
+    # without a mesh, quantized sync and a strategy are refused
+    assert Executor(fn, AdamWOptimizer(), mesh=object()).mesh is not None
+    for kw in (dict(grad_sync="int8"), dict(dist_strategy=object())):
+        with pytest.raises(ValueError, match="requires a mesh"):
             Executor(fn, AdamWOptimizer(), **kw)
     with pytest.raises(NotImplementedError, match="profiler"):
         ex.profile(state, _ids())

@@ -15,9 +15,10 @@ batch and the op zoo, the compression zoo, and the serving pool with the
 fleet plane (a fault schedule, a merged stream, the timeline and the
 doctor), and the cross-process pool, whose member processes say
 whether they loaded jax, as van servers and standby controllers do, and
-the traffic plane with an autoscaling controller over such a pool, and the
+the traffic plane with an autoscaling controller over such a pool, the
 elastic training plane, whose controller and worker processes load
-neither jax nor torch;
+neither jax nor torch, and the data- and tensor-parallel plane, whose
+rank processes say whether they loaded jax;
 ``jax`` and ``hetu_tpu`` must stay out of
 ``sys.modules``.  An AST scan of every module of the package,
 and of ``chip_smoke.py``, finds no import of either.
@@ -809,6 +810,45 @@ def test_elastic_plane_processes_run_without_jax_or_torch(tmp_path):
              if PKG in p.parents}
     assert {"resilience/memberproc.py",
             "resilience/multicontroller.py"} <= names
+
+
+def test_parallel_plane_and_its_rank_processes_run_without_jax():
+    """Two gloo rank processes train the GPT under MegatronLM (tp = 2)
+    and dp = 2 with int8 grad sync; neither they nor their parent load
+    jax or hetu_tpu."""
+    out = _run(
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import numpy as np, torch\n"
+        "import torch_parallel_bodies as b\n"
+        "from hetu_tpu_torch import parallel\n"
+        "from hetu_tpu_torch.parallel import collectives, ranks, spec\n"
+        "from hetu_tpu_torch.parallel.strategies import MegatronLM\n"
+        "from hetu_tpu_torch.models import GPTConfig, GPTModel\n"
+        "cfg = dict(vocab_size=32, hidden_size=16, num_layers=1,\n"
+        "           num_heads=2, ffn_size=32, max_position=8,\n"
+        "           dropout_rate=0.0)\n"
+        "m = GPTModel(GPTConfig(**cfg), device='cpu')\n"
+        "p = {k: v.detach().numpy() for k, v in m.state_dict().items()}\n"
+        "ids = [np.random.default_rng(0).integers(0, 32, (4, 8))]\n"
+        "case = lambda **kw: ('train_gpt', dict(opt=('sgd', 0.1),\n"
+        "    batches=ids, params=p, cfg=cfg, **kw))\n"
+        "res = ranks.run(b.run_cases, 2, threads=1, args=({\n"
+        "    'tp': case(mesh={'tp': 2}, strategy='MegatronLM'),\n"
+        "    'int8': case(mesh={'dp': 2}, grad_sync='int8')},))\n"
+        "print('RANKS_JAX', [r['_jax_loaded'] for r in res])\n"
+        "print('LOSS', all(np.isfinite(r['tp']['losses']).all() for r in res))\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out and "RANKS_JAX [False, False]" in out
+    assert "LOSS True" in out
+    names = {p.relative_to(PKG).as_posix() for p in SOURCES
+             if PKG in p.parents}
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/ranks.py",
+            "parallel/collectives.py", "parallel/spec.py",
+            "parallel/strategies/__init__.py", "parallel/strategies/base.py",
+            "parallel/strategies/simple.py"} <= names
 
 
 def test_maps_probe_sees_torch_in_a_process_that_imports_it():

@@ -395,7 +395,8 @@ def test_moe_layer_refuses_a_mesh_and_unknown_dispatch():
     params = gate_expert_params(np.random.default_rng(9))
     gate = _torch_gate(params["gate"])
     ex = _torch_expert(params["experts"], torch.float32)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(NotImplementedError, match="slice 8b of the "
+                                                  "multi-GPU"):
         MoELayer(gate, ex, mesh=object())
     with pytest.raises(ValueError, match="dispatch_impl"):
         MoELayer(gate, ex, dispatch_impl="alltoall")
