@@ -5460,17 +5460,23 @@ def _van_pair_equal(replica, tag, names=None, evidence=None):
     return len(tables), reads
 
 
+def _thread_states(pid):
+    """The state letter of each thread of process ``pid`` (none when it is
+    gone)."""
+    import glob
+
+    try:
+        return [open(path).read().rsplit(")", 1)[1].split()[0]
+                for path in glob.glob(f"/proc/{int(pid)}/task/*/stat")]
+    except OSError:
+        return []
+
+
 def _stopped(pid):
     """Whether every thread of process ``pid`` is stopped (state T): a
     SIGSTOP is delivered asynchronously, and a van thread can still answer
     a request after ``kill`` returns."""
-    import glob
-
-    try:
-        states = [open(path).read().rsplit(")", 1)[1].split()[0]
-                  for path in glob.glob(f"/proc/{int(pid)}/task/*/stat")]
-    except OSError:
-        return False
+    states = _thread_states(pid)
     return bool(states) and all(st == "T" for st in states)
 
 
@@ -5723,8 +5729,13 @@ def _van_fence(card, workdir):
                                                 3600.0)]),
                       van_procs=[vans[0]]).on_step(1)
         t0 = time.perf_counter()
-        _until(lambda: _stopped(vans[0].pid),
-               "vanchaos fence: the primary never stopped", CROSS_WAIT_S)
+        try:
+            _until(lambda: _stopped(vans[0].pid),
+                   "vanchaos fence: the primary never stopped", CROSS_WAIT_S)
+        except SmokeFailure as e:  # name what the process was doing
+            raise SmokeFailure(f"{e}: thread states "
+                               f"{_thread_states(vans[0].pid)}, exit code "
+                               f"{vans[0].poll()}") from e
         deadline = time.monotonic() + CROSS_WAIT_S
         while True:
             try:
@@ -10635,14 +10646,24 @@ def mesh_expected(rank, world=2):
 
 
 def mesh_rank(rank, world, spec):
-    """One rank of the mesh phase: arms (a)-(d) on this rank's share."""
+    """One rank of the mesh phase: arms (a)-(d) on this rank's share
+    (unless ``spec["mesh"]`` is False), then the sharded phase's work
+    where ``spec["sharded"]`` asks for it (:func:`sharded_rank`)."""
     g = globals()
     for k, v in spec["consts"].items():
         g[k] = v
-    device = spec["device"]
-    seed = spec["seed"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    out = mesh_arms(rank, spec) if spec.get("mesh", True) else {}
+    if spec.get("sharded"):
+        out["sharded"] = sharded_rank(rank, world, spec)
+    return out
+
+
+def mesh_arms(rank, spec):
+    """The mesh phase's arms (a)-(d) in one rank."""
+    device = spec["device"]
+    seed = spec["seed"]
     from hetu_tpu_torch.parallel import collectives, make_mesh
     from hetu_tpu_torch.parallel.strategies import MegatronLM
     from hetu_tpu_torch.telemetry import default_registry as reg
@@ -10702,11 +10723,13 @@ def _mesh_gate(tag, got, ref, tol, card, what="the single process"):
     return worst
 
 
-def phase_mesh(card, seed, device="cuda"):
+def phase_mesh(card, seed, device="cuda", sharded=False):
     """The data- and tensor-parallel plane (parallel/, the Executor's
     mesh, dist_strategy and grad_sync, the tp serving engines): the
     single-process references first, then two rank processes on the card
-    over gloo run (a)-(d), then one rank over nccl (e)."""
+    over gloo run (a)-(d), then one rank over nccl (e).  With ``sharded``
+    the same two ranks then run the sharded phase's work; its results are
+    returned under ``"sharded"`` and its time is not the mesh phase's."""
     import torch.distributed as dist
 
     from hetu_tpu_torch.parallel import make_mesh, ranks
@@ -10732,14 +10755,17 @@ def phase_mesh(card, seed, device="cuda"):
     if device == "cuda":
         torch.cuda.empty_cache()
 
-    consts = {k: globals()[k] for k in (
-        "V", "H", "NH", "FFN", "PAGE_SIZE") + tuple(
-        k for k in globals() if k.startswith("MESH_"))}
-    spec = {"seed": seed, "device": device, "consts": consts}
+    spec = {"seed": seed, "device": device, "consts": rank_consts(),
+            "sharded": sharded}
     t0 = time.time()
     res = ranks.run(mesh_rank, 2, backend="gloo", args=(spec,),
                     timeout_s=600.0)
     t_ranks = time.time() - t0
+    sharded_s = 0.0
+    if sharded:
+        sharded_s = max(r["sharded"]["t_end"] for r in res) - min(
+            r["sharded"]["t_start"] for r in res)
+        t_ranks -= sharded_s
     start_s = max(r["t_start"] for r in res) - t0
     print(f"[mesh] two ranks over gloo on {device}: {t_ranks:.1f} s, the "
           f"ranks up after {start_s:.1f} s (reference runs {t_ref:.1f} s) "
@@ -10802,12 +10828,21 @@ def phase_mesh(card, seed, device="cuda"):
     nccl = {}
     if device == "cuda":
         nccl = phase_mesh_nccl(card, seed, batch)
-    seconds = time.perf_counter() - t_phase
+    seconds = time.perf_counter() - t_phase - sharded_s
     print(f"[mesh] phase {seconds:.1f} s (budget {MESH_BUDGET_S:g} s); "
           f"flash launches over both ranks {launches[:3]} [{card}]")
     return dict(launches=launches, seconds=seconds, ranks_s=t_ranks,
                 start_s=start_s, staged=res[0]["staged"], nccl=nccl,
-                step_ms=[x * 1e3 for x in res[0]["a"]["times"]])
+                step_ms=[x * 1e3 for x in res[0]["a"]["times"]],
+                sharded=[r["sharded"] for r in res] if sharded else None)
+
+
+def rank_consts():
+    """The module's sizes and gates the rank processes take over (a test
+    may have set them smaller)."""
+    return {k: globals()[k] for k in ("V", "H", "NH", "FFN", "PAGE_SIZE")
+            + tuple(k for k in globals() if k.startswith(
+                ("MESH_", "SHARDED_", "TOL_SHARDED_")))}
 
 
 def phase_mesh_nccl(card, seed, batch):
@@ -10844,6 +10879,363 @@ def phase_mesh_nccl(card, seed, batch):
     finally:
         dist.destroy_process_group()
     return dict(backend=backend, bitwise=first is None)
+
+
+# ------------------------------------------------------------- sharded
+# The fully sharded GPT-MoE (models/gpt_sharded.py) at MoEConfig's widths
+# (V 32000, H 512, 8 heads, FFN 2048, E 8, top-2; capacity factor E/k, so
+# that no route can drop), depth cut to 4 layers (2 a stage at pp = 2), B 8
+# x S 1024, 2 microbatches, bf16 matmuls, Adam 1e-4, 3 steps; in the mesh
+# phase's two gloo ranks on the one card, after its arms.
+SHARDED_V, SHARDED_H, SHARDED_NH, SHARDED_FFN = 32000, 512, 8, 2048
+SHARDED_E, SHARDED_K = 8, 2
+SHARDED_CF = SHARDED_E / SHARDED_K
+SHARDED_L, SHARDED_M, SHARDED_B, SHARDED_S = 4, 2, 8, 1024
+SHARDED_STEPS, SHARDED_LR = 3, 1e-4
+SHARDED_F32_L, SHARDED_F32_S, SHARDED_F32_STEPS = 2, 256, 2
+# the ring and Ulysses checks' global [B, H, S, D] (bf16), the pipeline
+# check's tanh stack: width, layers, batch, microbatches
+SHARDED_RING = (2, 8, 2048, 64)
+SHARDED_PIPE_D, SHARDED_PIPE_L, SHARDED_PIPE_B, SHARDED_PIPE_M = (
+    512, 4, 64, 4)
+SHARDED_RUNS = 10
+# the gates, fixed before the first run: a bf16 arm's loss within 2^-7 of
+# the single process's each step (relative), the f32 arms within the
+# reference's rtol 2e-4 (tests/test_sharded_gpt.py); the kernel ring at the
+# flash gates for a plain path that rounds at other points (the
+# reference's einsum ring rounds neither p nor dS: O within TOL_O +
+# RTOL_O |O|, dQ/dK/dV within TOL_TRAIN_GRAD of max|ref|), Ulysses at the
+# same-rounding gates (TOL_F, TOL_D) of single-process flash; the
+# pipeline at the reference test's rtol 1e-5 (outputs) and 1e-4
+# (gradients) of max|ref|; no route dropped
+TOL_SHARDED_BF16 = 2 ** -7
+TOL_SHARDED_F32 = 2e-4
+TOL_SHARDED_PIPE = (1e-5, 1e-4)
+SHARDED_BUDGET_S = 75.0
+# the arms: (name, mesh axes), the single process first (mesh None, rank
+# 0 alone)
+SHARDED_ARMS = (("single", None), ("pp2", {"pp": 2}), ("sp2", {"sp": 2}),
+                ("tp2", {"tp": 2}), ("ep2", {"ep": 2}), ("dp2", {"dp": 2}))
+SHARDED_F32_ARMS = (("single", None), ("sp2", {"sp": 2}), ("ep2", {"ep": 2}))
+
+
+def sharded_config(dtype, layers):
+    from hetu_tpu_torch.models.gpt_sharded import ShardedGPTConfig
+    return ShardedGPTConfig(
+        vocab_size=SHARDED_V, hidden_size=SHARDED_H, num_layers=layers,
+        num_heads=SHARDED_NH, ffn_size=SHARDED_FFN, num_experts=SHARDED_E,
+        top_k=SHARDED_K, capacity_factor=SHARDED_CF,
+        max_position=max(SHARDED_S, SHARDED_F32_S),
+        n_microbatches=SHARDED_M, dtype=dtype)
+
+
+def sharded_batch(seed, b, s):
+    """Token ids and next-token labels ``[b, s]`` (the last -1)."""
+    ids = np.random.default_rng(seed + 13).integers(0, SHARDED_V, (b, s))
+    labels = np.concatenate([ids[:, 1:], np.full((b, 1), -1)], axis=1)
+    return torch.tensor(ids), torch.tensor(labels)
+
+
+def sharded_expected(axes, layers, steps, world=2):
+    """Each kernel's launches over the ranks of one arm, from the code's
+    structure: every rank runs M + pp - 1 pipeline ticks a step, each its
+    stage's L / pp blocks (no tick is skipped, bubbles included, and
+    autograd runs each one's backward); a block's ring launches one flash
+    forward, dK/dV and dQ a visited key block (causal: the rank's sp index
+    + 1 of them), its MoE FFN one top-k gate, two gathers (dispatch and
+    combine) and their two scatter-adds."""
+    axes = axes or {}
+    pp, sp = axes.get("pp", 1), axes.get("sp", 1)
+    ranks_n = world if axes else 1
+    ticks = SHARDED_M + pp - 1
+    blocks = ticks * (layers // pp) * steps  # block calls a rank
+    flash = sum(blocks * (r % sp + 1) for r in range(ranks_n))
+    moe = blocks * ranks_n
+    return [flash, flash, flash, moe, 2 * moe, 2 * moe]
+
+
+def sharded_train(seed, mesh, dtype, layers, s, steps, device):
+    """``steps`` Adam steps of ``ShardedGPT`` on ``mesh`` from the seeded
+    whole weights: losses, step seconds, the six kernels' launches (their
+    counts set to 0 just before the steps), dropped shares, ms a step
+    staged through the host by collective."""
+    from hetu_tpu_torch.models.gpt_sharded import ShardedGPT
+    from hetu_tpu_torch.optim import AdamOptimizer
+    from hetu_tpu_torch.parallel import collectives
+    model = ShardedGPT(sharded_config(dtype, layers), mesh)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = model.place(model.init(gen), device)
+    ids, labels = sharded_batch(seed, SHARDED_B, s)
+    ids, labels = (model.local_batch(x).to(device) for x in (ids, labels))
+    opt = AdamOptimizer(SHARDED_LR)
+    state = opt.init_state(params)
+    step = model.make_train_step(opt)
+    counters = _all_counters()
+    for c in counters:
+        c.launches = 0
+    staged = dict(collectives.STAGED)
+    losses, times, dropped = [], [], []
+    for _ in range(steps):
+        _sync(device)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, ids, labels)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        dropped.append(float(m["dropped_frac"]))
+    launches = [c.launches for c in counters]
+    staged = {k: v - staged.get(k, 0)
+              for k, v in collectives.STAGED.items() if v - staged.get(k, 0)}
+    return dict(losses=losses, times=times, launches=launches,
+                dropped=dropped, staged=staged)
+
+
+def _events_ms(fn, runs):
+    """Mean device time of ``fn()`` from CUDA events around ``runs``
+    calls after a warm-up call (the ring's host hops included)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def _qkv_global(seed, device):
+    g = torch.Generator(device=device).manual_seed(seed + 17)
+    return [torch.randn(*SHARDED_RING, generator=g, device=device,
+                        dtype=torch.bfloat16) for _ in range(4)]
+
+
+def _fwd_bwd(fn, q, k, v, w):
+    q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+    o = fn(q, k, v)
+    o.backward(w)
+    return [o.detach(), q.grad, k.grad, v.grad]
+
+
+def sharded_seq_checks(rank, world, seed, device):
+    """(b) the kernel ring against the plain ring on this rank's blocks,
+    causal and not; (c) Ulysses against single-process flash attention;
+    both timed beside single-process flash at the global shape."""
+    from hetu_tpu_torch.ops.cuda_kernels import flash_attention
+    from hetu_tpu_torch.parallel import make_mesh
+    from hetu_tpu_torch.parallel.ring_attention import (
+        ring_attention, ring_attention_plain,
+    )
+    from hetu_tpu_torch.parallel.ulysses import ulysses_attention
+    import torch.distributed as dist
+    mesh = make_mesh(sp=world, device=device, backend="gloo")
+    q, k, v, w = _qkv_global(seed, device)
+    n = SHARDED_RING[2] // world
+    blk = [x[:, :, rank * n:(rank + 1) * n] for x in (q, k, v, w)]
+    out = {}
+    for causal in (False, True):
+        ring = _fwd_bwd(lambda a, b, c: ring_attention(
+            a, b, c, mesh, causal=causal), *blk)
+        plain = _fwd_bwd(lambda a, b, c: ring_attention_plain(
+            a, b, c, mesh, causal=causal), *blk)
+        whole = _fwd_bwd(lambda a, b, c: flash_attention(
+            a, b, c, causal=causal), q, k, v, w)
+        whole = [x[:, :, rank * n:(rank + 1) * n] for x in whole]
+        uly = _fwd_bwd(lambda a, b, c: ulysses_attention(
+            a, b, c, mesh, causal=causal), *blk)
+        # the kernel ring against the reference's einsum ring, which
+        # rounds neither p nor dS: the gates of the flash paths that round
+        # at other points (TOL_O + RTOL_O for O, TOL_TRAIN_GRAD of the
+        # largest |gradient|); Ulysses against single-process flash, the
+        # same kernels at the same rounding points: TOL_F and TOL_D
+        shares = {"ring": [ring_o_share(ring[0], plain[0])] + [
+            float((a.float() - b.float()).abs().max()
+                  / (TOL_TRAIN_GRAD * b.float().abs().max()))
+            for a, b in zip(ring[1:], plain[1:])],
+            "ulysses": [grad_tolerance_share(uly[0], whole[0], TOL_F)] + [
+                grad_tolerance_share(a, b) for a, b in zip(uly[1:],
+                                                           whole[1:])]}
+        out[causal] = dict(shares=shares)
+        if device == "cuda":
+            out[causal]["ring_ms"] = _events_ms(lambda: ring_attention(
+                *blk[:3], mesh, causal=causal), SHARDED_RUNS)
+            out[causal]["ulysses_ms"] = _events_ms(lambda: ulysses_attention(
+                *blk[:3], mesh, causal=causal), SHARDED_RUNS)
+            dist.barrier()
+            if rank == 0:  # the card alone
+                out[causal]["flash_ms"] = _events_ms(lambda: flash_attention(
+                    q, k, v, causal=causal), SHARDED_RUNS)
+            dist.barrier()
+    return out
+
+
+def ring_o_share(got, ref):
+    """The largest share of its limit, ``TOL_O + RTOL_O * |ref|`` (bf16),
+    that an element of the ring's O uses."""
+    ref = ref.float()
+    limit = TOL_O[torch.bfloat16] + RTOL_O[torch.bfloat16] * ref.abs()
+    return float(((got.float() - ref).abs() / limit).max())
+
+
+def _tanh_block(p, h):
+    return torch.tanh(h @ p["w"] + p["b"])
+
+
+def sharded_pipe_check(rank, world, seed, device):
+    """(d) GPipe at pp = world on the tanh stack against the sequential
+    stack, forward and gradients (this rank's stage rows, the input's):
+    the largest |d| over max|ref| of each."""
+    from hetu_tpu_torch.parallel import make_mesh
+    from hetu_tpu_torch.parallel.pipeline import GPipe
+    mesh = make_mesh(pp=world, device=device, backend="gloo")
+    g = torch.Generator(device=device).manual_seed(seed + 19)
+    D, L, B = SHARDED_PIPE_D, SHARDED_PIPE_L, SHARDED_PIPE_B
+    layers = {"w": torch.randn(L, D, D, generator=g, device=device) * 0.05,
+              "b": torch.randn(L, D, generator=g, device=device) * 0.1}
+    h = torch.randn(B, D, generator=g, device=device)
+    w = torch.randn(B, D, generator=g, device=device)
+    seq = {k: v.clone().requires_grad_(True) for k, v in layers.items()}
+    h_seq = h.clone().requires_grad_(True)
+    y = h_seq
+    for i in range(L):
+        y = _tanh_block({"w": seq["w"][i], "b": seq["b"][i]}, y)
+    (y * w).sum().backward()
+    pipe = GPipe(_tanh_block, mesh, n_microbatches=SHARDED_PIPE_M,
+                 remat=True)
+    st = {k: v.detach().requires_grad_(True)
+          for k, v in pipe.stack_params(layers).items()}
+    h_p = h.clone().requires_grad_(True)
+    y_p = pipe(st, h_p)
+    (y_p * w).sum().backward()
+    lps = L // world
+    rows = slice(rank * lps, (rank + 1) * lps)
+
+    def gap(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    y, y_p = y.detach(), y_p.detach()
+    return dict(y=gap(y_p, y), dh=gap(h_p.grad, h_seq.grad),
+                dw=gap(st["w"].grad[rank], seq["w"].grad[rows]),
+                db=gap(st["b"].grad[rank], seq["b"].grad[rows]))
+
+
+def sharded_rank(rank, world, spec):
+    """The sharded phase's work in one rank of the mesh phase's world:
+    (a) the model arms, (b)-(c) the sequence checks, (d) the pipeline."""
+    import torch.distributed as dist
+
+    from hetu_tpu_torch.parallel import make_mesh
+    device, seed = spec["device"], spec["seed"]
+    out = {"t_start": time.time(), "arms": {}, "f32": {}}
+    for key, dtype, layers, s, steps, arms in (
+            ("arms", torch.bfloat16, SHARDED_L, SHARDED_S, SHARDED_STEPS,
+             SHARDED_ARMS),
+            ("f32", torch.float32, SHARDED_F32_L, SHARDED_F32_S,
+             SHARDED_F32_STEPS, SHARDED_F32_ARMS)):
+        for name, axes in arms:
+            if axes is None:  # one rank, every axis 1; the other waits
+                if rank == 0:
+                    out[key][name] = sharded_train(seed, None, dtype, layers,
+                                                   s, steps, device)
+                dist.barrier()
+                continue
+            mesh = make_mesh(device=device, backend="gloo", **axes)
+            out[key][name] = sharded_train(seed, mesh, dtype, layers, s,
+                                           steps, device)
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    out["seq"] = sharded_seq_checks(rank, world, seed, device)
+    out["pipe"] = sharded_pipe_check(rank, world, seed, device)
+    out["t_end"] = time.time()
+    return out
+
+
+def phase_sharded(card, res, device="cuda"):
+    """The sharded phase's gates and lines, from the two ranks' results
+    (:func:`sharded_rank`)."""
+    t0 = time.perf_counter()
+    print(f"[sharded] ShardedGPT V={SHARDED_V} H={SHARDED_H} "
+          f"NH={SHARDED_NH} FFN={SHARDED_FFN} E={SHARDED_E} k={SHARDED_K} "
+          f"cf={SHARDED_CF:g}: bf16 arms at {SHARDED_L} layers B={SHARDED_B} "
+          f"S={SHARDED_S} M={SHARDED_M} Adam x {SHARDED_STEPS} steps, f32 "
+          f"arms at {SHARDED_F32_L} layers S={SHARDED_F32_S}; two gloo ranks "
+          f"on one {device}")
+    launches = [0] * 6
+    for key, tol, layers, steps, arms in (
+            ("arms", TOL_SHARDED_BF16, SHARDED_L, SHARDED_STEPS,
+             SHARDED_ARMS),
+            ("f32", TOL_SHARDED_F32, SHARDED_F32_L, SHARDED_F32_STEPS,
+             SHARDED_F32_ARMS)):
+        ref = res[0][key]["single"]["losses"]
+        for name, axes in arms:
+            got = [r[key][name] for r in res if name in r[key]]
+            n = [sum(g["launches"][i] for g in got) for i in range(6)]
+            launches = [a + b for a, b in zip(launches, n)]
+            for r, g in enumerate(got):
+                worst = max(abs(a - b) / abs(b)
+                            for a, b in zip(g["losses"], ref))
+                drop = max(g["dropped"])
+                print(f"[sharded] (a) {key} {name} rank {r}: losses "
+                      f"{[round(x, 6) for x in g['losses']]}; worst relative "
+                      f"gap to the single process {worst:.3e} (gate "
+                      f"{tol:.3e}); dropped share {drop:g}; step ms after "
+                      f"the first {[round(t * 1e3, 3) for t in g['times'][1:]]}"
+                      f"; staged {g['staged'] or 'none'} [{card}]")
+                check(worst <= tol, f"sharded {key} {name} rank {r}: loss "
+                                    f"gap {worst:.3e} > {tol:.3e}")
+                check(drop == 0.0, f"sharded {key} {name} rank {r}: routes "
+                                   f"dropped ({drop:g})")
+                check(all(np.isfinite(g["losses"])),
+                      f"sharded {key} {name}: nonfinite loss")
+            expect = sharded_expected(axes, layers, steps)
+            print(f"[sharded] (e) {key} {name}: launches over the ranks "
+                  f"{n} (expected {expect})")
+            if device == "cuda":
+                check(n == expect, f"sharded {key} {name}: launches {n}, "
+                                   f"expected {expect}")
+    ep = [sum(r["arms"]["ep2"]["launches"][i] for r in res)
+          for i in range(3, 6)]
+    if device == "cuda":
+        check(min(ep) > 0, f"sharded ep arm: routing kernels launched {ep}")
+    for causal in (False, True):
+        for r, out in enumerate(res):
+            s = out["seq"][causal]
+            for tag in ("ring", "ulysses"):
+                sh = s["shares"][tag]
+                print(f"[sharded] ({'b' if tag == 'ring' else 'c'}) {tag} "
+                      f"{'causal' if causal else 'non-causal'} rank {r} "
+                      f"{list(SHARDED_RING)} bf16 sp=2: tolerance shares O, "
+                      f"dQ, dK, dV {[round(x, 4) for x in sh]} against the "
+                      f"{'plain ring' if tag == 'ring' else 'single-process flash'}"
+                      f" [{card}]")
+                check(max(sh) <= 1.0, f"sharded {tag} causal={causal} rank "
+                                      f"{r}: share {max(sh):.3f} > 1")
+            if "ring_ms" in s:
+                print(f"[sharded] (b) {'causal' if causal else 'non-causal'}"
+                      f" rank {r}: kernel ring forward {s['ring_ms']:.4f} "
+                      f"ms, Ulysses {s['ulysses_ms']:.4f} ms a call (CUDA "
+                      f"events, host hops included; both ranks on the card)"
+                      + (f"; single-process flash_attention at "
+                         f"{list(SHARDED_RING)} {s['flash_ms']:.4f} ms"
+                         if "flash_ms" in s else "") + f" [{card}]")
+    for r, out in enumerate(res):
+        p = out["pipe"]
+        print(f"[sharded] (d) GPipe pp=2 rank {r} vs the sequential stack: "
+              f"max|d|/max|ref| y {p['y']:.2e}, dh {p['dh']:.2e}, dw "
+              f"{p['dw']:.2e}, db {p['db']:.2e} (gates "
+              f"{TOL_SHARDED_PIPE[0]:g}, {TOL_SHARDED_PIPE[1]:g})")
+        check(p["y"] <= TOL_SHARDED_PIPE[0], f"sharded pipe y {p['y']:.2e}")
+        check(max(p["dh"], p["dw"], p["db"]) <= TOL_SHARDED_PIPE[1],
+              f"sharded pipe gradients {p}")
+    ranks_s = max(r["t_end"] for r in res) - min(r["t_start"] for r in res)
+    seconds = ranks_s + (time.perf_counter() - t0)
+    print(f"[sharded] phase {seconds:.1f} s (budget {SHARDED_BUDGET_S:g} s: "
+          f"{'met' if seconds <= SHARDED_BUDGET_S else 'missed'}); launches "
+          f"over both ranks, rows 1-6 {launches} [{card}]")
+    step_ms = {name: [round(t * 1e3, 3) for t in res[0]["arms"][name]
+                      ["times"][1:]] for name, _ in SHARDED_ARMS}
+    return dict(launches=launches, seconds=seconds, step_ms=step_ms,
+                staged={name: res[-1]["arms"][name]["staged"]
+                        for name, _ in SHARDED_ARMS[1:]},
+                ring={c: res[0]["seq"][c] for c in (False, True)})
 
 
 def _paths_entry(key, moe_launches, ctr, gates, later):
@@ -10948,7 +11340,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     compressed = phase_train_compressed(card, args.seed)
     torch.cuda.empty_cache()
-    mesh = phase_mesh(card, args.seed)
+    mesh = phase_mesh(card, args.seed, sharded=True)
+    sharded = phase_sharded(card, mesh["sharded"])
     torch.cuda.empty_cache()
     shapes_fwd, shapes_bwd = phase_kernel_shapes(card)
     # each kernel's launches on the paths that run none of the six
@@ -10965,7 +11358,9 @@ def main(argv=None) -> int:
               # the elastic training plane's processes run no kernel
               "elastic": elastic["launches"][i],
               # the two tp/dp ranks together (their MoE rows: 0)
-              "mesh": mesh["launches"][i]}
+              "mesh": mesh["launches"][i],
+              # ShardedGPT's arms over both ranks
+              "sharded": sharded["launches"][i]}
              for i in range(6)]
 
     shape = [TRAIN_B, NH, TRAIN_S, HEAD_DIM]
@@ -11091,6 +11486,15 @@ def main(argv=None) -> int:
           f"host {mesh['staged'] or 'none'}; (e) nccl one rank "
           f"{'bitwise' if mesh['nccl'].get('bitwise') else 'differs'}; "
           f"flash launches {mesh['launches'][:3]} [{card}]")
+    print(f"[sharded] summary: phase {sharded['seconds']:.1f} s (budget "
+          f"{SHARDED_BUDGET_S:g} s); bf16 step ms after the first "
+          f"{sharded['step_ms']}; staged through the host (rank 1) "
+          f"{sharded['staged']}; ring forward ms (non-causal, causal) "
+          f"{[round(sharded['ring'][c]['ring_ms'], 4) for c in (False, True)]}"
+          f" vs single-process flash "
+          f"{[round(sharded['ring'][c]['flash_ms'], 4) for c in (False, True)]}"
+          f"; launches {sharded['launches']}; the script "
+          f"{time.perf_counter() - t_script:.1f} s [{card}]")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

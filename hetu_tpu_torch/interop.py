@@ -51,6 +51,12 @@ buffers, under the same names and in the reference's layouts (DPQ's
 ``values``/``cols``); the state keeps its dtype (int8 ``q``, int32
 ``remap`` and ``cols``).
 
+:func:`sharded_params_from_jax` turns the reference ``ShardedGPT``'s tree
+into one rank's shards of the port's ``ShardedGPT`` (a flat dict by tree
+path, ``blocks.qkv_w``, the ``[L, ...]`` stacks kept);
+:func:`sharded_params_to_jax` assembles every rank's shards back into the
+tree.
+
 No ``jax`` import: leaves are read with ``np.asarray``.
 """
 
@@ -375,3 +381,56 @@ def variables_to_jax(module) -> dict:
                        for n, p in module.named_parameters()},
             "state": {n: getattr(module, n).detach().cpu().numpy().copy()
                       for n in getattr(module, "state_names", ())}}
+
+
+def _flat_tree(tree, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _nested(flat: dict) -> dict:
+    out: dict = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def sharded_params_from_jax(tree, model, device=None) -> dict:
+    """The reference ``ShardedGPT.init`` tree (numpy leaves, blocks
+    stacked ``[L, ...]``) → this rank's shards for ``model`` (a port
+    ``ShardedGPT``) under its ``param_specs``, as :meth:`ShardedGPT.place`
+    gives them; no layout flips."""
+    return model.place({k: torch.tensor(np.asarray(v, dtype=np.float32))
+                        for k, v in _flat_tree(tree).items()}, device)
+
+
+def sharded_params_to_jax(pieces, specs: dict, sizes: dict) -> dict:
+    """Every rank's shards assembled into the reference's tree (numpy).
+    ``pieces``: ``[(coords, {name: array})]``, one entry a rank
+    (``ShardedGPT.coords`` and that rank's shards, or any tensors laid out
+    like them, such as gradients); ``specs``: ``ShardedGPT.param_specs()``;
+    ``sizes``: ``ShardedGPT.sizes``."""
+    flat = {}
+    for name, spec in specs.items():
+        split = {d: a for d, a in enumerate(spec) if a is not None}
+        first = np.asarray(pieces[0][1][name])
+        whole = np.zeros(tuple(n * sizes[split[d]] if d in split else n
+                               for d, n in enumerate(first.shape)),
+                         first.dtype)
+        for coords, shards in pieces:
+            part = np.asarray(shards[name])
+            at = tuple(slice(coords[split[d]] * n, (coords[split[d]] + 1) * n)
+                       if d in split else slice(None)
+                       for d, n in enumerate(part.shape))
+            whole[at] = part
+        flat[name] = whole
+    return _nested(flat)

@@ -11,9 +11,18 @@ centroid, rescored by the group sum).  Each returns ``(gates [T, k], idx
 ``routed_gather`` kernels (``dispatch_impl="gather"``) or with the dense
 einsum masks (``"einsum"``), whatever the gate.  A gate's parameters sit
 where the reference keeps them (``gate_w [D, E]``, ``centroids [E, D]``);
-the expert weights are stacked ``[E, ...]``.  The reference's
-expert-parallel ``mesh`` is slice 8b's of the multi-GPU port and is
-refused here.
+the expert weights are stacked ``[E, ...]``.
+
+Under an expert-parallel ``mesh`` the expert weights are DTensors split
+on the expert dim over ``ep`` (``Shard(0)``) and the tokens stay whole on
+every rank, as in the reference.  Each rank routes its tokens, then on
+local tensors (:func:`expert_parallel`): the gather dispatch to ``[E, C,
+D]``, an all-to-all over ``ep`` (the expert dim split, the capacity dim
+concatenated), its own experts, the reverse all-to-all and the gather
+combine.  The reference leaves the all-to-all pair to XLA's partitioner
+and keeps the gate and the gathers out of Pallas there (SPMD cannot split
+a ``pallas_call``); here the gate's top-k kernel and the gather kernels
+run on each rank's local tensors, computing the same function.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from hetu_tpu_torch.layers.base import Module
 from hetu_tpu_torch.ops.cuda_kernels.embedding import topk_gating
 from hetu_tpu_torch.ops.moe_ops import balance_assignment
 from hetu_tpu_torch.ops.reduce import sam_group_sum
+from hetu_tpu_torch.parallel import collectives
 
 
 class TopKGate(Module):
@@ -235,10 +245,46 @@ class Expert(Module):
         self.b2 = nn.Parameter(initializers.zeros()(generator, (e, d)))
 
     def forward(self, xe):
+        """``xe [E, C, D]`` → ``[E, C, D]`` in f32; under an expert-parallel
+        mesh, this rank's experts (``[E/ep, C', D]``)."""
         dt = self.dtype
-        h = expert_matmul(xe.to(dt), self.w1.to(dt)) + self.b1[:, None]
+        w1, b1, w2, b2 = (_local(p) for p in (self.w1, self.b1, self.w2,
+                                              self.b2))
+        h = expert_matmul(xe.to(dt), w1.to(dt)) + b1[:, None]
         h = self.activation(h)
-        return expert_matmul(h.to(dt), self.w2.to(dt)) + self.b2[:, None]
+        return expert_matmul(h.to(dt), w2.to(dt)) + b2[:, None]
+
+
+def _local(p):
+    """A DTensor parameter's local piece (differentiable); a plain tensor
+    as it is."""
+    return p.to_local() if hasattr(p, "to_local") else p
+
+
+def expert_parallel(tokens, gates, idx, num_experts: int, capacity: int,
+                    experts_fn, group=None):
+    """Route ``tokens [T, D]`` to their experts and back by index: the
+    gather dispatch to ``[E, C, D]``; over ``group`` (the ``ep`` axis'
+    process group; None: one rank) an all-to-all that sends each rank its
+    experts' slots (``[E/ep, ep*C, D]``); ``experts_fn``; the reverse
+    all-to-all; the gate-weighted gather combine.  Returns ``(out [T, D]``
+    f32, the count of routes dropped past ``capacity``).  Differentiable;
+    the all-to-all's gradient is the reverse all-to-all."""
+    k = gates.shape[1]
+    slot_route, token_slot, n_dropped = ops.make_slot_routes(
+        gates, idx, num_experts, capacity)
+    # each gather gets its ids' inverse map, so that its gradient (the
+    # scatter-add) reads every row's sources with no sort
+    xe = ops.gather_dispatch(tokens, slot_route // k, num_experts, capacity,
+                             inverse=token_slot)
+    if group is not None:
+        xe = collectives.all_to_all(xe, group, split_dim=0, concat_dim=1)
+    ye = experts_fn(xe)
+    if group is not None:
+        ye = collectives.all_to_all(ye, group, split_dim=1, concat_dim=0)
+    out = ops.gather_combine(ye, token_slot, gates,
+                             inverse=slot_route[:, None])
+    return out, n_dropped
 
 
 class MoELayer(Module):
@@ -252,17 +298,19 @@ class MoELayer(Module):
     routes by ``gate_input`` where it is given (``HashGate``'s token ids),
     else by the tokens; with ``return_metrics``,
     ``(out, aux, {"dropped_frac": ...})``, the share of (token, choice)
-    routes dropped."""
+    routes dropped.
+
+    ``mesh`` (a ``make_mesh`` mesh with an ``ep_axis`` axis) makes the
+    layer expert-parallel: ``experts``' weights become DTensors split over
+    ``ep_axis`` on their expert dim, in place; every rank gives the layer
+    the same ``x`` and gets the same ``out`` (the gather route only).  A
+    loss every rank computes from ``out`` gives each rank the gradient of
+    its experts and the whole gradient of ``x`` and the gate."""
 
     def __init__(self, gate: Module, experts: Expert, *,
                  capacity_factor: float = 1.25, mesh=None,
-                 dispatch_impl: str = "gather"):
+                 ep_axis: str = "ep", dispatch_impl: str = "gather"):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError(
-                "an expert-parallel mesh belongs to slice 8b of the "
-                "multi-GPU port of hetu_tpu_torch (with ShardedGPT), which "
-                "is not ported yet; the MoE layer runs on one device")
         if dispatch_impl not in ("gather", "einsum"):
             raise ValueError(f"dispatch_impl {dispatch_impl!r}: "
                              "'gather' or 'einsum'")
@@ -270,6 +318,27 @@ class MoELayer(Module):
         self.experts = experts
         self.capacity_factor = capacity_factor
         self.dispatch_impl = dispatch_impl
+        self.mesh = mesh
+        self.ep_axis = ep_axis
+        if mesh is not None:
+            self._shard_experts()
+
+    def _shard_experts(self):
+        from hetu_tpu_torch.parallel.mesh import host_to_device
+        from hetu_tpu_torch.parallel.spec import placements
+        if self.dispatch_impl != "gather":
+            raise ValueError("an expert-parallel MoELayer takes "
+                             "dispatch_impl='gather'")
+        n = collectives.axis_size(self.ep_axis, self.mesh)
+        if self.experts.num_experts % n:
+            raise ValueError(f"{self.experts.num_experts} experts do not "
+                             f"split over {self.ep_axis}={n}")
+        pl = placements(self.mesh, (self.ep_axis,))
+        for name in ("w1", "b1", "w2", "b2"):
+            p = getattr(self.experts, name).detach()
+            whole = p.full_tensor() if hasattr(p, "full_tensor") else p
+            setattr(self.experts, name, nn.Parameter(
+                host_to_device(whole, self.mesh, pl)))
 
     def forward(self, x, *, gate_input=None, return_metrics: bool = False):
         d = x.shape[-1]
@@ -279,24 +348,35 @@ class MoELayer(Module):
         capacity = max(1, int(self.capacity_factor * t * k / e))
         gates, idx, aux = self.gate(
             tokens if gate_input is None else gate_input.reshape(-1))
-        if self.dispatch_impl == "gather":
-            # each gather gets its ids' inverse map, so that its gradient
-            # (the scatter-add) reads every row's sources with no sort
-            slot_route, token_slot, n_dropped = ops.make_slot_routes(
-                gates, idx, e, capacity)
-            xe = ops.gather_dispatch(tokens, slot_route // k, e, capacity,
-                                     inverse=token_slot)
+        if self.mesh is not None:
+            out, n_dropped = self._expert_parallel(tokens, gates, idx,
+                                                   capacity)
+        elif self.dispatch_impl == "gather":
+            out, n_dropped = expert_parallel(tokens, gates, idx, e, capacity,
+                                             self.experts)
         else:
             disp, comb = ops.make_dispatch_combine(gates, idx, e, capacity)
             n_dropped = t * k - disp.sum().long()
-            xe = ops.layout_transform(tokens, disp)
-        ye = self.experts(xe)
-        if self.dispatch_impl == "gather":
-            out = ops.gather_combine(ye, token_slot, gates,
-                                     inverse=slot_route[:, None])
-        else:
-            out = ops.reverse_layout_transform(ye, comb)
+            out = ops.reverse_layout_transform(
+                self.experts(ops.layout_transform(tokens, disp)), comb)
         out = out.reshape(x.shape)
         if return_metrics:
             return out, aux, {"dropped_frac": n_dropped.float() / (t * k)}
         return out, aux
+
+    def _expert_parallel(self, tokens, gates, idx, capacity):
+        """The routing under the mesh, as ``shard_map`` bounds it: the
+        tokens and gates enter whole on every rank (their gradients summed
+        over ``ep``), the output leaves whole (its cotangent shared over
+        ``ep``), so the experts' gradient counts each token once."""
+        mesh, axis = self.mesh, self.ep_axis
+        e = self.experts.num_experts
+        if collectives.axis_size(axis, mesh) == 1:
+            return expert_parallel(tokens, gates, idx, e, capacity,
+                                   self.experts)
+        group = collectives.axis_group(axis, mesh)
+        out, n_dropped = expert_parallel(
+            collectives.shard_map_input(tokens, group),
+            collectives.shard_map_input(gates, group), idx, e, capacity,
+            self.experts, group)
+        return collectives.shard_map_output(out, group), n_dropped

@@ -366,16 +366,33 @@ def bwd_delta(do, out):
     return (do.float() * out).sum(-1).reshape(b * h, s_q, 1)
 
 
-def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool, scale=None):
+def flash_attention_fwd(q, k, v, *, causal: bool, scale=None):
+    """One forward pass with no autograd: ``(O, LSE)`` -- the plain
+    version for CPU tensors, one launch of the forward kernel (counted in
+    ``flash_attention.launches``) for CUDA tensors.  For callers that
+    merge blocks by their LSE and write their own backward (ring
+    attention)."""
+    _check(q, k, v)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    return _launch_fwd(q, k, v, causal=causal, scale=scale)
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool, scale=None,
+                        delta=None):
     """The backward pass of :func:`flash_attention`: ``(dQ, dK, dV)``.
 
     ``delta = rowsum(dO * O)`` is one f32 reduction in plain PyTorch (the
     JAX package computes it outside Pallas too), laid out like the LSE;
     then the dK/dV kernel and the dQ kernel over the same operands (for
-    CPU tensors, their plain version once)."""
+    CPU tensors, their plain version once).  A caller that runs several
+    key blocks against one O passes ``delta`` (:func:`bwd_delta`) once."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    delta = bwd_delta(do, out)
+    if delta is None:
+        delta = bwd_delta(do, out)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, do, lse, delta,
                                          causal=causal, scale=scale)

@@ -1,8 +1,8 @@
-"""Data- and tensor-parallel plane (counterpart of ``hetu_tpu/parallel``):
-the mesh, its collectives, the sharding specs and the strategies, over
-``torch.distributed`` rank processes (:mod:`.ranks`) and DTensor.  The
-pipeline, ring/Ulysses attention, MPMD and planner modules come in later
-slices."""
+"""The parallel plane (counterpart of ``hetu_tpu/parallel``): the mesh,
+its collectives, the sharding specs and the strategies, over
+``torch.distributed`` rank processes (:mod:`.ranks`) and DTensor; ring and
+Ulysses sequence parallelism on the flash kernels and the GPipe pipeline.
+The MPMD and planner modules come in later slices."""
 
 from hetu_tpu_torch.parallel.mesh import (
     AXIS_DP, AXIS_EP, AXIS_PP, AXIS_SP, AXIS_TP, DEFAULT_AXIS_ORDER,
@@ -11,7 +11,25 @@ from hetu_tpu_torch.parallel.mesh import (
 )
 from hetu_tpu_torch.parallel.spec import NodeStatus, P, ShardSpec
 
+# the sequence and pipeline modules import the kernels' wrappers, which
+# import the ops that import parallel.spec: loaded on first use
+_LAZY = {"GPipe": "pipeline", "pipedream_schedule": "pipeline",
+         "stack_stage_params": "pipeline", "ring_attention": "ring_attention",
+         "ring_attention_plain": "ring_attention",
+         "ulysses_attention": "ulysses"}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    import importlib
+    return getattr(importlib.import_module(
+        f"hetu_tpu_torch.parallel.{_LAZY[name]}"), name)
+
 __all__ = ["AXIS_DP", "AXIS_EP", "AXIS_PP", "AXIS_SP", "AXIS_TP",
            "DEFAULT_AXIS_ORDER", "MeshConfig", "batch_sharding",
            "elastic_mesh", "host_to_device", "local_mesh", "make_mesh",
-           "replicated", "NodeStatus", "P", "ShardSpec"]
+           "replicated", "NodeStatus", "P", "ShardSpec", "GPipe",
+           "pipedream_schedule", "stack_stage_params", "ring_attention",
+           "ring_attention_plain", "ulysses_attention"]

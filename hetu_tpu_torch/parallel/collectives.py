@@ -47,7 +47,10 @@ def _axes(axis) -> tuple:
 
 def axis_group(axis, mesh=None):
     """The process group of mesh axis ``axis`` (a name or a tuple of names
-    in the mesh's order) that holds this rank."""
+    in the mesh's order) that holds this rank; a process group is its own
+    group."""
+    if isinstance(axis, dist.ProcessGroup):
+        return axis
     mesh = _mesh(mesh)
     axes = _axes(axis)
     if len(axes) == 1:
@@ -59,6 +62,8 @@ def axis_group(axis, mesh=None):
 
 
 def axis_size(axis, mesh=None) -> int:
+    if isinstance(axis, dist.ProcessGroup):
+        return dist.get_world_size(axis)
     mesh = _mesh(mesh)
     n = 1
     for a in _axes(axis):
@@ -215,6 +220,35 @@ class _Ppermute(torch.autograd.Function):
         return _ppermute(g, ctx.group, -ctx.shift), None, None
 
 
+class _ShardMapInput(torch.autograd.Function):
+    """A value every rank of ``group`` holds whole, entering per-rank
+    code: the identity forward, a ``psum`` of the ranks' cotangents
+    backward (the transpose of a broadcast)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ShardMapOutput(torch.autograd.Function):
+    """A value every one of ``n`` ranks computes whole, leaving per-rank
+    code: the identity forward, the cotangent divided by ``n`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
 # ---- the reference's API ----
 
 def psum(x, axis, *, mesh=None):
@@ -311,6 +345,30 @@ def quantized_pmean(x, axis, *, wire: str = "int8", block: int = 256,
 def ppermute_shift(x, axis, shift: int = 1, *, mesh=None):
     """Ring shift over a mesh axis: rank ``i`` sends to ``i + shift``."""
     return _Ppermute.apply(x, axis_group(axis, mesh), int(shift))
+
+
+def shard_map_input(x, axis, *, mesh=None):
+    """``x``, held whole by every rank of ``axis``, as per-rank code takes
+    it: ``shard_map``'s boundary for an input its spec does not split over
+    ``axis``.  Forward the identity; backward the sum of the ranks'
+    cotangents, so a value every rank uses gets the gradient of all its
+    uses."""
+    if axis_size(axis, mesh) == 1:
+        return x
+    return _ShardMapInput.apply(x, axis_group(axis, mesh))
+
+
+def shard_map_output(x, axis, *, mesh=None):
+    """``x``, which every rank of ``axis`` computes whole, as a value of
+    the global program: ``shard_map``'s boundary for an output its spec
+    does not split over ``axis`` (``check_vma=False``).  Forward the
+    identity; backward the cotangent divided by the axis size, so a loss
+    every rank computes counts once, and not once a rank, under the
+    collectives' transposed gradients."""
+    n = axis_size(axis, mesh)
+    if n == 1:
+        return x
+    return _ShardMapOutput.apply(x, n)
 
 
 def grouped_allreduce(mesh, axis, fn=None):

@@ -1988,3 +1988,101 @@ def test_mesh_phase_gates_and_wiring():
         "hierarchical_all_to_all", "quantized_psum_int8",
         "quantized_psum_bf16", "quantized_pmean_int8", "ppermute_shift",
         "grouped_allreduce"}
+
+
+TINY_SHARDED = dict(
+    SHARDED_V=64, SHARDED_H=32, SHARDED_NH=4, SHARDED_FFN=64, SHARDED_E=4,
+    SHARDED_K=2, SHARDED_CF=2.0, SHARDED_L=2, SHARDED_M=2, SHARDED_B=4,
+    SHARDED_S=16, SHARDED_STEPS=2, SHARDED_F32_L=2, SHARDED_F32_S=8,
+    SHARDED_F32_STEPS=2, SHARDED_RING=(1, 2, 16, 8), SHARDED_PIPE_D=8,
+    SHARDED_PIPE_L=2, SHARDED_PIPE_B=8, SHARDED_PIPE_M=2, SHARDED_RUNS=2)
+
+
+def test_sharded_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """The sharded phase's rank work at a tiny width in two gloo rank
+    processes on the CPU (the mesh phase's world, without its arms), every
+    gate live but the launch counts (no kernel off the card) and the
+    timings: each arm within its gate of the single process, nothing
+    dropped; the rings, Ulysses and GPipe within theirs; the lines keep
+    their schema."""
+    import re
+    import sys
+
+    from hetu_tpu_torch.parallel import ranks
+
+    for name, value in {**TINY_MESH, **TINY_SHARDED}.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
+    res = ranks.run(chip_smoke.mesh_rank, 2, backend="gloo", timeout_s=600,
+                    args=({"seed": 0, "device": "cpu", "mesh": False,
+                           "sharded": True,
+                           "consts": chip_smoke.rank_consts()},))
+    out = chip_smoke.phase_sharded("cpu", [r["sharded"] for r in res],
+                                   device="cpu")
+    text = capsys.readouterr().out
+    assert out["launches"] == [0] * 6 and out["seconds"] > 0
+    for name in ("single", "pp2", "sp2", "tp2", "ep2", "dp2"):
+        line = next(x for x in text.splitlines()
+                    if f"(a) arms {name} rank 0:" in x)
+        assert re.search(r"worst relative gap to the single process \S+ "
+                         r"\(gate 7\.812e-03\); dropped share 0; step ms "
+                         r"after the first", line), line
+        assert f"(e) arms {name}: launches over the ranks [0, 0, 0, 0, 0, " \
+            "0]" in text
+    for name in ("single", "sp2", "ep2"):
+        assert f"(a) f32 {name} rank 0:" in text
+    for tag in ("(b) ring", "(c) ulysses"):
+        for kind in ("non-causal", "causal"):
+            assert f"{tag} {kind} rank 1 [1, 2, 16, 8] bf16 sp=2: " \
+                "tolerance shares O, dQ, dK, dV" in text
+    assert re.search(r"\(d\) GPipe pp=2 rank 1 vs the sequential stack", text)
+    assert re.search(r"\[sharded\] phase \S+ s \(budget 75 s: (met|missed)\)",
+                     text)
+    # the ranks staged nothing on the cpu; the single arm is rank 0's
+    assert out["staged"] == {n: {} for n in ("pp2", "sp2", "tp2", "ep2",
+                                             "dp2")}
+    assert "single" not in res[1]["sharded"]["arms"]
+
+
+def test_sharded_phase_gates_and_wiring():
+    """The gates fixed before the first card run, the model at MoEConfig's
+    widths, the launch counts derived from the code, and main's wiring:
+    the phase after the mesh phase in its world, its launches on all six
+    rows, its summary before the card line."""
+    import inspect
+
+    assert chip_smoke.TOL_SHARDED_BF16 == 2 ** -7
+    assert chip_smoke.TOL_SHARDED_F32 == 2e-4
+    assert chip_smoke.TOL_SHARDED_PIPE == (1e-5, 1e-4)
+    assert chip_smoke.SHARDED_BUDGET_S == 75.0
+    assert (chip_smoke.SHARDED_V, chip_smoke.SHARDED_H, chip_smoke.SHARDED_NH,
+            chip_smoke.SHARDED_FFN, chip_smoke.SHARDED_E, chip_smoke.SHARDED_K,
+            chip_smoke.SHARDED_CF) == (32000, 512, 8, 2048, 8, 2, 4.0)
+    assert (chip_smoke.SHARDED_L, chip_smoke.SHARDED_M, chip_smoke.SHARDED_B,
+            chip_smoke.SHARDED_S, chip_smoke.SHARDED_STEPS) == (4, 2, 8, 1024,
+                                                                 3)
+    exp = chip_smoke.sharded_expected
+    assert exp(None, 4, 3) == [24, 24, 24, 24, 48, 48]
+    assert exp({"pp": 2}, 4, 3) == [36, 36, 36, 36, 72, 72]
+    assert exp({"sp": 2}, 4, 3) == [72, 72, 72, 48, 96, 96]
+    for axes in ({"tp": 2}, {"ep": 2}, {"dp": 2}):
+        assert exp(axes, 4, 3) == [48, 48, 48, 48, 96, 96]
+    assert exp({"sp": 2}, 2, 2) == [24, 24, 24, 16, 32, 32]
+    main = inspect.getsource(chip_smoke.main)
+    assert main.index("phase_mesh(card, args.seed, sharded=True)") < \
+        main.index("phase_sharded(card") < main.index(
+            "phase_kernel_shapes(card")
+    assert main.count('"sharded": sharded["launches"][i]') == 1
+    assert main.index("[mesh] summary:") < main.index(
+        "[sharded] summary:") < main.index("print(card)")
+    with pytest.raises(chip_smoke.SmokeFailure, match="loss gap"):
+        chip_smoke.phase_sharded("cpu", [{
+            "arms": {"single": _arm([1.0]), **{n: _arm([1.1]) for n in (
+                "pp2", "sp2", "tp2", "ep2", "dp2")}},
+            "f32": {}, "seq": {}, "pipe": {}, "t_start": 0, "t_end": 1}],
+            device="cpu")
+
+
+def _arm(losses):
+    return dict(losses=losses, times=[0.1], launches=[0] * 6,
+                dropped=[0.0], staged={})

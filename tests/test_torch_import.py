@@ -17,8 +17,10 @@ doctor), and the cross-process pool, whose member processes say
 whether they loaded jax, as van servers and standby controllers do, and
 the traffic plane with an autoscaling controller over such a pool, the
 elastic training plane, whose controller and worker processes load
-neither jax nor torch, and the data- and tensor-parallel plane, whose
-rank processes say whether they loaded jax;
+neither jax nor torch, and the data- and tensor-parallel plane and the
+sharded plane (ShardedGPT, ring and Ulysses attention, GPipe, the
+expert-parallel MoE layer), whose rank processes say whether they loaded
+jax;
 ``jax`` and ``hetu_tpu`` must stay out of
 ``sys.modules``.  An AST scan of every module of the package,
 and of ``chip_smoke.py``, finds no import of either.
@@ -849,6 +851,62 @@ def test_parallel_plane_and_its_rank_processes_run_without_jax():
             "parallel/collectives.py", "parallel/spec.py",
             "parallel/strategies/__init__.py", "parallel/strategies/base.py",
             "parallel/strategies/simple.py"} <= names
+
+
+def test_sharded_plane_and_its_rank_processes_run_without_jax():
+    """Two gloo rank processes run ShardedGPT at pp = 2 (one Adam step),
+    the ring and Ulysses at sp = 2, GPipe at pp = 2 and the
+    expert-parallel MoELayer at ep = 2, from weights of the port's own
+    init; neither they nor their parent load jax or hetu_tpu."""
+    out = _run(
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import numpy as np, torch\n"
+        "import torch_sharded_bodies as b\n"
+        "from hetu_tpu_torch import interop\n"
+        "from hetu_tpu_torch.models import ShardedGPT, ShardedGPTConfig\n"
+        "from hetu_tpu_torch.parallel import (GPipe, ranks, ring_attention,\n"
+        "                                     ulysses_attention)\n"
+        "cfg = dict(vocab_size=32, hidden_size=16, num_layers=2,\n"
+        "           num_heads=2, ffn_size=16, num_experts=2, top_k=1,\n"
+        "           capacity_factor=2.0, max_position=8)\n"
+        "m = ShardedGPT(ShardedGPTConfig(**cfg))\n"
+        "full = m.init(torch.Generator().manual_seed(0))\n"
+        "tree = interop._nested({k: v.numpy() for k, v in full.items()})\n"
+        "ids = np.random.default_rng(0).integers(0, 32, (4, 8))\n"
+        "g = np.random.default_rng(1)\n"
+        "x = {k: g.standard_normal((1, 2, 8, 4)).astype(np.float32)\n"
+        "     for k in 'qkvw'}\n"
+        "lay = {'w': g.standard_normal((2, 4, 4)).astype(np.float32),\n"
+        "       'b': np.zeros((2, 4), np.float32)}\n"
+        "pipe = dict(layers=lay, h=np.ones((4, 4), np.float32),\n"
+        "            w=np.ones((4, 4), np.float32), M=2, remat=True)\n"
+        "e = g.standard_normal\n"
+        "moe = dict(D=4, F=8, E=2, cf=2.0, x=e((2, 4)).astype(np.float32),\n"
+        "           w=e((2, 4)).astype(np.float32), params={\n"
+        "    'gate': {'gate_w': e((4, 2)).astype(np.float32)},\n"
+        "    'experts': {'w1': e((2, 4, 8)).astype(np.float32),\n"
+        "                'b1': np.zeros((2, 8), np.float32),\n"
+        "                'w2': e((2, 8, 4)).astype(np.float32),\n"
+        "                'b2': np.zeros((2, 4), np.float32)}})\n"
+        "res = ranks.run(b.run_cases, 2, threads=1, args=({\n"
+        "    'gpt': ('sharded_gpt', dict(cfg=cfg, params=tree,\n"
+        "        mesh={'pp': 2}, ids=ids, labels=ids, lr=1e-3, steps=1)),\n"
+        "    'seq': ('seq_attention', x),\n"
+        "    'pipe': ('gpipe', {'cases': {'c': pipe}}),\n"
+        "    'moe': ('moe_ep', moe)},))\n"
+        "print('RANKS_JAX', [r['_jax_loaded'] for r in res])\n"
+        "print('LOSS', all(np.isfinite(r['gpt']['losses']).all()\n"
+        "                  for r in res))\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out and "RANKS_JAX [False, False]" in out
+    assert "LOSS True" in out
+    names = {p.relative_to(PKG).as_posix() for p in SOURCES
+             if PKG in p.parents}
+    assert {"parallel/ring_attention.py", "parallel/ulysses.py",
+            "parallel/pipeline.py", "models/gpt_sharded.py"} <= names
 
 
 def test_maps_probe_sees_torch_in_a_process_that_imports_it():

@@ -395,9 +395,9 @@ def test_moe_layer_refuses_a_mesh_and_unknown_dispatch():
     params = gate_expert_params(np.random.default_rng(9))
     gate = _torch_gate(params["gate"])
     ex = _torch_expert(params["experts"], torch.float32)
-    with pytest.raises(NotImplementedError, match="slice 8b of the "
-                                                  "multi-GPU"):
-        MoELayer(gate, ex, mesh=object())
+    # an expert-parallel mesh runs the gather route only
+    with pytest.raises(ValueError, match="dispatch_impl='gather'"):
+        MoELayer(gate, ex, mesh=object(), dispatch_impl="einsum")
     with pytest.raises(ValueError, match="dispatch_impl"):
         MoELayer(gate, ex, dispatch_impl="alltoall")
 
