@@ -357,6 +357,17 @@ without the final result line:
    of each method at V 2^20 in f32 against float64 through f32's discrete
    choices (codes, rounding, masks, ReLUs).  No kernel of the six
    launches.
+15j. mesh, sharded, dppipe — two gloo rank processes on the card: the
+   data- and tensor-parallel plane, the fully sharded GPT-MoE, then
+   (dppipe) the elastic supervisor (GPT-2-small at 4 layers, dp 2, worker
+   1 lost at step 2 and back at step 4, against a fault-free run; both
+   ranks' states bitwise after the grow), the partial-reduce step (masks
+   [1, 1], [1, 0], [0, 0] against the Executor and one process), the
+   distributed GCN on an arxiv-sized graph (gather and ring routes
+   against one process's ``coo_spmm``), the 1F1B pipeline (a tanh stack
+   and GPT-2-small's blocks against the sequential stack) and HetPipe
+   over a van (the protocol's replay, two workers under SSP, a staleness
+   trip); each arm's flash launches exactly as counted from the code.
 16. kernel_shapes — the three flash kernels at the new paths' shapes:
    (1, 32, S, 128) causal for S = 128, 512 and 1024 (the forward), (4, 32,
    4096, 128) causal and (16, 12, 512, 64) non-causal (forward and
@@ -368,7 +379,8 @@ limit (as nvidia-smi gives them), the kernel report
 ``{"kernels": [...]}`` (all six kernels: the three flash kernels, the top-k
 gate, the gather and the scatter-add, the last two with their CTR
 launches and times; each with its launches by path, 0 on the CNN, RNN,
-GCN, compression, recsys and elastic paths) and ``{"ok": true, "device": {...}}``.
+GCN, compression, recsys and elastic paths, and the dppipe path's) and
+``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -10648,7 +10660,8 @@ def mesh_expected(rank, world=2):
 def mesh_rank(rank, world, spec):
     """One rank of the mesh phase: arms (a)-(d) on this rank's share
     (unless ``spec["mesh"]`` is False), then the sharded phase's work
-    where ``spec["sharded"]`` asks for it (:func:`sharded_rank`)."""
+    where ``spec["sharded"]`` asks for it (:func:`sharded_rank`) and the
+    dppipe phase's where ``spec["dppipe"]`` does (:func:`dppipe_rank`)."""
     g = globals()
     for k, v in spec["consts"].items():
         g[k] = v
@@ -10657,6 +10670,8 @@ def mesh_rank(rank, world, spec):
     out = mesh_arms(rank, spec) if spec.get("mesh", True) else {}
     if spec.get("sharded"):
         out["sharded"] = sharded_rank(rank, world, spec)
+    if spec.get("dppipe"):
+        out["dppipe"] = dppipe_rank(rank, world, spec)
     return out
 
 
@@ -10713,23 +10728,28 @@ def mesh_arms(rank, spec):
     return out
 
 
-def _mesh_gate(tag, got, ref, tol, card, what="the single process"):
-    """Each step's loss against the reference: |d| <= tol x |ref|."""
+def _mesh_gate(tag, got, ref, tol, card, what="the single process",
+               phase="mesh"):
+    """Each step's loss against the reference: as many steps, each with
+    |d| <= tol x |ref|."""
     worst = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
-    print(f"[mesh] {tag}: losses {[round(x, 6) for x in got]} vs {what} "
+    print(f"[{phase}] {tag}: losses {[round(x, 6) for x in got]} vs {what} "
           f"{[round(x, 6) for x in ref]}; worst relative gap {worst:.3e} "
           f"(gate {tol:.3e}) [{card}]")
-    check(worst <= tol, f"mesh {tag}: loss gap {worst:.3e} > {tol:.3e}")
+    check(len(got) == len(ref), f"{phase} {tag}: {len(got)} losses, "
+                                f"{len(ref)} expected")
+    check(worst <= tol, f"{phase} {tag}: loss gap {worst:.3e} > {tol:.3e}")
     return worst
 
 
-def phase_mesh(card, seed, device="cuda", sharded=False):
+def phase_mesh(card, seed, device="cuda", sharded=False, dppipe=False):
     """The data- and tensor-parallel plane (parallel/, the Executor's
     mesh, dist_strategy and grad_sync, the tp serving engines): the
     single-process references first, then two rank processes on the card
     over gloo run (a)-(d), then one rank over nccl (e).  With ``sharded``
-    the same two ranks then run the sharded phase's work; its results are
-    returned under ``"sharded"`` and its time is not the mesh phase's."""
+    (``dppipe``) the same two ranks then run the sharded (dppipe) phase's
+    work; its results are returned under ``"sharded"`` (``"dppipe"``) and
+    its time is not the mesh phase's."""
     import torch.distributed as dist
 
     from hetu_tpu_torch.parallel import make_mesh, ranks
@@ -10756,16 +10776,17 @@ def phase_mesh(card, seed, device="cuda", sharded=False):
         torch.cuda.empty_cache()
 
     spec = {"seed": seed, "device": device, "consts": rank_consts(),
-            "sharded": sharded}
+            "sharded": sharded, "dppipe": dppipe}
     t0 = time.time()
     res = ranks.run(mesh_rank, 2, backend="gloo", args=(spec,),
                     timeout_s=600.0)
     t_ranks = time.time() - t0
     sharded_s = 0.0
-    if sharded:
-        sharded_s = max(r["sharded"]["t_end"] for r in res) - min(
-            r["sharded"]["t_start"] for r in res)
-        t_ranks -= sharded_s
+    for later in ("sharded", "dppipe"):
+        if (sharded, dppipe)[later == "dppipe"]:
+            sharded_s += max(r[later]["t_end"] for r in res) - min(
+                r[later]["t_start"] for r in res)
+    t_ranks -= sharded_s
     start_s = max(r["t_start"] for r in res) - t0
     print(f"[mesh] two ranks over gloo on {device}: {t_ranks:.1f} s, the "
           f"ranks up after {start_s:.1f} s (reference runs {t_ref:.1f} s) "
@@ -10834,7 +10855,8 @@ def phase_mesh(card, seed, device="cuda", sharded=False):
     return dict(launches=launches, seconds=seconds, ranks_s=t_ranks,
                 start_s=start_s, staged=res[0]["staged"], nccl=nccl,
                 step_ms=[x * 1e3 for x in res[0]["a"]["times"]],
-                sharded=[r["sharded"] for r in res] if sharded else None)
+                sharded=[r["sharded"] for r in res] if sharded else None,
+                dppipe=[r["dppipe"] for r in res] if dppipe else None)
 
 
 def rank_consts():
@@ -10842,7 +10864,8 @@ def rank_consts():
     may have set them smaller)."""
     return {k: globals()[k] for k in ("V", "H", "NH", "FFN", "PAGE_SIZE")
             + tuple(k for k in globals() if k.startswith(
-                ("MESH_", "SHARDED_", "TOL_SHARDED_")))}
+                ("MESH_", "SHARDED_", "TOL_SHARDED_", "DPPIPE_",
+                 "TOL_DPPIPE_")))}
 
 
 def phase_mesh_nccl(card, seed, batch):
@@ -11080,15 +11103,13 @@ def _tanh_block(p, h):
     return torch.tanh(h @ p["w"] + p["b"])
 
 
-def sharded_pipe_check(rank, world, seed, device):
-    """(d) GPipe at pp = world on the tanh stack against the sequential
-    stack, forward and gradients (this rank's stage rows, the input's):
-    the largest |d| over max|ref| of each."""
-    from hetu_tpu_torch.parallel import make_mesh
-    from hetu_tpu_torch.parallel.pipeline import GPipe
-    mesh = make_mesh(pp=world, device=device, backend="gloo")
-    g = torch.Generator(device=device).manual_seed(seed + 19)
-    D, L, B = SHARDED_PIPE_D, SHARDED_PIPE_L, SHARDED_PIPE_B
+def _tanh_stack(seed, device, D, L, B):
+    """A tanh stack (``[L, D, D]`` weights of 0.05 · N(0, 1), ``[L, D]``
+    biases of 0.1 · N(0, 1)), an input and a cotangent ``[B, D]``, drawn
+    in that order on ``device`` from ``seed``; and the sequential stack's
+    output and the gradients of ``sum(y * cotangent)`` for the layers and
+    the input."""
+    g = torch.Generator(device=device).manual_seed(seed)
     layers = {"w": torch.randn(L, D, D, generator=g, device=device) * 0.05,
               "b": torch.randn(L, D, generator=g, device=device) * 0.1}
     h = torch.randn(B, D, generator=g, device=device)
@@ -11099,6 +11120,26 @@ def sharded_pipe_check(rank, world, seed, device):
     for i in range(L):
         y = _tanh_block({"w": seq["w"][i], "b": seq["b"][i]}, y)
     (y * w).sum().backward()
+    return layers, h, w, dict(y=y.detach(), dh=h_seq.grad,
+                              dw=seq["w"].grad, db=seq["b"].grad)
+
+
+def _gap(a, b):
+    """max |a - b| over max |b|."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def sharded_pipe_check(rank, world, seed, device):
+    """(d) GPipe at pp = world on the tanh stack against the sequential
+    stack, forward and gradients (this rank's stage rows, the input's):
+    the largest |d| over max|ref| of each."""
+    from hetu_tpu_torch.parallel import make_mesh
+    from hetu_tpu_torch.parallel.pipeline import GPipe
+    mesh = make_mesh(pp=world, device=device, backend="gloo")
+    L = SHARDED_PIPE_L
+    layers, h, w, ref = _tanh_stack(seed + 19, device, SHARDED_PIPE_D, L,
+                                    SHARDED_PIPE_B)
     pipe = GPipe(_tanh_block, mesh, n_microbatches=SHARDED_PIPE_M,
                  remat=True)
     st = {k: v.detach().requires_grad_(True)
@@ -11108,13 +11149,9 @@ def sharded_pipe_check(rank, world, seed, device):
     (y_p * w).sum().backward()
     lps = L // world
     rows = slice(rank * lps, (rank + 1) * lps)
-
-    def gap(a, b):
-        return float((a - b).abs().max() / b.abs().max())
-    y, y_p = y.detach(), y_p.detach()
-    return dict(y=gap(y_p, y), dh=gap(h_p.grad, h_seq.grad),
-                dw=gap(st["w"].grad[rank], seq["w"].grad[rows]),
-                db=gap(st["b"].grad[rank], seq["b"].grad[rows]))
+    return dict(y=_gap(y_p.detach(), ref["y"]), dh=_gap(h_p.grad, ref["dh"]),
+                dw=_gap(st["w"].grad[rank], ref["dw"][rows]),
+                db=_gap(st["b"].grad[rank], ref["db"][rows]))
 
 
 def sharded_rank(rank, world, spec):
@@ -11238,6 +11275,739 @@ def phase_sharded(card, res, device="cuda"):
                 ring={c: res[0]["seq"][c] for c in (False, True)})
 
 
+# -------------------------------------------------------------- dppipe
+# Elastic mesh resharding (resilience/elastic.py), the partial-reduce step
+# (parallel/preduce.py), the distributed GCN (ops/distgcn.py), the 1F1B
+# pipeline (parallel/pipedream.py) and HetPipe (parallel/hetpipe.py), in
+# the mesh phase's two gloo ranks on the one card, after the sharded
+# phase.  GPT-2-small at full width and MESH_L layers, bf16 flash remat
+# AdamW, B 4 x S 256 (the mesh phase's cut), f32 arms at 2 layers.
+DPPIPE_STEPS = 6            # (a): worker 1 lost at step 2, back at step 4
+DPPIPE_LOSS_AT, DPPIPE_JOIN_AT = 2, 4
+DPPIPE_DATA_B = 24          # the schedule's sequences (one epoch)
+DPPIPE_GCN = (GCN_N, GCN_F, GCN_EDGES)  # (c): ogbn-arxiv's sizes
+DPPIPE_GCN_RUNS = 5
+# (d) the tanh stack (width, layers, batch) and the GPT arm (B 8 x S 512,
+# one sequence a microbatch); M = 8 > 2 · pp: the stash slots wrap
+DPPIPE_PIPE_D, DPPIPE_PIPE_L, DPPIPE_PIPE_B, DPPIPE_M = 512, 4, 64, 8
+DPPIPE_GPT_B, DPPIPE_GPT_S = 8, 512
+# (e) HetPipe: the tanh stack, 4 waves synced every 2; two workers at pp 1
+# over 12 waves under staleness 2, at a server rate that moves a mean
+# square over 256-wide outputs (at 0.1 the summed loss fell only to 0.92
+# of the first in 12 waves on an H100)
+DPPIPE_HET_D, DPPIPE_HET_L, DPPIPE_HET_B, DPPIPE_HET_M = 256, 4, 32, 4
+DPPIPE_HET_WAVES, DPPIPE_HET_LR = 4, 0.05
+DPPIPE_TWO_WAVES, DPPIPE_TWO_LR = 12, 1.0
+# the gates, fixed before the first run: (a) each step's loss within 2^-7
+# of the fault-free run (bf16), the f32 arm's final parameters within the
+# reference test's rtol 2e-4 / atol 1e-5 (tests/test_elastic.py); (b) the
+# mesh phase's 2^-7; (c) the reference test's rtol 1e-4 / atol 1e-5
+# (tests/test_preduce_distgcn.py); (d) GPipe's 1e-5 / 1e-4 of max|ref| for
+# the tanh stack, the GPT arm's loss within 2^-7 and each gradient within
+# TOL_TRAIN_GRAD of max|G|; (e) 1e-4 of max|ref|
+TOL_DPPIPE_BF16 = 2 ** -7
+TOL_DPPIPE_F32 = (2e-4, 1e-5)
+TOL_DPPIPE_GCN = (1e-4, 1e-5)
+TOL_DPPIPE_PIPE = (1e-5, 1e-4)
+TOL_DPPIPE_HET = 1e-4
+DPPIPE_BUDGET_S = 60.0
+# van table and SSP ids: one worker, two workers, the staleness trip (one
+# a rank: the id plus the rank)
+DPPIPE_TABLE_IDS = (0x7D0_0001, 0x7D0_0002, 0x7D0_0004)
+DPPIPE_SSP_IDS = (0x7D0_0010, 0x7D0_0020)
+
+
+def dppipe_expected(layers=None, steps=None):
+    """Each arm's flash launches over both ranks, [fwd, dK/dV, dQ], from
+    the code's structure (rows 4-6 launch none): a remat bf16 train step
+    launches 2·L forwards and L of each backward kernel a rank, an f32
+    step (no remat) L of each; (a) ``steps`` fault-free steps on both
+    ranks and the elastic run's 2·steps - (join - loss) rank-steps (the
+    lost rank runs none while out), bf16 at L and f32 at 2 layers; (b) 2
+    Executor steps and 5 preduce steps on both ranks, 2 one-process steps
+    on rank 0; (c), (e) none; (d) the GPT arm's value_and_grad: M·L/2
+    forwards a pass on each stage plus M·L/2 recomputed forwards and M·L/2
+    of each backward kernel."""
+    L = MESH_L if layers is None else layers
+    n = DPPIPE_STEPS if steps is None else steps
+    el = 2 * n - (DPPIPE_JOIN_AT - DPPIPE_LOSS_AT)
+    # each rank-step: the bf16 arm's [2L, L, L] and the f32 arm's [L_f32] * 3
+    a = [(el + 2 * n) * (x + MESH_F32_L) for x in (2 * L, L, L)]
+    b = [(2 * 2 + 5 * 2 + 2) * x for x in (2 * L, L, L)]
+    lps = L // 2
+    d = [2 * (3 * DPPIPE_M * lps), 2 * DPPIPE_M * lps, 2 * DPPIPE_M * lps]
+    return {"a": a + [0, 0, 0], "b": b + [0, 0, 0], "c": [0] * 6,
+            "d": d + [0, 0, 0], "e": [0] * 6}
+
+
+def _dppipe_counts():
+    counters = _all_counters()
+    for c in counters:
+        c.launches = 0
+    return counters
+
+
+def _state_digest(state):
+    """blake2b of this rank's local parameters and optimizer slots (bytes,
+    in name order), with the step and rng words."""
+    import hashlib
+    h = hashlib.blake2b(digest_size=16)
+    tensors = [state.params[n] for n in sorted(state.params)] + [
+        d[n] for k in sorted(state.opt_state["slots"])
+        for d in [state.opt_state["slots"][k]] for n in sorted(d)]
+    for t in tensors:
+        t = t.to_local() if hasattr(t, "to_local") else t
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    h.update(np.asarray([state.step, state.opt_state["step"]],
+                        np.int64).tobytes())
+    h.update(np.asarray(state.rng, np.uint32).tobytes())
+    return h.hexdigest()
+
+
+def _state_bits(params, opt_state):
+    """The parameters' and the optimizer slots' bits (:func:`_bits`), in
+    name order."""
+    return [_bits(t.detach()) for t in [
+        params[n] for n in sorted(params)] + [
+        d[n] for k in sorted(opt_state["slots"])
+        for d in [opt_state["slots"][k]] for n in sorted(d)]]
+
+
+def dppipe_elastic(rank, seed, device, dtype, layers):
+    """(a) one arm: the fault-free dp = 2 run, then the elastic run (worker
+    1 lost at DPPIPE_LOSS_AT, back at DPPIPE_JOIN_AT), both supervised
+    over one ElasticBatchSchedule: each trained step's loss, the resizes,
+    launches by rank, the final state's digest (and, for f32, the gap of
+    its parameters to the fault-free run's)."""
+    from hetu_tpu_torch.data.dataloader import ElasticBatchSchedule
+    from hetu_tpu_torch.models import GPTModel
+    from hetu_tpu_torch.optim import AdamWOptimizer
+    from hetu_tpu_torch.parallel import MeshConfig, make_mesh
+    from hetu_tpu_torch.resilience import (
+        FaultEvent, FaultInjector, FaultSchedule, Supervisor,
+    )
+    from hetu_tpu_torch.resilience.elastic import ElasticSupervisor
+    from hetu_tpu_torch.train import Executor
+    s = MESH_S if dtype == torch.bfloat16 else MESH_F32_S
+    b = MESH_B if dtype == torch.bfloat16 else MESH_F32_B
+    data = np.random.default_rng(seed + 23).integers(
+        0, V, (DPPIPE_DATA_B * b // MESH_B, s))
+    sched = ElasticBatchSchedule(data, b, seed=seed)
+    out = {}
+    states = {}
+    for name in ("fault_free", "elastic"):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        model = GPTModel(mesh_config(layers, dtype, s), generator=gen,
+                         device=device)
+        mesh = make_mesh(dp=2, device=device, backend="gloo") \
+            if name == "fault_free" else None
+        ex = Executor(model.lm_loss_fn(), AdamWOptimizer(MESH_LR),
+                      mesh=mesh, seed=seed)
+        state = ex.init_state(model)
+        losses = []
+
+        def post(step, st, metrics, batch, losses=losses):
+            losses.append(float(metrics["loss"]))
+        if name == "fault_free":
+            sup = Supervisor(ex)
+        else:
+            faults = FaultSchedule([
+                FaultEvent(DPPIPE_LOSS_AT, "worker_loss", 1.0),
+                FaultEvent(DPPIPE_JOIN_AT, "worker_join", 1.0)])
+            sup = ElasticSupervisor(
+                ex, config=MeshConfig(dp=2), device=device, backend="gloo",
+                schedule=sched, injector=FaultInjector(faults),
+                model_config=model.c)
+        counters = _dppipe_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        rep = sup.run(state, lambda i: (torch.as_tensor(
+            sched.global_batch(i)),), DPPIPE_STEPS, post_step=post)
+        _sync(device)
+        out[name] = dict(losses=losses, seconds=time.perf_counter() - t0,
+                         launches=[c.launches for c in counters],
+                         step=rep.step)
+        if name == "elastic":
+            out[name]["resizes"] = [(e.kind, e.worker, e.width, e.step,
+                                     e.downtime_s) for e in sup.resizes]
+            out[name]["digest"] = _state_digest(rep.state)
+        states[name] = rep.state
+        del model, ex, sup
+    if dtype == torch.float32:
+        # the final parameters against the fault-free run's: the largest
+        # |d| - atol - rtol |ref| over max |ref| (<= 0 passes)
+        rtol, atol = TOL_DPPIPE_F32
+        worst = -1.0
+        for n, p in states["elastic"].params.items():
+            a = p.to_local().detach().float()
+            r = states["fault_free"].params[n].to_local().detach().float()
+            worst = max(worst, float(((a - r).abs() - atol - rtol * r.abs())
+                                     .max()))
+        out["f32_excess"] = worst
+        out["rng_equal"] = bool(np.array_equal(
+            states["elastic"].rng, states["fault_free"].rng))
+    return out
+
+
+def dppipe_preduce(rank, seed, device):
+    """(b) GPT-2-small at MESH_L layers: 2 Executor steps at exact dp = 2;
+    then preduce_step_fn from the same weights with masks [1, 1], [1, 1]
+    (the Executor's two losses), [1, 0] (rank 0's shard alone), [1, 1]
+    (the next loss), [0, 0] (nothing moves: digests before and after);
+    on rank 0 a one-process replay of the [1, 0] step and the next one
+    from a copy of the state after the second step."""
+    import torch.distributed as dist
+
+    from hetu_tpu_torch.models import GPTModel
+    from hetu_tpu_torch.optim import AdamWOptimizer
+    from hetu_tpu_torch.parallel import make_mesh
+    from hetu_tpu_torch.parallel.preduce import preduce_step_fn
+    from hetu_tpu_torch.train import Executor
+    batch = mesh_batch(seed, MESH_B, MESH_S, masked=False).to(device)
+    mesh = make_mesh(dp=2, device=device, backend="gloo")
+    counters = _dppipe_counts()
+
+    def gpt():
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return GPTModel(mesh_config(MESH_L, torch.bfloat16, MESH_S),
+                        generator=gen, device=device)
+    model = gpt()
+    ex = Executor(model.lm_loss_fn(), AdamWOptimizer(MESH_LR), mesh=mesh,
+                  seed=seed)
+    state = ex.init_state(model)
+    exact = []
+    for _ in range(2):
+        state, m = ex.run("train", state, (batch,))
+        exact.append(float(m["loss"]))
+    del model, ex, state
+    model = gpt()
+    lm = model.lm_loss_fn()
+    opt = AdamWOptimizer(MESH_LR)
+    params = dict(model.named_parameters())
+    opt_state = opt.init_state(params)
+    step, n = preduce_step_fn(lambda p, ids: lm(p, {}, ids, None, True)[0],
+                              opt, mesh)
+    losses, times, replay = [], [], None
+    for i, mask in enumerate(([1, 1], [1, 1], [1, 0], [1, 1], [0, 0])):
+        if i == 2 and rank == 0:
+            # the one-process replay starts from this state
+            replay = ({k: p.detach().clone() for k, p in params.items()},
+                      {"step": opt_state["step"], "slots": {
+                          k: {n: t.clone() for n, t in v.items()}
+                          for k, v in opt_state["slots"].items()}})
+        if i == 4:
+            before = [t.clone() for t in _state_bits(params, opt_state)]
+        _sync(device)
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, batch,
+                                       np.asarray(mask, np.float32))
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    frozen = all(torch.equal(a, b) for a, b in
+                 zip(before, _state_bits(params, opt_state)))
+    out = dict(exact=exact, losses=losses, times=times, n=n, frozen=frozen)
+    del model, params, opt_state
+    if rank == 0:
+        model = gpt()
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(replay[0][k])
+        lm = model.lm_loss_fn()
+        params = dict(model.named_parameters())
+        opt_state, one = replay[1], []
+        for ids in (batch[:MESH_B // 2], batch):
+            loss = lm(params, {}, ids, None, True)[0]
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+            params, opt_state = opt.update(grads, opt_state, params)
+            one.append(float(loss.detach()))
+        out["one_process"] = one
+        del model
+    dist.barrier()
+    out["launches"] = [c.launches for c in counters]
+    return out
+
+
+def dppipe_gcn(rank, seed, device):
+    """(c) ``dist_gcn_aggregate`` on a seeded graph at ogbn-arxiv's sizes
+    plus one isolated padding node (169 343 is odd; the dst-sharded
+    layout needs a multiple of 2), GCN-normalised weights, f32: this
+    rank's rows and dL/dh of both routes against one process's
+    ``coo_spmm`` on the whole graph; ms a call (CUDA events, both ranks
+    calling) and the calls staged through the host."""
+    import torch.distributed as dist
+
+    from hetu_tpu_torch.ops.distgcn import (
+        dist_gcn_aggregate, shard_edges_by_dst,
+    )
+    from hetu_tpu_torch.ops.graph_ops import coo_spmm, gcn_norm
+    from hetu_tpu_torch.parallel import collectives, make_mesh
+    n, f, edges = DPPIPE_GCN
+    x, _, src, dst, _ = _graph(seed, n, f, GCN_CLASSES, edges, GCN_INTRA,
+                               GCN_NOISE, GCN_TRAIN_SHARE)
+    s, d, w = (t.numpy() for t in gcn_norm(torch.tensor(src),
+                                           torch.tensor(dst), n))
+    npad = n + n % 2
+    h = np.zeros((npad, f), np.float32)
+    h[:n] = x
+    cot = np.random.default_rng(seed + 29).standard_normal(
+        (npad, f)).astype(np.float32)
+    ss, dd, ww = shard_edges_by_dst(s, d, w, npad, 2)
+    mesh = make_mesh(dp=2, device=device, backend="gloo")
+    e = ss.shape[0] // 2
+    rows = slice(rank * npad // 2, (rank + 1) * npad // 2)
+    edge = [torch.tensor(a[rank * e:(rank + 1) * e]).to(device)
+            for a in (ss, dd, ww)]
+    # the one-process reference: the whole graph, autograd for dL/dh
+    h_all = torch.tensor(h, device=device).requires_grad_(True)
+    ref = coo_spmm(torch.tensor(s, device=device),
+                   torch.tensor(d, device=device),
+                   torch.tensor(w, device=device), h_all, npad)
+    ref.backward(torch.tensor(cot, device=device))
+    ref_y, ref_dh = ref.detach()[rows], h_all.grad[rows]
+    rtol, atol = TOL_DPPIPE_GCN
+    counters = _dppipe_counts()
+    out = {"nodes": n, "padded": npad, "edges": int(s.size),
+           "per_rank": e}
+    staged0 = dict(collectives.STAGED)
+    for ring in (False, True):
+        hl = torch.tensor(h[rows], device=device).requires_grad_(True)
+        y = dist_gcn_aggregate(hl, *edge, mesh, ring=ring)
+        y.backward(torch.tensor(cot[rows], device=device))
+        shares = [float(((a - r).abs() / (atol + rtol * r.abs())).max())
+                  for a, r in ((y.detach(), ref_y), (hl.grad, ref_dh))]
+        hl = hl.detach()
+        ms = None
+        if device == "cuda":
+            ms = _events_ms(lambda: dist_gcn_aggregate(hl, *edge, mesh,
+                                                       ring=ring),
+                            DPPIPE_GCN_RUNS)
+        out["ring" if ring else "gather"] = dict(shares=shares, ms=ms)
+    out["staged"] = {k: v - staged0.get(k, 0)
+                     for k, v in collectives.STAGED.items()
+                     if v - staged0.get(k, 0)}
+    out["launches"] = [c.launches for c in counters]
+    if device == "cuda":
+        dist.barrier()
+        if rank == 0:  # the card alone
+            args = [torch.tensor(a, device=device) for a in (s, d, w)]
+            hd = torch.tensor(h, device=device)
+            out["coo_spmm_ms"] = _events_ms(
+                lambda: coo_spmm(*args, hd, npad), DPPIPE_GCN_RUNS)
+        dist.barrier()
+    return out
+
+
+def dppipe_pipe(rank, seed, device):
+    """(d) PipeDream1F1B at pp = 2, M = DPPIPE_M: the tanh stack (f32)
+    under a cotangent against the sequential stack (outputs, this stage's
+    gradients); GPT-2-small's blocks (MESH_L, MESH_L / 2 a stage), B
+    DPPIPE_GPT_B x S DPPIPE_GPT_S, bf16 flash, value_and_grad of the LM
+    loss against the same stack and loss in this process: the loss's
+    relative gap and each block gradient's gap over max|G|."""
+    from torch.func import functional_call
+
+    from hetu_tpu_torch import ops
+    from hetu_tpu_torch.models import GPTModel
+    from hetu_tpu_torch.parallel import make_mesh
+    from hetu_tpu_torch.parallel.pipedream import PipeDream1F1B
+    mesh = make_mesh(pp=2, device=device, backend="gloo")
+    L = DPPIPE_PIPE_L
+    layers, h, cot, ref = _tanh_stack(seed + 31, device, DPPIPE_PIPE_D, L,
+                                      DPPIPE_PIPE_B)
+    pipe = PipeDream1F1B(_tanh_block, mesh, n_microbatches=DPPIPE_M)
+    stage = pipe.local_stage(pipe.stack_params(layers))
+    y, grads = pipe.forward_and_grad(stage, h, cot)
+    rows = slice(rank * L // 2, (rank + 1) * L // 2)
+    out = {"tanh": dict(y=_gap(y, ref["y"]),
+                        dw=_gap(grads["w"][0], ref["dw"][rows]),
+                        db=_gap(grads["b"][0], ref["db"][rows]))}
+    del ref
+    # the GPT blocks
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = GPTModel(mesh_config(MESH_L, torch.bfloat16, DPPIPE_GPT_S),
+                     generator=gen, device=device)
+    ids = np.random.default_rng(seed + 37).integers(
+        0, V, (DPPIPE_GPT_B, DPPIPE_GPT_S))
+    ids = torch.tensor(ids, device=device)
+    with torch.no_grad():
+        h = model._embed(ids, model.pos_emb[None, :DPPIPE_GPT_S])
+    names = [n for n, _ in model.blocks[0].named_parameters()]
+    stacked = {n: torch.stack([dict(b.named_parameters())[n].detach()
+                               for b in model.blocks]) for n in names}
+    template = model.blocks[0]
+
+    def block_fn(p, x):
+        return functional_call(template, p, (x,))
+
+    def loss_fn(o):
+        return ops.lm_head_cross_entropy(model.ln_f(o)[:, :-1],
+                                         model.tok_emb, ids[:, 1:])
+    pipe = PipeDream1F1B(block_fn, mesh, n_microbatches=DPPIPE_M)
+    stage = pipe.local_stage(pipe.stack_params(stacked))
+    counters = _dppipe_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    loss, grads = pipe.value_and_grad(stage, h, loss_fn)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    # the same stack and loss in this process
+    x = h
+    for b in model.blocks:
+        x = b(x)
+    ref_loss = loss_fn(x)
+    ref = torch.autograd.grad(ref_loss, [p for b in model.blocks
+                                         for p in b.parameters()])
+    ref = dict(zip([f"{i}.{n}" for i in range(MESH_L) for n in names], ref))
+    lps = MESH_L // 2
+    worst = 0.0
+    for n in names:
+        for i in range(lps):
+            r = ref[f"{rank * lps + i}.{n}"]
+            worst = max(worst, float((grads[n][0, i].float() - r.float())
+                                     .abs().max()
+                                     / (TOL_TRAIN_GRAD
+                                        * r.float().abs().max())))
+    out["gpt"] = dict(loss=float(loss), ref_loss=float(ref_loss.detach()),
+                      grad_share=worst, seconds=seconds, launches=launches)
+    return out
+
+
+def _het_replay(layers, h, y, waves, sync_every, lr, local_lr):
+    """The HetPipe protocol in one process on the sequential tanh stack:
+    each wave's loss and the local weights after it."""
+    local = {k: v.clone() for k, v in layers.items()}
+    server = {k: v.clone() for k, v in layers.items()}
+    accum = None
+    losses, after = [], []
+    for wave in range(1, waves + 1):
+        p = {k: v.clone().requires_grad_(True) for k, v in local.items()}
+        o = h
+        for i in range(p["w"].shape[0]):
+            o = _tanh_block({"w": p["w"][i], "b": p["b"][i]}, o)
+        loss = ((o - y) ** 2).mean()
+        g = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        accum = g if accum is None else {k: accum[k] + g[k] for k in g}
+        if wave % sync_every == 0:
+            server = {k: server[k] - lr * accum[k] for k in server}
+            accum = None
+            local = {k: v.clone() for k, v in server.items()}
+        else:
+            local = {k: local[k] - local_lr * g[k] for k in local}
+        losses.append(float(loss))
+        after.append(local)
+    return losses, after
+
+
+def dppipe_hetpipe(rank, seed, device, port):
+    """(e) HetPipe over a van this world's rank 0 serves: one virtual
+    worker at pp = 2 syncing every 2 waves against the protocol's replay
+    in this process; two workers at pp = 1 (a rank each) sharing one
+    table and a RemoteSSP; a worker whose peer never clocks."""
+    import torch.distributed as dist
+
+    from hetu_tpu_torch.parallel import make_mesh
+    from hetu_tpu_torch.parallel.hetpipe import (
+        HetPipeWorker, make_weight_table,
+    )
+    from hetu_tpu_torch.parallel.pipedream import PipeDream1F1B
+    from hetu_tpu_torch.ps.van import RemoteSSP
+    g = torch.Generator(device=device).manual_seed(seed + 41)
+    D, L, B = DPPIPE_HET_D, DPPIPE_HET_L, DPPIPE_HET_B
+    layers = {"w": torch.randn(L, D, D, generator=g, device=device) * 0.1,
+              "b": torch.randn(L, D, generator=g, device=device) * 0.1}
+    h = torch.randn(B, D, generator=g, device=device)
+    y = torch.randn(B, D, generator=g, device=device) * 0.1
+
+    def lf(o):
+        return ((o - y) ** 2).mean()
+
+    def table(stacked, tid, create, lr=DPPIPE_HET_LR):
+        return make_weight_table(stacked, optimizer="sgd", lr=lr,
+                                 remote=("127.0.0.1", port), table_id=tid,
+                                 create=create)
+    out = {}
+    counters = _dppipe_counts()
+    # one virtual worker at pp = 2, synced every 2 waves
+    mesh = make_mesh(pp=2, device=device, backend="gloo")
+    pipe = PipeDream1F1B(_tanh_block, mesh, n_microbatches=DPPIPE_HET_M)
+    stacked = pipe.stack_params(layers)
+    t = table(stacked, DPPIPE_TABLE_IDS[0], True) if rank == 0 else None
+    dist.barrier()
+    t = t or table(stacked, DPPIPE_TABLE_IDS[0], False)
+    worker = HetPipeWorker(pipe, stacked, t, publish_init=True,
+                           sync_every=2, local_lr=DPPIPE_HET_LR)
+    t0 = time.perf_counter()
+    losses, params = [], []
+    for _ in range(DPPIPE_HET_WAVES):
+        losses.append(worker.step(h, lf))
+        params.append({k: v.clone() for k, v in worker.params.items()})
+    seconds = time.perf_counter() - t0
+    rl, rp = _het_replay(layers, h, y, DPPIPE_HET_WAVES, 2, DPPIPE_HET_LR,
+                         DPPIPE_HET_LR)
+    lps = L // 2
+    rows = slice(rank * lps, (rank + 1) * lps)
+    gap = max(max(_gap(p[k][0], r[k][rows]) for k in p)
+              for p, r in zip(params, rp))
+    lgap = max(abs(a - b) / abs(b) for a, b in zip(losses, rl))
+    out["one"] = dict(gap=gap, loss_gap=lgap, losses=losses,
+                      seconds=seconds)
+    dist.barrier()
+    t.close()
+    # two workers at pp = 1, one a rank, over one table and one RemoteSSP
+    mesh = make_mesh(dp=2, device=device, backend="gloo")
+    pipe = PipeDream1F1B(_tanh_block, mesh, n_microbatches=DPPIPE_HET_M)
+    stacked = pipe.stack_params(layers)
+    t = table(stacked, DPPIPE_TABLE_IDS[1], True, DPPIPE_TWO_LR) \
+        if rank == 0 else None
+    dist.barrier()
+    t = t or table(stacked, DPPIPE_TABLE_IDS[1], False, DPPIPE_TWO_LR)
+    ssp = RemoteSSP("127.0.0.1", port, DPPIPE_SSP_IDS[0], 2, 2)
+    worker = HetPipeWorker(pipe, stacked, t, publish_init=rank == 0,
+                           worker_id=rank, ssp=ssp)
+    dist.barrier()
+    if rank == 1:
+        worker.pull_weights()
+    hw = torch.randn(B, D, generator=torch.Generator(device=device)
+                     .manual_seed(seed + 43 + rank), device=device)
+    zero = torch.zeros_like(hw)
+    two = [worker.step(hw, lambda o: ((o - zero) ** 2).mean())
+           for _ in range(DPPIPE_TWO_WAVES)]
+    dist.barrier()
+    out["two"] = dict(losses=two, clocks=[ssp.clock(0), ssp.clock(1)])
+    dist.barrier()
+    t.close()
+    ssp.close()
+    # a peer that never clocks: this rank's own worker, staleness 1
+    t = table(stacked, DPPIPE_TABLE_IDS[2] + rank, True)
+    ssp = RemoteSSP("127.0.0.1", port, DPPIPE_SSP_IDS[1] + rank, 2, 1)
+    worker = HetPipeWorker(pipe, stacked, t, publish_init=True, ssp=ssp,
+                           ssp_timeout_ms=50)
+    trip = None
+    waves = 0
+    for _ in range(2):
+        try:
+            worker.step(h, lf)
+            waves += 1
+        except RuntimeError as e:
+            trip = str(e)
+    out["stale"] = dict(waves=waves, trip=trip)
+    out["launches"] = [c.launches for c in counters]
+    t.close()
+    ssp.close()
+    return out
+
+
+def dppipe_rank(rank, world, spec):
+    """The dppipe phase's arms (a)-(e) in one rank of the mesh phase's
+    world; each arm's seconds."""
+    import torch.distributed as dist
+
+    from hetu_tpu_torch.ps import van
+    device, seed = spec["device"], spec["seed"]
+    out = {"t_start": time.time(), "seconds": {}}
+
+    def arm(name, fn, *args):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        out["seconds"][name] = time.perf_counter() - t0
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    arm("a_bf16", dppipe_elastic, rank, seed, device, torch.bfloat16, MESH_L)
+    arm("a_f32", dppipe_elastic, rank, seed, device, torch.float32,
+        MESH_F32_L)
+    arm("b", dppipe_preduce, rank, seed, device)
+    arm("c", dppipe_gcn, rank, seed, device)
+    arm("d", dppipe_pipe, rank, seed, device)
+    port = [van.serve(0) if rank == 0 else None]
+    dist.broadcast_object_list(port, src=0)
+    try:
+        arm("e", dppipe_hetpipe, rank, seed, device, port[0])
+        dist.barrier()
+    finally:
+        if rank == 0:
+            van.stop()
+    out["t_end"] = time.time()
+    return out
+
+
+def phase_dppipe(card, res, device="cuda"):
+    """The dppipe phase's gates and lines, from the two ranks' results
+    (:func:`dppipe_rank`)."""
+    t0 = time.perf_counter()
+    print(f"[dppipe] GPT-2-small V={V} H={H} NH={NH} FFN={FFN} at {MESH_L} "
+          f"layers B={MESH_B} S={MESH_S} bf16 flash remat AdamW, f32 at "
+          f"{MESH_F32_L} layers; two gloo ranks on one {device}")
+    exp = dppipe_expected()
+    got = {k: [0] * 6 for k in exp}
+    # (a) elastic
+    for key, layers in (("a_bf16", MESH_L), ("a_f32", MESH_F32_L)):
+        ff, el = (res[0][key][n] for n in ("fault_free", "elastic"))
+        for r, out in enumerate(res):
+            e = out[key]["elastic"]
+            kinds = [(k, w) for k, _, w, _, _ in e["resizes"]]
+            print(f"[dppipe] (a) {key} rank {r}: resizes {kinds} at steps "
+                  f"{[s for *_, s, _ in e['resizes']]}, downtime_s "
+                  f"{[round(x[4], 4) for x in e['resizes']]}; {e['step']} "
+                  f"steps, {len(e['losses'])} trained here in "
+                  f"{e['seconds']:.2f} s (fault-free "
+                  f"{out[key]['fault_free']['seconds']:.2f} s); launches "
+                  f"{e['launches'][:3]} [{card}]")
+            check(kinds == [("shrink", 1), ("grow", 2)],
+                  f"dppipe (a) {key} rank {r}: resizes {kinds}")
+            n_trained = DPPIPE_STEPS - (r == 1) * (DPPIPE_JOIN_AT
+                                                   - DPPIPE_LOSS_AT)
+            check(len(e["losses"]) == n_trained,
+                  f"dppipe (a) {key} rank {r}: {len(e['losses'])} steps "
+                  f"trained, {n_trained} expected")
+            for name in ("fault_free", "elastic"):
+                got["a"] = [a + b for a, b in zip(
+                    got["a"], out[key][name]["launches"])]
+            if device == "cuda":
+                per = [2 * layers, layers, layers] if key == "a_bf16" else \
+                    [layers] * 3
+                want = [n_trained * x for x in per]
+                check(e["launches"][:3] == want and
+                      not any(e["launches"][3:]),
+                      f"dppipe (a) {key} rank {r}: launches "
+                      f"{e['launches']}, expected {want}")
+        tol = TOL_DPPIPE_BF16 if key == "a_bf16" else TOL_DPPIPE_F32[0]
+        _mesh_gate(f"(a) {key} rank 0 elastic", el["losses"], ff["losses"],
+                   tol, card, "the fault-free dp=2 run", "dppipe")
+        digests = {out[key]["elastic"]["digest"] for out in res}
+        same = "bitwise equal" if len(digests) == 1 else "DIFFER"
+        print(f"[dppipe] (a) {key}: after the grow both ranks' parameters, "
+              f"slots, step and rng {same}")
+        check(len(digests) == 1, f"dppipe (a) {key}: ranks differ after "
+                                 f"the grow")
+    f = res[0]["a_f32"]
+    print(f"[dppipe] (a) f32 final parameters vs fault-free: largest |d| - "
+          f"atol - rtol|ref| {f['f32_excess']:.3e} (rtol "
+          f"{TOL_DPPIPE_F32[0]:g}, atol {TOL_DPPIPE_F32[1]:g}: <= 0 "
+          f"passes); rng words "
+          f"{'bitwise equal' if f['rng_equal'] else 'DIFFER'}")
+    check(f["f32_excess"] <= 0.0, f"dppipe (a) f32 parameters off by "
+                                  f"{f['f32_excess']:.3e}")
+    check(f["rng_equal"], "dppipe (a) f32 rng words differ")
+    # (b) partial reduce
+    for r, out in enumerate(res):
+        b = out["b"]
+        got["b"] = [x + y for x, y in zip(got["b"], b["launches"])]
+        frozen = "left parameters and slots bitwise" if b["frozen"] \
+            else "MOVED parameters or slots"
+        print(f"[dppipe] (b) rank {r}: preduce group losses "
+              f"{[round(x, 6) for x in b['losses']]} (masks [1,1] [1,1] "
+              f"[1,0] [1,1] [0,0]); step ms "
+              f"{[round(t * 1e3, 3) for t in b['times']]}; [0,0] {frozen}; "
+              f"launches {b['launches'][:3]} [{card}]")
+        _mesh_gate(f"(b) rank {r} [1,1] x2", b["losses"][:2], b["exact"],
+                   TOL_DPPIPE_BF16, card, "the Executor's exact dp=2",
+                   "dppipe")
+        check(b["frozen"], f"dppipe (b) rank {r}: [0,0] moved the state")
+        check(b["losses"][4] == 0.0, f"dppipe (b) rank {r}: empty group "
+                                     f"loss {b['losses'][4]}")
+    _mesh_gate("(b) [1,0] and the next step", res[0]["b"]["losses"][2:4],
+               res[0]["b"]["one_process"], TOL_DPPIPE_BF16, card,
+               "one process on rank 0's shard", "dppipe")
+    # (c) distributed GCN
+    for out in res:
+        got["c"] = [x + y for x, y in zip(got["c"], out["c"]["launches"])]
+        got["e"] = [x + y for x, y in zip(got["e"], out["e"]["launches"])]
+    c0 = res[0]["c"]
+    print(f"[dppipe] (c) graph: {c0['nodes']} nodes + "
+          f"{c0['padded'] - c0['nodes']} isolated padding node, "
+          f"{c0['edges']} edges (self loops included), {c0['per_rank']} a "
+          f"rank after padding, F={DPPIPE_GCN[1]} f32 dp=2")
+    for r, out in enumerate(res):
+        c = out["c"]
+        for route in ("gather", "ring"):
+            sh = c[route]["shares"]
+            ms = c[route]["ms"]
+            print(f"[dppipe] (c) rank {r} {route}: tolerance shares y, dh "
+                  f"{[round(x, 4) for x in sh]} against one process's "
+                  f"coo_spmm (rtol {TOL_DPPIPE_GCN[0]:g}, atol "
+                  f"{TOL_DPPIPE_GCN[1]:g})"
+                  + (f"; {ms:.4f} ms a call" if ms is not None else "")
+                  + f" [{card}]")
+            check(max(sh) <= 1.0, f"dppipe (c) rank {r} {route}: share "
+                                  f"{max(sh):.3f} > 1")
+        print(f"[dppipe] (c) rank {r}: staged through the host "
+              f"{c['staged'] or 'none'}"
+              + (f"; one process's coo_spmm {c['coo_spmm_ms']:.4f} ms"
+                 if "coo_spmm_ms" in c else ""))
+    # (d) 1F1B
+    for r, out in enumerate(res):
+        t, gp = out["d"]["tanh"], out["d"]["gpt"]
+        got["d"] = [x + y for x, y in zip(got["d"], gp["launches"])]
+        print(f"[dppipe] (d) 1F1B pp=2 M={DPPIPE_M} rank {r} tanh "
+              f"[{DPPIPE_PIPE_L}, {DPPIPE_PIPE_D}] f32 vs the sequential "
+              f"stack: max|d|/max|ref| y {t['y']:.2e}, dw {t['dw']:.2e}, "
+              f"db {t['db']:.2e} (gates {TOL_DPPIPE_PIPE[0]:g}, "
+              f"{TOL_DPPIPE_PIPE[1]:g})")
+        check(t["y"] <= TOL_DPPIPE_PIPE[0], f"dppipe (d) tanh y {t['y']}")
+        check(max(t["dw"], t["db"]) <= TOL_DPPIPE_PIPE[1],
+              f"dppipe (d) tanh gradients {t}")
+        gap = abs(gp["loss"] - gp["ref_loss"]) / abs(gp["ref_loss"])
+        print(f"[dppipe] (d) 1F1B GPT blocks rank {r} B={DPPIPE_GPT_B} "
+              f"S={DPPIPE_GPT_S} bf16: loss {gp['loss']:.6f} vs the stack "
+              f"in one process {gp['ref_loss']:.6f} (gap {gap:.3e}, gate "
+              f"{TOL_DPPIPE_BF16:.3e}); block gradients' largest share "
+              f"{gp['grad_share']:.4f} of {TOL_TRAIN_GRAD:g} max|G|; "
+              f"value_and_grad {gp['seconds'] * 1e3:.1f} ms; launches "
+              f"{gp['launches'][:3]} [{card}]")
+        check(gap <= TOL_DPPIPE_BF16, f"dppipe (d) GPT loss gap {gap:.3e}")
+        check(gp["grad_share"] <= 1.0, f"dppipe (d) GPT gradient share "
+                                       f"{gp['grad_share']:.3f}")
+    # (e) HetPipe
+    for r, out in enumerate(res):
+        e = out["e"]
+        one, st = e["one"], e["stale"]
+        print(f"[dppipe] (e) rank {r} one worker pp=2 sync_every 2 over "
+              f"the van: {DPPIPE_HET_WAVES} waves, largest gap to the "
+              f"protocol's replay {one['gap']:.2e} (weights), "
+              f"{one['loss_gap']:.2e} (losses) (gate {TOL_DPPIPE_HET:g}); "
+              f"{one['seconds']:.2f} s; stalled peer: {st['waves']} wave "
+              f"then {'a staleness trip' if st['trip'] else 'NO TRIP'}")
+        check(max(one["gap"], one["loss_gap"]) <= TOL_DPPIPE_HET,
+              f"dppipe (e) rank {r}: HetPipe off its replay by "
+              f"{max(one['gap'], one['loss_gap']):.2e}")
+        check(st["waves"] == 1 and st["trip"] and "staleness" in st["trip"],
+              f"dppipe (e) rank {r}: the staleness bound did not trip "
+              f"({st})")
+    two = [out["e"]["two"] for out in res]
+    first = sum(t["losses"][0] for t in two)
+    last = sum(t["losses"][-1] for t in two)
+    clocks = two[0]["clocks"]
+    print(f"[dppipe] (e) two workers pp=1 over one table and a RemoteSSP "
+          f"(staleness 2, server SGD {DPPIPE_TWO_LR:g}): summed loss "
+          f"{first:.6f} -> {last:.6f} over {DPPIPE_TWO_WAVES} waves; clocks "
+          f"{clocks}")
+    check(last < 0.8 * first, f"dppipe (e) two workers: {first} -> {last}")
+    check(clocks == [DPPIPE_TWO_WAVES] * 2, f"dppipe (e) clocks {clocks}")
+    # (f) launches
+    launches = [0] * 6
+    for k in exp:
+        launches = [x + y for x, y in zip(launches, got[k])]
+        print(f"[dppipe] (f) ({k}) launches over both ranks, rows 1-6 "
+              f"{got[k]} (expected {exp[k]})")
+        if device == "cuda":
+            check(got[k] == exp[k], f"dppipe ({k}): launches {got[k]}, "
+                                    f"expected {exp[k]}")
+    ranks_s = max(r["t_end"] for r in res) - min(r["t_start"] for r in res)
+    seconds = ranks_s + (time.perf_counter() - t0)
+    arms = {k: round(max(r["seconds"][k] for r in res), 2)
+            for k in res[0]["seconds"]}
+    print(f"[dppipe] phase {seconds:.1f} s (budget {DPPIPE_BUDGET_S:g} s: "
+          f"{'met' if seconds <= DPPIPE_BUDGET_S else 'missed'}); arms s "
+          f"{arms}; launches over both ranks, rows 1-6 {launches} [{card}]")
+    return dict(launches=launches, seconds=seconds, arms=arms,
+                downtime=[x[4] for x in res[0]["a_bf16"]["elastic"]
+                          ["resizes"]],
+                gcn_ms={k: res[0]["c"][k]["ms"] for k in ("gather", "ring")},
+                pipe_ms=res[0]["d"]["gpt"]["seconds"] * 1e3)
+
+
 def _paths_entry(key, moe_launches, ctr, gates, later):
     """The launches by path of a kernel's entry in the kernels line (the
     MoE step, the four gates' steps summed, the CTR step, then ``later``:
@@ -11340,8 +12110,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     compressed = phase_train_compressed(card, args.seed)
     torch.cuda.empty_cache()
-    mesh = phase_mesh(card, args.seed, sharded=True)
+    mesh = phase_mesh(card, args.seed, sharded=True, dppipe=True)
     sharded = phase_sharded(card, mesh["sharded"])
+    dppipe = phase_dppipe(card, mesh["dppipe"])
     torch.cuda.empty_cache()
     shapes_fwd, shapes_bwd = phase_kernel_shapes(card)
     # each kernel's launches on the paths that run none of the six
@@ -11360,7 +12131,10 @@ def main(argv=None) -> int:
               # the two tp/dp ranks together (their MoE rows: 0)
               "mesh": mesh["launches"][i],
               # ShardedGPT's arms over both ranks
-              "sharded": sharded["launches"][i]}
+              "sharded": sharded["launches"][i],
+              # the elastic, preduce, distributed GCN, 1F1B and HetPipe
+              # arms over both ranks
+              "dppipe": dppipe["launches"][i]}
              for i in range(6)]
 
     shape = [TRAIN_B, NH, TRAIN_S, HEAD_DIM]
@@ -11495,6 +12269,12 @@ def main(argv=None) -> int:
           f"{[round(sharded['ring'][c]['flash_ms'], 4) for c in (False, True)]}"
           f"; launches {sharded['launches']}; the script "
           f"{time.perf_counter() - t_script:.1f} s [{card}]")
+    print(f"[dppipe] summary: phase {dppipe['seconds']:.1f} s (budget "
+          f"{DPPIPE_BUDGET_S:g} s); arms s {dppipe['arms']}; resize "
+          f"downtime_s {[round(x, 4) for x in dppipe['downtime']]}; GCN ms "
+          f"a call {dppipe['gcn_ms']}; 1F1B GPT value_and_grad "
+          f"{dppipe['pipe_ms']:.1f} ms; launches {dppipe['launches']}; the "
+          f"script {time.perf_counter() - t_script:.1f} s [{card}]")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -55,7 +55,10 @@ buffers, under the same names and in the reference's layouts (DPQ's
 into one rank's shards of the port's ``ShardedGPT`` (a flat dict by tree
 path, ``blocks.qkv_w``, the ``[L, ...]`` stacks kept);
 :func:`sharded_params_to_jax` assembles every rank's shards back into the
-tree.
+tree.  :func:`stage_params_from_jax` takes one pipeline stage of the
+reference's stacked ``[n_stages, L / n_stages, ...]`` tree (its
+``GPipe``/``PipeDream1F1B.stack_params``) for the rank that runs it, and
+:func:`stage_params_to_jax` stacks the stages back.
 
 No ``jax`` import: leaves are read with ``np.asarray``.
 """
@@ -434,3 +437,28 @@ def sharded_params_to_jax(pieces, specs: dict, sizes: dict) -> dict:
             whole[at] = part
         flat[name] = whole
     return _nested(flat)
+
+
+def stage_params_from_jax(tree, stage: int, device=None) -> dict:
+    """Stage ``stage`` of the reference's stacked pipeline tree (numpy
+    leaves ``[n_stages, L / n_stages, ...]``, nested dicts kept) as float32
+    tensors ``[1, L / n_stages, ...]`` on ``device``: the tree
+    ``PipeDream1F1B.local_stage`` gives on that stage's rank."""
+    if isinstance(tree, dict):
+        return {k: stage_params_from_jax(v, stage, device)
+                for k, v in tree.items()}
+    a = np.asarray(tree, dtype=np.float32)
+    return torch.tensor(a[stage:stage + 1], device=device)
+
+
+def stage_params_to_jax(stages) -> dict:
+    """Every stage's tree, in stage order (tensors or arrays, each leaf
+    ``[1, L / n_stages, ...]``), stacked into the reference's ``[n_stages,
+    L / n_stages, ...]`` tree of numpy arrays."""
+    first = stages[0]
+    if isinstance(first, dict):
+        return {k: stage_params_to_jax([s[k] for s in stages])
+                for k in first}
+    return np.concatenate([
+        s.detach().float().cpu().numpy() if isinstance(s, torch.Tensor)
+        else np.asarray(s, np.float32) for s in stages])

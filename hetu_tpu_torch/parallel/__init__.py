@@ -1,8 +1,10 @@
 """The parallel plane (counterpart of ``hetu_tpu/parallel``): the mesh,
 its collectives, the sharding specs and the strategies, over
 ``torch.distributed`` rank processes (:mod:`.ranks`) and DTensor; ring and
-Ulysses sequence parallelism on the flash kernels and the GPipe pipeline.
-The MPMD and planner modules come in later slices."""
+Ulysses sequence parallelism on the flash kernels, the GPipe and 1F1B
+pipelines, HetPipe's PS-synced virtual workers and the partial-reduce
+data-parallel step.  The MPMD and planner modules come in later
+slices."""
 
 from hetu_tpu_torch.parallel.mesh import (
     AXIS_DP, AXIS_EP, AXIS_PP, AXIS_SP, AXIS_TP, DEFAULT_AXIS_ORDER,
@@ -16,7 +18,9 @@ from hetu_tpu_torch.parallel.spec import NodeStatus, P, ShardSpec
 _LAZY = {"GPipe": "pipeline", "pipedream_schedule": "pipeline",
          "stack_stage_params": "pipeline", "ring_attention": "ring_attention",
          "ring_attention_plain": "ring_attention",
-         "ulysses_attention": "ulysses"}
+         "ulysses_attention": "ulysses", "preduce_step_fn": "preduce",
+         "PipeDream1F1B": "pipedream", "HetPipeWorker": "hetpipe",
+         "make_weight_table": "hetpipe"}
 
 
 def __getattr__(name):
@@ -32,4 +36,5 @@ __all__ = ["AXIS_DP", "AXIS_EP", "AXIS_PP", "AXIS_SP", "AXIS_TP",
            "elastic_mesh", "host_to_device", "local_mesh", "make_mesh",
            "replicated", "NodeStatus", "P", "ShardSpec", "GPipe",
            "pipedream_schedule", "stack_stage_params", "ring_attention",
-           "ring_attention_plain", "ulysses_attention"]
+           "ring_attention_plain", "ulysses_attention", "preduce_step_fn",
+           "PipeDream1F1B", "HetPipeWorker", "make_weight_table"]

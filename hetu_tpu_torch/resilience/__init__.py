@@ -14,8 +14,9 @@ standby processes; :mod:`~hetu_tpu_torch.resilience.multicontroller` is
 the multi-controller elastic training plane (worker processes over the
 van, membership epochs, the consumed-batch cover) and
 :mod:`~hetu_tpu_torch.resilience.memberproc` its member protocol, both
-imported on use.  The elastic mesh (``elastic.py``) waits for slice 8c
-of the multi-GPU port.
+imported on use.  :mod:`~hetu_tpu_torch.resilience.elastic` reshapes the
+data-parallel mesh of a supervised run when a worker is lost or
+rejoins; its names load on first use.
 """
 
 from hetu_tpu_torch.resilience.faults import (
@@ -27,9 +28,22 @@ from hetu_tpu_torch.resilience.supervisor import (
     SupervisorReport, default_is_transient,
 )
 
+# the elastic supervisor imports the mesh (torch.distributed): on first use
+_LAZY = ("ElasticReshardError", "ElasticSupervisor", "MembershipMonitor",
+         "ResizeEvent")
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    from hetu_tpu_torch.resilience import elastic
+    return getattr(elastic, name)
+
+
 __all__ = [
     "KINDS", "FaultEvent", "FaultInjector", "FaultSchedule",
     "SequentialFaultCampaign", "TransientDataError", "TransientFault",
     "CheckpointManager", "NonFiniteAbort", "PSShardGuard", "Supervisor",
-    "SupervisorReport", "default_is_transient",
+    "SupervisorReport", "default_is_transient", *_LAZY,
 ]

@@ -40,7 +40,9 @@ seconds from ``PROMOTED``.  On the elastic plane the promoted standby
 drives the adopted fleet to its last step, checks the consumed batches'
 complete cover and prints ``RESOLVED`` with the takeover report and the
 resizes before ``ALLDONE``; the reference prints ``ALLDONE`` at once and
-its close then kills the workers it has just adopted.
+its close then kills the workers it has just adopted.  The claim's
+bridge thread is joined before :meth:`StandbyController.run_once`
+returns (the reference leaves it running past the takeover).
 """
 
 from __future__ import annotations
@@ -58,13 +60,16 @@ import numpy as np
 from hetu_tpu_torch.ps import membership as _mb
 from hetu_tpu_torch.telemetry import trace
 
+# the longest run_once waits for the bridge to leave its last row_cas
+_BRIDGE_JOIN_S = 10.0
+
 # the planes whose takeover() the standby invokes, and the slice that
 # brings the one still missing
 PLANES = ("serving", "elastic", "mpmd")
 _NOT_PORTED = {
     "mpmd": "the MPMD pipeline's supervisor (MPMDPipelineSupervisor) "
-            "comes with slice 8c of the multi-GPU port (ROADMAP.md Queue 1, "
-            "item 8c)",
+            "comes with the second half of slice 8c of the multi-GPU port "
+            "(ROADMAP.md Queue 1, item 8c)",
 }
 
 
@@ -267,6 +272,11 @@ class StandbyController:
                 self.adopted = self._invoke_takeover()
             finally:
                 bridge_stop.set()
+                # a departure from the reference, which leaves the bridge
+                # running: the caller may close the table as soon as this
+                # returns, and a bridge still inside row_cas would then
+                # call into a closed handle
+                bridge.join(timeout=_BRIDGE_JOIN_S)
             self.promoted_at = time.monotonic()
         else:
             self.outcome = "fenced"

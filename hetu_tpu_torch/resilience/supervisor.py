@@ -467,6 +467,12 @@ class Supervisor:
         life of the run, so this is the identity."""
         return state
 
+    def _trains_here(self) -> bool:
+        """Whether this process runs the step's batch fetch, train step
+        and post-step hook: the elastic supervisor's ranks outside the
+        mesh skip them (and still count the step); here always."""
+        return True
+
     def _ckpt_extra(self) -> Optional[dict]:
         """Extra JSON recorded in every checkpoint header (None: none)."""
         return None
@@ -545,38 +551,40 @@ class Supervisor:
                                         "step": step_i})
                         self.counters["shard_repairs"] += repaired
                         self._log_inc("shard_repairs", repaired)
-                with trace.span("train.data_wait"):
-                    batch = self._with_retries(lambda: batch_fn(step_i),
-                                               "data")
-                if self.injector is not None:
-                    batch = self.injector.corrupt_batch(step_i, batch)
-                state, metrics = self.executor.run("train_guarded", state,
-                                                   batch)
-                nonfinite = int(metrics.get("nonfinite", 0))
-                if nonfinite:
-                    nonfinite_run += 1
-                    self.counters["nonfinite_steps_skipped"] += 1
-                    self._log_inc("nonfinite_steps_skipped")
-                    trace.instant("recovery.nonfinite_skip",
-                                  {"step": step_i, "run": nonfinite_run})
-                    if nonfinite_run >= self.nonfinite_limit:
-                        # keep the last finite state: checkpoint it if we
-                        # can, and always hand it over on the exception
-                        if self.manager is not None:
-                            self._checkpoint(state, step_i,
-                                             reason="nonfinite")
-                        raise NonFiniteAbort(
-                            f"{nonfinite_run} consecutive nonfinite steps "
-                            f"ending at step {step_i}: the loss diverged or "
-                            "the data is poisoned; aborting (the "
-                            "exception's .state holds the last finite "
-                            "values)", state=state, step=step_i)
-                else:
-                    nonfinite_run = 0
-                    if post_step is not None:
-                        self._with_retries(
-                            lambda: post_step(step_i, state, metrics,
-                                              batch), "post_step")
+                if self._trains_here():
+                    with trace.span("train.data_wait"):
+                        batch = self._with_retries(lambda: batch_fn(step_i),
+                                                   "data")
+                    if self.injector is not None:
+                        batch = self.injector.corrupt_batch(step_i, batch)
+                    state, metrics = self.executor.run("train_guarded", state,
+                                                       batch)
+                    nonfinite = int(metrics.get("nonfinite", 0))
+                    if nonfinite:
+                        nonfinite_run += 1
+                        self.counters["nonfinite_steps_skipped"] += 1
+                        self._log_inc("nonfinite_steps_skipped")
+                        trace.instant("recovery.nonfinite_skip",
+                                      {"step": step_i, "run": nonfinite_run})
+                        if nonfinite_run >= self.nonfinite_limit:
+                            # keep the last finite state: checkpoint it if we
+                            # can, and always hand it over on the exception
+                            if self.manager is not None:
+                                self._checkpoint(state, step_i,
+                                                 reason="nonfinite")
+                            raise NonFiniteAbort(
+                                f"{nonfinite_run} consecutive nonfinite "
+                                f"steps ending at step {step_i}: the loss "
+                                "diverged or the data is poisoned; aborting "
+                                "(the "
+                                "exception's .state holds the last finite "
+                                "values)", state=state, step=step_i)
+                    else:
+                        nonfinite_run = 0
+                        if post_step is not None:
+                            self._with_retries(
+                                lambda: post_step(step_i, state, metrics,
+                                                  batch), "post_step")
                 step_i += 1
                 self.counters["steps"] += 1
                 if (self.ckpt_every and step_i % self.ckpt_every == 0

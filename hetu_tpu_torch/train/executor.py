@@ -135,6 +135,7 @@ class Executor:
                     "with dist_strategy/param_sharding")
         self._grad_sync_bytes = None  # (logical, wire) per step, lazy
         self.grad_scale = 1.0
+        self.model = None  # the model init_state placed its state on
         if seed is not None:
             hrng.set_random_seed(seed)
 
@@ -162,7 +163,9 @@ class Executor:
         """The state over ``model``'s own parameters and state buffers
         (:func:`~hetu_tpu_torch.layers.base.state_buffers`), with fresh
         optimizer slots on their device and rng words drawn from the global
-        (seed, seqnum) stream."""
+        (seed, seqnum) stream.  The executor keeps ``model`` (a reshard of
+        the elastic supervisor rebinds its parameters)."""
+        self.model = model
         if self.mesh is not None and not self._quant_sync():
             _place(model, self.mesh, self.dist_strategy,
                    self.param_sharding)

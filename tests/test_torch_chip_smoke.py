@@ -2069,7 +2069,7 @@ def test_sharded_phase_gates_and_wiring():
         assert exp(axes, 4, 3) == [48, 48, 48, 48, 96, 96]
     assert exp({"sp": 2}, 2, 2) == [24, 24, 24, 16, 32, 32]
     main = inspect.getsource(chip_smoke.main)
-    assert main.index("phase_mesh(card, args.seed, sharded=True)") < \
+    assert main.index("phase_mesh(card, args.seed, sharded=True") < \
         main.index("phase_sharded(card") < main.index(
             "phase_kernel_shapes(card")
     assert main.count('"sharded": sharded["launches"][i]') == 1
@@ -2086,3 +2086,109 @@ def test_sharded_phase_gates_and_wiring():
 def _arm(losses):
     return dict(losses=losses, times=[0.1], launches=[0] * 6,
                 dropped=[0.0], staged={})
+
+
+TINY_DPPIPE = dict(
+    DPPIPE_GCN=(301, 8, 900), DPPIPE_GCN_RUNS=2, DPPIPE_PIPE_D=8,
+    DPPIPE_PIPE_L=2, DPPIPE_PIPE_B=16, DPPIPE_GPT_B=8, DPPIPE_GPT_S=16,
+    DPPIPE_HET_D=8, DPPIPE_HET_L=4, DPPIPE_HET_B=8, DPPIPE_HET_M=4)
+
+
+def test_dppipe_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """The dppipe phase's rank work at a tiny width in two gloo rank
+    processes on the CPU (the mesh phase's world, without its arms),
+    every gate live but the launch counts (no kernel off the card) and
+    the timings: (a) the resizes, the losses against the fault-free run,
+    both ranks' states equal after the grow, the f32 parameters and rng;
+    (b) the masks against the Executor and one process, the empty group
+    frozen; (c) both routes within their gates; (d) the tanh stack and
+    the GPT blocks; (e) HetPipe against its replay, two workers, the
+    staleness trip; the lines keep their schema."""
+    import re
+    import sys
+
+    from hetu_tpu_torch.parallel import ranks
+
+    for name, value in {**TINY_MESH, **TINY_DPPIPE}.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
+    res = ranks.run(chip_smoke.mesh_rank, 2, backend="gloo", timeout_s=600,
+                    threads=1,
+                    args=({"seed": 0, "device": "cpu", "mesh": False,
+                           "dppipe": True,
+                           "consts": chip_smoke.rank_consts()},))
+    out = chip_smoke.phase_dppipe("cpu", [r["dppipe"] for r in res],
+                                  device="cpu")
+    text = capsys.readouterr().out
+    assert out["launches"] == [0] * 6 and out["seconds"] > 0
+    assert len(out["downtime"]) == 2
+    for key in ("a_bf16", "a_f32"):
+        for r in (0, 1):
+            assert re.search(
+                rf"\(a\) {key} rank {r}: resizes \[\('shrink', 1\), "
+                rf"\('grow', 2\)\] at steps \[2, 4\], downtime_s \[\S+, "
+                rf"\S+\]; 6 steps, {6 - 2 * r} trained here", text)
+        assert f"(a) {key}: after the grow both ranks' parameters, slots, " \
+            "step and rng bitwise equal" in text
+    assert "rng words bitwise equal" in text
+    for r in (0, 1):
+        assert f"(b) rank {r}: preduce group losses" in text
+        assert "[0,0] left parameters and slots bitwise" in text
+        for route in ("gather", "ring"):
+            assert re.search(rf"\(c\) rank {r} {route}: tolerance shares y, "
+                             rf"dh \[\S+, \S+\] against one process's "
+                             rf"coo_spmm", text)
+        assert f"(d) 1F1B GPT blocks rank {r} B=8 S=16 bf16: loss" in text
+        assert re.search(rf"\(e\) rank {r} one worker pp=2 sync_every 2 .*"
+                         rf"stalled peer: 1 wave then a staleness trip",
+                         text)
+    assert "(b) [1,0] and the next step: losses" in text
+    assert "vs one process on rank 0's shard" in text
+    assert "(c) graph: 301 nodes + 1 isolated padding node" in text
+    assert re.search(r"\(e\) two workers pp=1 .* clocks \[12, 12\]", text)
+    for k in "abcde":
+        assert f"(f) ({k}) launches over both ranks, rows 1-6 [0, 0, 0, 0, " \
+            "0, 0]" in text
+    assert re.search(r"\[dppipe\] phase \S+ s \(budget 60 s: (met|missed)\)",
+                     text)
+
+
+def test_dppipe_phase_gates_and_wiring():
+    """The gates fixed before the first card run, the model at GPT-2-small's
+    width and the mesh phase's depth, the launch counts derived from the
+    code, and main's wiring: the phase after the sharded phase in the
+    mesh phase's world, its launches on all six rows, its summary before
+    the card line."""
+    import inspect
+
+    assert chip_smoke.TOL_DPPIPE_BF16 == 2 ** -7
+    assert chip_smoke.TOL_DPPIPE_F32 == (2e-4, 1e-5)
+    assert chip_smoke.TOL_DPPIPE_GCN == (1e-4, 1e-5)
+    assert chip_smoke.TOL_DPPIPE_PIPE == (1e-5, 1e-4)
+    assert chip_smoke.TOL_DPPIPE_HET == 1e-4
+    assert chip_smoke.DPPIPE_BUDGET_S == 60.0
+    assert chip_smoke.DPPIPE_GCN == (169_343, 128, 1_166_243)
+    assert (chip_smoke.DPPIPE_M, chip_smoke.DPPIPE_GPT_B,
+            chip_smoke.DPPIPE_GPT_S) == (8, 8, 512)
+    assert chip_smoke.DPPIPE_M > 2 * 2  # the 1F1B stash slots wrap
+    assert (chip_smoke.DPPIPE_STEPS, chip_smoke.DPPIPE_LOSS_AT,
+            chip_smoke.DPPIPE_JOIN_AT) == (6, 2, 4)
+    exp = chip_smoke.dppipe_expected()
+    assert exp == {"a": [220, 132, 132, 0, 0, 0],
+                   "b": [128, 64, 64, 0, 0, 0], "c": [0] * 6,
+                   "d": [96, 32, 32, 0, 0, 0], "e": [0] * 6}
+    assert [sum(v[i] for v in exp.values()) for i in range(6)] == \
+        [444, 228, 228, 0, 0, 0]
+    main = inspect.getsource(chip_smoke.main)
+    assert "phase_mesh(card, args.seed, sharded=True, dppipe=True)" in main
+    assert main.index("phase_sharded(card") < main.index(
+        "phase_dppipe(card") < main.index("phase_kernel_shapes(card")
+    assert main.count('"dppipe": dppipe["launches"][i]') == 1
+    assert main.index("[sharded] summary:") < main.index(
+        "[dppipe] summary:") < main.index("print(card)")
+    assert "TOL_DPPIPE_BF16" in chip_smoke.rank_consts()
+    with pytest.raises(chip_smoke.SmokeFailure, match="dppipe x: loss gap"):
+        chip_smoke._mesh_gate("x", [1.0], [1.1], 1e-3, "cpu", phase="dppipe")
+    with pytest.raises(chip_smoke.SmokeFailure, match="1 losses, 2 expected"):
+        chip_smoke._mesh_gate("x", [1.0], [1.0, 1.0], 1e-3, "cpu",
+                              phase="dppipe")

@@ -19,8 +19,9 @@ the traffic plane with an autoscaling controller over such a pool, the
 elastic training plane, whose controller and worker processes load
 neither jax nor torch, and the data- and tensor-parallel plane and the
 sharded plane (ShardedGPT, ring and Ulysses attention, GPipe, the
-expert-parallel MoE layer), whose rank processes say whether they loaded
-jax;
+expert-parallel MoE layer), and the partial-reduce step, the distributed
+GCN, the elastic supervisor, the 1F1B pipeline and HetPipe, whose rank
+processes say whether they loaded jax;
 ``jax`` and ``hetu_tpu`` must stay out of
 ``sys.modules``.  An AST scan of every module of the package,
 and of ``chip_smoke.py``, finds no import of either.
@@ -907,6 +908,69 @@ def test_sharded_plane_and_its_rank_processes_run_without_jax():
              if PKG in p.parents}
     assert {"parallel/ring_attention.py", "parallel/ulysses.py",
             "parallel/pipeline.py", "models/gpt_sharded.py"} <= names
+
+
+def test_dppipe_plane_and_its_rank_processes_run_without_jax():
+    """Two gloo rank processes run the partial-reduce step, the
+    distributed GCN, the elastic supervisor (a loss and a rejoin, a
+    width-1 mesh between them), the 1F1B pipeline and HetPipe over a van
+    table, from numpy inputs; neither they nor their parent load jax or
+    hetu_tpu."""
+    out = _run(
+        "import sys, tempfile\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import numpy as np\n"
+        "import torch_dppipe_bodies as b\n"
+        "from hetu_tpu_torch import parallel, resilience\n"
+        "from hetu_tpu_torch.ops import distgcn\n"
+        "from hetu_tpu_torch.parallel import ranks\n"
+        "from hetu_tpu_torch.ps import van\n"
+        "assert parallel.PipeDream1F1B and parallel.HetPipeWorker\n"
+        "assert parallel.preduce_step_fn and parallel.make_weight_table\n"
+        "assert resilience.ElasticSupervisor and resilience.ResizeEvent\n"
+        "g = np.random.default_rng(0)\n"
+        "f = lambda *s: g.standard_normal(s).astype(np.float32)\n"
+        "x = f(8, 4)\n"
+        "pre = dict(x=x, y=x.sum(-1), mask=np.asarray([1., 0.]),\n"
+        "           const_batch=np.repeat(np.arange(2.,\n"
+        "                                 dtype=np.float32), 4))\n"
+        "gcn = dict(src=g.integers(0, 8, 20), dst=g.integers(0, 8, 20),\n"
+        "           w=f(20), h=f(8, 2), cot=f(8, 2))\n"
+        "X = f(48, 6)\n"
+        "el = dict(X=X, Y=X[:, :3].copy(), steps=6, guard_rank=1,\n"
+        "          init={'0': {'weight': f(6, 16), 'bias': f(16)},\n"
+        "                '1': {}, '2': {'weight': f(16, 3), 'bias': f(3)}},\n"
+        "          faults=dict(steps=6, seed=11, worker_losses=1,\n"
+        "                      worker_joins=1, n_workers=2),\n"
+        "          ckpt_dir=tempfile.mkdtemp())\n"
+        "lay = {'w': f(2, 4, 4) * 0.3, 'b': f(2, 4) * 0.1}\n"
+        "pipe = {'c': dict(kind='loss', layers=lay, M=4, h=f(8, 4),\n"
+        "                  y=f(8, 4))}\n"
+        "port = van.serve(0)\n"
+        "het = {'c': dict(layers=lay, M=2, h=f(4, 4), y=f(4, 4), lr=0.05,\n"
+        "                 sync_every=1, waves=2, table_id=0x5E7_1001)}\n"
+        "res = ranks.run(b.run_cases, 2, threads=1, args=({\n"
+        "    'pre': ('preduce', pre), 'gcn': ('distgcn', gcn),\n"
+        "    'el': ('elastic', el), 'pipe': ('pipedream', {'cases': pipe}),\n"
+        "    'het': ('hetpipe', {'port': port, 'cases': het})},))\n"
+        "van.stop()\n"
+        "print('RANKS_JAX', [r['_jax_loaded'] for r in res])\n"
+        "print('RESIZES', [[k for k, *_ in r['el']['434']['resizes']]\n"
+        "                  for r in res])\n"
+        "print('FINITE', all(np.isfinite(r['pipe']['c']['loss'])\n"
+        "                    and np.isfinite(r['het']['c']['losses']).all()\n"
+        "                    for r in res))\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "LEAKED []" in out and "RANKS_JAX [False, False]" in out
+    assert "RESIZES [['shrink', 'grow'], ['shrink', 'grow']]" in out
+    assert "FINITE True" in out
+    names = {p.relative_to(PKG).as_posix() for p in SOURCES
+             if PKG in p.parents}
+    assert {"parallel/preduce.py", "parallel/pipedream.py",
+            "parallel/hetpipe.py", "ops/distgcn.py",
+            "resilience/elastic.py"} <= names
 
 
 def test_maps_probe_sees_torch_in_a_process_that_imports_it():

@@ -17,7 +17,8 @@ wire-error classification of every failure the port's van raises; the
 replica channel's ``VanFailover`` on a superseded incarnation (a fake
 replica whose incarnation moves); ``tests/test_health.py``'s retired-
 handle gauge; the standby plane still to be ported (``mpmd``) refused by
-name.
+name; ``run_once`` joining the claim's bridge thread before it returns (a
+departure from the reference, whose bridge outlives the call).
 
 Waits are joins with deadlines; the watch test runs on wall time (the
 lease is defined on it) with margins of 3x or more.
@@ -481,6 +482,45 @@ def test_standby_watches_silence_then_claims(inproc_van):
             svc.publish_control(epoch=2, width=2, alive_mask=3)
     finally:
         bb.close()
+
+
+def test_standby_run_once_joins_its_bridge():
+    """``run_once`` returns only after the claim's bridge thread has
+    ended (a departure from the reference, which leaves it beating): a
+    table whose ``row_cas`` sleeps sees no call in flight when
+    ``run_once`` returns, and none starts afterwards, so the caller may
+    close the table at once."""
+    class SlowTable:
+        def __init__(self):
+            self.lock = threading.Lock()
+            self.in_flight = 0
+            self.calls = 0
+
+        def sparse_pull(self, rows):
+            return np.zeros((len(rows), mb.MEMBER_DIM), np.float32)
+
+        def row_cas(self, row, col, expect, desired):
+            with self.lock:
+                self.in_flight += 1
+                self.calls += 1
+            time.sleep(0.15)
+            with self.lock:
+                self.in_flight -= 1
+            return True, desired
+
+    table = SlowTable()
+    sb = StandbyController(plane="serving", n_slots=2, lease_bound_s=0.0,
+                           table=table)
+    # the takeover outlasts a few bridge beats
+    sb._invoke_takeover = lambda: time.sleep(0.4) or "adopted"
+    assert sb.run_once() == "promoted"
+    with table.lock:
+        assert table.in_flight == 0
+        calls = table.calls
+    assert calls >= 2  # the claim, then at least one bridge beat
+    time.sleep(0.5)
+    with table.lock:
+        assert table.calls == calls and table.in_flight == 0
 
 
 def test_standby_rejects_unknown_plane():
