@@ -9940,17 +9940,19 @@ def _elastic_parts(records):
     return {"rank0": med(lambda r: r == 0), "others": med(lambda r: r > 0)}
 
 
-def _elastic_no_torch(workdir, tag):
-    """Hard: every worker process of ``workdir`` said ``jax=0 torch=0`` on
-    its READY line.  Returns how many did."""
+def _elastic_no_torch(workdir, tag, pattern="worker_*_*.log",
+                      phase="elastic", n_min=1):
+    """Hard: at least ``n_min`` member processes of ``workdir`` (their
+    logs match ``pattern``) said READY, each with ``jax=0 torch=0``.
+    Returns how many did."""
     from pathlib import Path
 
-    lines = [ln for p in Path(workdir).glob("worker_*_*.log")
+    lines = [ln for p in Path(workdir).glob(pattern)
              for ln in p.read_text(errors="replace").splitlines()
              if ln.startswith("READY")]
-    check(lines and all(ln.split()[2:] == ["jax=0", "torch=0"]
-                        for ln in lines),
-          f"elastic {tag}: a worker loaded jax or torch: {lines}")
+    check(len(lines) >= n_min and all(ln.split()[2:] == ["jax=0", "torch=0"]
+                                      for ln in lines),
+          f"{phase} {tag}: a member loaded jax or torch: {lines}")
     return len(lines)
 
 
@@ -12008,6 +12010,628 @@ def phase_dppipe(card, res, device="cuda"):
                 pipe_ms=res[0]["d"]["gpt"]["seconds"] * 1e3)
 
 
+# ---------------------------------------------------------------- mpmd
+# The process-level MPMD pipeline plane (parallel/mpmd.py,
+# parallel/mpmd_elastic.py) and the standby's mpmd takeover, in processes
+# of its own after the dppipe phase.  (a) MPMDStageRunner on the card:
+# GPT-2-small's blocks at full width (bf16 flash, no remat, MESH_L blocks,
+# MPMD_L / 2 a stage), stage dps [2, 1] as three stage processes over one
+# van process, B 4 x S 256 in M = 4 microbatches of one sequence, two
+# steps on the same inputs, every weight drawn with numpy from the seed in
+# each process.  (b) The elastic pipeline's numpy stages (no kernel):
+# GPipe and 1F1B, a middle-stage SIGKILL landed at a committed step.
+# (c) The controller process SIGKILLed at a progress step under a standby
+# process on plane="mpmd".
+MPMD_DPS = (2, 1)
+MPMD_L = MESH_L
+MPMD_B, MPMD_S, MPMD_M, MPMD_STEPS = 4, 256, 4, 2
+# (b), (c): three numpy stages, width 64, B 64 in M = 8 microbatches,
+# 24 steps paced 80 ms apart, so a controller killed at step 5 leaves the
+# stages more than MPMD_CTRL_LEASE_S of work (they park, and the standby
+# adopts a pipeline mid-run); GPipe's stash bound; the seeded kills (the
+# middle stage, the controller, both at step 5 of the schedule's draw)
+MPMD_EL = dict(steps=24, n_microbatches=8, width=64, batch=64,
+               step_sleep_s=0.08)
+MPMD_EL_STASH = 3
+MPMD_KILL = dict(steps=10, seed=1)
+# the leases of (b) and (c): 1 s, as the kernel arm's three processes
+# start beside them and hold the host's cores for seconds
+MPMD_LEASE_S, MPMD_GRACE_S, MPMD_CTRL_LEASE_S = 1.0, 0.5, 1.0
+MPMD_WAIT_S = 60.0  # a wait's own deadline
+# the gates, fixed before the first run: (a) the summed loss / M within
+# 2^-7 relative of one process running the same stack (bf16); each
+# parameter's gradient within TOL_TRAIN_GRAD of max|G| of that process's
+# autograd.grad; step 2's gradients equal step 1's at the reference
+# test's rtol 1e-6 (tests/test_mpmd.py); (b), (c) bitwise
+TOL_MPMD_LOSS = 2 ** -7
+MPMD_STEP_RTOL = 1e-6
+MPMD_BUDGET_S = 60.0
+
+_MPMD_CHILD_SRC = (
+    "import sys\nsys.path.insert(0, sys.argv[1])\nimport chip_smoke\n"
+    "sys.exit(chip_smoke.mpmd_stage_child(sys.argv[2]))\n")
+
+
+def mpmd_consts():
+    """The module's sizes the kernel arm's stage processes take over (a
+    test may have set them smaller)."""
+    return {k: globals()[k] for k in ("V", "H", "NH", "FFN")
+            + tuple(k for k in globals() if k.startswith("MPMD_"))}
+
+
+def mpmd_expected():
+    """The kernel arm's flash launches over its three stage processes,
+    rows 1-6, from the schedule: each microbatch passes every block once
+    a step (on stage 0's replica that owns it, then on stage 1), and with
+    no remat a block launches one forward, one dK/dV and one dQ a
+    microbatch; rows 4-6 launch none (the embedding runs before the
+    counts are set to 0)."""
+    per = MPMD_STEPS * MPMD_M * MPMD_L
+    return [per, per, per, 0, 0, 0]
+
+
+def mpmd_model(seed, device):
+    """GPT-2-small's embeddings, MPMD_L blocks and final LayerNorm (bf16,
+    flash, no remat), every parameter drawn with numpy from ``seed`` —
+    the same in every process — and the token ids ``[B, S]``."""
+    from hetu_tpu_torch.models import GPTModel
+
+    cfg = dataclasses.replace(mesh_config(MPMD_L, torch.bfloat16, MPMD_S),
+                              remat=False)
+    model = GPTModel(cfg, device="cpu")
+    rng = np.random.default_rng(seed + 43)
+    with torch.no_grad():
+        for name, p in sorted(model.named_parameters()):
+            w = rng.standard_normal(tuple(p.shape), dtype=np.float32)
+            w *= np.float32(0.02)
+            if name.endswith(".scale"):
+                w += np.float32(1.0)
+            p.copy_(torch.from_numpy(w))
+    ids = np.random.default_rng(seed + 47).integers(0, V, (MPMD_B, MPMD_S))
+    return model.to(device), torch.tensor(ids, device=device)
+
+
+def _mpmd_stage_blocks(model, stage):
+    lps = MPMD_L // len(MPMD_DPS)
+    return list(model.blocks)[stage * lps:(stage + 1) * lps]
+
+
+def _mpmd_flat_names(blocks):
+    return [f"{i}.{n}" for i, b in enumerate(blocks)
+            for n, _ in b.named_parameters()]
+
+
+def mpmd_stage_child(spec_json):
+    """One (stage, replica) of the kernel arm in its own process:
+    MPMDStageRunner over the stage's blocks on the card, MPMD_STEPS steps;
+    prints READY, then RESULT with its launches, step seconds, edge bytes,
+    accumulator seconds and step 2's gap to step 1; writes step 1's
+    gradients (flat f32, in the stage's parameter order) to the
+    workdir."""
+    from torch.func import functional_call
+
+    from hetu_tpu_torch import ops
+    from hetu_tpu_torch.parallel.mpmd import MPMDStageRunner
+
+    spec = json.loads(spec_json)
+    g = globals()
+    for k, v in spec["consts"].items():
+        g[k] = tuple(v) if isinstance(v, list) else v
+    stage, replica = int(spec["stage"]), int(spec["replica"])
+    device = spec["device"]
+    model, ids = mpmd_model(int(spec["seed"]), device)
+    blocks = _mpmd_stage_blocks(model, stage)
+    own = [[n for n, _ in b.named_parameters()] for b in blocks]
+    params = {f"{i}.{n}": p.detach() for i, b in enumerate(blocks)
+              for n, p in b.named_parameters()}
+    dtype = model.c.dtype
+    mb = MPMD_B // MPMD_M
+
+    def stage_fn(p, x):
+        h = x.to(dtype)
+        for i, b in enumerate(blocks):
+            h = functional_call(b, {n: p[f"{i}.{n}"] for n in own[i]},
+                                (h,))
+        return h
+
+    runner = MPMDStageRunner(
+        stage_fn, stage=stage, replica=replica, stage_dps=list(MPMD_DPS),
+        n_microbatches=MPMD_M, in_shape=(mb, MPMD_S, H),
+        out_shape=(mb, MPMD_S, H), host="127.0.0.1", port=int(spec["port"]),
+        grad_size=sum(p.numel() for p in params.values()), device=device)
+    first, last = stage == 0, stage == len(MPMD_DPS) - 1
+    data = loss_fn = None
+    order = []
+    if first:
+        with torch.no_grad():
+            h = model._embed(ids, model.pos_emb[None, :MPMD_S])
+        data = [h[m * mb:(m + 1) * mb] for m in range(MPMD_M)]
+    if last:
+        tok = model.tok_emb.detach()
+
+        def loss_fn(o):
+            m = order.pop(0)  # run_step calls it in ascending order
+            return ops.lm_head_cross_entropy(
+                model.ln_f(o)[:, :-1], tok, ids[m * mb:(m + 1) * mb, 1:])
+    print("READY", stage, replica, f"jax={int('jax' in sys.modules)}",
+          flush=True)
+    counters = _all_counters()
+    for c in counters:
+        c.launches = 0
+    steps = []
+    for _ in range(MPMD_STEPS):
+        order[:] = runner._my_microbatches()
+        _sync(device)
+        t0 = time.perf_counter()
+        loss, grads = runner.run_step(params, loss_fn=loss_fn, data=data)
+        _sync(device)
+        steps.append(dict(loss=loss, s=time.perf_counter() - t0,
+                          acc=dict(runner.acc_seconds),
+                          flat=torch.cat([g.reshape(-1)
+                                          for g in grads.values()])))
+    launches = [c.launches for c in counters]
+    a, b = steps[0]["flat"], steps[-1]["flat"]
+    excess = float(((b - a).abs() - MPMD_STEP_RTOL * a.abs()).max())
+    np.save(os.path.join(spec["workdir"], f"grads_{stage}_{replica}.npy"),
+            a.cpu().numpy())
+    edges = runner.edge_bytes()
+    runner.close()
+    print("RESULT", json.dumps({
+        "stage": stage, "replica": replica, "launches": launches,
+        "loss": [s["loss"] for s in steps], "step_s": [s["s"] for s in steps],
+        "acc_s": [s["acc"] for s in steps], "step2_excess": excess,
+        "step2_bitwise": bool(torch.equal(a, b)), "edges": edges,
+        "names": _mpmd_flat_names(blocks),
+        "jax": int("jax" in sys.modules)}), flush=True)
+    return 0
+
+
+def _mpmd_children(specs, workdir):
+    """Start one stage process a spec; returns (procs, line queues)."""
+    import queue
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs, qs = [], []
+    for spec in specs:
+        tag = f"stage{spec['stage']}_{spec['replica']}"
+        with open(os.path.join(workdir, f"{tag}.err"), "w") as err:
+            p = subprocess.Popen(
+                [sys.executable, "-c", _MPMD_CHILD_SRC, root,
+                 json.dumps(spec)], stdin=subprocess.DEVNULL,
+                stdout=subprocess.PIPE, stderr=err, text=True)
+        p.tag, p.err_path = tag, os.path.join(workdir, f"{tag}.err")
+        q = queue.Queue()
+
+        def reader(proc=p, q=q):
+            for line in proc.stdout:
+                q.put(line.strip())
+            q.put(None)
+
+        threading.Thread(target=reader, daemon=True).start()
+        procs.append(p)
+        qs.append(q)
+    return procs, qs
+
+
+def _mpmd_collect(procs, qs, deadline):
+    """Each child's RESULT (and its READY line), or fail with its error
+    tail."""
+    import queue
+
+    out = []
+    for p, q in zip(procs, qs):
+        lines = []
+        while True:
+            try:
+                line = q.get(timeout=max(deadline - time.monotonic(), 0.01))
+            except queue.Empty:
+                line = None
+                lines.append("<deadline>")
+            if line is None:
+                break
+            lines.append(line)
+        res = [ln for ln in lines if ln.startswith("RESULT ")]
+        if not res:
+            with open(p.err_path) as f:
+                print(f.read()[-3000:], file=sys.stderr)
+        check(bool(res), f"mpmd (a) {p.tag}: no result ({lines[-3:]})")
+        rc = p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        check(rc == 0, f"mpmd (a) {p.tag}: exit {rc}")
+        r = json.loads(res[0].split(" ", 1)[1])
+        r["ready"] = next((ln for ln in lines if ln.startswith("READY")), "")
+        out.append(r)
+    return out
+
+
+def _mpmd_reference(seed, device):
+    """The same MPMD_L-block stack and loss in this process on the card,
+    over the whole batch: the loss, the gradients by stage (flat f32, in
+    each stage's parameter order) and their per-parameter max|G|."""
+    from hetu_tpu_torch import ops
+
+    model, ids = mpmd_model(seed, device)
+    with torch.no_grad():
+        h = model._embed(ids, model.pos_emb[None, :MPMD_S])
+    x = h
+    for b in model.blocks:
+        x = b(x)
+    loss = ops.lm_head_cross_entropy(model.ln_f(x)[:, :-1],
+                                     model.tok_emb.detach(), ids[:, 1:])
+    out = {"loss": float(loss.detach()), "grads": {}}
+    for s in range(len(MPMD_DPS)):
+        blocks = _mpmd_stage_blocks(model, s)
+        ps = [p for b in blocks for p in b.parameters()]
+        gs = torch.autograd.grad(loss, ps, retain_graph=True)
+        out["grads"][s] = [(g.float().cpu(), p.numel()) for g, p in
+                           zip(gs, ps)]
+    del model, x, loss
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mpmd_kernel_arm(card, seed, workdir, device="cuda", during=None):
+    """(a): three stage processes (stage dps [2, 1]) over one van process
+    on the card against the same stack in this process.  ``during()``
+    runs in this process while they start and train (the numpy arms: the
+    stage processes need no help from this one), and its result is
+    returned beside (a)'s."""
+    from hetu_tpu_torch.resilience.shardproc import (
+        free_port, spawn_shard_server,
+    )
+
+    if device == "cuda":
+        check(torch.cuda.is_available(), "mpmd (a): CUDA is not available")
+    port = free_port()
+    vanp = spawn_shard_server(workdir, port, "mpmd_a")
+    procs = []
+    try:
+        check(vanp.ready[1:] == ["jax=0", "torch=0"],
+              f"mpmd (a): the van process READY {vanp.ready}")
+        specs = [dict(stage=s, replica=r, seed=seed, port=port,
+                      workdir=workdir, device=device, consts=mpmd_consts())
+                 for s, dp in enumerate(MPMD_DPS) for r in range(dp)]
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + 2 * MPMD_WAIT_S
+        procs, qs = _mpmd_children(specs, workdir)
+        other = during() if during is not None else None
+        # the single process's stack
+        ref = _mpmd_reference(seed, device)
+        res = _mpmd_collect(procs, qs, deadline)
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        vanp.kill()
+        vanp.wait()
+    launches = [sum(r["launches"][i] for r in res) for i in range(6)]
+    last = next(r for r in res if r["stage"] == len(MPMD_DPS) - 1)
+    losses = [x / MPMD_M for x in last["loss"]]
+    gap = abs(losses[0] - ref["loss"]) / abs(ref["loss"])
+    worst, worst_name = 0.0, ""
+    for r in res:
+        got = torch.from_numpy(np.load(os.path.join(
+            workdir, f"grads_{r['stage']}_{r['replica']}.npy")))
+        off = 0
+        for name, (g, n) in zip(r["names"], ref["grads"][r["stage"]]):
+            share = float((got[off:off + n] - g.reshape(-1)).abs().max()
+                          / (TOL_TRAIN_GRAD * g.abs().max()))
+            if share > worst:
+                worst, worst_name = share, f"stage {r['stage']} {name}"
+            off += n
+        check(off == got.numel(), f"mpmd (a) stage {r['stage']}: "
+                                  f"{got.numel()} gradient elements, "
+                                  f"{off} expected")
+    for r in sorted(res, key=lambda r: (r["stage"], r["replica"])):
+        acc = r["acc_s"][-1]
+        print(f"[mpmd] (a) stage {r['stage']} replica {r['replica']}: step "
+              f"ms {[round(t * 1e3, 3) for t in r['step_s']]}; edges "
+              f"{r['edges']}; accumulator push/pull ms "
+              f"{round(acc['push'] * 1e3, 3)}/{round(acc['pull'] * 1e3, 3)};"
+              f" step 2 vs step 1 "
+              f"{'bitwise' if r['step2_bitwise'] else 'differs'} (largest "
+              f"|d| - rtol|g| {r['step2_excess']:.3e}); launches "
+              f"{r['launches']}; {r['ready']} [{card}]")
+    exp = mpmd_expected()
+    print(f"[mpmd] (a) stage_dps {list(MPMD_DPS)} GPT-2-small H={H} NH={NH} "
+          f"FFN={FFN} bf16 flash no remat, {MPMD_L} blocks "
+          f"({MPMD_L // len(MPMD_DPS)} a stage) B={MPMD_B} S={MPMD_S} "
+          f"M={MPMD_M}: loss/M {[round(x, 6) for x in losses]} vs the stack "
+          f"in one process {ref['loss']:.6f} (gap {gap:.3e}, gate "
+          f"{TOL_MPMD_LOSS:.3e}); gradients' largest share {worst:.4f} of "
+          f"{TOL_TRAIN_GRAD:g} max|G| ({worst_name}); launches over the "
+          f"three processes {launches} (expected {exp}); the arm "
+          f"{wall:.1f} s, (b) and (c) run meanwhile [{card}]", flush=True)
+    check(all(r["jax"] == 0 for r in res), "mpmd (a): a stage loaded jax")
+    check(gap <= TOL_MPMD_LOSS, f"mpmd (a): loss gap {gap:.3e}")
+    check(all(abs(x - losses[0]) <= MPMD_STEP_RTOL * abs(losses[0])
+              for x in losses), f"mpmd (a): the steps' losses {losses}")
+    check(worst <= 1.0, f"mpmd (a): gradient share {worst:.3f} "
+                        f"({worst_name})")
+    check(all(r["step2_excess"] <= 0.0 for r in res),
+          f"mpmd (a): step 2's gradients off step 1's "
+          f"{[r['step2_excess'] for r in res]}")
+    if device == "cuda":
+        check(launches == exp,
+              f"mpmd (a): launches {launches}, expected {exp}")
+    stage0 = [r for r in res if r["stage"] == 0]
+    return other, dict(launches=launches, loss_gap=gap, grad_share=worst,
+                wall_s=wall,
+                step_ms={f"{r['stage']}.{r['replica']}":
+                         [round(t * 1e3, 3) for t in r["step_s"]]
+                         for r in res},
+                edges={f"{r['stage']}.{r['replica']}": r["edges"]
+                       for r in res},
+                acc_ms=[round(max(r["acc_s"][-1][k] for r in stage0) * 1e3,
+                              3) for k in ("push", "pull")])
+
+
+def _mpmd_el_kw(seed, port, **kw):
+    return dict(MPMD_EL, data_seed=seed, lease_s=MPMD_LEASE_S,
+                suspect_grace_s=MPMD_GRACE_S, own_van=False, port=port,
+                spawn_timeout_s=MPMD_WAIT_S, **kw)
+
+
+def _mpmd_peak_stash(log_paths):
+    """stage -> the largest activation stash its logged steps held."""
+    peak = {}
+    for path in log_paths:
+        with open(path) as f:
+            for line in f:
+                if line.strip():
+                    r = json.loads(line)
+                    peak[r["stage"]] = max(peak.get(r["stage"], 0),
+                                           r["peak_stash"])
+    return [peak[s] for s in sorted(peak)]
+
+
+def _mpmd_elastic_arm(card, seed, root, port):
+    """(b): the clean 1F1B run, a stash-bounded GPipe run, and a 1F1B
+    run whose middle stage is SIGKILLed at the seeded step, each an
+    in-process supervisor over the phase's van process."""
+    from hetu_tpu_torch.parallel.mpmd_elastic import MPMDPipelineSupervisor
+    from hetu_tpu_torch.resilience.faults import FaultInjector, FaultSchedule
+    from hetu_tpu_torch.telemetry import timeline, trace
+
+    schedule = FaultSchedule.generate(stage_kills=1, n_stages=3, **MPMD_KILL)
+    (ev,) = schedule.events
+    check(ev.kind == "stage_kill" and int(ev.arg) == 1,
+          f"mpmd (b): the seeded schedule drew {ev}")
+    runs = {}
+    tracer = trace.Tracer()
+    for tag, kw in (("1f1b", {}),
+                    ("gpipe", dict(schedule="gpipe",
+                                   stash_limit=MPMD_EL_STASH)),
+                    ("kill", {})):
+        workdir = os.path.join(root, f"b_{tag}")
+        os.makedirs(workdir)
+        t0 = time.perf_counter()
+        sup = MPMDPipelineSupervisor(3, workdir=workdir,
+                                     **_mpmd_el_kw(seed, port, **kw))
+        try:
+            if tag != "kill":
+                rep = sup.run(deadline_s=MPMD_WAIT_S)
+            else:
+                sup.injector = FaultInjector(schedule, stage_procs=sup.procs)
+                trace.enable(tracer=tracer)
+                try:
+                    rep = sup.run(deadline_s=MPMD_WAIT_S)
+                finally:
+                    trace.disable()
+                rep["killed"] = sup.injector.counters["stage_procs_killed"]
+        finally:
+            sup.close()
+        rep["seconds"] = time.perf_counter() - t0
+        rep["ready"] = _elastic_no_torch(workdir, f"(b) {tag}",
+                                         "stage_*_*.log", "mpmd", 3)
+        runs[tag] = rep
+    clean = runs["1f1b"]["final_params"]
+    for tag in ("gpipe", "kill"):
+        same = all(np.array_equal(clean[s], runs[tag]["final_params"][s])
+                   for s in clean)
+        print(f"[mpmd] (b) {tag}: final parameters "
+              f"{'bitwise equal to' if same else 'DIFFER from'} the clean "
+              f"1F1B run's; {runs[tag]['seconds']:.2f} s", flush=True)
+        check(same, f"mpmd (b) {tag}: final parameters differ")
+    kill = runs["kill"]
+    pairs = [p for p in timeline.correlate(tracer.events)
+             if p.kind == "stage_kill"]
+    check(kill["killed"] == 1 and len(kill["replacements"]) == 1,
+          f"mpmd (b) kill: {kill['killed']} killed, replacements "
+          f"{kill['replacements']}")
+    check(len(pairs) == 1 and pairs[0].paired and
+          pairs[0].recovery_name == "pipeline.stage_replace",
+          f"mpmd (b) kill: the fault's pairing {pairs}")
+    stash = {t: _mpmd_peak_stash(runs[t]["log_paths"])
+             for t in ("gpipe", "1f1b")}
+    rec = kill["replacements"][0]
+    print(f"[mpmd] (b) stage 1 SIGKILLed at step {ev.step}: detect "
+          f"{pairs[0].detect_s:.3f} s, recover {pairs[0].recover_s:.3f} s "
+          f"(resume at step {rec['resume_step']}, replacement downtime "
+          f"{rec['downtime_s']:.3f} s); peak stash by stage GPipe "
+          f"(stash_limit {MPMD_EL_STASH}) {stash['gpipe']} vs 1F1B "
+          f"{stash['1f1b']}; clean run {runs['1f1b']['seconds']:.2f} s; "
+          f"every stage READY jax=0 torch=0 [{card}]", flush=True)
+    return dict(clean=clean, detect_s=pairs[0].detect_s,
+                recover_s=pairs[0].recover_s, stash=stash,
+                seconds={t: round(r["seconds"], 3) for t, r in runs.items()})
+
+
+def _mpmd_digests(params):
+    import hashlib
+    return {str(s): hashlib.blake2b(np.ascontiguousarray(w).tobytes(),
+                                    digest_size=16).hexdigest()
+            for s, w in params.items()}
+
+
+def _mpmd_standby_arm(card, seed, workdir, clean):
+    """(c): a controller process over its own van process, a standby
+    process on plane="mpmd"; the controller SIGKILLed when its progress
+    line reaches the seeded step.  Hard: PROMOTED -> RESOLVED -> ALLDONE
+    and the digests of the final parameters equal (b)'s clean run's;
+    every process said jax=0 torch=0."""
+    from pathlib import Path
+
+    from hetu_tpu_torch.parallel.mpmd_elastic import StageSpec
+    from hetu_tpu_torch.resilience.faults import FaultInjector, FaultSchedule
+    from hetu_tpu_torch.resilience.shardproc import (
+        free_port, spawn_module, spawn_shard_server,
+    )
+
+    schedule = FaultSchedule.generate(controller_kills=1, **MPMD_KILL)
+    (ev,) = schedule.events
+    check(ev.kind == "controller_kill", f"mpmd (c): the draw {ev}")
+    port = free_port()
+    procs = [spawn_shard_server(workdir, port, "mpmd_c")]
+    log = lambda p: Path(p.log_path).read_text(errors="replace")  # noqa
+    try:
+        check(procs[0].ready[1:] == ["jax=0", "torch=0"],
+              f"mpmd (c): the van process READY {procs[0].ready}")
+        cfg = os.path.join(workdir, "ctrl.json")
+        with open(cfg, "w") as f:
+            json.dump({"workdir": workdir, "port": port, "n_stages": 3,
+                       "lease_s": MPMD_LEASE_S,
+                       "suspect_grace_s": MPMD_GRACE_S,
+                       "ctrl_lease_s": MPMD_CTRL_LEASE_S,
+                       "deadline_s": MPMD_WAIT_S, "data_seed": seed,
+                       **MPMD_EL}, f)
+        ctrl = spawn_module(workdir, "mpmd_ctrl",
+                            "hetu_tpu_torch.parallel.mpmd_elastic",
+                            ["--controller", cfg], timeout_s=MPMD_WAIT_S)
+        procs.append(ctrl)
+        spec = StageSpec.from_json(
+            sorted(Path(workdir).glob("stage_*_*.json"))[0].read_text())
+        sb_cfg = os.path.join(workdir, "standby.json")
+        with open(sb_cfg, "w") as f:
+            json.dump({"workdir": workdir, "port": port, "plane": "mpmd",
+                       "membership_table": spec.membership_table,
+                       "n_slots": spec.n_stages,
+                       "lease_bound_s": MPMD_LEASE_S, "poll_s": 0.05,
+                       "watch_timeout_s": MPMD_WAIT_S,
+                       "resolve_timeout_s": MPMD_WAIT_S,
+                       "takeover_kwargs": {
+                           "lease_s": MPMD_LEASE_S,
+                           "suspect_grace_s": MPMD_GRACE_S}}, f)
+        sb = spawn_module(workdir, "mpmd_standby",
+                          "hetu_tpu_torch.resilience.standby", [sb_cfg],
+                          timeout_s=MPMD_WAIT_S)
+        procs.append(sb)
+        deadline = time.monotonic() + MPMD_WAIT_S
+        while "WATCHING" not in log(sb):
+            check(sb.poll() is None and time.monotonic() < deadline,
+                  f"mpmd (c): the standby never watched: {log(sb)[-800:]}")
+            time.sleep(0.05)
+        inj = FaultInjector(schedule, ctrl_procs=[ctrl])
+        fired = 0
+        while ctrl.poll() is None:
+            check(time.monotonic() < deadline,
+                  f"mpmd (c): the seeded kill never fired: "
+                  f"{log(ctrl)[-800:]}")
+            cur = sum(1 for ln in log(ctrl).splitlines()
+                      if ln.startswith("STEP"))
+            for t in range(fired + 1, cur + 1):
+                inj.on_step(t)
+            fired = max(fired, cur)
+            time.sleep(0.02)
+        t_kill = time.perf_counter()
+        check(inj.counters["controller_procs_killed"] == 1,
+              f"mpmd (c): {inj.counters}")
+        rc = sb.wait(timeout=2 * MPMD_WAIT_S)
+        t_done = time.perf_counter()
+        text = log(sb)
+        check(rc == 0, f"mpmd (c): the standby exited {rc}: {text[-1500:]}")
+        lines = {ln.split(" ", 1)[0]: ln for ln in text.splitlines() if ln}
+        order = [ln.split(" ", 1)[0] for ln in text.splitlines()
+                 if ln.split(" ", 1)[0] in ("PROMOTED", "RESOLVED",
+                                            "ALLDONE")]
+        check(order == ["PROMOTED", "RESOLVED", "ALLDONE"],
+              f"mpmd (c): the standby's markers {order}")
+        got = json.loads(lines["RESOLVED"].split(" ", 1)[1])
+        same = got["digests"] == _mpmd_digests(clean)
+        ready = [ln for p in Path(workdir).glob("*.log")
+                 for ln in p.read_text(errors="replace").splitlines()
+                 if ln.startswith("READY")]
+        no_torch = all(ln.split()[-2:] == ["jax=0", "torch=0"]
+                       for ln in ready)
+        promoted_s = float(lines["PROMOTED"].split()[1])
+        alldone_s = float(lines["ALLDONE"].split()[1])
+        print(f"[mpmd] (c) controller SIGKILLed at progress step "
+              f"{ev.step}: standby PROMOTED {promoted_s:.3f} s after the "
+              f"silence (incarnation {got['takeover']['incarnation']}, "
+              f"resume step {got['takeover']['resume_step']}), ALLDONE "
+              f"{alldone_s:.3f} s after; kill -> standby exit "
+              f"{t_done - t_kill:.3f} s; final parameters' digests "
+              f"{'equal' if same else 'DIFFER from'} (b)'s clean run; the "
+              f"van and {len(ready)} READY lines (controller, standby, "
+              f"stages) {'all' if no_torch else 'NOT all'} jax=0 torch=0 "
+              f"[{card}]", flush=True)
+        check(same, f"mpmd (c): digests {got['digests']}")
+        check(got["takeover"]["resume_step"] < MPMD_EL["steps"],
+              f"mpmd (c): the standby adopted a finished pipeline "
+              f"{got['takeover']}")
+        check(no_torch and len(ready) >= 2 + 3,
+              f"mpmd (c): READY lines {ready}")
+        _elastic_no_torch(workdir, "(c)", "stage_*_*.log", "mpmd", 3)
+        return dict(promoted_s=promoted_s, alldone_s=alldone_s,
+                    kill_to_exit_s=t_done - t_kill,
+                    incarnation=got["takeover"]["incarnation"])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        subprocess.run(["pkill", "-9", "-f", workdir], capture_output=True,
+                       timeout=30)
+
+
+def phase_mpmd(card, seed, device="cuda"):
+    """The MPMD pipeline plane in processes of its own: (a) the kernel arm
+    on the card, (b) the elastic numpy pipeline and a stage kill, (c) the
+    controller killed under a standby.  Returns the numbers for the
+    summary and the kernels line."""
+    import tempfile
+
+    from hetu_tpu_torch.resilience.shardproc import (
+        free_port, spawn_shard_server,
+    )
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="mpmd_") as root:
+
+        def numpy_arms():
+            with _elastic_blas_threads():
+                port = free_port()
+                vanp = spawn_shard_server(root, port, "mpmd_b")
+                try:
+                    check(vanp.ready[1:] == ["jax=0", "torch=0"],
+                          f"mpmd (b): the van process READY {vanp.ready}")
+                    b = _mpmd_elastic_arm(card, seed, root, port)
+                finally:
+                    vanp.kill()
+                    vanp.wait()
+                c_dir = os.path.join(root, "c")
+                os.makedirs(c_dir)
+                return b, _mpmd_standby_arm(card, seed, c_dir, b["clean"])
+
+        a_dir = os.path.join(root, "a")
+        os.makedirs(a_dir)
+        (out["b"], out["c"]), out["a"] = _mpmd_kernel_arm(
+            card, seed, a_dir, device, during=numpy_arms)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        subprocess.run(["pkill", "-9", "-f", root], capture_output=True,
+                       timeout=30)
+    out["launches"] = out["a"]["launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[mpmd] phase {out['seconds']:.1f} s (budget {MPMD_BUDGET_S:g} "
+          f"s: {'met' if out['seconds'] <= MPMD_BUDGET_S else 'missed'}); "
+          f"launches rows 1-6 {out['launches']} [{card}]", flush=True)
+    return out
+
+
 def _paths_entry(key, moe_launches, ctr, gates, later):
     """The launches by path of a kernel's entry in the kernels line (the
     MoE step, the four gates' steps summed, the CTR step, then ``later``:
@@ -12114,6 +12738,8 @@ def main(argv=None) -> int:
     sharded = phase_sharded(card, mesh["sharded"])
     dppipe = phase_dppipe(card, mesh["dppipe"])
     torch.cuda.empty_cache()
+    mpmd = phase_mpmd(card, args.seed)
+    torch.cuda.empty_cache()
     shapes_fwd, shapes_bwd = phase_kernel_shapes(card)
     # each kernel's launches on the paths that run none of the six
     later = [{"train_cnn": cnn["launches"][i], "train_rnn": rnn["launches"][i],
@@ -12134,7 +12760,9 @@ def main(argv=None) -> int:
               "sharded": sharded["launches"][i],
               # the elastic, preduce, distributed GCN, 1F1B and HetPipe
               # arms over both ranks
-              "dppipe": dppipe["launches"][i]}
+              "dppipe": dppipe["launches"][i],
+              # the MPMD kernel arm's three stage processes
+              "mpmd": mpmd["launches"][i]}
              for i in range(6)]
 
     shape = [TRAIN_B, NH, TRAIN_S, HEAD_DIM]
@@ -12275,6 +12903,18 @@ def main(argv=None) -> int:
           f"a call {dppipe['gcn_ms']}; 1F1B GPT value_and_grad "
           f"{dppipe['pipe_ms']:.1f} ms; launches {dppipe['launches']}; the "
           f"script {time.perf_counter() - t_script:.1f} s [{card}]")
+    ma, mb_, mc = mpmd["a"], mpmd["b"], mpmd["c"]
+    print(f"[mpmd] summary: phase {mpmd['seconds']:.1f} s (budget "
+          f"{MPMD_BUDGET_S:g} s); (a) stage_dps {list(MPMD_DPS)} step ms "
+          f"{ma['step_ms']}, edge bytes {ma['edges']}, accumulator push/pull "
+          f"ms {ma['acc_ms']}, loss gap {ma['loss_gap']:.3e}, gradient share "
+          f"{ma['grad_share']:.4f}; (b) stage kill detect "
+          f"{mb_['detect_s']:.3f} s, recover {mb_['recover_s']:.3f} s, peak "
+          f"stash GPipe {mb_['stash']['gpipe']} vs 1F1B "
+          f"{mb_['stash']['1f1b']}; (c) standby PROMOTED "
+          f"{mc['promoted_s']:.3f} s, ALLDONE {mc['alldone_s']:.3f} s; "
+          f"launches {mpmd['launches']}; the script "
+          f"{time.perf_counter() - t_script:.1f} s [{card}]")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

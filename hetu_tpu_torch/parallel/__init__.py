@@ -2,25 +2,28 @@
 its collectives, the sharding specs and the strategies, over
 ``torch.distributed`` rank processes (:mod:`.ranks`) and DTensor; ring and
 Ulysses sequence parallelism on the flash kernels, the GPipe and 1F1B
-pipelines, HetPipe's PS-synced virtual workers and the partial-reduce
-data-parallel step.  The MPMD and planner modules come in later
-slices."""
+pipelines, HetPipe's PS-synced virtual workers, the partial-reduce
+data-parallel step, and the MPMD pipeline plane over separate processes
+(:mod:`.mpmd`, :mod:`.mpmd_elastic`).  The planner module comes in a
+later slice.
 
-from hetu_tpu_torch.parallel.mesh import (
-    AXIS_DP, AXIS_EP, AXIS_PP, AXIS_SP, AXIS_TP, DEFAULT_AXIS_ORDER,
-    MeshConfig, batch_sharding, elastic_mesh, host_to_device, local_mesh,
-    make_mesh, replicated,
-)
-from hetu_tpu_torch.parallel.spec import NodeStatus, P, ShardSpec
+Every name loads its module on first use: the MPMD pipeline's stage
+processes import :mod:`.mpmd` and must not pay for ``torch`` (the mesh
+imports ``torch.distributed``)."""
 
-# the sequence and pipeline modules import the kernels' wrappers, which
-# import the ops that import parallel.spec: loaded on first use
-_LAZY = {"GPipe": "pipeline", "pipedream_schedule": "pipeline",
-         "stack_stage_params": "pipeline", "ring_attention": "ring_attention",
-         "ring_attention_plain": "ring_attention",
-         "ulysses_attention": "ulysses", "preduce_step_fn": "preduce",
-         "PipeDream1F1B": "pipedream", "HetPipeWorker": "hetpipe",
-         "make_weight_table": "hetpipe"}
+_LAZY = {**{name: "mesh" for name in (
+    "AXIS_DP", "AXIS_EP", "AXIS_PP", "AXIS_SP", "AXIS_TP",
+    "DEFAULT_AXIS_ORDER", "MeshConfig", "batch_sharding", "elastic_mesh",
+    "host_to_device", "local_mesh", "make_mesh", "replicated")},
+    "NodeStatus": "spec", "P": "spec", "ShardSpec": "spec",
+    "GPipe": "pipeline", "pipedream_schedule": "pipeline",
+    "stack_stage_params": "pipeline", "ring_attention": "ring_attention",
+    "ring_attention_plain": "ring_attention",
+    "ulysses_attention": "ulysses", "preduce_step_fn": "preduce",
+    "PipeDream1F1B": "pipedream", "HetPipeWorker": "hetpipe",
+    "make_weight_table": "hetpipe", "MPMDStageRunner": "mpmd",
+    "VanMailbox": "mpmd", "round_robin_assignments": "mpmd",
+    "schedule_ops": "mpmd", "MPMDPipelineSupervisor": "mpmd_elastic"}
 
 
 def __getattr__(name):
@@ -31,10 +34,5 @@ def __getattr__(name):
     return getattr(importlib.import_module(
         f"hetu_tpu_torch.parallel.{_LAZY[name]}"), name)
 
-__all__ = ["AXIS_DP", "AXIS_EP", "AXIS_PP", "AXIS_SP", "AXIS_TP",
-           "DEFAULT_AXIS_ORDER", "MeshConfig", "batch_sharding",
-           "elastic_mesh", "host_to_device", "local_mesh", "make_mesh",
-           "replicated", "NodeStatus", "P", "ShardSpec", "GPipe",
-           "pipedream_schedule", "stack_stage_params", "ring_attention",
-           "ring_attention_plain", "ulysses_attention", "preduce_step_fn",
-           "PipeDream1F1B", "HetPipeWorker", "make_weight_table"]
+
+__all__ = sorted(_LAZY)

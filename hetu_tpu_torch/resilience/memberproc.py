@@ -3,7 +3,7 @@
 
 Both lockstep training planes — the dp multi-controller worker
 (:mod:`hetu_tpu_torch.resilience.multicontroller`) and the MPMD pipeline
-stage (``parallel/mpmd_elastic.py``, a later slice) — speak the same
+stage (:mod:`hetu_tpu_torch.parallel.mpmd_elastic`) — speak the same
 member protocol: heartbeat into a blackboard row on a cadence, honor the
 control row's netem slow-link fields, ack PREPARE epochs with frozen
 progress, and wait out generation-counted van barriers while
@@ -280,7 +280,7 @@ class ControlPlaneMember:
 
 def drive_controller_harness(poll, progress, done, *,
                              deadline_s: float,
-                             on_progress=None) -> int:
+                             on_progress=None, ready_words=()) -> int:
     """The ONE copy of the spawned-controller chaos-harness drive loop
     (the controller half of this module's member protocol).  Both
     training planes' ``--controller`` entry points delegate here, so
@@ -297,9 +297,11 @@ def drive_controller_harness(poll, progress, done, *,
 
     ``on_progress(p)`` is the per-plane edge hook (e.g. the elastic
     harness's publish-PREPARE-then-hang mode); it may never return.
+    ``ready_words`` follow ``READY`` on its line (the mpmd controller's
+    ``jax=0 torch=0``).
     """
     from hetu_tpu_torch.ps import membership as _mb
-    print("READY", flush=True)
+    print("READY", *ready_words, flush=True)
     deadline = time.monotonic() + float(deadline_s)
     last = object()
     finished = False

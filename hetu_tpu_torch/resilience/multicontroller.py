@@ -1,8 +1,8 @@
 """Multi-controller elastic training: each dp worker is its own process
 (counterpart of ``hetu_tpu/resilience/multicontroller.py``).
 
-The reference's in-process ``ElasticSupervisor`` (``resilience/
-elastic.py``, a later slice of the port) reshapes ONE process's mesh;
+The in-process ``ElasticSupervisor``
+(:mod:`hetu_tpu_torch.resilience.elastic`) reshapes ONE process's mesh;
 this module is the cross-process promotion (arXiv 2412.14374's
 multi-controller coordination over DCN, with arXiv 2004.13336's
 width-as-resharding contract): N worker PROCESSES coordinate through the

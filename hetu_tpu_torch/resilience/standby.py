@@ -13,7 +13,9 @@ and exit FENCED, touching nothing).  The winner then invokes the
 plane's ``takeover()`` classmethod
 (:class:`~hetu_tpu_torch.serve.crosshost.CrossProcessServingPool`,
 :class:`~hetu_tpu_torch.resilience.multicontroller.
-MultiControllerElasticSupervisor`), which claims the fence one higher
+MultiControllerElasticSupervisor`,
+:class:`~hetu_tpu_torch.parallel.mpmd_elastic.MPMDPipelineSupervisor`),
+which claims the fence one higher
 again and adopts the fleet — the standby adds only the WATCHING and the
 CAS-decided right to act.
 
@@ -30,17 +32,18 @@ The ``standby_main`` harness runs this as its own process
 ``ALLDONE``), with a crash-durable span stream like every other fleet
 process.
 
-The serving and the elastic planes are ported; ``plane="mpmd"`` names
-the pipeline supervisor of a slice still to come and raises
-``NotImplementedError``.  Departures from the reference: the READY line
-says whether the process loaded ``jax`` and ``torch``; ``WATCHING`` is
-printed once the watch starts; ``PROMOTED`` carries the seconds from
-the detected silence to the end of the takeover and ``ALLDONE`` the
-seconds from ``PROMOTED``.  On the elastic plane the promoted standby
-drives the adopted fleet to its last step, checks the consumed batches'
-complete cover and prints ``RESOLVED`` with the takeover report and the
-resizes before ``ALLDONE``; the reference prints ``ALLDONE`` at once and
-its close then kills the workers it has just adopted.  The claim's
+Departures from the reference: the READY line says whether the process
+loaded ``jax`` and ``torch``; ``WATCHING`` is printed once the watch
+starts; ``PROMOTED`` carries the seconds from the detected silence to
+the end of the takeover and ``ALLDONE`` the seconds from ``PROMOTED``.
+On the elastic plane the promoted standby drives the adopted fleet to
+its last step, checks the consumed batches' complete cover and prints
+``RESOLVED`` with the takeover report and the resizes before
+``ALLDONE``; on the mpmd plane it drives the adopted pipeline to its
+last step, waits for the stages to leave and prints ``RESOLVED`` with
+the takeover report, the replacements and a digest of each stage's
+final parameters.  The reference prints ``ALLDONE`` at once and its
+close then kills the workers or stages it has just adopted.  The claim's
 bridge thread is joined before :meth:`StandbyController.run_once`
 returns (the reference leaves it running past the takeover).
 """
@@ -63,22 +66,15 @@ from hetu_tpu_torch.telemetry import trace
 # the longest run_once waits for the bridge to leave its last row_cas
 _BRIDGE_JOIN_S = 10.0
 
-# the planes whose takeover() the standby invokes, and the slice that
-# brings the one still missing
+# the planes whose takeover() the standby invokes
 PLANES = ("serving", "elastic", "mpmd")
-_NOT_PORTED = {
-    "mpmd": "the MPMD pipeline's supervisor (MPMDPipelineSupervisor) "
-            "comes with the second half of slice 8c of the multi-GPU port "
-            "(ROADMAP.md Queue 1, item 8c)",
-}
 
 
 class StandbyController:
     """Watch a fleet's controller lease; self-promote on silence.
 
-    ``plane`` names which ``takeover()`` to invoke: ``"serving"`` or
-    ``"elastic"`` (``"mpmd"`` raises ``NotImplementedError`` until its
-    slice).
+    ``plane`` names which ``takeover()`` to invoke: ``"serving"``,
+    ``"elastic"`` or ``"mpmd"``.
     ``takeover_kwargs`` are passed through (``workdir``/``port`` ride
     separately).  ``table=`` injects a pre-built blackboard surface
     (tests); otherwise the standby attaches over the van — replicated
@@ -94,9 +90,6 @@ class StandbyController:
                  table=None, name: str = "standby"):
         if plane not in PLANES:
             raise ValueError(f"unknown control plane {plane!r}")
-        if plane in _NOT_PORTED:
-            raise NotImplementedError(f"plane={plane!r}: "
-                                      f"{_NOT_PORTED[plane]}")
         self.workdir = workdir
         self.port = int(port)
         self.plane = plane
@@ -238,6 +231,12 @@ class StandbyController:
             )
             return MultiControllerElasticSupervisor.takeover(
                 workdir=self.workdir, port=self.port, **kw)
+        if self.plane == "mpmd":
+            from hetu_tpu_torch.parallel.mpmd_elastic import (
+                MPMDPipelineSupervisor,
+            )
+            return MPMDPipelineSupervisor.takeover(
+                workdir=self.workdir, port=self.port, **kw)
         from hetu_tpu_torch.serve.crosshost import CrossProcessServingPool
         return CrossProcessServingPool.takeover(
             workdir=self.workdir, port=self.port, **kw)
@@ -305,6 +304,12 @@ class StandbyController:
                 pass
 
 
+def _digest(a) -> str:
+    import hashlib
+    return hashlib.blake2b(np.ascontiguousarray(a).tobytes(),
+                           digest_size=16).hexdigest()
+
+
 def standby_main(config_path: str) -> int:
     """Entry point for a spawned STANDBY process.  Config names the
     blackboard (membership_table/n_slots/port — or a workdir whose
@@ -315,7 +320,10 @@ def standby_main(config_path: str) -> int:
     plane: the adopted fleet runs to its last step within
     ``resolve_timeout_s``, its consumed batches are checked, then
     ``RESOLVED {"takeover": report, "resizes": [...], "epochs": n}``
-    and ALLDONE.  Exit codes: 0 promoted and done, 1 a
+    and ALLDONE.  Mpmd plane: the adopted pipeline runs to its last step
+    and its stages leave within ``resolve_timeout_s``, then ``RESOLVED
+    {"takeover": report, "replacements": [...], "epochs": n, "digests":
+    {stage: blake2b of its final parameters}}`` and ALLDONE.  Exit codes: 0 promoted and done, 1 a
     failure after the promotion, 2 no decision within
     ``watch_timeout_s``, 3 fenced (another claimant won)."""
     with open(config_path) as f:
@@ -375,6 +383,18 @@ def standby_main(config_path: str) -> int:
                 "takeover": sb.adopted.takeover_report,
                 "resizes": report["resizes"],
                 "epochs": report["epochs"]}), flush=True)
+        elif sb.plane == "mpmd" and sb.adopted is not None:
+            # the same for the pipeline: its stages finish and leave on
+            # their own, so the close below signals none of them
+            timeout_s = float(cfg.get("resolve_timeout_s", 120.0))
+            report = sb.adopted.run(deadline_s=timeout_s)
+            sb.adopted.wait_stages_left(timeout_s)
+            print("RESOLVED", json.dumps({
+                "takeover": sb.adopted.takeover_report,
+                "replacements": report["replacements"],
+                "epochs": report["epochs"],
+                "digests": {str(k): _digest(w) for k, w in
+                            report["final_params"].items()}}), flush=True)
         elif sb.adopted is not None:
             results = sb.adopted.wait_adopted(
                 timeout_s=float(cfg.get("resolve_timeout_s", 120.0)))

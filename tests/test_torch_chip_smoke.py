@@ -2192,3 +2192,90 @@ def test_dppipe_phase_gates_and_wiring():
     with pytest.raises(chip_smoke.SmokeFailure, match="1 losses, 2 expected"):
         chip_smoke._mesh_gate("x", [1.0], [1.0, 1.0], 1e-3, "cpu",
                               phase="dppipe")
+
+
+TINY_MPMD = dict(V=64, H=32, NH=4, FFN=64, MPMD_L=2, MPMD_B=4, MPMD_S=16,
+                 MPMD_EL=dict(steps=24, n_microbatches=4, width=8, batch=8,
+                              step_sleep_s=0.08))
+
+
+def test_mpmd_phase_runs_on_the_cpu(monkeypatch, capsys):
+    """The mpmd phase at a tiny width on the CPU, every gate live but the
+    launch counts (no kernel off the card) and the timings: (a) three
+    stage processes (stage dps [2, 1]) against the stack in one process,
+    step 2 equal to step 1, the edge bytes; (b) GPipe and the stage kill
+    bitwise the clean run, the kill paired with the replacement, the
+    stash GPipe [3, 3, 3] against 1F1B [3, 2, 1]; (c) the standby's
+    PROMOTED, RESOLVED, ALLDONE over a pipeline adopted mid-run, the
+    digests equal; no numpy process with jax or torch; the lines keep
+    their schema."""
+    import re
+
+    for name, value in TINY_MPMD.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    out = chip_smoke.phase_mpmd("cpu", 0, device="cpu")
+    text = capsys.readouterr().out
+    a, b, c = out["a"], out["b"], out["c"]
+    assert out["launches"] == [0] * 6 and out["seconds"] > 0
+    assert a["loss_gap"] <= chip_smoke.TOL_MPMD_LOSS
+    assert a["grad_share"] <= 1.0
+    mb_bytes = 1 * 16 * 32 * 4  # a microbatch [1, S, H] in f32
+    for key, n in (("0.0", 2), ("0.1", 2), ("1.0", 4)):
+        for d in ("fwd", "bwd"):
+            assert a["edges"][key][f"edge0.{d}"] == {
+                "logical": 2 * n * mb_bytes, "wire": 2 * n * mb_bytes}
+    assert b["stash"] == {"gpipe": [3, 3, 3], "1f1b": [3, 2, 1]}
+    assert 0 < b["detect_s"] <= b["recover_s"]
+    assert c["incarnation"] >= 2 and c["promoted_s"] > 0
+    for pattern in (
+            r"\[mpmd\] \(a\) stage 0 replica 1: step ms \[\S+, \S+\]; edges "
+            r".* step 2 vs step 1 bitwise .* READY 0 1 jax=0 \[cpu\]",
+            r"\[mpmd\] \(a\) stage_dps \[2, 1\] GPT-2-small H=32 NH=4 FFN=64 "
+            r"bf16 flash no remat, 2 blocks \(1 a stage\) B=4 S=16 M=4: "
+            r"loss/M \[\S+, \S+\] vs the stack in one process \S+ \(gap "
+            r"\S+, gate 7\.812e-03\); gradients' largest share \S+ of 0\.03 "
+            r"max\|G\| .* launches over the three processes \[0, 0, 0, 0, 0,"
+            r" 0\] \(expected \[16, 16, 16, 0, 0, 0\]\)",
+            r"\[mpmd\] \(b\) gpipe: final parameters bitwise equal to the "
+            r"clean 1F1B run's",
+            r"\[mpmd\] \(b\) kill: final parameters bitwise equal to the "
+            r"clean 1F1B run's",
+            r"\[mpmd\] \(b\) stage 1 SIGKILLed at step 5: detect \S+ s, "
+            r"recover \S+ s .* GPipe \(stash_limit 3\) \[3, 3, 3\] vs 1F1B "
+            r"\[3, 2, 1\]; .* every stage READY jax=0 torch=0 \[cpu\]",
+            r"\[mpmd\] \(c\) controller SIGKILLed at progress step 5: "
+            r"standby PROMOTED \S+ s .* digests equal \(b\)'s clean run; the"
+            r" van and \d+ READY lines \(controller, standby, stages\) all "
+            r"jax=0 torch=0 \[cpu\]",
+            r"\[mpmd\] phase \S+ s \(budget 60 s: (met|missed)\); launches "
+            r"rows 1-6 \[0, 0, 0, 0, 0, 0\] \[cpu\]"):
+        assert re.search(pattern, text), (pattern, text)
+
+
+def test_mpmd_phase_gates_and_wiring():
+    """The gates fixed before the first card run, GPT-2-small's width at
+    the mesh phase's depth, the launch count derived from the schedule,
+    and main's wiring: the phase after dppipe, its launches on all six
+    rows of the kernels line, its summary before the card line."""
+    import inspect
+
+    assert chip_smoke.TOL_MPMD_LOSS == 2 ** -7
+    assert chip_smoke.MPMD_STEP_RTOL == 1e-6
+    assert chip_smoke.MPMD_BUDGET_S == 60.0
+    assert chip_smoke.MPMD_DPS == (2, 1)
+    assert chip_smoke.MPMD_L == chip_smoke.MESH_L == 4
+    assert (chip_smoke.MPMD_B, chip_smoke.MPMD_S, chip_smoke.MPMD_M,
+            chip_smoke.MPMD_STEPS) == (4, 256, 4, 2)
+    assert (chip_smoke.H, chip_smoke.NH, chip_smoke.FFN) == (768, 12, 3072)
+    assert chip_smoke.MPMD_EL["width"] == 64 and \
+        chip_smoke.MPMD_EL["batch"] == 64 and \
+        chip_smoke.MPMD_EL["n_microbatches"] == 8
+    assert chip_smoke.mpmd_expected() == [32, 32, 32, 0, 0, 0]
+    main = inspect.getsource(chip_smoke.main)
+    assert main.index("phase_dppipe(card") < main.index(
+        "phase_mpmd(card") < main.index("phase_kernel_shapes(card")
+    assert main.count('"mpmd": mpmd["launches"][i]') == 1
+    assert main.index("[dppipe] summary:") < main.index(
+        "[mpmd] summary:") < main.index("print(card)")
+    consts = chip_smoke.mpmd_consts()
+    assert {"V", "H", "NH", "FFN", "MPMD_L", "MPMD_DPS"} <= set(consts)

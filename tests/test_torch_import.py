@@ -21,7 +21,8 @@ neither jax nor torch, and the data- and tensor-parallel plane and the
 sharded plane (ShardedGPT, ring and Ulysses attention, GPipe, the
 expert-parallel MoE layer), and the partial-reduce step, the distributed
 GCN, the elastic supervisor, the 1F1B pipeline and HetPipe, whose rank
-processes say whether they loaded jax;
+processes say whether they loaded jax, and the MPMD pipeline plane, whose
+stage processes load neither jax nor torch;
 ``jax`` and ``hetu_tpu`` must stay out of
 ``sys.modules``.  An AST scan of every module of the package,
 and of ``chip_smoke.py``, finds no import of either.
@@ -971,6 +972,64 @@ def test_dppipe_plane_and_its_rank_processes_run_without_jax():
     assert {"parallel/preduce.py", "parallel/pipedream.py",
             "parallel/hetpipe.py", "ops/distgcn.py",
             "resilience/elastic.py"} <= names
+
+
+def test_mpmd_plane_and_its_stage_processes_run_without_jax(tmp_path):
+    """The MPMD pipeline plane: importing ``parallel.mpmd`` and
+    ``parallel.mpmd_elastic`` loads neither jax nor torch; an in-process
+    ``MPMDPipelineSupervisor`` runs three stage processes to their end
+    with both still out of ``sys.modules``, and every stage says ``jax=0
+    torch=0`` on its READY line; then two ``MPMDStageRunner`` stages (two
+    threads over an in-process van, on the CPU) run a step with torch,
+    and jax and hetu_tpu stay out."""
+    out = _run(
+        "import sys, threading\n"
+        "import numpy as np\n"
+        "import hetu_tpu_torch.parallel.mpmd as mpmd\n"
+        "import hetu_tpu_torch.parallel.mpmd_elastic as me\n"
+        "print('AT_IMPORT', 'jax' in sys.modules, 'torch' in sys.modules)\n"
+        "sup = me.MPMDPipelineSupervisor(\n"
+        f"    3, workdir={str(tmp_path)!r}, steps=3, lease_s=2.0,\n"
+        "    suspect_grace_s=2.0)\n"
+        "try:\n"
+        "    rep = sup.run(deadline_s=60.0)\n"
+        "finally:\n"
+        "    sup.close()\n"
+        "print('STAGES_DONE', sorted(rep['final_params']),\n"
+        "      'torch' in sys.modules, 'jax' in sys.modules)\n"
+        "import torch\n"
+        "from hetu_tpu_torch.ps import van\n"
+        "port = van.serve(0)\n"
+        "out = {}\n"
+        "def stage(s):\n"
+        "    r = mpmd.MPMDStageRunner(\n"
+        "        lambda w, x: torch.tanh(x @ w), stage=s, replica=0,\n"
+        "        stage_dps=[1, 1], n_microbatches=2, in_shape=(2, 4),\n"
+        "        out_shape=(2, 4), host='127.0.0.1', port=port,\n"
+        "        grad_size=16, device='cpu')\n"
+        "    x = np.ones((4, 4), np.float32)\n"
+        "    out[s] = r.run_step(torch.eye(4) * 0.5,\n"
+        "        data=[x[:2], x[2:]] if s == 0 else None,\n"
+        "        loss_fn=(lambda y: y.square().mean()) if s else None)\n"
+        "    r.close()\n"
+        "ts = [threading.Thread(target=stage, args=(s,)) for s in (0, 1)]\n"
+        "[t.start() for t in ts]; [t.join(60) for t in ts]\n"
+        "van.stop()\n"
+        "print('RUNNER', all(bool(torch.isfinite(out[s][1]).all())\n"
+        "                    for s in (0, 1)))\n"
+        "mods = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'jaxlib', 'hetu_tpu'))\n"
+        "print('LEAKED', mods)\n")
+    assert "AT_IMPORT False False" in out, out
+    assert "STAGES_DONE [0, 1, 2] False False" in out, out
+    assert "RUNNER True" in out and "LEAKED []" in out, out
+    logs = sorted(tmp_path.glob("stage_*_*.log"))
+    assert len(logs) == 3
+    for stage, log in enumerate(logs):
+        assert f"READY {stage} jax=0 torch=0" in log.read_text()
+    names = {p.relative_to(PKG).as_posix() for p in SOURCES
+             if PKG in p.parents}
+    assert {"parallel/mpmd.py", "parallel/mpmd_elastic.py"} <= names
 
 
 def test_maps_probe_sees_torch_in_a_process_that_imports_it():

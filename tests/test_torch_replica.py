@@ -16,8 +16,8 @@ writes); ``ReplicaSpec.to_json`` byte-identical across the packages; the
 wire-error classification of every failure the port's van raises; the
 replica channel's ``VanFailover`` on a superseded incarnation (a fake
 replica whose incarnation moves); ``tests/test_health.py``'s retired-
-handle gauge; the standby plane still to be ported (``mpmd``) refused by
-name; ``run_once`` joining the claim's bridge thread before it returns (a
+handle gauge; the ``mpmd`` plane invoking the pipeline supervisor's
+takeover (a stub); ``run_once`` joining the claim's bridge thread before it returns (a
 departure from the reference, whose bridge outlives the call).
 
 Waits are joins with deadlines; the watch test runs on wall time (the
@@ -528,10 +528,36 @@ def test_standby_rejects_unknown_plane():
         StandbyController(plane="nope", n_slots=1, table=object())
 
 
-@pytest.mark.parametrize("plane,names", [("mpmd", "multi-GPU")])
-def test_standby_planes_still_to_port_are_refused_by_name(plane, names):
-    with pytest.raises(NotImplementedError, match=names):
-        StandbyController(plane=plane, n_slots=1, table=object())
+def test_standby_mpmd_plane_invokes_the_pipeline_takeover(monkeypatch):
+    """``plane="mpmd"`` promotes into ``MPMDPipelineSupervisor.takeover``
+    with the standby's workdir, port and takeover keywords, as the
+    reference's standby does; the supervisor is a stub here and the
+    blackboard an injected table whose claim always swaps."""
+    from hetu_tpu_torch.parallel import mpmd_elastic
+
+    class Table:
+        def sparse_pull(self, rows):
+            return np.zeros((len(rows), mb.MEMBER_DIM), np.float32)
+
+        def row_cas(self, row, col, expect, desired):
+            return True, desired
+
+    calls = []
+
+    def takeover(**kw):
+        calls.append(kw)
+        return "adopted pipeline"
+
+    monkeypatch.setattr(mpmd_elastic.MPMDPipelineSupervisor, "takeover",
+                        staticmethod(takeover))
+    sb = StandbyController(plane="mpmd", workdir="/nonexistent", port=4321,
+                           n_slots=3, lease_bound_s=0.0, table=Table(),
+                           takeover_kwargs={"lease_s": 0.5})
+    assert sb.run_once() == "promoted"
+    assert sb.adopted == "adopted pipeline"
+    assert calls == [{"workdir": "/nonexistent", "port": 4321,
+                      "lease_s": 0.5}]
+    assert sb.ctrl_inc == 1
 
 
 def test_standby_claim_refuses_a_van_without_cas():

@@ -3,7 +3,8 @@ CPU: the bulk-blob channel, the barrier, the transport counters and the
 chunked migration wire over real channels.
 
 Mirrored here: every test of ``tests/test_van_blob.py`` but the MPMD
-mailbox's frame-count A/B (the mailbox is not ported) and the slow soak.
+mailbox's frame-count A/B (in ``tests/test_torch_mpmd.py``, beside the
+mailbox) and the slow soak.
 Across the packages, both ways: a port channel writes where a reference
 channel reads, on a van of either package, and a payload sent by one
 package's ``send_payload`` is received by the other's ``recv_payload``,
@@ -18,6 +19,7 @@ deadline.
 import ctypes
 import shutil
 import subprocess
+import sys
 import threading
 import zlib
 
@@ -514,3 +516,71 @@ def test_membership_table_ops_reconnect_after_a_transport_failure(
     np.testing.assert_array_equal(t.sparse_pull([1, 2]), np.stack([row[0],
                                                                    row[0]]))
     t.close()
+
+
+_CLOSE_RACE_SRC = """
+import os, sys, threading, time
+sys.path.insert(0, {repo!r})
+from hetu_tpu_torch.ps.binding import lib
+host, port = b"127.0.0.1", {port}
+state = {{"fd": lib.ps_van_connect(host, port)}}
+stop = threading.Event()
+closes = [0]
+
+def pinger():
+    while not stop.is_set():
+        lib.ps_van_ping(state["fd"])
+
+def closer():
+    while not stop.is_set():
+        lib.ps_van_close(state["fd"])
+        state["fd"] = lib.ps_van_connect(host, port)
+        closes[0] += 1
+
+threads = [threading.Thread(target=pinger, daemon=True) for _ in range(4)]
+threads.append(threading.Thread(target=closer, daemon=True))
+for t in threads:
+    t.start()
+time.sleep({seconds})
+stop.set()
+for t in threads:
+    t.join(5.0)
+print("STUCK", sum(t.is_alive() for t in threads), "CLOSES", closes[0],
+      flush=True)
+os._exit(0)
+"""
+
+
+def test_a_close_racing_requests_on_its_connection_wedges_no_thread(
+        tmp_path):
+    """One thread closes and reopens a connection while four others send
+    requests on it, for 2 s, in a process of their own (a stale fd number
+    must not reach this test process's descriptors) against a van process:
+    every thread ends, and the close ran hundreds of times.  With a close
+    that frees the connection's mutex (the van's own), a request that
+    looked it up just before locks freed memory, or two requests
+    interleave their frames on one socket, and the threads wedge within
+    a few closes — the member wedge behind
+    ``tests/test_torch_vanchaos.py::test_vankill_serving_promotes_zero_loss_token_exact``'s
+    2 s ack."""
+    from pathlib import Path
+
+    from hetu_tpu_torch.resilience.shardproc import (
+        free_port, spawn_shard_server,
+    )
+    binding.lib  # built (or rebuilt) here, not in the child
+    port = free_port()
+    server = spawn_shard_server(tmp_path, port, "close_race")
+    try:
+        out = subprocess.run(
+            [sys.executable, "-c", _CLOSE_RACE_SRC.format(
+                repo=str(Path(__file__).resolve().parents[1]), port=port,
+                seconds=2.0)],
+            capture_output=True, text=True, timeout=60)
+    finally:
+        server.kill()
+        server.wait()
+    assert out.returncode == 0, out.stderr[-2000:]
+    words = out.stdout.split()
+    stuck, closes = int(words[1]), int(words[3])
+    assert stuck == 0 and closes >= 100, out.stdout
